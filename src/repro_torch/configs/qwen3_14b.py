@@ -1,0 +1,11 @@
+"""Qwen3-14B — qk_norm, GQA kv=8 [hf:Qwen/Qwen3-14B]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv_heads=8, head_dim=128,
+    d_ff=17408, vocab_size=151936,
+    qk_norm=True, rope_theta=1e6,
+    attention_kind="full",
+    dtype="bfloat16",
+)

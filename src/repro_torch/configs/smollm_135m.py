@@ -1,0 +1,12 @@
+"""SmolLM-135M — llama-arch small, GQA kv=3, tied embeddings
+[hf:HuggingFaceTB/SmolLM-135M]."""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m", family="dense",
+    n_layers=30, d_model=576, n_heads=9, n_kv_heads=3, head_dim=64,
+    d_ff=1536, vocab_size=49152,
+    tied_embeddings=True,
+    attention_kind="full",
+    dtype="bfloat16",
+)

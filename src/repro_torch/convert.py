@@ -1,0 +1,98 @@
+"""Convert JAX parameters into the port's parameters.
+
+The JAX package keeps a dense model's block parameters stacked on a
+leading layer axis (``blocks.attn.wq`` is ``[L, D, H*hd]``); the port keeps
+a list of per-layer dicts (``layers.3.attn.wq`` is ``[D, H*hd]``).  Names
+outside the blocks are the same in both.  :func:`port_names` is the table
+between the two naming schemes: tracing and LoRA targets name weights by
+the JAX path strings (``repro.utils.path_str``).
+
+The port keeps the JAX ``[in, out]`` layout of every matrix (a projection
+is ``x @ w``), so no matrix is transposed.  Were a layout to change, this
+module is the one place where the transpose would go.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import check_dense, to_device
+
+STACKED = "blocks"     # the JAX subtree stacked on a leading layer axis
+LAYERS = "layers"      # the port's per-layer list
+
+
+def port_names(jax_path: str, n_layers: int) -> list:
+    """Port parameter names of one JAX leaf path.
+
+    ``'blocks.attn.wq'`` -> ``['layers.0.attn.wq', ..., 'layers.{L-1}.attn.wq']``
+    (one per unstacked layer); any other path maps to itself.
+    """
+    head, _, rest = jax_path.partition(".")
+    if head != STACKED:
+        return [jax_path]
+    return [f"{LAYERS}.{i}.{rest}" for i in range(n_layers)]
+
+
+def _flatten(tree, prefix: str = "") -> Iterator[tuple]:
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flatten(val, path + ".")
+        else:
+            yield path, val
+
+
+def _to_tensor(arr) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":       # ml_dtypes bf16 has no torch twin
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _set(tree: dict, name: str, value) -> None:
+    parts = name.split(".")
+    node = tree
+    for key in parts[:-1]:
+        if key.isdigit():
+            node = node[int(key)]
+        else:
+            node = node.setdefault(key, {})
+    node[parts[-1]] = value
+
+
+def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """Port parameters from a JAX parameter tree given as numpy arrays.
+
+    ``jax_params`` is the nested dict of ``repro.models.transformer.
+    init_params`` (or a checkpoint of it) with leaves converted to numpy.
+    Stacked ``[L, ...]`` block leaves are unstacked into ``layers``.
+    """
+    check_dense(cfg)
+    params: dict = {LAYERS: [{} for _ in range(cfg.n_layers)]}
+    for path, leaf in _flatten(jax_params):
+        t = _to_tensor(leaf)
+        names = port_names(path, cfg.n_layers)
+        if len(names) > 1 and t.shape[0] != cfg.n_layers:
+            raise ValueError(f"{path}: leading axis {t.shape[0]} != "
+                             f"n_layers {cfg.n_layers}")
+        for i, name in enumerate(names):
+            _set(params, name, t[i] if len(names) > 1 else t)
+    return to_device(params, device)
+
+
+def named_parameters(params: dict, prefix: str = "") -> Iterator[tuple]:
+    """``(port name, tensor)`` for every leaf, e.g. ``layers.0.attn.wq``."""
+    for key, val in params.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from named_parameters(val, name + ".")
+        elif isinstance(val, list):
+            for i, sub in enumerate(val):
+                yield from named_parameters(sub, f"{name}.{i}.")
+        else:
+            yield name, val

@@ -1,0 +1,32 @@
+"""Attention entry points the model layers call, and the launch counts.
+
+Each entry point dispatches on where its tensors live: a CUDA tensor runs
+the hand-written kernel (``csrc/``), a CPU tensor its plain PyTorch
+version (``ref.py``).  ``launch_counts`` reads how often each kernel was
+launched, so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+
+KERNELS = {
+    "flash_attention": flash_attention,
+    "paged_decode_attention": paged_decode_attention,
+}
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last reset, by kernel name."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = ["KERNELS", "flash_attention", "launch_counts",
+           "paged_decode_attention", "reset_launch_counts"]

@@ -1,0 +1,93 @@
+"""Paged decode attention: wrapper of ``csrc/paged_decode_attention.cu``.
+
+For tensors on a CUDA device the wrapper launches the hand-written kernel
+(fp32, bf16, or an int8 arena dequantized on chip) or raises; for tensors
+on the CPU it runs the plain version in ``ref.py``.  There is no quiet
+fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+_Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P,      # q k v ks vs pt lengths out
+             _I, _I, _I, _I, _I, _I,              # B H KV d ps NB
+             _I, _I, _P]                          # q dtype, kv dtype, stream
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_decode_attention: {msg}")
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
+                           k_scales=None, v_scales=None):
+    """One-token attention against a block-paged KV arena.
+
+    Args:
+      q: [B, H, d] query (one decode token per sequence), fp32 or bf16.
+      k_pages, v_pages: [P, ps, KV, d] arena in storage layout, q's dtype
+        or int8 (then ``k_scales``/``v_scales`` [P, ps, KV] fp32 are given).
+      page_table: [B, NB] int32 physical page per logical block.
+      lengths: int or [B] valid positions per sequence.
+
+    Returns:
+      [B, H, d] in ``q.dtype``.
+    """
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales, or neither")
+    B, H, d = q.shape
+    lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
+    lengths = lengths.reshape(-1).expand(B).contiguous()
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_ref(q, k_pages, v_pages, page_table,
+                                              lengths, k_scales, v_scales)
+    _require(q.device.type == "cuda", f"unsupported device {q.device}")
+    P, ps, KV, dk = k_pages.shape
+    NB = page_table.shape[1]
+    quant = k_scales is not None
+    tensors = [q, k_pages, v_pages, page_table, lengths]
+    if quant:
+        tensors += [k_scales, v_scales]
+    _require(all(t.device == q.device for t in tensors),
+             "all tensors must be on one device")
+    _require(all(t.is_contiguous() for t in tensors), "tensors must be contiguous")
+    _require(q.dtype in _Q_DTYPES, f"q dtype {q.dtype}")
+    _require(k_pages.dtype == v_pages.dtype, "k and v arenas differ in dtype")
+    _require(k_pages.dtype == (torch.int8 if quant else q.dtype),
+             f"arena dtype {k_pages.dtype} with q {q.dtype}, scales={quant}")
+    _require(v_pages.shape == k_pages.shape and dk == d, "arena shape")
+    _require(H % KV == 0 and H // KV <= 8, f"H={H}, KV={KV} (G <= 8)")
+    _require(1 <= d <= 256, f"head_dim {d}")
+    _require(page_table.dtype == torch.int32 and page_table.shape[0] == B,
+             "page_table must be int32 [B, NB]")
+    if quant:
+        _require(k_scales.dtype == v_scales.dtype == torch.float32
+                 and k_scales.shape == v_scales.shape == (P, ps, KV),
+                 "scales must be fp32 [P, ps, KV]")
+    fn = _build.function("repro_paged_decode_attention", _ARGTYPES)
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 k_scales.data_ptr() if quant else None,
+                 v_scales.data_ptr() if quant else None,
+                 page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                 B, H, KV, d, ps, NB, _Q_DTYPES[q.dtype],
+                 _KV_DTYPES[k_pages.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_decode_attention: launch failed, "
+                           f"cudaError_t {err}")
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,237 @@
+"""Core transformer layers of the dense family, as functions over tensors.
+
+Every layer is ``f(params, x, ...) -> y`` over a dict of tensors, as in
+``repro.models.layers``.  Weight matrices keep the JAX package's
+``[in, out]`` layout, so a projection is ``x @ w``.  Attention runs the
+hand-written kernels through ``kernels.ops`` (CUDA tensors) or their plain
+versions (CPU tensors).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models import quant
+from repro_torch.models.config import ModelConfig
+
+
+def normal_(gen: torch.Generator, shape, scale: Optional[float] = None):
+    """A float32 normal draw on the CPU; fan-in scaled (1/sqrt(shape[0]))
+    unless ``scale`` is given."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(shape[0])
+    return torch.randn(tuple(int(s) for s in shape), generator=gen) * scale
+
+
+# ---------------------------------------------------------------------------
+# normalization / rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """RMSNorm with fp32 statistics; the scale is promoted to fp32 too."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
+    """Apply RoPE. x: [..., S, H, hd]; positions: [..., S] (broadcastable)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=x.device)
+                      * (math.log(theta) / half))
+    angles = positions[..., :, None].float() * freqs          # [..., S, half]
+    cos = torch.cos(angles)[..., None, :]                     # [..., S, 1, half]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _sdpa(q, k, v, mask, softcap: float = 0.0):
+    """Grouped scaled-dot-product attention (plain PyTorch).
+
+    q: [B, S, KV, G, hd]; k, v: [B, T, KV, hd]; mask broadcastable to
+    [B, S, 1, 1, T] (True = attend).  Scores in fp32; the probabilities
+    are rounded to v's dtype before the PV product, as the JAX path does.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bskgd,btkd->bskgt", q.float(), k.float()) * scale
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bskgt,btkd->bskgd", probs.float(), v.float())
+    return out.to(v.dtype)
+
+
+def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.fused_qkv:
+        raise NotImplementedError(
+            "fused_qkv arrives with the sharding slice (ROADMAP Queue 1, item 11)")
+    p = {"wq": normal_(gen, (D, H * hd)), "wk": normal_(gen, (D, KV * hd)),
+         "wv": normal_(gen, (D, KV * hd)), "wo": normal_(gen, (H * hd, D))}
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros(H * hd)
+        p["bk"] = torch.zeros(KV * hd)
+        p["bv"] = torch.zeros(KV * hd)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones(hd)
+        p["k_norm"] = torch.ones(hd)
+    return p
+
+
+def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor, kv_cache: Optional[dict] = None,
+                    cache_pos=None, causal: bool = True,
+                    page_table: Optional[torch.Tensor] = None,
+                    page_size: int = 0, adapters: Optional[dict] = None):
+    """GQA/MQA attention with an optional KV cache.
+
+    Three branches, as in ``repro.models.layers.attention_block``:
+
+    * no cache: causal attention over ``x`` itself (the flash kernel);
+    * dense cache ``{'k','v': [B, T, KV, hd]}``: with an int ``cache_pos``
+      (prefill, or suffix prefill over a reused prefix) K/V land at
+      ``cache_pos ..`` and the flash kernel attends over the first
+      ``cache_pos + S`` rows with the bottom-right causal mask; with a
+      ``[B]`` tensor ``cache_pos`` (decode, S == 1) each sequence writes at
+      its own offset and attention is the plain ``_sdpa``;
+    * paged (``page_table`` given, decode only): the cache leaves are one
+      arena ``[P, page_size, KV, hd]``; this token's K/V (quantized on
+      append for an int8 arena) are written into its page and the paged
+      decode kernel attends over the pages the table maps.
+
+    Caches are updated in place and the block returns ``(y, kv_cache)``.
+    """
+    if adapters is not None:
+        raise NotImplementedError(
+            "per-slot LoRA adapters arrive with the adapter slice "
+            "(ROADMAP Queue 1, item 8)")
+    if cfg.fused_qkv:
+        raise NotImplementedError(
+            "fused_qkv arrives with the sharding slice (ROADMAP Queue 1, item 11)")
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    G = H // KV
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    softcap = cfg.attn_logit_softcap
+
+    if kv_cache is not None and page_table is not None:
+        if S != 1:
+            raise ValueError("paged attention is decode-only (S == 1)")
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        pages = page_table[torch.arange(B, device=x.device),
+                           (cache_pos // page_size).long()].long()
+        off = (cache_pos % page_size).long()
+        cks = cvs = None
+        # In-place writes into the shared arena: steps run in order on one
+        # stream, so the kernel launched below reads this token's rows and
+        # no step ever copies the whole arena.
+        if quant.is_quantized_cache(kv_cache):
+            qk, sk = quant.quantize_rows(k[:, 0])           # [B,KV,hd], [B,KV]
+            qv, sv = quant.quantize_rows(v[:, 0])
+            cks, cvs = kv_cache["k_scale"], kv_cache["v_scale"]
+            ck[pages, off] = qk
+            cv[pages, off] = qv
+            cks[pages, off] = sk
+            cvs[pages, off] = sv
+        else:
+            ck[pages, off] = k[:, 0].to(ck.dtype)
+            cv[pages, off] = v[:, 0].to(cv.dtype)
+        out = ops.paged_decode_attention(q[:, 0], ck, cv, page_table,
+                                         (cache_pos + 1).to(torch.int32),
+                                         k_scales=cks, v_scales=cvs)[:, None]
+    elif kv_cache is not None:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if isinstance(cache_pos, int):
+            # prefill: write in place, then attend over the filled rows
+            ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
+            cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
+            T = cache_pos + S
+            out = ops.flash_attention(
+                q.transpose(1, 2), ck[:, :T].transpose(1, 2),
+                cv[:, :T].transpose(1, 2), causal=True,
+                softcap=softcap).transpose(1, 2)
+        else:
+            if S != 1:
+                raise ValueError("per-sequence cache_pos is decode-only")
+            b = torch.arange(B, device=x.device)
+            ck[b, cache_pos.long()] = k[:, 0].to(ck.dtype)
+            cv[b, cache_pos.long()] = v[:, 0].to(cv.dtype)
+            T = ck.shape[1]
+            mask = (torch.arange(T, device=x.device)[None, None, None, None, :]
+                    <= positions[:, :, None, None, None])
+            out = _sdpa(q.reshape(B, S, KV, G, hd), ck, cv, mask, softcap)
+    elif causal:
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  softcap=softcap).transpose(1, 2)
+    else:
+        mask = torch.ones((1, 1, 1, 1, S), dtype=torch.bool, device=x.device)
+        out = _sdpa(q.reshape(B, S, KV, G, hd), k, v, mask, softcap)
+
+    y = out.reshape(B, S, H * hd) @ p["wo"]
+    return y, kv_cache
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
+                    fused: bool = False) -> dict:
+    if fused:
+        return {"w_gu": normal_(gen, (d_model, 2 * d_ff)),
+                "w_down": normal_(gen, (d_ff, d_model))}
+    return {"w_gate": normal_(gen, (d_model, d_ff)),
+            "w_up": normal_(gen, (d_model, d_ff)),
+            "w_down": normal_(gen, (d_ff, d_model))}
+
+
+def mlp_block(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    if "w_gu" in p:
+        g, u = (x @ p["w_gu"]).chunk(2, dim=-1)
+    else:
+        g, u = x @ p["w_gate"], x @ p["w_up"]
+    a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
+    return (a * u) @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embeddings / lm head
+# ---------------------------------------------------------------------------
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
+                 scale_by_dim: bool = False) -> torch.Tensor:
+    x = embed[tokens.long()]
+    if scale_by_dim:
+        x = x * math.sqrt(embed.shape[1])
+    return x
+
+
+def lm_head(x: torch.Tensor, params: dict, tied: bool) -> torch.Tensor:
+    if tied:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]

@@ -1,0 +1,206 @@
+"""Dense decoder language model: parameters, caches and entry points.
+
+The JAX package scans one block body over parameters stacked ``[L, ...]``;
+here the parameters are a list of per-layer dicts and the scan is a Python
+loop.  Caches keep the JAX layout with the layer axis first, and each
+layer works on its ``cache[key][l]`` view in place.
+
+Entry points (dense family; moe / MLA / recurrent families come later):
+  forward(params, cfg, tokens)                        -> (logits, aux)
+  prefill(params, cfg, tokens, cache)                 -> (last logits, cache)
+  prefill_from(params, cfg, tokens, cache, offset)    -> (last logits, cache)
+  decode_step(params, cfg, cache, tokens, pos)        -> (logits, cache)
+  decode_step_paged(params, cfg, cache, tokens, pos, page_table, page_size)
+  init_params(cfg, seed, device)                      -> params
+  make_cache / make_paged_cache                       -> cache dict
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import quant
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (attention_block, embed_tokens,
+                                       init_attn_params, init_mlp_params,
+                                       lm_head, mlp_block, normal_, rmsnorm)
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def torch_dtype(name_or_dtype) -> torch.dtype:
+    """``'bfloat16'`` (a config's dtype string) or a torch dtype -> dtype."""
+    if isinstance(name_or_dtype, torch.dtype):
+        return name_or_dtype
+    return _DTYPES[name_or_dtype]
+
+
+def check_dense(cfg: ModelConfig) -> None:
+    """Raise for the families this port does not serve yet."""
+    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts or cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense GQA family is ported so far; moe, "
+            "MLA, recurrent and enc-dec families follow (ROADMAP Queue 1, "
+            "item 10)")
+
+
+def supports_paged_kv(cfg: ModelConfig) -> bool:
+    """Block-paged KV applies to caches that grow with the sequence."""
+    return cfg.family in ("dense", "moe")
+
+
+# ---------------------------------------------------------------------------
+# parameters and caches
+# ---------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters drawn from a seeded CPU ``torch.Generator`` (a
+    fan-in scaled normal; norms ones, biases zeros), then moved to
+    ``device``: the same seed gives the same weights on every device."""
+    check_dense(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    V, D = cfg.vocab_size, cfg.d_model
+    params: dict = {"embed": normal_(gen, (V, D), scale=0.02), "layers": []}
+    for _ in range(cfg.n_layers):
+        params["layers"].append({
+            "attn_norm": torch.ones(D), "mlp_norm": torch.ones(D),
+            "attn": init_attn_params(gen, cfg),
+            "mlp": init_mlp_params(gen, D, cfg.d_ff, fused=cfg.fused_glu)})
+    params["final_norm"] = torch.ones(D)
+    if not cfg.tied_embeddings:
+        params["lm_head"] = normal_(gen, (D, V), scale=0.02)
+    return to_device(params, device, torch_dtype(cfg.dtype))
+
+
+def to_device(tree, device, dtype: Optional[torch.dtype] = None):
+    """Move a nested dict/list of tensors to ``device`` (and ``dtype``)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    """Dense per-sequence cache: ``{'k','v': [L, batch, max_len, KV, hd]}``."""
+    check_dense(cfg)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
+                     device="cuda", kv_dtype: Optional[str] = None) -> dict:
+    """One shared KV page arena ``[L, n_pages, page_size, KV, hd]``.
+
+    ``kv_dtype='int8'`` makes the value leaves int8 and adds a float32
+    ``<leaf>_scale`` arena ``[L, n_pages, page_size, KV]`` next to each.
+    """
+    check_dense(cfg)
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    if kv_dtype is None:
+        dt = torch_dtype(cfg.dtype)
+        return {k: torch.zeros(shape, dtype=dt, device=device) for k in ("k", "v")}
+    cache = {}
+    for k in ("k", "v"):
+        cache[k] = torch.zeros(shape, dtype=torch.int8, device=device)
+        cache[k + quant.SCALE_SUFFIX] = torch.zeros(
+            shape[:-1], dtype=torch.float32, device=device)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# the layer loop
+# ---------------------------------------------------------------------------
+
+def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
+             page_size: int = 0):
+    for layer, bp in enumerate(params["layers"]):
+        lc = None if cache is None else {k: t[layer] for k, t in cache.items()}
+        h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
+        a, _ = attention_block(bp["attn"], h, cfg, positions, lc, cache_pos,
+                               page_table=page_table, page_size=page_size)
+        x = x + a
+        h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
+        x = x + mlp_block(bp["mlp"], h, cfg.act)
+    return x
+
+
+def _head(params, cfg, x):
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head(x, params, cfg.tied_embeddings)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
+    """Full-sequence causal forward -> (logits [B, S, V], aux = 0)."""
+    check_dense(cfg)
+    B, S = tokens.shape
+    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    x = _decoder(params, cfg, x, positions, None, None)
+    return _head(params, cfg, x), torch.zeros((), device=x.device)
+
+
+@torch.no_grad()
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
+    """Process the prompt, fill the cache; returns (last-token logits, cache)."""
+    return prefill_from(params, cfg, tokens, cache, 0)
+
+
+@torch.no_grad()
+def prefill_from(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 cache: dict, offset: int):
+    """Suffix-only prefill: ``tokens`` are positions ``offset ..
+    offset+S-1`` against a cache whose first ``offset`` positions are
+    already filled (a reused prompt prefix).  Positions, RoPE and the
+    causal mask carry the offset, and the new K/V land at ``offset``."""
+    check_dense(cfg)
+    B, S = tokens.shape
+    offset = int(offset)
+    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    x = _decoder(params, cfg, x, positions, cache, offset)
+    return _head(params, cfg, x[:, -1:])[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step(params: dict, cfg: ModelConfig, cache: dict,
+                tokens: torch.Tensor, pos):
+    """One decode step over a dense cache.  tokens: [B, 1]; pos: an int
+    (whole batch at one position) or an int [B] tensor of per-sequence
+    positions."""
+    check_dense(cfg)
+    B = tokens.shape[0]
+    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    pos = pos.reshape(-1).expand(B).contiguous()
+    x = _decoder(params, cfg, x, pos[:, None], cache, pos)
+    return _head(params, cfg, x)[:, 0], cache
+
+
+@torch.no_grad()
+def decode_step_paged(params: dict, cfg: ModelConfig, cache: dict,
+                      tokens: torch.Tensor, pos: torch.Tensor,
+                      page_table: torch.Tensor, page_size: int):
+    """One decode step over a block-paged KV arena (:func:`make_paged_cache`).
+
+    tokens: [B, 1]; pos: int [B] per-sequence positions; page_table:
+    [B, NB] int32 physical page per logical block."""
+    check_dense(cfg)
+    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
+    x = _decoder(params, cfg, x, pos[:, None], cache, pos,
+                 page_table=page_table, page_size=page_size)
+    return _head(params, cfg, x)[:, 0], cache

@@ -1,0 +1,540 @@
+"""Continuous-batching serving engine over the paged KV arena.
+
+The port of ``repro.runtime.continuous.ContinuousBatchingEngine`` (paged
+path).  The engine keeps an admission queue and a step loop:
+
+  * **prefill-on-arrival** — a queued request is admitted the moment a slot
+    and its pages fit: its prompt prefills as a batch-1 call (suffix-only
+    over the shared pages of a prefix hit) and the filled pages land in
+    the arena;
+  * **batched decode** — every step issues ONE ``decode_step_paged`` over
+    the whole slot axis with a per-slot position vector and the engine's
+    owner-masked page table, so requests of different lengths and ages
+    share the batch and co-tenants' slots ride along as null-page dummies;
+  * **retirement** — finished requests release their slot and pages.
+
+With ``chunk_tokens``, prefill is chunked into the step loop: each step
+advances mid-prefill slots by up to ``chunk_tokens`` prompt tokens (page-
+multiple ``prefill_from`` calls), then runs one batched decode over the
+slots past their prompt.  Mid-prefill slots ride the decode batch as
+dummies writing at the last padded position, whose block stays unmapped
+while the cursor is short of the prompt, so the write lands on the null
+page and the logits row is discarded, exactly like a free slot's.
+
+Greedy decoding reproduces the JAX engine's tokens request by request
+(tested): the port runs the same admission, page and position logic.
+
+Not ported yet, and raising ``NotImplementedError``: forked sessions with
+layer-streamed prefill (the TIDAL fork-path slice), sharding plans
+(the tensor-parallel slice) and adapter banks (the adapter slice).  The
+dense slot pool for recurrent families arrives with ``decode_attention``;
+the gateway's quantum stepping (``step_n``/``step_tokens``) with the
+gateway.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.registry import Model
+from repro_torch.runtime.engine import sample_greedy, sample_token
+from repro_torch.runtime.faults import fault_point
+from repro_torch.runtime.kv_pool import PagedKVCachePool, PoolExhausted
+
+_UNMATCHED = object()                # prefix match not yet attempted
+
+
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    prompt: np.ndarray               # [S] int32
+    max_new_tokens: int
+    submit_s: float
+    temperature: float = 0.0         # 0 = greedy (bit-parity reference)
+    top_p: float = 1.0
+    seed: int = 0                    # per-request sampling seed
+    deadline_s: Optional[float] = None  # shed if still QUEUED past this
+    priority: int = 0                # higher admits first (FIFO within)
+    token_cb: Optional[Callable] = None  # (req_id, token, index) per emit
+    # prefix-reuse match, resolved lazily at first admission check and
+    # cached ((handle, reuse_len) or None); _UNMATCHED = not yet looked up
+    prefix_hit: Any = _UNMATCHED
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    req_id: int
+    tokens: np.ndarray               # [n_generated] int32
+    prompt_len: int
+    n_generated: int
+    ttft_s: float                    # submit -> first token (incl. queueing)
+    e2e_s: float                     # submit -> retirement
+    reused_prefix_len: int = 0       # prompt tokens served from shared pages
+    status: str = "done"             # 'done' | 'cancelled' | 'shed' | 'failed'
+    error: Optional[str] = None      # set for 'failed' (unservable) requests
+
+
+@dataclasses.dataclass
+class _Active:
+    req: Request
+    slot: int
+    tokens: list
+    ttft_s: float
+    reused_prefix_len: int = 0
+    cursor: int = 0                  # prompt tokens prefilled so far
+    prefilling: bool = False         # True until the cursor reaches the prompt
+
+
+class ContinuousBatchingEngine:
+    """Multi-request generation for one model instance over a paged arena.
+
+    ``params`` is the model's parameter dict (``Model.init_params`` or
+    ``convert.params_from_jax``).  ``pool`` injects a shared arena (engines
+    of one model co-reside on it under owner leases); otherwise the engine
+    builds its own ``PagedKVCachePool`` on the model's device.
+
+    ``n_decode_steps`` and ``n_prefill_calls`` count the batched decode
+    steps and the prefill / suffix-prefill calls this engine has run.
+    """
+
+    def __init__(self, model: Model, params: Any, n_slots: int = 4,
+                 max_len: int = 128, page_size: int = 8,
+                 n_pages: Optional[int] = None,
+                 plan: Optional[Any] = None, pool: Optional[Any] = None,
+                 prefix_index: Optional[Any] = None,
+                 bucket_suffix: bool = False,
+                 chunk_tokens: Optional[int] = None,
+                 kv_dtype: Optional[str] = None,
+                 adapter_bank: Optional[dict] = None,
+                 owner_name: Optional[str] = None):
+        if not isinstance(params, dict):
+            raise NotImplementedError(
+                "params must be a parameter dict: forked sessions with "
+                "layer-streamed prefill arrive with the TIDAL fork-path slice")
+        if plan is not None:
+            raise NotImplementedError(
+                "sharding plans arrive with the tensor-parallel slice "
+                "(ROADMAP Queue 1, item 11)")
+        if adapter_bank is not None:
+            raise NotImplementedError(
+                "adapter banks arrive with the adapter slice "
+                "(ROADMAP Queue 1, item 8)")
+        self.model = model
+        self._params = params
+        if pool is not None:
+            self.pool = pool
+            n_slots = pool.n_slots
+        else:
+            self.pool = PagedKVCachePool(model, n_slots, max_len,
+                                         page_size=page_size, n_pages=n_pages,
+                                         kv_dtype=kv_dtype)
+        self.device = self.pool.device
+        # partition lease: this engine's slots file under its owner token
+        # and its decode steps run under the pool's masked page-table view
+        self._owner = self.pool.register_owner(owner_name)
+        self.owner_name = owner_name
+        self.queue: collections.deque = collections.deque()
+        self.active: dict = {}                       # slot -> _Active
+        self.results: dict = {}                      # req_id -> RequestOutput
+        self._next_id = 0
+        self.prefix_index = prefix_index
+        # round suffix-prefill lengths up to a page multiple (by shrinking
+        # the reuse), as the JAX engine does for its compiled buckets
+        self.bucket_suffix = bucket_suffix
+        self.chunk_tokens = None
+        if chunk_tokens is not None:
+            ps = self.pool.page_size
+            self.chunk_tokens = max(ps, ps * -(-int(chunk_tokens) // ps))
+        # per-slot feedback state (free slots decode position 0 / token 0;
+        # their logits are computed and discarded)
+        self._tok = np.zeros((n_slots, 1), np.int32)
+        self._pos = np.zeros((n_slots,), np.int32)
+        self.n_decode_steps = 0
+        self.n_prefill_calls = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def n_pending(self) -> int:
+        return len(self.queue) + len(self.active)
+
+    # ------------------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int = 8,
+               submit_s: Optional[float] = None,
+               temperature: float = 0.0, top_p: float = 1.0,
+               seed: int = 0, deadline_s: Optional[float] = None,
+               priority: int = 0,
+               token_cb: Optional[Callable] = None) -> int:
+        """Enqueue one request (see ``repro.runtime.continuous`` for the
+        meaning of every argument).  ``temperature=0`` decodes greedily;
+        ``deadline_s`` sheds a request still queued past it; ``priority``
+        ranks admission; ``token_cb(req_id, token, index)`` streams."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if temperature < 0 or not (0 < top_p <= 1):
+            raise ValueError("need temperature >= 0 and 0 < top_p <= 1")
+        if len(prompt) + max_new_tokens > self.pool.max_len:
+            raise ValueError(
+                f"prompt({len(prompt)}) + max_new({max_new_tokens}) exceeds "
+                f"pool max_len={self.pool.max_len}")
+        need = self.pool.blocks_for(len(prompt) + max_new_tokens)
+        if need > self.pool.n_pages - 1:
+            raise ValueError(
+                f"request needs {need} KV pages but the arena has only "
+                f"{self.pool.n_pages - 1} allocatable pages")
+        rid = self._next_id
+        self._next_id += 1
+        self.queue.append(Request(rid, prompt, max_new_tokens,
+                                  submit_s or time.perf_counter(),
+                                  temperature=temperature, top_p=top_p,
+                                  seed=seed, deadline_s=deadline_s,
+                                  priority=priority, token_cb=token_cb))
+        return rid
+
+    def cancel(self, req_id: int) -> bool:
+        """Cancel one request wherever it is; False when already finished."""
+        for req in self.queue:
+            if req.req_id == req_id:
+                self.queue.remove(req)
+                self._record_dropped(req, "cancelled")
+                return True
+        for slot, st in list(self.active.items()):
+            if st.req.req_id == req_id:
+                self._retire(slot, status="cancelled")
+                return True
+        return False
+
+    # ------------------------------------------------------------------
+    def _prefix_hit(self, req: Request):
+        """Resolve (and cache) the request's longest usable cached prefix;
+        a handle released after matching falls back to full prefill."""
+        if req.prefix_hit is _UNMATCHED:
+            req.prefix_hit = None
+            if self.prefix_index is not None:
+                req.prefix_hit = self.prefix_index.match(req.prompt)
+            if req.prefix_hit is not None and (
+                    self.bucket_suffix or self.chunk_tokens is not None):
+                # shrink the reuse so the suffix length is a page multiple
+                handle, reuse = req.prefix_hit
+                pad = (reuse - len(req.prompt)) % self.pool.page_size
+                if pad:
+                    reuse -= pad
+                    req.prefix_hit = (handle, reuse) if reuse >= 1 else None
+        if req.prefix_hit is not None and not req.prefix_hit[0].pinned:
+            req.prefix_hit = None            # stale handle: full prefill
+        return req.prefix_hit
+
+    def _chunked(self, req: Request, reuse: int) -> bool:
+        return (self.chunk_tokens is not None
+                and len(req.prompt) - reuse > self.chunk_tokens)
+
+    def _can_admit(self, req: Request) -> bool:
+        hit = self._prefix_hit(req)
+        reuse = hit[1] if hit else 0
+        total = len(req.prompt) + req.max_new_tokens
+        if self._chunked(req, reuse):
+            # chunked admission reserves only the FIRST chunk's pages
+            total = reuse + self.chunk_tokens
+        return self.pool.can_admit(total, reuse_len=reuse)
+
+    def _record_dropped(self, req: Request, status: str,
+                        error: Optional[str] = None) -> None:
+        """Result for a request that never reached (or left) a slot."""
+        elapsed = time.perf_counter() - req.submit_s
+        self.results[req.req_id] = RequestOutput(
+            req_id=req.req_id, tokens=np.zeros(0, np.int32),
+            prompt_len=len(req.prompt), n_generated=0,
+            ttft_s=elapsed, e2e_s=elapsed, status=status, error=error)
+
+    def _shed_expired(self, now: float) -> None:
+        """Deadline-expired QUEUED requests are shed (never in-flight ones)."""
+        for req in [r for r in self.queue if r.deadline_s is not None
+                    and now - r.submit_s > r.deadline_s]:
+            self.queue.remove(req)
+            self._record_dropped(req, "shed")
+
+    def _queue_head(self) -> Request:
+        """Admission order: highest priority first, FIFO within a rank."""
+        return max(self.queue, key=lambda r: (r.priority, -r.req_id))
+
+    def _next_admission(self) -> Optional[Request]:
+        """The queue head if it fits now; it blocks lower ranks otherwise."""
+        if not self.queue:
+            return None
+        head = self._queue_head()
+        return head if self._can_admit(head) else None
+
+    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(toks), device=self.device)
+
+    def _prefill(self, toks: np.ndarray, cache: dict, offset: int):
+        """Whole-prompt (offset 0) or suffix-only prefill, batch 1."""
+        self.n_prefill_calls += 1
+        return self.model.prefill_from(self._params,
+                                       {"tokens": self._tokens(toks)},
+                                       cache, offset)
+
+    def _sample_first(self, req: Request, logits: torch.Tensor) -> int:
+        if req.temperature <= 0:
+            return int(sample_greedy(logits)[0])
+        return sample_token(logits[0].float().cpu().numpy(), req.temperature,
+                            req.top_p, req.seed, 0)
+
+    def _admit(self, req: Request) -> None:
+        # injection point BEFORE any allocation
+        fault_point("prefill_chunk",
+                    f"admit:req={req.req_id}:len={len(req.prompt)}")
+        hit = self._prefix_hit(req)
+        reuse = hit[1] if hit else 0
+        if self._chunked(req, reuse):
+            # reserve only the first chunk's pages and park the slot
+            # mid-prefill: it rides the decode batch as a null-page dummy
+            # (token 0 at the last padded position) until its final chunk
+            slot = self.pool.alloc(len(req.prompt), req.max_new_tokens,
+                                   shared_prefix=hit[0] if hit else None,
+                                   reuse_len=reuse,
+                                   budget_tokens=reuse + self.chunk_tokens,
+                                   owner=self._owner)
+            self._tok[slot, 0] = 0
+            self._pos[slot] = self.pool.padded_len - 1
+            self.active[slot] = _Active(req=req, slot=slot, tokens=[],
+                                        ttft_s=0.0, reused_prefix_len=reuse,
+                                        cursor=reuse, prefilling=True)
+            return
+        slot = self.pool.alloc(len(req.prompt), req.max_new_tokens,
+                               shared_prefix=hit[0] if hit else None,
+                               reuse_len=reuse, owner=self._owner)
+        try:
+            self._prefill_into(req, slot, reuse)
+        except BaseException:
+            # hand the slot (and its pages) straight back before re-raising
+            self.pool.release(slot, owner=self._owner)
+            raise
+
+    def _prefill_into(self, req: Request, slot: int, reuse: int) -> None:
+        """Whole-prompt (or suffix-only) prefill into an allocated slot."""
+        if reuse:
+            # gather the slot's pages (aliased prefix + its COW partial
+            # copy) as the working dense cache; prefill only the suffix
+            cache = self.pool.read_slot_full(slot)
+        else:
+            cache = self.model.make_cache(1, self.pool.padded_len)
+        logits, cache = self._prefill(req.prompt[None, reuse:], cache, reuse)
+        first = self._sample_first(req, logits)
+        ttft = time.perf_counter() - req.submit_s
+        self.pool.write_suffix(slot, cache, reuse, len(req.prompt),
+                               owner=self._owner)
+        self._tok[slot, 0] = first
+        # next decode writes the first generated token at position len(prompt)
+        self._pos[slot] = len(req.prompt)
+        st = _Active(req=req, slot=slot, tokens=[first], ttft_s=ttft,
+                     reused_prefix_len=reuse)
+        self.active[slot] = st
+        if req.token_cb is not None:
+            req.token_cb(req.req_id, first, 0)
+        if len(st.tokens) >= req.max_new_tokens:
+            self._retire(slot)
+
+    def _run_chunk(self, slot: int) -> int:
+        """Advance one mid-prefill slot by up to ``chunk_tokens`` prompt
+        tokens.  Returns the tokens processed — 0 when the pool cannot
+        extend the slot's page budget yet (retried next step)."""
+        st = self.active[slot]
+        req = st.req
+        fault_point("prefill_chunk",
+                    f"chunk:req={req.req_id}:cursor={st.cursor}")
+        P = len(req.prompt)
+        ps = self.pool.page_size
+        rem = P - st.cursor
+        final = rem <= self.chunk_tokens
+        if final:
+            # the full worst-case budget is reserved before the first
+            # generated token exists, so decode's ensure_len cannot fail
+            if not self.pool.extend_budget(slot, P + req.max_new_tokens,
+                                           owner=self._owner):
+                return 0
+            # re-run back to the last page boundary so the chunk length
+            # stays a page multiple; re-prefilled tokens rewrite their own
+            # pages with identical values
+            start = max(st.reused_prefix_len, P - ps * -(-rem // ps))
+            end = P
+        else:
+            start = st.cursor
+            end = st.cursor + self.chunk_tokens
+            if not self.pool.extend_budget(slot, end, owner=self._owner):
+                return 0
+        cache = self.pool.read_slot_full(slot)
+        logits, cache = self._prefill(req.prompt[None, start:end], cache, start)
+        self.pool.write_suffix(slot, cache, start, end, owner=self._owner)
+        st.cursor = end
+        if final:
+            first = self._sample_first(req, logits)
+            st.ttft_s = time.perf_counter() - req.submit_s
+            st.prefilling = False
+            st.tokens.append(first)
+            self._tok[slot, 0] = first
+            self._pos[slot] = P
+            if req.token_cb is not None:
+                req.token_cb(req.req_id, first, 0)
+            if len(st.tokens) >= req.max_new_tokens:
+                self._retire(slot)
+        return end - start
+
+    def _retire(self, slot: int, status: str = "done",
+                error: Optional[str] = None) -> None:
+        st = self.active.pop(slot)
+        self.pool.release(slot, owner=self._owner)
+        self._tok[slot, 0] = 0
+        self._pos[slot] = 0
+        e2e = time.perf_counter() - st.req.submit_s
+        self.results[st.req.req_id] = RequestOutput(
+            req_id=st.req.req_id,
+            tokens=np.asarray(st.tokens, np.int32),
+            prompt_len=len(st.req.prompt),
+            n_generated=len(st.tokens),
+            # a slot cancelled/failed mid-prefill never emitted a token
+            ttft_s=st.ttft_s if st.tokens else e2e,
+            e2e_s=e2e,
+            reused_prefix_len=st.reused_prefix_len,
+            status=status, error=error)
+
+    # ------------------------------------------------------------------
+    def _foreign_slots(self) -> int:
+        """Slots of the pool allocated by a DIFFERENT engine."""
+        return self.pool.n_foreign_slots(self._owner)
+
+    def step(self) -> bool:
+        """One MIXED batched step: admit what fits, advance mid-prefill
+        cursors by up to ``chunk_tokens`` prompt tokens, run one batched
+        decode over the slots past their prompt, retire the finished.
+
+        Returns False once the engine is fully drained."""
+        if self.queue or self.active:
+            fault_point("engine_step",
+                        f"{self.owner_name or 'engine'}:"
+                        f"pending={self.n_pending}")
+        self._shed_expired(time.perf_counter())
+        admitted = 0
+        while True:
+            head = self._next_admission()
+            if head is None:
+                break
+            self.queue.remove(head)
+            self._admit(head)
+            admitted += 1
+        chunked = 0
+        if self.chunk_tokens is not None:
+            # spend up to chunk_tokens prompt tokens across the
+            # mid-prefill slots, oldest request first
+            budget = self.chunk_tokens
+            for slot in sorted(
+                    (s for s in self.active if self.active[s].prefilling),
+                    key=lambda s: self.active[s].req.req_id):
+                if budget <= 0:
+                    break
+                n = self._run_chunk(slot)
+                budget -= n
+                chunked += n
+        decoding = [s for s in self.active if not self.active[s].prefilling]
+        if decoding:
+            fault_point("decode_quantum",
+                        f"{self.owner_name or 'engine'}:n={len(decoding)}")
+        if not decoding:
+            if not self.active:
+                if self.queue:
+                    if self._foreign_slots() > 0:
+                        # co-tenants may still free pages: back-pressure
+                        return True
+                    # an idle arena that still cannot fit the head can
+                    # never free pages for it: drop it and raise
+                    head = self._queue_head()
+                    self.queue.remove(head)
+                    msg = (
+                        f"request {head.req_id} needs more KV pages than "
+                        "the idle arena can ever free (pinned prefix pages "
+                        "shrink attainable capacity); use a larger arena "
+                        "or release template prefixes")
+                    self._record_dropped(head, "failed", error=msg)
+                    raise PoolExhausted(msg)
+                return False
+            if not admitted and not chunked:
+                if self._foreign_slots() > 0:
+                    return True
+                # every slot is mid-prefill and none could grow its budget:
+                # fail the YOUNGEST mid-prefill request to unwedge the rest
+                slot = max((s for s in self.active
+                            if self.active[s].prefilling),
+                           key=lambda s: self.active[s].req.req_id)
+                msg = (
+                    f"request {self.active[slot].req.req_id} cannot grow "
+                    "its chunked-prefill page budget and no decode can "
+                    "free pages (all slots mid-prefill); failed to unwedge "
+                    "the arena — use a larger arena or smaller chunks")
+                self._retire(slot, status="failed", error=msg)
+                raise PoolExhausted(msg)
+            return True
+        # crossing a page boundary maps one more (already reserved) page;
+        # mid-prefill slots skip this — their dummy page stays unmapped
+        for slot in decoding:
+            self.pool.ensure_len(slot, int(self._pos[slot]) + 1,
+                                 owner=self._owner)
+        # the OWNER-masked view nulls co-tenants' rows, so their slots
+        # decode as free-slot dummies
+        pt = self.pool.device_page_table(self._owner)
+        logits, _ = self.model.decode_step_paged(
+            self._params, self.pool.cache, {"tokens": self._tokens(self._tok)},
+            self._tokens(self._pos), pt, self.pool.page_size)
+        self.n_decode_steps += 1
+        nxt = sample_greedy(logits).cpu().numpy()        # [n_slots]
+        sampled = [s for s in decoding if self.active[s].req.temperature > 0]
+        if sampled:
+            rows = logits.float().cpu().numpy()
+            for slot in sampled:
+                st = self.active[slot]
+                nxt[slot] = sample_token(rows[slot], st.req.temperature,
+                                         st.req.top_p, st.req.seed,
+                                         len(st.tokens))
+        for slot in decoding:
+            st = self.active[slot]
+            tok = int(nxt[slot])
+            st.tokens.append(tok)
+            self._tok[slot, 0] = tok
+            self._pos[slot] += 1
+            if st.req.token_cb is not None:
+                st.req.token_cb(st.req.req_id, tok, len(st.tokens) - 1)
+            if len(st.tokens) >= st.req.max_new_tokens:
+                self._retire(slot)
+        return bool(self.queue or self.active)
+
+    def run(self) -> dict:
+        """Drain queue + active set; returns {req_id: RequestOutput}."""
+        while self.step():
+            pass
+        return self.results
+
+    def release_all(self) -> int:
+        """Abandon in-flight work: release every active slot and drop
+        queued requests (each records a ``'cancelled'`` result).  Returns
+        the number of abandoned requests."""
+        n = len(self.active) + len(self.queue)
+        for slot in list(self.active):
+            self._retire(slot, status="cancelled")
+        for req in list(self.queue):
+            self._record_dropped(req, "cancelled")
+        self.queue.clear()
+        return n
+
+    def close(self) -> int:
+        """Release all in-flight work, then retire the engine's partition
+        lease.  A closed engine must not step again."""
+        n = self.release_all()
+        if self._owner is not None:
+            self.pool.release_owner(self._owner)
+            self._owner = None
+        return n

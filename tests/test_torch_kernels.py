@@ -1,0 +1,189 @@
+"""The port's attention kernels, held against the JAX package on the CPU.
+
+On a CPU tensor each wrapper runs its kernel's plain PyTorch version; the
+same numpy inputs go through the JAX Pallas kernel (interpret mode, as
+tests/test_kernels.py runs it) and ``repro.kernels.ref``.  Everything is
+fp32 with TF32 off; tolerance 1e-5 (summation order only).  The CUDA
+kernels themselves are checked on the card by ``chip_smoke.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
+from repro.kernels.ops import paged_decode_attention as pallas_paged  # noqa: E402
+from repro.models import quant as jquant  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.models import quant as tquant  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _arena(rng, B, KV, d, ps, NB, lengths):
+    """Random arena + shuffled page tables; a row of length 1 and an
+    all-null table stands for a free slot (it reads the null page 0)."""
+    n_pages = 1 + B * NB
+    kp = rng.standard_normal((n_pages, ps, KV, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, KV, d)).astype(np.float32)
+    pt = (rng.permutation(n_pages - 1) + 1)[:B * NB].reshape(B, NB)
+    pt = pt.astype(np.int32)
+    for b, n in enumerate(lengths):
+        if n == 1:
+            pt[b] = 0
+    return kp, vp, pt
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("B,H,KV,ps,NB,d,lengths", [
+    (3, 4, 4, 8, 6, 16, [1, 17, 48]),            # G=1, free slot + ragged
+    (4, 9, 3, 8, 8, 64, [64, 1, 9, 33]),         # G=3 (smollm heads)
+    (2, 8, 2, 16, 4, 32, [63, 1]),               # G=4
+])
+def test_paged_decode_matches_pallas_and_ref(B, H, KV, ps, NB, d, lengths, int8):
+    rng = np.random.default_rng(B * 100 + H)
+    kp, vp, pt = _arena(rng, B, KV, d, ps, NB, lengths)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    ln = np.asarray(lengths, np.int32)
+    ks = vs = None
+    if int8:
+        kq, ksj = jquant.quantize_rows(jnp.asarray(kp))
+        vq, vsj = jquant.quantize_rows(jnp.asarray(vp))
+        kp, vp, ks, vs = map(np.asarray, (kq, vq, ksj, vsj))
+    jkw = {} if not int8 else {"k_scales": jnp.asarray(ks), "v_scales": jnp.asarray(vs)}
+    want_pallas = np.asarray(pallas_paged(jnp.asarray(q), jnp.asarray(kp),
+                                          jnp.asarray(vp), jnp.asarray(pt),
+                                          jnp.asarray(ln), **jkw))
+    want_ref = np.asarray(jref.paged_decode_attention_ref(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt),
+        jnp.asarray(ln), **jkw))
+    tkw = {} if not int8 else {"k_scales": _t(ks), "v_scales": _t(vs)}
+    got = ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(pt), _t(ln),
+                                     **tkw).numpy()
+    np.testing.assert_allclose(got, want_pallas, **TOL)
+    np.testing.assert_allclose(got, want_ref, **TOL)
+
+
+def test_paged_decode_scalar_length_and_scale_pair():
+    rng = np.random.default_rng(3)
+    kp, vp, pt = _arena(rng, 2, 2, 16, 8, 3, [20, 20])
+    q = rng.standard_normal((2, 4, 16)).astype(np.float32)
+    got = ops.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(pt), 20)
+    want = jref.paged_decode_attention_ref(jnp.asarray(q), jnp.asarray(kp),
+                                           jnp.asarray(vp), jnp.asarray(pt), 20)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    kq, ks = tquant.quantize_rows(_t(kp))
+    with pytest.raises(ValueError, match="both k_scales and v_scales"):
+        ops.paged_decode_attention(_t(q), kq, _t(vp), _t(pt), 8, k_scales=ks)
+
+
+@pytest.mark.parametrize("B,H,KV,S,d", [
+    (1, 4, 4, 64, 32),       # MHA
+    (2, 9, 3, 64, 64),       # smollm heads, G=3
+    (1, 8, 2, 96, 16),       # S = 96: the Pallas path halves its block
+])
+def test_flash_matches_pallas_square(B, H, KV, S, d):
+    rng = np.random.default_rng(S + H)
+    q = rng.standard_normal((B, H, S, d)).astype(np.float32)
+    k = rng.standard_normal((B, KV, S, d)).astype(np.float32)
+    v = rng.standard_normal((B, KV, S, d)).astype(np.float32)
+    want = np.asarray(pallas_flash(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True,
+                                   block_q=32, block_k=32))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("S,T,softcap", [
+    (8, 40, 0.0),            # suffix prefill over a reused prefix
+    (33, 97, 0.0),           # ragged lengths
+    (24, 24, 30.0),          # softcap, square
+    (16, 50, 5.0),           # softcap with T > S
+])
+def test_flash_matches_ref_offset_and_softcap(S, T, softcap):
+    rng = np.random.default_rng(S * T)
+    q = rng.standard_normal((2, 6, S, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 2, T, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 2, T, 16)).astype(np.float32)
+    want = np.asarray(jref.flash_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                               jnp.asarray(v), causal=True,
+                                               softcap=softcap))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                              softcap=softcap).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_flash_takes_strided_views():
+    """The model hands in transposed views of [B, S, H, d] activations."""
+    rng = np.random.default_rng(5)
+    x = _t(rng.standard_normal((2, 12, 4, 16)).astype(np.float32))
+    kv = _t(rng.standard_normal((2, 20, 2, 16)).astype(np.float32))
+    got = ops.flash_attention(x.transpose(1, 2), kv.transpose(1, 2),
+                              kv.transpose(1, 2))
+    want = tref.flash_attention_ref(x.transpose(1, 2).contiguous(),
+                                    kv.transpose(1, 2).contiguous(),
+                                    kv.transpose(1, 2).contiguous())
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_decode_attention_ref_matches_jax():
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((2, 6, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 3, 40, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 3, 40, 16)).astype(np.float32)
+    ln = np.asarray([13, 40], np.int32)
+    want = jref.decode_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(ln))
+    got = tref.decode_attention_ref(_t(q), _t(k), _t(v), _t(ln))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_wrappers_refuse_other_devices_and_count_only_launches():
+    """No quiet fallback: a tensor that is neither on the CPU nor on a
+    card raises, and the plain CPU path launches (and counts) nothing."""
+    ops.reset_launch_counts()
+    q = torch.zeros((1, 4, 16), device="meta")
+    arena = torch.zeros((3, 8, 2, 16), device="meta")
+    pt = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.paged_decode_attention(q, arena, arena, pt,
+                                   torch.ones(1, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_attention(torch.zeros((1, 4, 8, 16), device="meta"),
+                            torch.zeros((1, 2, 8, 16), device="meta"),
+                            torch.zeros((1, 2, 8, 16), device="meta"))
+    ops.flash_attention(torch.zeros((1, 4, 8, 16)), torch.zeros((1, 2, 8, 16)),
+                        torch.zeros((1, 2, 8, 16)))
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "paged_decode_attention": 0}
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """An unbuilt kernel raises: without nvcc the build fails loudly."""
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda path: False)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+
+
+def test_cuda_sources_declare_their_entry_points():
+    """Each wrapper's C symbol is defined with C linkage in csrc/."""
+    sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
+    assert set(sources) == {"paged_decode_attention.cu", "flash_attention.cu"}
+    assert 'extern "C" int repro_paged_decode_attention(' in \
+        sources["paged_decode_attention.cu"]
+    assert 'extern "C" int repro_flash_attention(' in sources["flash_attention.cu"]
+    for text in sources.values():
+        assert "Replaces the TPU kernel src/repro/kernels/" in text

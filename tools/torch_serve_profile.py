@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where the serving time goes: the port's smollm-135m serving pass on one card.
+
+    python3 tools/torch_serve_profile.py [--out DIR]   # from the repository root
+
+Runs the serving pass of ``chip_smoke.py`` (30 layers, bf16, 8 slots,
+12 requests of 16 tokens, a baked shared prefix) twice after a warm-up:
+
+1. stepping the engine by hand, with every ``step()`` timed on the host
+   clock after a device synchronise, and each step classed by what it did
+   (admitted and prefilled requests, or decoded only);
+2. under ``torch.profiler`` for the device time by kernel name, the
+   device-busy share of the wall time, and the host ops that cost most.
+
+Prints one JSON object and writes it to ``DIR/serve_profile.json``
+(default ``results/``).
+Needs a CUDA device; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+
+
+def timed_steps(model, params, prefix, reqs) -> dict:
+    """Wall time of every engine step, split into prefill and decode steps."""
+    eng = chip_smoke.serving_engine(model, params, prefix)
+    for p in reqs:
+        eng.submit(p, 16)
+    prefill_ms, decode_ms = [], []
+    alive = True
+    while alive:
+        n_prefill = eng.n_prefill_calls
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alive = eng.step()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        (prefill_ms if eng.n_prefill_calls > n_prefill else decode_ms).append(dt)
+    prefills = eng.n_prefill_calls
+    eng.close()
+    return {"prefill_steps": len(prefill_ms), "prefill_calls": prefills,
+            "prefill_step_ms_total": sum(prefill_ms),
+            "prefill_ms_per_call": sum(prefill_ms) / max(prefills, 1),
+            "decode_steps": len(decode_ms),
+            "decode_step_ms_mean": float(np.mean(decode_ms)) if decode_ms else None,
+            "decode_step_ms_total": sum(decode_ms)}
+
+
+def profiled_pass(model, params, prefix, reqs) -> dict:
+    """Device time by kernel and busy share over one whole pass."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = chip_smoke.serving_engine(model, params, prefix)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for p in reqs:
+            eng.submit(p, 16)
+        eng.run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    eng.close()
+    events = prof.key_averages()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    kernels = sorted(((e.key, device_us(e) / 1e3, e.count) for e in events
+                      if device_us(e) > 0), key=lambda r: -r[1])
+    device_ms = sum(ms for _, ms, _ in kernels)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events),
+                  key=lambda r: -r[1])
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "kernels_top": [{"name": k[:90], "ms": ms, "count": n}
+                            for k, ms, n in kernels[:15]],
+            "host_ops_top": [{"name": k[:90], "self_ms": ms, "count": n}
+                             for k, ms, n in host[:15]]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=chip_smoke.DEFAULT_OUT,
+                    help="directory for serve_profile.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("torch_serve_profile.py: no CUDA device is available",
+              file=sys.stderr)
+        return 2
+    chip_smoke._import_port()
+    from repro_torch.models.registry import get_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = get_model("smollm-135m")
+    params = model.init_params(seed=0)
+    prefix, reqs = chip_smoke.serving_workload(model.cfg.vocab_size)
+    timed_steps(model, params, prefix, reqs[:2])           # warm-up
+    steps = timed_steps(model, params, prefix, reqs)
+    prof = profiled_pass(model, params, prefix, reqs)
+    smi = chip_smoke.subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"device": smi, "torch": torch.__version__, "steps": steps,
+           "profile": prof}
+    args.out.mkdir(parents=True, exist_ok=True)
+    (args.out / "serve_profile.json").write_text(json.dumps(out, indent=1))
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
