@@ -5,8 +5,9 @@
 
 Phases, in order; any failure raises and the process exits non-zero:
 
-1. device: the card's name and power limit, then the kernels' build
-   (``src/repro_torch/csrc/*.cu`` -> one shared library, timed);
+1. device: the card's name and power limit, the kernels' build
+   (``src/repro_torch/csrc/*.cu`` -> one shared library, timed) and the
+   measured pinned host-to-device copy rate;
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (smollm-135m heads, and llama3-8b's), each timed
    beside its roofline bound and one PyTorch library call;
@@ -16,7 +17,19 @@ Phases, in order; any failure raises and the process exits non-zero:
    and an int8-arena pass; the kernels' launch counts are checked against
    the engine's decode steps and prefill calls;
 4. parity: a 2-layer fp32 smollm-135m at full width on the card (kernels)
-   against the same seeded weights on the CPU (plain versions).
+   against the same seeded weights on the CPU (plain versions), through
+   the paged pool and through the sequential ``Engine``; the card's
+   layer-streamed prefill of a forked session equals its monolithic one;
+5. engine: the sequential ``Engine`` (dense cache, ``decode_attention``)
+   on smollm-135m at full width, then a ``paged=False`` continuous pass
+   over phase 3's workload; launch counts checked per layer and step;
+6. TIDAL: ``FaaSRuntime`` on smollm-135m at full width with a static
+   function (131-token template prompt) and a LoRA function, ~16
+   invocations through the gateway's pump thread covering cold, warm and
+   fork; streamed prefill, byte accounting, stream order, the forking
+   guard and fork-equals-warm tokens are checked, and the first
+   invocation's TTFT is measured in fresh processes with and without
+   prewarming.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -45,6 +58,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 SMOLLM = dict(H=9, KV=3, d=64)
 LLAMA3_8B = dict(H=32, KV=8, d=128)
+GEMMA_2B = dict(H=8, KV=1, d=256)
 PAGE_SIZE = 8
 SERVE_LAYERS = 30
 
@@ -110,6 +124,15 @@ def paged_decode_work(B, H, KV, d, ps, lengths, q_dtype, kv_dtype) -> tuple:
     nbytes += 4 * int(np.sum(-(-np.asarray(lengths) // ps))) + 4 * B
     flops = 4 * rows * H * d                      # QK and PV, per query head
     return flops, nbytes
+
+
+def decode_work(B, H, KV, d, lengths, dtype) -> tuple:
+    """(FLOPs, bytes) of dense-cache decode over these lengths: each
+    selected K/V row read once, q and the lengths read, out written."""
+    rows = int(np.sum(lengths))
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * rows * KV * d * elt + 2 * B * H * d * elt + 4 * B
+    return 4 * rows * H * d, nbytes
 
 
 def flash_work(B, H, KV, S, T, d, dtype, causal=True) -> tuple:
@@ -179,8 +202,30 @@ def phase_device() -> dict:
     for line in log.splitlines():
         if "spill" in line and "0 bytes spill stores" not in line:
             print("ptxas:", line.strip())
+    h2d = measure_h2d()
+    print(f"pinned host->device copy: {h2d / 1e9:.2f} GB/s")
     return {"name": name, "nvidia_smi": limit, "build_s": build_s,
-            "torch": torch.__version__, "cuda": torch.version.cuda}
+            "h2d_bytes_per_s": h2d, "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+
+
+def measure_h2d(nbytes: int = 256 << 20, reps: int = 5) -> float:
+    """Pinned host -> device copy rate (bytes/s) of one ``nbytes`` copy on
+    a side stream, as the weight streamer issues them (best of ``reps``)."""
+    src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.Stream()
+    best = float("inf")
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return nbytes / best
 
 
 def phase_kernels(device) -> list:
@@ -243,6 +288,40 @@ def phase_kernels(device) -> list:
         print(json.dumps(res))
         if not err <= tol:
             raise AssertionError(f"paged_decode_attention disagrees: {res}")
+
+    from repro_torch.kernels.decode_attention import decode_attention
+    T = 512
+    for heads, tag in ((SMOLLM, "smollm"), (LLAMA3_8B, "llama3-8b"),
+                       (GEMMA_2B, "gemma-2b")):
+        for dtype in (torch.bfloat16, torch.float32):
+            B, H, KV, d = 8, heads["H"], heads["KV"], heads["d"]
+            lengths = [1] + rng.integers(2, T + 1, B - 2).tolist() + [T]
+            q = torch.randn((B, H, d), generator=gen).to(device, dtype)
+            ck = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
+            cv = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
+            ln = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+            k, v = ck.transpose(1, 2), cv.transpose(1, 2)   # the cache view
+            out = decode_attention(q, k, v, ln)
+            want = ref.decode_attention_ref(q, k, v, ln)
+            torch.cuda.synchronize()
+            err = float((out.float() - want.float()).abs().max())
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            kern_ms = time_ms(lambda: decode_attention(q, k, v, ln))
+            plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, ln))
+            mask = (torch.arange(T, device=device)[None, :]
+                    < ln[:, None].long())[:, None, None, :]
+            lib_ms = time_ms(lambda: sdpa_gqa(q[:, :, None], k, v, attn_mask=mask))
+            flops, nbytes = decode_work(B, H, KV, d, lengths, dtype)
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            res = {"kernel": "decode_attention", "shape": tag, "B": B, "H": H,
+                   "KV": KV, "d": d, "T": T, "max_len": int(max(lengths)),
+                   "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+                   "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            results.append(res)
+            print(json.dumps(res))
+            if not err <= tol:
+                raise AssertionError(f"decode_attention disagrees: {res}")
 
     flash_cases = []
     for heads, tag in ((SMOLLM, "smollm"), (LLAMA3_8B, "llama3-8b")):
@@ -319,19 +398,25 @@ def serving_workload(vocab: int):
     return prefix, _serve_requests(vocab, prefix)
 
 
-def phase_serve(device) -> list:
-    """smollm-135m at full width through the paged continuous-batching
-    engine: plain, chunked-prefill and int8-arena passes."""
-    from repro_torch.kernels import ops
+def full_model(device, seed: int = 0):
+    """smollm-135m at full width and depth with seeded random weights."""
     from repro_torch.models.registry import get_model
     model = get_model("smollm-135m", device=device)
     assert model.cfg.n_layers == SERVE_LAYERS and model.cfg.d_model == 576
     t0 = time.perf_counter()
-    params = model.init_params(seed=0)
+    params = model.init_params(seed=seed)
     torch.cuda.synchronize()
     print(f"smollm-135m: {model.cfg.n_layers} layers, d_model "
-          f"{model.cfg.d_model}, {model.dtype}, weights in "
+          f"{model.cfg.d_model}, {model.dtype}, weights (seed {seed}) in "
           f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def phase_serve(model, params) -> tuple:
+    """smollm-135m at full width through the paged continuous-batching
+    engine: plain, chunked-prefill and int8-arena passes.  Returns the
+    passes' rows and the plain pass's tokens."""
+    from repro_torch.kernels import ops
     vocab = model.cfg.vocab_size
     prefix, reqs = serving_workload(vocab)
     passes = [("paged", {}), ("chunked", {"chunk_tokens": 64}),
@@ -391,7 +476,7 @@ def phase_serve(device) -> list:
     for name in ("chunked", "int8"):
         same = sum(int((a == b).sum()) for a, b in zip(base, tokens_by_pass[name]))
         print(f"tokens equal to the plain pass: {name} {same}/{16 * len(base)}")
-    return out
+    return out, base
 
 
 def phase_parity(device) -> dict:
@@ -433,20 +518,337 @@ def phase_parity(device) -> dict:
     print(json.dumps({"parity": res}))
     if not err <= 1e-3 or tk_gpu != tk_cpu:
         raise AssertionError(f"card vs CPU parity failed: {res}")
+    res["engine"] = engine_parity(cfg, device)
+    res["streamed_prefill_equal"] = streamed_parity(cfg, device)
     return res
 
 
-def kernel_summary(kernels: list, serve: list) -> list:
+def engine_parity(cfg, device) -> dict:
+    """The sequential ``Engine`` (dense cache: flash prefill, then the
+    decode_attention kernel) on the card against the CPU."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime import Engine
+    prompts = np.random.default_rng(3).integers(1, cfg.vocab_size, (2, 40)
+                                                ).astype(np.int32)
+    runs = {}
+    for dev in (device, "cpu"):
+        model = get_model(cfg, device=dev)
+        logits = []
+
+        def prefill(p, inputs, cache, m=model, out=logits):
+            lg, cache = m.prefill(p, inputs, cache)
+            out.append(lg.float().cpu())
+            return lg, cache
+
+        def decode(p, cache, inputs, pos, m=model, out=logits):
+            lg, cache = m.decode_step(p, cache, inputs, pos)
+            out.append(lg.float().cpu())
+            return lg, cache
+
+        res = Engine(model, model.init_params(seed=1), prefill, decode
+                     ).generate(prompts, max_new_tokens=8)
+        runs[str(dev)] = (torch.stack(logits), res.tokens)
+    (lg_gpu, tk_gpu), (lg_cpu, tk_cpu) = runs[str(device)], runs["cpu"]
+    err = float((lg_gpu - lg_cpu).abs().max())
+    out = {"max_abs_logit_err": err, "tol": 1e-3,
+           "tokens_equal": bool((tk_gpu == tk_cpu).all())}
+    print(json.dumps({"engine_parity": out}))
+    if not err <= 1e-3 or not out["tokens_equal"]:
+        raise AssertionError(f"Engine card vs CPU parity failed: {out}")
+    return out
+
+
+def streamed_parity(cfg, device) -> bool:
+    """A forked session's layer-streamed prefill on the card equals the
+    monolithic prefill bit for bit (logits and cache)."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.streaming import streamed_prefill
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.models.registry import get_model
+    model = get_model(cfg, device=device)
+    params = model.init_params(seed=1)
+    srv = TemplateServer(trace_seq=64)
+    srv.register(tidal.static_function("f", model, params), {})
+    session, _ = srv.fork("f", {})
+    toks = np.random.default_rng(4).integers(1, cfg.vocab_size, (1, 100)
+                                             ).astype(np.int32)
+    lg_s, c_s = streamed_prefill(session, {"tokens": toks},
+                                 model.make_cache(1, 128))
+    lg_m, c_m = model.prefill(params, {"tokens": toks}, model.make_cache(1, 128))
+    torch.cuda.synchronize()
+    equal = (torch.equal(lg_s, lg_m)
+             and all(torch.equal(c_s[k], c_m[k]) for k in c_s))
+    print(f"streamed prefill on the card equals the monolithic one: {equal}")
+    if not equal:
+        raise AssertionError("streamed prefill differs from prefill on the card")
+    return equal
+
+
+def phase_engine(model, params, paged_tokens: list) -> list:
+    """The dense-cache paths at full width: the sequential ``Engine`` (8
+    prompts of 256 tokens, 32 new tokens), then ``paged=False`` continuous
+    batching over phase 3's workload."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ContinuousBatchingEngine, Engine
+    L, vocab = model.cfg.n_layers, model.cfg.vocab_size
+    prompts = np.random.default_rng(5).integers(1, vocab, (8, 256)
+                                                ).astype(np.int32)
+    eng = Engine(model, params)
+    eng.generate(prompts[:, :32], max_new_tokens=2)          # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts["decode_attention"] != L * 31 or counts["flash_attention"] != L:
+        raise AssertionError(f"Engine launches {counts}, want {L * 31} decode "
+                             f"and {L} flash")
+    if res.tokens.shape != (8, 32) or not ((res.tokens >= 0)
+                                           & (res.tokens < vocab)).all():
+        raise AssertionError(f"Engine tokens {res.tokens.shape}")
+    rows = [{"pass": "engine", "batch": 8, "prompt_len": 256, "new_tokens": 32,
+             "launches": counts, "wall_s": wall, "ttft_ms": res.ttft_s * 1e3,
+             "decode_ms_per_step": res.decode_s / 31 * 1e3,
+             "tokens_per_s": 8 * 32 / wall}]
+    print(json.dumps(rows[-1]))
+
+    _, reqs = serving_workload(vocab)
+    cbe = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
+                                   paged=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [cbe.submit(p, 16) for p in reqs]
+    results = cbe.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    out = [results[i] for i in ids]
+    if any(r.status != "done" or r.n_generated != 16 for r in out):
+        raise AssertionError("dense pass: unfinished requests")
+    if (counts["decode_attention"] != L * cbe.n_decode_steps
+            or counts["flash_attention"] != L * cbe.n_prefill_calls
+            or counts["paged_decode_attention"]):
+        raise AssertionError(f"dense pass launches {counts}, steps "
+                             f"{cbe.n_decode_steps}, prefills {cbe.n_prefill_calls}")
+    same = sum(int((r.tokens == t).sum()) for r, t in zip(out, paged_tokens))
+    ttft = np.asarray([r.ttft_s for r in out]) * 1e3
+    rows.append({"pass": "dense", "requests": len(out),
+                 "decode_steps": cbe.n_decode_steps,
+                 "prefill_calls": cbe.n_prefill_calls, "launches": counts,
+                 "wall_s": wall, "tokens_per_s": 16 * len(out) / wall,
+                 "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                 "ttft_ms_max": float(ttft.max()),
+                 "tokens_equal_to_paged_pass": same})
+    print(json.dumps(rows[-1]))
+    print(f"dense pass tokens equal to the paged pass: {same}/{16 * len(out)}")
+    return rows
+
+
+def _median_max(xs) -> dict:
+    xs = np.asarray(xs, dtype=float) * 1e3
+    return {"n": int(xs.size), "median_ms": float(np.median(xs)),
+            "max_ms": float(xs.max())}
+
+
+def phase_tidal(device, h2d: float) -> dict:
+    """``FaaSRuntime`` at full width: a static function with a 131-token
+    template prompt and a LoRA function (``blocks.attn.wq``, 2 adapters),
+    invoked through the gateway's pump thread so that each is cold once,
+    then warm, then forked after an evict (the LoRA one also on a new
+    event)."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.forking import DonationGuard
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import FaaSRuntime, InvocationRequest
+    model, p_static = full_model(device, seed=2)
+    p_lora = model.init_params(seed=3)
+    vocab = model.cfg.vocab_size
+    prefix, reqs = serving_workload(vocab)
+    rt = FaaSRuntime(server=TemplateServer(hw=H100_SXM.with_h2d(h2d),
+                                           trace_seq=128),
+                     n_slots=8, max_len=512, page_size=PAGE_SIZE, device=device)
+    t0 = time.perf_counter()
+    rt.deploy(tidal.static_function("static", model, p_static), {},
+              prewarm_seq=128, template_prompt=prefix)
+    rt.deploy(tidal.lora_function("lora", model, p_lora, ["blocks.attn.wq"],
+                                  n_adapters=2), {"adapter": "adapter-0"},
+              prewarm_seq=128)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    model_bytes = rt.server.templates["static"].total_bytes
+    a0, a1 = {"adapter": "adapter-0"}, {"adapter": "adapter-1"}
+    # (function, event, prompt index): the first of each key forks its engine
+    waves = [[("static", {}, 0), ("static", {}, 1), ("lora", a0, 3),
+              ("lora", a0, 4)],
+             [("static", {}, 2), ("lora", a0, 5), ("lora", a1, 6),
+              ("lora", a1, 7)],
+             "evict",
+             [("static", {}, 0), ("lora", a1, 6)],
+             [("static", {}, 0), ("lora", a1, 6), ("static", {}, 8),
+              ("lora", a0, 9), ("lora", a0, 10), ("static", {}, 11)]]
+    results, stats, guard_bufs = [], [], None
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rt.gateway.start_pump()
+    try:
+        for wave in waves:
+            if wave == "evict":
+                rt.evict()
+                # make half the static template resident, so the next fork
+                # shares device buffers the guard then watches
+                rt.server.set_resident_bytes("static", model_bytes // 2)
+                guard_bufs = dict(rt.server.device_cache["static"])
+                guard = DonationGuard.guard(guard_bufs)
+                continue
+            handles = [rt.submit(InvocationRequest(fn, reqs[i], event=ev,
+                                                   max_new_tokens=16))
+                       for fn, ev, i in wave]
+            for (fn, ev, i), h in zip(wave, handles):
+                r = h.result(timeout=600)
+                results.append((fn, tuple(sorted(ev.items())), i, r))
+                if r.fork_stats is not None:
+                    eng = rt._engines[h.engine_key].engine
+                    stats.append((fn, r.fork_stats, eng.session.streamer))
+    finally:
+        rt.gateway.stop_pump()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+
+    kinds = [r.kind for *_, r in results]
+    if set(kinds) != {"cold", "warm", "fork"}:
+        raise AssertionError(f"service kinds {kinds}")
+    bad = [r for *_, r in results if r.status != "done" or len(r.tokens) != 16]
+    if bad:
+        raise AssertionError(f"unfinished invocations {bad}")
+    first_of_engine = [r for *_, r in results if r.fork_stats is not None]
+    if not all(r.streamed_prefill for r in first_of_engine):
+        raise AssertionError("a cold/fork admission did not stream its prefill")
+    for fn, fs, streamer in stats:
+        if fs.reused_bytes + fs.streamed_bytes + fs.dynamic_bytes != model_bytes:
+            raise AssertionError(f"{fn}: fork bytes {fs} != {model_bytes}")
+        streamer.wait_all()
+        rank = {k: j for j, k in enumerate(rt.server.templates[fn].order)}
+        done = [rank[k] for k in streamer.completed_order]
+        if (streamer.completed_order != [e.key for e in streamer.entries]
+                or done != sorted(done)):
+            raise AssertionError(f"{fn}: stream order differs from the template")
+    reused = [fs.reused_bytes for fn, fs, _ in stats if fn == "static"]
+    violated = guard.check(guard_bufs)
+    if not guard_bufs or not reused[-1] or violated:
+        raise AssertionError(f"forking guard: {len(guard_bufs)} buffers, "
+                             f"reused {reused}, violated {violated}")
+    # a fork's tokens equal a warm invocation's for the same prompt/event
+    by_key = {}
+    for fn, ev, i, r in results[-8:]:
+        by_key.setdefault((fn, ev, i), []).append(r)
+    for key, rs in by_key.items():
+        if len(rs) == 2 and rs[0].kind == "fork":
+            if rs[1].kind != "warm" or not np.array_equal(rs[0].tokens,
+                                                          rs[1].tokens):
+                raise AssertionError(f"{key}: fork tokens != warm tokens")
+    if (counts["paged_decode_attention"] == 0 or counts["flash_attention"] == 0
+            or counts["decode_attention"]):
+        raise AssertionError(f"TIDAL phase launches {counts}")
+    out = {"deploy_s": deploy_s, "model_bytes": model_bytes,
+           "invocations": len(results), "kinds": kinds, "wall_s": wall,
+           "launches": counts,
+           "ttft": {k: _median_max([r.ttft_s for *_, r in results
+                                    if r.kind == k])
+                    for k in ("cold", "fork", "warm")},
+           "fork_s": _median_max([fs.fork_s for _, fs, _ in stats]),
+           "fork_bytes": [{"fn": fn, "reused": fs.reused_bytes,
+                           "streamed": fs.streamed_bytes,
+                           "dynamic": fs.dynamic_bytes} for fn, fs, _ in stats],
+           "reuse_hits": sum(r.reused_prefix_len > 0 for *_, r in results),
+           "h2d_gb_per_s": h2d / 1e9,
+           "resident_bytes_after_eq1": {k: t.resident_bytes for k, t
+                                        in rt.server.templates.items()},
+           "gateway": dict(rt.gateway.stats)}
+    out["isolated"] = isolated_fork_and_warm(rt, reqs[0])
+    print(json.dumps(out))
+    rt.evict()
+    out["first_invocation"] = {
+        mode: first_ttft_subprocess(mode) for mode in ("prewarm", "no-prewarm")}
+    print(json.dumps({"first_invocation": out["first_invocation"]}))
+    return out
+
+
+def isolated_fork_and_warm(rt, prompt) -> dict:
+    """One invocation alone on a fresh fork, then the same one warm: the
+    paper's fork-against-warm TTFT with no other request queued."""
+    rt.evict()
+    fork = rt.submit("static", {}, prompt, 16)
+    warm = rt.submit("static", {}, prompt, 16)
+    if (fork.kind, warm.kind) != ("fork", "warm") or not np.array_equal(
+            fork.tokens, warm.tokens):
+        raise AssertionError(f"isolated pair: {fork.kind} {warm.kind}")
+    return {"fork_ttft_ms": fork.ttft_s * 1e3, "warm_ttft_ms": warm.ttft_s * 1e3,
+            "fork_s_ms": fork.fork_stats.fork_s * 1e3,
+            "streamed_prefill": fork.streamed_prefill,
+            "reused_prefix_len": fork.reused_prefix_len}
+
+
+def first_ttft_subprocess(mode: str) -> dict:
+    """The first invocation's TTFT in a fresh process (context, library
+    load and first calls unpaid), with or without deploy-time prewarming."""
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--first-ttft", mode], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        raise RuntimeError(f"--first-ttft {mode} failed:\n{res.stdout}"
+                           f"{res.stderr}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def first_ttft(mode: str) -> dict:
+    """Body of ``--first-ttft``: deploy one static smollm-135m function and
+    time its first invocation (256-token prompt, 8 new tokens)."""
+    from repro_torch.core import api as tidal
+    from repro_torch.runtime import FaaSRuntime
+    device = torch.device("cuda", 0)
+    model, params = full_model(device, seed=2)
+    t0 = time.perf_counter()
+    rt = FaaSRuntime(n_slots=8, max_len=512, page_size=PAGE_SIZE,
+                     prewarm=mode == "prewarm", device=device)
+    runtime_s = time.perf_counter() - t0
+    fn = tidal.static_function("f", model, params)
+    t0 = time.perf_counter()
+    rt.server.register(fn, {})
+    register_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rt.deploy(fn, {}, prewarm_seq=256)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(6).integers(1, model.cfg.vocab_size, 256)
+    r = rt.submit("f", {}, prompt.astype(np.int32), 8)
+    second = rt.submit("f", {}, prompt.astype(np.int32), 8)
+    return {"mode": mode, "runtime_s": runtime_s, "register_s": register_s,
+            "deploy_s": deploy_s, "kind": r.kind,
+            "ttft_ms": r.ttft_s * 1e3, "e2e_ms": r.e2e_s * 1e3,
+            "warm_ttft_ms": second.ttft_s * 1e3}
+
+
+def kernel_summary(kernels: list, serve: list, engine: list,
+                   tidal_row: dict) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
-    shapes, with its launches from the serving passes."""
+    shapes, with its launches from the serving phases (3, 5 and 6)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
-    launches = {"paged": 0, "int8": 0, "flash": 0}
-    for row in serve:
-        key = "int8" if row["pass"] == "int8" else "paged"
+    launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0}
+    rows = list(serve) + list(engine) + [tidal_row]
+    for row in rows:
+        key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
         launches["flash"] += row["launches"]["flash_attention"]
+        launches["decode"] += row["launches"]["decode_attention"]
     entries = [
         ("paged_decode_attention",
          pick(kernel="paged_decode_attention", shape="smollm", B=8,
@@ -463,34 +865,60 @@ def kernel_summary(kernels: list, serve: list) -> list:
               dtype="bfloat16"),
          "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:86", launches["flash"]),
+        ("decode_attention",
+         pick(kernel="decode_attention", shape="smollm", dtype="bfloat16"),
+         "src/repro_torch/csrc/decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:76", launches["decode"]),
     ]
-    return [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-            for name, r, src, rep, n in entries]
+    out = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+           for name, r, src, rep, n in entries]
+    if not all(e["launches"] > 0 for e in out):
+        raise AssertionError(f"a kernel never ran on the main path: {out}")
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=DEFAULT_OUT,
                     help="directory for chip_smoke.json")
+    ap.add_argument("--first-ttft", choices=["prewarm", "no-prewarm"],
+                    help=argparse.SUPPRESS)    # phase 6's fresh-process probe
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 2
     _import_port()
+    if args.first_ttft:
+        print(json.dumps(first_ttft(args.first_ttft)))
+        return 0
     device = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    dev = phase_device()
-    kernels = phase_kernels(device)
-    serve = phase_serve(device)
-    parity = phase_parity(device)
-    summary = kernel_summary(kernels, serve)
+    phases = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phases[name] = time.perf_counter() - t
+        print(f"phase {name}: {phases[name]:.1f} s")
+        return out
+
+    dev = timed("device", phase_device)
+    kernels = timed("kernels", phase_kernels, device)
+    model, params = full_model(device)
+    serve, paged_tokens = timed("serve", phase_serve, model, params)
+    parity = timed("parity", phase_parity, device)
+    engine = timed("engine", phase_engine, model, params, paged_tokens)
+    del model, params
+    tidal_row = timed("tidal", phase_tidal, device, dev["h2d_bytes_per_s"])
+    summary = kernel_summary(kernels, serve, engine, tidal_row)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
-         "summary": summary, "seconds": time.perf_counter() - t0}, indent=1))
+         "engine": engine, "tidal": tidal_row, "summary": summary,
+         "phases_s": phases, "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_dense, to_device
+from repro_torch.utils import named_leaves
 
 STACKED = "blocks"     # the JAX subtree stacked on a leading layer axis
 LAYERS = "layers"      # the port's per-layer list
@@ -85,14 +86,17 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
     return to_device(params, device)
 
 
-def named_parameters(params: dict, prefix: str = "") -> Iterator[tuple]:
+def named_parameters(params: dict) -> Iterator[tuple]:
     """``(port name, tensor)`` for every leaf, e.g. ``layers.0.attn.wq``."""
-    for key, val in params.items():
-        name = f"{prefix}{key}"
-        if isinstance(val, dict):
-            yield from named_parameters(val, name + ".")
-        elif isinstance(val, list):
-            for i, sub in enumerate(val):
-                yield from named_parameters(sub, f"{name}.{i}.")
-        else:
-            yield name, val
+    return named_leaves(params)
+
+
+def jax_key(port_name: str) -> tuple:
+    """A port weight name as the JAX package's weight key (path, layer):
+    ``'layers.3.attn.wq'`` -> ``('blocks.attn.wq', (3,))``, any other name
+    -> ``(name, ())``.  The inverse of :func:`port_names`, key by key."""
+    head, _, rest = port_name.partition(".")
+    if head != LAYERS:
+        return (port_name, ())
+    layer, _, rest = rest.partition(".")
+    return (f"{STACKED}.{rest}", (int(layer),))

@@ -1,0 +1,233 @@
+"""Overlapped weight streaming and layer-granular execution (TIDAL §5.2,
+Figure 12 right).
+
+``WeightStreamer`` is the template server's loader: a background thread
+copies each weight from the host pool to the device in the traced access
+order.  On a card the host pool is pinned memory and every copy is a
+``copy_(non_blocking=True)`` issued on the streamer's own CUDA stream,
+followed by one recorded ``torch.cuda.Event`` per weight.  A consumer
+waits on the host event ("copy issued"), then makes its compute stream
+wait on the CUDA event: that is TIDAL's injected synchronization event
+between an async copy and the kernels that read it, and the compute
+stream waits on the device, not on the host.  Every streamed tensor the
+compute stream uses is marked with ``record_stream``, so the caching
+allocator never hands its memory out while a kernel may still read it.
+On the CPU the copies are plain clones in the same order, which
+validates the schedule and the synchronisation logic.
+
+``streamed_prefill`` runs the first prefill layer by layer while later
+layers' weights are still in flight: layer ``l``'s block waits only for
+layer ``l``'s weights.  Its result equals the monolithic prefill exactly
+(it runs the same ``transformer._dense_block``; tested with
+``torch.equal``).  The dense family streams; the hybrid families (xlstm,
+zamba) arrive with their models (ROADMAP Queue 1, item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.models import transformer
+from repro_torch.models.layers import embed_tokens, lm_head, rmsnorm
+from repro_torch.models.registry import Model
+from repro_torch.utils import map_with_path
+
+_fault_point = None
+
+
+def _visit_fault_point(point: str, detail: str) -> None:
+    # lazy import: runtime.continuous imports this module, so repro_torch.
+    # core must import before repro_torch.runtime finishes initializing
+    global _fault_point
+    if _fault_point is None:
+        from repro_torch.runtime.faults import fault_point
+        _fault_point = fault_point
+    _fault_point(point, detail)
+
+
+@dataclasses.dataclass
+class StreamEntry:
+    key: tuple                            # (path, ())
+    fetch: Callable[[], torch.Tensor]     # host-pool tensor provider
+
+
+class WeightStreamer:
+    """Background device uploader following the traced access order."""
+
+    def __init__(self, entries: list, resident: dict, dynamic: dict,
+                 device="cpu", record_order: bool = True,
+                 fetch_retries: int = 2, retry_backoff_s: float = 0.005,
+                 max_backoff_s: float = 0.25):
+        """resident/dynamic: {path: device tensor} available immediately.
+
+        A fetch that raises is retried up to ``fetch_retries`` times with
+        capped exponential backoff (``retry_backoff_s`` doubling up to
+        ``max_backoff_s``) before the failure propagates.  Weights that
+        landed before a terminal failure stay servable; a failure sets
+        every pending event, so no consumer hangs."""
+        self.entries = entries
+        self.resident = dict(resident)
+        self.dynamic = dict(dynamic)
+        self.device = torch.device(device)
+        self.fetch_retries = int(fetch_retries)
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.max_backoff_s = float(max_backoff_s)
+        self.retries_used = 0
+        self._arrays: dict = {}
+        self._events: dict = {e.key: threading.Event() for e in entries}
+        self._copied: dict = {}           # key -> torch.cuda.Event (card only)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self.completed_order: Optional[list] = [] if record_order else None
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def start(self) -> "WeightStreamer":
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="weight-streamer")
+        self._thread.start()
+        return self
+
+    def _upload(self, src: torch.Tensor):
+        """Issue one host->device copy; returns (tensor, CUDA event)."""
+        if self._stream is None:
+            return src.to(self.device, copy=True), None
+        with torch.cuda.stream(self._stream):
+            dst = torch.empty_like(src, device=self.device)
+            dst.copy_(src, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(self._stream)
+        return dst, copied
+
+    def _fetch_one(self, e: StreamEntry):
+        """Fetch and upload one weight, retrying transient failures."""
+        delay = self.retry_backoff_s
+        attempt = 0
+        while True:
+            try:
+                _visit_fault_point("weight_fetch", f"{e.key[0]}:{e.key[1]}")
+                return self._upload(e.fetch())
+            except Exception:
+                attempt += 1
+                if attempt > self.fetch_retries:
+                    raise
+                self.retries_used += 1
+                time.sleep(delay)
+                delay = min(delay * 2.0, self.max_backoff_s)
+
+    def _run(self):
+        try:
+            if self._stream is not None:
+                torch.cuda.set_device(self.device)
+            for e in self.entries:
+                self._arrays[e.key], self._copied[e.key] = self._fetch_one(e)
+                if self.completed_order is not None:
+                    self.completed_order.append(e.key)
+                self._events[e.key].set()
+        except BaseException as ex:  # surfaced on the next get()
+            self._error = ex
+            for ev in self._events.values():
+                ev.set()
+
+    # ---- consumer side -----------------------------------------------------
+    def _consume(self, key: tuple) -> torch.Tensor:
+        """The streamed tensor, ordered after its copy on the caller's
+        current stream (device-side wait, no host synchronisation)."""
+        t = self._arrays[key]
+        copied = self._copied.get(key)
+        if copied is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(copied)
+            t.record_stream(stream)
+        return t
+
+    def get(self, key: tuple) -> torch.Tensor:
+        path = key[0]
+        for store in (self.resident, self.dynamic):
+            if path in store:
+                return store[path]
+        ev = self._events.get(key)
+        if ev is None:
+            raise KeyError(f"{key} neither resident, dynamic nor streamed")
+        ev.wait()
+        # a fetch failure sets every event so no consumer hangs: weights
+        # that landed before the failure stay servable, the rest raise
+        if key in self._arrays:
+            return self._consume(key)
+        raise self._error
+
+    def wait_all(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+        if self._error is not None:
+            raise self._error
+
+
+class ForkSession:
+    """The materialized state of one forked invocation."""
+
+    def __init__(self, model: Model, streamer: WeightStreamer):
+        self.model = model
+        self.streamer = streamer
+        self._specs = model.param_specs()
+        self._params = None
+
+    def leaf(self, path: str) -> torch.Tensor:
+        return self.streamer.get((path, ()))
+
+    def layer_params(self, layer: int) -> dict:
+        """One layer's parameter dict, waiting only on that layer."""
+        return map_with_path(lambda p, _: self.leaf(p),
+                             self._specs["layers"][layer], f"layers.{layer}.")
+
+    def params(self) -> dict:
+        """The full parameter dict (waits for every outstanding copy)."""
+        if self._params is None:
+            self._params = map_with_path(lambda p, _: self.leaf(p),
+                                         self._specs)
+        return self._params
+
+
+# ---------------------------------------------------------------------------
+# layer-streamed prefill
+# ---------------------------------------------------------------------------
+
+def supports_streamed_prefill(model: Model) -> bool:
+    return model.cfg.family == "dense"
+
+
+@torch.no_grad()
+def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
+                     offset: int = 0):
+    """Layer-by-layer prefill consuming weights as they arrive.
+
+    Returns (last-token logits, filled cache) and equals
+    ``transformer.prefill_from`` (``offset=0``: ``prefill``) exactly.  With
+    ``offset`` the tokens are a prompt suffix at positions ``offset ..``
+    over a cache whose first ``offset`` rows hold a reused prefix."""
+    model = session.model
+    cfg = model.cfg
+    if not supports_streamed_prefill(model):
+        raise NotImplementedError(
+            f"{cfg.name}: streamed prefill of the {cfg.family!r} family "
+            "arrives with its model (ROADMAP Queue 1, item 10)")
+    tokens = torch.as_tensor(inputs["tokens"], device=model.device)
+    B, S = tokens.shape
+    offset = int(offset)
+    x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)
+    positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
+    for layer in range(cfg.n_layers):
+        x = transformer._dense_block(session.layer_params(layer), x, cfg,
+                                     positions,
+                                     transformer.layer_cache(cache, layer),
+                                     offset)
+    x = rmsnorm(x[:, -1:], session.leaf("final_norm"), cfg.norm_eps)
+    head = {"embed": session.leaf("embed")}
+    if not cfg.tied_embeddings:
+        head["lm_head"] = session.leaf("lm_head")
+    return lm_head(x, head, cfg.tied_embeddings)[:, 0], cache

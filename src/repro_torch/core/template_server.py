@@ -1,0 +1,206 @@
+"""Template server: host pinned pool, device-resident templates and
+adaptive state forking (TIDAL §5.2, Figure 12 left).
+
+Per registered function the server keeps:
+
+  * the :class:`FunctionTemplate` (access order, kernel set, fingerprints,
+    Eq. 1 residency, merge plan), traced on ``meta`` tensors;
+  * host-pool copies of every static weight (pinned memory when the
+    function's model lives on a card);
+  * device tensors for the access-order resident prefix.
+
+``fork`` implements adaptive state forking for a new invocation:
+
+  * the initializer re-runs under strict tracing (cheap: TracedArrays
+    are lazy, nothing static materializes);
+  * fingerprints are diffed against the template, and newly dynamic
+    weights are excluded incrementally;
+  * static weights: resident ones are SHARED device tensors (every fork
+    reads the same buffers; ``forking.DonationGuard`` checks that no
+    invocation writes them), the rest stream in access order;
+  * dynamic weights are replayed from the traced DFG (materialized and
+    copied), the only per-request work: under 1% of the model for LoRA.
+
+The port's copy of ``repro.core.template_server`` for one device; the
+sharding plans of the JAX server arrive with ROADMAP Queue 1, item 11.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.api import LLMFunction
+from repro_torch.core.streaming import ForkSession, StreamEntry, WeightStreamer
+from repro_torch.core.template import FunctionTemplate, generate_template
+from repro_torch.core.tracing import trace_weight_access, weight_sizes
+from repro_torch.hw import H100_SXM, HardwareProfile
+from repro_torch.models import transformer
+from repro_torch.utils import named_leaves, tensor_nbytes
+
+
+@dataclasses.dataclass
+class ForkStats:
+    reused_bytes: int = 0        # shared device buffers (resident prefix)
+    streamed_bytes: int = 0      # async host->device in access order
+    dynamic_bytes: int = 0       # replayed request-specific weights
+    fork_s: float = 0.0
+    new_dynamic: tuple = ()
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A device copy that never aliases the host pool."""
+    return t.to(device, copy=True)
+
+
+class TemplateServer:
+    def __init__(self, hw: HardwareProfile = H100_SXM,
+                 device_budget_bytes: int = 1 << 62,
+                 trace_batch: int = 1, trace_seq: int = 64):
+        self.hw = hw
+        self.device_budget = device_budget_bytes
+        self.trace_batch = trace_batch
+        self.trace_seq = trace_seq
+        self.templates: dict = {}                     # fn -> FunctionTemplate
+        # fn -> int32 tokens of the function's shared prompt prefix: warm
+        # state beyond weights, baked once into pinned arena pages
+        self.template_prompts: dict = {}
+        self.host_pool: dict = {}                     # fn -> path -> tensor
+        self.device_cache: dict = {}                  # fn -> path -> tensor
+        self._leaf_order: dict = {}                   # fn -> [path, ...]
+        self._functions: dict = {}
+
+    # ------------------------------------------------------------------
+    def device_bytes_used(self) -> int:
+        return sum(tensor_nbytes(t) for d in self.device_cache.values()
+                   for t in d.values())
+
+    def register(self, fn: LLMFunction, example_event: dict,
+                 resident_bytes: int = 0,
+                 template_prompt=None) -> FunctionTemplate:
+        """Build the function's template (offline or at first invocation).
+
+        ``template_prompt`` records the function's shared prompt prefix:
+        runtimes bake its KV at deploy and serve later invocations
+        suffix-only."""
+        model = fn.model
+        # a re-register without a template opts out; the new entry lands
+        # only after the initializer ran (a failing one records nothing)
+        self.template_prompts.pop(fn.name, None)
+        traced, fps = fn.run_initializer(example_event)
+
+        specs = model.param_specs()
+        B, S = self.trace_batch, self.trace_seq
+        tokens = torch.zeros((B, S), dtype=torch.int32, device="meta")
+        cache = transformer.make_cache(model.cfg, B, S, device="meta")
+        trace = trace_weight_access(
+            lambda p, t, c: transformer.prefill(p, model.cfg, t, c),
+            specs, tokens, cache)
+        template = generate_template(fn.name, trace,
+                                     weight_sizes(specs, trace.order), fps,
+                                     resident_bytes=resident_bytes)
+        self.templates[fn.name] = template
+        self._functions[fn.name] = fn
+        self._leaf_order[fn.name] = [path for path, _ in trace.order]
+
+        # host pool: materialize static weights once (pinned for a card)
+        pin = model.device.type == "cuda"
+        pool = {}
+        for path, leaf in named_leaves(traced):
+            if path not in template.dynamic:
+                t = leaf.materialize().contiguous()
+                pool[path] = t.pin_memory() if pin else t
+        self.host_pool[fn.name] = pool
+        self._refresh_residency(fn.name)
+        if template_prompt is not None:
+            self.template_prompts[fn.name] = np.asarray(
+                template_prompt, np.int32).reshape(-1)
+        return template
+
+    # ------------------------------------------------------------------
+    def _resident_leaves(self, fn_name: str) -> list:
+        """Access-order prefix of static weights within the Eq. 1 budget."""
+        t = self.templates[fn_name]
+        pool = self.host_pool[fn_name]
+        budget = min(t.resident_bytes, self.device_budget)
+        out = []
+        for path in self._leaf_order[fn_name]:
+            if path in t.dynamic or path not in pool:
+                continue
+            n = tensor_nbytes(pool[path])
+            if n > budget:
+                break
+            out.append(path)
+            budget -= n
+        return out
+
+    def _refresh_residency(self, fn_name: str) -> None:
+        pool = self.host_pool[fn_name]
+        want = self._resident_leaves(fn_name)
+        cache = self.device_cache.setdefault(fn_name, {})
+        device = self._functions[fn_name].model.device
+        for path in [p for p in cache if p not in want]:
+            del cache[path]
+        for path in want:
+            if path not in cache:
+                cache[path] = _to_device(pool[path], device)
+
+    def set_resident_bytes(self, fn_name: str, nbytes: int) -> None:
+        self.templates[fn_name].resident_bytes = int(nbytes)
+        self._refresh_residency(fn_name)
+
+    # ------------------------------------------------------------------
+    def fork(self, fn_name: str, event: dict) -> tuple:
+        """Adaptive state forking for one invocation.
+
+        Returns ``(ForkSession, ForkStats)``: resident tensors are shared,
+        dynamic weights replayed, and the rest stream in access order on
+        the streamer's thread."""
+        t0 = time.perf_counter()
+        fn = self._functions[fn_name]
+        device = fn.model.device
+        template = self.templates[fn_name]
+        pool = self.host_pool[fn_name]
+
+        traced, fps = fn.run_initializer(event)
+        new_dyn = template.observe_init(fps)
+        for path in new_dyn:         # newly dynamic: out of pool and cache
+            pool.pop(path, None)
+            self.device_cache.get(fn_name, {}).pop(path, None)
+        traced_by_path = dict(named_leaves(traced))
+
+        stats = ForkStats(new_dynamic=tuple(sorted(new_dyn)))
+        resident = dict(self.device_cache.get(fn_name, {}))
+        stats.reused_bytes = sum(tensor_nbytes(t) for t in resident.values())
+
+        # dynamic weights: replay the DFG now (request-specific work)
+        dynamic: dict = {}
+        for path in sorted(template.dynamic):
+            dynamic[path] = _to_device(traced_by_path[path].materialize(),
+                                       device)
+            stats.dynamic_bytes += tensor_nbytes(dynamic[path])
+
+        # the remaining static weights stream in traced access order
+        entries = []
+        for key in template.static_order:
+            path = key[0]
+            if path in resident or path in dynamic:
+                continue
+            src = pool[path]
+            entries.append(StreamEntry(key=key, fetch=lambda s=src: s))
+            stats.streamed_bytes += tensor_nbytes(src)
+
+        streamer = WeightStreamer(entries, resident, dynamic,
+                                  device=device).start()
+        session = ForkSession(fn.model, streamer)
+        stats.fork_s = time.perf_counter() - t0
+        return session, stats
+
+    # ------------------------------------------------------------------
+    def observe_ttft(self, fn_name: str, ttft_s: float) -> None:
+        """Feed a measured TTFT back into Eq. 1 and refresh residency."""
+        self.templates[fn_name].observe_ttft(ttft_s, self.hw)
+        self._refresh_residency(fn_name)

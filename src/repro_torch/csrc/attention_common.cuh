@@ -1,0 +1,50 @@
+// Device helpers shared by the attention kernels of this directory.
+//
+// Element conversions to and from fp32 (the kernels compute in fp32 and
+// store in the caller's dtype), warp-wide sum and max by shuffles, and the
+// finite mask value the TPU kernels use (jnp.finfo(float32).min), so
+// exp(m_prev - m_new) never produces NaN when a whole row is masked.
+
+#pragma once
+
+#include <cfloat>
+#include <cstdint>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr float kMaskValue = -FLT_MAX;   // jnp.finfo(float32).min
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Rows a decode warp loads before it computes with any of them: fewer at
+// wider heads, where each row already takes more registers per lane.
+// VEC = ceil(d / 32) head-dim elements per lane.
+template <int VEC>
+struct ChunkRows {
+  static constexpr int value = VEC >= 8 ? 2 : (VEC >= 4 ? 4 : 8);
+};
+
+}  // namespace

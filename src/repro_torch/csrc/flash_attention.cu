@@ -33,11 +33,7 @@
 // arrive as views of the model's [B, S, H, d] activations and [B, T, KV, d]
 // cache: nothing is transposed per call.
 
-#include <cfloat>
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -45,28 +41,6 @@ constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = 4;
 constexpr int kBQ = kWarps * kRowsPerWarp;   // query rows per block
 constexpr int kBK = 32;                      // keys per tile (one per lane)
-constexpr float kMaskValue = -FLT_MAX;       // jnp.finfo(float32).min
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 struct Strides {   // element strides of the (batch, head, sequence) axes
   int64_t b, h, s;

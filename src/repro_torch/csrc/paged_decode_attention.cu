@@ -34,40 +34,12 @@
 // normaliser is clamped at 1e-30; rows of free slots point at the null
 // page 0, which is read like any other page; element offsets are 64-bit.
 
-#include <cfloat>
-#include <cstdint>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kMaxG = 8;
-constexpr float kMaskValue = -FLT_MAX;   // jnp.finfo(float32).min
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rows a warp loads before computing: fewer at wider heads, where each row
-// already takes more registers per lane.
-template <int VEC>
-struct ChunkRows {
-  static constexpr int value = VEC >= 8 ? 2 : (VEC >= 4 ? 4 : 8);
-};
 
 // Lane l of a warp owns head-dim elements l, l + 32, ..., so a row is read
 // with 32 consecutive lanes per step.  VEC = ceil(d / 32).

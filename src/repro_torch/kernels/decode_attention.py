@@ -1,0 +1,81 @@
+"""Decode attention over a dense cache: wrapper of ``csrc/decode_attention.cu``.
+
+For tensors on a CUDA device the wrapper launches the hand-written kernel
+or raises; for tensors on the CPU it runs the plain version in ``ref.py``.
+k and v may be strided views (the model hands in its [B, T, KV, d] layer
+cache transposed to [B, KV, T, d]); only the head-dim axis must be
+contiguous, so the cache is read in its storage layout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, meta, ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_ARGTYPES = ([_P] * 5                             # q k v lengths out
+             + [_I] * 5                           # B H KV d T
+             + [_L] * 6                           # k, v (b, t, h) strides
+             + [_I, _P])                          # dtype stream
+MAX_GROUP = 8                                     # query heads per KV head
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"decode_attention: {msg}")
+
+
+def decode_attention(q, k, v, length):
+    """One-token attention against a dense KV cache.
+
+    Args:
+      q: [B, H, d] query (one decode token per sequence), fp32 or bf16.
+      k, v: [B, KV, T, d] keys/values in q's dtype (H a multiple of KV,
+        H / KV <= 8); any strides with a contiguous head dim.
+      length: int or [B] number of valid cache rows per sequence.
+
+    Returns:
+      [B, H, d] in ``q.dtype``.
+    """
+    if meta.is_meta(q):
+        return meta.kernel_call("decode_attention", (q, k, v),
+                                lambda: torch.empty_like(q))
+    B, H, d = q.shape
+    lengths = torch.as_tensor(length, dtype=torch.int32, device=q.device)
+    lengths = lengths.reshape(-1).expand(B).contiguous()
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, lengths)
+    _require(q.device.type == "cuda", f"unsupported device {q.device}")
+    KV, T = k.shape[1], k.shape[2]
+    _require(k.device == v.device == q.device, "all tensors must be on one device")
+    _require(q.dtype in _DTYPES and k.dtype == v.dtype == q.dtype,
+             f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
+    _require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == d,
+             f"shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    _require(H % KV == 0 and H // KV <= MAX_GROUP,
+             f"H={H}, KV={KV} (G = H / KV must be at most {MAX_GROUP})")
+    _require(d in (64, 128, 256), f"head_dim {d} (64, 128 or 256)")
+    _require(q.is_contiguous(), "q must be contiguous")
+    _require(k.stride(-1) == 1 and v.stride(-1) == 1,
+             "the head-dim axis of k and v must be contiguous")
+    out = torch.empty_like(q)
+    fn = _build.function("repro_decode_attention", _ARGTYPES)
+    # kernel strides are over the (batch, row, KV head) axes
+    strides = [t.stride(i) for t in (k, v) for i in (0, 2, 1)]
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                 out.data_ptr(), B, H, KV, d, T, *strides, _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"decode_attention: launch failed, cudaError_t {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -43,6 +43,12 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0):
       [B, H, S, d] in ``q.dtype`` (on the card, a view of a [B, S, H, d]
       buffer, so the caller's transpose back is free).
     """
+    if meta.is_meta(q):
+        return meta.kernel_call(
+            "flash_attention", (q, k, v),
+            lambda: torch.empty(q.shape[:1] + q.shape[2:3] + q.shape[1:2]
+                                + q.shape[3:], dtype=q.dtype,
+                                device=q.device).transpose(1, 2))
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
     _require(q.device.type == "cuda", f"unsupported device {q.device}")

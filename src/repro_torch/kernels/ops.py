@@ -2,16 +2,19 @@
 
 Each entry point dispatches on where its tensors live: a CUDA tensor runs
 the hand-written kernel (``csrc/``), a CPU tensor its plain PyTorch
-version (``ref.py``).  ``launch_counts`` reads how often each kernel was
+version (``ref.py``), a ``meta`` tensor (tracing) an empty output of the
+right shape (``meta.py``).  ``launch_counts`` reads how often each kernel was
 launched, so a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
 
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 
 KERNELS = {
+    "decode_attention": decode_attention,
     "flash_attention": flash_attention,
     "paged_decode_attention": paged_decode_attention,
 }
@@ -28,5 +31,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["KERNELS", "flash_attention", "launch_counts",
+__all__ = ["KERNELS", "decode_attention", "flash_attention", "launch_counts",
            "paged_decode_attention", "reset_launch_counts"]

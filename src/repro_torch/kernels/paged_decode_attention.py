@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -44,6 +44,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     """
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales, or neither")
+    if meta.is_meta(q):
+        return meta.kernel_call("paged_decode_attention",
+                                (q, k_pages, v_pages, page_table),
+                                lambda: torch.empty_like(q))
     B, H, d = q.shape
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
     lengths = lengths.reshape(-1).expand(B).contiguous()

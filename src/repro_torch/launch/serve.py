@@ -1,0 +1,143 @@
+"""Serving driver: deploy LLM functions on the port's TIDAL stack and
+serve a closed loop of requests through ``FaaSRuntime`` (on the card by
+default; ``--device cpu`` with a reduced depth runs it on the CPU).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch smollm-135m --functions 3 --requests 12 --lora
+
+Per request the runtime picks the service class itself: ``cold`` (first
+invocation), ``fork`` (adaptive state forking from the template, prefill
+overlapped with weight streaming) or ``warm`` (a kept-alive engine, no
+forking).  Every TTFT feeds back into the template's Eq. 1 residency.
+
+Weights are random from a seed.  On the card the model is the full-width
+configuration of ``--arch``; on the CPU it is the narrow smoke
+configuration, as ``repro.launch.serve`` serves it there.  ``--layers``
+cuts the depth of either.  ``--tp``, ``--instances``, ``--open-loop``
+and ``--predictive`` belong to later slices of the port and exit with a
+message naming theirs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import sys
+
+import numpy as np
+
+from repro_torch.core import api as tidal
+from repro_torch.data.pipeline import make_prompts
+from repro_torch.models.registry import get_config, get_model
+from repro_torch.models.config import reduced
+from repro_torch.runtime.errors import DeadlineExceeded
+from repro_torch.runtime.faas import FaaSRuntime
+from repro_torch.runtime.gateway import InvocationRequest
+from repro_torch.utils import fmt_bytes
+
+LATER = {"tp": "tensor parallelism (ROADMAP Queue 1, item 11)",
+         "instances": "multi-instance serving (ROADMAP Queue 1, item 11)",
+         "open_loop": "the open-loop driver (ROADMAP Queue 1, item 9)",
+         "predictive": "the control plane (ROADMAP Queue 1, item 9)"}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--functions", type=int, default=2)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4,
+                    help="KV-cache slots per engine (decode batch capacity)")
+    ap.add_argument("--keep-alive", type=float, default=60.0)
+    ap.add_argument("--lora", action="store_true",
+                    help="deploy dynamic (LoRA) function variants")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth (default: the full configuration)")
+    ap.add_argument("--chunk-tokens", type=int, default=None,
+                    help="chunked prefill: split prompts into page-multiple "
+                         "chunks interleaved with decode")
+    ap.add_argument("--kv-dtype", choices=["int8"], default=None,
+                    help="quantize the paged KV arena (int8 values and "
+                         "per-row scales, dequantized inside the decode "
+                         "kernel)")
+    ap.add_argument("--deadline", type=float, default=None,
+                    help="queueing deadline (s); expired requests shed")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--instances", type=int, default=1)
+    ap.add_argument("--open-loop", action="store_true")
+    ap.add_argument("--predictive", action="store_true")
+    args = ap.parse_args(argv)
+    for flag, what in LATER.items():
+        if getattr(args, flag) != ap.get_default(flag):
+            sys.exit(f"--{flag.replace('_', '-')}: {what} is not in the "
+                     "PyTorch port yet")
+
+    cfg = get_config(args.arch)
+    extra = {} if args.layers is None else {"n_layers": args.layers}
+    cpu = args.device == "cpu"
+    cfg = reduced(cfg, **extra) if cpu else cfg.replace(**extra)
+    model = get_model(cfg, device=args.device)
+    rt = FaaSRuntime(n_slots=args.slots,
+                     max_len=args.prompt_len + args.max_new,
+                     keep_alive_s=args.keep_alive, trace_seq=args.prompt_len,
+                     chunk_tokens=args.chunk_tokens, kv_dtype=args.kv_dtype,
+                     device=args.device)
+
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.functions):
+        params = model.init_params(seed=args.seed + i)
+        name = f"fn-{i}"
+        if args.lora:
+            fn = tidal.lora_function(name, model, params, ["blocks.attn.wq"],
+                                     n_adapters=3)
+            rt.deploy(fn, {"adapter": "adapter-0"}, prewarm_seq=args.prompt_len)
+        else:
+            fn = tidal.static_function(name, model, params)
+            rt.deploy(fn, {}, prewarm_seq=args.prompt_len)
+    print(f"deployed {args.functions} function(s) of {cfg.name} "
+          f"({cfg.n_layers} layers, {cfg.dtype}) on {rt.device}; warmed "
+          f"{rt.exe_cache.stats.misses} entry points in "
+          f"{rt.exe_cache.stats.compile_s:.1f}s")
+
+    ttfts, kinds = [], collections.Counter()
+    for r in range(args.requests):
+        name = f"fn-{rng.integers(args.functions)}"
+        event = ({"adapter": f"adapter-{rng.integers(3)}"}
+                 if args.lora else {})
+        prompt = make_prompts(cfg.vocab_size, 1, args.prompt_len,
+                              seed=100 + r)[0]
+        try:
+            res = rt.submit(InvocationRequest(
+                name, prompt, event=event, max_new_tokens=args.max_new,
+                deadline_s=args.deadline)).result()
+        except DeadlineExceeded:
+            kinds["shed"] += 1
+            print(f"req{r:02d} {name} SHED (deadline {args.deadline}s)")
+            continue
+        ttfts.append(res.ttft_s)
+        kinds[res.kind] += 1
+        fs = res.fork_stats
+        detail = (f"reused={fmt_bytes(fs.reused_bytes):>10} "
+                  f"streamed={fmt_bytes(fs.streamed_bytes):>10} "
+                  f"dyn={fmt_bytes(fs.dynamic_bytes):>9}"
+                  if fs is not None else " " * 43)
+        print(f"req{r:02d} {name} "
+              f"{'(' + event.get('adapter', '') + ')' if args.lora else '':14s}"
+              f" {res.kind:4s} ttft={res.ttft_s*1e3:7.1f}ms "
+              f"e2e={res.e2e_s*1e3:7.1f}ms {detail} "
+              f"tokens={[int(t) for t in res.tokens[:4]]}...")
+
+    p50, p95 = (np.percentile(ttfts, q) * 1e3 if ttfts else float("nan")
+                for q in (50, 95))
+    print(f"\np50 ttft {p50:.1f}ms  p95 {p95:.1f}ms  kinds={dict(kinds)}  "
+          f"(Eq.1-adapted residency: "
+          f"{[fmt_bytes(t.resident_bytes) for t in rt.server.templates.values()]})")
+
+
+if __name__ == "__main__":
+    main()

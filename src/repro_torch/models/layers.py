@@ -21,12 +21,17 @@ from repro_torch.models import quant
 from repro_torch.models.config import ModelConfig
 
 
-def normal_(gen: torch.Generator, shape, scale: Optional[float] = None):
+def normal_(gen: Optional[torch.Generator], shape,
+            scale: Optional[float] = None):
     """A float32 normal draw on the CPU; fan-in scaled (1/sqrt(shape[0]))
-    unless ``scale`` is given."""
+    unless ``scale`` is given.  With ``gen=None`` an uninitialized tensor
+    of the shape on the default device (the ``meta`` parameter specs)."""
+    shape = tuple(int(s) for s in shape)
+    if gen is None:
+        return torch.empty(shape)
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
-    return torch.randn(tuple(int(s) for s in shape), generator=gen) * scale
+    return torch.randn(shape, generator=gen) * scale
 
 
 # ---------------------------------------------------------------------------
@@ -102,12 +107,14 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     Three branches, as in ``repro.models.layers.attention_block``:
 
     * no cache: causal attention over ``x`` itself (the flash kernel);
-    * dense cache ``{'k','v': [B, T, KV, hd]}``: with an int ``cache_pos``
-      (prefill, or suffix prefill over a reused prefix) K/V land at
-      ``cache_pos ..`` and the flash kernel attends over the first
-      ``cache_pos + S`` rows with the bottom-right causal mask; with a
-      ``[B]`` tensor ``cache_pos`` (decode, S == 1) each sequence writes at
-      its own offset and attention is the plain ``_sdpa``;
+    * dense cache ``{'k','v': [B, T, KV, hd]}``: K/V land in place at
+      ``cache_pos`` (an int: rows ``cache_pos ..``; a ``[B]`` tensor:
+      each sequence at its own offset, decode only).  One query token
+      (S == 1, decode) goes to the ``decode_attention`` kernel over the
+      first ``cache_pos + 1`` rows, reading the cache in its storage
+      layout; longer prefills and suffix prefills go to the flash kernel
+      over the first ``cache_pos + S`` rows with the bottom-right causal
+      mask;
     * paged (``page_table`` given, decode only): the cache leaves are one
       arena ``[P, page_size, KV, hd]``; this token's K/V (quantized on
       append for an int8 arena) are written into its page and the paged
@@ -166,24 +173,28 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     elif kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         if isinstance(cache_pos, int):
-            # prefill: write in place, then attend over the filled rows
+            # write in place, then attend over the filled rows
             ck[:, cache_pos:cache_pos + S] = k.to(ck.dtype)
             cv[:, cache_pos:cache_pos + S] = v.to(cv.dtype)
-            T = cache_pos + S
-            out = ops.flash_attention(
-                q.transpose(1, 2), ck[:, :T].transpose(1, 2),
-                cv[:, :T].transpose(1, 2), causal=True,
-                softcap=softcap).transpose(1, 2)
         else:
             if S != 1:
                 raise ValueError("per-sequence cache_pos is decode-only")
             b = torch.arange(B, device=x.device)
             ck[b, cache_pos.long()] = k[:, 0].to(ck.dtype)
             cv[b, cache_pos.long()] = v[:, 0].to(cv.dtype)
-            T = ck.shape[1]
-            mask = (torch.arange(T, device=x.device)[None, None, None, None, :]
-                    <= positions[:, :, None, None, None])
-            out = _sdpa(q.reshape(B, S, KV, G, hd), ck, cv, mask, softcap)
+        if S == 1:
+            if softcap > 0:
+                raise NotImplementedError(
+                    "decode_attention has no logit softcap")
+            out = ops.decode_attention(q[:, 0], ck.transpose(1, 2),
+                                       cv.transpose(1, 2),
+                                       cache_pos + 1)[:, None]
+        else:
+            T = cache_pos + S
+            out = ops.flash_attention(
+                q.transpose(1, 2), ck[:, :T].transpose(1, 2),
+                cv[:, :T].transpose(1, 2), causal=True,
+                softcap=softcap).transpose(1, 2)
     elif causal:
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2), causal=True,

@@ -58,6 +58,10 @@ class Model:
     def init_params(self, seed: int = 0) -> dict:
         return transformer.init_params(self.cfg, seed, self.device)
 
+    def param_specs(self) -> dict:
+        """The parameter dict as shape-only ``meta`` tensors."""
+        return transformer.param_specs(self.cfg)
+
     def make_cache(self, batch: int, max_len: int) -> dict:
         return transformer.make_cache(self.cfg, batch, max_len, self.device)
 

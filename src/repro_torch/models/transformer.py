@@ -12,6 +12,7 @@ Entry points (dense family; moe / MLA / recurrent families come later):
   decode_step(params, cfg, cache, tokens, pos)        -> (logits, cache)
   decode_step_paged(params, cfg, cache, tokens, pos, page_table, page_size)
   init_params(cfg, seed, device)                      -> params
+  param_specs(cfg)                                    -> params on ``meta``
   make_cache / make_paged_cache                       -> cache dict
 """
 
@@ -56,12 +57,10 @@ def supports_paged_kv(cfg: ModelConfig) -> bool:
 # parameters and caches
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random parameters drawn from a seeded CPU ``torch.Generator`` (a
-    fan-in scaled normal; norms ones, biases zeros), then moved to
-    ``device``: the same seed gives the same weights on every device."""
-    check_dense(cfg)
-    gen = torch.Generator().manual_seed(seed)
+def _param_tree(cfg: ModelConfig, gen: Optional[torch.Generator]) -> dict:
+    """The parameter dict in float32: normals from ``gen`` (fan-in scaled;
+    norms ones, biases zeros), or uninitialized tensors of the same
+    shapes when ``gen`` is None (see :func:`param_specs`)."""
     V, D = cfg.vocab_size, cfg.d_model
     params: dict = {"embed": normal_(gen, (V, D), scale=0.02), "layers": []}
     for _ in range(cfg.n_layers):
@@ -72,7 +71,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     params["final_norm"] = torch.ones(D)
     if not cfg.tied_embeddings:
         params["lm_head"] = normal_(gen, (D, V), scale=0.02)
-    return to_device(params, device, torch_dtype(cfg.dtype))
+    return params
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+    """Random parameters drawn from a seeded CPU ``torch.Generator`` (a
+    fan-in scaled normal; norms ones, biases zeros), then moved to
+    ``device``: the same seed gives the same weights on every device."""
+    check_dense(cfg)
+    gen = torch.Generator().manual_seed(seed)
+    return to_device(_param_tree(cfg, gen), device, torch_dtype(cfg.dtype))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter dict as ``meta`` tensors: every leaf's shape and dtype,
+    no storage and no random draws (the counterpart of the JAX package's
+    ``init_params(abstract=True)``).  Tracing, ``assemble`` and the LoRA
+    helpers read the model's structure from it."""
+    check_dense(cfg)
+    with torch.device("meta"):
+        tree = _param_tree(cfg, None)
+    return to_device(tree, "meta", torch_dtype(cfg.dtype))
 
 
 def to_device(tree, device, dtype: Optional[torch.dtype] = None):
@@ -120,16 +139,31 @@ def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # the layer loop
 # ---------------------------------------------------------------------------
 
+def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
+                 cache_pos, page_table=None, page_size: int = 0):
+    """One decoder block (pre-norm attention, then the gated MLP) over its
+    parameters ``bp`` and its layer's cache (updated in place).  The layer
+    loop below and the layer-streamed prefill (``core.streaming``) both
+    run it."""
+    h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
+    a, _ = attention_block(bp["attn"], h, cfg, positions, layer_cache,
+                           cache_pos, page_table=page_table,
+                           page_size=page_size)
+    x = x + a
+    h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
+    return x + mlp_block(bp["mlp"], h, cfg.act)
+
+
+def layer_cache(cache: Optional[dict], layer: int) -> Optional[dict]:
+    """The views of one layer's cache leaves (writes land in ``cache``)."""
+    return None if cache is None else {k: t[layer] for k, t in cache.items()}
+
+
 def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
              page_size: int = 0):
     for layer, bp in enumerate(params["layers"]):
-        lc = None if cache is None else {k: t[layer] for k, t in cache.items()}
-        h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
-        a, _ = attention_block(bp["attn"], h, cfg, positions, lc, cache_pos,
-                               page_table=page_table, page_size=page_size)
-        x = x + a
-        h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + mlp_block(bp["mlp"], h, cfg.act)
+        x = _dense_block(bp, x, cfg, positions, layer_cache(cache, layer),
+                         cache_pos, page_table, page_size)
     return x
 
 

@@ -1,35 +1,36 @@
-"""Continuous-batching serving engine over the paged KV arena.
+"""Continuous-batching serving engine over the KV-cache pools.
 
-The port of ``repro.runtime.continuous.ContinuousBatchingEngine`` (paged
-path).  The engine keeps an admission queue and a step loop:
+The port of ``repro.runtime.continuous.ContinuousBatchingEngine``.  The
+engine keeps an admission queue and a step loop:
 
   * **prefill-on-arrival** — a queued request is admitted the moment a slot
-    and its pages fit: its prompt prefills as a batch-1 call (suffix-only
-    over the shared pages of a prefix hit) and the filled pages land in
-    the arena;
-  * **batched decode** — every step issues ONE ``decode_step_paged`` over
-    the whole slot axis with a per-slot position vector and the engine's
-    owner-masked page table, so requests of different lengths and ages
-    share the batch and co-tenants' slots ride along as null-page dummies;
-  * **retirement** — finished requests release their slot and pages.
+    (and, paged, its pages) fit: its prompt prefills as a batch-1 call
+    (suffix-only over the shared pages of a prefix hit; layer-streamed
+    when ``params`` is a :class:`ForkSession` whose weights are still in
+    flight) and the filled cache lands in the pool;
+  * **batched decode** — every step issues ONE decode over the whole slot
+    axis with a per-slot position vector: ``decode_step_paged`` under the
+    engine's owner-masked page table over a ``PagedKVCachePool``, or
+    ``decode_step`` over a dense ``KVCachePool`` (``paged=False``, the
+    ``decode_attention`` kernel), so requests of different lengths and
+    ages share the batch;
+  * **retirement** — finished requests release their slot (and pages).
 
-With ``chunk_tokens``, prefill is chunked into the step loop: each step
-advances mid-prefill slots by up to ``chunk_tokens`` prompt tokens (page-
-multiple ``prefill_from`` calls), then runs one batched decode over the
-slots past their prompt.  Mid-prefill slots ride the decode batch as
-dummies writing at the last padded position, whose block stays unmapped
-while the cursor is short of the prompt, so the write lands on the null
-page and the logits row is discarded, exactly like a free slot's.
+With ``chunk_tokens`` (paged pools only), prefill is chunked into the step
+loop: each step advances mid-prefill slots by up to ``chunk_tokens``
+prompt tokens (page-multiple ``prefill_from`` calls), then runs one
+batched decode over the slots past their prompt.  Mid-prefill slots ride
+the decode batch as dummies writing at the last padded position, whose
+block stays unmapped while the cursor is short of the prompt, so the
+write lands on the null page and the logits row is discarded, exactly
+like a free slot's.
 
 Greedy decoding reproduces the JAX engine's tokens request by request
 (tested): the port runs the same admission, page and position logic.
+``step_n`` and ``step_tokens`` are the gateway's scheduling quanta.
 
-Not ported yet, and raising ``NotImplementedError``: forked sessions with
-layer-streamed prefill (the TIDAL fork-path slice), sharding plans
-(the tensor-parallel slice) and adapter banks (the adapter slice).  The
-dense slot pool for recurrent families arrives with ``decode_attention``;
-the gateway's quantum stepping (``step_n``/``step_tokens``) with the
-gateway.
+Not ported yet, and raising ``NotImplementedError``: sharding plans
+(ROADMAP Queue 1, item 11) and adapter banks (item 8).
 """
 
 from __future__ import annotations
@@ -42,10 +43,13 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.streaming import (ForkSession, streamed_prefill,
+                                        supports_streamed_prefill)
 from repro_torch.models.registry import Model
 from repro_torch.runtime.engine import sample_greedy, sample_token
 from repro_torch.runtime.faults import fault_point
-from repro_torch.runtime.kv_pool import PagedKVCachePool, PoolExhausted
+from repro_torch.runtime.kv_pool import (KVCachePool, PagedKVCachePool,
+                                         PoolExhausted)
 
 _UNMATCHED = object()                # prefix match not yet attempted
 
@@ -75,6 +79,7 @@ class RequestOutput:
     n_generated: int
     ttft_s: float                    # submit -> first token (incl. queueing)
     e2e_s: float                     # submit -> retirement
+    streamed_prefill: bool = False   # admitted while weights were in flight
     reused_prefix_len: int = 0       # prompt tokens served from shared pages
     status: str = "done"             # 'done' | 'cancelled' | 'shed' | 'failed'
     error: Optional[str] = None      # set for 'failed' (unservable) requests
@@ -86,25 +91,35 @@ class _Active:
     slot: int
     tokens: list
     ttft_s: float
+    streamed: bool = False
     reused_prefix_len: int = 0
     cursor: int = 0                  # prompt tokens prefilled so far
     prefilling: bool = False         # True until the cursor reaches the prompt
 
 
 class ContinuousBatchingEngine:
-    """Multi-request generation for one model instance over a paged arena.
+    """Multi-request generation for one model instance.
 
-    ``params`` is the model's parameter dict (``Model.init_params`` or
-    ``convert.params_from_jax``).  ``pool`` injects a shared arena (engines
-    of one model co-reside on it under owner leases); otherwise the engine
-    builds its own ``PagedKVCachePool`` on the model's device.
+    ``params`` is the model's parameter dict (a warm instance) or a
+    :class:`ForkSession` (a freshly forked one): with a session,
+    admissions before the stream completes prefill layer by layer against
+    the weights already on the device, and the first batched decode waits
+    only for the remaining copies.  ``pool`` injects a shared pool
+    (engines of one model co-reside on a paged arena under owner leases);
+    otherwise the engine builds its own on the model's device: paged for
+    the attention families unless ``paged=False``.
 
-    ``n_decode_steps`` and ``n_prefill_calls`` count the batched decode
-    steps and the prefill / suffix-prefill calls this engine has run.
+    The engine calls the model's own ``prefill`` / ``prefill_from`` /
+    ``decode_step(_paged)``: eager PyTorch has no compiled executables to
+    inject, so the JAX engine's ``prefill_fn`` / ``decode_fn`` parameters
+    have no counterpart here.  ``n_decode_steps`` and ``n_prefill_calls``
+    count the batched decode steps and the prefill calls this engine has
+    run.
     """
 
     def __init__(self, model: Model, params: Any, n_slots: int = 4,
-                 max_len: int = 128, page_size: int = 8,
+                 max_len: int = 128,
+                 paged: Optional[bool] = None, page_size: int = 8,
                  n_pages: Optional[int] = None,
                  plan: Optional[Any] = None, pool: Optional[Any] = None,
                  prefix_index: Optional[Any] = None,
@@ -113,10 +128,6 @@ class ContinuousBatchingEngine:
                  kv_dtype: Optional[str] = None,
                  adapter_bank: Optional[dict] = None,
                  owner_name: Optional[str] = None):
-        if not isinstance(params, dict):
-            raise NotImplementedError(
-                "params must be a parameter dict: forked sessions with "
-                "layer-streamed prefill arrive with the TIDAL fork-path slice")
         if plan is not None:
             raise NotImplementedError(
                 "sharding plans arrive with the tensor-parallel slice "
@@ -125,19 +136,34 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "adapter banks arrive with the adapter slice "
                 "(ROADMAP Queue 1, item 8)")
+        if not isinstance(params, (dict, ForkSession)):
+            raise TypeError("params must be a parameter dict or a "
+                            f"ForkSession, not {type(params).__name__}")
         self.model = model
-        self._params = params
+        self.session = params if isinstance(params, ForkSession) else None
+        self._params = None if self.session is not None else params
         if pool is not None:
             self.pool = pool
+            self.paged = isinstance(pool, PagedKVCachePool)
             n_slots = pool.n_slots
         else:
-            self.pool = PagedKVCachePool(model, n_slots, max_len,
-                                         page_size=page_size, n_pages=n_pages,
-                                         kv_dtype=kv_dtype)
+            self.paged = model.supports_paged_kv if paged is None else paged
+            if self.paged:
+                self.pool = PagedKVCachePool(model, n_slots, max_len,
+                                             page_size=page_size,
+                                             n_pages=n_pages,
+                                             kv_dtype=kv_dtype)
+            else:
+                if kv_dtype is not None:
+                    raise ValueError(
+                        "kv_dtype quantization needs the paged arena")
+                self.pool = KVCachePool(model, n_slots, max_len)
         self.device = self.pool.device
-        # partition lease: this engine's slots file under its owner token
-        # and its decode steps run under the pool's masked page-table view
-        self._owner = self.pool.register_owner(owner_name)
+        # partition lease: a paged engine's slots file under its owner
+        # token and its decode steps run under the pool's masked table.
+        # Dense pools have no mask and are borrowed exclusively.
+        self._owner = (self.pool.register_owner(owner_name)
+                       if self.paged else None)
         self.owner_name = owner_name
         self.queue: collections.deque = collections.deque()
         self.active: dict = {}                       # slot -> _Active
@@ -147,16 +173,24 @@ class ContinuousBatchingEngine:
         # round suffix-prefill lengths up to a page multiple (by shrinking
         # the reuse), as the JAX engine does for its compiled buckets
         self.bucket_suffix = bucket_suffix
+        # chunked prefill needs a position-addressable (paged) cache
         self.chunk_tokens = None
-        if chunk_tokens is not None:
+        if chunk_tokens is not None and self.paged:
             ps = self.pool.page_size
             self.chunk_tokens = max(ps, ps * -(-int(chunk_tokens) // ps))
         # per-slot feedback state (free slots decode position 0 / token 0;
         # their logits are computed and discarded)
         self._tok = np.zeros((n_slots, 1), np.int32)
         self._pos = np.zeros((n_slots,), np.int32)
+        self._step_tokens = 0            # work done by the last step()
         self.n_decode_steps = 0
         self.n_prefill_calls = 0
+
+    def params(self):
+        """Full params (a session waits for its outstanding copies)."""
+        if self._params is None:
+            self._params = self.session.params()
+        return self._params
 
     # ------------------------------------------------------------------
     @property
@@ -183,11 +217,12 @@ class ContinuousBatchingEngine:
             raise ValueError(
                 f"prompt({len(prompt)}) + max_new({max_new_tokens}) exceeds "
                 f"pool max_len={self.pool.max_len}")
-        need = self.pool.blocks_for(len(prompt) + max_new_tokens)
-        if need > self.pool.n_pages - 1:
-            raise ValueError(
-                f"request needs {need} KV pages but the arena has only "
-                f"{self.pool.n_pages - 1} allocatable pages")
+        if self.paged:
+            need = self.pool.blocks_for(len(prompt) + max_new_tokens)
+            if need > self.pool.n_pages - 1:
+                raise ValueError(
+                    f"request needs {need} KV pages but the arena has only "
+                    f"{self.pool.n_pages - 1} allocatable pages")
         rid = self._next_id
         self._next_id += 1
         self.queue.append(Request(rid, prompt, max_new_tokens,
@@ -216,7 +251,7 @@ class ContinuousBatchingEngine:
         a handle released after matching falls back to full prefill."""
         if req.prefix_hit is _UNMATCHED:
             req.prefix_hit = None
-            if self.prefix_index is not None:
+            if self.paged and self.prefix_index is not None:
                 req.prefix_hit = self.prefix_index.match(req.prompt)
             if req.prefix_hit is not None and (
                     self.bucket_suffix or self.chunk_tokens is not None):
@@ -235,6 +270,8 @@ class ContinuousBatchingEngine:
                 and len(req.prompt) - reuse > self.chunk_tokens)
 
     def _can_admit(self, req: Request) -> bool:
+        if not self.paged:
+            return bool(self.pool.n_free)
         hit = self._prefix_hit(req)
         reuse = hit[1] if hit else 0
         total = len(req.prompt) + req.max_new_tokens
@@ -273,12 +310,28 @@ class ContinuousBatchingEngine:
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(toks), device=self.device)
 
+    def _streams(self) -> bool:
+        """True while prefill must consume weights still in flight."""
+        return (self.session is not None and self._params is None
+                and supports_streamed_prefill(self.model))
+
     def _prefill(self, toks: np.ndarray, cache: dict, offset: int):
-        """Whole-prompt (offset 0) or suffix-only prefill, batch 1."""
+        """Whole-prompt (offset 0) or suffix-only prefill, batch 1;
+        layer-streamed while a fork's weights are in flight.  Returns
+        (logits, cache, streamed)."""
         self.n_prefill_calls += 1
-        return self.model.prefill_from(self._params,
-                                       {"tokens": self._tokens(toks)},
-                                       cache, offset)
+        toks = self._tokens(toks)
+        if self._streams():
+            logits, cache = streamed_prefill(self.session, {"tokens": toks},
+                                             cache, offset=offset)
+            return logits, cache, True
+        if offset:
+            logits, cache = self.model.prefill_from(
+                self.params(), {"tokens": toks}, cache, offset)
+        else:
+            logits, cache = self.model.prefill(self.params(),
+                                               {"tokens": toks}, cache)
+        return logits, cache, False
 
     def _sample_first(self, req: Request, logits: torch.Tensor) -> int:
         if req.temperature <= 0:
@@ -290,9 +343,9 @@ class ContinuousBatchingEngine:
         # injection point BEFORE any allocation
         fault_point("prefill_chunk",
                     f"admit:req={req.req_id}:len={len(req.prompt)}")
-        hit = self._prefix_hit(req)
+        hit = self._prefix_hit(req) if self.paged else None
         reuse = hit[1] if hit else 0
-        if self._chunked(req, reuse):
+        if self.paged and self._chunked(req, reuse):
             # reserve only the first chunk's pages and park the slot
             # mid-prefill: it rides the decode batch as a null-page dummy
             # (token 0 at the last padded position) until its final chunk
@@ -307,15 +360,24 @@ class ContinuousBatchingEngine:
                                         ttft_s=0.0, reused_prefix_len=reuse,
                                         cursor=reuse, prefilling=True)
             return
-        slot = self.pool.alloc(len(req.prompt), req.max_new_tokens,
-                               shared_prefix=hit[0] if hit else None,
-                               reuse_len=reuse, owner=self._owner)
+        if self.paged:
+            slot = self.pool.alloc(len(req.prompt), req.max_new_tokens,
+                                   shared_prefix=hit[0] if hit else None,
+                                   reuse_len=reuse, owner=self._owner)
+        else:
+            slot = self.pool.alloc()
         try:
             self._prefill_into(req, slot, reuse)
         except BaseException:
             # hand the slot (and its pages) straight back before re-raising
-            self.pool.release(slot, owner=self._owner)
+            self._release(slot)
             raise
+
+    def _release(self, slot: int) -> None:
+        if self.paged:
+            self.pool.release(slot, owner=self._owner)
+        else:
+            self.pool.release(slot)
 
     def _prefill_into(self, req: Request, slot: int, reuse: int) -> None:
         """Whole-prompt (or suffix-only) prefill into an allocated slot."""
@@ -324,17 +386,22 @@ class ContinuousBatchingEngine:
             # copy) as the working dense cache; prefill only the suffix
             cache = self.pool.read_slot_full(slot)
         else:
-            cache = self.model.make_cache(1, self.pool.padded_len)
-        logits, cache = self._prefill(req.prompt[None, reuse:], cache, reuse)
+            cache = self.model.make_cache(
+                1, self.pool.padded_len if self.paged else self.pool.max_len)
+        logits, cache, streamed = self._prefill(req.prompt[None, reuse:],
+                                                cache, reuse)
         first = self._sample_first(req, logits)
         ttft = time.perf_counter() - req.submit_s
-        self.pool.write_suffix(slot, cache, reuse, len(req.prompt),
-                               owner=self._owner)
+        if self.paged:
+            self.pool.write_suffix(slot, cache, reuse, len(req.prompt),
+                                   owner=self._owner)
+        else:
+            self.pool.write_slot(slot, cache)
         self._tok[slot, 0] = first
         # next decode writes the first generated token at position len(prompt)
         self._pos[slot] = len(req.prompt)
         st = _Active(req=req, slot=slot, tokens=[first], ttft_s=ttft,
-                     reused_prefix_len=reuse)
+                     streamed=streamed, reused_prefix_len=reuse)
         self.active[slot] = st
         if req.token_cb is not None:
             req.token_cb(req.req_id, first, 0)
@@ -370,8 +437,10 @@ class ContinuousBatchingEngine:
             if not self.pool.extend_budget(slot, end, owner=self._owner):
                 return 0
         cache = self.pool.read_slot_full(slot)
-        logits, cache = self._prefill(req.prompt[None, start:end], cache, start)
+        logits, cache, streamed = self._prefill(req.prompt[None, start:end],
+                                                cache, start)
         self.pool.write_suffix(slot, cache, start, end, owner=self._owner)
+        st.streamed = st.streamed or streamed
         st.cursor = end
         if final:
             first = self._sample_first(req, logits)
@@ -389,7 +458,7 @@ class ContinuousBatchingEngine:
     def _retire(self, slot: int, status: str = "done",
                 error: Optional[str] = None) -> None:
         st = self.active.pop(slot)
-        self.pool.release(slot, owner=self._owner)
+        self._release(slot)
         self._tok[slot, 0] = 0
         self._pos[slot] = 0
         e2e = time.perf_counter() - st.req.submit_s
@@ -401,13 +470,16 @@ class ContinuousBatchingEngine:
             # a slot cancelled/failed mid-prefill never emitted a token
             ttft_s=st.ttft_s if st.tokens else e2e,
             e2e_s=e2e,
+            streamed_prefill=st.streamed,
             reused_prefix_len=st.reused_prefix_len,
             status=status, error=error)
 
     # ------------------------------------------------------------------
     def _foreign_slots(self) -> int:
         """Slots of the pool allocated by a DIFFERENT engine."""
-        return self.pool.n_foreign_slots(self._owner)
+        if self.paged:
+            return self.pool.n_foreign_slots(self._owner)
+        return (self.pool.n_slots - self.pool.n_free) - len(self.active)
 
     def step(self) -> bool:
         """One MIXED batched step: admit what fits, advance mid-prefill
@@ -419,7 +491,17 @@ class ContinuousBatchingEngine:
             fault_point("engine_step",
                         f"{self.owner_name or 'engine'}:"
                         f"pending={self.n_pending}")
+        if (self.queue or self.active) and not self.paged:
+            # a dense batched decode writes EVERY slot's row (no masked
+            # view protects a co-tenant), so dense pools are exclusive
+            foreign = self._foreign_slots()
+            if foreign > 0:
+                raise RuntimeError(
+                    f"shared KV pool: {foreign} slot(s) held by another "
+                    "engine; drain or evict it before decoding here "
+                    "(dense-pool engines borrow the arena exclusively)")
         self._shed_expired(time.perf_counter())
+        self._step_tokens = 0
         admitted = 0
         while True:
             head = self._next_admission()
@@ -448,8 +530,9 @@ class ContinuousBatchingEngine:
         if not decoding:
             if not self.active:
                 if self.queue:
-                    if self._foreign_slots() > 0:
+                    if self.paged and self._foreign_slots() > 0:
                         # co-tenants may still free pages: back-pressure
+                        self._step_tokens = chunked
                         return True
                     # an idle arena that still cannot fit the head can
                     # never free pages for it: drop it and raise
@@ -464,7 +547,7 @@ class ContinuousBatchingEngine:
                     raise PoolExhausted(msg)
                 return False
             if not admitted and not chunked:
-                if self._foreign_slots() > 0:
+                if self.paged and self._foreign_slots() > 0:
                     return True
                 # every slot is mid-prefill and none could grow its budget:
                 # fail the YOUNGEST mid-prefill request to unwedge the rest
@@ -478,18 +561,24 @@ class ContinuousBatchingEngine:
                     "the arena — use a larger arena or smaller chunks")
                 self._retire(slot, status="failed", error=msg)
                 raise PoolExhausted(msg)
+            self._step_tokens = chunked
             return True
-        # crossing a page boundary maps one more (already reserved) page;
-        # mid-prefill slots skip this — their dummy page stays unmapped
-        for slot in decoding:
-            self.pool.ensure_len(slot, int(self._pos[slot]) + 1,
-                                 owner=self._owner)
-        # the OWNER-masked view nulls co-tenants' rows, so their slots
-        # decode as free-slot dummies
-        pt = self.pool.device_page_table(self._owner)
-        logits, _ = self.model.decode_step_paged(
-            self._params, self.pool.cache, {"tokens": self._tokens(self._tok)},
-            self._tokens(self._pos), pt, self.pool.page_size)
+        toks, pos = self._tokens(self._tok), self._tokens(self._pos)
+        if self.paged:
+            # crossing a page boundary maps one more (already reserved)
+            # page; mid-prefill slots skip this — their dummy page stays
+            # unmapped.  The OWNER-masked view nulls co-tenants' rows, so
+            # their slots decode as free-slot dummies
+            for slot in decoding:
+                self.pool.ensure_len(slot, int(self._pos[slot]) + 1,
+                                     owner=self._owner)
+            pt = self.pool.device_page_table(self._owner)
+            logits, _ = self.model.decode_step_paged(
+                self.params(), self.pool.cache, {"tokens": toks}, pos, pt,
+                self.pool.page_size)
+        else:
+            logits, _ = self.model.decode_step(
+                self.params(), self.pool.cache, {"tokens": toks}, pos)
         self.n_decode_steps += 1
         nxt = sample_greedy(logits).cpu().numpy()        # [n_slots]
         sampled = [s for s in decoding if self.active[s].req.temperature > 0]
@@ -510,7 +599,30 @@ class ContinuousBatchingEngine:
                 st.req.token_cb(st.req.req_id, tok, len(st.tokens) - 1)
             if len(st.tokens) >= st.req.max_new_tokens:
                 self._retire(slot)
+        self._step_tokens = chunked + len(decoding)
         return bool(self.queue or self.active)
+
+    def step_n(self, n: int) -> bool:
+        """Up to ``n`` steps: the gateway's scheduling quantum.  Between
+        calls the engine yields control holding everything it has (slots,
+        pages, queue).  Returns False once fully drained."""
+        for _ in range(max(1, n)):
+            if not self.step():
+                return False
+        return True
+
+    def step_tokens(self, budget: int) -> bool:
+        """Steps until at least ``budget`` tokens of work have run: the
+        gateway's TOKEN quantum under chunked prefill, where a step's cost
+        is its chunked prompt tokens plus its decode batch.  Returns False
+        once fully drained."""
+        spent = 0
+        while spent < max(1, budget):
+            alive = self.step()
+            spent += max(1, self._step_tokens)
+            if not alive:
+                return False
+        return True
 
     def run(self) -> dict:
         """Drain queue + active set; returns {req_id: RequestOutput}."""
@@ -534,7 +646,7 @@ class ContinuousBatchingEngine:
         """Release all in-flight work, then retire the engine's partition
         lease.  A closed engine must not step again."""
         n = self.release_all()
-        if self._owner is not None:
+        if self.paged and self._owner is not None:
             self.pool.release_owner(self._owner)
             self._owner = None
         return n

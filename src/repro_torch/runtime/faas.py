@@ -1,0 +1,500 @@
+"""FaaS front end over the TIDAL stack: the port of
+``repro.runtime.faas.FaaSRuntime`` for one serving instance.
+
+The front door is the async gateway: ``submit(InvocationRequest)`` returns
+an :class:`~repro_torch.runtime.gateway.InvocationHandle` ticket (stream
+``tokens()``, block ``result()``, abort ``cancel()``); the positional
+``submit(fn_name, event, prompt)`` / ``submit_many(tuples)`` forms are
+thin shims over the same gateway with identical greedy results.
+
+It composes:
+
+  * :class:`TemplateServer`: register and fork (static reuse, dynamic
+    replay, access-order streaming from the pinned host pool);
+  * :class:`ExecutableCache` / :class:`ProcessPool`: §5.1 proactive code
+    loading (the engine's entry points warmed at deploy);
+  * :class:`ContinuousBatchingEngine`: one warm engine per (function,
+    event) is kept alive, so later invocations skip forking.
+
+Invocation kinds are the cluster scheduler's service classes:
+
+  * ``warm``: a live engine existed, service = prefill + decode only;
+  * ``fork``: the template existed, a new engine was forked (its prefill
+    streams layer by layer while the weights are in flight);
+  * ``cold``: the first invocation since deploy (it forks too, and pays
+    whatever warming did not cover).
+
+Left out, each raising ``NotImplementedError`` with its ROADMAP item:
+``mesh=`` (Queue 1, item 11), ``deploy_shared_base`` / ``attach_adapter``
+(item 8), the control plane, runtime-learned prefixes and
+``measure_service_times`` (item 9).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.api import LLMFunction
+from repro_torch.core.prewarm import ExecutableCache, ProcessPool, zero_params
+from repro_torch.core.template_server import TemplateServer
+from repro_torch.models.registry import resolve_device
+from repro_torch.runtime.continuous import ContinuousBatchingEngine
+from repro_torch.runtime.gateway import (InvocationGateway, InvocationHandle,
+                                         InvocationRequest)
+from repro_torch.runtime.kv_pool import KVCachePool, PagedKVCachePool
+from repro_torch.runtime.prefix import PrefixIndex
+
+KINDS = ("warm", "fork", "cold")
+INSTANCE = 0                     # the one serving instance (no mesh yet)
+
+
+def _later(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} arrives with a later slice of the port (ROADMAP Queue 1, "
+        f"item {item})")
+
+
+def _engine_key(fn_name: str, event: dict) -> tuple:
+    return (fn_name, tuple(sorted((event or {}).items())))
+
+
+@dataclasses.dataclass
+class _WarmEngine:
+    engine: ContinuousBatchingEngine
+    last_used_s: float
+
+
+class FaaSRuntime:
+    """Serving runtime for deployed LLM functions on one device.
+
+    ``device`` defaults to the card and raises without one; pass
+    ``device="cpu"`` to serve on the CPU.  Every deployed function's model
+    must live on that device."""
+
+    def __init__(self, server: Optional[TemplateServer] = None,
+                 n_slots: int = 4, max_len: int = 64,
+                 keep_alive_s: float = 60.0, max_warm_engines: int = 8,
+                 prewarm: bool = True, pool_workers: int = 2,
+                 trace_seq: int = 32, page_size: int = 8,
+                 mesh=None, gateway_quantum: int = 2,
+                 chunk_tokens: Optional[int] = None,
+                 kv_dtype: Optional[str] = None,
+                 max_retries: int = 2, retry_backoff_s: float = 0.0,
+                 max_live: Optional[int] = None,
+                 brownout_threshold: float = 0.75,
+                 brownout_max_new: Optional[int] = None,
+                 device="cuda"):
+        if mesh is not None:
+            raise _later("multi-instance serving over a mesh", 11)
+        self.device = resolve_device(device)
+        self.server = server or TemplateServer(trace_batch=1,
+                                               trace_seq=trace_seq)
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.chunk_tokens = chunk_tokens
+        self.kv_dtype = kv_dtype
+        self.keep_alive_s = keep_alive_s
+        self.max_warm_engines = max_warm_engines
+        self.prewarm = prewarm
+        self.exe_cache = ExecutableCache()
+        self.workers = ProcessPool(pool_workers, self.exe_cache, self.device)
+        self.functions: dict = {}
+        self._engines: dict = {}
+        self._fn_keys: dict = {}
+        self._invoked: set = set()
+        # one KV pool per model: allocated once and lent to engines slot
+        # by slot; eviction returns every borrowed slot and page
+        self._pools: dict = {}
+        # template-baked prompt-prefix KV: one pinned PrefixHandle and one
+        # PrefixIndex per (function, event key); static functions share
+        # one bake (event key ()), dynamic ones bake per event at fork
+        self._prefix_handles: dict = {}
+        self._prefix_indexes: dict = {}
+        self._baked_events: dict = {}
+        # per-function service-class counters, surfaced by ``stats()``
+        self.fn_stats: dict = {}
+        self.gateway = InvocationGateway(
+            self, quantum=gateway_quantum, quantum_tokens=chunk_tokens,
+            max_retries=max_retries, retry_backoff_s=retry_backoff_s,
+            max_live=max_live, brownout_threshold=brownout_threshold,
+            brownout_max_new=brownout_max_new)
+
+    # ------------------------------------------------------------------
+    def _pool_for(self, model) -> object:
+        key = (INSTANCE, id(model))
+        if key not in self._pools:
+            if model.supports_paged_kv:
+                self._pools[key] = PagedKVCachePool(
+                    model, self.n_slots, self.max_len,
+                    page_size=self.page_size, kv_dtype=self.kv_dtype)
+            else:
+                self._pools[key] = KVCachePool(model, self.n_slots,
+                                               self.max_len)
+        return self._pools[key]
+
+    def kv_pool_stats(self) -> dict:
+        """{(instance, model key): free slot/page counts}: after every
+        engine drains or is evicted, all counts are back at their start."""
+        out = {}
+        for key, pool in self._pools.items():
+            if isinstance(pool, PagedKVCachePool):
+                out[key] = {"n_free_slots": pool.n_free_slots,
+                            "n_free_pages": pool.n_free_pages,
+                            "n_available_pages": pool.n_available_pages}
+            else:
+                out[key] = {"n_free_slots": pool.n_free}
+        return out
+
+    # ------------------------------------------------------------------
+    def deploy(self, fn: LLMFunction, example_event: Optional[dict] = None,
+               prewarm_seq: int = 32,
+               template_prompt: Optional[object] = None) -> None:
+        """Register the function's template and warm its entry points.
+
+        Warming runs the engine's prefill at ``prewarm_seq`` and the
+        pool-shaped decode once, so the first invocation pays forking, not
+        first-call costs (§5.1).  ``template_prompt`` (int32 tokens) is the
+        function's shared prompt prefix: its KV is baked once into pinned
+        pages of the paged arena, and every invocation whose prompt starts
+        with it prefills only the suffix."""
+        if fn.model.device != self.device:
+            raise ValueError(f"{fn.name}: model on {fn.model.device}, "
+                             f"runtime on {self.device}")
+        if template_prompt is not None:
+            if not fn.model.supports_paged_kv:
+                raise ValueError(
+                    f"{fn.name}: template prompts need a paged attention "
+                    f"family (got {fn.model.cfg.family!r})")
+            n_tpl = len(np.asarray(template_prompt).reshape(-1))
+            if n_tpl > self.max_len - 1:
+                raise ValueError(
+                    f"{fn.name}: template prompt must leave room for a "
+                    f"suffix within max_len={self.max_len}")
+            if n_tpl < self.page_size:
+                raise ValueError(
+                    f"{fn.name}: template prompt of {n_tpl} tokens is "
+                    f"shorter than one page ({self.page_size}): it could "
+                    "never be matched, only pin dead pages")
+        # a re-deploy REPLACES the function: its warm engines serve the old
+        # params and its baked prefix was computed under them
+        if fn.name in self.functions:
+            self.evict(fn.name)
+        self.release_template_prefix(fn.name)
+        self.functions[fn.name] = fn
+        self.server.register(fn, example_event or {},
+                             template_prompt=template_prompt)
+        if template_prompt is not None:
+            self._baked_events[fn.name] = dict(example_event or {})
+            self._bake_template_prefix(fn.name)
+        if self.prewarm:
+            # one zero-filled parameter set per deploy, built on first need
+            zeros = functools.cache(lambda: zero_params(fn.model))
+            self._fn_keys[fn.name] = self._prewarm_engine_fns(
+                fn, prewarm_seq, zeros)
+            if template_prompt is not None or (
+                    self.chunk_tokens is not None
+                    and fn.model.supports_paged_kv):
+                # suffix prefills and chunks run prefill_from at
+                # page-multiple lengths: warm exactly those buckets
+                self._fn_keys[fn.name] += self._prewarm_suffix_fns(fn, zeros)
+            self.workers.prewarm_for_functions(self._fn_keys)
+
+    # ------------------------------------------------------------------
+    def _prefix_key(self, fn_name: str, event: Optional[dict]) -> tuple:
+        """Bake identity: static functions share one bake, dynamic ones
+        bake per event (the event's dynamic weights change the KV)."""
+        fn = self.functions[fn_name]
+        ekey = () if fn.static else tuple(sorted(dict(event or {}).items()))
+        return (fn_name, INSTANCE, ekey)
+
+    def _bake_template_prefix(self, fn_name: str, params_fn=None,
+                              event: Optional[dict] = None) -> None:
+        """Prefill the function's template prompt once and pin its KV pages
+        in the shared arena, registering the prefix for admission-time
+        matching.  ``params_fn`` supplies already-forked params (the engine
+        being built), so a per-event bake does not stream the model a
+        second time; without it (the deploy-time bake) it forks its own."""
+        if fn_name not in self._baked_events:
+            return
+        if event is None:
+            event = self._baked_events[fn_name]
+        key = self._prefix_key(fn_name, event)
+        prompt = self.server.template_prompts.get(fn_name)
+        if key in self._prefix_handles or prompt is None:
+            return
+        model = self.functions[fn_name].model
+        pool = self._pool_for(model)
+        if params_fn is not None:
+            params = params_fn()
+        else:
+            params = self.server.fork(fn_name, dict(event))[0].params()
+        _, cache = model.prefill(
+            params, {"tokens": torch.as_tensor(prompt[None, :],
+                                               device=self.device)},
+            model.make_cache(1, pool.padded_len))
+        handle = pool.bake_prefix(cache, prompt)
+        self._prefix_indexes.setdefault(key, PrefixIndex(self.page_size)
+                                        ).register(handle)
+        self._prefix_handles[key] = handle
+
+    def _prefix_index_for(self, fn_name: str, event: Optional[dict],
+                          params_fn=None) -> Optional[PrefixIndex]:
+        """The prefix index an engine of (function, event) consults; a
+        dynamic function bakes its template lazily per event."""
+        if fn_name in self._baked_events:
+            self._bake_template_prefix(fn_name, params_fn=params_fn,
+                                       event=event)
+        return self._prefix_indexes.get(self._prefix_key(fn_name, event))
+
+    def release_template_prefix(self, fn_name: str) -> int:
+        """Unpin the function's baked prefix pages (they free once no live
+        slot aliases them) and stop baking.  Returns handles dropped."""
+        self._baked_events.pop(fn_name, None)
+        keys = [k for k in self._prefix_handles if k[0] == fn_name]
+        for k in keys:
+            handle = self._prefix_handles.pop(k)
+            index = self._prefix_indexes.get(k)
+            if index is not None:
+                index.unregister(handle)
+            handle.pool.release_prefix(handle)
+        return len(keys)
+
+    # ------------------------------------------------------------------
+    def attach_control_plane(self, control_plane) -> None:
+        raise _later("the predictive control plane", 9)
+
+    def bake_runtime_prefix(self, fn_name: str, tokens, event=None):
+        raise _later("runtime-learned prefixes", 9)
+
+    def deploy_shared_base(self, fn: LLMFunction, *args, **kwargs) -> None:
+        raise _later("shared-base adapter serving", 8)
+
+    def attach_adapter(self, fn_name: str, base_name: str, adapter,
+                       alpha: float = 1.0) -> None:
+        raise _later("shared-base adapter serving", 8)
+
+    def _count(self, fn_name: str, field: str, n: int = 1) -> None:
+        """Bump one per-function service-class counter."""
+        d = self.fn_stats.setdefault(fn_name, {})
+        d[field] = d.get(field, 0) + n
+
+    def stats(self) -> dict:
+        """Per-function service-class counters (cold/fork/warm admission
+        kinds; terminal done/reuse_hits/shed/failed/cancelled/rejected)
+        with derived rates, plus the gateway's supervision stats."""
+        fns = {}
+        for fn_name, c in self.fn_stats.items():
+            d = dict(c)
+            admitted = sum(c.get(k, 0) for k in KINDS)
+            d["admitted"] = admitted
+            if admitted:
+                d["warm_rate"] = c.get("warm", 0) / admitted
+                d["cold_start_rate"] = (c.get("fork", 0)
+                                        + c.get("cold", 0)) / admitted
+            if c.get("done"):
+                d["reuse_hit_rate"] = c.get("reuse_hits", 0) / c["done"]
+            fns[fn_name] = d
+        return {"functions": fns, "gateway": dict(self.gateway.stats)}
+
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _prewarm_engine_fns(self, fn: LLMFunction, seq: int, zeros) -> list:
+        """Run the model's prefill (at ``seq``) and the pool-shaped decode
+        once on zero-filled inputs (``zeros()``), counted in the
+        ExecutableCache (one warm-up per model and shape, shared across its
+        functions)."""
+        model = fn.model
+        paged = model.supports_paged_kv
+        bps = -(-self.max_len // self.page_size)
+        prefill_len = bps * self.page_size if paged else self.max_len
+        kp = (id(model), "prefill", INSTANCE, 1, seq, self.max_len)
+        kd = (id(model), "decode-pool", INSTANCE, self.n_slots, self.max_len)
+
+        def warm_prefill():
+            model.prefill(zeros(),
+                          {"tokens": torch.zeros((1, seq), dtype=torch.int32,
+                                                 device=self.device)},
+                          model.make_cache(1, prefill_len))
+            self._sync()
+            return model.prefill
+
+        def warm_decode():
+            toks = torch.zeros((self.n_slots, 1), dtype=torch.int32,
+                               device=self.device)
+            pos = torch.zeros((self.n_slots,), dtype=torch.int32,
+                              device=self.device)
+            if paged:
+                cache = model.make_paged_cache(1 + self.n_slots * bps,
+                                               self.page_size,
+                                               kv_dtype=self.kv_dtype)
+                pt = torch.zeros((self.n_slots, bps), dtype=torch.int32,
+                                 device=self.device)
+                model.decode_step_paged(zeros(), cache,
+                                        {"tokens": toks}, pos, pt,
+                                        self.page_size)
+            else:
+                model.decode_step(zeros(),
+                                  model.make_cache(self.n_slots, self.max_len),
+                                  {"tokens": toks}, pos)
+            self._sync()
+            return model.decode_step_paged if paged else model.decode_step
+
+        self.exe_cache.get_or_compile(kp, warm_prefill)
+        self.exe_cache.get_or_compile(kd, warm_decode)
+        return [kp, kd]
+
+    def _prewarm_suffix_fns(self, fn: LLMFunction, zeros) -> list:
+        """Warm the suffix-only prefill the engine buckets every reuse hit
+        onto (``bucket_suffix``): one key per page-multiple suffix length,
+        as the JAX package compiles one executable per bucket.  Eager
+        PyTorch compiles nothing per shape, so only the first bucket runs
+        (paying the lazy loads of ``prefill_from``'s kernels); the others
+        are recorded, keeping the cache's hits and misses equal to JAX's."""
+        model = fn.model
+        if not model.supports_paged_kv:
+            return []
+        ps = self.page_size
+        bps = -(-self.max_len // ps)
+
+        def warm():
+            toks = torch.zeros((1, ps), dtype=torch.int32, device=self.device)
+            model.prefill_from(zeros(), {"tokens": toks},
+                               model.make_cache(1, bps * ps), 0)
+            self._sync()
+            return model.prefill_from
+
+        keys = [(id(model), "prefill-from", INSTANCE, k * ps, self.max_len)
+                for k in range(1, bps + 1)]
+        self.exe_cache.get_or_compile(keys[0], warm)
+        for key in keys[1:]:
+            self.exe_cache.get_or_compile(key, lambda: model.prefill_from)
+        return keys
+
+    # ------------------------------------------------------------------
+    def warm_engines(self) -> list:
+        return sorted(self._engines)
+
+    def _drop_engine(self, key: tuple) -> None:
+        """Remove one warm engine, returning every slot and page it holds
+        to the shared pool and retiring its partition lease."""
+        self._engines.pop(key).engine.close()
+
+    def evict(self, fn_name: Optional[str] = None) -> int:
+        """Drop warm engines (all of ``fn_name``'s, or every one): the next
+        invocation takes the fork path again (keep-alive expiry)."""
+        keys = [k for k in self._engines if fn_name is None or k[0] == fn_name]
+        for k in keys:
+            self._drop_engine(k)
+        return len(keys)
+
+    def _prune(self, now: float) -> None:
+        """Keep-alive expiry and the LRU cap, over IDLE engines only: an
+        engine with pending work serves someone's ticket (``evict()``
+        stays the explicit force-drop)."""
+        idle = [k for k, w in self._engines.items() if not w.engine.n_pending]
+        for k in [k for k in idle
+                  if now - self._engines[k].last_used_s > self.keep_alive_s]:
+            idle.remove(k)
+            self._drop_engine(k)
+        while len(self._engines) > self.max_warm_engines and idle:
+            oldest = min(idle, key=lambda k: self._engines[k].last_used_s)
+            idle.remove(oldest)
+            self._drop_engine(oldest)
+
+    def _engine_for(self, fn_name: str, event: Optional[dict],
+                    now: float) -> tuple:
+        """Resolve (key, engine, kind, fork stats) for one invocation,
+        forking a new engine when no warm one exists."""
+        if fn_name not in self.functions:
+            raise KeyError(f"function {fn_name!r} is not deployed")
+        key = _engine_key(fn_name, event or {})
+        warm = self._engines.get(key)
+        if warm is not None:
+            self._invoked.add(fn_name)
+            return key, warm.engine, "warm", None
+        kind = "fork" if fn_name in self._invoked else "cold"
+        model = self.functions[fn_name].model
+        session, stats = self.server.fork(fn_name, event or {})
+        engine = ContinuousBatchingEngine(
+            model, session, max_len=self.max_len, page_size=self.page_size,
+            pool=self._pool_for(model), bucket_suffix=True,
+            chunk_tokens=self.chunk_tokens, owner_name=f"{fn_name}@{INSTANCE}")
+        # a lazy per-event bake reuses THIS fork's params
+        engine.prefix_index = self._prefix_index_for(fn_name, event,
+                                                     params_fn=engine.params)
+        self._engines[key] = _WarmEngine(engine, now)
+        self._invoked.add(fn_name)
+        return key, engine, kind, stats
+
+    def observe_ttft(self, fn_name: str, ttft_s: float) -> None:
+        """Route Eq. 1 TTFT feedback to the template server."""
+        self.server.observe_ttft(fn_name, ttft_s)
+
+    def _validate(self, fn_name: str, prompt, max_new_tokens: int) -> None:
+        """Reject what could never serve before it touches any engine."""
+        if fn_name not in self.functions:
+            raise KeyError(f"function {fn_name!r} is not deployed")
+        plen = len(np.asarray(prompt).reshape(-1))
+        if max_new_tokens < 1 or plen + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"{fn_name}: prompt({plen}) + max_new({max_new_tokens}) "
+                f"exceeds runtime max_len={self.max_len}")
+
+    def submit(self, request, event: Optional[dict] = None, prompt=None,
+               max_new_tokens: int = 8, *, temperature: float = 0.0,
+               top_p: float = 1.0, seed: int = 0):
+        """Invoke a deployed function.
+
+        With an :class:`InvocationRequest`, returns an
+        :class:`InvocationHandle` ticket at once.  The positional form
+        ``submit(fn_name, event, prompt, max_new_tokens, ...)`` submits
+        through the same gateway, drains it and returns the
+        :class:`SubmitResult`."""
+        if isinstance(request, InvocationRequest):
+            return self.gateway.submit(request)
+        return self.submit_many([(request, event, prompt, max_new_tokens,
+                                  temperature, top_p, seed)])[0]
+
+    def submit_async(self, request: InvocationRequest) -> InvocationHandle:
+        """Explicitly named alias of the async ``submit`` form."""
+        return self.gateway.submit(request)
+
+    def submit_many(self, requests: list) -> list:
+        """Batch shim over the gateway: ``(fn_name, event, prompt,
+        max_new_tokens[, temperature[, top_p[, seed]]])`` tuples, all
+        ticketed before any engine steps, so requests of one engine share
+        decode batches."""
+        parsed = []
+        for req in requests:
+            fn_name, event, prompt, max_new_tokens = req[:4]
+            extra = tuple(req[4:])
+            parsed.append(InvocationRequest(
+                fn_name=fn_name, prompt=prompt, event=event,
+                max_new_tokens=max_new_tokens,
+                temperature=extra[0] if len(extra) > 0 else 0.0,
+                top_p=extra[1] if len(extra) > 1 else 1.0,
+                seed=extra[2] if len(extra) > 2 else 0))
+        # validate the whole batch before touching any engine
+        for r in parsed:
+            self._validate(r.fn_name, r.prompt, r.max_new_tokens)
+        worker = self.workers.acquire()                      # §5.1 pool
+        try:
+            handles = [self.gateway.submit(r) for r in parsed]
+            self.gateway.drain()
+            return [h.result() for h in handles]
+        finally:
+            if worker is not None:
+                self.workers.release(worker)
+
+
+def measure_service_times(*args, **kwargs):
+    raise _later("measured service times for the cluster scheduler", 9)

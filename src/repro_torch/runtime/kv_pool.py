@@ -26,8 +26,12 @@ tables, refcounts and free counts in both packages.
 
 The arena lives on the model's device and is updated in place (JAX's
 functional ``arena.at[...].set`` becomes an indexed write on the current
-stream); the dense ``KVCachePool`` arrives with the ``decode_attention``
-slice.
+stream).
+
+:class:`KVCachePool` is the dense slot pool (``repro.runtime.kv_pool.
+KVCachePool``): one ``[L, n_slots, max_len, KV, hd]`` cache whose batch
+axis is the slot axis, for the sequential-reference and ``paged=False``
+engines; its decode runs the ``decode_attention`` kernel.
 """
 
 from __future__ import annotations
@@ -42,8 +46,8 @@ from repro_torch.models import quant
 from repro_torch.models.registry import Model
 from repro_torch.runtime.errors import PartitionViolation, PoolExhausted
 
-__all__ = ["PoolExhausted", "PartitionViolation", "PrefixHandle",
-           "PagedKVCachePool"]
+__all__ = ["KVCachePool", "PoolExhausted", "PartitionViolation",
+           "PrefixHandle", "PagedKVCachePool"]
 
 
 @dataclasses.dataclass
@@ -71,6 +75,61 @@ class PrefixHandle:
     def n_full_pages(self) -> int:
         """Pages the prefix fills completely (aliasable without a copy)."""
         return self.n_tokens // self.page_size
+
+
+class KVCachePool:
+    """Slot-indexed dense KV cache shared by one decode batch.
+
+    The cache lives on the model's device; ``write_slot`` and
+    ``read_slot`` copy a batch-1 cache of the same ``max_len`` into and out
+    of a slot in place.  Free slots are handed out lowest first, as in the
+    JAX pool, so the same operations give the same slots."""
+
+    def __init__(self, model: Model, n_slots: int, max_len: int):
+        if n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        self.model = model
+        self.device = model.device
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.cache = model.make_cache(n_slots, max_len)
+        self._free = list(range(n_slots - 1, -1, -1))
+        self._free_set = set(self._free)
+
+    # ---- slot bookkeeping -------------------------------------------------
+    @property
+    def n_free(self) -> int:
+        """Slots currently unallocated."""
+        return len(self._free)
+
+    def alloc(self) -> int:
+        """Claim a free slot; raises :class:`PoolExhausted` when none."""
+        if not self._free:
+            raise PoolExhausted("KVCachePool exhausted: no free slots")
+        slot = self._free.pop()
+        self._free_set.discard(slot)
+        return slot
+
+    def release(self, slot: int) -> None:
+        """Return ``slot`` to the free list (double-release raises)."""
+        if slot in self._free_set or not (0 <= slot < self.n_slots):
+            raise ValueError(f"bad slot release: {slot}")
+        self._free.append(slot)
+        self._free_set.add(slot)
+
+    # ---- cache movement ---------------------------------------------------
+    def write_slot(self, slot: int, sub_cache: dict) -> None:
+        """Copy a batch-1 cache (same ``max_len`` layout) into ``slot``."""
+        for key, arena in self.cache.items():
+            arena[:, slot] = sub_cache[key][:, 0].to(arena.dtype)
+
+    def read_slot(self, slot: int) -> dict:
+        """``slot`` as a batch-1 cache (a copy)."""
+        return {k: t[:, slot:slot + 1].clone() for k, t in self.cache.items()}
+
+    def nbytes(self) -> int:
+        """Total bytes of the pool's cache."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
 
 
 class PagedKVCachePool:

@@ -28,7 +28,10 @@ bad = sorted(m for m in sys.modules
              or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 20, names
+assert len(names) >= 46, names
+for sub in ("core", "launch", "hw", "utils", "data"):
+    assert any(n == "repro_torch." + sub or n.startswith("repro_torch." + sub + ".")
+               for n in names), sub
 """
 
 
@@ -42,13 +45,17 @@ def test_port_and_chip_smoke_import_no_jax_and_no_repro():
 
 def test_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.models.registry import get_model, get_smoke_model
-    from repro_torch.runtime import ContinuousBatchingEngine, PagedKVCachePool
+    from repro_torch.runtime import (ContinuousBatchingEngine, FaaSRuntime,
+                                     PagedKVCachePool)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_model("smollm-135m")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_smoke_model("smollm-135m", n_layers=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FaaSRuntime()
+    assert FaaSRuntime(device="cpu").device.type == "cpu"
     # pools and engines live on their model's device: CPU only when asked
     m = get_smoke_model("smollm-135m", device="cpu", n_layers=1)
     assert PagedKVCachePool(m, n_slots=1, max_len=8).device.type == "cpu"

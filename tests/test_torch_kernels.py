@@ -149,23 +149,35 @@ def test_decode_attention_ref_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_wrappers_refuse_other_devices_and_count_only_launches():
+def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     """No quiet fallback: a tensor that is neither on the CPU nor on a
-    card raises, and the plain CPU path launches (and counts) nothing."""
+    card raises, and the plain CPU path launches (and counts) nothing.
+    ``meta`` tensors are the tracer's shape-only path (empty outputs, no
+    launch); with that path switched off they stand for any other
+    device."""
+    from repro_torch.kernels import meta
     ops.reset_launch_counts()
     q = torch.zeros((1, 4, 16), device="meta")
     arena = torch.zeros((3, 8, 2, 16), device="meta")
     pt = torch.zeros((1, 2), dtype=torch.int32, device="meta")
+    lens = torch.ones(1, dtype=torch.int32, device="meta")
+    cache = torch.zeros((1, 2, 8, 16), device="meta")
+    fq = torch.zeros((1, 4, 8, 16), device="meta")
+    assert ops.paged_decode_attention(q, arena, arena, pt, lens).shape == q.shape
+    assert ops.decode_attention(q, cache, cache, lens).shape == q.shape
+    assert ops.flash_attention(fq, cache, cache).shape == fq.shape
+    monkeypatch.setattr(meta, "is_meta", lambda t: False)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.paged_decode_attention(q, arena, arena, pt,
-                                   torch.ones(1, dtype=torch.int32, device="meta"))
+        ops.paged_decode_attention(q, arena, arena, pt, lens)
     with pytest.raises(ValueError, match="unsupported device"):
-        ops.flash_attention(torch.zeros((1, 4, 8, 16), device="meta"),
-                            torch.zeros((1, 2, 8, 16), device="meta"),
-                            torch.zeros((1, 2, 8, 16), device="meta"))
+        ops.decode_attention(q, cache, cache, lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.flash_attention(fq, cache, cache)
     ops.flash_attention(torch.zeros((1, 4, 8, 16)), torch.zeros((1, 2, 8, 16)),
                         torch.zeros((1, 2, 8, 16)))
-    assert ops.launch_counts() == {"flash_attention": 0,
+    ops.decode_attention(torch.zeros((1, 4, 16)), torch.zeros((1, 2, 8, 16)),
+                         torch.zeros((1, 2, 8, 16)), 3)
+    assert ops.launch_counts() == {"decode_attention": 0, "flash_attention": 0,
                                    "paged_decode_attention": 0}
 
 
@@ -181,7 +193,10 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_cuda_sources_declare_their_entry_points():
     """Each wrapper's C symbol is defined with C linkage in csrc/."""
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
-    assert set(sources) == {"paged_decode_attention.cu", "flash_attention.cu"}
+    assert set(sources) == {"paged_decode_attention.cu", "flash_attention.cu",
+                            "decode_attention.cu"}
+    assert 'extern "C" int repro_decode_attention(' in \
+        sources["decode_attention.cu"]
     assert 'extern "C" int repro_paged_decode_attention(' in \
         sources["paged_decode_attention.cu"]
     assert 'extern "C" int repro_flash_attention(' in sources["flash_attention.cu"]

@@ -225,7 +225,8 @@ def test_engine_counts_steps_and_prefills(models):
 
 def test_engine_raises_for_later_slices(models):
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="fork-path"):
+    # forked sessions are served now; anything else is refused
+    with pytest.raises(TypeError, match="ForkSession"):
         ContinuousBatchingEngine(tm, object(), n_slots=1, max_len=16)
     with pytest.raises(NotImplementedError, match="tensor-parallel"):
         ContinuousBatchingEngine(tm, tp, n_slots=1, max_len=16, plan=object())
