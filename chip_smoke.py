@@ -9,13 +9,15 @@ Phases, in order; any failure raises and the process exits non-zero:
    (``src/repro_torch/csrc/*.cu`` -> one shared library, timed) and the
    measured pinned host-to-device copy rate;
 2. kernels against their plain PyTorch versions on the card, at the
-   serving path's shapes (smollm-135m heads, and llama3-8b's), each timed
-   beside its roofline bound and one PyTorch library call;
+   serving path's shapes (smollm-135m heads and rows, llama3-8b's, and
+   qwen3-14b's head-norm rows), each timed beside its roofline bound and
+   one PyTorch library call;
 3. serving: smollm-135m at full width (30 layers, bf16, seeded random
    weights) through ``ContinuousBatchingEngine`` over a
    ``PagedKVCachePool``, with a baked shared prefix, a chunked-prefill pass
-   and an int8-arena pass; the kernels' launch counts are checked against
-   the engine's decode steps and prefill calls;
+   and an int8-arena pass; the kernels' launch counts (attention and
+   rmsnorm, 2L+1 per model call) are checked against the engine's decode
+   steps and prefill calls;
 4. parity: a 2-layer fp32 smollm-135m at full width on the card (kernels)
    against the same seeded weights on the CPU (plain versions), through
    the paged pool and through the sequential ``Engine``; the card's
@@ -29,7 +31,14 @@ Phases, in order; any failure raises and the process exits non-zero:
    fork; streamed prefill, byte accounting, stream order, the forking
    guard and fork-equals-warm tokens are checked, and the first
    invocation's TTFT is measured in fresh processes with and without
-   prewarming.
+   prewarming;
+7. tenants: a shared smollm-135m base at full width with a 4-row adapter
+   bank (wq, wv; rank 8) serving three LoRA functions and the base, 16
+   invocations through the pump thread, at least one decode step mixing
+   adapter rows; a 2-layer fp32 check of each adapter function against
+   its merged-weight model; then the control plane: a learned 128-token
+   prefix baked after three misses and reused by the fourth invocation,
+   and a 24-request open-loop Poisson replay at 4 qps.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -142,6 +151,20 @@ def flash_work(B, H, KV, S, T, d, dtype, causal=True) -> tuple:
     elt = torch.empty((), dtype=dtype).element_size()
     nbytes = elt * (2 * B * H * S * d + 2 * B * KV * T * d)
     return 4 * B * H * pairs * d, nbytes
+
+
+def rmsnorm_work(shape, dtype) -> tuple:
+    """(FLOPs, bytes) of RMSNorm: x read and y written once, the scale
+    read once; square, add, and two multiplies per element."""
+    n = int(np.prod(shape))
+    elt = torch.empty((), dtype=dtype).element_size()
+    return 4 * n, elt * (2 * n + shape[-1])
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at each value (8 significant bits)."""
+    mag = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
 def sdpa_gqa(q, k, v, **kw):
@@ -359,7 +382,60 @@ def phase_kernels(device) -> list:
         print(json.dumps(res))
         if not err <= tol:
             raise AssertionError(f"flash_attention disagrees: {res}")
+
+    # rmsnorm: fp32 within 1e-5 relative, bf16 within one bf16 ulp of the
+    # plain version (the same fp32 value rounded; summation order only)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    for tag, shape in (("smollm-decode", (8, 1, 576)), ("smollm-prefill", (384, 576)),
+                       ("qwen3-14b-head", (8, 1, 40, 128)),
+                       ("llama3-8b-prefill", (384, 4096))):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(shape, generator=gen).to(device, dtype)
+            scale = (torch.randn(shape[-1], generator=gen) * 0.1 + 1).to(device, dtype)
+            out = rmsnorm(x, scale, 1e-5)
+            want = ref.rmsnorm_ref(x, scale, 1e-5)
+            same_bits = torch.equal(rmsnorm(x, scale, 1e-5), out)
+            torch.cuda.synchronize()
+            diff = (out.float() - want.float()).abs()
+            err = float(diff.max())
+            if dtype == torch.float32:
+                tol = "1e-5 relative"
+                ok = bool((diff <= 1e-5 * want.float().abs()).all())
+            else:
+                tol = "1 bf16 ulp"
+                ok = bool((diff <= bf16_ulp(want)).all())
+            kern_ms = time_ms(lambda: rmsnorm(x, scale, 1e-5))
+            plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale, 1e-5))
+            lib_ms = time_ms(lambda: F.rms_norm(x, (shape[-1],), scale, 1e-5))
+            flops, nbytes = rmsnorm_work(shape, dtype)
+            b_ms, b_by = bound_ms(flops, nbytes, dtype)
+            res = {"kernel": "rmsnorm", "shape": tag, "dims": list(shape),
+                   "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+                   "deterministic": same_bits,
+                   "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            results.append(res)
+            print(json.dumps(res))
+            if not ok or not same_bits:
+                raise AssertionError(f"rmsnorm disagrees: {res}")
     return results
+
+
+def norm_launches(cfg) -> int:
+    """rmsnorm launches of one model call: two per block, the final norm,
+    and two more per block for qk-norm models."""
+    return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
+
+
+def check_norm_launches(counts: dict, cfg, where: str) -> None:
+    """Every model call launches L attention kernels and norm_launches(cfg)
+    rmsnorms, so the two counts stand in a fixed ratio."""
+    attn = (counts["paged_decode_attention"] + counts["flash_attention"]
+            + counts["decode_attention"])
+    if counts["rmsnorm"] * cfg.n_layers != norm_launches(cfg) * attn:
+        raise AssertionError(f"{where}: rmsnorm launches {counts} are not "
+                             f"{norm_launches(cfg)} per {cfg.n_layers} "
+                             "attention launches")
 
 
 def _serve_requests(vocab: int, prefix: np.ndarray, n: int = 12, seed: int = 0):
@@ -451,6 +527,10 @@ def phase_serve(model, params) -> tuple:
         if counts["flash_attention"] != eng.n_prefill_calls * SERVE_LAYERS:
             raise AssertionError(f"{name}: flash launches {counts} != "
                                  f"{eng.n_prefill_calls} prefills x {SERVE_LAYERS}")
+        calls = eng.n_decode_steps + eng.n_prefill_calls
+        if counts["rmsnorm"] != calls * norm_launches(model.cfg):
+            raise AssertionError(f"{name}: rmsnorm launches {counts} != "
+                                 f"{calls} model calls x {norm_launches(model.cfg)}")
         hits = sum(r.reused_prefix_len > 0 for r in res)
         if hits < 2 or pool.stats["shared_pages_mapped"] < 2 * (128 // PAGE_SIZE):
             raise AssertionError(f"{name}: prefix hits {hits}, {pool.stats}")
@@ -602,9 +682,11 @@ def phase_engine(model, params, paged_tokens: list) -> list:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    if counts["decode_attention"] != L * 31 or counts["flash_attention"] != L:
-        raise AssertionError(f"Engine launches {counts}, want {L * 31} decode "
-                             f"and {L} flash")
+    n_norm = norm_launches(model.cfg)
+    if (counts["decode_attention"] != L * 31 or counts["flash_attention"] != L
+            or counts["rmsnorm"] != 32 * n_norm):
+        raise AssertionError(f"Engine launches {counts}, want {L * 31} decode, "
+                             f"{L} flash and {32 * n_norm} rmsnorm")
     if res.tokens.shape != (8, 32) or not ((res.tokens >= 0)
                                            & (res.tokens < vocab)).all():
         raise AssertionError(f"Engine tokens {res.tokens.shape}")
@@ -630,6 +712,8 @@ def phase_engine(model, params, paged_tokens: list) -> list:
         raise AssertionError("dense pass: unfinished requests")
     if (counts["decode_attention"] != L * cbe.n_decode_steps
             or counts["flash_attention"] != L * cbe.n_prefill_calls
+            or counts["rmsnorm"] != n_norm * (cbe.n_decode_steps
+                                              + cbe.n_prefill_calls)
             or counts["paged_decode_attention"]):
         raise AssertionError(f"dense pass launches {counts}, steps "
                              f"{cbe.n_decode_steps}, prefills {cbe.n_prefill_calls}")
@@ -756,6 +840,7 @@ def phase_tidal(device, h2d: float) -> dict:
     if (counts["paged_decode_attention"] == 0 or counts["flash_attention"] == 0
             or counts["decode_attention"]):
         raise AssertionError(f"TIDAL phase launches {counts}")
+    check_norm_launches(counts, model.cfg, "TIDAL phase")
     out = {"deploy_s": deploy_s, "model_bytes": model_bytes,
            "invocations": len(results), "kinds": kinds, "wall_s": wall,
            "launches": counts,
@@ -835,20 +920,241 @@ def first_ttft(mode: str) -> dict:
             "warm_ttft_ms": second.ttft_s * 1e3}
 
 
+TENANT_TARGETS = ("blocks.attn.wq", "blocks.attn.wv")
+TENANT_ALPHAS = {"fn-1": 0.5, "fn-2": 1.0, "fn-3": 1.5}
+
+
+def _tenant_checkpoints(model, rank: int = 8) -> dict:
+    from repro_torch.core import api as tidal
+    return {name: tidal.lora_checkpoint(f"ckpt://{name}", model,
+                                        list(TENANT_TARGETS), rank=rank, seed=i)
+            for i, name in enumerate(TENANT_ALPHAS, start=1)}
+
+
+def phase_tenants(device, h2d: float) -> dict:
+    """Many LoRA functions on one resident base at full width: a shared
+    smollm-135m base (bank of 4 rows over wq and wv, rank 8) serving three
+    adapter functions and the base itself through the gateway's pump
+    thread; then the merged-weight check and the control plane."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import FaaSRuntime, InvocationRequest
+    model, p_base = full_model(device, seed=4)
+    vocab, L = model.cfg.vocab_size, model.cfg.n_layers
+    rt = FaaSRuntime(server=TemplateServer(hw=H100_SXM.with_h2d(h2d),
+                                           trace_seq=128),
+                     n_slots=8, max_len=512, page_size=PAGE_SIZE, device=device)
+    t0 = time.perf_counter()
+    rt.deploy_shared_base(tidal.static_function("base", model, p_base),
+                          n_adapters=4, rank=8, target_paths=TENANT_TARGETS,
+                          prewarm_seq=128)
+    for name, ckpt in _tenant_checkpoints(model).items():
+        rt.attach_adapter(name, "base", ckpt, alpha=TENANT_ALPHAS[name])
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    names = ["base"] + list(TENANT_ALPHAS)
+    work = [(names[i % 4], rng.integers(1, vocab, int(rng.integers(64, 257))
+                                        ).astype(np.int32)) for i in range(16)]
+    # record the adapter rows of every banked decode step
+    mixes = []
+    decode_step_paged = model.decode_step_paged
+
+    def recording(*a, **kw):
+        if kw.get("adapter_bank") is not None:
+            ids = set(kw["adapter_ids"].tolist()) - {0}
+            mixes.append(len(ids))
+        return decode_step_paged(*a, **kw)
+
+    model.decode_step_paged = recording
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rt.gateway.start_pump()
+    try:
+        handles = [rt.submit(InvocationRequest(fn, p, max_new_tokens=16))
+                   for fn, p in work]
+        res = [h.result(timeout=600) for h in handles]
+    finally:
+        rt.gateway.stop_pump()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    del model.decode_step_paged
+
+    key = ("__adapters__", "base", 0)
+    rows = dict(rt._engines[key].adapter_ids)
+    if sorted(rows) != sorted(TENANT_ALPHAS) or sorted(rows.values()) != [1, 2, 3]:
+        raise AssertionError(f"adapter rows {rows}")
+    bad = [r for r in res if r.status != "done" or len(r.tokens) != 16
+           or not ((r.tokens >= 0) & (r.tokens < vocab)).all()]
+    if bad:
+        raise AssertionError(f"unfinished tenant invocations {bad}")
+    if not mixes or max(mixes) < 2:
+        raise AssertionError(f"no decode step mixed adapter rows: {mixes}")
+    engines = [w.engine for w in rt._engines.values()]
+    steps = sum(e.n_decode_steps for e in engines)
+    prefills = sum(e.n_prefill_calls for e in engines)
+    if (counts["paged_decode_attention"] != L * steps
+            or counts["flash_attention"] != L * prefills
+            or counts["rmsnorm"] != norm_launches(model.cfg) * (steps + prefills)
+            or counts["decode_attention"]):
+        raise AssertionError(f"tenant launches {counts}, {steps} decode steps, "
+                             f"{prefills} prefills")
+    out = {"deploy_s": deploy_s, "invocations": len(res),
+           "engines": [list(map(str, k)) for k in rt.warm_engines()],
+           "adapter_rows": rows, "decode_steps": steps, "prefill_calls": prefills,
+           "banked_steps": len(mixes), "mixed_steps": sum(m >= 2 for m in mixes),
+           "max_rows_in_a_step": max(mixes), "launches": counts, "wall_s": wall,
+           "tokens_per_s": 16 * len(res) / wall,
+           "kinds": [r.kind for r in res],
+           "ttft": {fn: _median_max([r.ttft_s for (f, _), r in zip(work, res)
+                                     if f == fn]) for fn in names}}
+    print(json.dumps(out))
+    out["merged_parity"] = merged_parity(device)
+    out["control_plane"] = control_plane_run(rt, model, p_base)
+    return out
+
+
+def merged_parity(device) -> dict:
+    """2-layer fp32 smollm-135m at full width on the card: each adapter
+    function's greedy tokens from one mixed banked batch equal its
+    merged-weight model's (W + alpha * A @ B), and their last-token logits
+    agree within 1e-3 (different fp32 arithmetic, TF32 off)."""
+    from repro_torch.models.adapters import load_adapter, make_adapter_bank
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.runtime import ContinuousBatchingEngine, Engine
+    cfg = get_config("smollm-135m").replace(n_layers=2, dtype="float32")
+    model = get_model(cfg, device=device)
+    params = model.init_params(seed=1)
+    ckpts = _tenant_checkpoints(model)
+    bank = make_adapter_bank(model, TENANT_TARGETS, 4, 8)
+    for row, (name, ckpt) in enumerate(ckpts.items(), start=1):
+        load_adapter(bank, row, ckpt, model, alpha=TENANT_ALPHAS[name])
+    prompts = np.random.default_rng(8).integers(1, cfg.vocab_size, (3, 40)
+                                                ).astype(np.int32)
+    eng = ContinuousBatchingEngine(model, params, n_slots=4, max_len=64,
+                                   page_size=PAGE_SIZE, adapter_bank=bank)
+    ids = [eng.submit(p, 8, adapter_id=row) for row, p in enumerate(prompts, 1)]
+    got = eng.run()
+    out, worst = {}, 0.0
+    for row, (name, ckpt) in enumerate(ckpts.items(), start=1):
+        merged = {**params, "layers": [dict(lp, attn=dict(lp["attn"]))
+                                       for lp in params["layers"]]}
+        for path in TENANT_TARGETS:
+            proj = path.rsplit(".", 1)[-1]
+            a, b = ckpt.arrays[path + ".A"], ckpt.arrays[path + ".B"]
+            delta = ((a @ b) * TENANT_ALPHAS[name]).reshape(cfg.n_layers, *merged[
+                "layers"][0]["attn"][proj].shape)
+            for i, lp in enumerate(merged["layers"]):
+                lp["attn"][proj] = lp["attn"][proj] + delta[i].to(device)
+        want = Engine(model, merged).generate(prompts[row - 1][None],
+                                              max_new_tokens=8).tokens[0]
+        toks = got[ids[row - 1]].tokens
+        seq = np.concatenate([prompts[row - 1], toks[:-1]])[None]
+        lg_bank, _ = model.prefill(params, {"tokens": seq}, model.make_cache(1, 64),
+                                   adapter_bank=bank, adapter_ids=[row])
+        lg_merged, _ = model.prefill(merged, {"tokens": seq}, model.make_cache(1, 64))
+        err = float((lg_bank - lg_merged).abs().max())
+        worst = max(worst, err)
+        out[name] = {"tokens_equal": bool(np.array_equal(toks, want)),
+                     "max_abs_logit_err": err}
+    res = {"functions": out, "tol": 1e-3, "max_abs_logit_err": worst}
+    print(json.dumps({"merged_parity": res}))
+    if worst > 1e-3 or not all(v["tokens_equal"] for v in out.values()):
+        raise AssertionError(f"banked adapters differ from merged weights: {res}")
+    return res
+
+
+def control_plane_run(rt, model, params) -> dict:
+    """The control plane on the tenants' runtime: an undeclared 128-token
+    root shared by four prompts is baked after three misses (on the pump
+    thread) and reused by the fourth; then a 24-request open-loop Poisson
+    replay at 4 qps over a static function and an adapter function."""
+    from repro_torch.core import api as tidal
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ControlPlane, InvocationRequest
+    vocab = model.cfg.vocab_size
+    rt.deploy(tidal.static_function("cp-static", model, params), {},
+              prewarm_seq=128)
+    cp = ControlPlane(rt, min_hits=3, tick_interval_s=0)
+    rng = np.random.default_rng(9)
+    root = rng.integers(1, vocab, 128).astype(np.int32)
+    prompts = [np.concatenate([root, rng.integers(1, vocab, 8 * int(rng.integers(
+        2, 9)))]).astype(np.int32) for _ in range(4)]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rt.gateway.start_pump()
+    try:
+        misses = [rt.submit(InvocationRequest("cp-static", p, max_new_tokens=16)
+                            ).result(timeout=600) for p in prompts[:3]]
+    finally:
+        rt.gateway.stop_pump()
+    cp.tick()
+    hit = rt.submit("cp-static", {}, prompts[3], 16)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check_norm_launches(counts, model.cfg, "control plane")
+    want_reuse = 128 - (128 - len(prompts[3])) % PAGE_SIZE
+    pinned = cp.pinned_nbytes()
+    if (cp.stats["prefix_bakes"] != 1 or not 0 < pinned <= cp.pinned_bytes_budget
+            or hit.reused_prefix_len != want_reuse
+            or any(m.reused_prefix_len for m in misses)):
+        raise AssertionError(f"learned prefix: {cp.stats}, pinned {pinned}, "
+                             f"reuse {hit.reused_prefix_len} != {want_reuse}")
+    learned = {"bakes": cp.stats["prefix_bakes"], "pinned_bytes": pinned,
+               "reused_prefix_len": hit.reused_prefix_len,
+               "miss_ttft_ms": [m.ttft_s * 1e3 for m in misses],
+               "hit_ttft_ms": hit.ttft_s * 1e3, "launches": counts}
+    print(json.dumps({"learned_prefix": learned}))
+
+    t, schedule = 0.0, []
+    for i in range(24):
+        t += rng.exponential(1 / 4.0)
+        fn = "cp-static" if i % 2 == 0 else "fn-1"
+        tail = rng.integers(1, vocab, int(rng.integers(16, 129))).astype(np.int32)
+        prompt = np.concatenate([root, tail]) if i % 4 == 0 else tail
+        schedule.append((t, InvocationRequest(fn, prompt, max_new_tokens=16)))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    handles = rt.gateway.replay(schedule)
+    wall = time.perf_counter() - t0
+    res = [h.result() for h in handles]
+    counts = ops.launch_counts()
+    check_norm_launches(counts, model.cfg, "open-loop replay")
+    if any(r.status != "done" or len(r.tokens) != 16 for r in res):
+        raise AssertionError("open-loop replay: unfinished invocations")
+    ttft = np.asarray([r.ttft_s for r in res]) * 1e3
+    kinds = {k: sum(r.kind == k for r in res) for k in ("cold", "fork", "warm")}
+    replay = {"requests": len(res), "qps": 4.0, "wall_s": wall,
+              "ttft_ms_p50": float(np.percentile(ttft, 50)),
+              "ttft_ms_p95": float(np.percentile(ttft, 95)), "kinds": kinds,
+              "reuse_hits": sum(r.reused_prefix_len > 0 for r in res),
+              "control_plane": dict(cp.stats), "launches": counts}
+    print(json.dumps({"open_loop": replay}))
+    return {"learned_prefix": learned, "open_loop": replay}
+
+
 def kernel_summary(kernels: list, serve: list, engine: list,
-                   tidal_row: dict) -> list:
+                   tidal_row: dict, tenants: dict) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
-    shapes, with its launches from the serving phases (3, 5 and 6)."""
+    shapes, with its launches from the serving phases (3, 5, 6 and 7)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
-    launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0}
-    rows = list(serve) + list(engine) + [tidal_row]
+    launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0, "rmsnorm": 0}
+    cp = tenants["control_plane"]
+    rows = (list(serve) + list(engine) + [tidal_row, tenants,
+                                          cp["learned_prefix"], cp["open_loop"]])
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
         launches["flash"] += row["launches"]["flash_attention"]
         launches["decode"] += row["launches"]["decode_attention"]
+        launches["rmsnorm"] += row["launches"]["rmsnorm"]
     entries = [
         ("paged_decode_attention",
          pick(kernel="paged_decode_attention", shape="smollm", B=8,
@@ -869,6 +1175,10 @@ def kernel_summary(kernels: list, serve: list, engine: list,
          pick(kernel="decode_attention", shape="smollm", dtype="bfloat16"),
          "src/repro_torch/csrc/decode_attention.cu",
          "src/repro/kernels/decode_attention.py:76", launches["decode"]),
+        ("rmsnorm",
+         pick(kernel="rmsnorm", shape="smollm-decode", dtype="bfloat16"),
+         "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/kernels/rmsnorm.py:25", launches["rmsnorm"]),
     ]
     out = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -913,12 +1223,14 @@ def main(argv=None) -> int:
     engine = timed("engine", phase_engine, model, params, paged_tokens)
     del model, params
     tidal_row = timed("tidal", phase_tidal, device, dev["h2d_bytes_per_s"])
-    summary = kernel_summary(kernels, serve, engine, tidal_row)
+    tenants = timed("tenants", phase_tenants, device, dev["h2d_bytes_per_s"])
+    summary = kernel_summary(kernels, serve, engine, tidal_row, tenants)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
-         "engine": engine, "tidal": tidal_row, "summary": summary,
-         "phases_s": phases, "seconds": time.perf_counter() - t0}, indent=1))
+         "engine": engine, "tidal": tidal_row, "tenants": tenants,
+         "summary": summary, "phases_s": phases,
+         "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -86,6 +86,15 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
     return to_device(params, device)
 
 
+def adapter_bank_from_jax(bank: dict, device="cuda") -> dict:
+    """A port adapter bank from a JAX one given as numpy arrays
+    (``repro.models.adapters.make_adapter_bank`` / ``load_adapter``).
+    Both keep the stacked ``{name: {"a": [L, N, in, r], "b": [L, N, r,
+    out]}}`` layout, so this is a plain conversion."""
+    return {name: {k: _to_tensor(v).to(device) for k, v in slab.items()}
+            for name, slab in bank.items()}
+
+
 def named_parameters(params: dict) -> Iterator[tuple]:
     """``(port name, tensor)`` for every leaf, e.g. ``layers.0.attn.wq``."""
     return named_leaves(params)

@@ -1,4 +1,4 @@
-"""Attention entry points the model layers call, and the launch counts.
+"""Kernel entry points the model layers call, and the launch counts.
 
 Each entry point dispatches on where its tensors live: a CUDA tensor runs
 the hand-written kernel (``csrc/``), a CPU tensor its plain PyTorch
@@ -12,11 +12,13 @@ from __future__ import annotations
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
 
 KERNELS = {
     "decode_attention": decode_attention,
     "flash_attention": flash_attention,
     "paged_decode_attention": paged_decode_attention,
+    "rmsnorm": rmsnorm,
 }
 
 
@@ -32,4 +34,4 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention", "launch_counts",
-           "paged_decode_attention", "reset_launch_counts"]
+           "paged_decode_attention", "reset_launch_counts", "rmsnorm"]

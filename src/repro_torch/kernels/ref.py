@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the attention and normalisation kernels.
 
 Each function states what its CUDA kernel computes, with no tiling: the
 kernel wrappers call these for tensors on the CPU, and ``chip_smoke.py``
@@ -76,3 +76,12 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths,
     k = k_pages[pt].reshape(B, NB * ps, KV, d).transpose(1, 2)
     v = v_pages[pt].reshape(B, NB * ps, KV, d).transpose(1, 2)
     return decode_attention_ref(q, k, v, lengths)
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-6):
+    """RMSNorm with fp32 statistics; the scale is promoted to fp32 too.
+    x: [..., d]; scale: [d].  Returns x's shape and dtype."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)

@@ -13,9 +13,16 @@ forking).  Every TTFT feeds back into the template's Eq. 1 residency.
 Weights are random from a seed.  On the card the model is the full-width
 configuration of ``--arch``; on the CPU it is the narrow smoke
 configuration, as ``repro.launch.serve`` serves it there.  ``--layers``
-cuts the depth of either.  ``--tp``, ``--instances``, ``--open-loop``
-and ``--predictive`` belong to later slices of the port and exit with a
-message naming theirs.
+cuts the depth of either.
+
+``--open-loop --qps Q [--deadline D]`` replaces the closed loop (submit,
+wait, repeat) with open-loop Poisson arrivals through the async gateway:
+requests are ticketed at their scheduled arrivals however far behind the
+engines are, and requests still queued past ``D`` seconds are shed.
+``--predictive`` attaches the control plane (forecast-driven pre-forks
+and keep-alive, runtime-learned prefix bakes within ``--prefix-budget``
+bytes).  ``--tp`` and ``--instances`` belong to a later slice of the
+port and exit with a message naming it.
 """
 
 from __future__ import annotations
@@ -30,15 +37,54 @@ from repro_torch.core import api as tidal
 from repro_torch.data.pipeline import make_prompts
 from repro_torch.models.registry import get_config, get_model
 from repro_torch.models.config import reduced
+from repro_torch.runtime.controlplane import ControlPlane
 from repro_torch.runtime.errors import DeadlineExceeded
 from repro_torch.runtime.faas import FaaSRuntime
 from repro_torch.runtime.gateway import InvocationRequest
 from repro_torch.utils import fmt_bytes
 
 LATER = {"tp": "tensor parallelism (ROADMAP Queue 1, item 11)",
-         "instances": "multi-instance serving (ROADMAP Queue 1, item 11)",
-         "open_loop": "the open-loop driver (ROADMAP Queue 1, item 9)",
-         "predictive": "the control plane (ROADMAP Queue 1, item 9)"}
+         "instances": "multi-instance serving (ROADMAP Queue 1, item 11)"}
+
+
+def _serve_open_loop(rt: FaaSRuntime, cfg, args, rng) -> None:
+    """Open-loop Poisson arrivals through the async gateway."""
+    schedule, t = [], 0.0
+    for r in range(args.requests):
+        t += rng.exponential(1.0 / args.qps)
+        name = f"fn-{rng.integers(args.functions)}"
+        event = ({"adapter": f"adapter-{rng.integers(3)}"}
+                 if args.lora else {})
+        prompt = make_prompts(cfg.vocab_size, 1, args.prompt_len,
+                              seed=100 + r)[0]
+        schedule.append((t, InvocationRequest(
+            name, prompt, event=event, max_new_tokens=args.max_new,
+            deadline_s=args.deadline)))
+    handles = rt.gateway.replay(schedule)
+
+    ttfts, kinds = [], collections.Counter()
+    for r, h in enumerate(handles):
+        try:
+            res = h.result()
+        except DeadlineExceeded:
+            kinds["shed"] += 1
+            print(f"req{r:02d} {h.request.fn_name} SHED "
+                  f"(deadline {args.deadline}s)")
+            continue
+        ttfts.append(res.ttft_s)
+        kinds[res.kind] += 1
+        print(f"req{r:02d} {res.fn_name} {res.kind:4s} "
+              f"ttft={res.ttft_s*1e3:7.1f}ms e2e={res.e2e_s*1e3:7.1f}ms "
+              f"tokens={[int(tk) for tk in res.tokens[:4]]}...")
+    if ttfts:
+        print(f"\nopen-loop @ {args.qps} qps: "
+              f"p50 ttft {np.percentile(ttfts, 50)*1e3:.1f}ms  "
+              f"p95 {np.percentile(ttfts, 95)*1e3:.1f}ms  "
+              f"kinds={dict(kinds)}")
+    if rt.control_plane is not None:
+        cp = rt.control_plane
+        print(f"control plane: {cp.stats}  "
+              f"pinned={fmt_bytes(cp.pinned_nbytes())}")
 
 
 def main(argv=None):
@@ -67,10 +113,22 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--open-loop", action="store_true",
+                    help="Poisson arrivals through the async gateway "
+                         "instead of the closed submit-wait loop")
+    ap.add_argument("--qps", type=float, default=4.0,
+                    help="open-loop arrival rate (requests/s)")
+    ap.add_argument("--predictive", action="store_true",
+                    help="attach the prewarm control plane: forecast "
+                         "arrivals to pre-fork engines and adapt "
+                         "keep-alive, and bake runtime-observed hot "
+                         "prompt prefixes under a pinned-bytes budget")
+    ap.add_argument("--prewarm-horizon", type=float, default=0.25,
+                    help="forecast horizon (s) for predictive pre-forking")
+    ap.add_argument("--prefix-budget", type=int, default=1 << 22,
+                    help="pinned-bytes budget for runtime-learned prefix KV")
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--instances", type=int, default=1)
-    ap.add_argument("--open-loop", action="store_true")
-    ap.add_argument("--predictive", action="store_true")
     args = ap.parse_args(argv)
     for flag, what in LATER.items():
         if getattr(args, flag) != ap.get_default(flag):
@@ -87,6 +145,12 @@ def main(argv=None):
                      keep_alive_s=args.keep_alive, trace_seq=args.prompt_len,
                      chunk_tokens=args.chunk_tokens, kv_dtype=args.kv_dtype,
                      device=args.device)
+    if args.predictive:
+        ControlPlane(rt, pinned_bytes_budget=args.prefix_budget,
+                     prewarm_horizon_s=args.prewarm_horizon)
+        print(f"control plane attached: prewarm horizon "
+              f"{args.prewarm_horizon}s, prefix budget "
+              f"{fmt_bytes(args.prefix_budget)}")
 
     rng = np.random.default_rng(args.seed)
     for i in range(args.functions):
@@ -103,6 +167,10 @@ def main(argv=None):
           f"({cfg.n_layers} layers, {cfg.dtype}) on {rt.device}; warmed "
           f"{rt.exe_cache.stats.misses} entry points in "
           f"{rt.exe_cache.stats.compile_s:.1f}s")
+
+    if args.open_loop:
+        _serve_open_loop(rt, cfg, args, rng)
+        return
 
     ttfts, kinds = [], collections.Counter()
     for r in range(args.requests):

@@ -4,7 +4,7 @@ Every layer is ``f(params, x, ...) -> y`` over a dict of tensors, as in
 ``repro.models.layers``.  Weight matrices keep the JAX package's
 ``[in, out]`` layout, so a projection is ``x @ w``.  Attention runs the
 hand-written kernels through ``kernels.ops`` (CUDA tensors) or their plain
-versions (CPU tensors).
+versions (CPU tensors), and so does every RMSNorm.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import quant
+from repro_torch.models.adapters import lora_delta
 from repro_torch.models.config import ModelConfig
 
 
@@ -39,11 +40,9 @@ def normal_(gen: Optional[torch.Generator], shape,
 # ---------------------------------------------------------------------------
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
-    """RMSNorm with fp32 statistics; the scale is promoted to fp32 too."""
-    dt = x.dtype
-    xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+    """RMSNorm with fp32 statistics; the scale is promoted to fp32 too.
+    The ``rmsnorm`` kernel on a CUDA tensor, its plain version on the CPU."""
+    return ops.rmsnorm(x, scale, eps)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
@@ -101,7 +100,8 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, kv_cache: Optional[dict] = None,
                     cache_pos=None, causal: bool = True,
                     page_table: Optional[torch.Tensor] = None,
-                    page_size: int = 0, adapters: Optional[dict] = None):
+                    page_size: int = 0, adapters: Optional[dict] = None,
+                    adapter_ids: Optional[torch.Tensor] = None):
     """GQA/MQA attention with an optional KV cache.
 
     Three branches, as in ``repro.models.layers.attention_block``:
@@ -120,12 +120,13 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
       append for an int8 arena) are written into its page and the paged
       decode kernel attends over the pages the table maps.
 
+    With ``adapters`` (one layer's slice of an adapter bank) each targeted
+    projection adds its per-sequence low-rank delta, bank row
+    ``adapter_ids[b]``: q/k/v before the bias and reshape, ``wo`` after
+    the output projection, as in the JAX package.
+
     Caches are updated in place and the block returns ``(y, kv_cache)``.
     """
-    if adapters is not None:
-        raise NotImplementedError(
-            "per-slot LoRA adapters arrive with the adapter slice "
-            "(ROADMAP Queue 1, item 8)")
     if cfg.fused_qkv:
         raise NotImplementedError(
             "fused_qkv arrives with the sharding slice (ROADMAP Queue 1, item 11)")
@@ -133,6 +134,13 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if adapters is not None:
+        if "wq" in adapters:
+            q = q + lora_delta(x, adapters["wq"], adapter_ids)
+        if "wk" in adapters:
+            k = k + lora_delta(x, adapters["wk"], adapter_ids)
+        if "wv" in adapters:
+            v = v + lora_delta(x, adapters["wv"], adapter_ids)
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(B, S, H, hd)
@@ -203,7 +211,10 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         mask = torch.ones((1, 1, 1, 1, S), dtype=torch.bool, device=x.device)
         out = _sdpa(q.reshape(B, S, KV, G, hd), k, v, mask, softcap)
 
-    y = out.reshape(B, S, H * hd) @ p["wo"]
+    out = out.reshape(B, S, H * hd)
+    y = out @ p["wo"]
+    if adapters is not None and "wo" in adapters:
+        y = y + lora_delta(out, adapters["wo"], adapter_ids)
     return y, kv_cache
 
 

@@ -83,14 +83,26 @@ class Model:
     def forward(self, params, inputs: dict):
         return transformer.forward(params, self.cfg, self._tokens(inputs))
 
-    def prefill(self, params, inputs: dict, cache):
-        return transformer.prefill(params, self.cfg, self._tokens(inputs), cache)
+    def _ids(self, adapter_ids):
+        if adapter_ids is None:
+            return None
+        return torch.as_tensor(adapter_ids, dtype=torch.int32,
+                               device=self.device)
 
-    def prefill_from(self, params, inputs: dict, cache, offset: int):
+    def prefill(self, params, inputs: dict, cache, adapter_bank=None,
+                adapter_ids=None):
+        """Whole-prompt prefill; with an ``adapter_bank``, ``adapter_ids``
+        [B] selects each sequence's LoRA row."""
+        return transformer.prefill(params, self.cfg, self._tokens(inputs), cache,
+                                   adapter_bank, self._ids(adapter_ids))
+
+    def prefill_from(self, params, inputs: dict, cache, offset: int,
+                     adapter_bank=None, adapter_ids=None):
         """Suffix-only prefill against a cache holding a reused prompt
         prefix of ``offset`` tokens."""
         return transformer.prefill_from(params, self.cfg, self._tokens(inputs),
-                                        cache, offset)
+                                        cache, offset, adapter_bank,
+                                        self._ids(adapter_ids))
 
     def decode_step(self, params, cache, inputs: dict, pos):
         """One decode step; ``pos`` an int or an int [B] vector."""
@@ -98,15 +110,17 @@ class Model:
                                        self._tokens(inputs), pos)
 
     def decode_step_paged(self, params, cache, inputs: dict, pos, page_table,
-                          page_size: int):
+                          page_size: int, adapter_bank=None, adapter_ids=None):
         """One decode step over a block-paged arena: ``pos`` int [B] and
-        ``page_table`` [B, NB] int32 on the model's device."""
+        ``page_table`` [B, NB] int32 on the model's device; with an
+        ``adapter_bank``, ``adapter_ids`` [B] picks each slot's LoRA row."""
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         page_table = torch.as_tensor(page_table, dtype=torch.int32,
                                      device=self.device)
         return transformer.decode_step_paged(params, self.cfg, cache,
                                              self._tokens(inputs), pos,
-                                             page_table, page_size)
+                                             page_table, page_size, adapter_bank,
+                                             self._ids(adapter_ids))
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -140,15 +140,17 @@ def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 # ---------------------------------------------------------------------------
 
 def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
-                 cache_pos, page_table=None, page_size: int = 0):
+                 cache_pos, page_table=None, page_size: int = 0,
+                 adapters: Optional[dict] = None, adapter_ids=None):
     """One decoder block (pre-norm attention, then the gated MLP) over its
     parameters ``bp`` and its layer's cache (updated in place).  The layer
     loop below and the layer-streamed prefill (``core.streaming``) both
-    run it."""
+    run it.  ``adapters`` is this layer's slice of an adapter bank."""
     h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
     a, _ = attention_block(bp["attn"], h, cfg, positions, layer_cache,
                            cache_pos, page_table=page_table,
-                           page_size=page_size)
+                           page_size=page_size, adapters=adapters,
+                           adapter_ids=adapter_ids)
     x = x + a
     h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
     return x + mlp_block(bp["mlp"], h, cfg.act)
@@ -159,11 +161,21 @@ def layer_cache(cache: Optional[dict], layer: int) -> Optional[dict]:
     return None if cache is None else {k: t[layer] for k, t in cache.items()}
 
 
+def layer_bank(bank: Optional[dict], layer: int) -> Optional[dict]:
+    """One layer's slice of an adapter bank (where the JAX package puts
+    the bank into the layer scan's xs)."""
+    if bank is None:
+        return None
+    return {name: {k: t[layer] for k, t in slab.items()}
+            for name, slab in bank.items()}
+
+
 def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
-             page_size: int = 0):
+             page_size: int = 0, adapter_bank=None, adapter_ids=None):
     for layer, bp in enumerate(params["layers"]):
         x = _dense_block(bp, x, cfg, positions, layer_cache(cache, layer),
-                         cache_pos, page_table, page_size)
+                         cache_pos, page_table, page_size,
+                         layer_bank(adapter_bank, layer), adapter_ids)
     return x
 
 
@@ -188,24 +200,30 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 
 
 @torch.no_grad()
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict):
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+            adapter_bank: Optional[dict] = None, adapter_ids=None):
     """Process the prompt, fill the cache; returns (last-token logits, cache)."""
-    return prefill_from(params, cfg, tokens, cache, 0)
+    return prefill_from(params, cfg, tokens, cache, 0, adapter_bank,
+                        adapter_ids)
 
 
 @torch.no_grad()
 def prefill_from(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
-                 cache: dict, offset: int):
+                 cache: dict, offset: int, adapter_bank: Optional[dict] = None,
+                 adapter_ids=None):
     """Suffix-only prefill: ``tokens`` are positions ``offset ..
     offset+S-1`` against a cache whose first ``offset`` positions are
     already filled (a reused prompt prefix).  Positions, RoPE and the
-    causal mask carry the offset, and the new K/V land at ``offset``."""
+    causal mask carry the offset, and the new K/V land at ``offset``.
+    With an ``adapter_bank``, ``adapter_ids`` [B] selects each sequence's
+    LoRA row."""
     check_dense(cfg)
     B, S = tokens.shape
     offset = int(offset)
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
-    x = _decoder(params, cfg, x, positions, cache, offset)
+    x = _decoder(params, cfg, x, positions, cache, offset,
+                 adapter_bank=adapter_bank, adapter_ids=adapter_ids)
     return _head(params, cfg, x[:, -1:])[:, 0], cache
 
 
@@ -227,14 +245,18 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
 @torch.no_grad()
 def decode_step_paged(params: dict, cfg: ModelConfig, cache: dict,
                       tokens: torch.Tensor, pos: torch.Tensor,
-                      page_table: torch.Tensor, page_size: int):
+                      page_table: torch.Tensor, page_size: int,
+                      adapter_bank: Optional[dict] = None, adapter_ids=None):
     """One decode step over a block-paged KV arena (:func:`make_paged_cache`).
 
     tokens: [B, 1]; pos: int [B] per-sequence positions; page_table:
-    [B, NB] int32 physical page per logical block."""
+    [B, NB] int32 physical page per logical block.  With an
+    ``adapter_bank``, ``adapter_ids`` [B] selects each slot's LoRA delta
+    (0 = null adapter for free and foreign slots)."""
     check_dense(cfg)
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x = _decoder(params, cfg, x, pos[:, None], cache, pos,
-                 page_table=page_table, page_size=page_size)
+                 page_table=page_table, page_size=page_size,
+                 adapter_bank=adapter_bank, adapter_ids=adapter_ids)
     return _head(params, cfg, x)[:, 0], cache

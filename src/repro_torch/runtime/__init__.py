@@ -11,11 +11,17 @@
                 params or a forked session with layer-streamed prefill
   gateway     — InvocationGateway: tickets, quanta, deadlines, cancel,
                 crash supervision and brown-out
-  faas        — FaaSRuntime: deploy, cold/fork/warm invocations, keep-alive
+  controlplane — ControlPlane: arrival forecasting, predictive prewarm and
+                keep-alive, runtime-learned prefix bakes under a budget
+  faas        — FaaSRuntime: deploy, cold/fork/warm invocations, keep-alive,
+                shared-base adapter serving, measured service times
 """
 
 from repro_torch.runtime.continuous import (ContinuousBatchingEngine, Request,
                                             RequestOutput)
+from repro_torch.runtime.controlplane import (ArrivalPredictor, ControlPlane,
+                                              EwmaHistogramPredictor,
+                                              PrefixObserver, trace_schedule)
 from repro_torch.runtime.engine import (Engine, GenerationResult,
                                         sample_greedy, sample_temperature,
                                         sample_token)
@@ -26,7 +32,8 @@ from repro_torch.runtime.errors import (AdapterLoadFault, DeadlineExceeded,
                                         PartitionViolation, PoolExhausted,
                                         PrefillFault, RuntimeFailure,
                                         WeightFetchFault)
-from repro_torch.runtime.faas import FaaSRuntime
+from repro_torch.runtime.faas import (FaaSRuntime, MeasuredServiceTimes,
+                                     measure_service_times)
 from repro_torch.runtime.faults import (INJECTION_POINTS, FaultPlan, FaultSpec,
                                         fault_point, install_fault_plan,
                                         use_fault_plan)
@@ -37,14 +44,17 @@ from repro_torch.runtime.kv_pool import (KVCachePool, PagedKVCachePool,
 from repro_torch.runtime.prefix import PrefixIndex
 
 __all__ = [
-    "AdapterLoadFault", "ContinuousBatchingEngine", "DeadlineExceeded",
-    "DecodeFault", "Engine", "EngineFailure", "EngineStepFault",
+    "AdapterLoadFault", "ArrivalPredictor", "ContinuousBatchingEngine",
+    "ControlPlane", "DeadlineExceeded", "DecodeFault", "Engine",
+    "EngineFailure", "EngineStepFault", "EwmaHistogramPredictor",
     "FaaSRuntime", "FaultPlan", "FaultSpec", "GenerationResult",
     "INJECTION_POINTS", "InjectedFault", "InvocationCancelled",
     "InvocationGateway", "InvocationHandle", "InvocationRequest",
-    "KVCachePool", "Overloaded", "PagedKVCachePool", "PartitionViolation",
-    "PoolExhausted", "PrefillFault", "PrefixHandle", "PrefixIndex",
-    "Request", "RequestOutput", "RuntimeFailure", "SubmitResult",
-    "WeightFetchFault", "fault_point", "install_fault_plan",
-    "sample_greedy", "sample_temperature", "sample_token", "use_fault_plan",
+    "KVCachePool", "MeasuredServiceTimes", "Overloaded", "PagedKVCachePool",
+    "PartitionViolation", "PoolExhausted", "PrefillFault", "PrefixHandle",
+    "PrefixIndex", "PrefixObserver", "Request", "RequestOutput",
+    "RuntimeFailure", "SubmitResult", "WeightFetchFault", "fault_point",
+    "install_fault_plan", "measure_service_times", "sample_greedy",
+    "sample_temperature",
+    "sample_token", "trace_schedule", "use_fault_plan",
 ]

@@ -29,8 +29,13 @@ Greedy decoding reproduces the JAX engine's tokens request by request
 (tested): the port runs the same admission, page and position logic.
 ``step_n`` and ``step_tokens`` are the gateway's scheduling quanta.
 
+``adapter_bank`` (paged pools only) makes one engine serve MANY
+functions: each request carries an ``adapter_id`` and every prefill and
+decode gathers its slot's LoRA delta from the bank (id 0 = the null
+adapter, carried by free and foreign slots).
+
 Not ported yet, and raising ``NotImplementedError``: sharding plans
-(ROADMAP Queue 1, item 11) and adapter banks (item 8).
+(ROADMAP Queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 
 from repro_torch.core.streaming import (ForkSession, streamed_prefill,
                                         supports_streamed_prefill)
+from repro_torch.models.adapters import bank_n_adapters, load_adapter
 from repro_torch.models.registry import Model
 from repro_torch.runtime.engine import sample_greedy, sample_token
 from repro_torch.runtime.faults import fault_point
@@ -66,6 +72,7 @@ class Request:
     deadline_s: Optional[float] = None  # shed if still QUEUED past this
     priority: int = 0                # higher admits first (FIFO within)
     token_cb: Optional[Callable] = None  # (req_id, token, index) per emit
+    adapter_id: int = 0              # bank row (0 = null adapter / base)
     # prefix-reuse match, resolved lazily at first admission check and
     # cached ((handle, reuse_len) or None); _UNMATCHED = not yet looked up
     prefix_hit: Any = _UNMATCHED
@@ -132,10 +139,6 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "sharding plans arrive with the tensor-parallel slice "
                 "(ROADMAP Queue 1, item 11)")
-        if adapter_bank is not None:
-            raise NotImplementedError(
-                "adapter banks arrive with the adapter slice "
-                "(ROADMAP Queue 1, item 8)")
         if not isinstance(params, (dict, ForkSession)):
             raise TypeError("params must be a parameter dict or a "
                             f"ForkSession, not {type(params).__name__}")
@@ -159,6 +162,9 @@ class ContinuousBatchingEngine:
                         "kv_dtype quantization needs the paged arena")
                 self.pool = KVCachePool(model, n_slots, max_len)
         self.device = self.pool.device
+        if adapter_bank is not None and not self.paged:
+            raise ValueError("adapter banks serve over the paged arena only")
+        self.adapter_bank = adapter_bank
         # partition lease: a paged engine's slots file under its owner
         # token and its decode steps run under the pool's masked table.
         # Dense pools have no mask and are borrowed exclusively.
@@ -182,6 +188,9 @@ class ContinuousBatchingEngine:
         # their logits are computed and discarded)
         self._tok = np.zeros((n_slots, 1), np.int32)
         self._pos = np.zeros((n_slots,), np.int32)
+        # per-slot adapter ids (0 = null adapter: free and foreign slots
+        # and base-model requests gather a zero delta)
+        self._aid = np.zeros((n_slots,), np.int32)
         self._step_tokens = 0            # work done by the last step()
         self.n_decode_steps = 0
         self.n_prefill_calls = 0
@@ -197,20 +206,36 @@ class ContinuousBatchingEngine:
     def n_pending(self) -> int:
         return len(self.queue) + len(self.active)
 
+    def set_adapter(self, idx: int, adapter, alpha: float = 1.0) -> None:
+        """Load a LoRA checkpoint into bank row ``idx``, in place: steps
+        already issued run before the write on the engine's stream."""
+        if self.adapter_bank is None:
+            raise ValueError("engine was built without an adapter bank")
+        fault_point("adapter_load", f"row={idx}")
+        load_adapter(self.adapter_bank, idx, adapter, self.model, alpha=alpha)
+
     # ------------------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int = 8,
                submit_s: Optional[float] = None,
                temperature: float = 0.0, top_p: float = 1.0,
                seed: int = 0, deadline_s: Optional[float] = None,
                priority: int = 0,
-               token_cb: Optional[Callable] = None) -> int:
+               token_cb: Optional[Callable] = None,
+               adapter_id: int = 0) -> int:
         """Enqueue one request (see ``repro.runtime.continuous`` for the
         meaning of every argument).  ``temperature=0`` decodes greedily;
         ``deadline_s`` sheds a request still queued past it; ``priority``
-        ranks admission; ``token_cb(req_id, token, index)`` streams."""
+        ranks admission; ``token_cb(req_id, token, index)`` streams;
+        ``adapter_id`` selects the request's bank row (0 = the base)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if adapter_id:
+            if self.adapter_bank is None:
+                raise ValueError(
+                    "adapter_id set but the engine has no adapter bank")
+            if not (0 <= adapter_id < bank_n_adapters(self.adapter_bank)):
+                raise ValueError(f"adapter_id {adapter_id} out of range")
         if temperature < 0 or not (0 < top_p <= 1):
             raise ValueError("need temperature >= 0 and 0 < top_p <= 1")
         if len(prompt) + max_new_tokens > self.pool.max_len:
@@ -229,7 +254,8 @@ class ContinuousBatchingEngine:
                                   submit_s or time.perf_counter(),
                                   temperature=temperature, top_p=top_p,
                                   seed=seed, deadline_s=deadline_s,
-                                  priority=priority, token_cb=token_cb))
+                                  priority=priority, token_cb=token_cb,
+                                  adapter_id=adapter_id))
         return rid
 
     def cancel(self, req_id: int) -> bool:
@@ -311,26 +337,34 @@ class ContinuousBatchingEngine:
         return torch.as_tensor(np.ascontiguousarray(toks), device=self.device)
 
     def _streams(self) -> bool:
-        """True while prefill must consume weights still in flight."""
+        """True while prefill must consume weights still in flight (never
+        for a bank engine: its prefill gathers adapter rows)."""
         return (self.session is not None and self._params is None
+                and self.adapter_bank is None
                 and supports_streamed_prefill(self.model))
 
-    def _prefill(self, toks: np.ndarray, cache: dict, offset: int):
+    def _prefill(self, toks: np.ndarray, cache: dict, offset: int,
+                 adapter_id: int = 0):
         """Whole-prompt (offset 0) or suffix-only prefill, batch 1;
-        layer-streamed while a fork's weights are in flight.  Returns
-        (logits, cache, streamed)."""
+        layer-streamed while a fork's weights are in flight; under the
+        request's adapter row in a bank engine.  Returns (logits, cache,
+        streamed)."""
         self.n_prefill_calls += 1
         toks = self._tokens(toks)
         if self._streams():
             logits, cache = streamed_prefill(self.session, {"tokens": toks},
                                              cache, offset=offset)
             return logits, cache, True
+        bank = {}
+        if self.adapter_bank is not None:
+            bank = {"adapter_bank": self.adapter_bank,
+                    "adapter_ids": [adapter_id]}
         if offset:
             logits, cache = self.model.prefill_from(
-                self.params(), {"tokens": toks}, cache, offset)
+                self.params(), {"tokens": toks}, cache, offset, **bank)
         else:
             logits, cache = self.model.prefill(self.params(),
-                                               {"tokens": toks}, cache)
+                                               {"tokens": toks}, cache, **bank)
         return logits, cache, False
 
     def _sample_first(self, req: Request, logits: torch.Tensor) -> int:
@@ -356,6 +390,7 @@ class ContinuousBatchingEngine:
                                    owner=self._owner)
             self._tok[slot, 0] = 0
             self._pos[slot] = self.pool.padded_len - 1
+            self._aid[slot] = req.adapter_id
             self.active[slot] = _Active(req=req, slot=slot, tokens=[],
                                         ttft_s=0.0, reused_prefix_len=reuse,
                                         cursor=reuse, prefilling=True)
@@ -389,12 +424,13 @@ class ContinuousBatchingEngine:
             cache = self.model.make_cache(
                 1, self.pool.padded_len if self.paged else self.pool.max_len)
         logits, cache, streamed = self._prefill(req.prompt[None, reuse:],
-                                                cache, reuse)
+                                                cache, reuse, req.adapter_id)
         first = self._sample_first(req, logits)
         ttft = time.perf_counter() - req.submit_s
         if self.paged:
             self.pool.write_suffix(slot, cache, reuse, len(req.prompt),
                                    owner=self._owner)
+            self._aid[slot] = req.adapter_id
         else:
             self.pool.write_slot(slot, cache)
         self._tok[slot, 0] = first
@@ -438,7 +474,7 @@ class ContinuousBatchingEngine:
                 return 0
         cache = self.pool.read_slot_full(slot)
         logits, cache, streamed = self._prefill(req.prompt[None, start:end],
-                                                cache, start)
+                                                cache, start, req.adapter_id)
         self.pool.write_suffix(slot, cache, start, end, owner=self._owner)
         st.streamed = st.streamed or streamed
         st.cursor = end
@@ -461,6 +497,7 @@ class ContinuousBatchingEngine:
         self._release(slot)
         self._tok[slot, 0] = 0
         self._pos[slot] = 0
+        self._aid[slot] = 0
         e2e = time.perf_counter() - st.req.submit_s
         self.results[st.req.req_id] = RequestOutput(
             req_id=st.req.req_id,
@@ -573,9 +610,13 @@ class ContinuousBatchingEngine:
                 self.pool.ensure_len(slot, int(self._pos[slot]) + 1,
                                      owner=self._owner)
             pt = self.pool.device_page_table(self._owner)
+            bank = {}
+            if self.adapter_bank is not None:
+                bank = {"adapter_bank": self.adapter_bank,
+                        "adapter_ids": self._tokens(self._aid)}
             logits, _ = self.model.decode_step_paged(
                 self.params(), self.pool.cache, {"tokens": toks}, pos, pt,
-                self.pool.page_size)
+                self.pool.page_size, **bank)
         else:
             logits, _ = self.model.decode_step(
                 self.params(), self.pool.cache, {"tokens": toks}, pos)

@@ -1,10 +1,9 @@
 """Async invocation gateway: ticketed lifecycle over the serving engines.
 
 The port of ``repro.runtime.gateway``; its logic runs on the host and is
-carried over whole, apart from the control-plane hooks and per-request
-adapter ids, which arrive with their subsystems (ROADMAP Queue 1, items 9
-and 8).  The background pump thread runs the engines on the runtime's
-card and its default stream.
+carried over whole, control-plane hooks and per-request adapter ids
+included.  The background pump thread runs the engines (and the control
+plane's ticks and bakes) on the runtime's card and its default stream.
 
 The synchronous front door (``FaaSRuntime.submit_many``) drains one engine
 to completion at a time, so a long decode on one function inflates
@@ -376,6 +375,12 @@ class InvocationGateway:
             rt._prune(now)
             prompt = np.asarray(request.prompt, np.int32).reshape(-1)
             rt._validate(request.fn_name, prompt, request.max_new_tokens)
+            if rt.control_plane is not None:
+                # every VALID arrival trains the forecaster — including
+                # ones shed below: the arrival pattern is real even when
+                # the service never happens
+                rt.control_plane.on_arrival(request.fn_name, now,
+                                            request.event)
             if (request.deadline_s is not None
                     and time.perf_counter() - now > request.deadline_s):
                 # dead on arrival against the request's OWN clock: a
@@ -402,7 +407,8 @@ class InvocationGateway:
                 prompt, request.max_new_tokens, submit_s=now,
                 temperature=request.temperature, top_p=request.top_p,
                 seed=request.seed, deadline_s=request.deadline_s,
-                priority=request.priority, token_cb=handle._on_token)
+                priority=request.priority, token_cb=handle._on_token,
+                adapter_id=rt._adapter_id_for(request.fn_name, key))
             self._live.append(handle)
             self._wake.notify_all()      # background pump: new work landed
             return handle
@@ -490,17 +496,28 @@ class InvocationGateway:
                 and self.pressure() >= self.brownout_threshold)
 
     def _note_terminal(self, handle: InvocationHandle) -> None:
-        """Fold one terminal ticket into the runtime's per-function
-        service-class counters.  Every terminalization path routes
-        through here exactly once."""
+        """Fold one terminal ticket into the observation stream.
+
+        Bumps the runtime's per-function service-class counters and —
+        when a control plane is attached — feeds completed invocations
+        (prompt, kind, reuse length) to its prefix observer.  Every
+        terminalization path routes through here exactly once.
+        """
         rt = self.runtime
         fn_name = handle.request.fn_name
         state = handle._state
         if state == DONE:
             rt._count(fn_name, "done")
             res = handle._result
-            if res is not None and res.reused_prefix_len > 0:
+            reused = res.reused_prefix_len if res is not None else 0
+            if reused > 0:
                 rt._count(fn_name, "reuse_hits")
+            if rt.control_plane is not None:
+                rt.control_plane.on_completion(
+                    fn_name, handle.request.event,
+                    np.asarray(handle.request.prompt,
+                               np.int32).reshape(-1),
+                    handle.kind, reused, time.perf_counter())
         elif state == SHED:
             rt._count(fn_name, "shed")
         elif state == CANCELLED:
@@ -690,6 +707,14 @@ class InvocationGateway:
             if wait > 0:
                 if any(not h.done for h in handles):
                     self.pump(timeout=wait)
+                elif self.runtime.control_plane is not None:
+                    # idle gap between arrivals: sleep in tick-sized
+                    # slices so the control plane can prewarm/bake AHEAD
+                    # of the next burst instead of reacting to it
+                    cp = self.runtime.control_plane
+                    with self._lock:
+                        cp.maybe_tick()
+                    time.sleep(min(wait, max(cp.tick_interval_s, 1e-3)))
                 else:
                     time.sleep(wait)
                 continue
@@ -746,6 +771,12 @@ class InvocationGateway:
         on with the surviving engines.  In drain mode the first runnable
         engine runs to completion instead.
         """
+        cp = self.runtime.control_plane
+        if cp is not None:
+            # actuate the control plane from the scheduling loop: ticks
+            # stay cooperative, so whichever thread pumps (caller or the
+            # background pump daemon) remains the only engine stepper
+            cp.maybe_tick()
         next_due = self._service_retries()
         engines = self._engines()
         if not engines:
@@ -935,7 +966,8 @@ class InvocationGateway:
                 prompt, req.max_new_tokens, submit_s=h.submit_s,
                 temperature=req.temperature, top_p=req.top_p,
                 seed=req.seed, deadline_s=req.deadline_s,
-                priority=req.priority, token_cb=h._on_token)
+                priority=req.priority, token_cb=h._on_token,
+                adapter_id=rt._adapter_id_for(req.fn_name, key))
         except RuntimeFailure as e:
             h.engine = None
             h._fail(e)

@@ -137,15 +137,9 @@ def test_keep_alive_expiry_matches_jax(pkgs):
 
 
 def test_later_slices_raise_with_their_item():
+    """Only serving over a mesh still waits for its slice."""
     with pytest.raises(NotImplementedError, match="item 11"):
         torch_faas.FaaSRuntime(mesh=object(), device="cpu")
-    rt = torch_faas.FaaSRuntime(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        rt.deploy_shared_base(None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rt.attach_control_plane(None)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        torch_faas.measure_service_times(rt, {})
 
 
 def test_serve_cli_runs_on_the_cpu():
@@ -162,6 +156,24 @@ def test_serve_cli_runs_on_the_cpu():
     assert kinds == {"cold", "fork", "warm"}, res.stdout
     assert "p50 ttft" in res.stdout
     bad = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--open-loop"],
+        [sys.executable, "-m", "repro_torch.launch.serve", "--tp", "2"],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
-    assert bad.returncode != 0 and "item 9" in bad.stderr
+    assert bad.returncode != 0 and "item 11" in bad.stderr
+
+
+def test_serve_cli_open_loop_predictive_on_the_cpu():
+    """Poisson arrivals through the gateway with the control plane
+    attached, over LoRA functions."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--layers", "2", "--functions", "2", "--requests", "8", "--lora",
+         "--prompt-len", "16", "--max-new", "6", "--open-loop", "--qps", "20",
+         "--predictive", "--prewarm-horizon", "0.5"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "control plane attached" in res.stdout
+    lines = [l for l in res.stdout.splitlines() if l.startswith("req")]
+    assert len(lines) == 8
+    assert "open-loop @ 20.0 qps: p50 ttft" in res.stdout
+    assert "control plane: {'ticks':" in res.stdout

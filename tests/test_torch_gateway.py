@@ -12,8 +12,9 @@ awaiting retry, a fatal pump-thread error, overload rejection with
 priority shed, and brown-out.  From tests/test_gateway.py: streaming
 handles, cancel of a pinned-prefix borrower, cancel of a queued request,
 deadline shed, an unservable request failing alone and drain mode across
-an evicted engine.  The adapter, mesh and control-plane cases wait for
-their slices.
+an evicted engine.  The adapter-load fault is held against the JAX one in
+tests/test_torch_adapters.py, the control plane's hooks in
+tests/test_torch_controlplane.py; the mesh cases wait for their slice.
 """
 
 import time

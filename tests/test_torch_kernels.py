@@ -1,10 +1,13 @@
-"""The port's attention kernels, held against the JAX package on the CPU.
+"""The port's kernels, held against the JAX package on the CPU.
 
 On a CPU tensor each wrapper runs its kernel's plain PyTorch version; the
 same numpy inputs go through the JAX Pallas kernel (interpret mode, as
-tests/test_kernels.py runs it) and ``repro.kernels.ref``.  Everything is
-fp32 with TF32 off; tolerance 1e-5 (summation order only).  The CUDA
-kernels themselves are checked on the card by ``chip_smoke.py``.
+tests/test_kernels.py runs it) and ``repro.kernels.ref``.  Attention is
+fp32 with TF32 off; tolerance 1e-5 (summation order only).  RMSNorm runs
+in fp32 (tolerance 1e-5, summation order only) and bf16 (within one bf16
+ulp of the Pallas output: the two round the same fp32 value, whose last
+bits may differ by summation order).  The CUDA kernels themselves are
+checked on the card by ``chip_smoke.py``.
 """
 
 import pytest
@@ -17,9 +20,11 @@ import numpy as np  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as pallas_flash  # noqa: E402
 from repro.kernels.ops import paged_decode_attention as pallas_paged  # noqa: E402
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm  # noqa: E402
 from repro.models import quant as jquant  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from repro_torch.kernels.rmsnorm import row_stride  # noqa: E402
 from repro_torch.models import quant as tquant  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -149,6 +154,51 @@ def test_decode_attention_ref_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """One bf16 unit in the last place at each value (8 significant bits)."""
+    mag = np.maximum(np.abs(x), np.finfo(np.float32).tiny)
+    return np.exp2(np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 576, 2048])
+@pytest.mark.parametrize("lead", [(130,), (3, 7)])
+def test_rmsnorm_ref_matches_pallas(lead, d, dtype):
+    """Rows that are no multiple of the Pallas kernel's 128-row tile (it
+    pads them), at head-norm, smollm and wide model widths."""
+    rng = np.random.default_rng(d + len(lead))
+    x = rng.standard_normal(lead + (d,)).astype(np.float32)
+    s = (rng.standard_normal(d) * 0.1 + 1.0).astype(np.float32)
+    jx, js = jnp.asarray(x, dtype), jnp.asarray(s, dtype)
+    want = np.asarray(pallas_rmsnorm(jx, js, eps=1e-5), np.float32)
+    tdt = getattr(torch, dtype)
+    got = ops.rmsnorm(_t(np.asarray(jx, np.float32)).to(tdt),
+                      _t(np.asarray(js, np.float32)).to(tdt), 1e-5)
+    assert got.dtype == tdt and got.shape == x.shape
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, **TOL)
+    else:
+        assert (np.abs(got - want) <= _bf16_ulp(want)).all()
+
+
+def test_rmsnorm_scale_dtype_and_strided_rows():
+    """A bf16 scale is promoted to fp32 under fp32 rows; the last-row view
+    of a prefill (``x[:, -1:]``) normalises without a copy."""
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal((2, 9, 64)).astype(np.float32))
+    s = _t(rng.standard_normal(64).astype(np.float32)).to(torch.bfloat16)
+    want = tref.rmsnorm_ref(x[:, -1:].contiguous(), s.float(), 1e-6)
+    torch.testing.assert_close(ops.rmsnorm(x[:, -1:], s), want, **TOL)
+    assert row_stride(x[:, -1:]) == 9 * 64
+    assert row_stride(x) == 64
+    assert row_stride(torch.zeros((1, 1, 64))) == 64
+    with pytest.raises(ValueError, match="collapse to one row stride"):
+        row_stride(x.transpose(0, 1))
+    with pytest.raises(ValueError, match="last axis"):
+        row_stride(x.transpose(1, 2))
+
+
 def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     """No quiet fallback: a tensor that is neither on the CPU nor on a
     card raises, and the plain CPU path launches (and counts) nothing.
@@ -163,9 +213,11 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     lens = torch.ones(1, dtype=torch.int32, device="meta")
     cache = torch.zeros((1, 2, 8, 16), device="meta")
     fq = torch.zeros((1, 4, 8, 16), device="meta")
+    scale = torch.ones(16, device="meta")
     assert ops.paged_decode_attention(q, arena, arena, pt, lens).shape == q.shape
     assert ops.decode_attention(q, cache, cache, lens).shape == q.shape
     assert ops.flash_attention(fq, cache, cache).shape == fq.shape
+    assert ops.rmsnorm(fq, scale).shape == fq.shape
     monkeypatch.setattr(meta, "is_meta", lambda t: False)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.paged_decode_attention(q, arena, arena, pt, lens)
@@ -173,12 +225,15 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
         ops.decode_attention(q, cache, cache, lens)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.flash_attention(fq, cache, cache)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.rmsnorm(fq, scale)
+    ops.rmsnorm(torch.ones((3, 16)), torch.ones(16))
     ops.flash_attention(torch.zeros((1, 4, 8, 16)), torch.zeros((1, 2, 8, 16)),
                         torch.zeros((1, 2, 8, 16)))
     ops.decode_attention(torch.zeros((1, 4, 16)), torch.zeros((1, 2, 8, 16)),
                          torch.zeros((1, 2, 8, 16)), 3)
     assert ops.launch_counts() == {"decode_attention": 0, "flash_attention": 0,
-                                   "paged_decode_attention": 0}
+                                   "paged_decode_attention": 0, "rmsnorm": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -194,7 +249,8 @@ def test_cuda_sources_declare_their_entry_points():
     """Each wrapper's C symbol is defined with C linkage in csrc/."""
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
     assert set(sources) == {"paged_decode_attention.cu", "flash_attention.cu",
-                            "decode_attention.cu"}
+                            "decode_attention.cu", "rmsnorm.cu"}
+    assert 'extern "C" int repro_rmsnorm(' in sources["rmsnorm.cu"]
     assert 'extern "C" int repro_decode_attention(' in \
         sources["decode_attention.cu"]
     assert 'extern "C" int repro_paged_decode_attention(' in \

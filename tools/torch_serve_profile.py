@@ -10,7 +10,9 @@ Runs the serving pass of ``chip_smoke.py`` (30 layers, bf16, 8 slots,
    clock after a device synchronise, and each step classed by what it did
    (admitted and prefilled requests, or decoded only);
 2. under ``torch.profiler`` for the device time by kernel name, the
-   device-busy share of the wall time, and the host ops that cost most.
+   device-busy share of the wall time, the host ops that cost most, and
+   the kernel launches (``cudaLaunchKernel`` calls) per layer of each
+   model call (a decode step or a prefill call).
 
 Prints one JSON object and writes it to ``DIR/serve_profile.json``
 (default ``results/``).
@@ -71,6 +73,7 @@ def profiled_pass(model, params, prefix, reqs) -> dict:
         eng.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    calls = eng.n_decode_steps + eng.n_prefill_calls
     eng.close()
     events = prof.key_averages()
 
@@ -83,8 +86,11 @@ def profiled_pass(model, params, prefix, reqs) -> dict:
     device_ms = sum(ms for _, ms, _ in kernels)
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events),
                   key=lambda r: -r[1])
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
+            "model_calls": calls, "kernel_launches": launches,
+            "launches_per_layer_call": launches / (calls * model.cfg.n_layers),
             "kernels_top": [{"name": k[:90], "ms": ms, "count": n}
                             for k, ms, n in kernels[:15]],
             "host_ops_top": [{"name": k[:90], "self_ms": ms, "count": n}
