@@ -38,7 +38,20 @@ Phases, in order; any failure raises and the process exits non-zero:
    adapter rows; a 2-layer fp32 check of each adapter function against
    its merged-weight model; then the control plane: a learned 128-token
    prefix baked after three misses and reused by the fourth invocation,
-   and a 24-request open-loop Poisson replay at 4 qps.
+   and a 24-request open-loop Poisson replay at 4 qps;
+8. ssm: ``ssd_scan`` against both of its plain versions (chunked and
+   sequential) at zamba2-2.7b's shapes (H = 80, dh = ds = 64, chunk 128;
+   S = 128, 512, a ragged 200, and B = 4 with an initial state; B and C
+   in bf16 and fp32), and ``flash_attention`` / ``decode_attention`` at
+   zamba2's head dim of 80, all timed; then zamba2-2.7b at full width
+   (54 Mamba2 layers and one shared attention block applied 9 times,
+   bf16, seeded random weights) through a dense-pool
+   ``ContinuousBatchingEngine`` (12 requests) and the sequential
+   ``Engine`` (8 x 256 tokens, the continuous engine's tokens equal),
+   with exact launch counts (ssd_scan 54 and flash 9 per prefill call,
+   decode 9 per step, rmsnorm 127 per model call); a 2-layer fp32 card
+   against CPU check, streamed prefill equal to prefill, and
+   ``FaaSRuntime`` cold / fork / warm for a static zamba function.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -68,8 +81,13 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SMOLLM = dict(H=9, KV=3, d=64)
 LLAMA3_8B = dict(H=32, KV=8, d=128)
 GEMMA_2B = dict(H=8, KV=1, d=256)
+ZAMBA2_ATTN = dict(H=32, KV=32, d=80)             # the shared attention block
+ZAMBA2_SSD = dict(H=80, dh=64, ds=64, Q=128, d_inner=5120)
 PAGE_SIZE = 8
 SERVE_LAYERS = 30
+# zamba2-2.7b serving prompts: six take the JAX mixer's chunked branch
+# (<= 128 tokens or a multiple of 128), six are ragged
+ZAMBA_LENGTHS = (64, 200, 128, 300, 256, 150, 100, 333, 384, 250, 96, 180)
 
 
 def _import_port():
@@ -151,6 +169,25 @@ def flash_work(B, H, KV, S, T, d, dtype, causal=True) -> tuple:
     elt = torch.empty((), dtype=dtype).element_size()
     nbytes = elt * (2 * B * H * S * d + 2 * B * KV * T * d)
     return 4 * B * H * pairs * d, nbytes
+
+
+def ssd_work(B, S, H, dh, ds, Q, bc_dtype, with_h0: bool) -> tuple:
+    """(FLOPs, bytes) of the chunked SSD scan.  Per chunk of n rows the
+    causal pairs j <= i number P = n (n + 1) / 2: C_i . B_j once per
+    (batch, chunk) (it is the same for every head), then per head the
+    scores times x (2 P dh), C times the state and the state update
+    (2 n dh ds each).  Bytes: xb, B, C, the log decays and h0 read once,
+    y and the final state written once."""
+    flops = 0
+    for c0 in range(0, S, Q):
+        n = min(Q, S - c0)
+        pairs = n * (n + 1) // 2
+        flops += B * 2 * pairs * ds + B * H * (2 * pairs * dh + 4 * n * dh * ds)
+    bc = torch.empty((), dtype=bc_dtype).element_size()
+    state = B * H * dh * ds * 4
+    nbytes = (2 * B * S * H * dh * 4 + 2 * B * S * ds * bc + B * S * H * 4
+              + state * (2 if with_h0 else 1))
+    return flops, nbytes
 
 
 def rmsnorm_work(shape, dtype) -> tuple:
@@ -421,21 +458,34 @@ def phase_kernels(device) -> list:
     return results
 
 
+def attention_launches(cfg) -> int:
+    """Attention kernel launches of one model call: one per layer, or for
+    zamba one per application of the shared block."""
+    if cfg.family == "zamba":
+        return cfg.n_layers // cfg.attn_every
+    return cfg.n_layers
+
+
 def norm_launches(cfg) -> int:
     """rmsnorm launches of one model call: two per block, the final norm,
-    and two more per block for qk-norm models."""
+    and two more per block for qk-norm models.  zamba: two per Mamba2
+    block (the pre-norm and the mixer's gated norm), two per application
+    of the shared block, and the final norm (127 for zamba2-2.7b)."""
+    if cfg.family == "zamba":
+        return 2 * cfg.n_layers + 2 * attention_launches(cfg) + 1
     return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
 
 
 def check_norm_launches(counts: dict, cfg, where: str) -> None:
-    """Every model call launches L attention kernels and norm_launches(cfg)
-    rmsnorms, so the two counts stand in a fixed ratio."""
+    """Every model call launches attention_launches(cfg) attention kernels
+    and norm_launches(cfg) rmsnorms, so the two counts stand in a fixed
+    ratio."""
     attn = (counts["paged_decode_attention"] + counts["flash_attention"]
             + counts["decode_attention"])
-    if counts["rmsnorm"] * cfg.n_layers != norm_launches(cfg) * attn:
+    if counts["rmsnorm"] * attention_launches(cfg) != norm_launches(cfg) * attn:
         raise AssertionError(f"{where}: rmsnorm launches {counts} are not "
-                             f"{norm_launches(cfg)} per {cfg.n_layers} "
-                             "attention launches")
+                             f"{norm_launches(cfg)} per "
+                             f"{attention_launches(cfg)} attention launches")
 
 
 def _serve_requests(vocab: int, prefix: np.ndarray, n: int = 12, seed: int = 0):
@@ -1138,23 +1188,413 @@ def control_plane_run(rt, model, params) -> dict:
     return {"learned_prefix": learned, "open_loop": replay}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the ssm family (ssd_scan, zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+def make_ssd_case(gen, B, S, bc_dtype, with_h0: bool, device) -> tuple:
+    """Inputs as the zamba2 mixer makes them: xb [B, S, H, dh] fp32, B and
+    C strided column slices of a [B, S, conv_ch] conv output, negative log
+    decays, and an optional initial state."""
+    c = ZAMBA2_SSD
+    d_in, ds = c["d_inner"], c["ds"]
+    conv = (torch.randn((B, S, d_in + 2 * ds), generator=gen) * 0.5).to(
+        device, bc_dtype)
+    xb = torch.randn((B, S, c["H"], c["dh"]), generator=gen).to(device)
+    ld = (-torch.rand((B, S, c["H"]), generator=gen) * 0.25).to(device)
+    h0 = (torch.randn((B, c["H"], c["dh"], ds), generator=gen).to(device)
+          if with_h0 else None)
+    return xb, conv[..., d_in:d_in + ds], conv[..., d_in + ds:], ld, h0
+
+
+def phase_ssm_kernels(device) -> list:
+    """``ssd_scan`` against both plain versions, and the attention kernels
+    at zamba2's head dim of 80, on the card, timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator().manual_seed(8)
+    rng = np.random.default_rng(8)
+    c = ZAMBA2_SSD
+    Q = c["Q"]
+    results = []
+    for B, S, with_h0 in ((1, 128, False), (1, 512, False), (1, 200, False),
+                          (4, 256, True)):
+        for bc_dtype in (torch.bfloat16, torch.float32):
+            args = make_ssd_case(gen, B, S, bc_dtype, with_h0, device)
+            y, h = ssd_scan(*args[:4], Q, args[4])
+            y2, h2 = ssd_scan(*args[:4], Q, args[4])
+            plain = {"sequential": ref.ssd_scan_ref(*args)}
+            if S % Q == 0:
+                plain["chunked"] = ref.ssd_chunked_ref(*args[:4], Q, args[4])
+            torch.cuda.synchronize()
+            errs, ok = {}, True
+            for name, (yp, hp) in plain.items():
+                ey = float((y - yp).abs().max())
+                eh = float((h - hp).abs().max())
+                ty, th = 1e-4 * float(yp.abs().max()), 1e-4 * float(hp.abs().max())
+                errs[name] = {"y": ey, "h": eh, "tol_y": ty, "tol_h": th}
+                ok = ok and ey <= ty and eh <= th
+            same = torch.equal(y, y2) and torch.equal(h, h2)
+            kern_ms = time_ms(lambda: ssd_scan(*args[:4], Q, args[4]))
+            plain_ms = time_ms(lambda: ref.ssd_ref(*args[:4], Q, args[4]),
+                               reps=3, graph_calls=1)
+            flops, nbytes = ssd_work(B, S, c["H"], c["dh"], c["ds"], Q,
+                                     bc_dtype, with_h0)
+            b_ms, b_by = bound_ms(flops, nbytes, torch.float32)
+            res = {"kernel": "ssd_scan", "shape": "zamba2-2.7b", "B": B, "S": S,
+                   "H": c["H"], "dh": c["dh"], "ds": c["ds"], "Q": Q,
+                   "h0": with_h0, "bc_dtype": str(bc_dtype)[6:],
+                   "max_abs_err": max(max(e["y"], e["h"]) for e in errs.values()),
+                   "errors": errs, "tol": "1e-4 of the largest |y| and |h|",
+                   "deterministic": same, "ms": kern_ms, "plain_ms": plain_ms,
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            results.append(res)
+            print(json.dumps(res))
+            if not ok or not same:
+                raise AssertionError(f"ssd_scan disagrees: {res}")
+
+    H, KV, d = ZAMBA2_ATTN["H"], ZAMBA2_ATTN["KV"], ZAMBA2_ATTN["d"]
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        S = T = 384
+        q = torch.randn((1, H, S, d), generator=gen).to(device, dtype)
+        k = torch.randn((1, KV, T, d), generator=gen).to(device, dtype)
+        v = torch.randn((1, KV, T, d), generator=gen).to(device, dtype)
+        out = flash_attention(q, k, v)
+        err = float((out.float() - ref.flash_attention_ref(q, k, v).float()
+                     ).abs().max())
+        flops, nbytes = flash_work(1, H, KV, S, T, d, dtype)
+        b_ms, b_by = bound_ms(flops, nbytes, dtype)
+        res = {"kernel": "flash_attention", "shape": "zamba2-2.7b", "B": 1,
+               "H": H, "KV": KV, "d": d, "S": S, "T": T, "dtype": str(dtype)[6:],
+               "softcap": 0.0, "max_abs_err": err, "tol": tol,
+               "ms": time_ms(lambda: flash_attention(q, k, v)),
+               "plain_ms": time_ms(lambda: ref.flash_attention_ref(q, k, v)),
+               "library_ms": time_ms(lambda: sdpa_gqa(q, k, v, is_causal=True)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        results.append(res)
+        print(json.dumps(res))
+        if not err <= tol:
+            raise AssertionError(f"flash_attention disagrees at d = 80: {res}")
+
+        B, T = 8, 512
+        lengths = [1] + rng.integers(2, T + 1, B - 2).tolist() + [T]
+        q = torch.randn((B, H, d), generator=gen).to(device, dtype)
+        ck = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
+        cv = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
+        ln = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+        k, v = ck.transpose(1, 2), cv.transpose(1, 2)
+        out = decode_attention(q, k, v, ln)
+        err = float((out.float() - ref.decode_attention_ref(q, k, v, ln).float()
+                     ).abs().max())
+        mask = (torch.arange(T, device=device)[None, :]
+                < ln[:, None].long())[:, None, None, :]
+        flops, nbytes = decode_work(B, H, KV, d, lengths, dtype)
+        b_ms, b_by = bound_ms(flops, nbytes, dtype)
+        res = {"kernel": "decode_attention", "shape": "zamba2-2.7b", "B": B,
+               "H": H, "KV": KV, "d": d, "T": T, "max_len": int(max(lengths)),
+               "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+               "ms": time_ms(lambda: decode_attention(q, k, v, ln)),
+               "plain_ms": time_ms(lambda: ref.decode_attention_ref(q, k, v, ln)),
+               "library_ms": time_ms(lambda: sdpa_gqa(q[:, :, None], k, v,
+                                                      attn_mask=mask)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        results.append(res)
+        print(json.dumps(res))
+        if not err <= tol:
+            raise AssertionError(f"decode_attention disagrees at d = 80: {res}")
+    return results
+
+
+def zamba_model(device, seed: int = 0):
+    """zamba2-2.7b at full width and depth with seeded random weights."""
+    from repro_torch.models.registry import get_model
+    model = get_model("zamba2-2.7b", device=device)
+    cfg = model.cfg
+    assert (cfg.n_layers, cfg.d_model, cfg.attn_every) == (54, 2560, 6)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=seed)
+    torch.cuda.synchronize()
+    print(f"zamba2-2.7b: {cfg.n_layers} Mamba2 layers + 1 shared attention "
+          f"block x {attention_launches(cfg)}, d_model {cfg.d_model}, "
+          f"{model.dtype}, weights (seed {seed}) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model, params
+
+
+def check_zamba_launches(counts: dict, cfg, prefills: int, steps: int,
+                         where: str) -> None:
+    """Exact launches of ``prefills`` prefill calls (S > 1) and ``steps``
+    decode steps of a zamba model."""
+    units = attention_launches(cfg)
+    want = {"ssd_scan": cfg.n_layers * prefills,
+            "flash_attention": units * prefills,
+            "decode_attention": units * steps,
+            "rmsnorm": norm_launches(cfg) * (prefills + steps),
+            "paged_decode_attention": 0}
+    if counts != want:
+        raise AssertionError(f"{where}: launches {counts} != {want} "
+                             f"({prefills} prefills, {steps} decode steps)")
+
+
+def zamba_continuous(model, params, prompts: list, new_tokens: int,
+                     where: str) -> tuple:
+    """Every prompt through one dense-pool ContinuousBatchingEngine (8
+    slots, max_len 512), launch counts checked; returns (row, tokens)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ContinuousBatchingEngine
+    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512)
+    if eng.paged:
+        raise AssertionError("zamba must serve over the dense slot pool")
+    host = []
+    decode_step = model.decode_step
+
+    def timed_decode(*a, **kw):             # host time of one decode call
+        t = time.perf_counter()
+        out = decode_step(*a, **kw)
+        host.append(time.perf_counter() - t)
+        return out
+
+    model.decode_step = timed_decode
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        ids = [eng.submit(p, new_tokens) for p in prompts]
+        results = eng.run()
+    finally:
+        del model.decode_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    res = [results[i] for i in ids]
+    vocab = model.cfg.vocab_size
+    if any(r.status != "done" or r.n_generated != new_tokens
+           or not ((r.tokens >= 0) & (r.tokens < vocab)).all() for r in res):
+        raise AssertionError(f"{where}: unfinished requests")
+    check_zamba_launches(counts, model.cfg, eng.n_prefill_calls,
+                         eng.n_decode_steps, where)
+    ttft = np.asarray([r.ttft_s for r in res]) * 1e3
+    row = {"pass": where, "requests": len(res),
+           "prompt_lens": [int(r.prompt_len) for r in res],
+           "new_tokens": new_tokens, "decode_steps": eng.n_decode_steps,
+           "prefill_calls": eng.n_prefill_calls, "launches": counts,
+           "wall_s": wall, "tokens_per_s": new_tokens * len(res) / wall,
+           "decode_host_ms_median": float(np.median(host) * 1e3),
+           "decode_host_ms_max": float(np.max(host) * 1e3),
+           "ttft_ms_p50": float(np.percentile(ttft, 50)),
+           "ttft_ms_max": float(ttft.max())}
+    print(json.dumps(row))
+    return row, [r.tokens for r in res]
+
+
+def phase_zamba(device, h2d: float) -> dict:
+    """zamba2-2.7b at full width: the dense-pool continuous engine, the
+    sequential Engine, a 2-layer fp32 parity check, streamed prefill and
+    FaaSRuntime cold / fork / warm."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Engine
+    model, params = zamba_model(device)
+    cfg, vocab = model.cfg, model.cfg.vocab_size
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(1, vocab, n).astype(np.int32) for n in ZAMBA_LENGTHS]
+    zamba_continuous(model, params, prompts[:2], 2, "zamba warm-up")
+    serve, _ = zamba_continuous(model, params, prompts, 16, "zamba dense pool")
+
+    batch = np.random.default_rng(11).integers(1, vocab, (8, 256)).astype(np.int32)
+    eng = Engine(model, params)
+    eng.generate(batch[:, :32], max_new_tokens=2)             # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(batch, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_zamba_launches(counts, cfg, 1, 31, "zamba Engine")
+    cont, cont_tokens = zamba_continuous(model, params, list(batch), 32,
+                                         "zamba dense pool, Engine's prompts")
+    equal = sum(int((res.tokens[i] == t).sum()) for i, t in enumerate(cont_tokens))
+    engine = {"pass": "zamba engine", "batch": 8, "prompt_len": 256,
+              "new_tokens": 32, "launches": counts, "wall_s": wall,
+              "ttft_ms": res.ttft_s * 1e3,
+              "decode_ms_per_step": res.decode_s / 31 * 1e3,
+              "tokens_per_s": 8 * 32 / wall,
+              "tokens_equal_to_continuous": f"{equal}/{8 * 32}"}
+    print(json.dumps(engine))
+    if equal != 8 * 32:
+        raise AssertionError(f"Engine tokens differ from the continuous "
+                             f"engine's: {equal}/{8 * 32}")
+    out = {"serve": serve, "engine": engine, "engine_prompts_continuous": cont}
+    out["faas"] = zamba_faas(model, params, prompts, h2d)
+    del model, params
+    torch.cuda.empty_cache()
+    out["parity"] = zamba_parity(device)
+    return out
+
+
+def zamba_parity(device) -> dict:
+    """A 2-layer fp32 zamba2 at full width (one unit of two Mamba2 blocks
+    and the shared block): card (kernels) against CPU (plain versions) on
+    a ragged 200-token prompt pair and 8 greedy decode steps, then the
+    card's layer-streamed prefill of a forked session against its
+    monolithic prefill, bit for bit."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.streaming import streamed_prefill
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.runtime import Engine
+    from repro_torch.utils import named_leaves
+    cfg = get_config("zamba2-2.7b").replace(n_layers=2, attn_every=2,
+                                            dtype="float32")
+    prompts = np.random.default_rng(12).integers(1, cfg.vocab_size, (2, 200)
+                                                 ).astype(np.int32)
+    runs = {}
+    for dev in (device, "cpu"):
+        model = get_model(cfg, device=dev)
+        logits = []
+
+        def prefill(p, inputs, cache, m=model, out=logits):
+            lg, cache = m.prefill(p, inputs, cache)
+            out.append(lg.float().cpu())
+            return lg, cache
+
+        def decode(p, cache, inputs, pos, m=model, out=logits):
+            lg, cache = m.decode_step(p, cache, inputs, pos)
+            out.append(lg.float().cpu())
+            return lg, cache
+
+        res = Engine(model, model.init_params(seed=1), prefill, decode
+                     ).generate(prompts, max_new_tokens=9)
+        runs[str(dev)] = (torch.stack(logits), res.tokens)
+    (lg_gpu, tk_gpu), (lg_cpu, tk_cpu) = runs[str(device)], runs["cpu"]
+    err = float((lg_gpu - lg_cpu).abs().max())
+    out = {"max_abs_logit_err": err, "tol": 1e-3,
+           "tokens_equal": bool((tk_gpu == tk_cpu).all()),
+           "tokens_card": tk_gpu.tolist()}
+    if not err <= 1e-3 or not out["tokens_equal"]:
+        raise AssertionError(f"zamba card vs CPU parity failed: {out}")
+
+    model = get_model(cfg, device=device)
+    params = model.init_params(seed=1)
+    srv = TemplateServer(trace_seq=64)
+    srv.register(tidal.static_function("z", model, params), {})
+    session, _ = srv.fork("z", {})
+    lg_s, c_s = streamed_prefill(session, {"tokens": prompts[:1]},
+                                 model.make_cache(1, 256))
+    lg_m, c_m = model.prefill(params, {"tokens": prompts[:1]},
+                              model.make_cache(1, 256))
+    torch.cuda.synchronize()
+    out["streamed_prefill_equal"] = bool(torch.equal(lg_s, lg_m) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(c_s),
+                                                    named_leaves(c_m))))
+    print(json.dumps({"zamba_parity": out}))
+    if not out["streamed_prefill_equal"]:
+        raise AssertionError("zamba streamed prefill differs from prefill")
+    return out
+
+
+def zamba_faas(model, params, prompts: list, h2d: float) -> dict:
+    """A static zamba2-2.7b function through ``FaaSRuntime`` and the pump
+    thread: cold, warm, then fork and warm after an evict; then one fork
+    alone and one warm invocation alone."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import FaaSRuntime, InvocationRequest
+    rt = FaaSRuntime(server=TemplateServer(hw=H100_SXM.with_h2d(h2d),
+                                           trace_seq=128),
+                     n_slots=8, max_len=512, device=model.device)
+    t0 = time.perf_counter()
+    rt.deploy(tidal.static_function("zamba", model, params), {},
+              prewarm_seq=128)
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    tpl = rt.server.templates["zamba"]
+    results = []
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    rt.gateway.start_pump()
+    try:
+        for wave in ([0, 1], "evict", [2, 3]):
+            if wave == "evict":
+                rt.evict()
+                continue
+            handles = [rt.submit(InvocationRequest("zamba", prompts[i],
+                                                   max_new_tokens=16))
+                       for i in wave]
+            results += [h.result(timeout=600) for h in handles]
+    finally:
+        rt.gateway.stop_pump()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    kinds = [r.kind for r in results]
+    if kinds != ["cold", "warm", "fork", "warm"]:
+        raise AssertionError(f"zamba service kinds {kinds}")
+    if any(r.status != "done" or len(r.tokens) != 16 for r in results):
+        raise AssertionError("unfinished zamba invocations")
+    forks = [r for r in results if r.fork_stats is not None]
+    for r in forks:
+        fs = r.fork_stats
+        if not r.streamed_prefill or (fs.reused_bytes + fs.streamed_bytes
+                                      + fs.dynamic_bytes != tpl.total_bytes):
+            raise AssertionError(f"zamba fork: streamed {r.streamed_prefill}, "
+                                 f"bytes {fs} != {tpl.total_bytes}")
+    check_norm_launches(counts, model.cfg, "zamba FaaS")
+    if counts["ssd_scan"] * attention_launches(model.cfg) != (
+            model.cfg.n_layers * counts["flash_attention"]) or counts[
+                "paged_decode_attention"]:
+        raise AssertionError(f"zamba FaaS launches {counts}")
+    rt.evict()
+    fork = rt.submit("zamba", {}, prompts[4], 16)
+    warm = rt.submit("zamba", {}, prompts[4], 16)
+    if (fork.kind, warm.kind) != ("fork", "warm") or not np.array_equal(
+            fork.tokens, warm.tokens):
+        raise AssertionError(f"zamba isolated pair: {fork.kind} {warm.kind}")
+    out = {"deploy_s": deploy_s, "model_bytes": tpl.total_bytes,
+           "kinds": kinds, "launches": counts,
+           "ttft_ms": {r.kind + str(i): r.ttft_s * 1e3
+                       for i, r in enumerate(results)},
+           "fork_bytes": [{"reused": r.fork_stats.reused_bytes,
+                           "streamed": r.fork_stats.streamed_bytes,
+                           "dynamic": r.fork_stats.dynamic_bytes}
+                          for r in forks],
+           "resident_bytes_after_eq1": tpl.resident_bytes,
+           "isolated": {"fork_ttft_ms": fork.ttft_s * 1e3,
+                        "warm_ttft_ms": warm.ttft_s * 1e3,
+                        "fork_s_ms": fork.fork_stats.fork_s * 1e3,
+                        "streamed_bytes": fork.fork_stats.streamed_bytes,
+                        "reused_bytes": fork.fork_stats.reused_bytes,
+                        "prompt_len": len(prompts[4])}}
+    print(json.dumps({"zamba_faas": out}))
+    rt.evict()
+    return out
+
+
 def kernel_summary(kernels: list, serve: list, engine: list,
-                   tidal_row: dict, tenants: dict) -> list:
+                   tidal_row: dict, tenants: dict, ssm: dict) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
-    shapes, with its launches from the serving phases (3, 5, 6 and 7)."""
+    shapes, with its launches from the serving phases (3, 5, 6, 7 and 8)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
-    launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0, "rmsnorm": 0}
+    launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0, "rmsnorm": 0,
+                "ssd": 0}
     cp = tenants["control_plane"]
     rows = (list(serve) + list(engine) + [tidal_row, tenants,
-                                          cp["learned_prefix"], cp["open_loop"]])
+                                          cp["learned_prefix"], cp["open_loop"]]
+            + [ssm["serve"], ssm["engine"], ssm["engine_prompts_continuous"],
+               ssm["faas"]])
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
         launches["flash"] += row["launches"]["flash_attention"]
         launches["decode"] += row["launches"]["decode_attention"]
         launches["rmsnorm"] += row["launches"]["rmsnorm"]
+        launches["ssd"] += row["launches"]["ssd_scan"]
     entries = [
         ("paged_decode_attention",
          pick(kernel="paged_decode_attention", shape="smollm", B=8,
@@ -1179,6 +1619,10 @@ def kernel_summary(kernels: list, serve: list, engine: list,
          pick(kernel="rmsnorm", shape="smollm-decode", dtype="bfloat16"),
          "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:25", launches["rmsnorm"]),
+        ("ssd_scan",
+         pick(kernel="ssd_scan", B=1, S=200, bc_dtype="bfloat16"),
+         "src/repro_torch/csrc/ssd_scan.cu",
+         "src/repro/kernels/ssd_scan.py:79", launches["ssd"]),
     ]
     out = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -1215,6 +1659,10 @@ def main(argv=None) -> int:
         print(f"phase {name}: {phases[name]:.1f} s")
         return out
 
+    def ssm_phase(h2d):
+        rows = phase_ssm_kernels(device)
+        return rows, phase_zamba(device, h2d)
+
     dev = timed("device", phase_device)
     kernels = timed("kernels", phase_kernels, device)
     model, params = full_model(device)
@@ -1224,11 +1672,14 @@ def main(argv=None) -> int:
     del model, params
     tidal_row = timed("tidal", phase_tidal, device, dev["h2d_bytes_per_s"])
     tenants = timed("tenants", phase_tenants, device, dev["h2d_bytes_per_s"])
-    summary = kernel_summary(kernels, serve, engine, tidal_row, tenants)
+    torch.cuda.empty_cache()
+    ssm_rows, ssm = timed("ssm", ssm_phase, dev["h2d_bytes_per_s"])
+    kernels += ssm_rows
+    summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
-         "engine": engine, "tidal": tidal_row, "tenants": tenants,
+         "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
          "summary": summary, "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,9 +1,11 @@
 """Convert JAX parameters into the port's parameters.
 
-The JAX package keeps a dense model's block parameters stacked on a
-leading layer axis (``blocks.attn.wq`` is ``[L, D, H*hd]``); the port keeps
-a list of per-layer dicts (``layers.3.attn.wq`` is ``[D, H*hd]``).  Names
-outside the blocks are the same in both.  :func:`port_names` is the table
+The JAX package keeps per-layer parameters stacked on a leading layer
+axis (``blocks.attn.wq`` is ``[L, D, H*hd]``; zamba's ``mamba.mixer.in_proj``
+is ``[L, D, E]``); the port keeps a list of per-layer dicts
+(``layers.3.attn.wq`` is ``[D, H*hd]``, ``mamba.3.mixer.in_proj`` is
+``[D, E]``).  Names outside the stacked groups (``embed``, zamba's single
+``shared_attn`` block, ...) are the same in both.  :func:`port_names` is the table
 between the two naming schemes: tracing and LoRA targets name weights by
 the JAX path strings (``repro.utils.path_str``).
 
@@ -20,23 +22,25 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_dense, to_device
+from repro_torch.models.transformer import check_family, to_device
 from repro_torch.utils import named_leaves
 
-STACKED = "blocks"     # the JAX subtree stacked on a leading layer axis
-LAYERS = "layers"      # the port's per-layer list
+# JAX subtree stacked on a leading layer axis -> the port's per-layer list
+STACKED = {"blocks": "layers", "mamba": "mamba"}
+UNSTACKED = {v: k for k, v in STACKED.items()}
 
 
 def port_names(jax_path: str, n_layers: int) -> list:
     """Port parameter names of one JAX leaf path.
 
     ``'blocks.attn.wq'`` -> ``['layers.0.attn.wq', ..., 'layers.{L-1}.attn.wq']``
-    (one per unstacked layer); any other path maps to itself.
+    and ``'mamba.mixer.a_log'`` -> ``['mamba.0.mixer.a_log', ...]`` (one
+    per unstacked layer); any other path maps to itself.
     """
     head, _, rest = jax_path.partition(".")
-    if head != STACKED:
+    if head not in STACKED:
         return [jax_path]
-    return [f"{LAYERS}.{i}.{rest}" for i in range(n_layers)]
+    return [f"{STACKED[head]}.{i}.{rest}" for i in range(n_layers)]
 
 
 def _flatten(tree, prefix: str = "") -> Iterator[tuple]:
@@ -71,18 +75,20 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
 
     ``jax_params`` is the nested dict of ``repro.models.transformer.
     init_params`` (or a checkpoint of it) with leaves converted to numpy.
-    Stacked ``[L, ...]`` block leaves are unstacked into ``layers``.
+    Stacked ``[L, ...]`` leaves are unstacked into per-layer dicts.
     """
-    check_dense(cfg)
-    params: dict = {LAYERS: [{} for _ in range(cfg.n_layers)]}
+    check_family(cfg)
+    params: dict = {STACKED[k]: [{} for _ in range(cfg.n_layers)]
+                    for k in STACKED if k in jax_params}
     for path, leaf in _flatten(jax_params):
         t = _to_tensor(leaf)
         names = port_names(path, cfg.n_layers)
-        if len(names) > 1 and t.shape[0] != cfg.n_layers:
+        stacked = path.partition(".")[0] in STACKED
+        if stacked and t.shape[0] != cfg.n_layers:
             raise ValueError(f"{path}: leading axis {t.shape[0]} != "
                              f"n_layers {cfg.n_layers}")
         for i, name in enumerate(names):
-            _set(params, name, t[i] if len(names) > 1 else t)
+            _set(params, name, t[i] if stacked else t)
     return to_device(params, device)
 
 
@@ -102,10 +108,11 @@ def named_parameters(params: dict) -> Iterator[tuple]:
 
 def jax_key(port_name: str) -> tuple:
     """A port weight name as the JAX package's weight key (path, layer):
-    ``'layers.3.attn.wq'`` -> ``('blocks.attn.wq', (3,))``, any other name
+    ``'layers.3.attn.wq'`` -> ``('blocks.attn.wq', (3,))``,
+    ``'mamba.3.norm'`` -> ``('mamba.norm', (3,))``, any other name
     -> ``(name, ())``.  The inverse of :func:`port_names`, key by key."""
     head, _, rest = port_name.partition(".")
-    if head != LAYERS:
+    layer, _, leaf = rest.partition(".")
+    if head not in UNSTACKED or not layer.isdigit():
         return (port_name, ())
-    layer, _, rest = rest.partition(".")
-    return (f"{STACKED}.{rest}", (int(layer),))
+    return (f"{UNSTACKED[head]}.{leaf}", (int(layer),))

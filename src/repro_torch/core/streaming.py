@@ -18,9 +18,10 @@ validates the schedule and the synchronisation logic.
 ``streamed_prefill`` runs the first prefill layer by layer while later
 layers' weights are still in flight: layer ``l``'s block waits only for
 layer ``l``'s weights.  Its result equals the monolithic prefill exactly
-(it runs the same ``transformer._dense_block``; tested with
-``torch.equal``).  The dense family streams; the hybrid families (xlstm,
-zamba) arrive with their models (ROADMAP Queue 1, item 10).
+(it runs the same ``transformer._dense_block``, and for zamba the same
+``transformer.zamba_unit``; tested with ``torch.equal``).  The dense and
+zamba families stream; xLSTM arrives with its model (ROADMAP Queue 1,
+item 10).
 """
 
 from __future__ import annotations
@@ -180,10 +181,17 @@ class ForkSession:
     def leaf(self, path: str) -> torch.Tensor:
         return self.streamer.get((path, ()))
 
-    def layer_params(self, layer: int) -> dict:
-        """One layer's parameter dict, waiting only on that layer."""
+    def layer_params(self, layer: int, group: str = "layers") -> dict:
+        """One layer's parameter dict of a per-layer ``group`` (``layers``,
+        zamba's ``mamba``), waiting only on that layer."""
         return map_with_path(lambda p, _: self.leaf(p),
-                             self._specs["layers"][layer], f"layers.{layer}.")
+                             self._specs[group][layer], f"{group}.{layer}.")
+
+    def block_params(self, name: str) -> dict:
+        """The parameter dict of one named block (zamba's ``shared_attn``),
+        waiting only on its weights."""
+        return map_with_path(lambda p, _: self.leaf(p), self._specs[name],
+                             f"{name}.")
 
     def params(self) -> dict:
         """The full parameter dict (waits for every outstanding copy)."""
@@ -198,7 +206,7 @@ class ForkSession:
 # ---------------------------------------------------------------------------
 
 def supports_streamed_prefill(model: Model) -> bool:
-    return model.cfg.family == "dense"
+    return model.cfg.family in ("dense", "zamba")
 
 
 @torch.no_grad()
@@ -209,7 +217,8 @@ def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
     Returns (last-token logits, filled cache) and equals
     ``transformer.prefill_from`` (``offset=0``: ``prefill``) exactly.  With
     ``offset`` the tokens are a prompt suffix at positions ``offset ..``
-    over a cache whose first ``offset`` rows hold a reused prefix."""
+    over a cache whose first ``offset`` rows hold a reused prefix (dense
+    family only: a zamba prefill starts at position 0)."""
     model = session.model
     cfg = model.cfg
     if not supports_streamed_prefill(model):
@@ -219,6 +228,12 @@ def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
     tokens = torch.as_tensor(inputs["tokens"], device=model.device)
     B, S = tokens.shape
     offset = int(offset)
+    if cfg.family == "zamba":
+        if offset:
+            raise ValueError(
+                f"{cfg.name}: zamba has no suffix-only prefill (recurrent "
+                f"state is not position-addressable), got offset={offset}")
+        return _streamed_prefill_zamba(session, tokens, cache)
     x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)
     positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
     for layer in range(cfg.n_layers):
@@ -226,8 +241,39 @@ def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
                                      positions,
                                      transformer.layer_cache(cache, layer),
                                      offset)
+    return _streamed_head(session, x), cache
+
+
+def _streamed_prefill_zamba(session: ForkSession, tokens, cache: dict):
+    """Zamba2 streamed prefill: per unit, ``attn_every`` Mamba2 blocks, each
+    waiting only for its own layer's weights, then the SHARED attention +
+    MLP block, fetched once (at the end of the first unit, where the traced
+    order first needs it) and reused by every unit.  Runs
+    ``transformer.zamba_unit``, the body of the monolithic prefill."""
+    cfg = session.model.cfg
+    B, S = tokens.shape
+    x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    shared: dict = {}
+
+    def shared_params() -> dict:
+        if not shared:
+            shared.update(session.block_params("shared_attn"))
+        return shared
+
+    for unit in range(transformer.n_units(cfg)):
+        x = transformer.zamba_unit(
+            lambda layer: session.layer_params(layer, "mamba"), shared_params,
+            x, cfg, positions, cache, unit, 0)
+    return _streamed_head(session, x), cache
+
+
+def _streamed_head(session: ForkSession, x):
+    """The final norm and LM head over the last position (last-token
+    logits), from the session's weights."""
+    cfg = session.model.cfg
     x = rmsnorm(x[:, -1:], session.leaf("final_norm"), cfg.norm_eps)
     head = {"embed": session.leaf("embed")}
     if not cfg.tied_embeddings:
         head["lm_head"] = session.leaf("lm_head")
-    return lm_head(x, head, cfg.tied_embeddings)[:, 0], cache
+    return lm_head(x, head, cfg.tied_embeddings)[:, 0]

@@ -46,7 +46,10 @@ struct CacheStrides {   // element strides of the (batch, row, KV head) axes
   int64_t b, t, h;
 };
 
-// Lane l of a warp owns head-dim elements l, l + 32, ...  VEC = ceil(d / 32).
+// Lane l of a warp owns head-dim elements l, l + 32, ...  VEC = ceil(d / 32),
+// and every per-lane loop masks e < d, so a width that is not a multiple of
+// 32 works too: d = 80 (zamba2-2.7b's shared attention) takes VEC = 4 and
+// lanes 16-31 hold nothing in their third and fourth elements.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ k,

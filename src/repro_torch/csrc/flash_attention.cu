@@ -24,7 +24,8 @@
 // query rows; for a row, lane j scores key j of the tile, the warp takes
 // max and sum with shuffles, and each lane accumulates its own head-dim
 // elements of P @ V.  The head dim is a compile-time constant (16, 32, 64,
-// 128 or 256), so the score loop unrolls into float4 shared-memory loads
+// 80, 128 or 256; 80 is zamba2-2.7b's shared attention, whose rows lanes
+// 0-15 finish in a third pass), so the score loop unrolls into float4 shared-memory loads
 // (K rows padded by four words: the 8 lanes of a quarter-warp hit
 // different banks) feeding four independent partial sums.  Key tiles
 // wholly above the diagonal are never loaded; the diagonal and the ragged
@@ -53,7 +54,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, int H, int KV, int S,
              int T_len, Strides qs, Strides ks, Strides vs, Strides os,
              float scale, float softcap, int causal) {
-  constexpr int VEC = D >= 32 ? D / 32 : 1;
+  constexpr int VEC = (D + 31) / 32;         // head-dim elements per lane
   constexpr int KROW = D + 4;                // padded K row (float4-aligned)
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                         // [kBQ][D]
@@ -185,6 +186,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
     REPRO_FLASH_DIM(16)
     REPRO_FLASH_DIM(32)
     REPRO_FLASH_DIM(64)
+    REPRO_FLASH_DIM(80)
     REPRO_FLASH_DIM(128)
     REPRO_FLASH_DIM(256)
 #undef REPRO_FLASH_DIM
@@ -197,7 +199,7 @@ cudaError_t launch_typed(const void* q, const void* k, const void* v, void* out,
 
 // dtype codes: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
 // Strides are in elements; the head-dim axis must be contiguous.
-// d is 16, 32, 64, 128 or 256.
+// d is 16, 32, 64, 80, 128 or 256.
 // Returns the launch's cudaError_t (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int H,

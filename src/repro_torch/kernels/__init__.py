@@ -1,1 +1,2 @@
-"""Hand-written CUDA attention kernels, their plain versions and dispatch."""
+"""Hand-written CUDA kernels (attention, RMSNorm, SSD scan), their plain
+versions and dispatch."""

@@ -24,6 +24,7 @@ _ARGTYPES = ([_P] * 5                             # q k v lengths out
              + [_L] * 6                           # k, v (b, t, h) strides
              + [_I, _P])                          # dtype stream
 MAX_GROUP = 8                                     # query heads per KV head
+HEAD_DIMS = (64, 80, 128, 256)                    # 80: zamba2's shared attention
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -60,7 +61,7 @@ def decode_attention(q, k, v, length):
              f"shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
     _require(H % KV == 0 and H // KV <= MAX_GROUP,
              f"H={H}, KV={KV} (G = H / KV must be at most {MAX_GROUP})")
-    _require(d in (64, 128, 256), f"head_dim {d} (64, 128 or 256)")
+    _require(d in HEAD_DIMS, f"head_dim {d} (one of {HEAD_DIMS})")
     _require(q.is_contiguous(), "q must be contiguous")
     _require(k.stride(-1) == 1 and v.stride(-1) == 1,
              "the head-dim axis of k and v must be contiguous")

@@ -23,6 +23,7 @@ _ARGTYPES = ([_P, _P, _P, _P]                     # q k v out
              + [_I] * 6                           # B H KV S T d
              + [_L] * 12                          # (b, h, s) strides x4
              + [ctypes.c_float, _I, _I, _P])      # softcap causal dtype stream
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)            # compiled instantiations
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -60,7 +61,7 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0):
     _require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == d,
              f"shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
     _require(H % KV == 0, f"H={H} not a multiple of KV={KV}")
-    _require(d in (16, 32, 64, 128, 256), f"head_dim {d} (16, 32, 64, 128 or 256)")
+    _require(d in HEAD_DIMS, f"head_dim {d} (one of {HEAD_DIMS})")
     _require(not causal or T >= S, f"causal needs T >= S (S={S}, T={T})")
     _require(all(t.stride(-1) == 1 for t in (q, k, v)),
              "the head-dim axis must be contiguous")

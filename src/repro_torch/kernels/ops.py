@@ -13,12 +13,14 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_decode_attention import paged_decode_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 KERNELS = {
     "decode_attention": decode_attention,
     "flash_attention": flash_attention,
     "paged_decode_attention": paged_decode_attention,
     "rmsnorm": rmsnorm,
+    "ssd_scan": ssd_scan,
 }
 
 
@@ -34,4 +36,5 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention", "launch_counts",
-           "paged_decode_attention", "reset_launch_counts", "rmsnorm"]
+           "paged_decode_attention", "reset_launch_counts", "rmsnorm",
+           "ssd_scan"]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention and normalisation kernels.
+"""Plain PyTorch versions of the attention, normalisation and SSD kernels.
 
 Each function states what its CUDA kernel computes, with no tiling: the
 kernel wrappers call these for tensors on the CPU, and ``chip_smoke.py``
@@ -85,3 +85,74 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+def ssd_scan_ref(xb, B_mat, C_mat, log_decay, h0=None):
+    """Sequential scalar-decay SSD (the exact recurrence, one step per row).
+
+    xb: [B, S, H, dh]; B_mat, C_mat: [B, S, ds]; log_decay: [B, S, H];
+    h0: optional initial state [B, H, dh, ds].  Per row t:
+    ``h = exp(ld_t) h + B_t x_t^T`` and ``y_t = C_t . h``.  Returns
+    (y [B, S, H, dh], h_final [B, H, dh, ds]), both float32."""
+    Bb, S, H, dh = xb.shape
+    ds = B_mat.shape[-1]
+    h = (torch.zeros((Bb, H, dh, ds), dtype=torch.float32, device=xb.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        h = torch.exp(log_decay[:, t].float())[:, :, None, None] * h + torch.einsum(
+            "bs,bhd->bhds", B_mat[:, t].float(), xb[:, t].float())
+        ys.append(torch.einsum("bs,bhds->bhd", C_mat[:, t].float(), h))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_chunked_ref(xb, B_mat, C_mat, log_decay, chunk: int, h0=None):
+    """Chunked scalar-decay SSD, the arithmetic of the JAX mixer's chunked
+    branch (``repro.models.ssm._ssd_chunked``): per chunk of Q = min(chunk,
+    S) rows, the intra-chunk term ``(C B^T * exp(A_i - A_j) * tril) x``,
+    the inter-chunk term ``exp(A_i) C . h_prev`` and the state update
+    ``h = exp(A_tot) h_prev + sum_j exp(A_tot - A_j) B_j x_j^T``, with A
+    the within-chunk cumulative log decay.  Q must divide S.
+
+    Shapes as :func:`ssd_scan_ref`; returns (y, h_final), float32."""
+    Bb, S, H, dh = xb.shape
+    ds = B_mat.shape[-1]
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    K = S // Q
+    xb_c = xb.reshape(Bb, K, Q, H, dh).float()
+    B_c = B_mat.reshape(Bb, K, Q, ds).float()
+    C_c = C_mat.reshape(Bb, K, Q, ds).float()
+    ld_c = log_decay.reshape(Bb, K, Q, H).float()
+
+    A_cum = torch.cumsum(ld_c, dim=2)                        # [B,K,Q,H]
+    A_tot = A_cum[:, :, -1, :]                               # [B,K,H]
+    cb = torch.einsum("bkis,bkjs->bkij", C_c, B_c)           # [B,K,Q,Q]
+    dec = A_cum[:, :, :, None, :] - A_cum[:, :, None, :, :]  # [B,K,Q,Q,H]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xb.device))
+    w = torch.where(causal[None, None, :, :, None], torch.exp(dec),
+                    torch.zeros((), device=xb.device))
+    y_intra = torch.einsum("bkij,bkijh,bkjhd->bkihd", cb, w, xb_c)
+    wj = torch.exp(A_tot[:, :, None, :] - A_cum)             # [B,K,Q,H]
+    h_chunk = torch.einsum("bkjh,bkjs,bkjhd->bkhds", wj, B_c, xb_c)
+
+    h = (torch.zeros((Bb, H, dh, ds), dtype=torch.float32, device=xb.device)
+         if h0 is None else h0.float())
+    h_prevs = []
+    for k in range(K):                                       # inter-chunk scan
+        h_prevs.append(h)
+        h = torch.exp(A_tot[:, k])[:, :, None, None] * h + h_chunk[:, k]
+    y_inter = torch.einsum("bkis,bkih,bkhds->bkihd", C_c, torch.exp(A_cum),
+                           torch.stack(h_prevs, dim=1))
+    return (y_intra + y_inter).reshape(Bb, S, H, dh), h
+
+
+def ssd_ref(xb, B_mat, C_mat, log_decay, chunk: int, h0=None):
+    """The plain SSD the ``ssd_scan`` wrapper runs on the CPU, branch for
+    branch as the JAX mixer: chunked when min(chunk, S) divides S, the
+    exact recurrence otherwise."""
+    S = xb.shape[1]
+    if S % min(chunk, S) == 0:
+        return ssd_chunked_ref(xb, B_mat, C_mat, log_decay, chunk, h0)
+    return ssd_scan_ref(xb, B_mat, C_mat, log_decay, h0)

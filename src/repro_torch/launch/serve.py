@@ -4,6 +4,7 @@ default; ``--device cpu`` with a reduced depth runs it on the CPU).
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch smollm-135m --functions 3 --requests 12 --lora
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
 
 Per request the runtime picks the service class itself: ``cold`` (first
 invocation), ``fork`` (adaptive state forking from the template, prefill
@@ -13,7 +14,8 @@ forking).  Every TTFT feeds back into the template's Eq. 1 residency.
 Weights are random from a seed.  On the card the model is the full-width
 configuration of ``--arch``; on the CPU it is the narrow smoke
 configuration, as ``repro.launch.serve`` serves it there.  ``--layers``
-cuts the depth of either.
+cuts the depth of either.  zamba2-2.7b (Mamba2 + shared attention) serves
+over the dense slot pool, its prefills through the ``ssd_scan`` kernel.
 
 ``--open-loop --qps Q [--deadline D]`` replaces the closed loop (submit,
 wait, repeat) with open-loop Poisson arrivals through the async gateway:
@@ -35,7 +37,7 @@ import numpy as np
 
 from repro_torch.core import api as tidal
 from repro_torch.data.pipeline import make_prompts
-from repro_torch.models.registry import get_config, get_model
+from repro_torch.models.registry import ARCH_IDS, get_config, get_model
 from repro_torch.models.config import reduced
 from repro_torch.runtime.controlplane import ControlPlane
 from repro_torch.runtime.errors import DeadlineExceeded
@@ -45,6 +47,9 @@ from repro_torch.utils import fmt_bytes
 
 LATER = {"tp": "tensor parallelism (ROADMAP Queue 1, item 11)",
          "instances": "multi-instance serving (ROADMAP Queue 1, item 11)"}
+# the projection --lora adapts: the attention query weights of every
+# layer (dense) or of zamba's one shared attention block
+LORA_TARGET = {"dense": "blocks.attn.wq", "zamba": "shared_attn.attn.wq"}
 
 
 def _serve_open_loop(rt: FaaSRuntime, cfg, args, rng) -> None:
@@ -89,7 +94,7 @@ def _serve_open_loop(rt: FaaSRuntime, cfg, args, rng) -> None:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=ARCH_IDS)
     ap.add_argument("--functions", type=int, default=2)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -157,8 +162,8 @@ def main(argv=None):
         params = model.init_params(seed=args.seed + i)
         name = f"fn-{i}"
         if args.lora:
-            fn = tidal.lora_function(name, model, params, ["blocks.attn.wq"],
-                                     n_adapters=3)
+            fn = tidal.lora_function(name, model, params,
+                                     [LORA_TARGET[cfg.family]], n_adapters=3)
             rt.deploy(fn, {"adapter": "adapter-0"}, prewarm_seq=args.prompt_len)
         else:
             fn = tidal.static_function(name, model, params)

@@ -19,7 +19,8 @@ import torch
 from repro_torch.models import transformer
 from repro_torch.models.config import ModelConfig, reduced
 
-ARCH_IDS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b"]
+ARCH_IDS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b",
+            "zamba2-2.7b"]
 
 _MODULE_FOR_ARCH = {a: a.replace(".", "_").replace("-", "_") for a in ARCH_IDS}
 
@@ -48,7 +49,7 @@ class Model:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        transformer.check_dense(self.cfg)
+        transformer.check_family(self.cfg)
 
     @property
     def dtype(self) -> torch.dtype:

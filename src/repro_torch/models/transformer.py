@@ -1,16 +1,23 @@
-"""Dense decoder language model: parameters, caches and entry points.
+"""Decoder language models: parameters, caches and entry points.
 
 The JAX package scans one block body over parameters stacked ``[L, ...]``;
 here the parameters are a list of per-layer dicts and the scan is a Python
 loop.  Caches keep the JAX layout with the layer axis first, and each
 layer works on its ``cache[key][l]`` view in place.
 
-Entry points (dense family; moe / MLA / recurrent families come later):
+Two families are ported: the dense GQA decoder (``layers``) and zamba, the
+Mamba2 hybrid (``mamba``: one dict per Mamba2 block; ``shared_attn``: ONE
+attention + MLP block applied after every ``attn_every`` Mamba2 blocks).
+A zamba cache is ``{'mamba': {'h', 'conv'}, 'attn_kv': {'k', 'v'}}``.
+moe, MLA, xLSTM and enc-dec come later (ROADMAP Queue 1, item 10).
+
+Entry points:
   forward(params, cfg, tokens)                        -> (logits, aux)
   prefill(params, cfg, tokens, cache)                 -> (last logits, cache)
   prefill_from(params, cfg, tokens, cache, offset)    -> (last logits, cache)
   decode_step(params, cfg, cache, tokens, pos)        -> (logits, cache)
   decode_step_paged(params, cfg, cache, tokens, pos, page_table, page_size)
+  (prefill_from and decode_step_paged: dense family only)
   init_params(cfg, seed, device)                      -> params
   param_specs(cfg)                                    -> params on ``meta``
   make_cache / make_paged_cache                       -> cache dict
@@ -22,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import quant
+from repro_torch.models import quant, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (attention_block, embed_tokens,
                                        init_attn_params, init_mlp_params,
@@ -39,13 +46,28 @@ def torch_dtype(name_or_dtype) -> torch.dtype:
     return _DTYPES[name_or_dtype]
 
 
-def check_dense(cfg: ModelConfig) -> None:
+def check_family(cfg: ModelConfig) -> None:
     """Raise for the families this port does not serve yet."""
-    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts or cfg.is_encdec:
+    dense = (cfg.family == "dense" and not cfg.use_mla and not cfg.n_experts
+             and not cfg.is_encdec)
+    if not dense and cfg.family != "zamba":
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported so far; moe, "
-            "MLA, recurrent and enc-dec families follow (ROADMAP Queue 1, "
-            "item 10)")
+            f"{cfg.name}: the dense GQA and zamba families are ported so "
+            "far; moe, MLA, xLSTM and enc-dec families follow (ROADMAP "
+            "Queue 1, item 10)")
+
+
+def n_units(cfg: ModelConfig) -> int:
+    """zamba: the units of ``attn_every`` Mamba2 blocks, each followed by
+    the shared attention block."""
+    return cfg.n_layers // cfg.attn_every
+
+
+def _check_positional(cfg: ModelConfig, what: str) -> None:
+    if cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name}: {cfg.family!r} family has no {what} (recurrent "
+            "state is not position-addressable)")
 
 
 def supports_paged_kv(cfg: ModelConfig) -> bool:
@@ -62,12 +84,20 @@ def _param_tree(cfg: ModelConfig, gen: Optional[torch.Generator]) -> dict:
     norms ones, biases zeros), or uninitialized tensors of the same
     shapes when ``gen`` is None (see :func:`param_specs`)."""
     V, D = cfg.vocab_size, cfg.d_model
-    params: dict = {"embed": normal_(gen, (V, D), scale=0.02), "layers": []}
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "attn_norm": torch.ones(D), "mlp_norm": torch.ones(D),
-            "attn": init_attn_params(gen, cfg),
-            "mlp": init_mlp_params(gen, D, cfg.d_ff, fused=cfg.fused_glu)})
+
+    def attn_mlp_block():
+        return {"attn_norm": torch.ones(D), "mlp_norm": torch.ones(D),
+                "attn": init_attn_params(gen, cfg),
+                "mlp": init_mlp_params(gen, D, cfg.d_ff, fused=cfg.fused_glu)}
+
+    params: dict = {"embed": normal_(gen, (V, D), scale=0.02)}
+    if cfg.family == "zamba":
+        params["mamba"] = [{"norm": torch.ones(D),
+                            "mixer": ssm.init_mamba2_params(gen, cfg)}
+                           for _ in range(cfg.n_layers)]
+        params["shared_attn"] = attn_mlp_block()
+    else:
+        params["layers"] = [attn_mlp_block() for _ in range(cfg.n_layers)]
     params["final_norm"] = torch.ones(D)
     if not cfg.tied_embeddings:
         params["lm_head"] = normal_(gen, (D, V), scale=0.02)
@@ -78,7 +108,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters drawn from a seeded CPU ``torch.Generator`` (a
     fan-in scaled normal; norms ones, biases zeros), then moved to
     ``device``: the same seed gives the same weights on every device."""
-    check_dense(cfg)
+    check_family(cfg)
     gen = torch.Generator().manual_seed(seed)
     return to_device(_param_tree(cfg, gen), device, torch_dtype(cfg.dtype))
 
@@ -88,7 +118,7 @@ def param_specs(cfg: ModelConfig) -> dict:
     no storage and no random draws (the counterpart of the JAX package's
     ``init_params(abstract=True)``).  Tracing, ``assemble`` and the LoRA
     helpers read the model's structure from it."""
-    check_dense(cfg)
+    check_family(cfg)
     with torch.device("meta"):
         tree = _param_tree(cfg, None)
     return to_device(tree, "meta", torch_dtype(cfg.dtype))
@@ -105,10 +135,22 @@ def to_device(tree, device, dtype: Optional[torch.dtype] = None):
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    """Dense per-sequence cache: ``{'k','v': [L, batch, max_len, KV, hd]}``."""
-    check_dense(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    """Dense per-sequence cache.  Dense family: ``{'k','v': [L, batch,
+    max_len, KV, hd]}``.  zamba: ``{'mamba': {'h': [L, batch, H, dh, ds]
+    fp32, 'conv': [L, batch, W-1, conv_ch]}, 'attn_kv': {'k','v':
+    [n_units, batch, max_len, KV, hd]}}``.  Axis 1 of every leaf is the
+    batch (slot) axis."""
+    check_family(cfg)
     dt = torch_dtype(cfg.dtype)
+    L = cfg.n_layers
+    if cfg.family == "zamba":
+        kv = (n_units(cfg), batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"mamba": {k: torch.zeros((L,) + s, device=device,
+                                         dtype=torch.float32 if k == "h" else dt)
+                          for k, s in ssm.mamba2_state_shape(cfg, batch).items()},
+                "attn_kv": {k: torch.zeros(kv, dtype=dt, device=device)
+                            for k in ("k", "v")}}
+    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -120,7 +162,10 @@ def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     ``kv_dtype='int8'`` makes the value leaves int8 and adds a float32
     ``<leaf>_scale`` arena ``[L, n_pages, page_size, KV]`` next to each.
     """
-    check_dense(cfg)
+    check_family(cfg)
+    if not supports_paged_kv(cfg):
+        raise ValueError(
+            f"{cfg.name}: {cfg.family!r} family has no paged KV layout")
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
@@ -161,6 +206,36 @@ def layer_cache(cache: Optional[dict], layer: int) -> Optional[dict]:
     return None if cache is None else {k: t[layer] for k, t in cache.items()}
 
 
+def _mamba_block(bp: dict, x, cfg: ModelConfig, state: Optional[dict]):
+    """One zamba Mamba2 block (pre-norm mixer, residual) over its
+    parameters ``bp``; the new recurrent and conv state is written into
+    ``state`` (one layer's cache views) in place."""
+    y, new_state = ssm.mamba2_mixer(bp["mixer"],
+                                    rmsnorm(x, bp["norm"], cfg.norm_eps),
+                                    cfg, state)
+    if state is not None:
+        state["h"].copy_(new_state["h"])
+        state["conv"].copy_(new_state["conv"])
+    return x + y
+
+
+def zamba_unit(mamba_params, shared_params, x, cfg: ModelConfig, positions,
+               cache: Optional[dict], unit: int, cache_pos):
+    """One zamba unit: ``attn_every`` Mamba2 blocks, then the SHARED
+    attention + MLP block (``_dense_block`` over ``shared_attn``) with
+    this unit's own K/V cache.  ``mamba_params(l)`` and
+    ``shared_params()`` supply the weights when a block needs them, so the
+    layer loop below and the layer-streamed prefill (``core.streaming``)
+    run the same body and each block waits only for its own weights."""
+    every = cfg.attn_every
+    for layer in range(unit * every, (unit + 1) * every):
+        x = _mamba_block(mamba_params(layer), x, cfg,
+                         layer_cache(None if cache is None else cache["mamba"],
+                                     layer))
+    kv = layer_cache(None if cache is None else cache["attn_kv"], unit)
+    return _dense_block(shared_params(), x, cfg, positions, kv, cache_pos)
+
+
 def layer_bank(bank: Optional[dict], layer: int) -> Optional[dict]:
     """One layer's slice of an adapter bank (where the JAX package puts
     the bank into the layer scan's xs)."""
@@ -172,6 +247,15 @@ def layer_bank(bank: Optional[dict], layer: int) -> Optional[dict]:
 
 def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
              page_size: int = 0, adapter_bank=None, adapter_ids=None):
+    if cfg.family == "zamba":
+        if adapter_bank is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: adapter gather needs the dense block layout")
+        for unit in range(n_units(cfg)):
+            x = zamba_unit(params["mamba"].__getitem__,
+                           lambda: params["shared_attn"], x, cfg, positions,
+                           cache, unit, cache_pos)
+        return x
     for layer, bp in enumerate(params["layers"]):
         x = _dense_block(bp, x, cfg, positions, layer_cache(cache, layer),
                          cache_pos, page_table, page_size,
@@ -191,7 +275,7 @@ def _head(params, cfg, x):
 @torch.no_grad()
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     """Full-sequence causal forward -> (logits [B, S, V], aux = 0)."""
-    check_dense(cfg)
+    check_family(cfg)
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -203,8 +287,8 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
             adapter_bank: Optional[dict] = None, adapter_ids=None):
     """Process the prompt, fill the cache; returns (last-token logits, cache)."""
-    return prefill_from(params, cfg, tokens, cache, 0, adapter_bank,
-                        adapter_ids)
+    check_family(cfg)
+    return _prefill(params, cfg, tokens, cache, 0, adapter_bank, adapter_ids)
 
 
 @torch.no_grad()
@@ -216,10 +300,16 @@ def prefill_from(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     already filled (a reused prompt prefix).  Positions, RoPE and the
     causal mask carry the offset, and the new K/V land at ``offset``.
     With an ``adapter_bank``, ``adapter_ids`` [B] selects each sequence's
-    LoRA row."""
-    check_dense(cfg)
+    LoRA row.  Dense family only."""
+    check_family(cfg)
+    _check_positional(cfg, "suffix-only prefill")
+    return _prefill(params, cfg, tokens, cache, int(offset), adapter_bank,
+                    adapter_ids)
+
+
+def _prefill(params, cfg, tokens, cache, offset: int, adapter_bank,
+             adapter_ids):
     B, S = tokens.shape
-    offset = int(offset)
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
     x = _decoder(params, cfg, x, positions, cache, offset,
@@ -233,7 +323,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     """One decode step over a dense cache.  tokens: [B, 1]; pos: an int
     (whole batch at one position) or an int [B] tensor of per-sequence
     positions."""
-    check_dense(cfg)
+    check_family(cfg)
     B = tokens.shape[0]
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -252,8 +342,9 @@ def decode_step_paged(params: dict, cfg: ModelConfig, cache: dict,
     tokens: [B, 1]; pos: int [B] per-sequence positions; page_table:
     [B, NB] int32 physical page per logical block.  With an
     ``adapter_bank``, ``adapter_ids`` [B] selects each slot's LoRA delta
-    (0 = null adapter for free and foreign slots)."""
-    check_dense(cfg)
+    (0 = null adapter for free and foreign slots).  Dense family only."""
+    check_family(cfg)
+    _check_positional(cfg, "paged decode path")
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x = _decoder(params, cfg, x, pos[:, None], cache, pos,

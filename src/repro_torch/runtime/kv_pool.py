@@ -29,9 +29,12 @@ functional ``arena.at[...].set`` becomes an indexed write on the current
 stream).
 
 :class:`KVCachePool` is the dense slot pool (``repro.runtime.kv_pool.
-KVCachePool``): one ``[L, n_slots, max_len, KV, hd]`` cache whose batch
-axis is the slot axis, for the sequential-reference and ``paged=False``
-engines; its decode runs the ``decode_attention`` kernel.
+KVCachePool``): one cache from ``model.make_cache(n_slots, max_len)``
+whose batch axis (axis 1 of every leaf) is the slot axis, for the
+sequential-reference and ``paged=False`` engines and for the families
+whose state does not grow with the sequence (zamba: Mamba2 state plus
+the shared attention's K/V); its decode runs the ``decode_attention``
+kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 from repro_torch.models import quant
 from repro_torch.models.registry import Model
 from repro_torch.runtime.errors import PartitionViolation, PoolExhausted
+from repro_torch.utils import map_with_path, named_leaves, tree_bytes
 
 __all__ = ["KVCachePool", "PoolExhausted", "PartitionViolation",
            "PrefixHandle", "PagedKVCachePool"]
@@ -119,17 +123,21 @@ class KVCachePool:
 
     # ---- cache movement ---------------------------------------------------
     def write_slot(self, slot: int, sub_cache: dict) -> None:
-        """Copy a batch-1 cache (same ``max_len`` layout) into ``slot``."""
-        for key, arena in self.cache.items():
-            arena[:, slot] = sub_cache[key][:, 0].to(arena.dtype)
+        """Copy a batch-1 cache (same ``max_len`` layout) into ``slot``.
+        The cache may be nested (zamba: ``mamba.{h,conv}``,
+        ``attn_kv.{k,v}``); axis 1 of every leaf is the slot axis."""
+        sub = dict(named_leaves(sub_cache))
+        for path, arena in named_leaves(self.cache):
+            arena[:, slot] = sub[path][:, 0].to(arena.dtype)
 
     def read_slot(self, slot: int) -> dict:
         """``slot`` as a batch-1 cache (a copy)."""
-        return {k: t[:, slot:slot + 1].clone() for k, t in self.cache.items()}
+        return map_with_path(lambda _, t: t[:, slot:slot + 1].clone(),
+                             self.cache)
 
     def nbytes(self) -> int:
         """Total bytes of the pool's cache."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        return tree_bytes(self.cache)
 
 
 class PagedKVCachePool:

@@ -233,7 +233,8 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     ops.decode_attention(torch.zeros((1, 4, 16)), torch.zeros((1, 2, 8, 16)),
                          torch.zeros((1, 2, 8, 16)), 3)
     assert ops.launch_counts() == {"decode_attention": 0, "flash_attention": 0,
-                                   "paged_decode_attention": 0, "rmsnorm": 0}
+                                   "paged_decode_attention": 0, "rmsnorm": 0,
+                                   "ssd_scan": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -249,7 +250,8 @@ def test_cuda_sources_declare_their_entry_points():
     """Each wrapper's C symbol is defined with C linkage in csrc/."""
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
     assert set(sources) == {"paged_decode_attention.cu", "flash_attention.cu",
-                            "decode_attention.cu", "rmsnorm.cu"}
+                            "decode_attention.cu", "rmsnorm.cu", "ssd_scan.cu"}
+    assert 'extern "C" int repro_ssd_scan(' in sources["ssd_scan.cu"]
     assert 'extern "C" int repro_rmsnorm(' in sources["rmsnorm.cu"]
     assert 'extern "C" int repro_decode_attention(' in \
         sources["decode_attention.cu"]

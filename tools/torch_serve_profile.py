@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the serving time goes: the port's smollm-135m serving pass on one card.
+"""Where the serving time goes: the port's serving pass on one card.
 
-    python3 tools/torch_serve_profile.py [--out DIR]   # from the repository root
+    python3 tools/torch_serve_profile.py [--arch ARCH] [--out DIR]   # from the repository root
 
-Runs the serving pass of ``chip_smoke.py`` (30 layers, bf16, 8 slots,
-12 requests of 16 tokens, a baked shared prefix) twice after a warm-up:
+Runs the serving pass of ``chip_smoke.py`` twice after a warm-up:
+``--arch smollm-135m`` (the default; 30 layers, bf16, 8 slots over the
+paged arena, 12 requests of 16 tokens, a baked shared prefix) or
+``--arch zamba2-2.7b`` (54 Mamba2 layers and the shared attention block,
+bf16, 8 slots over the dense pool, phase 8's 12 prompts of 64-384 tokens,
+16 new tokens each):
 
 1. stepping the engine by hand, with every ``step()`` timed on the host
    clock after a device synchronise, and each step classed by what it did
@@ -36,9 +40,28 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
 
+def new_engine(model, params, prefix):
+    """The serving engine of ``chip_smoke.py`` for the model's family: the
+    paged arena with ``prefix`` baked, or zamba's dense slot pool."""
+    if prefix is None:
+        from repro_torch.runtime import ContinuousBatchingEngine
+        return ContinuousBatchingEngine(model, params, n_slots=8, max_len=512)
+    return chip_smoke.serving_engine(model, params, prefix)
+
+
+def workload(model):
+    """(prefix or None, the 12 prompts) of the model's serving pass."""
+    vocab = model.cfg.vocab_size
+    if model.cfg.family == "zamba":
+        rng = np.random.default_rng(10)
+        return None, [rng.integers(1, vocab, n).astype(np.int32)
+                      for n in chip_smoke.ZAMBA_LENGTHS]
+    return chip_smoke.serving_workload(vocab)
+
+
 def timed_steps(model, params, prefix, reqs) -> dict:
     """Wall time of every engine step, split into prefill and decode steps."""
-    eng = chip_smoke.serving_engine(model, params, prefix)
+    eng = new_engine(model, params, prefix)
     for p in reqs:
         eng.submit(p, 16)
     prefill_ms, decode_ms = [], []
@@ -64,7 +87,7 @@ def timed_steps(model, params, prefix, reqs) -> dict:
 def profiled_pass(model, params, prefix, reqs) -> dict:
     """Device time by kernel and busy share over one whole pass."""
     from torch.profiler import ProfilerActivity, profile
-    eng = chip_smoke.serving_engine(model, params, prefix)
+    eng = new_engine(model, params, prefix)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -101,6 +124,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=chip_smoke.DEFAULT_OUT,
                     help="directory for serve_profile.json")
+    ap.add_argument("--arch", default="smollm-135m",
+                    choices=["smollm-135m", "zamba2-2.7b"])
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile.py: no CUDA device is available",
@@ -109,16 +134,17 @@ def main(argv=None) -> int:
     chip_smoke._import_port()
     from repro_torch.models.registry import get_model
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = get_model("smollm-135m")
+    model = get_model(args.arch)
     params = model.init_params(seed=0)
-    prefix, reqs = chip_smoke.serving_workload(model.cfg.vocab_size)
+    prefix, reqs = workload(model)
     timed_steps(model, params, prefix, reqs[:2])           # warm-up
     steps = timed_steps(model, params, prefix, reqs)
     prof = profiled_pass(model, params, prefix, reqs)
     smi = chip_smoke.subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    out = {"device": smi, "torch": torch.__version__, "steps": steps,
+    out = {"device": smi, "torch": torch.__version__, "arch": args.arch,
+           "steps": steps,
            "profile": prof}
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "serve_profile.json").write_text(json.dumps(out, indent=1))
