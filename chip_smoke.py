@@ -6,12 +6,17 @@
 Phases, in order; any failure raises and the process exits non-zero:
 
 1. device: the card's name and power limit, the kernels' build
-   (``src/repro_torch/csrc/*.cu`` -> one shared library, timed) and the
-   measured pinned host-to-device copy rate;
+   (``src/repro_torch/csrc/*.cu`` -> one shared library, timed), the
+   attention kernels' registers, shared memory and spills (``-Xptxas
+   -v``) and the measured pinned host-to-device copy rate;
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (smollm-135m heads and rows, llama3-8b's, and
-   qwen3-14b's head-norm rows), each timed beside its roofline bound and
-   one PyTorch library call;
+   qwen3-14b's head-norm rows; decode also at B = 1, T = 4096 and at
+   lengths shorter than one split, length 0 giving zeros), each timed
+   beside its roofline bound and one PyTorch library call; then bitwise
+   invariance of the bf16 flash and decode kernels (a suffix prefill's
+   rows equal the whole prefill's, a sequence alone equals it in a
+   batch, a repeated call equals the first);
 3. serving: smollm-135m at full width (30 layers, bf16, seeded random
    weights) through ``ContinuousBatchingEngine`` over a
    ``PagedKVCachePool``, with a baked shared prefix, a chunked-prefill pass
@@ -43,7 +48,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    sequential) at zamba2-2.7b's shapes (H = 80, dh = ds = 64, chunk 128;
    S = 128, 512, a ragged 200, and B = 4 with an initial state; B and C
    in bf16 and fp32), and ``flash_attention`` / ``decode_attention`` at
-   zamba2's head dim of 80, all timed; then zamba2-2.7b at full width
+   zamba2's head dim of 80, all timed, with the bitwise invariance checks
+   at zamba2's heads; then zamba2-2.7b at full width
    (54 Mamba2 layers and one shared attention block applied 9 times,
    bf16, seeded random weights) through a dense-pool
    ``ContinuousBatchingEngine`` (12 requests) and the sequential
@@ -62,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -262,11 +269,49 @@ def phase_device() -> dict:
     for line in log.splitlines():
         if "spill" in line and "0 bytes spill stores" not in line:
             print("ptxas:", line.strip())
+    ptxas = ptxas_report(log)
+    print(json.dumps({"ptxas": ptxas}))
     h2d = measure_h2d()
     print(f"pinned host->device copy: {h2d / 1e9:.2f} GB/s")
     return {"name": name, "nvidia_smi": limit, "build_s": build_s,
             "h2d_bytes_per_s": h2d, "torch": torch.__version__,
-            "cuda": torch.version.cuda}
+            "cuda": torch.version.cuda, "ptxas": ptxas}
+
+
+def ptxas_report(log: str, kernels=("flash_tc_kernel", "flash_fp32_kernel",
+                                    "decode_split_kernel",
+                                    "decode_merge_kernel")) -> list:
+    """Registers, static shared memory and spills of the attention kernels'
+    instantiations, from ``nvcc -Xptxas -v`` in the build log."""
+    def args(mangled: str) -> str:
+        mangled = mangled.replace("13__nv_bfloat16", "bf16 ")
+        mangled = re.sub(r"Li(\d+)E", r"\1 ", mangled)
+        mangled = re.sub(r"^f", "f32 ", mangled)
+        return ",".join(mangled.split())
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = None
+            for k in kernels:
+                mm = re.search(k + r"I(.*?)EEv", m.group(1))
+                if mm:
+                    cur = {"kernel": f"{k}<{args(mm.group(1))}>"}
+                    rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["registers"] = int(m.group(1))
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+            cur = None
+    return rows
 
 
 def measure_h2d(nbytes: int = 256 << 20, reps: int = 5) -> float:
@@ -349,39 +394,22 @@ def phase_kernels(device) -> list:
         if not err <= tol:
             raise AssertionError(f"paged_decode_attention disagrees: {res}")
 
-    from repro_torch.kernels.decode_attention import decode_attention
-    T = 512
+    decode_cases = []
     for heads, tag in ((SMOLLM, "smollm"), (LLAMA3_8B, "llama3-8b"),
                        (GEMMA_2B, "gemma-2b")):
         for dtype in (torch.bfloat16, torch.float32):
-            B, H, KV, d = 8, heads["H"], heads["KV"], heads["d"]
-            lengths = [1] + rng.integers(2, T + 1, B - 2).tolist() + [T]
-            q = torch.randn((B, H, d), generator=gen).to(device, dtype)
-            ck = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
-            cv = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
-            ln = torch.as_tensor(lengths, dtype=torch.int32, device=device)
-            k, v = ck.transpose(1, 2), cv.transpose(1, 2)   # the cache view
-            out = decode_attention(q, k, v, ln)
-            want = ref.decode_attention_ref(q, k, v, ln)
-            torch.cuda.synchronize()
-            err = float((out.float() - want.float()).abs().max())
-            tol = 2e-5 if dtype == torch.float32 else 2e-2
-            kern_ms = time_ms(lambda: decode_attention(q, k, v, ln))
-            plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, ln))
-            mask = (torch.arange(T, device=device)[None, :]
-                    < ln[:, None].long())[:, None, None, :]
-            lib_ms = time_ms(lambda: sdpa_gqa(q[:, :, None], k, v, attn_mask=mask))
-            flops, nbytes = decode_work(B, H, KV, d, lengths, dtype)
-            b_ms, b_by = bound_ms(flops, nbytes, dtype)
-            res = {"kernel": "decode_attention", "shape": tag, "B": B, "H": H,
-                   "KV": KV, "d": d, "T": T, "max_len": int(max(lengths)),
-                   "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
-                   "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
-            results.append(res)
-            print(json.dumps(res))
-            if not err <= tol:
-                raise AssertionError(f"decode_attention disagrees: {res}")
+            lengths = [1] + rng.integers(2, 513, 6).tolist() + [512]
+            decode_cases.append(("serving", tag, heads, 512, lengths, dtype))
+    # split-KV's own shapes: one long sequence (3 and 8 blocks before the
+    # split), and lengths shorter than one split with a sequence of length 0
+    decode_cases += [("long", "smollm", SMOLLM, 4096, [4096], torch.bfloat16),
+                     ("long", "smollm", SMOLLM, 4096, [4096], torch.float32),
+                     ("long", "llama3-8b", LLAMA3_8B, 4096, [4096], torch.bfloat16)]
+    for dtype in (torch.bfloat16, torch.float32):
+        decode_cases.append(("short", "smollm", SMOLLM, 512,
+                             [0, 1, 5, 63, 64, 65, 300, 512], dtype))
+    for case, tag, heads, T, lengths, dtype in decode_cases:
+        results.append(decode_case(device, gen, case, tag, heads, T, lengths, dtype))
 
     flash_cases = []
     for heads, tag in ((SMOLLM, "smollm"), (LLAMA3_8B, "llama3-8b")):
@@ -420,6 +448,8 @@ def phase_kernels(device) -> list:
         if not err <= tol:
             raise AssertionError(f"flash_attention disagrees: {res}")
 
+    results.append(attention_invariance(device, gen, SMOLLM, "smollm"))
+
     # rmsnorm: fp32 within 1e-5 relative, bf16 within one bf16 ulp of the
     # plain version (the same fp32 value rounded; summation order only)
     from repro_torch.kernels.rmsnorm import rmsnorm
@@ -456,6 +486,86 @@ def phase_kernels(device) -> list:
             if not ok or not same_bits:
                 raise AssertionError(f"rmsnorm disagrees: {res}")
     return results
+
+
+def decode_case(device, gen, case, tag, heads, T, lengths, dtype) -> dict:
+    """``decode_attention`` against its plain version over a [B, T, KV, d]
+    cache view, timed beside SDPA and the bound.  A sequence of length 0
+    must give exact zeros (as the Pallas kernel does; the plain version's
+    softmax over no rows is uniform instead), the others agree within the
+    tolerance."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    B, H, KV, d = len(lengths), heads["H"], heads["KV"], heads["d"]
+    q = torch.randn((B, H, d), generator=gen).to(device, dtype)
+    ck = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
+    cv = torch.randn((B, T, KV, d), generator=gen).to(device, dtype)
+    ln = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    k, v = ck.transpose(1, 2), cv.transpose(1, 2)   # the cache view
+    out = decode_attention(q, k, v, ln)
+    want = ref.decode_attention_ref(q, k, v, ln)
+    torch.cuda.synchronize()
+    live = ln > 0
+    err = float((out.float() - want.float())[live].abs().max())
+    empty_zero = bool((out[~live] == 0).all())
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    kern_ms = time_ms(lambda: decode_attention(q, k, v, ln))
+    plain_ms = time_ms(lambda: ref.decode_attention_ref(q, k, v, ln))
+    mask = (torch.arange(T, device=device)[None, :]
+            < ln[:, None].long())[:, None, None, :]
+    lib_ms = time_ms(lambda: sdpa_gqa(q[:, :, None], k, v, attn_mask=mask))
+    flops, nbytes = decode_work(B, H, KV, d, lengths, dtype)
+    b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    res = {"kernel": "decode_attention", "case": case, "shape": tag, "B": B,
+           "H": H, "KV": KV, "d": d, "T": T, "max_len": int(max(lengths)),
+           "lengths": list(lengths) if case == "short" else None,
+           "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+           "length0_zero": empty_zero if not live.all() else None,
+           "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(res))
+    if not (err <= tol and empty_zero):
+        raise AssertionError(f"decode_attention disagrees: {res}")
+    return res
+
+
+def attention_invariance(device, gen, heads: dict, tag: str) -> dict:
+    """Bitwise checks of the bf16 attention kernels that serving relies on
+    (a fork's full prefill against a warm suffix prefill over the baked
+    prefix; a sequence decoded alone or in a batch): a suffix prefill's
+    rows equal the last rows of the whole prefill over the same K/V, a
+    sequence alone equals it inside a batch of other prompts or lengths,
+    and a repeated call equals the first."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    H, KV, d, bf = heads["H"], heads["KV"], heads["d"], torch.bfloat16
+    T, S = 320, 64
+    q = torch.randn((4, H, T, d), generator=gen).to(device, bf)
+    k = torch.randn((4, KV, T, d), generator=gen).to(device, bf)
+    v = torch.randn((4, KV, T, d), generator=gen).to(device, bf)
+    full = flash_attention(q, k, v)
+    res = {"flash_suffix_equals_prefill": torch.equal(
+               flash_attention(q[:, :, T - S:], k, v), full[:, :, T - S:]),
+           "flash_alone_equals_batch": torch.equal(
+               flash_attention(q[2:3], k[2:3], v[2:3]), full[2:3]),
+           "flash_repeat_equal": torch.equal(flash_attention(q, k, v), full)}
+    T = 512
+    lengths = [300, 1, 64, 0, 129, 512, 17, 250]
+    q = torch.randn((8, H, d), generator=gen).to(device, bf)
+    ck = torch.randn((8, T, KV, d), generator=gen).to(device, bf)
+    cv = torch.randn((8, T, KV, d), generator=gen).to(device, bf)
+    ln = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    kc, vc = ck.transpose(1, 2), cv.transpose(1, 2)
+    out = decode_attention(q, kc, vc, ln)
+    res["decode_alone_equals_batch"] = all(
+        torch.equal(decode_attention(q[b:b + 1], kc[b:b + 1], vc[b:b + 1],
+                                     ln[b:b + 1]), out[b:b + 1]) for b in (0, 4, 6))
+    res["decode_repeat_equal"] = torch.equal(decode_attention(q, kc, vc, ln), out)
+    row = {"invariance": tag, **res}
+    print(json.dumps(row))
+    if not all(res.values()):
+        raise AssertionError(f"attention invariance broken: {row}")
+    return row
 
 
 def attention_launches(cfg) -> int:
@@ -1305,6 +1415,7 @@ def phase_ssm_kernels(device) -> list:
         print(json.dumps(res))
         if not err <= tol:
             raise AssertionError(f"decode_attention disagrees at d = 80: {res}")
+    results.append(attention_invariance(device, gen, ZAMBA2_ATTN, "zamba2-2.7b"))
     return results
 
 
@@ -1612,7 +1723,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
          "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention.py:86", launches["flash"]),
         ("decode_attention",
-         pick(kernel="decode_attention", shape="smollm", dtype="bfloat16"),
+         pick(kernel="decode_attention", case="serving", shape="smollm",
+              dtype="bfloat16"),
          "src/repro_torch/csrc/decode_attention.cu",
          "src/repro/kernels/decode_attention.py:76", launches["decode"]),
         ("rmsnorm",

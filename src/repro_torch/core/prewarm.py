@@ -68,7 +68,7 @@ def warm_device(device: torch.device) -> None:
 class Worker:
     """A pre-warmed worker: context created, selected entry points loaded."""
     worker_id: int
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
     ctx_ready: bool = False
     loaded: set = dataclasses.field(default_factory=set)
 
@@ -83,9 +83,10 @@ class Worker:
 class ProcessPool:
     """Pool of pre-warmed workers following the §5.1 loading policy: each
     worker warms the entry points of the functions whose weights are
-    cached in this host's pool."""
+    cached in this host's pool.  Workers warm the card unless the caller
+    passes ``device="cpu"``."""
 
-    def __init__(self, size: int, cache: ExecutableCache, device="cpu"):
+    def __init__(self, size: int, cache: ExecutableCache, device="cuda"):
         self.cache = cache
         self.workers = [Worker(i, torch.device(device)) for i in range(size)]
         for w in self.workers:

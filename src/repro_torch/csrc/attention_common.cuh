@@ -1,9 +1,10 @@
 // Device helpers shared by the attention kernels of this directory.
 //
 // Element conversions to and from fp32 (the kernels compute in fp32 and
-// store in the caller's dtype), warp-wide sum and max by shuffles, and the
-// finite mask value the TPU kernels use (jnp.finfo(float32).min), so
-// exp(m_prev - m_new) never produces NaN when a whole row is masked.
+// store in the caller's dtype), 16-byte vector loads, warp-wide sum and max
+// by shuffles, and the finite mask value the TPU kernels use
+// (jnp.finfo(float32).min), so exp(m_prev - m_new) never produces NaN when
+// a whole row is masked.
 
 #pragma once
 
@@ -37,6 +38,32 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// 16-byte vector loads (16 / sizeof(T) elements), read through the
+// read-only path and widened to fp32 (bf16 to fp32 is a shift).
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& raw, float* out);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& raw, float* out) {
+  out[0] = __uint_as_float(raw.x);
+  out[1] = __uint_as_float(raw.y);
+  out[2] = __uint_as_float(raw.z);
+  out[3] = __uint_as_float(raw.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& raw, float* out) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 // Rows a decode warp loads before it computes with any of them: fewer at

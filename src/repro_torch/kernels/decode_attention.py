@@ -4,7 +4,13 @@ For tensors on a CUDA device the wrapper launches the hand-written kernel
 or raises; for tensors on the CPU it runs the plain version in ``ref.py``.
 k and v may be strided views (the model hands in its [B, T, KV, d] layer
 cache transposed to [B, KV, T, d]); only the head-dim axis must be
-contiguous, so the cache is read in its storage layout.
+contiguous (and rows start on 16 bytes), so the cache is read in its
+storage layout.
+
+The kernel splits each sequence's cache rows across blocks (split-KV):
+every block takes :func:`split_rows` rows, a count fixed per head dim, and
+a second launch merges the partials in a fixed order.  One call counts one
+launch.  The lengths are never read on the host.
 """
 
 from __future__ import annotations
@@ -19,12 +25,29 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_ARGTYPES = ([_P] * 5                             # q k v lengths out
-             + [_I] * 5                           # B H KV d T
+_ARGTYPES = ([_P] * 7                             # q k v lengths part_acc part_ml out
+             + [_I] * 7                           # B H KV d T split n_splits
              + [_L] * 6                           # k, v (b, t, h) strides
              + [_I, _P])                          # dtype stream
 MAX_GROUP = 8                                     # query heads per KV head
 HEAD_DIMS = (64, 80, 128, 256)                    # 80: zamba2's shared attention
+
+
+def split_rows(d: int) -> int:
+    """Cache rows one block of the split-KV kernel takes.
+
+    Fixed per head dim (64 up to d = 128, 32 at d = 256, where a row takes
+    more registers) and never chosen from the batch, the KV heads or the
+    lengths, so a sequence's output does not depend on the batch it
+    decodes in.  ``csrc/decode_attention.cu`` checks that it agrees.
+    """
+    return 64 if d <= 128 else 32
+
+
+def n_splits(T: int, d: int) -> int:
+    """Blocks per (sequence, KV head): ``ceil(T / split_rows(d))`` over the
+    cache's allocated length ``T``."""
+    return -(-T // split_rows(d))
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -65,13 +88,26 @@ def decode_attention(q, k, v, length):
     _require(q.is_contiguous(), "q must be contiguous")
     _require(k.stride(-1) == 1 and v.stride(-1) == 1,
              "the head-dim axis of k and v must be contiguous")
-    out = torch.empty_like(q)
-    fn = _build.function("repro_decode_attention", _ARGTYPES)
     # kernel strides are over the (batch, row, KV head) axes
     strides = [t.stride(i) for t in (k, v) for i in (0, 2, 1)]
+    vec = 16 // q.element_size()
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+             and all(st % vec == 0 for st in strides),
+             f"rows must start on 16 bytes (pointers 16-byte aligned, strides "
+             f"multiples of {vec} elements)")
+    out = torch.empty_like(q)
+    split, ns = split_rows(d), n_splits(T, d)
+    G = H // KV
+    # the partials' scratch: [B * KV, splits, G, d] accumulators, then
+    # [B * KV, splits, G, 2] (m, l)
+    n_acc = B * KV * ns * G * d
+    part = torch.empty(n_acc + B * KV * ns * G * 2, dtype=torch.float32,
+                       device=q.device)
+    fn = _build.function("repro_decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 out.data_ptr(), B, H, KV, d, T, *strides, _DTYPES[q.dtype],
+                 part.data_ptr(), part.data_ptr() + 4 * n_acc, out.data_ptr(),
+                 B, H, KV, d, T, split, ns, *strides, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"decode_attention: launch failed, cudaError_t {err}")

@@ -2,9 +2,11 @@
 
 For tensors on a CUDA device the wrapper launches the hand-written kernel
 or raises; for tensors on the CPU it runs the plain version in ``ref.py``.
-q, k and v may be strided views (the model hands in its [B, S, H, d]
-activations and [B, T, KV, d] cache transposed); only the head-dim axis
-must be contiguous.
+bf16 runs the tensor-core kernel, fp32 the CUDA-core one (the port's
+parity dtype).  q, k and v may be strided views (the model hands in its
+[B, S, H, d] activations and [B, T, KV, d] cache transposed); only the
+head-dim axis must be contiguous, and in bf16 every row must start on 16
+bytes (the kernel copies whole 16-byte chunks).
 """
 
 from __future__ import annotations
@@ -66,8 +68,13 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0):
     _require(all(t.stride(-1) == 1 for t in (q, k, v)),
              "the head-dim axis must be contiguous")
     out = torch.empty((B, S, H, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    fn = _build.function("repro_flash_attention", _ARGTYPES)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]
+    if q.dtype == torch.bfloat16:
+        _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+                 and all(st % 8 == 0 for st in strides),
+                 "bf16 rows must start on 16 bytes (pointers 16-byte aligned, "
+                 "strides multiples of 8 elements)")
+    fn = _build.function("repro_flash_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  B, H, KV, S, T, d, *strides, float(softcap), int(causal),

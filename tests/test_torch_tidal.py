@@ -346,3 +346,25 @@ def test_fork_session_params_surfaces_stream_error():
     session = ForkSession(tm, WeightStreamer(entries, {}, {}).start())
     with pytest.raises(IOError, match="shard unreachable"):
         session.params()
+
+
+def test_process_pool_defaults_to_the_card():
+    """The prewarm pool, like every entry point of the port, targets the
+    card unless the caller passes ``device="cpu"``; without a card the
+    default raises when the first worker warms its context.  (The JAX pool
+    has no device argument: it warms the default JAX backend.)"""
+    from repro.core.prewarm import ExecutableCache as JaxCache
+    from repro.core.prewarm import ProcessPool as JaxPool
+    from repro_torch.core.prewarm import ExecutableCache, ProcessPool, Worker
+
+    pool = ProcessPool(2, ExecutableCache(), device="cpu")
+    want = JaxPool(size=2, cache=JaxCache())
+    assert [w.worker_id for w in pool.workers] == [w.worker_id for w in want.workers]
+    assert all(w.device.type == "cpu" and w.ctx_ready for w in pool.workers)
+    assert Worker(0).device.type == "cuda"
+    if torch.cuda.is_available():
+        assert all(w.device.type == "cuda"
+                   for w in ProcessPool(2, ExecutableCache()).workers)
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            ProcessPool(2, ExecutableCache())
