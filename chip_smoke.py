@@ -11,12 +11,15 @@ Phases, in order; any failure raises and the process exits non-zero:
    -v``) and the measured pinned host-to-device copy rate;
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (smollm-135m heads and rows, llama3-8b's, and
-   qwen3-14b's head-norm rows; decode also at B = 1, T = 4096 and at
-   lengths shorter than one split, length 0 giving zeros), each timed
-   beside its roofline bound and one PyTorch library call; then bitwise
-   invariance of the bf16 flash and decode kernels (a suffix prefill's
-   rows equal the whole prefill's, a sequence alone equals it in a
-   batch, a repeated call equals the first);
+   qwen3-14b's head-norm rows; paged and dense decode also at B = 1,
+   T = 4096 and at lengths shorter than one split, length 0 giving
+   zeros), each timed beside its roofline bound and one PyTorch library
+   call; then, at smollm-135m's, llama3-8b's and gemma-2b's heads, bitwise
+   invariance of the bf16 flash, decode and paged decode kernels (a
+   suffix prefill's rows equal the whole prefill's, a sequence alone
+   equals it in a batch, a repeated call equals the first) and paged
+   decode equal to dense decode over the same rows (bf16 and fp32,
+   lengths 0 to 512);
 3. serving: smollm-135m at full width (30 layers, bf16, seeded random
    weights) through ``ContinuousBatchingEngine`` over a
    ``PagedKVCachePool``, with a baked shared prefix, a chunked-prefill pass
@@ -29,7 +32,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    layer-streamed prefill of a forked session equals its monolithic one;
 5. engine: the sequential ``Engine`` (dense cache, ``decode_attention``)
    on smollm-135m at full width, then a ``paged=False`` continuous pass
-   over phase 3's workload; launch counts checked per layer and step;
+   over phase 3's workload, whose greedy tokens must all equal the paged
+   pass's; launch counts checked per layer and step;
 6. TIDAL: ``FaaSRuntime`` on smollm-135m at full width with a static
    function (131-token template prompt) and a LoRA function, ~16
    invocations through the gateway's pump thread covering cold, warm and
@@ -49,7 +53,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    S = 128, 512, a ragged 200, and B = 4 with an initial state; B and C
    in bf16 and fp32), and ``flash_attention`` / ``decode_attention`` at
    zamba2's head dim of 80, all timed, with the bitwise invariance checks
-   at zamba2's heads; then zamba2-2.7b at full width
+   (paged equal to dense included) at zamba2's heads; then zamba2-2.7b at full width
    (54 Mamba2 layers and one shared attention block applied 9 times,
    bf16, seeded random weights) through a dense-pool
    ``ContinuousBatchingEngine`` (12 requests) and the sequential
@@ -278,27 +282,37 @@ def phase_device() -> dict:
             "cuda": torch.version.cuda, "ptxas": ptxas}
 
 
+def demangle(names: list) -> list:
+    """C++ names demangled by ``c++filt`` (or the CUDA toolkit's
+    ``cu++filt``); the mangled names where neither is there."""
+    for tool in ("c++filt", "/usr/local/cuda/bin/cu++filt"):
+        try:
+            res = subprocess.run([tool], input="\n".join(names), text=True,
+                                 capture_output=True, timeout=60)
+        except FileNotFoundError:
+            continue
+        out = res.stdout.splitlines()
+        if res.returncode == 0 and len(out) == len(names):
+            return out
+    return list(names)
+
+
 def ptxas_report(log: str, kernels=("flash_tc_kernel", "flash_fp32_kernel",
                                     "decode_split_kernel",
                                     "decode_merge_kernel")) -> list:
     """Registers, static shared memory and spills of the attention kernels'
-    instantiations, from ``nvcc -Xptxas -v`` in the build log."""
-    def args(mangled: str) -> str:
-        mangled = mangled.replace("13__nv_bfloat16", "bf16 ")
-        mangled = re.sub(r"Li(\d+)E", r"\1 ", mangled)
-        mangled = re.sub(r"^f", "f32 ", mangled)
-        return ",".join(mangled.split())
-
-    rows, cur = [], None
+    instantiations, by source file, from ``nvcc -Xptxas -v`` in the build
+    log."""
+    entries, cur, source = [], None, None
     for line in log.splitlines():
+        m = re.match(r"== (\S+) \(exit", line)
+        if m:
+            source, cur = m.group(1), None
+            continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = None
-            for k in kernels:
-                mm = re.search(k + r"I(.*?)EEv", m.group(1))
-                if mm:
-                    cur = {"kernel": f"{k}<{args(mm.group(1))}>"}
-                    rows.append(cur)
+            cur = {"mangled": m.group(1), "source": source}
+            entries.append(cur)
             continue
         if cur is None:
             continue
@@ -311,6 +325,22 @@ def ptxas_report(log: str, kernels=("flash_tc_kernel", "flash_fp32_kernel",
             cur["registers"] = int(m.group(1))
             cur["static_smem"] = int(sm.group(1)) if sm else 0
             cur = None
+    rows = []
+    for e, name in zip(entries, demangle([e.pop("mangled") for e in entries])):
+        k = next((k for k in kernels if k in name), None)
+        if k is None:
+            continue
+        short = name[name.index(k):]
+        depth = 0
+        for i, ch in enumerate(short):            # cut after the template args
+            depth += {"<": 1, ">": -1}.get(ch, 0)
+            if ch == ">" and depth == 0:
+                short = short[:i + 1]
+                break
+        for long, abbr in (("(anonymous namespace)::", ""), ("__nv_bfloat16", "bf16"),
+                           ("signed char", "int8"), ("float", "f32"), (" ", "")):
+            short = short.replace(long, abbr)
+        rows.append({"kernel": short, **e})
     return rows
 
 
@@ -337,7 +367,6 @@ def phase_kernels(device) -> list:
     """Every kernel against its plain version on the card, timed."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
     gen = torch.Generator().manual_seed(0)
     results = []
     rng = np.random.default_rng(0)
@@ -351,48 +380,19 @@ def phase_kernels(device) -> list:
                                   (torch.bfloat16, True), (torch.float32, True)):
                 if tag == "llama3-8b" and q_dtype == torch.float32:
                     continue
-                paged.append((tag, heads, B, lengths, q_dtype, int8))
-    for tag, hd, B, lengths, q_dtype, int8 in paged:
-        c = make_paged_case(gen, B, hd["H"], hd["KV"], hd["d"], PAGE_SIZE, 512,
-                            lengths, q_dtype, int8, device)
-        args = (c["q"], c["k_pages"], c["v_pages"], c["page_table"], c["lengths"])
-        kw = {"k_scales": c["k_scales"], "v_scales": c["v_scales"]}
-        out = paged_decode_attention(*args, **kw)
-        want = ref.paged_decode_attention_ref(*args, **kw)
-        torch.cuda.synchronize()
-        err = float((out.float() - want.float()).abs().max())
-        tol = 2e-5 if q_dtype == torch.float32 else 2e-2
-        kern_ms = time_ms(lambda: paged_decode_attention(*args, **kw))
-        plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(*args, **kw))
-        NB, T = c["page_table"].shape[1], c["page_table"].shape[1] * PAGE_SIZE
-        mask = (torch.arange(T, device=device)[None, :]
-                < c["lengths"][:, None].long())[:, None, None, :]
-
-        def library():
-            kp, vp = c["k_pages"], c["v_pages"]
-            if int8:
-                kp = kp.to(q_dtype) * c["k_scales"].to(q_dtype)[..., None]
-                vp = vp.to(q_dtype) * c["v_scales"].to(q_dtype)[..., None]
-            pt = c["page_table"].long()
-            k = kp[pt].reshape(B, T, hd["KV"], hd["d"]).transpose(1, 2)
-            v = vp[pt].reshape(B, T, hd["KV"], hd["d"]).transpose(1, 2)
-            return sdpa_gqa(c["q"][:, :, None], k, v, attn_mask=mask)
-
-        lib_ms = time_ms(library)
-        kv_dtype = torch.int8 if int8 else q_dtype
-        flops, nbytes = paged_decode_work(B, hd["H"], hd["KV"], hd["d"], PAGE_SIZE,
-                                          lengths, q_dtype, kv_dtype)
-        b_ms, b_by = bound_ms(flops, nbytes, q_dtype)
-        res = {"kernel": "paged_decode_attention", "shape": tag, "B": B,
-               "H": hd["H"], "KV": hd["KV"], "d": hd["d"], "ps": PAGE_SIZE,
-               "max_len": int(max(lengths)), "q_dtype": str(q_dtype)[6:],
-               "kv_dtype": str(kv_dtype)[6:], "max_abs_err": err, "tol": tol,
-               "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_ms": b_ms, "bound_by": b_by}
-        results.append(res)
-        print(json.dumps(res))
-        if not err <= tol:
-            raise AssertionError(f"paged_decode_attention disagrees: {res}")
+                paged.append(("serving", tag, heads, 512, lengths, q_dtype, int8))
+    # split-KV's own shapes, as for dense decode: one long sequence, and
+    # lengths shorter than one split with a sequence of length 0
+    for q_dtype, int8 in ((torch.bfloat16, False), (torch.float32, False),
+                          (torch.bfloat16, True)):
+        paged.append(("long", "smollm", SMOLLM, 4096, [4096], q_dtype, int8))
+        paged.append(("short", "smollm", SMOLLM, 512, [0, 1, 5, 63, 64, 65, 300, 512],
+                      q_dtype, int8))
+    for int8 in (False, True):
+        paged.append(("long", "llama3-8b", LLAMA3_8B, 4096, [4096], torch.bfloat16,
+                      int8))
+    for case in paged:
+        results.append(paged_case(device, gen, *case))
 
     decode_cases = []
     for heads, tag in ((SMOLLM, "smollm"), (LLAMA3_8B, "llama3-8b"),
@@ -448,7 +448,9 @@ def phase_kernels(device) -> list:
         if not err <= tol:
             raise AssertionError(f"flash_attention disagrees: {res}")
 
-    results.append(attention_invariance(device, gen, SMOLLM, "smollm"))
+    for heads, tag in ((SMOLLM, "smollm"), (LLAMA3_8B, "llama3-8b"),
+                       (GEMMA_2B, "gemma-2b")):
+        results.append(attention_invariance(device, gen, heads, tag))
 
     # rmsnorm: fp32 within 1e-5 relative, bf16 within one bf16 ulp of the
     # plain version (the same fp32 value rounded; summation order only)
@@ -486,6 +488,62 @@ def phase_kernels(device) -> list:
             if not ok or not same_bits:
                 raise AssertionError(f"rmsnorm disagrees: {res}")
     return results
+
+
+def paged_case(device, gen, case, tag, hd, max_len, lengths, q_dtype,
+               int8) -> dict:
+    """``paged_decode_attention`` against its plain version over a shuffled
+    arena of 8-row pages, timed beside gather + SDPA (the arena
+    dequantized first for int8) and the bound.  A sequence of length 0
+    must give exact zeros, the others agree within the tolerance."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+    B = len(lengths)
+    c = make_paged_case(gen, B, hd["H"], hd["KV"], hd["d"], PAGE_SIZE, max_len,
+                        lengths, q_dtype, int8, device)
+    args = (c["q"], c["k_pages"], c["v_pages"], c["page_table"], c["lengths"])
+    kw = {"k_scales": c["k_scales"], "v_scales": c["v_scales"]}
+    out = paged_decode_attention(*args, **kw)
+    want = ref.paged_decode_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    live = c["lengths"] > 0
+    err = float((out.float() - want.float())[live].abs().max())
+    empty_zero = bool((out[~live] == 0).all())
+    tol = 2e-5 if q_dtype == torch.float32 else 2e-2
+    kern_ms = time_ms(lambda: paged_decode_attention(*args, **kw))
+    plain_ms = time_ms(lambda: ref.paged_decode_attention_ref(*args, **kw))
+    T = c["page_table"].shape[1] * PAGE_SIZE
+    mask = (torch.arange(T, device=device)[None, :]
+            < c["lengths"][:, None].long())[:, None, None, :]
+
+    def library():
+        kp, vp = c["k_pages"], c["v_pages"]
+        if int8:
+            kp = kp.to(q_dtype) * c["k_scales"].to(q_dtype)[..., None]
+            vp = vp.to(q_dtype) * c["v_scales"].to(q_dtype)[..., None]
+        pt = c["page_table"].long()
+        k = kp[pt].reshape(B, T, hd["KV"], hd["d"]).transpose(1, 2)
+        v = vp[pt].reshape(B, T, hd["KV"], hd["d"]).transpose(1, 2)
+        return sdpa_gqa(c["q"][:, :, None], k, v, attn_mask=mask)
+
+    lib_ms = time_ms(library)
+    kv_dtype = torch.int8 if int8 else q_dtype
+    flops, nbytes = paged_decode_work(B, hd["H"], hd["KV"], hd["d"], PAGE_SIZE,
+                                      lengths, q_dtype, kv_dtype)
+    b_ms, b_by = bound_ms(flops, nbytes, q_dtype)
+    res = {"kernel": "paged_decode_attention", "case": case, "shape": tag, "B": B,
+           "H": hd["H"], "KV": hd["KV"], "d": hd["d"], "ps": PAGE_SIZE,
+           "max_len": int(max(lengths)),
+           "lengths": list(lengths) if case == "short" else None,
+           "q_dtype": str(q_dtype)[6:], "kv_dtype": str(kv_dtype)[6:],
+           "max_abs_err": err, "tol": tol,
+           "length0_zero": empty_zero if not live.all() else None,
+           "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(res))
+    if not (err <= tol and empty_zero):
+        raise AssertionError(f"paged_decode_attention disagrees: {res}")
+    return res
 
 
 def decode_case(device, gen, case, tag, heads, T, lengths, dtype) -> dict:
@@ -530,14 +588,18 @@ def decode_case(device, gen, case, tag, heads, T, lengths, dtype) -> dict:
 
 
 def attention_invariance(device, gen, heads: dict, tag: str) -> dict:
-    """Bitwise checks of the bf16 attention kernels that serving relies on
-    (a fork's full prefill against a warm suffix prefill over the baked
-    prefix; a sequence decoded alone or in a batch): a suffix prefill's
-    rows equal the last rows of the whole prefill over the same K/V, a
-    sequence alone equals it inside a batch of other prompts or lengths,
-    and a repeated call equals the first."""
+    """Bitwise checks of the attention kernels that serving relies on (a
+    fork's full prefill against a warm suffix prefill over the baked
+    prefix; a sequence decoded alone or in a batch; the paged and the
+    dense pool giving the same tokens): in bf16 a suffix prefill's rows
+    equal the last rows of the whole prefill over the same K/V, a sequence
+    alone equals it inside a batch of other prompts or lengths, and a
+    repeated call equals the first; in bf16 and fp32 paged decode over a
+    shuffled arena of 8-row pages equals dense decode over a cache built
+    from the pages the table selects, at ragged lengths from 0 to 512."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.paged_decode_attention import paged_decode_attention
     H, KV, d, bf = heads["H"], heads["KV"], heads["d"], torch.bfloat16
     T, S = 320, 64
     q = torch.randn((4, H, T, d), generator=gen).to(device, bf)
@@ -561,6 +623,25 @@ def attention_invariance(device, gen, heads: dict, tag: str) -> dict:
         torch.equal(decode_attention(q[b:b + 1], kc[b:b + 1], vc[b:b + 1],
                                      ln[b:b + 1]), out[b:b + 1]) for b in (0, 4, 6))
     res["decode_repeat_equal"] = torch.equal(decode_attention(q, kc, vc, ln), out)
+    lengths = [0, 1, 5, 63, 64, 65, 300, 512]
+    for dtype in (bf, torch.float32):
+        c = make_paged_case(gen, 8, H, KV, d, PAGE_SIZE, T, lengths, dtype, False,
+                            device)
+        args = (c["q"], c["k_pages"], c["v_pages"], c["page_table"], c["lengths"])
+        pt = c["page_table"].long()
+        kd = c["k_pages"][pt].reshape(8, T, KV, d).transpose(1, 2)
+        vd = c["v_pages"][pt].reshape(8, T, KV, d).transpose(1, 2)
+        out = paged_decode_attention(*args)
+        name = str(dtype)[6:]
+        res[f"paged_equals_dense_{name}"] = torch.equal(
+            out, decode_attention(c["q"], kd, vd, c["lengths"]))
+        if dtype == bf:
+            qb, kp, vp, ptb, lb = args
+            res["paged_alone_equals_batch"] = all(
+                torch.equal(paged_decode_attention(qb[b:b + 1], kp, vp, ptb[b:b + 1],
+                                                   lb[b:b + 1]), out[b:b + 1])
+                for b in (2, 4, 6, 7))
+            res["paged_repeat_equal"] = torch.equal(paged_decode_attention(*args), out)
     row = {"invariance": tag, **res}
     print(json.dumps(row))
     if not all(res.values()):
@@ -888,6 +969,11 @@ def phase_engine(model, params, paged_tokens: list) -> list:
                  "tokens_equal_to_paged_pass": same})
     print(json.dumps(rows[-1]))
     print(f"dense pass tokens equal to the paged pass: {same}/{16 * len(out)}")
+    # paged and dense decode run one split-KV body, so the two pools give
+    # the same greedy tokens
+    if same != 16 * len(out):
+        raise AssertionError(f"dense pass: {same}/{16 * len(out)} tokens equal "
+                             f"to the paged pass")
     return rows
 
 
@@ -1708,13 +1794,13 @@ def kernel_summary(kernels: list, serve: list, engine: list,
         launches["ssd"] += row["launches"]["ssd_scan"]
     entries = [
         ("paged_decode_attention",
-         pick(kernel="paged_decode_attention", shape="smollm", B=8,
-              q_dtype="bfloat16", kv_dtype="bfloat16"),
+         pick(kernel="paged_decode_attention", case="serving", shape="smollm",
+              B=8, q_dtype="bfloat16", kv_dtype="bfloat16"),
          "src/repro_torch/csrc/paged_decode_attention.cu",
          "src/repro/kernels/paged_decode_attention.py:129", launches["paged"]),
         ("paged_decode_attention[int8]",
-         pick(kernel="paged_decode_attention", shape="smollm", B=8,
-              q_dtype="bfloat16", kv_dtype="int8"),
+         pick(kernel="paged_decode_attention", case="serving", shape="smollm",
+              B=8, q_dtype="bfloat16", kv_dtype="int8"),
          "src/repro_torch/csrc/paged_decode_attention.cu",
          "src/repro/kernels/paged_decode_attention.py:129", launches["int8"]),
         ("flash_attention",

@@ -42,6 +42,12 @@ class ExecutableCache:
         self._cache: dict = {}
         self.stats = CacheStats()
 
+    def __contains__(self, key) -> bool:
+        return key in self._cache
+
+    def keys(self):
+        return list(self._cache)
+
     def get_or_compile(self, key, build: Callable[[], Any]):
         """``build()`` warms the entry point and returns it."""
         if key in self._cache:
@@ -104,6 +110,10 @@ class ProcessPool:
 
     def release(self, w: Worker) -> None:
         self._free.append(w)
+
+    def is_prewarmed(self, w: Worker, keys) -> bool:
+        """The worker's context is up and it has loaded every key."""
+        return w.ctx_ready and set(keys) <= w.loaded
 
 
 def zero_params(model) -> dict:

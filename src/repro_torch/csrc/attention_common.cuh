@@ -66,12 +66,4 @@ __device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& raw, float*
   }
 }
 
-// Rows a decode warp loads before it computes with any of them: fewer at
-// wider heads, where each row already takes more registers per lane.
-// VEC = ceil(d / 32) head-dim elements per lane.
-template <int VEC>
-struct ChunkRows {
-  static constexpr int value = VEC >= 8 ? 2 : (VEC >= 4 ? 4 : 8);
-};
-
 }  // namespace

@@ -39,7 +39,8 @@ def split_rows(d: int) -> int:
     Fixed per head dim (64 up to d = 128, 32 at d = 256, where a row takes
     more registers) and never chosen from the batch, the KV heads or the
     lengths, so a sequence's output does not depend on the batch it
-    decodes in.  ``csrc/decode_attention.cu`` checks that it agrees.
+    decodes in.  ``csrc/decode_split.cuh`` holds the same rule, and both
+    CUDA entry points refuse another split.
     """
     return 64 if d <= 128 else 32
 
@@ -48,6 +49,17 @@ def n_splits(T: int, d: int) -> int:
     """Blocks per (sequence, KV head): ``ceil(T / split_rows(d))`` over the
     cache's allocated length ``T``."""
     return -(-T // split_rows(d))
+
+
+def partials(B: int, KV: int, G: int, d: int, ns: int, device) -> tuple:
+    """The split-KV partials' scratch of one call, uninitialised (every
+    block writes its own): ``[B * KV, splits, G, d]`` fp32 accumulators,
+    then ``[B * KV, splits, G, 2]`` (m, l).  Returns the buffer and the
+    addresses of the two parts."""
+    n_acc = B * KV * ns * G * d
+    part = torch.empty(n_acc + B * KV * ns * G * 2, dtype=torch.float32,
+                       device=device)
+    return part, part.data_ptr(), part.data_ptr() + 4 * n_acc
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -97,16 +109,12 @@ def decode_attention(q, k, v, length):
              f"multiples of {vec} elements)")
     out = torch.empty_like(q)
     split, ns = split_rows(d), n_splits(T, d)
-    G = H // KV
-    # the partials' scratch: [B * KV, splits, G, d] accumulators, then
-    # [B * KV, splits, G, 2] (m, l)
-    n_acc = B * KV * ns * G * d
-    part = torch.empty(n_acc + B * KV * ns * G * 2, dtype=torch.float32,
-                       device=q.device)
+    # ``part`` stays referenced until the launch is queued
+    part, acc_ptr, ml_ptr = partials(B, KV, H // KV, d, ns, q.device)
     fn = _build.function("repro_decode_attention", _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 part.data_ptr(), part.data_ptr() + 4 * n_acc, out.data_ptr(),
+                 acc_ptr, ml_ptr, out.data_ptr(),
                  B, H, KV, d, T, split, ns, *strides, _DTYPES[q.dtype],
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:

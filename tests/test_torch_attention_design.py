@@ -15,10 +15,15 @@ JAX Pallas kernels in interpret mode:
   time), so a row's value does not depend on which other rows share the
   product, as on the tensor cores; the invariance tests then show that
   the schedule itself makes a row independent of its block and batch.
-* ``decode_attention``'s split-KV: one partial (m, l, un-normalised
-  accumulator) per span of ``split_rows(d)`` cache rows, an empty
-  partial (m = mask value, l = 0) at or past the length, merged in split
-  order.  fp32 throughout; tolerance 1e-5 (summation order only).
+* the split-KV body of ``csrc/decode_split.cuh`` that ``decode_attention``
+  and ``paged_decode_attention`` share: one partial (m, l, un-normalised
+  accumulator) per span of ``split_rows(d)`` logical rows, the span's rows
+  dealt to lane groups as the CUDA body deals them and merged in group
+  order, an empty partial (m = mask value, l = 0) at or past the length,
+  the partials merged in split order.  fp32 throughout (an int8 arena
+  dequantized as row * scale); tolerance 1e-5 (summation order only).
+  The replay runs over a dense cache or walks a page table; the two give
+  the same bits over the same rows, as the two kernels do on the card.
 """
 
 import inspect
@@ -110,15 +115,46 @@ def flash_bf16_schedule(q, k, v, causal=True, softcap=0.0):
     return out
 
 
-def split_kv_schedule(q, k, v, lengths):
-    """The split-KV decode's arithmetic.  q [B, H, d], k, v [B, KV, T, d]
-    (fp32), lengths [B]; returns fp32 [B, H, d]."""
+def decode_cfg(d: int, vec: int, G: int) -> tuple:
+    """``DecodeCfg`` of ``csrc/decode_split.cuh``: lane groups per block,
+    rows a group loads per round, rounds per span.  ``vec`` is the row
+    source's elements per load (4 for fp32, 8 for bf16 and int8)."""
+    gmax = 1 if G == 1 else (4 if G <= 4 else 8)
+    chunks = d // vec
+    lanes = 8 if chunks <= 8 else (16 if chunks <= 16 else 32)
+    e = vec * -(-chunks // 32)
+    groups = 4 * 32 // lanes
+    split = dec.split_rows(d)
+    r = min(8 if gmax * e <= 32 else 4, split // groups)
+    return groups, r, split // (groups * r)
+
+
+def _dot(a, b):
+    """Sum over the last axis, one element at a time (a fixed order)."""
+    out = a[..., 0] * b[..., 0]
+    for e in range(1, a.shape[-1]):
+        out = out + a[..., e] * b[..., e]
+    return out
+
+
+def _split_kv(q, rows, T, lengths, vec):
+    """The split-KV body of ``csrc/decode_split.cuh`` over a row source.
+
+    ``rows(b, r_begin, t)`` gives the K and V rows ([n, KV, d] fp32) of
+    the logical rows ``t`` of sequence ``b`` inside the span that starts
+    at ``r_begin``.  Per span of ``split_rows(d)`` rows: row ``base + r *
+    groups + grp`` of each round goes to lane group ``grp``, whose online
+    softmax takes its rows in ``r`` order; the groups merge in group order
+    into the span's partial; an empty partial (m = mask value, l = 0) at
+    or past the length; the partials merge in split order.  q [B, H, d],
+    ``T`` the allocated length; returns fp32 [B, H, d]."""
     B, H, d = q.shape
-    KV, T = k.shape[1], k.shape[2]
+    KV = rows(0, 0, torch.zeros(1, dtype=torch.long))[0].shape[1]
     G = H // KV
+    groups, R, rounds = decode_cfg(d, vec, G)
     split, ns = dec.split_rows(d), dec.n_splits(T, d)
     scale = 1.0 / math.sqrt(d)
-    qg = q.reshape(B, KV, G, d)
+    qg = q.reshape(B, KV, G, 1, d)
     part_m = torch.empty((B, KV, ns, G))
     part_l = torch.empty((B, KV, ns, G))
     part_acc = torch.full((B, KV, ns, G, d), float("nan"))   # never read if empty
@@ -129,12 +165,38 @@ def split_kv_schedule(q, k, v, lengths):
             if r0 >= n:                                       # empty partial
                 part_m[b, :, s], part_l[b, :, s] = MASK, 0.0
                 continue
-            ks, vs = k[b, :, r0:min(r0 + split, n)], v[b, :, r0:min(r0 + split, n)]
-            sc = torch.einsum("kgd,ktd->kgt", qg[b], ks) * scale
-            mx = sc.amax(-1)
-            p = torch.exp(sc - mx[..., None])
-            part_m[b, :, s], part_l[b, :, s] = mx, p.sum(-1)
-            part_acc[b, :, s] = torch.einsum("kgt,ktd->kgd", p, vs)
+            r_end = min(r0 + split, n)
+            m = torch.full((KV, G, groups), MASK)
+            l = torch.zeros((KV, G, groups))
+            acc = torch.zeros((KV, G, groups, d))
+            for rnd in range(rounds):
+                base = r0 + rnd * groups * R
+                if base >= r_end:
+                    break
+                t = base + torch.arange(R)[:, None] * groups + torch.arange(groups)
+                live = t < r_end                              # [R, groups]
+                k, v = rows(b, r0, t.clamp(max=r_end - 1).reshape(-1))
+                k = k.reshape(R, groups, KV, d).permute(0, 2, 1, 3)[:, :, None]
+                v = v.reshape(R, groups, KV, d).permute(0, 2, 1, 3)[:, :, None]
+                sc = torch.stack([_dot(qg[b], k[r]) for r in range(R)]) * scale
+                m_new = m
+                for r in range(R):
+                    m_new = torch.where(live[r], torch.maximum(m_new, sc[r]), m_new)
+                alpha = torch.exp(m - m_new)
+                l, acc = l * alpha, acc * alpha[..., None]
+                for r in range(R):
+                    p = torch.exp(sc[r] - m_new)
+                    l = torch.where(live[r], l + p, l)
+                    acc = torch.where(live[r][:, None], acc + p[..., None] * v[r], acc)
+                m = m_new
+            mx = m.amax(-1)                                   # groups, in order
+            lsum = torch.zeros((KV, G))
+            a = torch.zeros((KV, G, d))
+            for w in range(groups):
+                c = torch.exp(m[..., w] - mx)
+                lsum = lsum + l[..., w] * c
+                a = a + acc[..., w, :] * c[..., None]
+            part_m[b, :, s], part_l[b, :, s], part_acc[b, :, s] = mx, lsum, a
     out = torch.zeros((B, KV, G, d))
     for b in range(B):
         live = part_l[b] > 0                                  # [KV, ns, G]
@@ -148,6 +210,37 @@ def split_kv_schedule(q, k, v, lengths):
                                     part_acc[b, :, s] * c[..., None], 0.0)
         out[b] = acc / torch.clamp(lsum, min=1e-30)[..., None]
     return out.reshape(B, H, d)
+
+
+def split_kv_schedule(q, k, v, lengths):
+    """The split-KV decode's arithmetic over a dense cache (the DenseRows
+    source).  q [B, H, d], k, v [B, KV, T, d] (fp32), lengths [B];
+    returns fp32 [B, H, d]."""
+    def rows(b, r_begin, t):
+        return k[b, :, t].transpose(0, 1), v[b, :, t].transpose(0, 1)
+    return _split_kv(q, rows, k.shape[2], lengths, vec=4)
+
+
+def paged_split_kv_schedule(q, k_pages, v_pages, page_table, lengths,
+                            k_scales=None, v_scales=None):
+    """The same body over a [P, ps, KV, d] arena (PagedRows, or
+    PagedInt8Rows with [P, ps, KV] scales): a span's page ids are read
+    from ``page_table`` once, then logical row t is row t % ps of page
+    ``ids[t // ps - r_begin // ps]``, dequantized as ``row * scale``."""
+    ps, NB = k_pages.shape[1], page_table.shape[1]
+    d = q.shape[-1]
+    T = NB * ps
+
+    def rows(b, r_begin, t):
+        r_hi = min(r_begin + dec.split_rows(d), T)
+        ids = page_table[b, r_begin // ps:(r_hi - 1) // ps + 1].long()
+        page, off = ids[t // ps - r_begin // ps], t % ps
+        k, v = k_pages[page, off].float(), v_pages[page, off].float()
+        if k_scales is not None:
+            k = k * k_scales[page, off][..., None]
+            v = v * v_scales[page, off][..., None]
+        return k, v
+    return _split_kv(q, rows, T, lengths, vec=8 if k_scales is not None else 4)
 
 
 # ---------------------------------------------------------------------------
@@ -269,12 +362,129 @@ def test_split_count_is_fixed_per_head_dim(d):
 
 
 def test_cuda_source_agrees_on_the_split():
-    """csrc/decode_attention.cu checks the wrapper's split against its own
-    ``split_rows``; both name the same rule."""
-    src = (_build.CSRC / "decode_attention.cu").read_text()
+    """csrc/decode_split.cuh, the body both decode kernels run, checks the
+    wrapper's split against its own ``split_rows``; both name the same
+    rule."""
+    src = (_build.CSRC / "decode_split.cuh").read_text()
     rule = re.search(r"constexpr int split_rows\(int d\) \{ return d <= (\d+) \? (\d+) : (\d+); \}",
                      src)
     assert rule is not None
     limit, small, large = map(int, rule.groups())
     for d in dec.HEAD_DIMS:
         assert dec.split_rows(d) == (small if d <= limit else large)
+    assert "constexpr int kMaxSplit = {};".format(max(small, large)) in src
+
+
+# ---------------------------------------------------------------------------
+# paged_decode_attention: the split-KV body over a paged arena
+# ---------------------------------------------------------------------------
+
+def _paged_arena(rng, B, KV, d, ps, T, lengths):
+    """A shuffled arena whose pages hold the dense rows k, v [B, KV, T, d]
+    (T a multiple of ps); a sequence of length 1 sits on the null page 0,
+    as a free slot does.  Returns the dense view, the arena, the table."""
+    NB = T // ps
+    n_pages = 1 + B * NB
+    kp = rng.standard_normal((n_pages, ps, KV, d)).astype(np.float32)
+    vp = rng.standard_normal((n_pages, ps, KV, d)).astype(np.float32)
+    pt = (rng.permutation(n_pages - 1) + 1)[:B * NB].reshape(B, NB).astype(np.int32)
+    for b, n in enumerate(lengths):
+        if n == 1:
+            pt[b] = 0
+    kp, vp, pt = map(torch.from_numpy, (kp, vp, pt))
+    k = kp[pt.long()].reshape(B, T, KV, d).transpose(1, 2)
+    v = vp[pt.long()].reshape(B, T, KV, d).transpose(1, 2)
+    return k, v, kp, vp, pt
+
+
+@pytest.mark.parametrize("d", dec.HEAD_DIMS)
+@pytest.mark.parametrize("ps", [1, 3, 8, 16])
+def test_paged_schedule_equals_dense_schedule(ps, d):
+    """Paged and dense decode run one body: over the same logical rows the
+    page walk gives the dense schedule's bits, for page sizes that divide
+    a span, that do not (3), and one row per page, at lengths 0, 1,
+    exactly one span and one past it."""
+    split = dec.split_rows(d)
+    lengths = [0, 1, split, split + 1, 2 * split - 3]
+    T = -(-(2 * split) // ps) * ps                # NB * ps, >= every length
+    H, KV = (4, 2) if d <= 128 else (2, 1)
+    rng = np.random.default_rng(ps * 1000 + d)
+    k, v, kp, vp, pt = _paged_arena(rng, len(lengths), KV, d, ps, T, lengths)
+    q = torch.from_numpy(rng.standard_normal((len(lengths), H, d)).astype(np.float32))
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    paged = paged_split_kv_schedule(q, kp, vp, pt, ln)
+    dense = split_kv_schedule(q, k, v, ln)
+    assert torch.equal(paged, dense)
+    assert (paged[0] == 0).all()                  # length 0 gives zeros
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("H,KV,d,ps,T,lengths", [
+    (9, 3, 64, 8, 192, [0, 1, 5, 64, 65, 192]),    # smollm heads, page size 8
+    (4, 4, 80, 3, 129, [128, 3, 0, 64]),           # G = 1, ps not dividing a span
+    (8, 1, 256, 16, 96, [96, 31, 32, 33]),         # 32-row spans: 2 pages each
+    (8, 2, 128, 1, 130, [130, 1, 77]),             # one row per page
+])
+def test_paged_schedule_matches_ref_and_pallas(H, KV, d, ps, T, lengths, int8):
+    """The paged schedule against the JAX package's plain version and its
+    Pallas kernel (interpret mode), for an fp32 and an int8 arena.
+    Tolerance 1e-5 (summation order only: both dequantize as row *
+    scale in fp32)."""
+    from repro.kernels.ops import paged_decode_attention as pallas_paged
+    from repro.models import quant as jquant
+    B = len(lengths)
+    rng = np.random.default_rng(H * 100 + d + ps)
+    _, _, kp, vp, pt = _paged_arena(rng, B, KV, d, ps, T, lengths)
+    q = rng.standard_normal((B, H, d)).astype(np.float32)
+    ln = np.asarray(lengths, np.int32)
+    kp, vp, pt = kp.numpy(), vp.numpy(), pt.numpy()
+    jkw, tkw = {}, {}
+    if int8:
+        kq, ksj = jquant.quantize_rows(jnp.asarray(kp))
+        vq, vsj = jquant.quantize_rows(jnp.asarray(vp))
+        kp, vp, ks, vs = map(np.array, (kq, vq, ksj, vsj))
+        jkw = {"k_scales": jnp.asarray(ks), "v_scales": jnp.asarray(vs)}
+        tkw = {"k_scales": torch.from_numpy(ks), "v_scales": torch.from_numpy(vs)}
+    got = paged_split_kv_schedule(torch.from_numpy(q), torch.from_numpy(kp),
+                                  torch.from_numpy(vp), torch.from_numpy(pt),
+                                  torch.from_numpy(ln), **tkw).numpy()
+    jargs = tuple(map(jnp.asarray, (q, kp, vp, pt, ln)))
+    live = ln > 0
+    want = np.asarray(jref.paged_decode_attention_ref(*jargs, **jkw))
+    np.testing.assert_allclose(got[live], want[live], atol=1e-5, rtol=1e-5)
+    pallas = np.asarray(pallas_paged(*jargs, **jkw))
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-5)
+    assert (got[~live] == 0).all()
+
+
+def test_paged_schedule_sequence_alone_equals_it_in_a_batch():
+    rng = np.random.default_rng(5)
+    lengths = [300, 1, 64, 0, 129, 320, 17, 250]
+    B, H, KV, d, ps, T = len(lengths), 9, 3, 64, 8, 320
+    _, _, kp, vp, pt = _paged_arena(rng, B, KV, d, ps, T, lengths)
+    q = torch.from_numpy(rng.standard_normal((B, H, d)).astype(np.float32))
+    ln = torch.tensor(lengths, dtype=torch.int32)
+    batch = paged_split_kv_schedule(q, kp, vp, pt, ln)
+    for b in (0, 4, 6):
+        alone = paged_split_kv_schedule(q[b:b + 1], kp, vp, pt[b:b + 1], ln[b:b + 1])
+        assert torch.equal(alone, batch[b:b + 1])
+
+
+def test_paged_cuda_source_runs_the_shared_body():
+    """Both decode kernels take their span, schedule and merge from
+    csrc/decode_split.cuh: neither defines a kernel, a split rule or a
+    merge of its own, and each hands its row source to the shared launch."""
+    shared = (_build.CSRC / "decode_split.cuh").read_text()
+    assert "decode_split_kernel" in shared and "decode_merge_kernel" in shared
+    for name, source in (("paged_decode_attention.cu", "PagedRows"),
+                         ("decode_attention.cu", "DenseRows")):
+        src = (_build.CSRC / name).read_text()
+        code = "\n".join(line.split("//")[0] for line in src.splitlines())
+        assert '#include "decode_split.cuh"' in code
+        assert "launch_decode<" in code and source in code
+        for own in ("__global__", "split_rows(int", "kMaxSplit =", "SPLIT =",
+                    "decode_merge_kernel", "decode_split_kernel", "<<<"):
+            assert own not in code, (name, own)
+        assert "split != split_rows(d)" not in code    # checked once, shared
+        assert "decode_args_ok(" in code
+    assert "PagedInt8Rows" in (_build.CSRC / "paged_decode_attention.cu").read_text()
