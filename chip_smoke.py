@@ -14,7 +14,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    qwen3-14b's head-norm rows; paged and dense decode also at B = 1,
    T = 4096 and at lengths shorter than one split, length 0 giving
    zeros), each timed beside its roofline bound and one PyTorch library
-   call; then, at smollm-135m's, llama3-8b's and gemma-2b's heads, bitwise
+   call; rmsnorm also in its residual form (``s`` equal to ``x + r`` and
+   ``y`` to the unfused kernel on ``s``, bit for bit, timed beside ``x + r;
+   F.rms_norm`` and ``x + r`` then the kernel); then, at smollm-135m's,
+   llama3-8b's and gemma-2b's heads, bitwise
    invariance of the bf16 flash, decode and paged decode kernels (a
    suffix prefill's rows equal the whole prefill's, a sequence alone
    equals it in a batch, a repeated call equals the first) and paged
@@ -24,8 +27,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    weights) through ``ContinuousBatchingEngine`` over a
    ``PagedKVCachePool``, with a baked shared prefix, a chunked-prefill pass
    and an int8-arena pass; the kernels' launch counts (attention and
-   rmsnorm, 2L+1 per model call) are checked against the engine's decode
-   steps and prefill calls;
+   rmsnorm, 2L+1 per model call, L of them with the residual add fused)
+   are checked against the engine's decode steps and prefill calls;
 4. parity: a 2-layer fp32 smollm-135m at full width on the card (kernels)
    against the same seeded weights on the CPU (plain versions), through
    the paged pool and through the sequential ``Engine``; the card's
@@ -50,8 +53,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    and a 24-request open-loop Poisson replay at 4 qps;
 8. ssm: ``ssd_scan`` against both of its plain versions (chunked and
    sequential) at zamba2-2.7b's shapes (H = 80, dh = ds = 64, chunk 128;
-   S = 128, 512, a ragged 200, and B = 4 with an initial state; B and C
-   in bf16 and fp32), and ``flash_attention`` / ``decode_attention`` at
+   S = 64, 128, 384, 512, a ragged 200, and B = 4 with an initial state,
+   whose sequences run alone must give the batch's bits; B and C in bf16
+   and fp32), and ``flash_attention`` / ``decode_attention`` at
    zamba2's head dim of 80, all timed, with the bitwise invariance checks
    (paged equal to dense included) at zamba2's heads; then zamba2-2.7b at full width
    (54 Mamba2 layers and one shared attention block applied 9 times,
@@ -59,7 +63,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    ``ContinuousBatchingEngine`` (12 requests) and the sequential
    ``Engine`` (8 x 256 tokens, the continuous engine's tokens equal),
    with exact launch counts (ssd_scan 54 and flash 9 per prefill call,
-   decode 9 per step, rmsnorm 127 per model call); a 2-layer fp32 card
+   decode 9 per step, rmsnorm 127 per model call, 9 of them fused); a
+   2-layer fp32 card
    against CPU check, streamed prefill equal to prefill, and
    ``FaaSRuntime`` cold / fork / warm for a static zamba function.
 
@@ -86,8 +91,9 @@ ROOT = Path(__file__).resolve().parent
 DEFAULT_OUT = ROOT / "results"
 
 # NVIDIA H100 SXM peaks (data sheet, dense): HBM bytes/s and FLOP/s by type
+# ("tf32": fp32 operands on the tensor cores, one TF32 pass)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 SMOLLM = dict(H=9, KV=3, d=64)
 LLAMA3_8B = dict(H=32, KV=8, d=128)
@@ -96,6 +102,9 @@ ZAMBA2_ATTN = dict(H=32, KV=32, d=80)             # the shared attention block
 ZAMBA2_SSD = dict(H=80, dh=64, ds=64, Q=128, d_inner=5120)
 PAGE_SIZE = 8
 SERVE_LAYERS = 30
+RMSNORM_CASES = (("smollm-decode", (8, 1, 576)), ("smollm-prefill", (384, 576)),
+                 ("qwen3-14b-head", (8, 1, 40, 128)),
+                 ("llama3-8b-prefill", (384, 4096)))
 # zamba2-2.7b serving prompts: six take the JAX mixer's chunked branch
 # (<= 128 tokens or a multiple of 128), six are ragged
 ZAMBA_LENGTHS = (64, 200, 128, 300, 256, 150, 100, 333, 384, 250, 96, 180)
@@ -188,7 +197,9 @@ def ssd_work(B, S, H, dh, ds, Q, bc_dtype, with_h0: bool) -> tuple:
     (batch, chunk) (it is the same for every head), then per head the
     scores times x (2 P dh), C times the state and the state update
     (2 n dh ds each).  Bytes: xb, B, C, the log decays and h0 read once,
-    y and the final state written once."""
+    y and the final state written once.  The kernel runs these products
+    on the tensor cores, so its bound takes them at the TF32 peak, one
+    pass (the least any design could use)."""
     flops = 0
     for c0 in range(0, S, Q):
         n = min(Q, S - c0)
@@ -201,11 +212,15 @@ def ssd_work(B, S, H, dh, ds, Q, bc_dtype, with_h0: bool) -> tuple:
     return flops, nbytes
 
 
-def rmsnorm_work(shape, dtype) -> tuple:
+def rmsnorm_work(shape, dtype, residual: bool = False) -> tuple:
     """(FLOPs, bytes) of RMSNorm: x read and y written once, the scale
-    read once; square, add, and two multiplies per element."""
+    read once; square, add, and two multiplies per element.  With the
+    residual fused in, r read and s = x + r written once more, and one
+    more add per element."""
     n = int(np.prod(shape))
     elt = torch.empty((), dtype=dtype).element_size()
+    if residual:
+        return 5 * n, elt * (4 * n + shape[-1])
     return 4 * n, elt * (2 * n + shape[-1])
 
 
@@ -298,11 +313,13 @@ def demangle(names: list) -> list:
 
 
 def ptxas_report(log: str, kernels=("flash_tc_kernel", "flash_fp32_kernel",
-                                    "decode_split_kernel",
-                                    "decode_merge_kernel")) -> list:
-    """Registers, static shared memory and spills of the attention kernels'
-    instantiations, by source file, from ``nvcc -Xptxas -v`` in the build
-    log."""
+                                    "decode_split_kernel", "decode_merge_kernel",
+                                    "rmsnorm_vec_kernel", "rmsnorm_scalar_kernel",
+                                    "chunk_state_kernel", "state_pass_kernel",
+                                    "chunk_out_kernel")) -> list:
+    """Registers, static shared memory and spills of the attention, rmsnorm
+    and ssd_scan kernels' instantiations, by source file, from ``nvcc
+    -Xptxas -v`` in the build log."""
     entries, cur, source = [], None, None
     for line in log.splitlines():
         m = re.match(r"== (\S+) \(exit", line)
@@ -453,41 +470,87 @@ def phase_kernels(device) -> list:
         results.append(attention_invariance(device, gen, heads, tag))
 
     # rmsnorm: fp32 within 1e-5 relative, bf16 within one bf16 ulp of the
-    # plain version (the same fp32 value rounded; summation order only)
-    from repro_torch.kernels.rmsnorm import rmsnorm
-    for tag, shape in (("smollm-decode", (8, 1, 576)), ("smollm-prefill", (384, 576)),
-                       ("qwen3-14b-head", (8, 1, 40, 128)),
-                       ("llama3-8b-prefill", (384, 4096))):
+    # plain version (the same fp32 value rounded; summation order only);
+    # the fused form's s equals x + r and its y the unfused kernel on s,
+    # bit for bit
+    for tag, shape in RMSNORM_CASES:
         for dtype in (torch.bfloat16, torch.float32):
-            x = torch.randn(shape, generator=gen).to(device, dtype)
-            scale = (torch.randn(shape[-1], generator=gen) * 0.1 + 1).to(device, dtype)
-            out = rmsnorm(x, scale, 1e-5)
-            want = ref.rmsnorm_ref(x, scale, 1e-5)
-            same_bits = torch.equal(rmsnorm(x, scale, 1e-5), out)
-            torch.cuda.synchronize()
-            diff = (out.float() - want.float()).abs()
-            err = float(diff.max())
-            if dtype == torch.float32:
-                tol = "1e-5 relative"
-                ok = bool((diff <= 1e-5 * want.float().abs()).all())
-            else:
-                tol = "1 bf16 ulp"
-                ok = bool((diff <= bf16_ulp(want)).all())
-            kern_ms = time_ms(lambda: rmsnorm(x, scale, 1e-5))
-            plain_ms = time_ms(lambda: ref.rmsnorm_ref(x, scale, 1e-5))
-            lib_ms = time_ms(lambda: F.rms_norm(x, (shape[-1],), scale, 1e-5))
-            flops, nbytes = rmsnorm_work(shape, dtype)
-            b_ms, b_by = bound_ms(flops, nbytes, dtype)
-            res = {"kernel": "rmsnorm", "shape": tag, "dims": list(shape),
-                   "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
-                   "deterministic": same_bits,
-                   "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
-            results.append(res)
-            print(json.dumps(res))
-            if not ok or not same_bits:
-                raise AssertionError(f"rmsnorm disagrees: {res}")
+            results += rmsnorm_case(device, gen, tag, shape, dtype)
     return results
+
+
+def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as a view one element into rows one element wider: the same
+    values, rows no longer 16-byte aligned (the kernels' element-load
+    paths)."""
+    wide = torch.empty(t.shape[:-1] + (t.shape[-1] + 1,), dtype=t.dtype,
+                       device=t.device)[..., 1:]
+    wide.copy_(t)
+    return wide
+
+
+def rmsnorm_case(device, gen, tag, shape, dtype) -> list:
+    """One rmsnorm case of phase 2: the kernel against its plain version,
+    timed beside ``F.rms_norm``; then the residual form against its plain
+    version, the add and the unfused kernel, timed beside ``x + r;
+    F.rms_norm`` and ``x + r`` then the kernel.  Both forms must give the
+    same bits on unaligned rows (the element-load kernel)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    def within_tol(out, want) -> tuple:
+        diff = (out.float() - want.float()).abs()
+        if dtype == torch.float32:
+            return float(diff.max()), bool((diff <= 1e-5 * want.float().abs()).all())
+        return float(diff.max()), bool((diff <= bf16_ulp(want)).all())
+
+    tol = "1e-5 relative" if dtype == torch.float32 else "1 bf16 ulp"
+    x = torch.randn(shape, generator=gen).to(device, dtype)
+    scale = (torch.randn(shape[-1], generator=gen) * 0.1 + 1).to(device, dtype)
+    out = rmsnorm(x, scale, 1e-5)
+    same_bits = torch.equal(rmsnorm(x, scale, 1e-5), out)
+    err, ok = within_tol(out, ref.rmsnorm_ref(x, scale, 1e-5))
+    flops, nbytes = rmsnorm_work(shape, dtype)
+    b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    plain = {"kernel": "rmsnorm", "shape": tag, "dims": list(shape),
+             "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+             "deterministic": same_bits,
+             "unaligned_equal": torch.equal(rmsnorm(unaligned_copy(x), scale, 1e-5),
+                                            out),
+             "ms": time_ms(lambda: rmsnorm(x, scale, 1e-5)),
+             "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale, 1e-5)),
+             "library_ms": time_ms(lambda: F.rms_norm(x, (shape[-1],), scale, 1e-5)),
+             "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(plain))
+    if not (ok and same_bits and plain["unaligned_equal"]):
+        raise AssertionError(f"rmsnorm disagrees: {plain}")
+
+    r = torch.randn(shape, generator=gen).to(device, dtype)
+    y, s = rmsnorm(x, scale, 1e-5, residual=r)
+    y2, s2 = rmsnorm(x, scale, 1e-5, residual=r)
+    want_y, want_s = ref.rmsnorm_ref(x, scale, 1e-5, residual=r)
+    err, ok = within_tol(y, want_y)
+    y_u, s_u = rmsnorm(unaligned_copy(x), scale, 1e-5, residual=unaligned_copy(r))
+    flops, nbytes = rmsnorm_work(shape, dtype, residual=True)
+    b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    fused = {"kernel": "rmsnorm[residual]", "shape": tag, "dims": list(shape),
+             "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
+             "s_equals_add": torch.equal(s, x + r) and torch.equal(s, want_s),
+             "y_equals_kernel_on_add": torch.equal(y, rmsnorm(x + r, scale, 1e-5)),
+             "deterministic": torch.equal(y, y2) and torch.equal(s, s2),
+             "unaligned_equal": torch.equal(y_u, y) and torch.equal(s_u, s),
+             "ms": time_ms(lambda: rmsnorm(x, scale, 1e-5, residual=r)),
+             "plain_ms": time_ms(lambda: ref.rmsnorm_ref(x, scale, 1e-5, residual=r)),
+             "add_then_library_ms": time_ms(
+                 lambda: F.rms_norm(x + r, (shape[-1],), scale, 1e-5)),
+             "add_then_kernel_ms": time_ms(lambda: rmsnorm(x + r, scale, 1e-5)),
+             "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(fused))
+    if not (ok and fused["s_equals_add"] and fused["y_equals_kernel_on_add"]
+            and fused["deterministic"] and fused["unaligned_equal"]):
+        raise AssertionError(f"fused rmsnorm differs from its plain version, the "
+                             f"add or the unfused kernel: {fused}")
+    return [plain, fused]
 
 
 def paged_case(device, gen, case, tag, hd, max_len, lengths, q_dtype,
@@ -667,16 +730,26 @@ def norm_launches(cfg) -> int:
     return (4 if cfg.qk_norm else 2) * cfg.n_layers + 1
 
 
+def fused_norm_launches(cfg) -> int:
+    """rmsnorm launches of one model call with the residual add fused in:
+    the pre-MLP norm of every attention + MLP block (``_dense_block``), so
+    one per attention launch (30 for smollm-135m, 9 for zamba2-2.7b's
+    shared block).  They are counted under ``rmsnorm`` too."""
+    return attention_launches(cfg)
+
+
 def check_norm_launches(counts: dict, cfg, where: str) -> None:
-    """Every model call launches attention_launches(cfg) attention kernels
-    and norm_launches(cfg) rmsnorms, so the two counts stand in a fixed
-    ratio."""
+    """Every model call launches attention_launches(cfg) attention kernels,
+    norm_launches(cfg) rmsnorms and fused_norm_launches(cfg) fused ones, so
+    the counts stand in fixed ratios."""
     attn = (counts["paged_decode_attention"] + counts["flash_attention"]
             + counts["decode_attention"])
-    if counts["rmsnorm"] * attention_launches(cfg) != norm_launches(cfg) * attn:
+    units = attention_launches(cfg)
+    if (counts["rmsnorm"] * units != norm_launches(cfg) * attn
+            or counts["rmsnorm_fused"] * units != fused_norm_launches(cfg) * attn):
         raise AssertionError(f"{where}: rmsnorm launches {counts} are not "
-                             f"{norm_launches(cfg)} per "
-                             f"{attention_launches(cfg)} attention launches")
+                             f"{norm_launches(cfg)} ({fused_norm_launches(cfg)} "
+                             f"fused) per {units} attention launches")
 
 
 def _serve_requests(vocab: int, prefix: np.ndarray, n: int = 12, seed: int = 0):
@@ -769,9 +842,11 @@ def phase_serve(model, params) -> tuple:
             raise AssertionError(f"{name}: flash launches {counts} != "
                                  f"{eng.n_prefill_calls} prefills x {SERVE_LAYERS}")
         calls = eng.n_decode_steps + eng.n_prefill_calls
-        if counts["rmsnorm"] != calls * norm_launches(model.cfg):
+        if (counts["rmsnorm"] != calls * norm_launches(model.cfg)
+                or counts["rmsnorm_fused"] != calls * fused_norm_launches(model.cfg)):
             raise AssertionError(f"{name}: rmsnorm launches {counts} != "
-                                 f"{calls} model calls x {norm_launches(model.cfg)}")
+                                 f"{calls} model calls x {norm_launches(model.cfg)} "
+                                 f"({fused_norm_launches(model.cfg)} fused)")
         hits = sum(r.reused_prefix_len > 0 for r in res)
         if hits < 2 or pool.stats["shared_pages_mapped"] < 2 * (128 // PAGE_SIZE):
             raise AssertionError(f"{name}: prefix hits {hits}, {pool.stats}")
@@ -923,11 +998,13 @@ def phase_engine(model, params, paged_tokens: list) -> list:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    n_norm = norm_launches(model.cfg)
+    n_norm, n_fused = norm_launches(model.cfg), fused_norm_launches(model.cfg)
     if (counts["decode_attention"] != L * 31 or counts["flash_attention"] != L
-            or counts["rmsnorm"] != 32 * n_norm):
+            or counts["rmsnorm"] != 32 * n_norm
+            or counts["rmsnorm_fused"] != 32 * n_fused):
         raise AssertionError(f"Engine launches {counts}, want {L * 31} decode, "
-                             f"{L} flash and {32 * n_norm} rmsnorm")
+                             f"{L} flash and {32 * n_norm} rmsnorm "
+                             f"({32 * n_fused} fused)")
     if res.tokens.shape != (8, 32) or not ((res.tokens >= 0)
                                            & (res.tokens < vocab)).all():
         raise AssertionError(f"Engine tokens {res.tokens.shape}")
@@ -955,6 +1032,8 @@ def phase_engine(model, params, paged_tokens: list) -> list:
             or counts["flash_attention"] != L * cbe.n_prefill_calls
             or counts["rmsnorm"] != n_norm * (cbe.n_decode_steps
                                               + cbe.n_prefill_calls)
+            or counts["rmsnorm_fused"] != n_fused * (cbe.n_decode_steps
+                                                     + cbe.n_prefill_calls)
             or counts["paged_decode_attention"]):
         raise AssertionError(f"dense pass launches {counts}, steps "
                              f"{cbe.n_decode_steps}, prefills {cbe.n_prefill_calls}")
@@ -1246,6 +1325,8 @@ def phase_tenants(device, h2d: float) -> dict:
     if (counts["paged_decode_attention"] != L * steps
             or counts["flash_attention"] != L * prefills
             or counts["rmsnorm"] != norm_launches(model.cfg) * (steps + prefills)
+            or counts["rmsnorm_fused"] != fused_norm_launches(model.cfg) * (
+                steps + prefills)
             or counts["decode_attention"]):
         raise AssertionError(f"tenant launches {counts}, {steps} decode steps, "
                              f"{prefills} prefills")
@@ -1415,8 +1496,9 @@ def phase_ssm_kernels(device) -> list:
     c = ZAMBA2_SSD
     Q = c["Q"]
     results = []
+    # S = 64 and 384 are the ends of zamba2's serving prompts
     for B, S, with_h0 in ((1, 128, False), (1, 512, False), (1, 200, False),
-                          (4, 256, True)):
+                          (4, 256, True), (1, 64, False), (1, 384, False)):
         for bc_dtype in (torch.bfloat16, torch.float32):
             args = make_ssd_case(gen, B, S, bc_dtype, with_h0, device)
             y, h = ssd_scan(*args[:4], Q, args[4])
@@ -1438,7 +1520,7 @@ def phase_ssm_kernels(device) -> list:
                                reps=3, graph_calls=1)
             flops, nbytes = ssd_work(B, S, c["H"], c["dh"], c["ds"], Q,
                                      bc_dtype, with_h0)
-            b_ms, b_by = bound_ms(flops, nbytes, torch.float32)
+            b_ms, b_by = bound_ms(flops, nbytes, "tf32")
             res = {"kernel": "ssd_scan", "shape": "zamba2-2.7b", "B": B, "S": S,
                    "H": c["H"], "dh": c["dh"], "ds": c["ds"], "Q": Q,
                    "h0": with_h0, "bc_dtype": str(bc_dtype)[6:],
@@ -1450,6 +1532,8 @@ def phase_ssm_kernels(device) -> list:
             print(json.dumps(res))
             if not ok or not same:
                 raise AssertionError(f"ssd_scan disagrees: {res}")
+            if B > 1:
+                results.append(ssd_invariance(args, Q, y, h, bc_dtype))
 
     H, KV, d = ZAMBA2_ATTN["H"], ZAMBA2_ATTN["KV"], ZAMBA2_ATTN["d"]
     for dtype in (torch.bfloat16, torch.float32):
@@ -1505,6 +1589,32 @@ def phase_ssm_kernels(device) -> list:
     return results
 
 
+def ssd_invariance(args: tuple, Q: int, y, h, bc_dtype) -> dict:
+    """Bitwise checks of ``ssd_scan`` that the layer-streamed prefill and
+    batched prefills rely on: each sequence of a batch run alone gives the
+    bits it got in the batch, and a repeated call gives the first call's;
+    B and C on unaligned rows (element loads in place of cp.async) give
+    the same bits too."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    xb, Bm, Cm, ld, h0 = args
+    alone = []
+    for b in range(xb.shape[0]):
+        s = slice(b, b + 1)
+        ya, ha = ssd_scan(xb[s], Bm[s], Cm[s], ld[s], Q, None if h0 is None else h0[s])
+        alone.append(torch.equal(ya, y[s]) and torch.equal(ha, h[s]))
+    yr, hr = ssd_scan(xb, Bm, Cm, ld, Q, h0)
+    yu, hu = ssd_scan(xb, unaligned_copy(Bm), unaligned_copy(Cm), ld, Q, h0)
+    row = {"invariance": "ssd_scan zamba2-2.7b", "B": int(xb.shape[0]),
+           "S": int(xb.shape[1]), "bc_dtype": str(bc_dtype)[6:],
+           "ssd_alone_equals_batch": all(alone),
+           "ssd_repeat_equal": torch.equal(yr, y) and torch.equal(hr, h),
+           "ssd_unaligned_bc_equal": torch.equal(yu, y) and torch.equal(hu, h)}
+    print(json.dumps(row))
+    if not all(v for k, v in row.items() if k.startswith("ssd_")):
+        raise AssertionError(f"ssd_scan invariance broken: {row}")
+    return row
+
+
 def zamba_model(device, seed: int = 0):
     """zamba2-2.7b at full width and depth with seeded random weights."""
     from repro_torch.models.registry import get_model
@@ -1530,6 +1640,7 @@ def check_zamba_launches(counts: dict, cfg, prefills: int, steps: int,
             "flash_attention": units * prefills,
             "decode_attention": units * steps,
             "rmsnorm": norm_launches(cfg) * (prefills + steps),
+            "rmsnorm_fused": fused_norm_launches(cfg) * (prefills + steps),
             "paged_decode_attention": 0}
     if counts != want:
         raise AssertionError(f"{where}: launches {counts} != {want} "
@@ -1779,7 +1890,7 @@ def kernel_summary(kernels: list, serve: list, engine: list,
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
     launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0, "rmsnorm": 0,
-                "ssd": 0}
+                "rmsnorm_fused": 0, "ssd": 0}
     cp = tenants["control_plane"]
     rows = (list(serve) + list(engine) + [tidal_row, tenants,
                                           cp["learned_prefix"], cp["open_loop"]]
@@ -1791,6 +1902,7 @@ def kernel_summary(kernels: list, serve: list, engine: list,
         launches["flash"] += row["launches"]["flash_attention"]
         launches["decode"] += row["launches"]["decode_attention"]
         launches["rmsnorm"] += row["launches"]["rmsnorm"]
+        launches["rmsnorm_fused"] += row["launches"]["rmsnorm_fused"]
         launches["ssd"] += row["launches"]["ssd_scan"]
     entries = [
         ("paged_decode_attention",
@@ -1817,6 +1929,11 @@ def kernel_summary(kernels: list, serve: list, engine: list,
          pick(kernel="rmsnorm", shape="smollm-decode", dtype="bfloat16"),
          "src/repro_torch/csrc/rmsnorm.cu",
          "src/repro/kernels/rmsnorm.py:25", launches["rmsnorm"]),
+        # the residual form: a subset of the rmsnorm launches above
+        ("rmsnorm[residual]",
+         pick(kernel="rmsnorm[residual]", shape="smollm-decode", dtype="bfloat16"),
+         "src/repro_torch/csrc/rmsnorm.cu",
+         "src/repro/kernels/rmsnorm.py:25", launches["rmsnorm_fused"]),
         ("ssd_scan",
          pick(kernel="ssd_scan", B=1, S=200, bc_dtype="bfloat16"),
          "src/repro_torch/csrc/ssd_scan.cu",

@@ -25,14 +25,19 @@ KERNELS = {
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last reset, by kernel name."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Kernel launches since the last reset, by kernel name, and under
+    ``rmsnorm_fused`` the rmsnorm launches with the residual add fused in
+    (counted under ``rmsnorm`` too)."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["rmsnorm_fused"] = rmsnorm.fused_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for fn in KERNELS.values():
         fn.launches = 0
+    rmsnorm.fused_launches = 0
 
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention", "launch_counts",

@@ -78,9 +78,14 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths,
     return decode_attention_ref(q, k, v, lengths)
 
 
-def rmsnorm_ref(x, scale, eps: float = 1e-6):
+def rmsnorm_ref(x, scale, eps: float = 1e-6, residual=None):
     """RMSNorm with fp32 statistics; the scale is promoted to fp32 too.
-    x: [..., d]; scale: [d].  Returns x's shape and dtype."""
+    x: [..., d]; scale: [d].  Returns x's shape and dtype.  With
+    ``residual`` (x's shape and dtype) it is the add, then the norm of the
+    sum: returns ``(rmsnorm_ref(s), s)`` with ``s = x + residual``."""
+    if residual is not None:
+        s = x + residual
+        return rmsnorm_ref(s, scale, eps), s
     dt = x.dtype
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)

@@ -21,7 +21,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_ARGTYPES = ([_P] * 8                             # xb B C ld h0 cb y h_out
+_ARGTYPES = ([_P] * 8                             # xb B C ld h0 scratch y h_out
              + [_I] * 6                           # B S H dh ds Q
              + [_L] * 4                           # B, C (batch, row) strides
              + [_I, _P])                          # dtype stream
@@ -33,6 +33,14 @@ MAX_CHUNK = 128
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(f"ssd_scan: {msg}")
+
+
+def scratch_floats(Bb: int, S: int, H: int, dh: int, ds: int, chunk: int) -> int:
+    """fp32 scratch of one call: the state entering each chunk
+    ``[B, K, H, dh, ds]``, then the chunks' cumulative log decays
+    ``[B, H, K, chunk]`` (K = ceil(S / chunk))."""
+    K = -(-S // chunk)
+    return Bb * K * H * dh * ds + Bb * H * K * chunk
 
 
 def ssd_scan(xb, B_mat, C_mat, log_decay, chunk: int = 128, h0=None):
@@ -84,20 +92,20 @@ def ssd_scan(xb, B_mat, C_mat, log_decay, chunk: int = 128, h0=None):
     _require(xb.is_contiguous() and log_decay.is_contiguous()
              and (h0 is None or h0.is_contiguous()),
              "xb, log_decay and h0 must be contiguous")
-    _require(xb.data_ptr() % 16 == 0, "xb must be 16-byte aligned")
+    _require(xb.data_ptr() % 16 == 0 and (h0 is None or h0.data_ptr() % 16 == 0),
+             "xb and h0 must be 16-byte aligned")
     _require(B_mat.stride(-1) == 1 and C_mat.stride(-1) == 1,
              "the state axis of B and C must be contiguous")
     y = torch.empty(xb.shape, dtype=torch.float32, device=xb.device)
     h = torch.empty((Bb, H, dh, ds), dtype=torch.float32, device=xb.device)
-    # C B^T of every chunk, computed once for all heads
-    cb = torch.empty((Bb, -(-S // chunk), MAX_CHUNK, MAX_CHUNK),
-                     dtype=torch.float32, device=xb.device)
+    scratch = torch.empty(scratch_floats(Bb, S, H, dh, ds, chunk),
+                          dtype=torch.float32, device=xb.device)
     fn = _build.function("repro_ssd_scan", _ARGTYPES)
     strides = [t.stride(i) for t in (B_mat, C_mat) for i in (0, 1)]
     with torch.cuda.device(xb.device):
         err = fn(xb.data_ptr(), B_mat.data_ptr(), C_mat.data_ptr(),
                  log_decay.data_ptr(), None if h0 is None else h0.data_ptr(),
-                 cb.data_ptr(), y.data_ptr(), h.data_ptr(), Bb, S, H, dh, ds,
+                 scratch.data_ptr(), y.data_ptr(), h.data_ptr(), Bb, S, H, dh, ds,
                  int(chunk),
                  *strides, _DTYPES[B_mat.dtype],
                  torch.cuda.current_stream(xb.device).cuda_stream)

@@ -39,10 +39,13 @@ def normal_(gen: Optional[torch.Generator], shape,
 # normalization / rotary position embedding
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+            residual: Optional[torch.Tensor] = None):
     """RMSNorm with fp32 statistics; the scale is promoted to fp32 too.
-    The ``rmsnorm`` kernel on a CUDA tensor, its plain version on the CPU."""
-    return ops.rmsnorm(x, scale, eps)
+    The ``rmsnorm`` kernel on a CUDA tensor, its plain version on the CPU.
+    With ``residual`` it returns ``(norm(x + residual), x + residual)``,
+    the add fused into the kernel."""
+    return ops.rmsnorm(x, scale, eps, residual=residual)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):

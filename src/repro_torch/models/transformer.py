@@ -196,8 +196,7 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
                            cache_pos, page_table=page_table,
                            page_size=page_size, adapters=adapters,
                            adapter_ids=adapter_ids)
-    x = x + a
-    h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
+    h, x = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps, residual=a)
     return x + mlp_block(bp["mlp"], h, cfg.act)
 
 

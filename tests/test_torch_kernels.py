@@ -199,6 +199,54 @@ def test_rmsnorm_scale_dtype_and_strided_rows():
         row_stride(x.transpose(1, 2))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 1, 576), (3, 7, 64), (130, 2048)])
+def test_rmsnorm_residual_form_is_the_add_then_the_norm(shape, dtype):
+    """The fused form's plain version (what the CPU runs, and the function
+    the kernel's fused launch computes) is ``s = x + r`` then
+    ``rmsnorm_ref(s)``, bit for bit, through the wrapper and through
+    ``ref``; its norm is the Pallas kernel's on the same sum."""
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x, r = (_t(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    scale = _t((rng.standard_normal(shape[-1]) * 0.1 + 1).astype(np.float32)).to(dtype)
+    want_s = x + r
+    want_y = tref.rmsnorm_ref(want_s, scale, 1e-5)
+    for y, s in (ops.rmsnorm(x, scale, 1e-5, residual=r),
+                 tref.rmsnorm_ref(x, scale, 1e-5, residual=r)):
+        assert s.dtype == y.dtype == dtype and s.shape == y.shape == x.shape
+        assert torch.equal(s, want_s) and torch.equal(y, want_y)
+    jdt = "float32" if dtype == torch.float32 else "bfloat16"
+    pallas = np.asarray(pallas_rmsnorm(jnp.asarray(want_s.float().numpy(), jdt),
+                                       jnp.asarray(scale.float().numpy(), jdt),
+                                       eps=1e-5), np.float32)
+    got = want_y.float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, pallas, **TOL)
+    else:
+        assert (np.abs(got - pallas) <= _bf16_ulp(pallas)).all()
+
+
+def test_rmsnorm_residual_refuses_a_mismatch_and_counts_nothing_on_the_cpu():
+    """A residual of another shape, dtype or device raises before anything
+    runs; the fused CPU path counts no launch, fused or not; a strided
+    residual view is read through its own row stride."""
+    x = torch.ones((2, 3, 16))
+    scale = torch.ones(16)
+    with pytest.raises(ValueError, match="residual"):
+        ops.rmsnorm(x, scale, residual=torch.ones((2, 4, 16)))
+    with pytest.raises(ValueError, match="residual"):
+        ops.rmsnorm(x, scale, residual=torch.ones((2, 3, 16), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="residual"):
+        ops.rmsnorm(x, scale, residual=torch.ones((2, 3, 16), device="meta"))
+    ops.reset_launch_counts()
+    big = torch.arange(2 * 5 * 16, dtype=torch.float32).reshape(2, 5, 16) / 100
+    y, s = ops.rmsnorm(x[:, -1:], scale, residual=big[:, -1:])
+    assert torch.equal(s, x[:, -1:] + big[:, -1:])
+    assert torch.equal(y, tref.rmsnorm_ref(s, scale))
+    assert ops.launch_counts()["rmsnorm"] == ops.launch_counts()["rmsnorm_fused"] == 0
+
+
 def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     """No quiet fallback: a tensor that is neither on the CPU nor on a
     card raises, and the plain CPU path launches (and counts) nothing.
@@ -218,6 +266,8 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     assert ops.decode_attention(q, cache, cache, lens).shape == q.shape
     assert ops.flash_attention(fq, cache, cache).shape == fq.shape
     assert ops.rmsnorm(fq, scale).shape == fq.shape
+    y, s = ops.rmsnorm(fq, scale, residual=fq)
+    assert y.shape == s.shape == fq.shape and y.device.type == "meta"
     monkeypatch.setattr(meta, "is_meta", lambda t: False)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.paged_decode_attention(q, arena, arena, pt, lens)
@@ -227,14 +277,17 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
         ops.flash_attention(fq, cache, cache)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.rmsnorm(fq, scale)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.rmsnorm(fq, scale, residual=fq)
     ops.rmsnorm(torch.ones((3, 16)), torch.ones(16))
+    ops.rmsnorm(torch.ones((3, 16)), torch.ones(16), residual=torch.ones((3, 16)))
     ops.flash_attention(torch.zeros((1, 4, 8, 16)), torch.zeros((1, 2, 8, 16)),
                         torch.zeros((1, 2, 8, 16)))
     ops.decode_attention(torch.zeros((1, 4, 16)), torch.zeros((1, 2, 8, 16)),
                          torch.zeros((1, 2, 8, 16)), 3)
     assert ops.launch_counts() == {"decode_attention": 0, "flash_attention": 0,
                                    "paged_decode_attention": 0, "rmsnorm": 0,
-                                   "ssd_scan": 0}
+                                   "rmsnorm_fused": 0, "ssd_scan": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -253,6 +306,16 @@ def test_cuda_sources_declare_their_entry_points():
                             "decode_attention.cu", "rmsnorm.cu", "ssd_scan.cu"}
     assert 'extern "C" int repro_ssd_scan(' in sources["ssd_scan.cu"]
     assert 'extern "C" int repro_rmsnorm(' in sources["rmsnorm.cu"]
+    # the C entry points take what the wrappers pass: rmsnorm's residual
+    # and second output, ssd_scan's one scratch
+    from repro_torch.kernels import rmsnorm as rms_wrapper
+    from repro_torch.kernels import ssd_scan as ssd_wrapper
+    head = sources["rmsnorm.cu"].split('extern "C" int repro_rmsnorm(')[1].split(")")[0]
+    assert head.count(",") + 1 == len(rms_wrapper._ARGTYPES)
+    assert "const void* res" in head and "void* s" in head
+    head = sources["ssd_scan.cu"].split('extern "C" int repro_ssd_scan(')[1].split(")")[0]
+    assert head.count(",") + 1 == len(ssd_wrapper._ARGTYPES)
+    assert "void* scratch" in head
     assert 'extern "C" int repro_decode_attention(' in \
         sources["decode_attention.cu"]
     assert 'extern "C" int repro_paged_decode_attention(' in \

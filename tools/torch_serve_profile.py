@@ -110,7 +110,15 @@ def profiled_pass(model, params, prefix, reqs) -> dict:
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events),
                   key=lambda r: -r[1])
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    # device ms of the hand-written kernels, by wrapper (ssd_scan launches
+    # three kernels; rmsnorm two kinds)
+    groups = {"ssd_scan": ("chunk_state_kernel", "state_pass_kernel",
+                           "chunk_out_kernel"),
+              "rmsnorm": ("rmsnorm_vec_kernel", "rmsnorm_scalar_kernel")}
+    by_wrapper = {g: sum(ms for k, ms, _ in kernels if any(n in k for n in names))
+                  for g, names in groups.items()}
     return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "kernel_ms_by_wrapper": by_wrapper,
             "device_busy_share": device_ms / wall_ms,
             "model_calls": calls, "kernel_launches": launches,
             "launches_per_layer_call": launches / (calls * model.cfg.n_layers),

@@ -4,15 +4,18 @@
     python3 tools/torch_ssd_ablation.py [--out DIR]   # from the repository root
 
 Builds ``src/repro_torch/csrc/ssd_scan.cu`` as it is and in variants with
-one part removed by a source substitution (the C B^T launch, the staging
-loads, the score tiles, the y accumulation, the state update), each into
-its own library under ``DIR/ssd_ablation/``, and times every variant on
-the card at zamba2-2.7b's shapes (H = 80, dh = ds = 64, chunk 128) with
-``chip_smoke.time_ms`` (CUDA graphs and events).  A part's cost is the
-full kernel's time less the variant's.  The variants compute wrong
-results: they are timing probes only.  Prints one JSON object with the
-card's name and power limit and writes it to ``DIR/ssd_ablation.json``
-(default ``results/``).  Needs a CUDA device and nvcc.
+one part removed by a source substitution, each into its own library
+under ``DIR/ssd_ablation/``, and times every variant on the card at
+zamba2-2.7b's shapes (H = 80, dh = ds = 64, chunk 128) with
+``chip_smoke.time_ms`` (CUDA graphs and events).  The parts: the three
+launches (chunk states, the state pass, chunk outputs), and inside them
+the chunk states' prefix sums and tensor-core products, the chunk
+outputs' C h_prev term, score tiles (C B^T), decay (the exponentials of
+the mask) and score-times-X products.  A part's cost is the full
+kernel's time less the variant's.  The variants compute wrong results:
+they are timing probes only.  Prints one JSON object with the card's
+name and power limit and writes it to ``DIR/ssd_ablation.json`` (default
+``results/``).  Needs a CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -33,21 +36,28 @@ import chip_smoke  # noqa: E402
 
 # part -> (text in the source, its replacement)
 PARTS = {
-    "cb_launch": [("  cb_k<<<", "  if (false) cb_k<<<")],
-    "staging_loads": [
-        ("const float c = to_f32(Cb[row * cs.s + s]);", "const float c = 0.f;"),
-        ("const float bb = to_f32(Bb[row * bs.s + s]);", "const float bb = 0.f;"),
-        ("*reinterpret_cast<const float4*>(\n"
-         "            xbase + (c0 + min(i, n - 1)) * xrow + 4 * q);",
-         "make_float4(0.f, 0.f, 0.f, 0.f);")],
-    "score_tiles": [("if (j0 <= i0 + 3) {", "if (false) {")],
-    "y_rows": [("        if (i < n) {\n          const float* wr",
-                "        if (false) {\n          const float* wr")],
-    "state_update": [("      for (int j = 0; j < n; ++j) {\n        const float xv",
-                      "      for (int j = 0; j < 0; ++j) {\n        const float xv")],
+    "chunk_states": [("  k1<<<", "  if (false) k1<<<")],
+    "state_pass": [("err = launch_after(state_pass_kernel,",
+                    "if (false) err = launch_after(state_pass_kernel,")],
+    "chunk_outputs": [("return launch_after(dh % 64 == 0 ? k3a : k3b,",
+                       "return cudaSuccess; launch_after(dh % 64 == 0 ? k3a : k3b,")],
+    "state_prefix": [("for (int i = 0; i < kQMax; i += 4) {",
+                      "for (int i = 0; i < 0; i += 4) {")],
+    "state_products": [("mma3<false, kExactB>(acc[nt],",
+                        "if (false) mma3<false, kExactB>(acc[nt],")],
+    "c_h_prev": [("const bool has_prev = k > 0 || has_h0;",
+                  "const bool has_prev = false;")],
+    "scores": [("mma3<kExact, kExact>(sc[u],", "if (false) mma3<kExact, kExact>(sc[u],")],
+    "decay": [("* exp2f(a_i0 - a_j0)", "* (a_i0 - a_j0)"),
+              ("* exp2f(a_i0 - a_j1)", "* (a_i0 - a_j1)"),
+              ("* exp2f(a_i1 - a_j0)", "* (a_i1 - a_j0)"),
+              ("* exp2f(a_i1 - a_j1)", "* (a_i1 - a_j1)")],
+    "score_x": [("mma3<false, false>(acc[nt],", "if (false) mma3<false, false>(acc[nt],")],
 }
-SHAPES = ((1, 128, torch.bfloat16), (1, 384, torch.bfloat16),
-          (1, 512, torch.bfloat16), (4, 256, torch.float32))
+# (B, S, B / C dtype, with h0)
+SHAPES = ((1, 128, torch.bfloat16, False), (1, 384, torch.bfloat16, False),
+          (1, 512, torch.bfloat16, False), (4, 256, torch.bfloat16, True),
+          (4, 256, torch.float32, True))
 
 
 def build_variants(out: Path) -> dict:
@@ -56,9 +66,9 @@ def build_variants(out: Path) -> dict:
     src = (_build.CSRC / "ssd_scan.cu").read_text()
     variants = {"full": []}
     variants.update({f"no_{k}": v for k, v in PARTS.items()})
-    variants["staging_and_scan_only"] = [
-        p for k in ("cb_launch", "score_tiles", "y_rows", "state_update")
-        for p in PARTS[k]]
+    variants["launches_only"] = [       # staging and the state pass remain
+        p for k in ("state_prefix", "state_products", "c_h_prev", "scores", "decay",
+                    "score_x") for p in PARTS[k]]
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, subs in variants.items():
@@ -88,25 +98,27 @@ def time_variant(lib: Path, device) -> dict:
     gen = torch.Generator().manual_seed(0)
     c = chip_smoke.ZAMBA2_SSD
     out = {}
-    for B, S, dtype in SHAPES:
-        xb, Bm, Cm, ld, _ = chip_smoke.make_ssd_case(gen, B, S, dtype, False,
-                                                     device)
+    for B, S, dtype, with_h0 in SHAPES:
+        xb, Bm, Cm, ld, h0 = chip_smoke.make_ssd_case(gen, B, S, dtype, with_h0,
+                                                      device)
         y = torch.empty_like(xb)
         h = torch.empty((B, c["H"], c["dh"], c["ds"]), device=device)
-        cb = torch.empty((B, -(-S // c["Q"]), 128, 128), device=device)
+        scratch = torch.empty(wrapper.scratch_floats(B, S, c["H"], c["dh"], c["ds"],
+                                                     c["Q"]), device=device)
         strides = [t.stride(i) for t in (Bm, Cm) for i in (0, 1)]
 
         def call():
             err = fn(xb.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), ld.data_ptr(),
-                     None, cb.data_ptr(), y.data_ptr(), h.data_ptr(), B, S,
-                     c["H"], c["dh"], c["ds"], c["Q"], *strides,
-                     wrapper._DTYPES[dtype],
+                     None if h0 is None else h0.data_ptr(), scratch.data_ptr(),
+                     y.data_ptr(), h.data_ptr(), B, S, c["H"], c["dh"], c["ds"],
+                     c["Q"], *strides, wrapper._DTYPES[dtype],
                      torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"launch failed, cudaError_t {err}")
 
         call()
-        out[f"B{B}_S{S}_{str(dtype)[6:]}"] = chip_smoke.time_ms(call) * 1e3
+        tag = f"B{B}_S{S}_{str(dtype)[6:]}" + ("_h0" if with_h0 else "")
+        out[tag] = chip_smoke.time_ms(call) * 1e3
     return out
 
 
