@@ -5,13 +5,16 @@
 
 Phases, in order; any failure raises and the process exits non-zero:
 
-1. device: the card's name and power limit, the kernels' build
+1. device: the card's name and power limit, the host's total and
+   available memory (``/proc/meminfo``, printed again after every phase
+   with its wall seconds), the kernels' build
    (``src/repro_torch/csrc/*.cu`` -> one shared library, timed), the
    attention kernels' registers, shared memory and spills (``-Xptxas
    -v``) and the measured pinned host-to-device copy rate;
 2. kernels against their plain PyTorch versions on the card, at the
-   serving path's shapes (smollm-135m heads and rows, llama3-8b's, and
-   qwen3-14b's head-norm rows; paged and dense decode also at B = 1,
+   serving path's shapes (smollm-135m heads and rows, llama3-8b's,
+   llama2-13b's and phi3.5-moe's rows, qwen3-14b's and chameleon-34b's
+   head-norm rows; paged and dense decode also at B = 1,
    T = 4096 and at lengths shorter than one split, length 0 giving
    zeros), each timed beside its roofline bound and one PyTorch library
    call; rmsnorm also in its residual form (``s`` equal to ``x + r`` and
@@ -22,7 +25,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    suffix prefill's rows equal the whole prefill's, a sequence alone
    equals it in a batch, a repeated call equals the first) and paged
    decode equal to dense decode over the same rows (bf16 and fp32,
-   lengths 0 to 512);
+   lengths 0 to 512); then at llama2-13b's heads (40 / 40 / 128, G = 1)
+   and chameleon-34b's (64 / 8 / 128): paged decode (bf16 and int8) and
+   dense decode at B = 8 and at B = 1, T = 4096, flash at S = T = 384,
+   and the invariance checks;
 3. serving: smollm-135m at full width (30 layers, bf16, seeded random
    weights) through ``ContinuousBatchingEngine`` over a
    ``PagedKVCachePool``, with a baked shared prefix, a chunked-prefill pass
@@ -66,7 +72,36 @@ Phases, in order; any failure raises and the process exits non-zero:
    decode 9 per step, rmsnorm 127 per model call, 9 of them fused); a
    2-layer fp32 card
    against CPU check, streamed prefill equal to prefill, and
-   ``FaaSRuntime`` cold / fork / warm for a static zamba function.
+   ``FaaSRuntime`` cold / fork / warm for a static zamba function;
+9. llama2-13b at full width and depth (40 layers, d_model 5120, 40 query
+   and key heads of 128, bf16, 26 GB of seeded random weights drawn leaf
+   by leaf): phase 3's paged serving passes (bf16 and int8 arenas), the
+   sequential ``Engine`` (8 x 256 + 32) with the continuous engine's
+   tokens equal to it, exact launch counts, the decode step at 8 busy
+   slots (host ms, device-busy share under ``torch.profiler``) beside its
+   byte bound, ``FaaSRuntime`` cold / warm / fork of a static function
+   with the template prompt (every fork streams the whole model; fork
+   tokens equal warm; peak device allocation under three copies), then a
+   2-layer fp32 card against CPU check and streamed prefill equal to
+   prefill;
+10. phi3.5-moe-42b-a6.6b at full width (d_model 4096, 32 / 8 heads of
+   128, 16 experts of 6400, top-2, capacity factor 1.25, bf16) and
+   the largest depth of its 32 layers at which a warm copy, a fork's copy
+   and the arena fit the card and the host's memory (printed as reduced,
+   with the budget that stopped it): the paged serving passes at 8
+   slots (plain, chunked, int8), the (token, k) pairs the capacity drops
+   (decode and prefill), the plain and chunked passes again at cf = E/K
+   (dropless), a 384-token prompt prefilled whole and in 64-token chunks
+   (fp32 at one layer: the same expert choices and logits within 1e-3; in
+   bf16 the expert choices that rounding flips are counted), a 4-slot pass
+   (decode dropless) equal to the
+   sequential ``Engine`` run prompt by prompt, the decode step beside its
+   byte bound (the batched expert products read every expert),
+   ``FaaSRuntime`` with a static and a LoRA function (``blocks.attn.wq``)
+   cold / warm / fork, then 1-layer fp32 card against CPU checks with
+   every call's routing and kept pairs equal, at 2 slots and at 8 slots
+   with a prefill in 48-token chunks (pairs dropped at decode and in the
+   chunks), and streamed prefill equal to prefill.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -76,6 +111,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -97,6 +133,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, "tf32": 495e12}
 
 SMOLLM = dict(H=9, KV=3, d=64)
 LLAMA3_8B = dict(H=32, KV=8, d=128)
+LLAMA2_13B = dict(H=40, KV=40, d=128)             # G = 1 at d = 128
+CHAMELEON_34B = dict(H=64, KV=8, d=128)
 GEMMA_2B = dict(H=8, KV=1, d=256)
 ZAMBA2_ATTN = dict(H=32, KV=32, d=80)             # the shared attention block
 ZAMBA2_SSD = dict(H=80, dh=64, ds=64, Q=128, d_inner=5120)
@@ -104,7 +142,11 @@ PAGE_SIZE = 8
 SERVE_LAYERS = 30
 RMSNORM_CASES = (("smollm-decode", (8, 1, 576)), ("smollm-prefill", (384, 576)),
                  ("qwen3-14b-head", (8, 1, 40, 128)),
-                 ("llama3-8b-prefill", (384, 4096)))
+                 ("llama3-8b-prefill", (384, 4096)),
+                 ("chameleon-34b-head", (8, 1, 64, 128)),
+                 ("llama2-13b-decode", (8, 1, 5120)),
+                 ("llama2-13b-prefill", (384, 5120)),
+                 ("phi3.5-moe-decode", (8, 1, 4096)))
 # zamba2-2.7b serving prompts: six take the JAX mixer's chunked branch
 # (<= 128 tokens or a multiple of 128), six are ragged
 ZAMBA_LENGTHS = (64, 200, 128, 300, 256, 150, 100, 333, 384, 250, 96, 180)
@@ -275,6 +317,7 @@ def phase_device() -> dict:
     limit = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
         f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"device: {name} | nvidia-smi: {limit}")
+    print(json.dumps({"host_memory": meminfo()}))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: off (matmul and cudnn)")
@@ -382,8 +425,6 @@ def measure_h2d(nbytes: int = 256 << 20, reps: int = 5) -> float:
 
 def phase_kernels(device) -> list:
     """Every kernel against its plain version on the card, timed."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator().manual_seed(0)
     results = []
     rng = np.random.default_rng(0)
@@ -437,33 +478,7 @@ def phase_kernels(device) -> list:
                     ("smollm", SMOLLM, 2, 256, 256, torch.bfloat16, 30.0),
                     ("smollm", SMOLLM, 1, 200, 333, torch.float32, 30.0)]
     for tag, hd, B, S, T, dtype, softcap in flash_cases:
-        q = torch.randn((B, hd["H"], S, hd["d"]), generator=gen).to(device, dtype)
-        k = torch.randn((B, hd["KV"], T, hd["d"]), generator=gen).to(device, dtype)
-        v = torch.randn((B, hd["KV"], T, hd["d"]), generator=gen).to(device, dtype)
-        out = flash_attention(q, k, v, causal=True, softcap=softcap)
-        want = ref.flash_attention_ref(q, k, v, causal=True, softcap=softcap)
-        torch.cuda.synchronize()
-        err = float((out.float() - want.float()).abs().max())
-        tol = 2e-5 if dtype == torch.float32 else 2e-2
-        kern_ms = time_ms(lambda: flash_attention(q, k, v, softcap=softcap))
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, softcap=softcap))
-        lib_ms = None
-        if softcap == 0.0:           # SDPA has no softcap: no library call
-            mask = (torch.arange(T, device=device)[None, :]
-                    <= torch.arange(S, device=device)[:, None] + (T - S))
-            lib_kw = {"is_causal": True} if S == T else {"attn_mask": mask}
-            lib_ms = time_ms(lambda: sdpa_gqa(q, k, v, **lib_kw))
-        flops, nbytes = flash_work(B, hd["H"], hd["KV"], S, T, hd["d"], dtype)
-        b_ms, b_by = bound_ms(flops, nbytes, dtype)
-        res = {"kernel": "flash_attention", "shape": tag, "B": B, "H": hd["H"],
-               "KV": hd["KV"], "d": hd["d"], "S": S, "T": T,
-               "dtype": str(dtype)[6:], "softcap": softcap, "max_abs_err": err,
-               "tol": tol, "ms": kern_ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
-        results.append(res)
-        print(json.dumps(res))
-        if not err <= tol:
-            raise AssertionError(f"flash_attention disagrees: {res}")
+        results.append(flash_case(device, gen, tag, hd, B, S, T, dtype, softcap))
 
     for heads, tag in ((SMOLLM, "smollm"), (LLAMA3_8B, "llama3-8b"),
                        (GEMMA_2B, "gemma-2b")):
@@ -476,7 +491,65 @@ def phase_kernels(device) -> list:
     for tag, shape in RMSNORM_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             results += rmsnorm_case(device, gen, tag, shape, dtype)
+    return results + big_head_cases(device)
+
+
+def big_head_cases(device) -> list:
+    """The attention kernels at llama2-13b's heads (40 / 40 / 128, G = 1)
+    and chameleon-34b's (64 / 8 / 128): paged decode (bf16 and the int8
+    arena) and dense decode at B = 8 over lengths to 512 and at B = 1,
+    T = 4096, flash at S = T = 384, and the invariance checks; rmsnorm at
+    their rows and chameleon's qk-norm rows is in ``RMSNORM_CASES``."""
+    gen = torch.Generator().manual_seed(18)
+    rng = np.random.default_rng(18)
+    results = []
+    for heads, tag in ((LLAMA2_13B, "llama2-13b"), (CHAMELEON_34B, "chameleon-34b")):
+        lengths = [1] + rng.integers(2, 513, 6).tolist() + [512]
+        for int8 in (False, True):
+            for case, T, ln in (("serving", 512, lengths), ("long", 4096, [4096])):
+                results.append(paged_case(device, gen, case, tag, heads, T, ln,
+                                          torch.bfloat16, int8))
+        for case, T, ln in (("serving", 512, lengths), ("long", 4096, [4096])):
+            results.append(decode_case(device, gen, case, tag, heads, T, ln,
+                                       torch.bfloat16))
+        results.append(flash_case(device, gen, tag, heads, 1, 384, 384,
+                                  torch.bfloat16, 0.0))
+        results.append(attention_invariance(device, gen, heads, tag))
     return results
+
+
+def flash_case(device, gen, tag, hd, B, S, T, dtype, softcap) -> dict:
+    """``flash_attention`` against its plain version, timed beside SDPA
+    (none with a softcap) and the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn((B, hd["H"], S, hd["d"]), generator=gen).to(device, dtype)
+    k = torch.randn((B, hd["KV"], T, hd["d"]), generator=gen).to(device, dtype)
+    v = torch.randn((B, hd["KV"], T, hd["d"]), generator=gen).to(device, dtype)
+    out = flash_attention(q, k, v, causal=True, softcap=softcap)
+    want = ref.flash_attention_ref(q, k, v, causal=True, softcap=softcap)
+    torch.cuda.synchronize()
+    err = float((out.float() - want.float()).abs().max())
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    kern_ms = time_ms(lambda: flash_attention(q, k, v, softcap=softcap))
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, softcap=softcap))
+    lib_ms = None
+    if softcap == 0.0:           # SDPA has no softcap: no library call
+        mask = (torch.arange(T, device=device)[None, :]
+                <= torch.arange(S, device=device)[:, None] + (T - S))
+        lib_kw = {"is_causal": True} if S == T else {"attn_mask": mask}
+        lib_ms = time_ms(lambda: sdpa_gqa(q, k, v, **lib_kw))
+    flops, nbytes = flash_work(B, hd["H"], hd["KV"], S, T, hd["d"], dtype)
+    b_ms, b_by = bound_ms(flops, nbytes, dtype)
+    res = {"kernel": "flash_attention", "shape": tag, "B": B, "H": hd["H"],
+           "KV": hd["KV"], "d": hd["d"], "S": S, "T": T,
+           "dtype": str(dtype)[6:], "softcap": softcap, "max_abs_err": err,
+           "tol": tol, "ms": kern_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(res))
+    if not err <= tol:
+        raise AssertionError(f"flash_attention disagrees: {res}")
+    return res
 
 
 def unaligned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -802,15 +875,20 @@ def full_model(device, seed: int = 0):
     return model, params
 
 
-def phase_serve(model, params) -> tuple:
-    """smollm-135m at full width through the paged continuous-batching
-    engine: plain, chunked-prefill and int8-arena passes.  Returns the
-    passes' rows and the plain pass's tokens."""
+SERVE_PASSES = (("paged", {}), ("chunked", {"chunk_tokens": 64}),
+                ("int8", {"kv_dtype": "int8"}))
+
+
+def phase_serve(model, params, passes=SERVE_PASSES) -> tuple:
+    """A model at full width through the paged continuous-batching engine
+    over the serving workload (smollm-135m: plain, chunked-prefill and
+    int8-arena passes), after a warm-up of two requests.  Launch counts
+    are exact per pass; each row records how many of its tokens equal the
+    first pass's.  Returns the passes' rows and the first pass's
+    tokens."""
     from repro_torch.kernels import ops
-    vocab = model.cfg.vocab_size
+    vocab, L = model.cfg.vocab_size, model.cfg.n_layers
     prefix, reqs = serving_workload(vocab)
-    passes = [("paged", {}), ("chunked", {"chunk_tokens": 64}),
-              ("int8", {"kv_dtype": "int8"})]
     out = []
     tokens_by_pass = {}
     for warm, (name, kw) in [(True, passes[0])] + [(False, p) for p in passes]:
@@ -835,12 +913,12 @@ def phase_serve(model, params) -> tuple:
         for r in res:
             if not ((r.tokens >= 0) & (r.tokens < vocab)).all():
                 raise AssertionError(f"{name}: token out of range {r.tokens}")
-        if counts["paged_decode_attention"] != eng.n_decode_steps * SERVE_LAYERS:
+        if counts["paged_decode_attention"] != eng.n_decode_steps * L:
             raise AssertionError(f"{name}: paged decode launches {counts} != "
-                                 f"{eng.n_decode_steps} steps x {SERVE_LAYERS}")
-        if counts["flash_attention"] != eng.n_prefill_calls * SERVE_LAYERS:
+                                 f"{eng.n_decode_steps} steps x {L}")
+        if counts["flash_attention"] != eng.n_prefill_calls * L:
             raise AssertionError(f"{name}: flash launches {counts} != "
-                                 f"{eng.n_prefill_calls} prefills x {SERVE_LAYERS}")
+                                 f"{eng.n_prefill_calls} prefills x {L}")
         calls = eng.n_decode_steps + eng.n_prefill_calls
         if (counts["rmsnorm"] != calls * norm_launches(model.cfg)
                 or counts["rmsnorm_fused"] != calls * fused_norm_launches(model.cfg)):
@@ -854,7 +932,7 @@ def phase_serve(model, params) -> tuple:
         e2e = np.asarray([r.e2e_s for r in res]) * 1e3
         n_tok = sum(r.n_generated for r in res)
         tokens_by_pass[name] = [r.tokens for r in res]
-        row = {"pass": name, "requests": len(res),
+        row = {"pass": name, "arch": model.cfg.name, "requests": len(res),
                "prompt_lens": [int(r.prompt_len) for r in res],
                "prefix_hits": int(hits), "pool_stats": dict(pool.stats),
                "decode_steps": eng.n_decode_steps,
@@ -868,10 +946,13 @@ def phase_serve(model, params) -> tuple:
         out.append(row)
         print(json.dumps(row))
         eng.close()
-    base = tokens_by_pass["paged"]
-    for name in ("chunked", "int8"):
-        same = sum(int((a == b).sum()) for a, b in zip(base, tokens_by_pass[name]))
-        print(f"tokens equal to the plain pass: {name} {same}/{16 * len(base)}")
+    base = tokens_by_pass[passes[0][0]]
+    for row in out:
+        same = sum(int((a == b).sum())
+                   for a, b in zip(base, tokens_by_pass[row["pass"]]))
+        row["tokens_equal_to_first_pass"] = f"{same}/{16 * len(base)}"
+        print(f"{model.cfg.name} tokens equal to the {passes[0][0]} pass: "
+              f"{row['pass']} {same}/{16 * len(base)}")
     return out, base
 
 
@@ -1882,10 +1963,630 @@ def zamba_faas(model, params, prompts: list, h2d: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: llama2-13b at full depth, phi3.5-moe at cut depth
+# ---------------------------------------------------------------------------
+
+# phi3.5-moe-42b-a6.6b does not fit one card at its 32 layers (84 GB);
+# phase 10 takes the largest depth whose FaaS runtime fits (see
+# ``fitting_depth``), keeping these margins free: on the card for the
+# arena, activations and the caching allocator's slack (1.5 GB at 8
+# layers), on the host for the transient leaves of the random draw and
+# the serving passes
+DEVICE_SLACK_BYTES = 6e9
+HOST_SLACK_BYTES = 10e9
+
+
+def meminfo() -> dict:
+    """The host's total and available memory in GB (``/proc/meminfo``)."""
+    kb = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, _, rest = line.partition(":")
+            if key in ("MemTotal", "MemAvailable"):
+                kb[key] = int(rest.split()[0])
+    return {"host_total_gb": kb.get("MemTotal", 0) * 1024 / 1e9,
+            "host_available_gb": kb.get("MemAvailable", 0) * 1024 / 1e9}
+
+
+def release_host_memory() -> None:
+    """Collect unreferenced objects, then return the pinned blocks that
+    PyTorch's host allocator keeps cached for reuse to the system (a freed
+    pinned tensor stays in that cache, rounded up to a power of two)."""
+    gc.collect()
+    torch._C._host_emptyCache()
+
+
+def host_free_bytes() -> int:
+    """Host memory this process may still take: ``MemAvailable``, or less
+    where its cgroup's limit leaves less."""
+    free = meminfo()["host_available_gb"] * 1e9
+    cg = Path("/sys/fs/cgroup")
+    try:
+        limit = (cg / "memory.max").read_text().strip()
+        if limit != "max":
+            free = min(free, int(limit) - int((cg / "memory.current").read_text()))
+    except (OSError, ValueError):
+        pass
+    return int(free)
+
+
+def fitting_depth(cfg, device) -> dict:
+    """The largest depth of ``cfg`` (at most its own) at which
+    ``big_faas`` fits: on the card a warm copy of the weights, a fork's
+    copy and ``DEVICE_SLACK_BYTES`` within the free memory; on the host
+    the function's checkpoint, its pinned pool (the pinned allocator
+    rounds each leaf up to a power of two) and ``HOST_SLACK_BYTES``
+    within ``host_free_bytes()``.  Read with nothing of the model
+    allocated; returns the depth, the budget that stopped it and the
+    bytes it was worked out from."""
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.utils import named_leaves
+
+    def sizes(n):
+        leaves = [t.numel() * t.element_size() for _, t in
+                  named_leaves(param_specs(cfg.replace(n_layers=n)))]
+        return sum(leaves), sum(1 << (b - 1).bit_length() for b in leaves)
+
+    (dev1, pin1), (dev2, pin2) = sizes(1), sizes(2)
+    layer_dev, layer_pin = dev2 - dev1, pin2 - pin1
+    base_dev, base_pin = dev1 - layer_dev, pin1 - layer_pin
+    device_free = torch.cuda.mem_get_info(device)[0]
+    host_free = host_free_bytes()
+    by_device = int((device_free - DEVICE_SLACK_BYTES - 2 * base_dev)
+                    // (2 * layer_dev))
+    by_host = int((host_free - HOST_SLACK_BYTES - base_dev - base_pin)
+                  // (layer_dev + layer_pin))
+    depth = min(cfg.n_layers, by_device, by_host)
+    out = {"depth": depth,
+           "limited_by": ("full depth" if depth == cfg.n_layers else
+                          "device" if by_device <= by_host else "host"),
+           "by_device": by_device, "by_host": by_host,
+           "device_free_bytes": device_free, "host_free_bytes": host_free,
+           "layer_bytes": layer_dev, "layer_pinned_bytes": layer_pin,
+           "base_bytes": base_dev, "base_pinned_bytes": base_pin,
+           "device_slack_bytes": DEVICE_SLACK_BYTES,
+           "host_slack_bytes": HOST_SLACK_BYTES}
+    print(json.dumps({"fitting_depth": out}))
+    if depth < 1:
+        raise AssertionError(f"{cfg.name}: not one layer fits: {out}")
+    return out
+
+
+def pinned_bytes() -> dict:
+    """The pinned host allocator's bytes held (cached blocks included) and
+    handed out, by its own statistics."""
+    stats = torch.cuda.host_memory_stats()
+    return {"pinned_held_bytes": stats.get("allocated_bytes.current"),
+            "pinned_active_bytes": stats.get("active_bytes.current")}
+
+
+def big_model(arch: str, device, seed: int = 0, **replace) -> tuple:
+    """``arch`` at full width (depth cut by ``replace``) with seeded random
+    weights, drawn on the CPU leaf by leaf and moved to the card."""
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.utils import tree_bytes
+    model = get_model(get_config(arch).replace(**replace), device=device)
+    t0 = time.perf_counter()
+    params = model.init_params(seed=seed)
+    torch.cuda.synchronize()
+    info = {"arch": arch, "layers": model.cfg.n_layers,
+            "d_model": model.cfg.d_model, "dtype": model.cfg.dtype,
+            "init_s": time.perf_counter() - t0, "param_bytes": tree_bytes(params),
+            **meminfo()}
+    print(json.dumps({"model": info}))
+    return model, params, info
+
+
+def moe_drops(calls) -> dict:
+    """The (token, k) pairs of the expert layer calls recorded by
+    ``moe.watch()`` and those their capacity dropped, split by prefill
+    (S > 1) and decode calls.  Reads back through host syncs, so passes
+    watched are not timed."""
+    out = {"prefill_dropped": 0, "prefill_pairs": 0, "decode_dropped": 0,
+           "decode_pairs": 0}
+    for S, _, keep in calls:
+        kind = "decode" if S == 1 else "prefill"
+        out[kind + "_dropped"] += int((~keep).sum())
+        out[kind + "_pairs"] += keep.numel()
+    return out
+
+
+def card_cpu_parity(cfg, device, seed: int = 1, n_slots: int = 2,
+                    chunk: int | None = None) -> dict:
+    """``cfg`` (fp32, cut depth, full width): the same CPU-drawn weights on
+    the card (kernels) and on the CPU (plain versions), through a paged
+    pool of ``n_slots`` slots: a 100-token prefill (in ``chunk``-token
+    pieces, the later ones through ``prefill_from``, when given) and 8
+    greedy paged decode steps of one busy slot, logits within 1e-3 and
+    tokens equal (moe: every call's expert ids and kept pairs equal; the
+    free slots' rows take capacity too, so 8 slots at cf 1.25 drop pairs
+    at decode); then the card's layer-streamed prefill of a forked session
+    equals its monolithic prefill bit for bit."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.streaming import streamed_prefill
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import to_device
+    from repro_torch.runtime import PagedKVCachePool
+    from repro_torch.utils import named_leaves
+    cpu_model = get_model(cfg, device="cpu")
+    cpu_params = cpu_model.init_params(seed=seed)
+    card_model = get_model(cfg, device=device)
+    card_params = to_device(cpu_params, card_model.device)
+    prompt = np.random.default_rng(2).integers(1, cfg.vocab_size, 100).astype(np.int32)
+    step = chunk or len(prompt)
+    runs = {}
+    for model, params in ((card_model, card_params), (cpu_model, cpu_params)):
+        with moe.watch() as calls:
+            pool = PagedKVCachePool(model, n_slots=n_slots, max_len=128,
+                                    page_size=PAGE_SIZE)
+            cache = model.make_cache(1, pool.padded_len)
+            for start in range(0, len(prompt), step):
+                piece = {"tokens": prompt[None, start:start + step]}
+                if start:
+                    logits, cache = model.prefill_from(params, piece, cache, start)
+                else:
+                    logits, cache = model.prefill(params, piece, cache)
+            slot = pool.alloc(len(prompt), 8)
+            pool.write_prompt(slot, cache, len(prompt))
+            all_logits, toks = [logits[0].float().cpu()], [int(logits[0].argmax())]
+            pos = np.zeros(n_slots, np.int32)
+            pos[slot] = len(prompt)
+            for _ in range(8):
+                pool.ensure_len(slot, int(pos[slot]) + 1)
+                tok = np.zeros((n_slots, 1), np.int32)
+                tok[slot, 0] = toks[-1]
+                lg, _ = model.decode_step_paged(params, pool.cache, {"tokens": tok},
+                                                pos, pool.device_page_table(),
+                                                PAGE_SIZE)
+                all_logits.append(lg[slot].float().cpu())
+                toks.append(int(lg[slot].argmax()))
+                pos[slot] += 1
+        routes = [(S, idx.cpu(), keep.cpu()) for S, idx, keep in calls]
+        runs[model.device.type] = (torch.stack(all_logits), toks, routes)
+    (lg_gpu, tk_gpu, rt_gpu), (lg_cpu, tk_cpu, rt_cpu) = runs["cuda"], runs["cpu"]
+    err = float((lg_gpu - lg_cpu).abs().max())
+    res = {"config": f"{cfg.name} x {cfg.n_layers} layers, {cfg.dtype}",
+           "n_slots": n_slots, "prefill_chunk": chunk,
+           "max_abs_logit_err": err, "max_abs_logit": float(lg_cpu.abs().max()),
+           "tol": 1e-3, "tokens_equal": tk_gpu == tk_cpu,
+           "moe_calls": len(rt_gpu),
+           "routing_equal": len(rt_gpu) == len(rt_cpu) and all(
+               s1 == s2 and torch.equal(i1, i2) and torch.equal(k1, k2)
+               for (s1, i1, k1), (s2, i2, k2) in zip(rt_gpu, rt_cpu)),
+           "drops_card": moe_drops(rt_gpu), "drops_cpu": moe_drops(rt_cpu)}
+    del cpu_params, cpu_model
+    srv = TemplateServer(trace_seq=64)
+    srv.register(tidal.static_function("f", card_model, card_params), {})
+    session, _ = srv.fork("f", {})
+    toks = prompt[None]
+    lg_s, c_s = streamed_prefill(session, {"tokens": toks}, card_model.make_cache(1, 128))
+    lg_m, c_m = card_model.prefill(card_params, {"tokens": toks},
+                                   card_model.make_cache(1, 128))
+    torch.cuda.synchronize()
+    res["streamed_prefill_equal"] = bool(torch.equal(lg_s, lg_m) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(c_s),
+                                                    named_leaves(c_m))))
+    print(json.dumps({"card_cpu_parity": res}))
+    if not (err <= 1e-3 and res["tokens_equal"] and res["routing_equal"]
+            and res["drops_card"] == res["drops_cpu"]
+            and res["streamed_prefill_equal"]):
+        raise AssertionError(f"card vs CPU parity failed: {res}")
+    return res
+
+
+def chunked_prefill_witness(model, params, prompt: np.ndarray,
+                            chunk: int) -> dict:
+    """A moe ``model`` whose capacity drops nothing: ``prompt`` prefilled
+    whole and in ``chunk``-token pieces (``prefill_from``, as the engine's
+    chunked prefill runs them).  Returns the last-token logits' largest
+    difference, how many (token, layer) expert choices differ, and the
+    pairs dropped (none: chunking then changes only the rounding)."""
+    from repro_torch.models import moe
+    L, runs = model.cfg.n_layers, []
+    for step in (len(prompt), chunk):
+        cache = model.make_cache(1, 512)
+        with moe.watch() as calls:
+            for start in range(0, len(prompt), step):
+                piece = {"tokens": prompt[None, start:start + step]}
+                if start:
+                    logits, cache = model.prefill_from(params, piece, cache, start)
+                else:
+                    logits, cache = model.prefill(params, piece, cache)
+        # calls run layer by layer within each piece
+        routes = [torch.cat([calls[i][1] for i in range(layer, len(calls), L)])
+                  for layer in range(L)]
+        runs.append((logits[0].float(), routes, moe_drops(calls)))
+    (lg_a, rt_a, dr_a), (lg_b, rt_b, dr_b) = runs
+    out = {"config": f"{model.cfg.name} x {L} layers, {model.cfg.dtype}, cf "
+                     f"{model.cfg.capacity_factor}",
+           "prompt_len": len(prompt), "chunk": chunk,
+           "max_abs_logit_diff": float((lg_a - lg_b).abs().max()),
+           "max_abs_logit": float(lg_a.abs().max()),
+           "routes_differ": sum(int((a != b).any(-1).sum())
+                                for a, b in zip(rt_a, rt_b)),
+           "routes": L * len(prompt),
+           "pairs_dropped": dr_a["prefill_dropped"] + dr_b["prefill_dropped"]}
+    print(json.dumps({"chunked_prefill_witness": out}))
+    if out["pairs_dropped"]:
+        raise AssertionError(f"the dropless witness dropped pairs: {out}")
+    return out
+
+
+def engine_vs_continuous(model, params, prompts: np.ndarray, new_tokens: int,
+                         n_slots: int, per_prompt: bool) -> dict:
+    """The sequential ``Engine`` (dense cache: flash prefill, then
+    ``decode_attention``) against the paged continuous engine with
+    ``n_slots`` slots over the same prompts: greedy tokens equal, launch
+    counts exact.  ``per_prompt`` runs the Engine on one prompt at a time
+    (a moe prefill then routes the same T tokens as the continuous
+    engine's), else on the whole batch at once."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ContinuousBatchingEngine, Engine
+    cfg, L = model.cfg, model.cfg.n_layers
+    n_norm, n_fused = norm_launches(cfg), fused_norm_launches(cfg)
+    eng = Engine(model, params)
+    eng.generate(prompts[:1, :32], max_new_tokens=2)           # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if per_prompt:
+        runs = [eng.generate(p[None], max_new_tokens=new_tokens) for p in prompts]
+        want = np.concatenate([r.tokens for r in runs])
+        calls = len(prompts)
+    else:
+        runs = [eng.generate(prompts, max_new_tokens=new_tokens)]
+        want, calls = runs[0].tokens, 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect = {"decode_attention": L * (new_tokens - 1) * calls,
+              "flash_attention": L * calls,
+              "rmsnorm": n_norm * new_tokens * calls,
+              "rmsnorm_fused": n_fused * new_tokens * calls,
+              "paged_decode_attention": 0, "ssd_scan": 0}
+    if counts != expect:
+        raise AssertionError(f"{cfg.name} Engine launches {counts} != {expect}")
+    row = {"pass": "engine", "arch": cfg.name, "batch": len(prompts),
+           "per_prompt": per_prompt, "prompt_len": int(prompts.shape[1]),
+           "new_tokens": new_tokens, "launches": counts, "wall_s": wall,
+           "ttft_ms": float(np.mean([r.ttft_s for r in runs]) * 1e3),
+           "decode_ms_per_step": float(np.mean([r.decode_s for r in runs])
+                                       / (new_tokens - 1) * 1e3)}
+    cbe = ContinuousBatchingEngine(model, params, n_slots=n_slots, max_len=512,
+                                   page_size=PAGE_SIZE)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ids = [cbe.submit(p, new_tokens) for p in prompts]
+    results = cbe.run()
+    torch.cuda.synchronize()
+    cont_wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    got = np.stack([results[i].tokens for i in ids])
+    calls = cbe.n_decode_steps + cbe.n_prefill_calls
+    expect = {"decode_attention": 0, "flash_attention": L * cbe.n_prefill_calls,
+              "paged_decode_attention": L * cbe.n_decode_steps,
+              "rmsnorm": n_norm * calls, "rmsnorm_fused": n_fused * calls,
+              "ssd_scan": 0}
+    if counts != expect:
+        raise AssertionError(f"{cfg.name} continuous launches {counts} != {expect}")
+    equal = int((got == want).sum())
+    row.update(continuous={"pass": "engine prompts, continuous", "arch": cfg.name,
+                           "n_slots": n_slots, "launches": counts,
+                           "wall_s": cont_wall,
+                           "decode_steps": cbe.n_decode_steps,
+                           "prefill_calls": cbe.n_prefill_calls},
+               tokens_equal=f"{equal}/{want.size}")
+    cbe.close()
+    print(json.dumps(row))
+    if equal != want.size:
+        raise AssertionError(f"{cfg.name}: Engine tokens differ from the "
+                             f"continuous engine's: {equal}/{want.size}")
+    return row
+
+
+def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
+    """The paged engine's decode step at 8 busy slots: host ms per step
+    (synchronised), then under ``torch.profiler`` the device time of
+    ``steps`` steps and its share of their wall time, beside the step's
+    byte bound (every weight but the embedding table read once, plus the
+    K/V rows the step attends over)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import ContinuousBatchingEngine
+    from repro_torch.utils import tree_bytes
+    cfg = model.cfg
+    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
+                                   page_size=PAGE_SIZE)
+    for p in prompts[:8]:
+        eng.submit(p, 2 * steps + 4)
+    while eng.queue or eng.n_prefill_calls < len(prompts[:8]):
+        eng.step()
+    eng.step()
+    host = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    rows = int(np.sum(eng._pos))                 # K/V rows of the next step
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eng.close()
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    # device-side events only: a CPU op reports the device time of the
+    # kernels it launched as its own, so summing both counts it twice
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(device_us(e) for e in events) / 1e3
+    top = sorted(((e.key, device_us(e) / 1e3 / steps, e.count // steps)
+                  for e in events if device_us(e) > 0), key=lambda r: -r[1])
+    elt = torch.empty((), dtype=model.dtype).element_size()
+    embed = params["embed"]
+    weights = tree_bytes(params) - embed.numel() * elt + 8 * cfg.d_model * elt
+    kv = 2 * rows * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim * elt
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "slots": 8,
+           "host_ms_per_step_median": float(np.median(host) * 1e3),
+           "host_ms_per_step_min": float(np.min(host) * 1e3),
+           "profiled_ms_per_step": wall / steps * 1e3,
+           "device_ms_per_step": device_ms / steps if device_ms else None,
+           "device_busy_share": device_ms / (wall * 1e3) if device_ms else None,
+           "weight_bytes": weights, "kv_bytes": kv,
+           "bound_ms": (weights + kv) / HBM_BYTES_PER_S * 1e3,
+           "kernels_top_ms_per_step": [{"name": k[:100], "ms": ms, "calls": n}
+                                       for k, ms, n in top[:12]]}
+    print(json.dumps({"decode_step": out}))
+    return out
+
+
+def big_faas(model, params, h2d: float, lora_target=None) -> dict:
+    """``FaaSRuntime`` over a model of tens of GB with one function: a
+    static one with the 131-token template prompt, or with
+    ``lora_target`` a LoRA function (2 adapters), served cold, warm,
+    then forked after an evict (the LoRA one on the other adapter) and
+    warm again, through the gateway.  The template server keeps no
+    weights resident (``device_budget_bytes=0``): every fork streams the
+    whole model, and the card holds the function's weights and one
+    forked copy.  A fork's tokens equal the warm invocation's for the
+    same prompt and event.  One function per runtime: a function holds
+    its host checkpoint and its pinned pool (1.7 times its bytes for
+    llama2-13b, the pinned allocator rounding each leaf to a power of
+    two), so two of phi3.5-moe's would not fit the host's 96 GiB."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import FaaSRuntime
+    from repro_torch.utils import tensor_nbytes
+    prefix, reqs = serving_workload(model.cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rt = FaaSRuntime(server=TemplateServer(hw=H100_SXM.with_h2d(h2d), trace_seq=128,
+                                           device_budget_bytes=0),
+                     n_slots=8, max_len=512, page_size=PAGE_SIZE,
+                     device=model.device)
+    t0 = time.perf_counter()
+    a0, a1 = {"adapter": "adapter-0"}, {"adapter": "adapter-1"}
+    if lora_target is None:
+        name = "static"
+        rt.deploy(tidal.static_function(name, model, params), {},
+                  prewarm_seq=128, template_prompt=prefix)
+        waves = [[(name, {}, 0)], [(name, {}, 1)], "evict", [(name, {}, 0)],
+                 [(name, {}, 0)]]
+    else:
+        name = "lora"
+        rt.deploy(tidal.lora_function(name, model, params, [lora_target],
+                                      n_adapters=2), a0, prewarm_seq=128)
+        waves = [[(name, a0, 3)], [(name, a0, 4)], "evict", [(name, a1, 3)],
+                 [(name, a1, 3)]]
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    model_bytes = rt.server.templates[name].total_bytes
+    pinned = {**pinned_bytes(), **meminfo(), "host_pool_bytes": sum(
+        tensor_nbytes(t) for pool in rt.server.host_pool.values()
+        for t in pool.values())}
+    results = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for wave in waves:
+        if wave == "evict":
+            rt.evict()
+            continue
+        outs = rt.submit_many([(fn, ev, reqs[i], 16) for fn, ev, i in wave])
+        results += [(fn, i, r) for (fn, _, i), r in zip(wave, outs)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    kinds = [r.kind for *_, r in results]
+    want = ["cold", "warm", "fork", "warm"]
+    if kinds != want:
+        raise AssertionError(f"{model.cfg.name} service kinds {kinds} != {want}")
+    if any(r.status != "done" or len(r.tokens) != 16 for *_, r in results):
+        raise AssertionError(f"{model.cfg.name}: unfinished invocations")
+    forked = [(fn, r) for fn, _, r in results if r.fork_stats is not None]
+    for fn, r in forked:
+        fs = r.fork_stats
+        total = rt.server.templates[fn].total_bytes
+        if not r.streamed_prefill or fs.reused_bytes or (
+                fs.streamed_bytes + fs.dynamic_bytes != total):
+            raise AssertionError(f"{fn} fork: streamed prefill {r.streamed_prefill}, "
+                                 f"bytes {fs} != {total}")
+    for j, (fn, i, r) in enumerate(results):
+        if r.kind == "fork":        # the next invocation: the same one, warm
+            fn2, i2, warm = results[j + 1]
+            if (fn2, i2, warm.kind) != (fn, i, "warm") or not np.array_equal(
+                    r.tokens, warm.tokens):
+                raise AssertionError(f"{fn}: fork tokens != warm tokens")
+    check_norm_launches(counts, model.cfg, f"{model.cfg.name} FaaS")
+    if (counts["paged_decode_attention"] == 0 or counts["flash_attention"] == 0
+            or counts["decode_attention"] or counts["ssd_scan"]):
+        raise AssertionError(f"{model.cfg.name} FaaS launches {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"arch": model.cfg.name, "function": name, "lora_target": lora_target,
+           "deploy_s": deploy_s, "model_bytes": model_bytes,
+           "kinds": kinds, "wall_s": wall, "launches": counts,
+           "ttft_ms": [{"fn": fn, "kind": r.kind, "ms": r.ttft_s * 1e3,
+                        "reused_prefix_len": r.reused_prefix_len}
+                       for fn, _, r in results],
+           "fork_bytes": [{"fn": fn, "streamed": r.fork_stats.streamed_bytes,
+                           "dynamic": r.fork_stats.dynamic_bytes,
+                           "fork_s": r.fork_stats.fork_s} for fn, r in forked],
+           "max_memory_allocated": peak,
+           "max_memory_allocated_per_model_bytes": peak / model_bytes,
+           "after_deploy": pinned}
+    print(json.dumps({"faas": out}))
+    rt.evict()
+    del rt
+    release_host_memory()
+    # the function's weights plus one forked copy, and the arena and
+    # activations: a third copy would show here
+    if peak >= 2.5 * model_bytes:
+        raise AssertionError(f"{model.cfg.name}: {peak} bytes allocated at peak, "
+                             f"more than 2 copies of {model_bytes}")
+    return out
+
+
+def phase_llama(device, h2d: float) -> dict:
+    """llama2-13b at full width and depth (40 layers, d_model 5120, 40
+    heads of 128 for queries and keys, bf16, 26 GB): the paged serving
+    passes (bf16 and int8 arenas), the sequential Engine against the
+    continuous engine, the decode step against its weight-byte bound,
+    ``FaaSRuntime`` cold / warm / fork; then a 2-layer fp32 card against
+    CPU check and streamed prefill."""
+    from repro_torch.models.registry import get_config
+    model, params, info = big_model("llama2-13b", device)
+    cfg = model.cfg
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.head_dim) == (40, 5120, 40, 40, 128)
+    out = {"model": info}
+    out["serve"], _ = phase_serve(model, params, passes=(
+        ("paged", {}), ("int8", {"kv_dtype": "int8"})))
+    prompts = np.random.default_rng(5).integers(1, cfg.vocab_size, (8, 256)
+                                                ).astype(np.int32)
+    out["engine"] = engine_vs_continuous(model, params, prompts, 32, 8,
+                                         per_prompt=False)
+    out["decode_step"] = decode_profile(model, params, list(prompts))
+    out["faas"] = big_faas(model, params, h2d)
+    del model, params
+    torch.cuda.empty_cache()
+    out["parity"] = card_cpu_parity(
+        get_config("llama2-13b").replace(n_layers=2, dtype="float32"), device)
+    return out
+
+
+def phase_moe(device, h2d: float) -> dict:
+    """phi3.5-moe-42b-a6.6b at full width (d_model 4096, 32 / 8 heads of
+    128, 16 experts of 6400, top-2, capacity factor 1.25, bf16) and the
+    largest depth that fits (``fitting_depth``): the paged serving passes
+    at 8 slots (plain, chunked, int8), the (token, k) pairs their capacity
+    drops, the plain and chunked passes again at cf = E/K (dropless) and a
+    384-token prompt prefilled whole and in 64-token chunks there (fp32 at
+    one layer: the same expert choices, logits within 1e-3), a 4-slot pass
+    (decode dropless) equal to the sequential Engine, the decode step against its byte bound (every expert's weights
+    are read), ``FaaSRuntime`` with a static and a LoRA function; then
+    1-layer fp32 card against CPU checks (routing and drops equal) at 2
+    slots, and at 8 slots with a chunked prefill (both drop pairs), and
+    streamed prefill."""
+    from repro_torch.models import moe
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.models.transformer import to_device
+    full = get_config("phi3.5-moe-42b-a6.6b")
+    fit = fitting_depth(full, device)
+    model, params, info = big_model("phi3.5-moe-42b-a6.6b", device,
+                                    n_layers=fit["depth"])
+    cfg = model.cfg
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.n_experts, cfg.top_k,
+            cfg.moe_d_ff, cfg.capacity_factor) == (4096, 32, 8, 16, 2, 6400, 1.25)
+    info["reduced"] = (f"n_layers {full.n_layers} -> {cfg.n_layers} (the "
+                       f"{fit['limited_by']}'s memory)")
+    info["fitting_depth"] = fit
+    print(f"phi3.5-moe-42b-a6.6b reduced: {info['reduced']} (full width; "
+          f"{info['param_bytes'] / 1e9:.1f} GB of weights)")
+    out = {"model": info}
+    out["serve"], base = phase_serve(model, params)
+    prefix, reqs = serving_workload(cfg.vocab_size)
+    eng = serving_engine(model, params, prefix)
+    with moe.watch() as calls:
+        ids = [eng.submit(p, 16) for p in reqs]
+        results = eng.run()
+    eng.close()
+    same = sum(int((results[i].tokens == t).sum()) for i, t in zip(ids, base))
+    drops = moe_drops(calls)
+    drops["tokens_equal_to_plain_pass"] = f"{same}/{16 * len(base)}"
+    print(json.dumps({"moe_drops_8_slots": drops}))
+    if same != 16 * len(base) or not drops["decode_dropped"]:
+        raise AssertionError(f"8-slot drop count pass: {drops}")
+    out["drops_8_slots"] = drops
+    # the chunked pass without drops (cf = E/K): the tokens it shares
+    # with the plain pass, and one prompt prefilled whole and in chunks
+    dropless_cf = cfg.n_experts / cfg.top_k
+    dropless = get_model(cfg.replace(capacity_factor=dropless_cf), device=device)
+    with moe.watch() as calls:
+        out["serve_dropless"], _ = phase_serve(dropless, params,
+                                               passes=SERVE_PASSES[:2])
+    out["serve_dropless_drops"] = moe_drops(calls)
+    if out["serve_dropless_drops"]["decode_dropped"] or (
+            out["serve_dropless_drops"]["prefill_dropped"]):
+        raise AssertionError(f"cf = E/K dropped pairs: {out['serve_dropless_drops']}")
+    witness_prompt = np.random.default_rng(8).integers(1, cfg.vocab_size, 384
+                                                       ).astype(np.int32)
+    out["chunked_witness"] = [chunked_prefill_witness(dropless, params,
+                                                      witness_prompt, 64)]
+    prompts = np.random.default_rng(6).integers(1, cfg.vocab_size, (4, 256)
+                                                ).astype(np.int32)
+    with moe.watch() as calls:
+        out["engine"] = engine_vs_continuous(model, params, prompts, 16, 4,
+                                             per_prompt=True)
+    out["engine"]["drops"] = moe_drops(calls)
+    if out["engine"]["drops"]["decode_dropped"]:
+        raise AssertionError(f"4-slot decode dropped pairs: {out['engine']['drops']}")
+    dec_prompts = np.random.default_rng(7).integers(1, cfg.vocab_size, (8, 256))
+    out["decode_step"] = decode_profile(model, params,
+                                        list(dec_prompts.astype(np.int32)))
+    out["faas"] = big_faas(model, params, h2d)
+    out["faas_lora"] = big_faas(model, params, h2d, lora_target="blocks.attn.wq")
+    del model, params, dropless
+    torch.cuda.empty_cache()
+    small = full.replace(n_layers=1, dtype="float32")
+    # chunking on the card at fp32 changes no expert choice and moves the
+    # logits by rounding only; the same weights in bf16 are printed beside
+    one = get_model(small.replace(capacity_factor=dropless_cf), device=device)
+    one_params = one.init_params(seed=1)
+    fp32 = chunked_prefill_witness(one, one_params, witness_prompt, 64)
+    one_bf16 = get_model(one.cfg.replace(dtype="bfloat16"), device=device)
+    out["chunked_witness"] += [fp32, chunked_prefill_witness(
+        one_bf16, to_device(one_params, device, torch.bfloat16), witness_prompt, 64)]
+    del one, one_params, one_bf16
+    if fp32["routes_differ"] or fp32["max_abs_logit_diff"] > 1e-3:
+        raise AssertionError(f"chunked prefill differs from the whole prefill: {fp32}")
+    out["parity"] = card_cpu_parity(small, device)
+    out["parity_8_slots"] = card_cpu_parity(small, device, n_slots=8, chunk=48)
+    got = out["parity_8_slots"]["drops_card"]
+    if not (got["decode_dropped"] and got["prefill_dropped"]):
+        raise AssertionError(f"the 8-slot, chunked card against CPU check "
+                             f"dropped no pairs: {got}")
+    return out
+
+
 def kernel_summary(kernels: list, serve: list, engine: list,
-                   tidal_row: dict, tenants: dict, ssm: dict) -> list:
+                   tidal_row: dict, tenants: dict, ssm: dict,
+                   big: tuple = ()) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
-    shapes, with its launches from the serving phases (3, 5, 6, 7 and 8)."""
+    shapes, with its launches from the serving phases (3, 5, 6, 7 and 8,
+    and the serving, engine and FaaS passes of ``big``: phases 9 and
+    10)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
@@ -1896,6 +2597,11 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                                           cp["learned_prefix"], cp["open_loop"]]
             + [ssm["serve"], ssm["engine"], ssm["engine_prompts_continuous"],
                ssm["faas"]])
+    for phase in big:
+        rows += list(phase["serve"]) + [phase["engine"],
+                                        phase["engine"]["continuous"],
+                                        phase["faas"]] + (
+            [phase["faas_lora"]] if "faas_lora" in phase else [])
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
@@ -1970,8 +2676,13 @@ def main(argv=None) -> int:
     def timed(name, fn, *a):
         t = time.perf_counter()
         out = fn(*a)
+        release_host_memory()
+        torch.cuda.empty_cache()
         phases[name] = time.perf_counter() - t
-        print(f"phase {name}: {phases[name]:.1f} s")
+        mem = meminfo()
+        print(f"phase {name}: {phases[name]:.1f} s (host memory "
+              f"{mem['host_available_gb']:.1f} of {mem['host_total_gb']:.1f} GB "
+              f"available)")
         return out
 
     def ssm_phase(h2d):
@@ -1979,6 +2690,7 @@ def main(argv=None) -> int:
         return rows, phase_zamba(device, h2d)
 
     dev = timed("device", phase_device)
+    h2d = dev["h2d_bytes_per_s"]
     kernels = timed("kernels", phase_kernels, device)
     model, params = full_model(device)
     serve, paged_tokens = timed("serve", phase_serve, model, params)
@@ -1990,12 +2702,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     ssm_rows, ssm = timed("ssm", ssm_phase, dev["h2d_bytes_per_s"])
     kernels += ssm_rows
-    summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm)
+    llama = timed("llama", phase_llama, device, h2d)
+    moe = timed("moe", phase_moe, device, h2d)
+    summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm,
+                             (llama, moe))
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
          "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
-         "summary": summary, "phases_s": phases,
+         "llama": llama, "moe": moe, "summary": summary, "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": summary}))

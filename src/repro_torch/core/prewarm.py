@@ -117,10 +117,20 @@ class ProcessPool:
 
 
 def zero_params(model) -> dict:
-    """Zero-filled parameters of ``model`` on its device (warm-up input)."""
-    return map_with_path(
-        lambda _, s: torch.zeros(s.shape, dtype=s.dtype, device=model.device),
-        model.param_specs())
+    """Zero-filled parameters of ``model`` on its device (warm-up input).
+    Leaves of one shape and dtype share one zero tensor (warm-ups only
+    read them), so every layer reads the same buffers: the warm-up input
+    of llama2-13b takes ~1 GB, not a second 26 GB copy of the model."""
+    zeros: dict = {}
+
+    def zero(_, spec):
+        key = (tuple(spec.shape), spec.dtype)
+        if key not in zeros:
+            zeros[key] = torch.zeros(key[0], dtype=spec.dtype,
+                                     device=model.device)
+        return zeros[key]
+
+    return map_with_path(zero, model.param_specs())
 
 
 def prewarm_function(cache: ExecutableCache, model, fn_name: str,

@@ -19,9 +19,10 @@ validates the schedule and the synchronisation logic.
 layers' weights are still in flight: layer ``l``'s block waits only for
 layer ``l``'s weights.  Its result equals the monolithic prefill exactly
 (it runs the same ``transformer._dense_block``, and for zamba the same
-``transformer.zamba_unit``; tested with ``torch.equal``).  The dense and
-zamba families stream; xLSTM arrives with its model (ROADMAP Queue 1,
-item 10).
+``transformer.zamba_unit``; tested with ``torch.equal``).  The dense,
+moe and zamba families stream; xLSTM arrives with its model (ROADMAP
+Queue 1, item 5).  A moe layer's three expert leaves are most of its
+bytes, and the layer waits for them alone, not for later layers.
 """
 
 from __future__ import annotations
@@ -206,7 +207,7 @@ class ForkSession:
 # ---------------------------------------------------------------------------
 
 def supports_streamed_prefill(model: Model) -> bool:
-    return model.cfg.family in ("dense", "zamba")
+    return model.cfg.family in ("dense", "moe", "zamba")
 
 
 @torch.no_grad()
@@ -218,13 +219,13 @@ def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
     ``transformer.prefill_from`` (``offset=0``: ``prefill``) exactly.  With
     ``offset`` the tokens are a prompt suffix at positions ``offset ..``
     over a cache whose first ``offset`` rows hold a reused prefix (dense
-    family only: a zamba prefill starts at position 0)."""
+    and moe families only: a zamba prefill starts at position 0)."""
     model = session.model
     cfg = model.cfg
     if not supports_streamed_prefill(model):
         raise NotImplementedError(
             f"{cfg.name}: streamed prefill of the {cfg.family!r} family "
-            "arrives with its model (ROADMAP Queue 1, item 10)")
+            "arrives with its model (ROADMAP Queue 1, item 5)")
     tokens = torch.as_tensor(inputs["tokens"], device=model.device)
     B, S = tokens.shape
     offset = int(offset)

@@ -5,6 +5,9 @@ default; ``--device cpu`` with a reduced depth runs it on the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch smollm-135m --functions 3 --requests 12 --lora
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-13b
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch phi3.5-moe-42b-a6.6b --layers 8
 
 Per request the runtime picks the service class itself: ``cold`` (first
 invocation), ``fork`` (adaptive state forking from the template, prefill
@@ -16,6 +19,9 @@ configuration of ``--arch``; on the CPU it is the narrow smoke
 configuration, as ``repro.launch.serve`` serves it there.  ``--layers``
 cuts the depth of either.  zamba2-2.7b (Mamba2 + shared attention) serves
 over the dense slot pool, its prefills through the ``ssd_scan`` kernel.
+phi3.5-moe-42b-a6.6b (84 GB in bf16) fits one card only with ``--layers``
+cut (8 of 32 leave room for a fork's copy); llama2-70b serves only on the
+CPU until tensor parallelism is ported.
 
 ``--open-loop --qps Q [--deadline D]`` replaces the closed loop (submit,
 wait, repeat) with open-loop Poisson arrivals through the async gateway:
@@ -48,8 +54,9 @@ from repro_torch.utils import fmt_bytes
 LATER = {"tp": "tensor parallelism (ROADMAP Queue 1, item 11)",
          "instances": "multi-instance serving (ROADMAP Queue 1, item 11)"}
 # the projection --lora adapts: the attention query weights of every
-# layer (dense) or of zamba's one shared attention block
-LORA_TARGET = {"dense": "blocks.attn.wq", "zamba": "shared_attn.attn.wq"}
+# layer (dense, moe) or of zamba's one shared attention block
+LORA_TARGET = {"dense": "blocks.attn.wq", "moe": "blocks.attn.wq",
+               "zamba": "shared_attn.attn.wq"}
 
 
 def _serve_open_loop(rt: FaaSRuntime, cfg, args, rng) -> None:

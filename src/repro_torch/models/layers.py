@@ -22,17 +22,31 @@ from repro_torch.models.adapters import lora_delta
 from repro_torch.models.config import ModelConfig
 
 
-def normal_(gen: Optional[torch.Generator], shape,
-            scale: Optional[float] = None):
-    """A float32 normal draw on the CPU; fan-in scaled (1/sqrt(shape[0]))
-    unless ``scale`` is given.  With ``gen=None`` an uninitialized tensor
-    of the shape on the default device (the ``meta`` parameter specs)."""
+class ParamDraw:
+    """Where random parameters come from: float32 normals drawn on the CPU
+    from one seeded ``torch.Generator`` (so a seed gives the same weights
+    on every device), each cast to ``dtype`` and moved to ``device`` as
+    soon as it is drawn, so host memory holds one leaf at a time."""
+
+    def __init__(self, seed: int, device="cpu", dtype=torch.float32):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.device, self.dtype = device, dtype
+
+    def normal(self, shape: tuple, scale: float) -> torch.Tensor:
+        t = torch.randn(shape, generator=self.gen) * scale
+        return t.to(device=self.device, dtype=self.dtype)
+
+
+def normal_(draw: Optional[ParamDraw], shape, scale: Optional[float] = None):
+    """A normal leaf from ``draw``, fan-in scaled (1/sqrt(shape[0])) unless
+    ``scale`` is given.  With ``draw=None`` an uninitialized tensor of the
+    shape on the default device (the ``meta`` parameter specs)."""
     shape = tuple(int(s) for s in shape)
-    if gen is None:
+    if draw is None:
         return torch.empty(shape)
     if scale is None:
         scale = 1.0 / math.sqrt(shape[0])
-    return torch.randn(shape, generator=gen) * scale
+    return draw.normal(shape, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -82,7 +96,7 @@ def _sdpa(q, k, v, mask, softcap: float = 0.0):
     return out.to(v.dtype)
 
 
-def init_attn_params(gen: torch.Generator, cfg: ModelConfig) -> dict:
+def init_attn_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.fused_qkv:
         raise NotImplementedError(
@@ -225,7 +239,7 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 # gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 
-def init_mlp_params(gen: torch.Generator, d_model: int, d_ff: int,
+def init_mlp_params(gen: Optional[ParamDraw], d_model: int, d_ff: int,
                     fused: bool = False) -> dict:
     if fused:
         return {"w_gu": normal_(gen, (d_model, 2 * d_ff)),

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import normal_, rmsnorm
+from repro_torch.models.layers import ParamDraw, normal_, rmsnorm
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -46,7 +46,7 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     return y, xp[:, S:]
 
 
-def init_mamba2_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
+def init_mamba2_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     """One Mamba2 mixer's parameters (fan-in scaled normals; ``dt_bias``
     and ``a_log`` zeros, ``d_skip`` and the gated norm ones), in the JAX
     package's layout.  ``gen=None`` gives uninitialized tensors (specs)."""

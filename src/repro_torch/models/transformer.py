@@ -5,11 +5,12 @@ here the parameters are a list of per-layer dicts and the scan is a Python
 loop.  Caches keep the JAX layout with the layer axis first, and each
 layer works on its ``cache[key][l]`` view in place.
 
-Two families are ported: the dense GQA decoder (``layers``) and zamba, the
-Mamba2 hybrid (``mamba``: one dict per Mamba2 block; ``shared_attn``: ONE
-attention + MLP block applied after every ``attn_every`` Mamba2 blocks).
-A zamba cache is ``{'mamba': {'h', 'conv'}, 'attn_kv': {'k', 'v'}}``.
-moe, MLA, xLSTM and enc-dec come later (ROADMAP Queue 1, item 10).
+Three families are ported: the dense GQA decoder (``layers``), moe (the
+same blocks with a top-k expert layer, ``moe``, in place of the MLP) and
+zamba, the Mamba2 hybrid (``mamba``: one dict per Mamba2 block;
+``shared_attn``: ONE attention + MLP block applied after every
+``attn_every`` Mamba2 blocks).  A zamba cache is ``{'mamba': {'h',
+'conv'}, 'attn_kv': {'k', 'v'}}``.
 
 Entry points:
   forward(params, cfg, tokens)                        -> (logits, aux)
@@ -17,7 +18,7 @@ Entry points:
   prefill_from(params, cfg, tokens, cache, offset)    -> (last logits, cache)
   decode_step(params, cfg, cache, tokens, pos)        -> (logits, cache)
   decode_step_paged(params, cfg, cache, tokens, pos, page_table, page_size)
-  (prefill_from and decode_step_paged: dense family only)
+  (prefill_from and decode_step_paged: dense and moe families only)
   init_params(cfg, seed, device)                      -> params
   param_specs(cfg)                                    -> params on ``meta``
   make_cache / make_paged_cache                       -> cache dict
@@ -29,11 +30,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import quant, ssm
+from repro_torch.models import moe, quant, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (attention_block, embed_tokens,
-                                       init_attn_params, init_mlp_params,
-                                       lm_head, mlp_block, normal_, rmsnorm)
+from repro_torch.models.layers import (ParamDraw, attention_block,
+                                       embed_tokens, init_attn_params,
+                                       init_mlp_params, lm_head, mlp_block,
+                                       normal_, rmsnorm)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -48,13 +50,13 @@ def torch_dtype(name_or_dtype) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families this port does not serve yet."""
-    dense = (cfg.family == "dense" and not cfg.use_mla and not cfg.n_experts
-             and not cfg.is_encdec)
-    if not dense and cfg.family != "zamba":
+    ported = (cfg.family in ("dense", "moe", "zamba") and not cfg.use_mla
+              and not cfg.is_encdec
+              and (cfg.family == "moe") == bool(cfg.n_experts))
+    if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: the dense GQA and zamba families are ported so "
-            "far; moe, MLA, xLSTM and enc-dec families follow (ROADMAP "
-            "Queue 1, item 10)")
+            f"{cfg.name}: the dense GQA, moe and zamba families are ported; "
+            "MLA (deepseek-v3), xLSTM and enc-dec (whisper) are not yet")
 
 
 def n_units(cfg: ModelConfig) -> int:
@@ -64,7 +66,7 @@ def n_units(cfg: ModelConfig) -> int:
 
 
 def _check_positional(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+    if not supports_paged_kv(cfg):
         raise ValueError(
             f"{cfg.name}: {cfg.family!r} family has no {what} (recurrent "
             "state is not position-addressable)")
@@ -79,16 +81,21 @@ def supports_paged_kv(cfg: ModelConfig) -> bool:
 # parameters and caches
 # ---------------------------------------------------------------------------
 
-def _param_tree(cfg: ModelConfig, gen: Optional[torch.Generator]) -> dict:
-    """The parameter dict in float32: normals from ``gen`` (fan-in scaled;
-    norms ones, biases zeros), or uninitialized tensors of the same
-    shapes when ``gen`` is None (see :func:`param_specs`)."""
+def _param_tree(cfg: ModelConfig, gen: Optional[ParamDraw]) -> dict:
+    """The parameter dict: normals from ``gen`` (fan-in scaled; norms
+    ones, biases zeros, float32 until :func:`to_device`), or uninitialized
+    tensors of the same shapes when ``gen`` is None (see
+    :func:`param_specs`).  A moe block has ``moe`` in place of ``mlp``."""
     V, D = cfg.vocab_size, cfg.d_model
 
     def attn_mlp_block():
-        return {"attn_norm": torch.ones(D), "mlp_norm": torch.ones(D),
-                "attn": init_attn_params(gen, cfg),
-                "mlp": init_mlp_params(gen, D, cfg.d_ff, fused=cfg.fused_glu)}
+        p = {"attn_norm": torch.ones(D), "mlp_norm": torch.ones(D),
+             "attn": init_attn_params(gen, cfg)}
+        if cfg.n_experts:
+            p["moe"] = moe.make_moe_params(gen, cfg)
+        else:
+            p["mlp"] = init_mlp_params(gen, D, cfg.d_ff, fused=cfg.fused_glu)
+        return p
 
     params: dict = {"embed": normal_(gen, (V, D), scale=0.02)}
     if cfg.family == "zamba":
@@ -106,11 +113,14 @@ def _param_tree(cfg: ModelConfig, gen: Optional[torch.Generator]) -> dict:
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     """Random parameters drawn from a seeded CPU ``torch.Generator`` (a
-    fan-in scaled normal; norms ones, biases zeros), then moved to
-    ``device``: the same seed gives the same weights on every device."""
+    fan-in scaled normal; norms ones, biases zeros): the same seed gives
+    the same weights on every device.  Each leaf is cast and moved to
+    ``device`` as soon as it is drawn, so host memory holds one leaf at a
+    time (llama2-13b would need 52 GB for its whole float32 tree)."""
     check_family(cfg)
-    gen = torch.Generator().manual_seed(seed)
-    return to_device(_param_tree(cfg, gen), device, torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    tree = _param_tree(cfg, ParamDraw(seed, device, dtype))
+    return to_device(tree, device, dtype)
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -187,16 +197,19 @@ def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
                  cache_pos, page_table=None, page_size: int = 0,
                  adapters: Optional[dict] = None, adapter_ids=None):
-    """One decoder block (pre-norm attention, then the gated MLP) over its
-    parameters ``bp`` and its layer's cache (updated in place).  The layer
-    loop below and the layer-streamed prefill (``core.streaming``) both
-    run it.  ``adapters`` is this layer's slice of an adapter bank."""
+    """One decoder block (pre-norm attention, then the gated MLP or, for
+    moe, the expert layer) over its parameters ``bp`` and its layer's
+    cache (updated in place).  The layer loop below and the layer-streamed
+    prefill (``core.streaming``) both run it.  ``adapters`` is this
+    layer's slice of an adapter bank."""
     h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
     a, _ = attention_block(bp["attn"], h, cfg, positions, layer_cache,
                            cache_pos, page_table=page_table,
                            page_size=page_size, adapters=adapters,
                            adapter_ids=adapter_ids)
     h, x = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps, residual=a)
+    if cfg.n_experts:
+        return x + moe.moe_block(bp["moe"], h, cfg)
     return x + mlp_block(bp["mlp"], h, cfg.act)
 
 
@@ -299,7 +312,7 @@ def prefill_from(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     already filled (a reused prompt prefix).  Positions, RoPE and the
     causal mask carry the offset, and the new K/V land at ``offset``.
     With an ``adapter_bank``, ``adapter_ids`` [B] selects each sequence's
-    LoRA row.  Dense family only."""
+    LoRA row.  Dense and moe families only."""
     check_family(cfg)
     _check_positional(cfg, "suffix-only prefill")
     return _prefill(params, cfg, tokens, cache, int(offset), adapter_bank,
@@ -341,7 +354,8 @@ def decode_step_paged(params: dict, cfg: ModelConfig, cache: dict,
     tokens: [B, 1]; pos: int [B] per-sequence positions; page_table:
     [B, NB] int32 physical page per logical block.  With an
     ``adapter_bank``, ``adapter_ids`` [B] selects each slot's LoRA delta
-    (0 = null adapter for free and foreign slots).  Dense family only."""
+    (0 = null adapter for free and foreign slots).  Dense and moe families
+    only."""
     check_family(cfg)
     _check_positional(cfg, "paged decode path")
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)

@@ -32,7 +32,8 @@ from repro_torch.runtime import (ContinuousBatchingEngine, Engine,  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-ARCHS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b"]
+ARCHS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b",
+         "llama2-13b", "chameleon-34b", "llama2-70b"]
 
 
 def _pair(arch):

@@ -7,6 +7,8 @@ interpret mode).  Tolerance: logits within atol 2e-4, as in
 tests/test_kernels.py; greedy tokens identical.  TF32 is off.
 """
 
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -20,11 +22,13 @@ from repro.models.registry import get_smoke_model as jax_smoke  # noqa: E402
 from repro.utils import tree_paths_and_leaves  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models import quant as tquant  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
 from repro_torch.models.registry import get_smoke_model as torch_smoke  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-ARCHS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b"]
+ARCHS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b",
+         "llama2-13b", "chameleon-34b", "llama2-70b"]
 ATOL = 2e-4
 B, PS, NB = 2, 8, 4                     # decode batch, page size, blocks/seq
 
@@ -171,6 +175,61 @@ def test_init_params_is_seeded_and_fan_in_scaled():
     wq = a["layers"][0]["attn"]["wq"]
     assert abs(float(wq.std()) - tm.cfg.d_model ** -0.5) < 0.02
     assert "lm_head" not in a                          # tied embeddings
+
+
+@pytest.mark.parametrize("arch", ["llama2-13b", "chameleon-34b", "llama2-70b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_configs_and_smoke_configs_match_jax(arch):
+    """The port's own copy of each config, full and reduced, agrees with
+    the JAX package's on every field the port keeps."""
+    from repro.models.registry import get_config as jax_config
+    from repro_torch.models.config import reduced
+    from repro_torch.models.registry import get_config
+    for full in (False, True):
+        tc, jc = get_config(arch), jax_config(arch)
+        if not full:
+            tc, jc = reduced(tc), jax_smoke(arch).cfg
+        for f in dataclasses.fields(tc):
+            assert getattr(tc, f.name) == getattr(jc, f.name), (full, f.name)
+
+
+_ONES = {"attn_norm", "mlp_norm", "final_norm", "q_norm", "k_norm", "norm",
+         "d_skip"}
+_ZEROS = {"bq", "bk", "bv", "dt_bias", "a_log"}
+
+
+def _one_draw(cfg, seed):
+    """The whole float32 tree from one seeded CPU generator in creation
+    order, then cast to the model dtype: the weights ``init_params`` gave
+    before it drew leaf by leaf."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for name, spec in convert.named_parameters(transformer.param_specs(cfg)):
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _ONES:
+            t = torch.ones(spec.shape)
+        elif leaf in _ZEROS:
+            t = torch.zeros(spec.shape)
+        else:
+            scale = {"embed": 0.02, "lm_head": 0.02, "conv_w": 0.5,
+                     "router": cfg.d_model ** -0.5}.get(leaf,
+                                                        spec.shape[0] ** -0.5)
+            t = torch.randn(tuple(spec.shape), generator=gen) * scale
+        out.append((name, t.to(spec.dtype)))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen2.5-32b",
+                                  "phi3.5-moe-42b-a6.6b", "zamba2-2.7b"])
+def test_init_params_leaf_by_leaf_equals_one_draw(arch):
+    """Drawing, casting and moving each leaf as it is drawn gives the same
+    bf16 weights, bit for bit, as drawing the whole tree first."""
+    tm = torch_smoke(arch, device="cpu", n_layers=2, dtype="bfloat16")
+    got = list(convert.named_parameters(tm.init_params(seed=5)))
+    want = _one_draw(tm.cfg, 5)
+    assert [n for n, _ in got] == [n for n, _ in want]
+    for (name, a), (_, b) in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b), name
 
 
 def test_paged_decode_equals_dense_decode_in_port():

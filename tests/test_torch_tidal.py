@@ -47,7 +47,8 @@ from repro_torch.runtime.errors import WeightFetchFault  # noqa: E402
 from repro_torch.utils import named_leaves, tree_bytes  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
-ARCHS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b"]
+ARCHS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b",
+         "llama2-13b", "chameleon-34b", "llama2-70b"]
 
 
 def _port_trace(model, B=2, S=16):

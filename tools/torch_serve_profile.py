@@ -86,6 +86,7 @@ def timed_steps(model, params, prefix, reqs) -> dict:
 
 def profiled_pass(model, params, prefix, reqs) -> dict:
     """Device time by kernel and busy share over one whole pass."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     eng = new_engine(model, params, prefix)
     torch.cuda.synchronize()
@@ -104,8 +105,11 @@ def profiled_pass(model, params, prefix, reqs) -> dict:
         return getattr(e, "self_device_time_total", None) or getattr(
             e, "self_cuda_time_total", 0.0)
 
+    # device-side events only: a CPU op reports the device time of the
+    # kernels it launched as its own, so summing both counts it twice
     kernels = sorted(((e.key, device_us(e) / 1e3, e.count) for e in events
-                      if device_us(e) > 0), key=lambda r: -r[1])
+                      if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                     key=lambda r: -r[1])
     device_ms = sum(ms for _, ms, _ in kernels)
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events),
                   key=lambda r: -r[1])
