@@ -5,8 +5,10 @@ Per registered function the server keeps:
 
   * the :class:`FunctionTemplate` (access order, kernel set, fingerprints,
     Eq. 1 residency, merge plan), traced on ``meta`` tensors;
-  * host-pool copies of every static weight (pinned memory when the
-    function's model lives on a card);
+  * host-pool copies of every static weight: views into ONE host buffer
+    of the static weights' exact bytes, laid out in traced access order
+    (``merging.pack_host_pool``) and page-locked when the function's
+    model lives on a card;
   * device tensors for the access-order resident prefix.
 
 ``fork`` implements adaptive state forking for a new invocation:
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import LLMFunction
+from repro_torch.core.merging import pack_host_pool
 from repro_torch.core.streaming import ForkSession, StreamEntry, WeightStreamer
 from repro_torch.core.template import FunctionTemplate, generate_template
 from repro_torch.core.tracing import trace_weight_access, weight_sizes
@@ -69,6 +72,7 @@ class TemplateServer:
         # state beyond weights, baked once into pinned arena pages
         self.template_prompts: dict = {}
         self.host_pool: dict = {}                     # fn -> path -> tensor
+        self.host_buffers: dict = {}                  # fn -> HostBuffer
         self.device_cache: dict = {}                  # fn -> path -> tensor
         self._leaf_order: dict = {}                   # fn -> [path, ...]
         self._functions: dict = {}
@@ -77,6 +81,11 @@ class TemplateServer:
     def device_bytes_used(self) -> int:
         return sum(tensor_nbytes(t) for d in self.device_cache.values()
                    for t in d.values())
+
+    def registered_bytes(self) -> int:
+        """Host bytes the pools hold page-locked in place (PyTorch's pinned
+        allocator statistics do not see them)."""
+        return sum(b.nbytes for b in self.host_buffers.values() if b.pinned)
 
     def register(self, fn: LLMFunction, example_event: dict,
                  resident_bytes: int = 0,
@@ -106,14 +115,17 @@ class TemplateServer:
         self._functions[fn.name] = fn
         self._leaf_order[fn.name] = [path for path, _ in trace.order]
 
-        # host pool: materialize static weights once (pinned for a card)
-        pin = model.device.type == "cuda"
-        pool = {}
-        for path, leaf in named_leaves(traced):
-            if path not in template.dynamic:
-                t = leaf.materialize().contiguous()
-                pool[path] = t.pin_memory() if pin else t
-        self.host_pool[fn.name] = pool
+        # host pool: materialize static weights once, in access order,
+        # into one buffer (pinned for a card)
+        leaves = dict(named_leaves(traced))
+        order = [p for p in self._leaf_order[fn.name] if p in leaves]
+        seen = set(order)
+        order += [p for p in leaves if p not in seen]
+        self.host_pool.pop(fn.name, None)         # a re-register's old pool
+        self.host_buffers.pop(fn.name, None)
+        self.host_buffers[fn.name], self.host_pool[fn.name] = pack_host_pool(
+            [(p, leaves[p]) for p in order if p not in template.dynamic],
+            pin=model.device.type == "cuda")
         self._refresh_residency(fn.name)
         if template_prompt is not None:
             self.template_prompts[fn.name] = np.asarray(

@@ -46,6 +46,18 @@ def row_stride(x: torch.Tensor) -> int:
     return lead[-1][1]
 
 
+def vector_path(x: torch.Tensor, scale: torch.Tensor,
+                residual: torch.Tensor | None = None) -> bool:
+    """Whether the kernel reads these inputs with 16-byte loads (its
+    vector path; fresh outputs are always aligned): rows, row strides and
+    addresses in multiples of 16 bytes."""
+    per = 16 // x.element_size()          # elements of one 16-byte access
+    ins = (x, scale) + (() if residual is None else (residual,))
+    return (x.shape[-1] % per == 0
+            and all(row_stride(t) % per == 0 for t in ins if t is not scale)
+            and all(t.data_ptr() % 16 == 0 for t in ins))
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
             residual: torch.Tensor | None = None):
     """RMSNorm over the last axis with fp32 statistics.
@@ -94,12 +106,9 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     rows = x.numel() // d if d else 0
     if rows == 0:
         return (y, s) if fused else y
-    per = 16 // x.element_size()          # elements of one 16-byte access
     outs = (y, s) if fused else (y,)
-    vec = (d % per == 0 and stride % per == 0
-           and all(t.data_ptr() % 16 == 0 for t in (x, scale) + outs)
-           and (not fused or (r_stride % per == 0
-                              and residual.data_ptr() % 16 == 0)))
+    vec = (vector_path(x, scale, residual)
+           and all(t.data_ptr() % 16 == 0 for t in outs))
     fn = _build.function("repro_rmsnorm", _ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), residual.data_ptr() if fused else None,

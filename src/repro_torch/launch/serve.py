@@ -8,6 +8,8 @@ default; ``--device cpu`` with a reduced depth runs it on the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-13b
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi3.5-moe-42b-a6.6b --layers 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v3-671b --layers 1
 
 Per request the runtime picks the service class itself: ``cold`` (first
 invocation), ``fork`` (adaptive state forking from the template, prefill
@@ -20,8 +22,12 @@ configuration, as ``repro.launch.serve`` serves it there.  ``--layers``
 cuts the depth of either.  zamba2-2.7b (Mamba2 + shared attention) serves
 over the dense slot pool, its prefills through the ``ssd_scan`` kernel.
 phi3.5-moe-42b-a6.6b (84 GB in bf16) fits one card only with ``--layers``
-cut (8 of 32 leave room for a fork's copy); llama2-70b serves only on the
-CPU until tensor parallelism is ported.
+cut (8 of 32 leave room for a fork's copy), deepseek-v3-671b (MLA over a
+latent paged arena, 256 experts and a shared one; 23 GB per layer) with
+``--layers 1``: a model whose weights take more than half the card exits
+asking for ``--layers``.  ``--lora`` targets the GQA query projection,
+which MLA does not have, so deepseek-v3 serves static functions only.
+llama2-70b serves only on the CPU until tensor parallelism is ported.
 
 ``--open-loop --qps Q [--deadline D]`` replaces the closed loop (submit,
 wait, repeat) with open-loop Poisson arrivals through the async gateway:
@@ -40,6 +46,7 @@ import collections
 import sys
 
 import numpy as np
+import torch
 
 from repro_torch.core import api as tidal
 from repro_torch.data.pipeline import make_prompts
@@ -49,7 +56,7 @@ from repro_torch.runtime.controlplane import ControlPlane
 from repro_torch.runtime.errors import DeadlineExceeded
 from repro_torch.runtime.faas import FaaSRuntime
 from repro_torch.runtime.gateway import InvocationRequest
-from repro_torch.utils import fmt_bytes
+from repro_torch.utils import fmt_bytes, tree_bytes
 
 LATER = {"tp": "tensor parallelism (ROADMAP Queue 1, item 11)",
          "instances": "multi-instance serving (ROADMAP Queue 1, item 11)"}
@@ -148,10 +155,20 @@ def main(argv=None):
                      "PyTorch port yet")
 
     cfg = get_config(args.arch)
+    if args.lora and cfg.use_mla:
+        sys.exit(f"--lora: {cfg.name} has MLA attention; the adapters target "
+                 f"{LORA_TARGET[cfg.family]}, a GQA projection it does not have")
     extra = {} if args.layers is None else {"n_layers": args.layers}
     cpu = args.device == "cpu"
     cfg = reduced(cfg, **extra) if cpu else cfg.replace(**extra)
     model = get_model(cfg, device=args.device)
+    if not cpu and args.layers is None:
+        weights = tree_bytes(model.param_specs())
+        card = torch.cuda.get_device_properties(model.device).total_memory
+        if 2 * weights > card:
+            sys.exit(f"--arch {args.arch}: {fmt_bytes(weights)} of weights "
+                     f"and a fork's copy do not fit the card's "
+                     f"{fmt_bytes(card)}; cut the depth with --layers")
     rt = FaaSRuntime(n_slots=args.slots,
                      max_len=args.prompt_len + args.max_new,
                      keep_alive_s=args.keep_alive, trace_seq=args.prompt_len,

@@ -10,7 +10,9 @@ same blocks with a top-k expert layer, ``moe``, in place of the MLP) and
 zamba, the Mamba2 hybrid (``mamba``: one dict per Mamba2 block;
 ``shared_attn``: ONE attention + MLP block applied after every
 ``attn_every`` Mamba2 blocks).  A zamba cache is ``{'mamba': {'h',
-'conv'}, 'attn_kv': {'k', 'v'}}``.
+'conv'}, 'attn_kv': {'k', 'v'}}``.  With ``cfg.use_mla`` (deepseek-v3)
+a dense or moe block's attention is MLA (``models.mla``) and its cache
+the latent ``{'c_kv', 'k_rope'}``.
 
 Entry points:
   forward(params, cfg, tokens)                        -> (logits, aux)
@@ -30,7 +32,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models import moe, quant, ssm
+from repro_torch.models import mla, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamDraw, attention_block,
                                        embed_tokens, init_attn_params,
@@ -50,13 +52,14 @@ def torch_dtype(name_or_dtype) -> torch.dtype:
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families this port does not serve yet."""
-    ported = (cfg.family in ("dense", "moe", "zamba") and not cfg.use_mla
-              and not cfg.is_encdec
+    ported = (cfg.family in ("dense", "moe", "zamba") and not cfg.is_encdec
+              and not (cfg.use_mla and cfg.family == "zamba")
               and (cfg.family == "moe") == bool(cfg.n_experts))
     if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: the dense GQA, moe and zamba families are ported; "
-            "MLA (deepseek-v3), xLSTM and enc-dec (whisper) are not yet")
+            f"{cfg.name}: the dense and moe families (GQA or MLA attention) "
+            "and zamba are ported; MLA outside a dense or moe block, xLSTM "
+            "and enc-dec (whisper) are not yet")
 
 
 def n_units(cfg: ModelConfig) -> int:
@@ -85,12 +88,14 @@ def _param_tree(cfg: ModelConfig, gen: Optional[ParamDraw]) -> dict:
     """The parameter dict: normals from ``gen`` (fan-in scaled; norms
     ones, biases zeros, float32 until :func:`to_device`), or uninitialized
     tensors of the same shapes when ``gen`` is None (see
-    :func:`param_specs`).  A moe block has ``moe`` in place of ``mlp``."""
+    :func:`param_specs`).  A moe block has ``moe`` in place of ``mlp``,
+    an MLA block MLA's projections as ``attn``."""
     V, D = cfg.vocab_size, cfg.d_model
 
     def attn_mlp_block():
         p = {"attn_norm": torch.ones(D), "mlp_norm": torch.ones(D),
-             "attn": init_attn_params(gen, cfg)}
+             "attn": (mla.make_mla_params(gen, cfg) if cfg.use_mla
+                      else init_attn_params(gen, cfg))}
         if cfg.n_experts:
             p["moe"] = moe.make_moe_params(gen, cfg)
         else:
@@ -145,11 +150,12 @@ def to_device(tree, device, dtype: Optional[torch.dtype] = None):
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                device="cuda") -> dict:
-    """Dense per-sequence cache.  Dense family: ``{'k','v': [L, batch,
-    max_len, KV, hd]}``.  zamba: ``{'mamba': {'h': [L, batch, H, dh, ds]
-    fp32, 'conv': [L, batch, W-1, conv_ch]}, 'attn_kv': {'k','v':
-    [n_units, batch, max_len, KV, hd]}}``.  Axis 1 of every leaf is the
-    batch (slot) axis."""
+    """Dense per-sequence cache.  Dense and moe families: ``{'k','v': [L,
+    batch, max_len, KV, hd]}``, or with MLA ``{'c_kv': [L, batch, max_len,
+    kvr], 'k_rope': [L, batch, max_len, dr]}``.  zamba: ``{'mamba': {'h':
+    [L, batch, H, dh, ds] fp32, 'conv': [L, batch, W-1, conv_ch]},
+    'attn_kv': {'k','v': [n_units, batch, max_len, KV, hd]}}``.  Axis 1 of
+    every leaf is the batch (slot) axis."""
     check_family(cfg)
     dt = torch_dtype(cfg.dtype)
     L = cfg.n_layers
@@ -160,17 +166,28 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                           for k, s in ssm.mamba2_state_shape(cfg, batch).items()},
                 "attn_kv": {k: torch.zeros(kv, dtype=dt, device=device)
                             for k in ("k", "v")}}
-    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}
+    return {k: torch.zeros((L, batch, max_len) + row, dtype=dt, device=device)
+            for k, row in kv_rows(cfg).items()}
+
+
+def kv_rows(cfg: ModelConfig) -> dict:
+    """The cache leaves of a dense or moe model and the shape of the row
+    each holds per (layer, token): K/V heads, or MLA's latent and rope key."""
+    if cfg.use_mla:
+        return {"c_kv": (cfg.kv_lora_rank,), "k_rope": (cfg.qk_rope_dim,)}
+    row = (cfg.n_kv_heads, cfg.head_dim)
+    return {"k": row, "v": row}
 
 
 def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
                      device="cuda", kv_dtype: Optional[str] = None) -> dict:
-    """One shared KV page arena ``[L, n_pages, page_size, KV, hd]``.
+    """One shared KV page arena ``[L, n_pages, page_size, KV, hd]`` per
+    leaf (MLA: ``c_kv`` ``[L, n_pages, page_size, kvr]`` and ``k_rope``
+    ``[..., dr]``).
 
     ``kv_dtype='int8'`` makes the value leaves int8 and adds a float32
-    ``<leaf>_scale`` arena ``[L, n_pages, page_size, KV]`` next to each.
+    ``<leaf>_scale`` arena, the value leaf's shape minus its last axis
+    (one scale per cached row), next to each.
     """
     check_family(cfg)
     if not supports_paged_kv(cfg):
@@ -178,12 +195,14 @@ def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
             f"{cfg.name}: {cfg.family!r} family has no paged KV layout")
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    shapes = {k: (cfg.n_layers, n_pages, page_size) + row
+              for k, row in kv_rows(cfg).items()}
     if kv_dtype is None:
         dt = torch_dtype(cfg.dtype)
-        return {k: torch.zeros(shape, dtype=dt, device=device) for k in ("k", "v")}
+        return {k: torch.zeros(shape, dtype=dt, device=device)
+                for k, shape in shapes.items()}
     cache = {}
-    for k in ("k", "v"):
+    for k, shape in shapes.items():
         cache[k] = torch.zeros(shape, dtype=torch.int8, device=device)
         cache[k + quant.SCALE_SUFFIX] = torch.zeros(
             shape[:-1], dtype=torch.float32, device=device)
@@ -201,12 +220,21 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
     moe, the expert layer) over its parameters ``bp`` and its layer's
     cache (updated in place).  The layer loop below and the layer-streamed
     prefill (``core.streaming``) both run it.  ``adapters`` is this
-    layer's slice of an adapter bank."""
+    layer's slice of an adapter bank (GQA blocks only)."""
     h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
-    a, _ = attention_block(bp["attn"], h, cfg, positions, layer_cache,
-                           cache_pos, page_table=page_table,
-                           page_size=page_size, adapters=adapters,
-                           adapter_ids=adapter_ids)
+    if cfg.use_mla:
+        if adapters is not None:
+            raise NotImplementedError(
+                "adapter gather targets the GQA projections, not MLA")
+        a, _ = mla.mla_attention_block(bp["attn"], h, cfg, positions,
+                                       layer_cache, cache_pos,
+                                       page_table=page_table,
+                                       page_size=page_size)
+    else:
+        a, _ = attention_block(bp["attn"], h, cfg, positions, layer_cache,
+                               cache_pos, page_table=page_table,
+                               page_size=page_size, adapters=adapters,
+                               adapter_ids=adapter_ids)
     h, x = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps, residual=a)
     if cfg.n_experts:
         return x + moe.moe_block(bp["moe"], h, cfg)
