@@ -121,7 +121,25 @@ Phases, in order; any failure raises and the process exits non-zero:
    attention kernel); then 1-layer fp32 card against CPU checks with the
    experts cut to 32 (logits within 1e-4 of the largest, routing and kept
    pairs equal) at 2 slots and at 8 slots with a 48-token chunked
-   prefill, and streamed prefill equal to prefill.
+   prefill, and streamed prefill equal to prefill;
+12. xlstm-1.3b at full width and depth (48 layers: 42 mLSTM and 6 sLSTM
+   blocks, d_model 2048, 4 heads, mLSTM head dim 1024, chunk 128,
+   vocabulary 50,304, bf16, 7.21 GB of seeded random weights): rmsnorm at
+   xLSTM's rows (8 and 512 rows of 2048 and 4096, both forms), then the
+   dense-pool ``ContinuousBatchingEngine`` (8 slots, 12 requests of 16
+   new tokens, prompts of 32 to 512 tokens that keep the reference's
+   chunk rule; tokens/s, TTFT, decode host ms, state bytes per slot), the
+   sequential ``Engine`` (8 x 256 + 32) with the continuous engine's
+   tokens equal to it, exact launch counts (rmsnorm 103 per model call, 6
+   with the residual fused; no attention kernel, no ``ssd_scan``), the
+   decode step at 8 busy slots beside its byte bound (the weights, and
+   the recurrent state read and written once), a 512-token prefill with
+   its sLSTM time loop's share, ``FaaSRuntime`` cold / warm / fork of a
+   static function (a fork streams the whole model; fork tokens equal
+   warm; page-locked bytes within 1.05 times the weights), the peak
+   allocation; then a 2-layer fp32 card against CPU check (one mLSTM
+   and one sLSTM block: logits within 1e-4 of the largest, tokens equal)
+   and streamed prefill equal to prefill.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -856,11 +874,22 @@ def attention_invariance(device, gen, heads: dict, tag: str) -> dict:
 
 def attention_launches(cfg) -> int:
     """Attention blocks of one model call: one per layer, or for zamba one
-    per application of the shared block.  Each GQA block launches one
-    attention kernel; an MLA block none (see ``attention_kernels``)."""
+    per application of the shared block, none for xlstm.  Each GQA block
+    launches one attention kernel; an MLA block none (see
+    ``attention_kernels``)."""
     if cfg.family == "zamba":
         return cfg.n_layers // cfg.attn_every
+    if cfg.family == "xlstm":
+        return 0
     return cfg.n_layers
+
+
+def xlstm_blocks(cfg) -> tuple:
+    """xlstm: (mLSTM blocks, sLSTM blocks) of the model: a unit of
+    ``slstm_every`` layers holds ``slstm_every - 1`` mLSTM blocks and one
+    sLSTM block (42 and 6 for xlstm-1.3b)."""
+    units = cfg.n_layers // cfg.slstm_every
+    return units * (cfg.slstm_every - 1), units
 
 
 def attention_kernels(cfg) -> int:
@@ -874,9 +903,15 @@ def norm_launches(cfg) -> int:
     and two more per block for qk-norm models or MLA models (``q_a_norm``
     and ``kv_a_norm``).  zamba: two per Mamba2 block (the pre-norm and the
     mixer's gated norm), two per application of the shared block, and the
-    final norm (127 for zamba2-2.7b)."""
+    final norm (127 for zamba2-2.7b).  xlstm: two per mLSTM block (the
+    pre-norm and the inner norm), three per sLSTM block (the pre-norm, the
+    inner norm and ``mlp_norm``), and the final norm (103 for
+    xlstm-1.3b)."""
     if cfg.family == "zamba":
         return 2 * cfg.n_layers + 2 * attention_launches(cfg) + 1
+    if cfg.family == "xlstm":
+        n_m, n_s = xlstm_blocks(cfg)
+        return 2 * n_m + 3 * n_s + 1
     return (4 if cfg.qk_norm or cfg.use_mla else 2) * cfg.n_layers + 1
 
 
@@ -884,23 +919,28 @@ def fused_norm_launches(cfg) -> int:
     """rmsnorm launches of one model call with the residual add fused in:
     the pre-MLP norm of every attention + MLP block (``_dense_block``), so
     one per attention launch (30 for smollm-135m, 9 for zamba2-2.7b's
-    shared block).  They are counted under ``rmsnorm`` too."""
+    shared block); for xlstm the ``mlp_norm`` of every sLSTM block (6 for
+    xlstm-1.3b).  They are counted under ``rmsnorm`` too."""
+    if cfg.family == "xlstm":
+        return xlstm_blocks(cfg)[1]
     return attention_launches(cfg)
 
 
 def check_norm_launches(counts: dict, cfg, where: str) -> None:
     """Every model call launches attention_kernels(cfg) attention kernels,
     norm_launches(cfg) rmsnorms and fused_norm_launches(cfg) fused ones, so
-    the counts stand in fixed ratios (MLA: no attention kernel, and the
-    fused launches count the calls)."""
+    the counts stand in fixed ratios (MLA and xlstm: no attention kernel,
+    and the fused launches count the calls; xlstm: no ``ssd_scan``
+    either)."""
     attn = (counts["paged_decode_attention"] + counts["flash_attention"]
             + counts["decode_attention"])
     units = attention_kernels(cfg)
-    if cfg.use_mla:
+    if cfg.use_mla or cfg.family == "xlstm":
         attn, units = counts["rmsnorm_fused"], fused_norm_launches(cfg)
         if counts["paged_decode_attention"] or counts["flash_attention"] or (
-                counts["decode_attention"]) or not attn:
-            raise AssertionError(f"{where}: MLA launched {counts}")
+                counts["decode_attention"]) or not attn or (
+                cfg.family == "xlstm" and counts["ssd_scan"]):
+            raise AssertionError(f"{where}: {cfg.name} launched {counts}")
     if (counts["rmsnorm"] * units != norm_launches(cfg) * attn
             or counts["rmsnorm_fused"] * units != fused_norm_launches(cfg) * attn):
         raise AssertionError(f"{where}: rmsnorm launches {counts} are not "
@@ -1811,15 +1851,30 @@ def check_zamba_launches(counts: dict, cfg, prefills: int, steps: int,
                              f"({prefills} prefills, {steps} decode steps)")
 
 
-def zamba_continuous(model, params, prompts: list, new_tokens: int,
-                     where: str) -> tuple:
+def check_xlstm_launches(counts: dict, cfg, calls: int, where: str) -> None:
+    """Exact launches of ``calls`` model calls of an xlstm model: rmsnorm
+    only (103 per call for xlstm-1.3b, 6 of them fused), no attention
+    kernel and no ``ssd_scan``."""
+    want = {"rmsnorm": norm_launches(cfg) * calls,
+            "rmsnorm_fused": fused_norm_launches(cfg) * calls,
+            "ssd_scan": 0, "flash_attention": 0, "decode_attention": 0,
+            "paged_decode_attention": 0}
+    if counts != want:
+        raise AssertionError(f"{where}: launches {counts} != {want} "
+                             f"({calls} model calls)")
+
+
+def dense_continuous(model, params, prompts: list, new_tokens: int,
+                     where: str, max_len: int = 512) -> tuple:
     """Every prompt through one dense-pool ContinuousBatchingEngine (8
-    slots, max_len 512), launch counts checked; returns (row, tokens)."""
+    slots), launch counts checked (zamba or xlstm); returns (row,
+    tokens)."""
     from repro_torch.kernels import ops
     from repro_torch.runtime import ContinuousBatchingEngine
-    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512)
+    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=max_len)
     if eng.paged:
-        raise AssertionError("zamba must serve over the dense slot pool")
+        raise AssertionError(f"{model.cfg.name} must serve over the dense "
+                             "slot pool")
     host = []
     decode_step = model.decode_step
 
@@ -1846,10 +1901,15 @@ def zamba_continuous(model, params, prompts: list, new_tokens: int,
     if any(r.status != "done" or r.n_generated != new_tokens
            or not ((r.tokens >= 0) & (r.tokens < vocab)).all() for r in res):
         raise AssertionError(f"{where}: unfinished requests")
-    check_zamba_launches(counts, model.cfg, eng.n_prefill_calls,
-                         eng.n_decode_steps, where)
+    if model.cfg.family == "xlstm":
+        check_xlstm_launches(counts, model.cfg,
+                             eng.n_prefill_calls + eng.n_decode_steps, where)
+    else:
+        check_zamba_launches(counts, model.cfg, eng.n_prefill_calls,
+                             eng.n_decode_steps, where)
     ttft = np.asarray([r.ttft_s for r in res]) * 1e3
     row = {"pass": where, "requests": len(res),
+           "state_bytes_per_slot": eng.pool.nbytes() // eng.pool.n_slots,
            "prompt_lens": [int(r.prompt_len) for r in res],
            "new_tokens": new_tokens, "decode_steps": eng.n_decode_steps,
            "prefill_calls": eng.n_prefill_calls, "launches": counts,
@@ -1872,8 +1932,8 @@ def phase_zamba(device, h2d: float) -> dict:
     cfg, vocab = model.cfg, model.cfg.vocab_size
     rng = np.random.default_rng(10)
     prompts = [rng.integers(1, vocab, n).astype(np.int32) for n in ZAMBA_LENGTHS]
-    zamba_continuous(model, params, prompts[:2], 2, "zamba warm-up")
-    serve, _ = zamba_continuous(model, params, prompts, 16, "zamba dense pool")
+    dense_continuous(model, params, prompts[:2], 2, "zamba warm-up")
+    serve, _ = dense_continuous(model, params, prompts, 16, "zamba dense pool")
 
     batch = np.random.default_rng(11).integers(1, vocab, (8, 256)).astype(np.int32)
     eng = Engine(model, params)
@@ -1886,7 +1946,7 @@ def phase_zamba(device, h2d: float) -> dict:
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     check_zamba_launches(counts, cfg, 1, 31, "zamba Engine")
-    cont, cont_tokens = zamba_continuous(model, params, list(batch), 32,
+    cont, cont_tokens = dense_continuous(model, params, list(batch), 32,
                                          "zamba dense pool, Engine's prompts")
     equal = sum(int((res.tokens[i] == t).sum()) for i, t in enumerate(cont_tokens))
     engine = {"pass": "zamba engine", "batch": 8, "prompt_len": 256,
@@ -1909,20 +1969,30 @@ def phase_zamba(device, h2d: float) -> dict:
 
 def zamba_parity(device) -> dict:
     """A 2-layer fp32 zamba2 at full width (one unit of two Mamba2 blocks
-    and the shared block): card (kernels) against CPU (plain versions) on
-    a ragged 200-token prompt pair and 8 greedy decode steps, then the
-    card's layer-streamed prefill of a forked session against its
-    monolithic prefill, bit for bit."""
-    from repro_torch.core import api as tidal
-    from repro_torch.core.streaming import streamed_prefill
-    from repro_torch.core.template_server import TemplateServer
-    from repro_torch.models.registry import get_config, get_model
-    from repro_torch.runtime import Engine
-    from repro_torch.utils import named_leaves
+    and the shared block): ``recurrent_parity`` on a ragged 200-token
+    prompt pair, logits within 1e-3."""
+    from repro_torch.models.registry import get_config
     cfg = get_config("zamba2-2.7b").replace(n_layers=2, attn_every=2,
                                             dtype="float32")
     prompts = np.random.default_rng(12).integers(1, cfg.vocab_size, (2, 200)
                                                  ).astype(np.int32)
+    return recurrent_parity(cfg, device, prompts, lambda _: 1e-3, "zamba", 64)
+
+
+def recurrent_parity(cfg, device, prompts: np.ndarray, tol, tag: str,
+                     trace_seq: int) -> dict:
+    """``cfg`` (fp32, cut depth, full width): the same seeded weights on
+    the card (kernels) and on the CPU (plain versions), ``prompts`` and 8
+    greedy decode steps through the ``Engine``, logits within
+    ``tol(largest |logit|)`` and tokens equal; then the card's
+    layer-streamed prefill of a forked session against its monolithic
+    prefill, bit for bit."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.streaming import streamed_prefill
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.models.registry import get_model
+    from repro_torch.runtime import Engine
+    from repro_torch.utils import named_leaves
     runs = {}
     for dev in (device, "cpu"):
         model = get_model(cfg, device=dev)
@@ -1943,15 +2013,17 @@ def zamba_parity(device) -> dict:
         runs[str(dev)] = (torch.stack(logits), res.tokens)
     (lg_gpu, tk_gpu), (lg_cpu, tk_cpu) = runs[str(device)], runs["cpu"]
     err = float((lg_gpu - lg_cpu).abs().max())
-    out = {"max_abs_logit_err": err, "tol": 1e-3,
+    out = {"config": f"{cfg.name} x {cfg.n_layers} layers, {cfg.dtype}",
+           "max_abs_logit_err": err, "max_abs_logit": float(lg_cpu.abs().max()),
+           "tol": tol(float(lg_cpu.abs().max())),
            "tokens_equal": bool((tk_gpu == tk_cpu).all()),
            "tokens_card": tk_gpu.tolist()}
-    if not err <= 1e-3 or not out["tokens_equal"]:
-        raise AssertionError(f"zamba card vs CPU parity failed: {out}")
+    if not err <= out["tol"] or not out["tokens_equal"]:
+        raise AssertionError(f"{tag} card vs CPU parity failed: {out}")
 
     model = get_model(cfg, device=device)
     params = model.init_params(seed=1)
-    srv = TemplateServer(trace_seq=64)
+    srv = TemplateServer(trace_seq=trace_seq)
     srv.register(tidal.static_function("z", model, params), {})
     session, _ = srv.fork("z", {})
     lg_s, c_s = streamed_prefill(session, {"tokens": prompts[:1]},
@@ -1962,9 +2034,9 @@ def zamba_parity(device) -> dict:
     out["streamed_prefill_equal"] = bool(torch.equal(lg_s, lg_m) and all(
         torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(c_s),
                                                     named_leaves(c_m))))
-    print(json.dumps({"zamba_parity": out}))
+    print(json.dumps({f"{tag}_parity": out}))
     if not out["streamed_prefill_equal"]:
-        raise AssertionError("zamba streamed prefill differs from prefill")
+        raise AssertionError(f"{tag} streamed prefill differs from prefill")
     return out
 
 
@@ -2403,11 +2475,13 @@ def engine_vs_continuous(model, params, prompts: np.ndarray, new_tokens: int,
 
 
 def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
-    """The paged engine's decode step at 8 busy slots: host ms per step
+    """The continuous engine's decode step at 8 busy slots: host ms per step
     (synchronised), then under ``torch.profiler`` the device time of
     ``steps`` steps and its share of their wall time, beside the step's
     byte bound (every weight but the embedding table read once, plus the
-    K/V rows the step attends over: MLA's latent and rope-key rows)."""
+    K/V rows the step attends over: MLA's latent and rope-key rows; for
+    a family on the dense slot pool (xlstm) its whole recurrent state,
+    read once and written once)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import kv_rows
@@ -2429,6 +2503,7 @@ def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
         torch.cuda.synchronize()
         host.append(time.perf_counter() - t0)
     rows = int(np.sum(eng._pos))                 # K/V rows of the next step
+    state = 0 if model.supports_paged_kv else eng.pool.nbytes()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2451,8 +2526,11 @@ def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
     elt = torch.empty((), dtype=model.dtype).element_size()
     embed = params["embed"]
     weights = tree_bytes(params) - embed.numel() * elt + 8 * cfg.d_model * elt
-    row = sum(int(np.prod(r)) for r in kv_rows(cfg).values())
-    kv = rows * cfg.n_layers * row * elt
+    if model.supports_paged_kv:
+        row = sum(int(np.prod(r)) for r in kv_rows(cfg).values())
+        kv = rows * cfg.n_layers * row * elt
+    else:
+        kv = 2 * state
     out = {"arch": cfg.name, "layers": cfg.n_layers, "slots": 8,
            "host_ms_per_step_median": float(np.median(host) * 1e3),
            "host_ms_per_step_min": float(np.min(host) * 1e3),
@@ -2467,12 +2545,14 @@ def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
     return out
 
 
-def big_faas(model, params, h2d: float, lora_target=None) -> dict:
-    """``FaaSRuntime`` over a model of tens of GB with one function: a
-    static one with the 131-token template prompt, or with
-    ``lora_target`` a LoRA function (2 adapters), served cold, warm,
-    then forked after an evict (the LoRA one on the other adapter) and
-    warm again, through the gateway.  The template server keeps no
+def big_faas(model, params, h2d: float, lora_target=None, prompts=None,
+             state_bytes: int = 0) -> dict:
+    """``FaaSRuntime`` over a model of GBs with one function: a static one
+    with the 131-token template prompt (without it when ``prompts`` are
+    given: a recurrent family has no template prompt, and its prompts
+    keep its chunk rule), or with ``lora_target`` a LoRA function (2
+    adapters), served cold, warm, then forked after an evict (the LoRA one
+    on the other adapter) and warm again, through the gateway.  The template server keeps no
     weights resident (``device_budget_bytes=0``): every fork streams the
     whole model, and the card holds the function's weights and one
     forked copy.  A fork's tokens equal the warm invocation's for the
@@ -2480,7 +2560,9 @@ def big_faas(model, params, h2d: float, lora_target=None) -> dict:
     its host checkpoint and its pinned pool, each the model's bytes.  The
     page-locked bytes after deploy must stay within 1.05 times the
     model's (the pool's exact size; a pool pinned leaf by leaf held 1.7
-    times it for llama2-13b)."""
+    times it for llama2-13b).  ``state_bytes``: the dense slot pool's
+    recurrent state and the prewarm's copy of it, allowed at peak beside
+    the weights."""
     from repro_torch.core import api as tidal
     from repro_torch.core.template_server import TemplateServer
     from repro_torch.hw import H100_SXM
@@ -2488,6 +2570,8 @@ def big_faas(model, params, h2d: float, lora_target=None) -> dict:
     from repro_torch.runtime import FaaSRuntime
     from repro_torch.utils import tensor_nbytes
     prefix, reqs = serving_workload(model.cfg.vocab_size)
+    if prompts is not None:
+        prefix, reqs = None, prompts
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rt = FaaSRuntime(server=TemplateServer(hw=H100_SXM.with_h2d(h2d), trace_seq=128,
@@ -2555,7 +2639,7 @@ def big_faas(model, params, h2d: float, lora_target=None) -> dict:
                     r.tokens, warm.tokens):
                 raise AssertionError(f"{fn}: fork tokens != warm tokens")
     check_norm_launches(counts, model.cfg, f"{model.cfg.name} FaaS")
-    if not model.cfg.use_mla and (
+    if model.supports_paged_kv and not model.cfg.use_mla and (
             counts["paged_decode_attention"] == 0 or counts["flash_attention"] == 0
             or counts["decode_attention"] or counts["ssd_scan"]):
         raise AssertionError(f"{model.cfg.name} FaaS launches {counts}")
@@ -2576,11 +2660,12 @@ def big_faas(model, params, h2d: float, lora_target=None) -> dict:
     rt.evict()
     del rt
     release_host_memory()
-    # the function's weights plus one forked copy, and the arena and
-    # activations: a third copy would show here
-    if peak >= 2.5 * model_bytes:
+    # the function's weights plus one forked copy, and the arena (or the
+    # recurrent state) and activations: a third copy would show here
+    if peak >= 2.5 * model_bytes + state_bytes:
         raise AssertionError(f"{model.cfg.name}: {peak} bytes allocated at peak, "
-                             f"more than 2 copies of {model_bytes}")
+                             f"more than 2 copies of {model_bytes} and "
+                             f"{state_bytes} of state")
     return out
 
 
@@ -2808,13 +2893,173 @@ def phase_deepseek(device, h2d: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: xlstm-1.3b at full width and depth
+# ---------------------------------------------------------------------------
+
+# xLSTM's rows: the block norms at d_model 2048 and the mLSTM inner norm
+# at d_inner 4096, at decode (8 slots) and at a 512-token prefill
+XLSTM_RMSNORM_CASES = (("xlstm-decode", (8, 1, 2048)),
+                       ("xlstm-inner-decode", (8, 1, 4096)),
+                       ("xlstm-prefill", (512, 2048)),
+                       ("xlstm-inner-prefill", (512, 4096)))
+# prompt lengths the reference's chunked mLSTM takes at ssm_chunk 128: at
+# most one chunk, or a multiple of it
+XLSTM_LENGTHS = (32, 64, 96, 128, 256, 384, 512)
+
+
+def xlstm_prefill_timing(model, params, S: int = 512, reps: int = 3) -> dict:
+    """One S-token prefill: its wall ms (synchronised) and the ms until
+    the call returned to the host (median of ``reps``); then one run with
+    the card synchronised around each sLSTM mixer, whose time loop runs S
+    steps of ~15 ops per sLSTM block, for that loop's share of the wall."""
+    from repro_torch.models import ssm
+    toks = np.random.default_rng(21).integers(1, model.cfg.vocab_size, (1, S)
+                                              ).astype(np.int32)
+
+    def run():
+        cache = model.make_cache(1, S)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, cache)
+        t_call = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return t_call, time.perf_counter() - t0
+
+    run()                                                  # warm-up
+    calls, walls = zip(*[run() for _ in range(reps)])
+    mixer, spent = ssm.slstm_mixer, []
+
+    def timed_slstm(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = mixer(*a, **kw)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t)
+        return out
+
+    ssm.slstm_mixer = timed_slstm
+    try:
+        _, wall_i = run()
+    finally:
+        ssm.slstm_mixer = mixer
+    out = {"prompt_len": S, "wall_ms_median": float(np.median(walls) * 1e3),
+           "host_ms_median": float(np.median(calls) * 1e3),
+           "instrumented_wall_ms": wall_i * 1e3,
+           "slstm_ms": float(np.sum(spent) * 1e3), "slstm_calls": len(spent),
+           "slstm_share": float(np.sum(spent) / wall_i)}
+    print(json.dumps({"xlstm_prefill": out}))
+    return out
+
+
+def xlstm_parity(device) -> dict:
+    """A 2-layer fp32 xlstm-1.3b at full width (``slstm_every`` 2: one
+    mLSTM and one sLSTM block): ``recurrent_parity`` on two 256-token
+    prompts (two mLSTM chunks), logits within 1e-4 of the largest."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config("xlstm-1.3b").replace(n_layers=2, slstm_every=2,
+                                           dtype="float32")
+    print("xlstm-1.3b parity reduced: n_layers 48 -> 2, slstm_every 8 -> 2 "
+          "(fp32 on the card and on the CPU; every width the config's)")
+    prompts = np.random.default_rng(22).integers(1, cfg.vocab_size, (2, 256)
+                                                 ).astype(np.int32)
+    return recurrent_parity(cfg, device, prompts, lambda m: 1e-4 * m, "xlstm",
+                            128)
+
+
+def phase_xlstm(device, h2d: float) -> dict:
+    """xlstm-1.3b at full width and depth (48 layers: 42 mLSTM and 6 sLSTM
+    blocks, d_model 2048, 4 heads, mLSTM head dim 1024, chunk 128, bf16,
+    7.21 GB of seeded random weights drawn leaf by leaf): rmsnorm at
+    xLSTM's rows, the dense-pool continuous engine (8 slots, 12 requests),
+    the sequential Engine (8 x 256 + 32) with the continuous engine's
+    tokens equal to it, exact launch counts (rmsnorm 103 per model call, 6
+    fused; no attention kernel, no ``ssd_scan``), the decode step at 8
+    busy slots beside its byte bound (weights, and the recurrent state read
+    and written), a 512-token prefill and its sLSTM loop's share,
+    ``FaaSRuntime`` cold / warm / fork of a static function (a fork
+    streams the whole model), the peak allocation; then a 2-layer fp32
+    card against CPU check and streamed prefill equal to prefill."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import make_cache
+    from repro_torch.runtime import Engine
+    from repro_torch.utils import tree_bytes
+    gen = torch.Generator().manual_seed(12)
+    rows = []
+    for tag, shape in XLSTM_RMSNORM_CASES:
+        rows += rmsnorm_case(device, gen, tag, shape, torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    model, params, info = big_model("xlstm-1.3b", device)
+    cfg = model.cfg
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.slstm_every,
+            cfg.mlstm_proj_factor, cfg.ssm_chunk, cfg.conv_width,
+            cfg.vocab_size) == (48, 2048, 4, 8, 2.0, 128, 4, 50304)
+    per_call = (norm_launches(cfg), fused_norm_launches(cfg))
+    if per_call != (103, 6):
+        raise AssertionError(f"xlstm-1.3b rmsnorm launches per call {per_call}")
+    slot_bytes = tree_bytes(make_cache(cfg, 1, 512, device="meta"))
+    out = {"model": info, "kernels": rows, "rmsnorm_per_call": per_call,
+           "state_bytes_per_slot": slot_bytes}
+    rng = np.random.default_rng(20)
+    lengths = list(XLSTM_LENGTHS) + list(rng.choice(XLSTM_LENGTHS, 5))
+    prompts = [rng.integers(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lengths]
+    dense_continuous(model, params, prompts[:2], 2, "xlstm warm-up", 1024)
+    out["serve"], _ = dense_continuous(model, params, prompts, 16,
+                                       "xlstm dense pool", 1024)
+
+    batch = np.random.default_rng(23).integers(1, cfg.vocab_size, (8, 256)
+                                               ).astype(np.int32)
+    eng = Engine(model, params)
+    eng.generate(batch[:, :32], max_new_tokens=2)             # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(batch, max_new_tokens=32)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # the Engine's batch of 8 prefills one sequence at a time (8 calls),
+    # then 31 decode steps of the batch
+    check_xlstm_launches(counts, cfg, 8 + 31, "xlstm Engine")
+    cont, cont_tokens = dense_continuous(model, params, list(batch), 32,
+                                         "xlstm dense pool, Engine's prompts")
+    equal = sum(int((res.tokens[i] == t).sum()) for i, t in enumerate(cont_tokens))
+    engine = {"pass": "xlstm engine", "batch": 8, "prompt_len": 256,
+              "new_tokens": 32, "launches": counts, "wall_s": wall,
+              "ttft_ms": res.ttft_s * 1e3,
+              "decode_ms_per_step": res.decode_s / 31 * 1e3,
+              "tokens_per_s": 8 * 32 / wall,
+              "tokens_equal_to_continuous": f"{equal}/{8 * 32}"}
+    print(json.dumps(engine))
+    if equal != 8 * 32:
+        raise AssertionError(f"xlstm Engine tokens differ from the continuous "
+                             f"engine's: {equal}/{8 * 32}")
+    out["engine"], out["engine_prompts_continuous"] = engine, cont
+    out["decode_step"] = decode_profile(model, params, list(batch))
+    out["prefill_512"] = xlstm_prefill_timing(model, params)
+    peak = {"serving_max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "param_bytes": info["param_bytes"],
+            "pool_state_bytes_8_slots": 8 * slot_bytes}
+    faas_prompts = [prompts[i] for i in (3, 4, 5, 1, 2)]      # 128, 256, 384, ...
+    out["faas"] = big_faas(model, params, h2d, prompts=faas_prompts,
+                           state_bytes=9 * slot_bytes)
+    out["peak"] = peak = {**peak, "faas_max_memory_allocated":
+                          out["faas"]["max_memory_allocated"]}
+    print(json.dumps({"xlstm_peak": peak}))
+    del model, params, eng
+    torch.cuda.empty_cache()
+    out["parity"] = xlstm_parity(device)
+    return out
+
+
 def kernel_summary(kernels: list, serve: list, engine: list,
                    tidal_row: dict, tenants: dict, ssm: dict,
-                   big: tuple = ()) -> list:
+                   big: tuple = (), xlstm: dict | None = None) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
     shapes, with its launches from the serving phases (3, 5, 6, 7 and 8,
-    and the serving, engine and FaaS passes of ``big``: phases 9, 10 and
-    11)."""
+    the serving, engine and FaaS passes of ``big``: phases 9, 10 and 11,
+    and those of ``xlstm``: phase 12)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
@@ -2830,6 +3075,9 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                                         phase["engine"]["continuous"],
                                         phase["faas"]] + (
             [phase["faas_lora"]] if "faas_lora" in phase else [])
+    if xlstm is not None:
+        rows += [xlstm["serve"], xlstm["engine"],
+                 xlstm["engine_prompts_continuous"], xlstm["faas"]]
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
@@ -2933,13 +3181,16 @@ def main(argv=None) -> int:
     llama = timed("llama", phase_llama, device, h2d)
     moe = timed("moe", phase_moe, device, h2d)
     deepseek = timed("deepseek", phase_deepseek, device, h2d)
+    xlstm = timed("xlstm", phase_xlstm, device, h2d)
+    kernels += xlstm["kernels"]
     summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm,
-                             (llama, moe, deepseek))
+                             (llama, moe, deepseek), xlstm)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
          "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
-         "llama": llama, "moe": moe, "deepseek": deepseek, "summary": summary,
+         "llama": llama, "moe": moe, "deepseek": deepseek, "xlstm": xlstm,
+         "summary": summary,
          "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")

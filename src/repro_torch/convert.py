@@ -4,10 +4,15 @@ The JAX package keeps per-layer parameters stacked on a leading layer
 axis (``blocks.attn.wq`` is ``[L, D, H*hd]``; zamba's ``mamba.mixer.in_proj``
 is ``[L, D, E]``); the port keeps a list of per-layer dicts
 (``layers.3.attn.wq`` is ``[D, H*hd]``, ``mamba.3.mixer.in_proj`` is
-``[D, E]``).  Names outside the stacked groups (``embed``, zamba's single
-``shared_attn`` block, ...) are the same in both.  :func:`port_names` is the table
-between the two naming schemes: tracing and LoRA targets name weights by
-the JAX path strings (``repro.utils.path_str``).
+``[D, E]``).  A stacked group need not have ``n_layers`` entries: xlstm's
+``mlstm`` holds one per mLSTM block (42 of xlstm-1.3b's 48, unit-major)
+and ``slstm`` one per unit (6), so each group's length is read from the
+leaf's leading axis or from the model's parameter specs
+(:func:`group_lengths`).  Names outside the stacked groups (``embed``,
+zamba's single ``shared_attn`` block, ...) are the same in both.
+:func:`port_names` is the table between the two naming schemes: tracing
+and LoRA targets name weights by the JAX path strings
+(``repro.utils.path_str``).
 
 The port keeps the JAX ``[in, out]`` layout of every matrix (a projection
 is ``x @ w``), so no matrix is transposed.  Were a layout to change, this
@@ -22,25 +27,37 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import check_family, to_device
+from repro_torch.models.transformer import check_family, param_specs, to_device
 from repro_torch.utils import named_leaves
 
 # JAX subtree stacked on a leading layer axis -> the port's per-layer list
-STACKED = {"blocks": "layers", "mamba": "mamba"}
+STACKED = {"blocks": "layers", "mamba": "mamba", "mlstm": "mlstm",
+           "slstm": "slstm"}
 UNSTACKED = {v: k for k, v in STACKED.items()}
 
 
-def port_names(jax_path: str, n_layers: int) -> list:
+def group_lengths(port_params: dict) -> dict:
+    """``{JAX group: entries}`` of the stacked groups of a port parameter
+    dict (or of ``Model.param_specs()``): xlstm-1.3b gives ``{'mlstm': 42,
+    'slstm': 6}``."""
+    return {UNSTACKED[g]: len(v) for g, v in port_params.items()
+            if g in UNSTACKED and isinstance(v, list)}
+
+
+def port_names(jax_path: str, lengths) -> list:
     """Port parameter names of one JAX leaf path.
 
     ``'blocks.attn.wq'`` -> ``['layers.0.attn.wq', ..., 'layers.{L-1}.attn.wq']``
-    and ``'mamba.mixer.a_log'`` -> ``['mamba.0.mixer.a_log', ...]`` (one
-    per unstacked layer); any other path maps to itself.
+    and ``'mlstm.mixer.wq'`` -> ``['mlstm.0.mixer.wq', ...]`` (one per
+    unstacked entry); any other path maps to itself.  ``lengths`` is the
+    entries of every stacked group: one int for all of them, or a
+    ``{JAX group: entries}`` dict (:func:`group_lengths`).
     """
     head, _, rest = jax_path.partition(".")
     if head not in STACKED:
         return [jax_path]
-    return [f"{STACKED[head]}.{i}.{rest}" for i in range(n_layers)]
+    n = lengths if isinstance(lengths, int) else lengths[head]
+    return [f"{STACKED[head]}.{i}.{rest}" for i in range(n)]
 
 
 def _flatten(tree, prefix: str = "") -> Iterator[tuple]:
@@ -75,19 +92,22 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
 
     ``jax_params`` is the nested dict of ``repro.models.transformer.
     init_params`` (or a checkpoint of it) with leaves converted to numpy.
-    Stacked ``[L, ...]`` leaves are unstacked into per-layer dicts.
+    Stacked ``[n, ...]`` leaves are unstacked into per-layer dicts; each
+    group's ``n`` must be the model's (``n_layers``, or xlstm's mLSTM
+    blocks and units).
     """
     check_family(cfg)
-    params: dict = {STACKED[k]: [{} for _ in range(cfg.n_layers)]
+    lengths = group_lengths(param_specs(cfg))
+    params: dict = {STACKED[k]: [{} for _ in range(lengths[k])]
                     for k in STACKED if k in jax_params}
     for path, leaf in _flatten(jax_params):
         t = _to_tensor(leaf)
-        names = port_names(path, cfg.n_layers)
-        stacked = path.partition(".")[0] in STACKED
-        if stacked and t.shape[0] != cfg.n_layers:
-            raise ValueError(f"{path}: leading axis {t.shape[0]} != "
-                             f"n_layers {cfg.n_layers}")
-        for i, name in enumerate(names):
+        head = path.partition(".")[0]
+        stacked = head in STACKED
+        if stacked and t.shape[0] != lengths.get(head):
+            raise ValueError(f"{path}: leading axis {t.shape[0]} != the "
+                             f"model's {lengths.get(head)} {head} entries")
+        for i, name in enumerate(port_names(path, lengths)):
             _set(params, name, t[i] if stacked else t)
     return to_device(params, device)
 
@@ -109,7 +129,8 @@ def named_parameters(params: dict) -> Iterator[tuple]:
 def jax_key(port_name: str) -> tuple:
     """A port weight name as the JAX package's weight key (path, layer):
     ``'layers.3.attn.wq'`` -> ``('blocks.attn.wq', (3,))``,
-    ``'mamba.3.norm'`` -> ``('mamba.norm', (3,))``, any other name
+    ``'mamba.3.norm'`` -> ``('mamba.norm', (3,))``, ``'mlstm.9.mixer.wq'``
+    -> ``('mlstm.mixer.wq', (9,))``, any other name
     -> ``(name, ())``.  The inverse of :func:`port_names`, key by key."""
     head, _, rest = port_name.partition(".")
     layer, _, leaf = rest.partition(".")

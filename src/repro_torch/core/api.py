@@ -32,7 +32,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.convert import port_names
+from repro_torch.convert import group_lengths, port_names
 from repro_torch.core.fingerprint import Checkpoint, tree_fingerprints
 from repro_torch.models.registry import Model
 from repro_torch.utils import map_with_path, named_leaves
@@ -77,12 +77,13 @@ def checkpoint_of(uri: str, params) -> Checkpoint:
 
 def _target_shape(model: Model, path: str) -> tuple:
     """Shape of a LoRA target: a port path, or a JAX stacked path
-    (``blocks.*``) as ``[L, ...]``."""
-    specs = dict(named_leaves(model.param_specs()))
-    names = port_names(path, model.cfg.n_layers)
-    if len(names) > 1:
-        return (len(names),) + tuple(specs[names[0]].shape)
-    return tuple(specs[path].shape)
+    (``blocks.*``, xlstm's ``mlstm.*``, ...) as ``[n, ...]``."""
+    specs = model.param_specs()
+    names = port_names(path, group_lengths(specs))
+    shapes = dict(named_leaves(specs))
+    if names != [path]:
+        return (len(names),) + tuple(shapes[names[0]].shape)
+    return tuple(shapes[path].shape)
 
 
 def lora_checkpoint(uri: str, model: Model, target_paths: list,
@@ -113,9 +114,9 @@ def apply_lora(weights: dict, model: Model, adapter: Checkpoint,
         delta = adapter.load(path + ".A").matmul(
             adapter.load(path + ".B")).scale(alpha)
         delta = delta.reshape(_target_shape(model, path))
-        names = port_names(path, model.cfg.n_layers)
+        names = port_names(path, group_lengths(model.param_specs()))
         for i, name in enumerate(names):
-            d = delta.select(i) if len(names) > 1 else delta
+            d = delta.select(i) if names != [path] else delta
             out[name] = out[name].add(d.astype(out[name].dtype))
     return out
 

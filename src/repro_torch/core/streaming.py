@@ -18,11 +18,12 @@ validates the schedule and the synchronisation logic.
 ``streamed_prefill`` runs the first prefill layer by layer while later
 layers' weights are still in flight: layer ``l``'s block waits only for
 layer ``l``'s weights.  Its result equals the monolithic prefill exactly
-(it runs the same ``transformer._dense_block``, and for zamba the same
-``transformer.zamba_unit``; tested with ``torch.equal``).  The dense,
-moe and zamba families stream; xLSTM arrives with its model (ROADMAP
-Queue 1, item 5).  A moe layer's three expert leaves are most of its
-bytes, and the layer waits for them alone, not for later layers.
+(it runs the same ``transformer._dense_block``, for zamba the same
+``transformer.zamba_unit`` and for xlstm the same
+``transformer.xlstm_unit``; tested with ``torch.equal``).  The dense,
+moe, zamba and xlstm families stream.  A moe layer's three expert leaves
+are most of its bytes, and the layer waits for them alone, not for later
+layers.
 """
 
 from __future__ import annotations
@@ -184,7 +185,8 @@ class ForkSession:
 
     def layer_params(self, layer: int, group: str = "layers") -> dict:
         """One layer's parameter dict of a per-layer ``group`` (``layers``,
-        zamba's ``mamba``), waiting only on that layer."""
+        zamba's ``mamba``, xlstm's ``mlstm`` and ``slstm``), waiting only
+        on that layer."""
         return map_with_path(lambda p, _: self.leaf(p),
                              self._specs[group][layer], f"{group}.{layer}.")
 
@@ -207,7 +209,7 @@ class ForkSession:
 # ---------------------------------------------------------------------------
 
 def supports_streamed_prefill(model: Model) -> bool:
-    return model.cfg.family in ("dense", "moe", "zamba")
+    return model.cfg.family in ("dense", "moe", "zamba", "xlstm")
 
 
 @torch.no_grad()
@@ -219,21 +221,24 @@ def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
     ``transformer.prefill_from`` (``offset=0``: ``prefill``) exactly.  With
     ``offset`` the tokens are a prompt suffix at positions ``offset ..``
     over a cache whose first ``offset`` rows hold a reused prefix (dense
-    and moe families only: a zamba prefill starts at position 0)."""
+    and moe families only: a zamba or xlstm prefill starts at position
+    0)."""
     model = session.model
     cfg = model.cfg
     if not supports_streamed_prefill(model):
         raise NotImplementedError(
-            f"{cfg.name}: streamed prefill of the {cfg.family!r} family "
-            "arrives with its model (ROADMAP Queue 1, item 5)")
+            f"{cfg.name}: the {cfg.family!r} family has no streamed prefill")
     tokens = torch.as_tensor(inputs["tokens"], device=model.device)
     B, S = tokens.shape
     offset = int(offset)
-    if cfg.family == "zamba":
+    if cfg.family in ("zamba", "xlstm"):
         if offset:
             raise ValueError(
-                f"{cfg.name}: zamba has no suffix-only prefill (recurrent "
-                f"state is not position-addressable), got offset={offset}")
+                f"{cfg.name}: {cfg.family} has no suffix-only prefill "
+                "(recurrent state is not position-addressable), got "
+                f"offset={offset}")
+        if cfg.family == "xlstm":
+            return _streamed_prefill_xlstm(session, tokens, cache)
         return _streamed_prefill_zamba(session, tokens, cache)
     x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)
     positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
@@ -266,6 +271,25 @@ def _streamed_prefill_zamba(session: ForkSession, tokens, cache: dict):
         x = transformer.zamba_unit(
             lambda layer: session.layer_params(layer, "mamba"), shared_params,
             x, cfg, positions, cache, unit, 0)
+    return _streamed_head(session, x), cache
+
+
+def _streamed_prefill_xlstm(session: ForkSession, tokens, cache: dict):
+    """xLSTM streamed prefill, unit by unit: ``slstm_every - 1`` mLSTM
+    blocks, then the unit's sLSTM block, each waiting only for its own
+    weights.  Runs ``transformer.xlstm_unit``, the body of the monolithic
+    prefill, which also takes several sequences one at a time."""
+    cfg = session.model.cfg
+    if tokens.shape[0] > 1:
+        logits = [_streamed_prefill_xlstm(session, tokens[b:b + 1],
+                                          transformer.sequence_view(cache, b))[0]
+                  for b in range(tokens.shape[0])]
+        return torch.cat(logits), cache
+    x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)
+    for unit in range(transformer.xlstm_units(cfg)[0]):
+        x = transformer.xlstm_unit(
+            lambda layer: session.layer_params(layer, "mlstm"),
+            lambda u: session.layer_params(u, "slstm"), x, cfg, cache, unit)
     return _streamed_head(session, x), cache
 
 

@@ -5,6 +5,7 @@ default; ``--device cpu`` with a reduced depth runs it on the CPU).
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch smollm-135m --functions 3 --requests 12 --lora
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama2-13b
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch phi3.5-moe-42b-a6.6b --layers 8
@@ -20,13 +21,17 @@ Weights are random from a seed.  On the card the model is the full-width
 configuration of ``--arch``; on the CPU it is the narrow smoke
 configuration, as ``repro.launch.serve`` serves it there.  ``--layers``
 cuts the depth of either.  zamba2-2.7b (Mamba2 + shared attention) serves
-over the dense slot pool, its prefills through the ``ssd_scan`` kernel.
+over the dense slot pool, its prefills through the ``ssd_scan`` kernel;
+xlstm-1.3b (mLSTM and sLSTM blocks; ``--layers`` a multiple of its
+``slstm_every``) over the dense slot pool too, its prompts at most its
+chunk (128 tokens) or a multiple of it, as in the reference.
 phi3.5-moe-42b-a6.6b (84 GB in bf16) fits one card only with ``--layers``
 cut (8 of 32 leave room for a fork's copy), deepseek-v3-671b (MLA over a
 latent paged arena, 256 experts and a shared one; 23 GB per layer) with
 ``--layers 1``: a model whose weights take more than half the card exits
 asking for ``--layers``.  ``--lora`` targets the GQA query projection,
-which MLA does not have, so deepseek-v3 serves static functions only.
+which MLA and xLSTM do not have, so deepseek-v3 and xlstm-1.3b serve
+static functions only.
 llama2-70b serves only on the CPU until tensor parallelism is ported.
 
 ``--open-loop --qps Q [--deadline D]`` replaces the closed loop (submit,
@@ -61,7 +66,8 @@ from repro_torch.utils import fmt_bytes, tree_bytes
 LATER = {"tp": "tensor parallelism (ROADMAP Queue 1, item 11)",
          "instances": "multi-instance serving (ROADMAP Queue 1, item 11)"}
 # the projection --lora adapts: the attention query weights of every
-# layer (dense, moe) or of zamba's one shared attention block
+# layer (dense, moe) or of zamba's one shared attention block; xlstm has
+# no attention, and the reference's --lora cannot target it either
 LORA_TARGET = {"dense": "blocks.attn.wq", "moe": "blocks.attn.wq",
                "zamba": "shared_attn.attn.wq"}
 
@@ -158,6 +164,10 @@ def main(argv=None):
     if args.lora and cfg.use_mla:
         sys.exit(f"--lora: {cfg.name} has MLA attention; the adapters target "
                  f"{LORA_TARGET[cfg.family]}, a GQA projection it does not have")
+    if args.lora and cfg.family not in LORA_TARGET:
+        sys.exit(f"--lora: {cfg.name} has no attention; the adapters target "
+                 "the GQA query projection blocks.attn.wq, which it does not "
+                 "have")
     extra = {} if args.layers is None else {"n_layers": args.layers}
     cpu = args.device == "cpu"
     cfg = reduced(cfg, **extra) if cpu else cfg.replace(**extra)

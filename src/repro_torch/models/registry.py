@@ -21,7 +21,7 @@ from repro_torch.models.config import ModelConfig, reduced
 
 ARCH_IDS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b",
             "llama2-13b", "chameleon-34b", "llama2-70b", "phi3.5-moe-42b-a6.6b",
-            "deepseek-v3-671b", "zamba2-2.7b"]
+            "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b"]
 
 _MODULE_FOR_ARCH = {a: a.replace(".", "_").replace("-", "_") for a in ARCH_IDS}
 

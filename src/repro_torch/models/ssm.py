@@ -1,8 +1,9 @@
-"""Recurrent sequence mixers: Mamba2 (scalar-decay SSD).
+"""Recurrent sequence mixers: Mamba2 (scalar-decay SSD), and xLSTM's
+mLSTM and sLSTM.
 
-The port's copy of the Mamba2 part of ``repro.models.ssm``, as plain
-functions over tensors.  The recurrence ``h = exp(ld) h + B x^T``,
-``y = C . h`` runs two ways, branch for branch as in the JAX mixer:
+The port's copy of ``repro.models.ssm``, as plain functions over
+tensors.  Mamba2's recurrence ``h = exp(ld) h + B x^T``, ``y = C . h``
+runs two ways, branch for branch as in the JAX mixer:
 
 * prefill (S > 1): the ``ssd_scan`` kernel on a card; on the CPU its
   plain versions, the chunked SSD where the chunk divides S and the exact
@@ -10,12 +11,18 @@ functions over tensors.  The recurrence ``h = exp(ld) h + B x^T``,
 * decode (S == 1): the O(1) step update, a plain update on every device
   (no TPU kernel computes it).
 
-States are carried in float32.  mLSTM and sLSTM (xLSTM) are not ported
-yet (ROADMAP Queue 1, item 10).
+The mLSTM (matrix memory, exponential gates, max-stabilised) runs the
+reference's chunked form operation for operation (``mlstm_chunked``),
+and the sLSTM its recurrence one step per token; both are PyTorch ops on
+every device, as the reference runs them in XLA outside any Pallas
+kernel.  Their RMSNorms go through the ``rmsnorm`` kernel.
+
+States are carried in float32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -125,3 +132,221 @@ def mamba2_state_shape(cfg: ModelConfig, batch: int) -> dict:
         "h": (batch, H, d_inner // H, ds),
         "conv": (batch, cfg.conv_width - 1, conv_ch),
     }
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix memory, exponential gating, max-stabilised)
+# ---------------------------------------------------------------------------
+
+# "empty history" value of the running max-stabiliser m: a large negative
+# finite constant (not -inf), so exp(m_prev - m_new) underflows to exactly
+# 0 without inf - inf; every fresh mLSTM cache starts from it
+EMPTY_M = -1e9
+
+
+def make_mlstm_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
+    """One mLSTM mixer's parameters in the JAX package's layout (fan-in
+    scaled normals; the gate bias zeros, the inner norm ones).
+    ``gen=None`` gives uninitialized tensors (specs)."""
+    D = cfg.d_model
+    d_inner = int(cfg.mlstm_proj_factor * D)
+    H = cfg.n_heads
+    return {
+        "up_proj": normal_(gen, (D, 2 * d_inner)),            # x_inner, z gate
+        "conv_w": normal_(gen, (cfg.conv_width, d_inner), scale=0.5),
+        "wq": normal_(gen, (d_inner, d_inner)),
+        "wk": normal_(gen, (d_inner, d_inner)),
+        "wv": normal_(gen, (d_inner, d_inner)),
+        "w_if": normal_(gen, (d_inner, 2 * H), scale=0.01),   # input, forget
+        "b_if": torch.zeros(2 * H),
+        "norm": torch.ones(d_inner),
+        "down_proj": normal_(gen, (d_inner, D)),
+    }
+
+
+def mlstm_chunked(q, k, v, i_raw, f_raw, chunk: int,
+                  state: Optional[dict] = None):
+    """The stabilised chunked mLSTM of the reference (``_mlstm_chunked``).
+
+    q, k, v: [B, S, H, dh]; i_raw, f_raw: [B, S, H]; ``state`` {'C': [B,
+    H, dh, dh], 'n': [B, H, dh], 'm': [B, H]} float32, or None (zeros and
+    ``EMPTY_M``).  Chunks of ``Q = min(chunk, S)`` rows, and S must be a
+    multiple of Q (the reference asserts it).  Returns (y [B, S, H, dh] in
+    q's dtype, final state)."""
+    Bb, S, H, dh = q.shape
+    Q = min(chunk, S)
+    if S % Q:
+        raise ValueError(f"mlstm: sequence length {S} is not a multiple of "
+                         f"the chunk {Q}")
+    K = S // Q
+    f32 = torch.float32
+    scale = 1.0 / math.sqrt(dh)
+
+    qc = q.reshape(Bb, K, Q, H, dh).to(f32) * scale
+    kc = k.reshape(Bb, K, Q, H, dh).to(f32)
+    vc = v.reshape(Bb, K, Q, H, dh).to(f32)
+    ic = i_raw.reshape(Bb, K, Q, H).to(f32)
+    logf = F.logsigmoid(f_raw.reshape(Bb, K, Q, H).to(f32))
+    F_cum = torch.cumsum(logf, dim=2)                          # [B,K,Q,H]
+    F_tot = F_cum[:, :, -1, :]
+
+    if state is None:
+        C = torch.zeros((Bb, H, dh, dh), dtype=f32, device=q.device)
+        n = torch.zeros((Bb, H, dh), dtype=f32, device=q.device)
+        m = torch.full((Bb, H), EMPTY_M, dtype=f32, device=q.device)
+    else:
+        C, n, m = state["C"], state["n"], state["m"]
+
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
+    neg_inf = torch.finfo(f32).min
+    ys = []
+    for c in range(K):
+        qq, kk, vv, ii = qc[:, c], kc[:, c], vc[:, c], ic[:, c]
+        Fc, Ft = F_cum[:, c], F_tot[:, c]
+        # intra-chunk log weights W[i, j] = F_i - F_j + i_j
+        W = Fc[:, :, None, :] - Fc[:, None, :, :] + ii[:, None, :, :]  # [B,i,j,H]
+        W = torch.where(causal[None, :, :, None], W, neg_inf)
+        inter = Fc + m[:, None, :]                             # [B,i,H]
+        m_new = torch.maximum(W.amax(dim=2), inter)
+        m_new = torch.clamp_min(m_new, -30.0)                  # no -inf rows
+        w = torch.exp(W - m_new[:, :, None, :])                # [B,i,j,H]
+        s = torch.exp(inter - m_new)                           # [B,i,H]
+
+        qk = torch.einsum("bihd,bjhd->bijh", qq, kk)
+        h_num = (torch.einsum("bijh,bjhd->bihd", qk * w, vv)
+                 + torch.einsum("bihd,bhde->bihe", qq, C) * s[..., None])
+        n_vec = (torch.einsum("bijh,bjhd->bihd", w, kk)
+                 + s[..., None] * n[:, None, :, :])
+        denom = torch.maximum(torch.einsum("bihd,bihd->bih", qq, n_vec).abs(),
+                              torch.exp(-m_new))
+        ys.append(h_num / denom[..., None])
+
+        # the chunk-end state
+        Wend = Ft[:, None, :] - Fc + ii                        # [B,j,H]
+        m_end = torch.maximum(Wend.amax(dim=1), Ft + m)
+        m_end = torch.clamp_min(m_end, -30.0)
+        wend = torch.exp(Wend - m_end[:, None, :])
+        send = torch.exp(Ft + m - m_end)
+        C = (torch.einsum("bjhd,bjhe->bhde", wend[..., None] * kk, vv)
+             + send[:, :, None, None] * C)
+        n = torch.einsum("bjh,bjhd->bhd", wend, kk) + send[..., None] * n
+        m = m_end
+    y = torch.stack(ys, dim=1).reshape(Bb, S, H, dh)
+    return y.to(q.dtype), {"C": C, "n": n, "m": m}
+
+
+def mlstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[dict] = None):
+    """xLSTM mLSTM block body.  x: [B, S, D] -> ([B, S, D], new_state).
+
+    ``state`` ({'C', 'n', 'm'} float32 and 'conv' [B, W-1, d_inner] in the
+    model dtype) seeds the recurrence and the conv; None means a fresh
+    one.  The caller stores the new state."""
+    B, S, D = x.shape
+    d_inner = int(cfg.mlstm_proj_factor * D)
+    H = cfg.n_heads
+    dh = d_inner // H
+
+    up = x @ p["up_proj"]
+    xi, z = up[..., :d_inner], up[..., d_inner:]
+    xq, new_conv = causal_conv1d(xi, p["conv_w"],
+                                 None if state is None else state["conv"])
+    xq = F.silu(xq)
+
+    q = (xq @ p["wq"]).reshape(B, S, H, dh)
+    # the reference divides by a numpy float64, which promotes k to float32
+    k = (xq @ p["wk"]).reshape(B, S, H, dh).float() / math.sqrt(dh)
+    v = (xi @ p["wv"]).reshape(B, S, H, dh)
+    gates = xi @ p["w_if"] + p["b_if"]
+    i_raw, f_raw = gates[..., :H], gates[..., H:]
+
+    y, new_inner = mlstm_chunked(q, k, v, i_raw, f_raw, cfg.ssm_chunk, state)
+
+    y = y.reshape(B, S, d_inner)
+    y = rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
+    return y @ p["down_proj"], {"conv": new_conv, **new_inner}
+
+
+def mlstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
+    d_inner = int(cfg.mlstm_proj_factor * cfg.d_model)
+    H = cfg.n_heads
+    dh = d_inner // H
+    return {
+        "C": (batch, H, dh, dh),
+        "n": (batch, H, dh),
+        "m": (batch, H),
+        "conv": (batch, cfg.conv_width - 1, d_inner),
+    }
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar memory, a true recurrence: one step per token)
+# ---------------------------------------------------------------------------
+
+def make_slstm_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
+    """One sLSTM mixer's parameters, its post-MLP under ``mlp``, in the JAX
+    package's layout.  ``gen=None`` gives uninitialized tensors (specs)."""
+    D = cfg.d_model
+    H = cfg.n_heads
+    dh = D // H
+    F_mlp = int(4 * D / 3)
+    return {
+        "w_in": normal_(gen, (D, 4 * D)),                     # z, i, f, o
+        "r": normal_(gen, (H, dh, 4 * dh), scale=0.1),        # block-diagonal
+        "b": torch.zeros(4 * D),
+        "norm": torch.ones(D),
+        "mlp": {
+            "w_gate": normal_(gen, (D, F_mlp)),
+            "w_up": normal_(gen, (D, F_mlp)),
+            "w_down": normal_(gen, (F_mlp, D)),
+        },
+    }
+
+
+def slstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[dict] = None):
+    """sLSTM with an exponential input gate and a stabiliser.  x: [B, S, D].
+
+    ``state`` ({'c', 'n', 'h', 'm'}: [B, H, dh] float32) seeds the
+    recurrence; None means zeros.  Returns (y [B, S, D], new_state)."""
+    B, S, D = x.shape
+    H = cfg.n_heads
+    dh = D // H
+    f32 = torch.float32
+
+    pre = x @ p["w_in"] + p["b"]                               # [B,S,4D]
+    pre = pre.reshape(B, S, H, 4 * dh).to(f32)
+
+    if state is None:
+        c, n, h, m = (torch.zeros((B, H, dh), dtype=f32, device=x.device)
+                      for _ in range(4))
+    else:
+        c, n, h, m = state["c"], state["n"], state["h"], state["m"]
+
+    r = p["r"].to(f32)
+    hs = []
+    for t in range(S):
+        g = pre[:, t] + torch.einsum("bhd,hde->bhe", h, r)     # [B,H,4dh]
+        z_t = torch.tanh(g[..., 0 * dh:1 * dh])
+        i_t = g[..., 1 * dh:2 * dh]
+        f_t = g[..., 2 * dh:3 * dh]
+        o_t = torch.sigmoid(g[..., 3 * dh:4 * dh])
+        logf_m = F.logsigmoid(f_t) + m
+        m_new = torch.maximum(logf_m, i_t)
+        i_s = torch.exp(i_t - m_new)
+        f_s = torch.exp(logf_m - m_new)
+        c = f_s * c + i_s * z_t
+        n = f_s * n + i_s
+        h = o_t * c / torch.clamp_min(n, 1e-6)
+        m = m_new
+        hs.append(h)
+    y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
+    y = rmsnorm(y, p["norm"], cfg.norm_eps)
+    return y, {"c": c, "n": n, "h": h, "m": m}
+
+
+def slstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
+    H = cfg.n_heads
+    dh = cfg.d_model // H
+    return {"c": (batch, H, dh), "n": (batch, H, dh),
+            "h": (batch, H, dh), "m": (batch, H, dh)}

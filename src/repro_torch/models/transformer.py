@@ -5,14 +5,17 @@ here the parameters are a list of per-layer dicts and the scan is a Python
 loop.  Caches keep the JAX layout with the layer axis first, and each
 layer works on its ``cache[key][l]`` view in place.
 
-Three families are ported: the dense GQA decoder (``layers``), moe (the
-same blocks with a top-k expert layer, ``moe``, in place of the MLP) and
+Four families are ported: the dense GQA decoder (``layers``), moe (the
+same blocks with a top-k expert layer, ``moe``, in place of the MLP),
 zamba, the Mamba2 hybrid (``mamba``: one dict per Mamba2 block;
 ``shared_attn``: ONE attention + MLP block applied after every
-``attn_every`` Mamba2 blocks).  A zamba cache is ``{'mamba': {'h',
-'conv'}, 'attn_kv': {'k', 'v'}}``.  With ``cfg.use_mla`` (deepseek-v3)
-a dense or moe block's attention is MLA (``models.mla``) and its cache
-the latent ``{'c_kv', 'k_rope'}``.
+``attn_every`` Mamba2 blocks), and xlstm (``mlstm``: one dict per mLSTM
+block, in the reference's unit-major order; ``slstm``: one per unit of
+``slstm_every - 1`` mLSTM blocks and one sLSTM block).  A zamba cache is
+``{'mamba': {'h', 'conv'}, 'attn_kv': {'k', 'v'}}``, an xlstm cache
+``{'mlstm': {'C', 'n', 'm', 'conv'}, 'slstm': {'c', 'n', 'h', 'm'}}``.
+With ``cfg.use_mla`` (deepseek-v3) a dense or moe block's attention is
+MLA (``models.mla``) and its cache the latent ``{'c_kv', 'k_rope'}``.
 
 Entry points:
   forward(params, cfg, tokens)                        -> (logits, aux)
@@ -51,21 +54,36 @@ def torch_dtype(name_or_dtype) -> torch.dtype:
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families this port does not serve yet."""
-    ported = (cfg.family in ("dense", "moe", "zamba") and not cfg.is_encdec
-              and not (cfg.use_mla and cfg.family == "zamba")
+    """Raise for the families this port does not serve yet, and for an
+    xlstm depth that is not a whole number of units (an xlstm without
+    sLSTM blocks, ``slstm_every`` 0, is not ported)."""
+    ported = (cfg.family in ("dense", "moe", "zamba", "xlstm")
+              and not cfg.is_encdec
+              and not (cfg.use_mla and cfg.family in ("zamba", "xlstm"))
               and (cfg.family == "moe") == bool(cfg.n_experts))
     if not ported:
         raise NotImplementedError(
-            f"{cfg.name}: the dense and moe families (GQA or MLA attention) "
-            "and zamba are ported; MLA outside a dense or moe block, xLSTM "
+            f"{cfg.name}: the dense and moe families (GQA or MLA attention), "
+            "zamba and xLSTM are ported; MLA outside a dense or moe block "
             "and enc-dec (whisper) are not yet")
+    if cfg.family == "xlstm" and (
+            not cfg.slstm_every or cfg.n_layers < cfg.slstm_every
+            or cfg.n_layers % cfg.slstm_every):
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_layers} layers are not a whole number of "
+            f"units of {cfg.slstm_every} blocks (slstm_every)")
 
 
 def n_units(cfg: ModelConfig) -> int:
     """zamba: the units of ``attn_every`` Mamba2 blocks, each followed by
     the shared attention block."""
     return cfg.n_layers // cfg.attn_every
+
+
+def xlstm_units(cfg: ModelConfig) -> tuple:
+    """xlstm: (units, mLSTM blocks per unit).  A unit is ``slstm_every -
+    1`` mLSTM blocks and one sLSTM block."""
+    return cfg.n_layers // cfg.slstm_every, cfg.slstm_every - 1
 
 
 def _check_positional(cfg: ModelConfig, what: str) -> None:
@@ -103,7 +121,15 @@ def _param_tree(cfg: ModelConfig, gen: Optional[ParamDraw]) -> dict:
         return p
 
     params: dict = {"embed": normal_(gen, (V, D), scale=0.02)}
-    if cfg.family == "zamba":
+    if cfg.family == "xlstm":
+        units, m_per = xlstm_units(cfg)
+        params["mlstm"] = [{"norm": torch.ones(D),
+                            "mixer": ssm.make_mlstm_params(gen, cfg)}
+                           for _ in range(units * m_per)]
+        params["slstm"] = [{"norm": torch.ones(D), "mlp_norm": torch.ones(D),
+                            "mixer": ssm.make_slstm_params(gen, cfg)}
+                           for _ in range(units)]
+    elif cfg.family == "zamba":
         params["mamba"] = [{"norm": torch.ones(D),
                             "mixer": ssm.init_mamba2_params(gen, cfg)}
                            for _ in range(cfg.n_layers)]
@@ -155,10 +181,24 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     kvr], 'k_rope': [L, batch, max_len, dr]}``.  zamba: ``{'mamba': {'h':
     [L, batch, H, dh, ds] fp32, 'conv': [L, batch, W-1, conv_ch]},
     'attn_kv': {'k','v': [n_units, batch, max_len, KV, hd]}}``.  Axis 1 of
-    every leaf is the batch (slot) axis."""
+    every leaf is the batch (slot) axis.  xlstm: ``{'mlstm': {'C': [n_m,
+    batch, H, dh, dh], 'n', 'm' fp32 ('m' filled with ``EMPTY_M``),
+    'conv'}, 'slstm': {'c', 'n', 'h', 'm': [units, batch, H, dh] fp32
+    zeros}}``; ``max_len`` is unused (the state does not grow)."""
     check_family(cfg)
     dt = torch_dtype(cfg.dtype)
     L = cfg.n_layers
+    if cfg.family == "xlstm":
+        units, m_per = xlstm_units(cfg)
+        cache = {"mlstm": {
+            k: torch.zeros((units * m_per,) + s, device=device,
+                           dtype=dt if k == "conv" else torch.float32)
+            for k, s in ssm.mlstm_state_shape(cfg, batch).items()}}
+        cache["mlstm"]["m"].fill_(ssm.EMPTY_M)
+        cache["slstm"] = {
+            k: torch.zeros((units,) + s, device=device, dtype=torch.float32)
+            for k, s in ssm.slstm_state_shape(cfg, batch).items()}
+        return cache
     if cfg.family == "zamba":
         kv = (n_units(cfg), batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {"mamba": {k: torch.zeros((L,) + s, device=device,
@@ -276,6 +316,60 @@ def zamba_unit(mamba_params, shared_params, x, cfg: ModelConfig, positions,
     return _dense_block(shared_params(), x, cfg, positions, kv, cache_pos)
 
 
+def _store(state: Optional[dict], new_state: dict) -> None:
+    """Write a mixer's new state into ``state`` (one layer's cache views)."""
+    if state is not None:
+        for k, t in state.items():
+            t.copy_(new_state[k])
+
+
+def _mlstm_block(bp: dict, x, cfg: ModelConfig, state: Optional[dict]):
+    """One xlstm mLSTM block (pre-norm mixer, residual); the new state is
+    written into ``state`` (one layer's cache views) in place."""
+    y, new_state = ssm.mlstm_mixer(bp["mixer"],
+                                   rmsnorm(x, bp["norm"], cfg.norm_eps),
+                                   cfg, state)
+    _store(state, new_state)
+    return x + y
+
+
+def _slstm_block(sp: dict, x, cfg: ModelConfig, state: Optional[dict]):
+    """One xlstm sLSTM block: the pre-norm mixer and its residual, whose
+    add the ``mlp_norm`` takes fused (the kernel's residual form), then
+    the post-MLP and its residual; the new state lands in ``state``."""
+    y, new_state = ssm.slstm_mixer(sp["mixer"],
+                                   rmsnorm(x, sp["norm"], cfg.norm_eps),
+                                   cfg, state)
+    _store(state, new_state)
+    h, x = rmsnorm(x, sp["mlp_norm"], cfg.norm_eps, residual=y)
+    return x + mlp_block(sp["mixer"]["mlp"], h, cfg.act)
+
+
+def xlstm_unit(mlstm_params, slstm_params, x, cfg: ModelConfig,
+               cache: Optional[dict], unit: int):
+    """One xlstm unit: its ``slstm_every - 1`` mLSTM blocks (mLSTM index
+    ``unit * (slstm_every - 1) + j``), then its sLSTM block.
+    ``mlstm_params(l)`` and ``slstm_params(unit)`` supply the weights when
+    a block needs them, so the layer loop below and the layer-streamed
+    prefill (``core.streaming``) run the same body and each block waits
+    only for its own weights."""
+    _, m_per = xlstm_units(cfg)
+    for layer in range(unit * m_per, (unit + 1) * m_per):
+        x = _mlstm_block(mlstm_params(layer), x, cfg,
+                         layer_cache(None if cache is None else cache["mlstm"],
+                                     layer))
+    return _slstm_block(slstm_params(unit), x, cfg,
+                        layer_cache(None if cache is None else cache["slstm"],
+                                    unit))
+
+
+def sequence_view(cache: dict, b: int) -> dict:
+    """Views of sequence ``b``'s rows (axis 1) of every leaf of a nested
+    cache, as a batch-1 cache (writes land in ``cache``)."""
+    return {k: sequence_view(v, b) if isinstance(v, dict) else v[:, b:b + 1]
+            for k, v in cache.items()}
+
+
 def layer_bank(bank: Optional[dict], layer: int) -> Optional[dict]:
     """One layer's slice of an adapter bank (where the JAX package puts
     the bank into the layer scan's xs)."""
@@ -287,10 +381,15 @@ def layer_bank(bank: Optional[dict], layer: int) -> Optional[dict]:
 
 def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
              page_size: int = 0, adapter_bank=None, adapter_ids=None):
+    if cfg.family in ("zamba", "xlstm") and adapter_bank is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: adapter gather needs the dense block layout")
+    if cfg.family == "xlstm":
+        for unit in range(xlstm_units(cfg)[0]):
+            x = xlstm_unit(params["mlstm"].__getitem__,
+                           params["slstm"].__getitem__, x, cfg, cache, unit)
+        return x
     if cfg.family == "zamba":
-        if adapter_bank is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: adapter gather needs the dense block layout")
         for unit in range(n_units(cfg)):
             x = zamba_unit(params["mamba"].__getitem__,
                            lambda: params["shared_attn"], x, cfg, positions,
@@ -350,6 +449,16 @@ def prefill_from(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def _prefill(params, cfg, tokens, cache, offset: int, adapter_bank,
              adapter_ids):
     B, S = tokens.shape
+    if cfg.family == "xlstm" and B > 1:
+        # an xlstm prefill of several sequences runs them one at a time:
+        # cuBLAS picks a product's kernel by its shape, so a batch and one
+        # sequence can sum in different orders; on an H100 a sequence
+        # prefilled in a batch of 8 got other bits than alone, as the
+        # serving engine prefills it (tools/torch_xlstm_batch_bits.py)
+        logits = [_prefill(params, cfg, tokens[b:b + 1], sequence_view(cache, b),
+                           offset, adapter_bank, adapter_ids)[0]
+                  for b in range(B)]
+        return torch.cat(logits), cache
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
     x = _decoder(params, cfg, x, positions, cache, offset,
