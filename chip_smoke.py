@@ -139,7 +139,28 @@ Phases, in order; any failure raises and the process exits non-zero:
    warm; page-locked bytes within 1.05 times the weights), the peak
    allocation; then a 2-layer fp32 card against CPU check (one mLSTM
    and one sLSTM block: logits within 1e-4 of the largest, tokens equal)
-   and streamed prefill equal to prefill.
+   and streamed prefill equal to prefill;
+13. whisper-medium at full width and depth (24 encoder and 24 decoder
+   layers, d_model 1024, 16 heads of 64 (G = 1), d_ff 4096, vocabulary
+   51,865 with a tied head, 448 decoder positions; bf16, 1.52 GB of
+   seeded random weights): ``flash_attention`` at its shapes, non-causal
+   at B = 8 over 1,500 keys with S = 1,500 (the encoder) and S = 4
+   (cross-attention of a 4-token prompt) and causal at S = T = 64, and
+   ``decode_attention`` at B = 8 over 1,500 rows (cross) and 448 rows at
+   per-sequence lengths (self), bf16 and fp32, each against its plain
+   version and timed beside SDPA and the bound; then
+   ``Engine.generate(frames=)`` at 8 sequences over 1,500 frames
+   (``make_frames``) with 4-token prompts and 444 new tokens, so 447 of
+   the 448 decoder rows fill (TTFT: encoder, every layer's cross K/V and
+   the prompt; decode host ms per step; tokens/s; peak allocation), with
+   exact launch counts (72 flash per prefill, 48 ``decode_attention``
+   per step, no rmsnorm, paged decode or ``ssd_scan``); each sequence
+   alone against the batch over 32 tokens (printed, not asserted); the
+   decode step over the filled cache beside its byte bound (decoder
+   weights without the cross K/V projections, the tied head, the cross
+   K/V and the self K/V rows); ``ContinuousBatchingEngine`` refusing the
+   model; then a 2 + 2-layer fp32 card against CPU check over 1,500
+   frames (logits within 1e-4 of the largest, 16 greedy tokens equal).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -269,7 +290,8 @@ def decode_work(B, H, KV, d, lengths, dtype) -> tuple:
 
 
 def flash_work(B, H, KV, S, T, d, dtype, causal=True) -> tuple:
-    """(FLOPs, bytes) of causal attention with the bottom-right mask."""
+    """(FLOPs, bytes) of attention, causal with the bottom-right mask or
+    over every (row, key) pair."""
     rows = np.arange(S)
     pairs = int(np.minimum(T, rows + (T - S) + 1).sum()) if causal else S * T
     elt = torch.empty((), dtype=dtype).element_size()
@@ -585,7 +607,8 @@ def big_head_cases(device) -> list:
     return results
 
 
-def flash_case(device, gen, tag, hd, B, S, T, dtype, softcap) -> dict:
+def flash_case(device, gen, tag, hd, B, S, T, dtype, softcap,
+               causal: bool = True) -> dict:
     """``flash_attention`` against its plain version, timed beside SDPA
     (none with a softcap) and the bound."""
     from repro_torch.kernels import ref
@@ -593,23 +616,26 @@ def flash_case(device, gen, tag, hd, B, S, T, dtype, softcap) -> dict:
     q = torch.randn((B, hd["H"], S, hd["d"]), generator=gen).to(device, dtype)
     k = torch.randn((B, hd["KV"], T, hd["d"]), generator=gen).to(device, dtype)
     v = torch.randn((B, hd["KV"], T, hd["d"]), generator=gen).to(device, dtype)
-    out = flash_attention(q, k, v, causal=True, softcap=softcap)
-    want = ref.flash_attention_ref(q, k, v, causal=True, softcap=softcap)
+    kw = {"causal": causal, "softcap": softcap}
+    out = flash_attention(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((out.float() - want.float()).abs().max())
     tol = 2e-5 if dtype == torch.float32 else 2e-2
-    kern_ms = time_ms(lambda: flash_attention(q, k, v, softcap=softcap))
-    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, softcap=softcap))
+    kern_ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, **kw))
     lib_ms = None
     if softcap == 0.0:           # SDPA has no softcap: no library call
         mask = (torch.arange(T, device=device)[None, :]
                 <= torch.arange(S, device=device)[:, None] + (T - S))
-        lib_kw = {"is_causal": True} if S == T else {"attn_mask": mask}
+        lib_kw = ({} if not causal else {"is_causal": True} if S == T
+                  else {"attn_mask": mask})
         lib_ms = time_ms(lambda: sdpa_gqa(q, k, v, **lib_kw))
-    flops, nbytes = flash_work(B, hd["H"], hd["KV"], S, T, hd["d"], dtype)
+    flops, nbytes = flash_work(B, hd["H"], hd["KV"], S, T, hd["d"], dtype,
+                               causal)
     b_ms, b_by = bound_ms(flops, nbytes, dtype)
     res = {"kernel": "flash_attention", "shape": tag, "B": B, "H": hd["H"],
-           "KV": hd["KV"], "d": hd["d"], "S": S, "T": T,
+           "KV": hd["KV"], "d": hd["d"], "S": S, "T": T, "causal": causal,
            "dtype": str(dtype)[6:], "softcap": softcap, "max_abs_err": err,
            "tol": tol, "ms": kern_ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
@@ -2474,6 +2500,38 @@ def engine_vs_continuous(model, params, prompts: np.ndarray, new_tokens: int,
     return row
 
 
+def profiled_steps(calls: list) -> dict:
+    """Run ``calls`` in order under ``torch.profiler``: their wall ms per
+    call, the device ms per call and its share of the wall, and the
+    kernels that took the most device time (ms and calls per call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = len(calls)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(
+            e, "self_cuda_time_total", 0.0)
+
+    # device-side events only: a CPU op reports the device time of the
+    # kernels it launched as its own, so summing both counts it twice
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(device_us(e) for e in events) / 1e3
+    top = sorted(((e.key, device_us(e) / 1e3 / n, e.count // n)
+                  for e in events if device_us(e) > 0), key=lambda r: -r[1])
+    return {"profiled_ms_per_step": wall / n * 1e3,
+            "device_ms_per_step": device_ms / n if device_ms else None,
+            "device_busy_share": device_ms / (wall * 1e3) if device_ms else None,
+            "kernels_top_ms_per_step": [{"name": k[:100], "ms": ms, "calls": c}
+                                        for k, ms, c in top[:12]]}
+
+
 def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
     """The continuous engine's decode step at 8 busy slots: host ms per step
     (synchronised), then under ``torch.profiler`` the device time of
@@ -2482,8 +2540,6 @@ def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
     K/V rows the step attends over: MLA's latent and rope-key rows; for
     a family on the dense slot pool (xlstm) its whole recurrent state,
     read once and written once)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.transformer import kv_rows
     from repro_torch.runtime import ContinuousBatchingEngine
     from repro_torch.utils import tree_bytes
@@ -2504,25 +2560,8 @@ def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
         host.append(time.perf_counter() - t0)
     rows = int(np.sum(eng._pos))                 # K/V rows of the next step
     state = 0 if model.supports_paged_kv else eng.pool.nbytes()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            eng.step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    prof = profiled_steps([eng.step] * steps)
     eng.close()
-
-    def device_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0.0)
-
-    # device-side events only: a CPU op reports the device time of the
-    # kernels it launched as its own, so summing both counts it twice
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    device_ms = sum(device_us(e) for e in events) / 1e3
-    top = sorted(((e.key, device_us(e) / 1e3 / steps, e.count // steps)
-                  for e in events if device_us(e) > 0), key=lambda r: -r[1])
     elt = torch.empty((), dtype=model.dtype).element_size()
     embed = params["embed"]
     weights = tree_bytes(params) - embed.numel() * elt + 8 * cfg.d_model * elt
@@ -2534,13 +2573,8 @@ def decode_profile(model, params, prompts: list, steps: int = 8) -> dict:
     out = {"arch": cfg.name, "layers": cfg.n_layers, "slots": 8,
            "host_ms_per_step_median": float(np.median(host) * 1e3),
            "host_ms_per_step_min": float(np.min(host) * 1e3),
-           "profiled_ms_per_step": wall / steps * 1e3,
-           "device_ms_per_step": device_ms / steps if device_ms else None,
-           "device_busy_share": device_ms / (wall * 1e3) if device_ms else None,
-           "weight_bytes": weights, "kv_bytes": kv,
-           "bound_ms": (weights + kv) / HBM_BYTES_PER_S * 1e3,
-           "kernels_top_ms_per_step": [{"name": k[:100], "ms": ms, "calls": n}
-                                       for k, ms, n in top[:12]]}
+           **prof, "weight_bytes": weights, "kv_bytes": kv,
+           "bound_ms": (weights + kv) / HBM_BYTES_PER_S * 1e3}
     print(json.dumps({"decode_step": out}))
     return out
 
@@ -3053,13 +3087,239 @@ def phase_xlstm(device, h2d: float) -> dict:
     return out
 
 
+# whisper-medium's attention heads (16 / 16 / 64, G = 1) and serving shape
+WHISPER = dict(H=16, KV=16, d=64)
+WHISPER_FRAMES = 1500            # the 30 s window
+WHISPER_BATCH = 8
+WHISPER_PROMPT = 4
+WHISPER_NEW = 444                # prompt + 444 - 1 = 447 of 448 decoder rows
+
+
+def whisper_kernel_cases(device) -> list:
+    """The attention kernels at whisper-medium's heads, bf16 and fp32,
+    each against its plain version, timed beside SDPA and the bound:
+    flash non-causal at B = 8 over 1,500 keys with S = 1,500 (the encoder)
+    and S = 4 (cross-attention of a 4-token prompt), flash causal at S = T
+    = 64 (decoder self-attention), decode at B = 8 over 1,500 rows at one
+    length (cross) and over 448 rows at per-sequence lengths (self)."""
+    gen = torch.Generator().manual_seed(13)
+    rng = np.random.default_rng(13)
+    T, B = WHISPER_FRAMES, WHISPER_BATCH
+    self_lengths = rng.integers(1, 449, B).tolist()
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, Tk, causal in ((T, T, False), (WHISPER_PROMPT, T, False),
+                              (64, 64, True)):
+            rows.append(flash_case(device, gen, "whisper-medium", WHISPER, B,
+                                   S, Tk, dtype, 0.0, causal))
+        rows.append(decode_case(device, gen, "cross", "whisper-medium",
+                                WHISPER, T, [T] * B, dtype))
+        rows.append(decode_case(device, gen, "self", "whisper-medium",
+                                WHISPER, 448, self_lengths, dtype))
+    return rows
+
+
+def whisper_step_bytes(params, cfg, B: int, T: int, positions) -> dict:
+    """Bytes one decode step must move at each of ``positions``, averaged:
+    every decoder layer's weights but the cross K/V projections (``wk``,
+    ``wv``, ``bv``: the prefill applied them), the final norm, the tied
+    head (the whole embedding table), B embedding rows and one position
+    row; the cross K/V (B x Ld x T rows of K and V); the self K/V rows 0
+    .. pos read and row pos written; the logits written.  No encoder
+    weight."""
+    from repro_torch.utils import named_leaves, tensor_nbytes
+    elt = torch.empty((), dtype=params["embed"].dtype).element_size()
+    D, Ld = cfg.d_model, cfg.dec_layers
+    weights = sum(tensor_nbytes(t) for path, t in named_leaves(params["dec_layers"])
+                  if path.split(".", 1)[1] not in ("cross_attn.wk", "cross_attn.wv",
+                                                   "cross_attn.bv"))
+    weights += (sum(tensor_nbytes(t) for _, t in named_leaves(params["dec_ln"]))
+                + tensor_nbytes(params["embed"]) + (B + 1) * D * elt)
+    row = 2 * cfg.n_heads * cfg.head_dim * elt          # one K and one V row
+    cross = B * Ld * T * row
+    self_kv = float(np.mean([B * Ld * (p + 2) * row for p in positions]))
+    logits = B * cfg.vocab_size * elt
+    total = weights + cross + self_kv + logits
+    return {"weight_bytes": weights, "cross_kv_bytes": cross,
+            "self_kv_bytes": self_kv, "logit_bytes": logits,
+            "total_bytes": total,
+            "bound_ms": total / HBM_BYTES_PER_S * 1e3}
+
+
+def whisper_decode_profile(model, params, cache, steps: int = 8) -> dict:
+    """Decode steps of the batch over a filled cache (the ``Engine``
+    run's, positions 429 to 446): host ms per step (synchronised), then
+    under ``torch.profiler`` the device time of ``steps`` steps and its
+    share of their wall time, beside the byte bound."""
+    cfg = model.cfg
+    B = cache["self_kv"]["k"].shape[1]
+    T = cache["cross_kv"]["k"].shape[2]
+    toks = torch.ones((B, 1), dtype=torch.int32, device=model.device)
+    pos0 = cfg.max_dec_len - 2 - (2 * steps + 2) + 1
+    model.decode_step(params, cache, {"tokens": toks}, pos0)        # warm-up
+    model.decode_step(params, cache, {"tokens": toks}, pos0 + 1)
+    host = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_step(params, cache, {"tokens": toks}, pos0 + 2 + i)
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    positions = [pos0 + 2 + steps + i for i in range(steps)]
+    prof = profiled_steps([
+        lambda p=p: model.decode_step(params, cache, {"tokens": toks}, p)
+        for p in positions])
+    out = {"arch": cfg.name, "batch": B, "positions": [positions[0], positions[-1]],
+           "host_ms_per_step_median": float(np.median(host) * 1e3), **prof,
+           **whisper_step_bytes(params, cfg, B, T, positions)}
+    print(json.dumps({"whisper_decode_step": out}))
+    return out
+
+
+def whisper_parity(device) -> dict:
+    """A 2 + 2-layer fp32 whisper-medium at full width: the same seeded
+    weights on the card (kernels) and on the CPU (plain versions), 1,500
+    frames and 4-token prompts at B = 2, then 15 greedy decode steps
+    through the ``Engine``: logits within 1e-4 of the largest |logit|,
+    tokens equal over the 16."""
+    from repro_torch.data.pipeline import make_frames
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.runtime import Engine
+    cfg = get_config("whisper-medium").replace(n_layers=2, dec_layers=2,
+                                               dtype="float32")
+    print("whisper-medium parity reduced: n_layers 24 -> 2, dec_layers 24 -> "
+          "2 (fp32 on the card and on the CPU; every width the config's)")
+    frames = make_frames(cfg.d_model, 2, WHISPER_FRAMES, seed=31)
+    prompts = np.random.default_rng(31).integers(1, cfg.vocab_size, (2, 4)
+                                                 ).astype(np.int32)
+    runs = {}
+    for dev in (device, "cpu"):
+        model = get_model(cfg, device=dev)
+        logits = []
+
+        def prefill(p, inputs, cache, m=model, out=logits):
+            lg, cache = m.prefill(p, inputs, cache)
+            out.append(lg.float().cpu())
+            return lg, cache
+
+        def decode(p, cache, inputs, pos, m=model, out=logits):
+            lg, cache = m.decode_step(p, cache, inputs, pos)
+            out.append(lg.float().cpu())
+            return lg, cache
+
+        res = Engine(model, model.init_params(seed=1), prefill, decode
+                     ).generate(prompts, max_new_tokens=16, frames=frames)
+        runs[str(dev)] = (torch.stack(logits), res.tokens)
+    (lg_gpu, tk_gpu), (lg_cpu, tk_cpu) = runs[str(device)], runs["cpu"]
+    err = float((lg_gpu - lg_cpu).abs().max())
+    big = float(lg_cpu.abs().max())
+    out = {"config": f"{cfg.name} x {cfg.n_layers} + {cfg.dec_layers} layers, "
+           f"{cfg.dtype}", "frames": WHISPER_FRAMES, "steps": 16,
+           "max_abs_logit_err": err, "max_abs_logit": big, "tol": 1e-4 * big,
+           "tokens_equal": bool((tk_gpu == tk_cpu).all()),
+           "tokens_card": tk_gpu.tolist()}
+    print(json.dumps({"whisper_parity": out}))
+    if not err <= out["tol"] or not out["tokens_equal"]:
+        raise AssertionError(f"whisper card vs CPU parity failed: {out}")
+    return out
+
+
+def check_whisper_launches(counts: dict, cfg, prefills: int, steps: int,
+                           where: str) -> None:
+    """Exact launches: 3 flash per decoder layer pair per prefill (encoder,
+    decoder self, cross), 2 ``decode_attention`` per decoder layer per
+    step, and nothing else."""
+    want = {"flash_attention": prefills * (cfg.n_layers + 2 * cfg.dec_layers),
+            "decode_attention": steps * 2 * cfg.dec_layers,
+            "paged_decode_attention": 0, "rmsnorm": 0, "rmsnorm_fused": 0,
+            "ssd_scan": 0}
+    if counts != want:
+        raise AssertionError(f"{where}: launches {counts}, want {want}")
+
+
+def phase_whisper(device) -> dict:
+    """whisper-medium at full width and depth (24 encoder and 24 decoder
+    layers, d_model 1024, 16 heads of 64, d_ff 4096, vocabulary 51,865,
+    tied head, 448 decoder positions; bf16, seeded random weights): the
+    attention kernels at its shapes, then ``Engine.generate(frames=)`` at
+    8 sequences over 1,500 frames with 4-token prompts and 444 new tokens
+    (exact launches: 72 flash per prefill, 48 ``decode_attention`` per
+    step, no other kernel), each sequence alone against the batch (32
+    tokens, information only), the decode step beside its byte bound,
+    the peak allocation, ``ContinuousBatchingEngine`` refusing the model,
+    then a 2 + 2-layer fp32 card against CPU check."""
+    from repro_torch.data.pipeline import make_frames
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import ContinuousBatchingEngine, Engine
+    rows = whisper_kernel_cases(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, info = big_model("whisper-medium", device)
+    cfg = model.cfg
+    assert (cfg.n_layers, cfg.dec_layers, cfg.d_model, cfg.n_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.max_dec_len) == (
+        24, 24, 1024, 16, 64, 4096, 51865, 448)
+    B, S, new = WHISPER_BATCH, WHISPER_PROMPT, WHISPER_NEW
+    frames = make_frames(cfg.d_model, B, WHISPER_FRAMES, seed=30)
+    prompts = np.random.default_rng(30).integers(1, cfg.vocab_size, (B, S)
+                                                 ).astype(np.int32)
+    kept = {}
+
+    def decode(p, cache, inputs, pos):
+        kept["cache"] = cache
+        return model.decode_step(p, cache, inputs, pos)
+
+    eng = Engine(model, params, decode_fn=decode)
+    eng.generate(prompts, max_new_tokens=2, frames=frames)          # warm-up
+    torch.cuda.synchronize()
+    stamps = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = eng.generate(prompts, max_new_tokens=new, frames=frames,
+                       on_token=lambda toks, i: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_whisper_launches(counts, cfg, 1, new - 1, "whisper Engine")
+    peak = torch.cuda.max_memory_allocated()
+    engine = {"pass": "whisper engine", "batch": B, "frames": WHISPER_FRAMES,
+              "prompt_len": S, "new_tokens": new, "launches": counts,
+              "wall_s": wall, "ttft_ms": res.ttft_s * 1e3,
+              "decode_ms_per_step_median": float(np.median(np.diff(stamps)) * 1e3),
+              "decode_ms_per_step_mean": res.decode_s / (new - 1) * 1e3,
+              "tokens_per_s": B * new / wall,
+              "max_memory_allocated": peak, "param_bytes": info["param_bytes"]}
+    print(json.dumps(engine))
+    alone = []
+    for b in range(B):
+        one = Engine(model, params).generate(prompts[b:b + 1], max_new_tokens=32,
+                                             frames=frames[b:b + 1])
+        alone.append(bool((one.tokens[0] == res.tokens[b, :32]).all()))
+    engine["alone_equal_to_batch_32_tokens"] = f"{sum(alone)}/{B}"
+    print(json.dumps({"whisper_alone_vs_batch": engine[
+        "alone_equal_to_batch_32_tokens"], "per_sequence": alone}))
+    out = {"model": info, "kernels": rows, "engine": engine,
+           "decode_step": whisper_decode_profile(model, params, kept["cache"])}
+    try:
+        ContinuousBatchingEngine(model, params)
+    except NotImplementedError as e:
+        out["continuous_refused"] = str(e)
+    else:
+        raise AssertionError("ContinuousBatchingEngine took an enc-dec model")
+    del model, params, eng, kept
+    torch.cuda.empty_cache()
+    out["parity"] = whisper_parity(device)
+    return out
+
+
 def kernel_summary(kernels: list, serve: list, engine: list,
                    tidal_row: dict, tenants: dict, ssm: dict,
-                   big: tuple = (), xlstm: dict | None = None) -> list:
+                   big: tuple = (), xlstm: dict | None = None,
+                   whisper: dict | None = None) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
     shapes, with its launches from the serving phases (3, 5, 6, 7 and 8,
     the serving, engine and FaaS passes of ``big``: phases 9, 10 and 11,
-    and those of ``xlstm``: phase 12)."""
+    those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
@@ -3078,6 +3338,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
     if xlstm is not None:
         rows += [xlstm["serve"], xlstm["engine"],
                  xlstm["engine_prompts_continuous"], xlstm["faas"]]
+    if whisper is not None:
+        rows.append(whisper["engine"])
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
@@ -3183,14 +3445,16 @@ def main(argv=None) -> int:
     deepseek = timed("deepseek", phase_deepseek, device, h2d)
     xlstm = timed("xlstm", phase_xlstm, device, h2d)
     kernels += xlstm["kernels"]
+    whisper = timed("whisper", phase_whisper, device)
+    kernels += whisper["kernels"]
     summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm,
-                             (llama, moe, deepseek), xlstm)
+                             (llama, moe, deepseek), xlstm, whisper)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
          "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
          "llama": llama, "moe": moe, "deepseek": deepseek, "xlstm": xlstm,
-         "summary": summary,
+         "whisper": whisper, "summary": summary,
          "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")

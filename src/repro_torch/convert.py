@@ -8,8 +8,11 @@ is ``[L, D, E]``); the port keeps a list of per-layer dicts
 ``mlstm`` holds one per mLSTM block (42 of xlstm-1.3b's 48, unit-major)
 and ``slstm`` one per unit (6), so each group's length is read from the
 leaf's leading axis or from the model's parameter specs
-(:func:`group_lengths`).  Names outside the stacked groups (``embed``,
-zamba's single ``shared_attn`` block, ...) are the same in both.
+(:func:`group_lengths`): whisper's ``enc_blocks`` holds ``n_layers``
+(``enc_layers.i``) and ``dec_blocks`` ``dec_layers`` (``dec_layers.i``).
+Names outside the stacked groups (``embed``, zamba's single
+``shared_attn`` block, whisper's ``dec_pos``, ``enc_ln``, ``dec_ln``,
+...) are the same in both.
 :func:`port_names` is the table between the two naming schemes: tracing
 and LoRA targets name weights by the JAX path strings
 (``repro.utils.path_str``).
@@ -26,13 +29,15 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.models import encdec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_family, param_specs, to_device
 from repro_torch.utils import named_leaves
 
 # JAX subtree stacked on a leading layer axis -> the port's per-layer list
 STACKED = {"blocks": "layers", "mamba": "mamba", "mlstm": "mlstm",
-           "slstm": "slstm"}
+           "slstm": "slstm", "enc_blocks": "enc_layers",
+           "dec_blocks": "dec_layers"}
 UNSTACKED = {v: k for k, v in STACKED.items()}
 
 
@@ -91,13 +96,15 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
     """Port parameters from a JAX parameter tree given as numpy arrays.
 
     ``jax_params`` is the nested dict of ``repro.models.transformer.
-    init_params`` (or a checkpoint of it) with leaves converted to numpy.
-    Stacked ``[n, ...]`` leaves are unstacked into per-layer dicts; each
-    group's ``n`` must be the model's (``n_layers``, or xlstm's mLSTM
-    blocks and units).
+    init_params`` (or ``repro.models.encdec.init_params``, or a checkpoint
+    of either) with leaves converted to numpy.  Stacked ``[n, ...]``
+    leaves are unstacked into per-layer dicts; each group's ``n`` must be
+    the model's (``n_layers``, xlstm's mLSTM blocks and units, whisper's
+    encoder and decoder layers).
     """
     check_family(cfg)
-    lengths = group_lengths(param_specs(cfg))
+    specs = (encdec.param_specs if cfg.is_encdec else param_specs)(cfg)
+    lengths = group_lengths(specs)
     params: dict = {STACKED[k]: [{} for _ in range(lengths[k])]
                     for k in STACKED if k in jax_params}
     for path, leaf in _flatten(jax_params):

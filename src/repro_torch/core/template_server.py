@@ -41,7 +41,6 @@ from repro_torch.core.streaming import ForkSession, StreamEntry, WeightStreamer
 from repro_torch.core.template import FunctionTemplate, generate_template
 from repro_torch.core.tracing import trace_weight_access, weight_sizes
 from repro_torch.hw import H100_SXM, HardwareProfile
-from repro_torch.models import transformer
 from repro_torch.utils import named_leaves, tensor_nbytes
 
 
@@ -103,11 +102,11 @@ class TemplateServer:
 
         specs = model.param_specs()
         B, S = self.trace_batch, self.trace_seq
-        tokens = torch.zeros((B, S), dtype=torch.int32, device="meta")
-        cache = transformer.make_cache(model.cfg, B, S, device="meta")
+        # the model's own prefill over meta inputs (enc-dec: frames too)
+        inputs = model.input_specs("prefill", B, S)
+        cache = model.make_cache(B, S, device="meta")
         trace = trace_weight_access(
-            lambda p, t, c: transformer.prefill(p, model.cfg, t, c),
-            specs, tokens, cache)
+            lambda p, i, c: model.prefill(p, i, c), specs, inputs, cache)
         template = generate_template(fn.name, trace,
                                      weight_sizes(specs, trace.order), fps,
                                      resident_bytes=resident_bytes)

@@ -33,6 +33,8 @@ asking for ``--layers``.  ``--lora`` targets the GQA query projection,
 which MLA and xLSTM do not have, so deepseek-v3 and xlstm-1.3b serve
 static functions only.
 llama2-70b serves only on the CPU until tensor parallelism is ported.
+whisper-medium (enc-dec) exits: as in the reference, it generates through
+the sequential ``Engine`` only (``Engine.generate(frames=)``).
 
 ``--open-loop --qps Q [--deadline D]`` replaces the closed loop (submit,
 wait, repeat) with open-loop Poisson arrivals through the async gateway:
@@ -161,6 +163,10 @@ def main(argv=None):
                      "PyTorch port yet")
 
     cfg = get_config(args.arch)
+    if cfg.is_encdec:
+        sys.exit(f"--arch {args.arch}: enc-dec serves through the sequential "
+                 "Engine (Engine.generate(frames=...)), not through "
+                 "FaaSRuntime's continuous engines")
     if args.lora and cfg.use_mla:
         sys.exit(f"--lora: {cfg.name} has MLA attention; the adapters target "
                  f"{LORA_TARGET[cfg.family]}, a GQA projection it does not have")

@@ -65,6 +65,19 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return ops.rmsnorm(x, scale, eps, residual=residual)
 
 
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm with bias (whisper): fp32 statistics, the population
+    variance, then ``* scale + bias`` and a cast back to ``x``'s dtype, as
+    ``repro.models.layers.layernorm``.  Plain PyTorch: the JAX package has
+    no kernel for it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mu
+    var = (xc * xc).mean(dim=-1, keepdim=True)
+    return (xc * torch.rsqrt(var + eps) * scale + bias).to(x.dtype)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0):
     """Apply RoPE. x: [..., S, H, hd]; positions: [..., S] (broadcastable)."""
     half = x.shape[-1] // 2

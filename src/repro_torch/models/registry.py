@@ -6,7 +6,12 @@
     logits, cache = m.decode_step_paged(params, arena, {"tokens": t}, pos,
                                         page_table, page_size)
 
-A ``Model`` holds its device; every tensor it makes lives there.
+A ``Model`` holds its device; every tensor it makes lives there.  The
+decoder families run ``models.transformer``, enc-dec (whisper)
+``models.encdec``, whose prefill inputs also carry ``frames`` [B, S_enc,
+D] (cast to the model's dtype here, where the JAX package would promote
+a bf16 model's encoder to the frames' fp32).  Inputs that are ``meta``
+tensors (``input_specs``, tracing) pass through as they are.
 """
 
 from __future__ import annotations
@@ -14,14 +19,15 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
+import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig, reduced
 
 ARCH_IDS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b",
             "llama2-13b", "chameleon-34b", "llama2-70b", "phi3.5-moe-42b-a6.6b",
-            "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b"]
+            "deepseek-v3-671b", "zamba2-2.7b", "xlstm-1.3b", "whisper-medium"]
 
 _MODULE_FOR_ARCH = {a: a.replace(".", "_").replace("-", "_") for a in ARCH_IDS}
 
@@ -56,33 +62,84 @@ class Model:
     def dtype(self) -> torch.dtype:
         return transformer.torch_dtype(self.cfg.dtype)
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.cfg.is_encdec
+
+    @property
+    def _family(self):
+        return encdec if self.is_encdec else transformer
+
     # ---- params / caches ------------------------------------------------
     def init_params(self, seed: int = 0) -> dict:
-        return transformer.init_params(self.cfg, seed, self.device)
+        return self._family.init_params(self.cfg, seed, self.device)
 
     def param_specs(self) -> dict:
         """The parameter dict as shape-only ``meta`` tensors."""
-        return transformer.param_specs(self.cfg)
+        return self._family.param_specs(self.cfg)
 
-    def make_cache(self, batch: int, max_len: int) -> dict:
-        return transformer.make_cache(self.cfg, batch, max_len, self.device)
+    def make_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """A dense cache on the model's device (or on ``device``: ``meta``
+        for tracing).  Enc-dec: ``max_len`` is the encoder length (the
+        cross K/V rows); the self cache has ``max_dec_len`` rows."""
+        return self._family.make_cache(self.cfg, batch, max_len,
+                                       device or self.device)
 
     @property
     def supports_paged_kv(self) -> bool:
-        """True for families whose decode cache grows with sequence length."""
-        return transformer.supports_paged_kv(self.cfg)
+        """True for families whose decode cache grows with sequence length
+        (not enc-dec, whose self cache is fixed at ``max_dec_len``)."""
+        return not self.is_encdec and transformer.supports_paged_kv(self.cfg)
+
+    def _no_encdec(self, what: str) -> None:
+        if self.is_encdec:
+            raise ValueError(f"{self.cfg.name}: enc-dec has no {what}")
 
     def make_paged_cache(self, n_pages: int, page_size: int,
                          kv_dtype: str | None = None) -> dict:
         """Shared block-paged KV arena (see ``transformer.make_paged_cache``)."""
+        self._no_encdec("paged KV layout")
         return transformer.make_paged_cache(self.cfg, n_pages, page_size,
                                             self.device, kv_dtype)
 
+    def input_specs(self, mode: str, batch: int, seq: int) -> dict:
+        """``meta`` stand-ins for the inputs of ``prefill`` (``mode=
+        'prefill'``) or ``decode_step`` (``'decode'``), as the JAX
+        registry's ``input_specs`` gives them: tokens [batch, seq], or
+        [batch, 1]; enc-dec's prefill also frames [batch, seq, d_model] in
+        the model's dtype and tokens of ``min(max_dec_len, seq)``."""
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+
+        def tokens(n):
+            return torch.empty((batch, n), dtype=torch.int32, device="meta")
+
+        if mode == "decode":
+            return {"tokens": tokens(1)}
+        if not self.is_encdec:
+            return {"tokens": tokens(seq)}
+        return {"frames": torch.empty((batch, seq, self.cfg.d_model),
+                                      dtype=self.dtype, device="meta"),
+                "tokens": tokens(min(self.cfg.max_dec_len, seq))}
+
     # ---- entry points ------------------------------------------------------
+    def _input(self, x, dtype=None) -> torch.Tensor:
+        if isinstance(x, torch.Tensor) and x.is_meta:
+            return x if dtype is None else x.to(dtype)
+        return torch.as_tensor(x, dtype=dtype, device=self.device)
+
     def _tokens(self, inputs: dict) -> torch.Tensor:
-        return torch.as_tensor(inputs["tokens"], device=self.device)
+        return self._input(inputs["tokens"])
+
+    def _frames(self, inputs: dict) -> torch.Tensor:
+        if "frames" not in inputs:
+            raise ValueError(f"{self.cfg.name}: enc-dec inputs need 'frames'")
+        return self._input(inputs["frames"], self.dtype)
 
     def forward(self, params, inputs: dict):
+        if self.is_encdec:
+            return encdec.forward(params, self.cfg, self._frames(inputs),
+                                  self._tokens(inputs))
         return transformer.forward(params, self.cfg, self._tokens(inputs))
 
     def _ids(self, adapter_ids):
@@ -94,7 +151,11 @@ class Model:
     def prefill(self, params, inputs: dict, cache, adapter_bank=None,
                 adapter_ids=None):
         """Whole-prompt prefill; with an ``adapter_bank``, ``adapter_ids``
-        [B] selects each sequence's LoRA row."""
+        [B] selects each sequence's LoRA row.  Enc-dec: encode
+        ``inputs['frames']``, then the prompt."""
+        if self.is_encdec:
+            return encdec.prefill(params, self.cfg, self._frames(inputs),
+                                  self._tokens(inputs), cache)
         return transformer.prefill(params, self.cfg, self._tokens(inputs), cache,
                                    adapter_bank, self._ids(adapter_ids))
 
@@ -102,12 +163,21 @@ class Model:
                      adapter_bank=None, adapter_ids=None):
         """Suffix-only prefill against a cache holding a reused prompt
         prefix of ``offset`` tokens."""
+        self._no_encdec("suffix-only prefill")
         return transformer.prefill_from(params, self.cfg, self._tokens(inputs),
                                         cache, offset, adapter_bank,
                                         self._ids(adapter_ids))
 
     def decode_step(self, params, cache, inputs: dict, pos):
-        """One decode step; ``pos`` an int or an int [B] vector."""
+        """One decode step; ``pos`` an int or an int [B] vector (enc-dec:
+        a scalar only, the whole batch at one decoder position)."""
+        if self.is_encdec:
+            if np.ndim(pos.cpu() if isinstance(pos, torch.Tensor) else pos):
+                raise ValueError(
+                    f"{self.cfg.name}: enc-dec decodes the whole batch at one "
+                    "position; pos must be a scalar")
+            return encdec.decode_step(params, self.cfg, cache,
+                                      self._tokens(inputs), int(pos))
         return transformer.decode_step(params, self.cfg, cache,
                                        self._tokens(inputs), pos)
 
@@ -116,6 +186,7 @@ class Model:
         """One decode step over a block-paged arena: ``pos`` int [B] and
         ``page_table`` [B, NB] int32 on the model's device; with an
         ``adapter_bank``, ``adapter_ids`` [B] picks each slot's LoRA row."""
+        self._no_encdec("paged decode path")
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         page_table = torch.as_tensor(page_table, dtype=torch.int32,
                                      device=self.device)

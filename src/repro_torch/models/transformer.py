@@ -56,22 +56,32 @@ def torch_dtype(name_or_dtype) -> torch.dtype:
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families this port does not serve yet, and for an
     xlstm depth that is not a whole number of units (an xlstm without
-    sLSTM blocks, ``slstm_every`` 0, is not ported)."""
-    ported = (cfg.family in ("dense", "moe", "zamba", "xlstm")
-              and not cfg.is_encdec
-              and not (cfg.use_mla and cfg.family in ("zamba", "xlstm"))
+    sLSTM blocks, ``slstm_every`` 0, is not ported).  Enc-dec (whisper)
+    lives in ``models.encdec``."""
+    ported = (cfg.family in ("dense", "moe", "zamba", "xlstm", "encdec")
+              and (cfg.family == "encdec") == cfg.is_encdec
+              and not (cfg.use_mla
+                       and cfg.family in ("zamba", "xlstm", "encdec"))
               and (cfg.family == "moe") == bool(cfg.n_experts))
     if not ported:
         raise NotImplementedError(
             f"{cfg.name}: the dense and moe families (GQA or MLA attention), "
-            "zamba and xLSTM are ported; MLA outside a dense or moe block "
-            "and enc-dec (whisper) are not yet")
+            "zamba, xLSTM and enc-dec (whisper) are ported; MLA in a zamba, "
+            "xLSTM or enc-dec block, and experts outside the moe family, "
+            "are not yet")
     if cfg.family == "xlstm" and (
             not cfg.slstm_every or cfg.n_layers < cfg.slstm_every
             or cfg.n_layers % cfg.slstm_every):
         raise ValueError(
             f"{cfg.name}: {cfg.n_layers} layers are not a whole number of "
             f"units of {cfg.slstm_every} blocks (slstm_every)")
+
+
+def _decoder_only(cfg: ModelConfig) -> None:
+    check_family(cfg)
+    if cfg.is_encdec:
+        raise ValueError(f"{cfg.name}: enc-dec runs through models.encdec "
+                         "(registry.Model dispatches to it)")
 
 
 def n_units(cfg: ModelConfig) -> int:
@@ -148,7 +158,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     the same weights on every device.  Each leaf is cast and moved to
     ``device`` as soon as it is drawn, so host memory holds one leaf at a
     time (llama2-13b would need 52 GB for its whole float32 tree)."""
-    check_family(cfg)
+    _decoder_only(cfg)
     dtype = torch_dtype(cfg.dtype)
     tree = _param_tree(cfg, ParamDraw(seed, device, dtype))
     return to_device(tree, device, dtype)
@@ -159,7 +169,7 @@ def param_specs(cfg: ModelConfig) -> dict:
     no storage and no random draws (the counterpart of the JAX package's
     ``init_params(abstract=True)``).  Tracing, ``assemble`` and the LoRA
     helpers read the model's structure from it."""
-    check_family(cfg)
+    _decoder_only(cfg)
     with torch.device("meta"):
         tree = _param_tree(cfg, None)
     return to_device(tree, "meta", torch_dtype(cfg.dtype))
@@ -185,7 +195,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     batch, H, dh, dh], 'n', 'm' fp32 ('m' filled with ``EMPTY_M``),
     'conv'}, 'slstm': {'c', 'n', 'h', 'm': [units, batch, H, dh] fp32
     zeros}}``; ``max_len`` is unused (the state does not grow)."""
-    check_family(cfg)
+    _decoder_only(cfg)
     dt = torch_dtype(cfg.dtype)
     L = cfg.n_layers
     if cfg.family == "xlstm":
@@ -229,7 +239,7 @@ def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
     ``<leaf>_scale`` arena, the value leaf's shape minus its last axis
     (one scale per cached row), next to each.
     """
-    check_family(cfg)
+    _decoder_only(cfg)
     if not supports_paged_kv(cfg):
         raise ValueError(
             f"{cfg.name}: {cfg.family!r} family has no paged KV layout")
@@ -414,7 +424,7 @@ def _head(params, cfg, x):
 @torch.no_grad()
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
     """Full-sequence causal forward -> (logits [B, S, V], aux = 0)."""
-    check_family(cfg)
+    _decoder_only(cfg)
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -426,7 +436,7 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
             adapter_bank: Optional[dict] = None, adapter_ids=None):
     """Process the prompt, fill the cache; returns (last-token logits, cache)."""
-    check_family(cfg)
+    _decoder_only(cfg)
     return _prefill(params, cfg, tokens, cache, 0, adapter_bank, adapter_ids)
 
 
@@ -440,7 +450,7 @@ def prefill_from(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     causal mask carry the offset, and the new K/V land at ``offset``.
     With an ``adapter_bank``, ``adapter_ids`` [B] selects each sequence's
     LoRA row.  Dense and moe families only."""
-    check_family(cfg)
+    _decoder_only(cfg)
     _check_positional(cfg, "suffix-only prefill")
     return _prefill(params, cfg, tokens, cache, int(offset), adapter_bank,
                     adapter_ids)
@@ -472,7 +482,7 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     """One decode step over a dense cache.  tokens: [B, 1]; pos: an int
     (whole batch at one position) or an int [B] tensor of per-sequence
     positions."""
-    check_family(cfg)
+    _decoder_only(cfg)
     B = tokens.shape[0]
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
@@ -493,7 +503,7 @@ def decode_step_paged(params: dict, cfg: ModelConfig, cache: dict,
     ``adapter_bank``, ``adapter_ids`` [B] selects each slot's LoRA delta
     (0 = null adapter for free and foreign slots).  Dense and moe families
     only."""
-    check_family(cfg)
+    _decoder_only(cfg)
     _check_positional(cfg, "paged decode path")
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)

@@ -35,7 +35,8 @@ decode gathers its slot's LoRA delta from the bank (id 0 = the null
 adapter, carried by free and foreign slots).
 
 Not ported yet, and raising ``NotImplementedError``: sharding plans
-(ROADMAP Queue 1, item 11).
+(ROADMAP Queue 1, item 11).  Enc-dec models raise it too, as in the JAX
+package: they serve through the sequential ``Engine``.
 """
 
 from __future__ import annotations
@@ -135,6 +136,10 @@ class ContinuousBatchingEngine:
                  kv_dtype: Optional[str] = None,
                  adapter_bank: Optional[dict] = None,
                  owner_name: Optional[str] = None):
+        if model.is_encdec:
+            raise NotImplementedError(
+                "continuous batching needs per-slot decode positions; the "
+                "enc-dec family still serves through the sequential Engine")
         if plan is not None:
             raise NotImplementedError(
                 "sharding plans arrive with the tensor-parallel slice "

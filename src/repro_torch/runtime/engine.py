@@ -4,7 +4,8 @@
 over a dense cache: the port's counterpart of ``repro.runtime.engine.
 Engine``, and the reference the batching engines are tested against (the
 continuous engine reproduces its greedy tokens request by request).  Its
-decode steps run the ``decode_attention`` kernel on a card.
+decode steps run the ``decode_attention`` kernel on a card.  It is also
+the one engine that serves enc-dec (whisper): ``generate(frames=)``.
 """
 
 from __future__ import annotations
@@ -89,18 +90,38 @@ class Engine:
         self.decode_fn = decode_fn or model.decode_step
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int = 16,
+                 frames: Optional[np.ndarray] = None,
                  greedy: bool = True, seed: int = 0,
                  cache_len: Optional[int] = None,
                  temperature: float = 1.0,
                  on_token: Optional[Callable] = None) -> GenerationResult:
         """Prefill ``prompts`` [B, S], then decode ``max_new_tokens - 1``
         more tokens.  ``on_token(tokens, index)`` is called with each
-        sampled [B] token batch as it is produced."""
+        sampled [B] token batch as it is produced.
+
+        Enc-dec: ``frames`` [B, S_enc, D] go into the prefill inputs, the
+        cross cache takes their S_enc rows (``cache_len`` is unused), and
+        decoder positions continue after the prompt tokens.  Positions
+        past ``max_dec_len`` raise ``ValueError`` (the JAX engine's
+        ``dynamic_slice`` would clamp them to the last row)."""
         prompts = np.asarray(prompts, np.int32)
         B, S = prompts.shape
-        cache_len = cache_len or (S + max_new_tokens)
-        cache = self.model.make_cache(B, cache_len)
         dev = self.model.device
+        inputs = {"tokens": torch.as_tensor(prompts, device=dev)}
+        if self.model.is_encdec:
+            if frames is None:
+                raise ValueError(f"{self.model.cfg.name}: enc-dec generation "
+                                 "needs frames")
+            limit = self.model.cfg.max_dec_len
+            if S + max_new_tokens - 1 > limit:
+                raise ValueError(
+                    f"{self.model.cfg.name}: prompt({S}) + max_new"
+                    f"({max_new_tokens}) - 1 decoder positions exceed "
+                    f"max_dec_len={limit}")
+            inputs["frames"] = torch.as_tensor(frames, device=dev)
+            cache = self.model.make_cache(B, inputs["frames"].shape[1])
+        else:
+            cache = self.model.make_cache(B, cache_len or (S + max_new_tokens))
         gen = None
         if not greedy:
             gen = torch.Generator(device=dev).manual_seed(seed)
@@ -111,8 +132,7 @@ class Engine:
             return sample_temperature(logits, gen, temperature)
 
         t0 = time.perf_counter()
-        logits, cache = self.prefill_fn(
-            self.params, {"tokens": torch.as_tensor(prompts, device=dev)}, cache)
+        logits, cache = self.prefill_fn(self.params, inputs, cache)
         tok = sample(logits)
         out = [tok.cpu().numpy()]                  # synchronises the card
         ttft = time.perf_counter() - t0

@@ -36,7 +36,9 @@ turns wall-clock cold/fork/warm measurements into the cluster
 scheduler's oracle.
 
 Left out, raising ``NotImplementedError`` with its ROADMAP item: ``mesh=``
-(Queue 1, item 11).
+(Queue 1, item 11).  An enc-dec (whisper) function deploys, unwarmed, and
+its invocation raises ``NotImplementedError`` where the continuous engine
+is built, as in the JAX runtime.
 """
 
 from __future__ import annotations
@@ -217,8 +219,11 @@ class FaaSRuntime:
         if template_prompt is not None:
             self._baked_events[fn.name] = dict(example_event or {})
             self._bake_template_prefix(fn.name)
-        if self.prewarm:
-            # one zero-filled parameter set per deploy, built on first need
+        if self.prewarm and not fn.model.is_encdec:
+            # enc-dec serves through the sequential Engine only, so there
+            # are no continuous-engine entry points to warm (as in the JAX
+            # runtime); its invocations raise where that engine is built.
+            # One zero-filled parameter set per deploy, built on first need
             zeros = functools.cache(lambda: zero_params(fn.model))
             self._fn_keys[fn.name] = self._prewarm_engine_fns(
                 fn, prewarm_seq, zeros)

@@ -110,6 +110,26 @@ def test_flash_matches_pallas_square(B, H, KV, S, d):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+@pytest.mark.parametrize("B,H,KV,S,T,d", [
+    (2, 4, 4, 64, 64, 16),   # whisper smoke heads, encoder: S = T
+    (1, 9, 3, 96, 96, 64),   # GQA, S = T over three blocks
+    (2, 4, 4, 32, 96, 16),   # cross-attention: S_dec over T_enc keys
+    (1, 16, 16, 4, 64, 64),  # whisper-medium heads, a 4-token prompt
+])
+def test_flash_noncausal_matches_pallas(B, H, KV, S, T, d):
+    """``causal=False`` (whisper's encoder and cross-attention) against
+    the Pallas kernel in interpret mode, at sizes its blocks divide."""
+    rng = np.random.default_rng(S * T + H)
+    q = rng.standard_normal((B, H, S, d)).astype(np.float32)
+    k = rng.standard_normal((B, KV, T, d)).astype(np.float32)
+    v = rng.standard_normal((B, KV, T, d)).astype(np.float32)
+    want = np.asarray(pallas_flash(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=False,
+                                   block_q=min(32, S), block_k=32))
+    got = ops.flash_attention(_t(q), _t(k), _t(v), causal=False).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 @pytest.mark.parametrize("S,T,softcap", [
     (8, 40, 0.0),            # suffix prefill over a reused prefix
     (33, 97, 0.0),           # ragged lengths

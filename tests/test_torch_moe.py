@@ -333,7 +333,7 @@ def test_serve_cli_moe_lora_on_the_cpu():
 @pytest.mark.parametrize("family,extra", [
     ("zamba", {"use_mla": True, "attn_every": 2}),
     ("xlstm", {"slstm_every": 2, "use_mla": True}),
-    ("encdec", {"is_encdec": True}),
+    ("encdec", {"is_encdec": True, "use_mla": True}),
     ("dense", {"n_experts": 8, "top_k": 2})])
 def test_unported_families_raise_naming_what_is_left(family, extra):
     from repro_torch.models.config import ModelConfig

@@ -48,16 +48,17 @@ from repro_torch.utils import named_leaves, tree_bytes  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 ARCHS = ["smollm-135m", "qwen3-14b", "qwen2.5-32b", "gemma-2b", "llama3-8b",
-         "llama2-13b", "chameleon-34b", "llama2-70b"]
+         "llama2-13b", "chameleon-34b", "llama2-70b", "whisper-medium"]
 
 
 def _port_trace(model, B=2, S=16):
+    """The model's prefill traced over its ``meta`` input specs (enc-dec:
+    frames and tokens), as ``TemplateServer.register`` traces it."""
     specs = model.param_specs()
-    tokens = torch.zeros((B, S), dtype=torch.int32, device="meta")
-    cache = transformer.make_cache(model.cfg, B, S, device="meta")
+    inputs = model.input_specs("prefill", B, S)
+    cache = model.make_cache(B, S, device="meta")
     return specs, trace_weight_access(
-        lambda p, t, c: transformer.prefill(p, model.cfg, t, c),
-        specs, tokens, cache)
+        lambda p, i, c: model.prefill(p, i, c), specs, inputs, cache)
 
 
 @pytest.fixture(scope="module")
