@@ -160,7 +160,29 @@ Phases, in order; any failure raises and the process exits non-zero:
    weights without the cross K/V projections, the tied head, the cross
    K/V and the self K/V rows); ``ContinuousBatchingEngine`` refusing the
    model; then a 2 + 2-layer fp32 card against CPU check over 1,500
-   frames (logits within 1e-4 of the largest, 16 greedy tokens equal).
+   frames (logits within 1e-4 of the largest, 16 greedy tokens equal);
+14. training, fp32: the backward kernels (``flash_attention_bwd`` at
+   smollm's heads, S = T = 128 and 2,048 at B = 8, with a softcap, at
+   phi3.5-moe's heads (32 / 8 / 128) over 512, whisper's non-causal
+   encoder (1,500 over 1,500) and cross-attention (64 over 1,500);
+   ``rmsnorm_bwd`` plain and residual at smollm's training rows and on
+   strided q_norm rows) against their plain versions (1e-4 of the
+   largest |grad|; 1e-5 for rmsnorm), each run twice to the same bits,
+   timed beside the plain version, the library call's backward and the
+   bound; then ``repro_torch.launch.train``'s ``train()`` on smollm-135m
+   at full width and depth at the CLI's defaults (batch 8, seq 128,
+   remat) for 20 steps with a checkpoint every 10, exact launches per
+   step (flash 2L, rmsnorm 4L + 1, 2L fused, flash backward L, rmsnorm
+   backward 2L + 1), step time, tokens/s and peak memory, a second run
+   stopped at step 10 and resumed to 20 whose losses, parameters and
+   optimizer state equal the first's bit for bit, the device-busy share
+   of two steps under ``torch.profiler``, the loss falling over 5 steps
+   on one batch, one step at seq 2,048; a 2-layer card-against-CPU step
+   (loss 1e-5, grad norm 1e-4 relative, parameters 1e-5 of the largest);
+   phi3.5-moe at full width and 1 of 32 layers (printed as reduced) and
+   whisper-medium at full width and depth (2 x 1,500 frames, 64 decoder
+   tokens), 3 steps each with exact launches (phi3.5-moe's load-balancing
+   loss finite and nonzero).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -170,6 +192,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import re
@@ -212,6 +235,8 @@ RMSNORM_CASES = (("smollm-decode", (8, 1, 576)), ("smollm-prefill", (384, 576)),
 # MLA's kv_a_norm reads the latent rows of the wkv_a product in place:
 # rows of 512 at a row stride of 576 (the latent and the rope key)
 STRIDED_RMSNORM_CASES = (("deepseek-v3-kv_a_norm", (8, 1, 512), 576),)
+# serving launches no backward kernel (training, phase 14, does)
+NO_BACKWARD = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 # zamba2-2.7b serving prompts: six take the JAX mixer's chunked branch
 # (<= 128 tokens or a multiple of 128), six are ragged
 ZAMBA_LENGTHS = (64, 200, 128, 300, 256, 150, 100, 333, 384, 250, 96, 180)
@@ -441,10 +466,12 @@ def ptxas_report(log: str, kernels=("flash_tc_kernel", "flash_fp32_kernel",
                                     "decode_split_kernel", "decode_merge_kernel",
                                     "rmsnorm_vec_kernel", "rmsnorm_scalar_kernel",
                                     "chunk_state_kernel", "state_pass_kernel",
-                                    "chunk_out_kernel")) -> list:
+                                    "chunk_out_kernel", "flash_bwd_dkdv_kernel",
+                                    "flash_bwd_dq_kernel",
+                                    "rmsnorm_bwd_dx_kernel")) -> list:
     """Registers, static shared memory and spills of the attention, rmsnorm
-    and ssd_scan kernels' instantiations, by source file, from ``nvcc
-    -Xptxas -v`` in the build log."""
+    and ssd_scan kernels' instantiations (and the backward kernels'), by
+    source file, from ``nvcc -Xptxas -v`` in the build log."""
     entries, cur, source = [], None, None
     for line in log.splitlines():
         m = re.match(r"== (\S+) \(exit", line)
@@ -1871,7 +1898,7 @@ def check_zamba_launches(counts: dict, cfg, prefills: int, steps: int,
             "decode_attention": units * steps,
             "rmsnorm": norm_launches(cfg) * (prefills + steps),
             "rmsnorm_fused": fused_norm_launches(cfg) * (prefills + steps),
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, **NO_BACKWARD}
     if counts != want:
         raise AssertionError(f"{where}: launches {counts} != {want} "
                              f"({prefills} prefills, {steps} decode steps)")
@@ -1884,7 +1911,7 @@ def check_xlstm_launches(counts: dict, cfg, calls: int, where: str) -> None:
     want = {"rmsnorm": norm_launches(cfg) * calls,
             "rmsnorm_fused": fused_norm_launches(cfg) * calls,
             "ssd_scan": 0, "flash_attention": 0, "decode_attention": 0,
-            "paged_decode_attention": 0}
+            "paged_decode_attention": 0, **NO_BACKWARD}
     if counts != want:
         raise AssertionError(f"{where}: launches {counts} != {want} "
                              f"({calls} model calls)")
@@ -2458,7 +2485,7 @@ def engine_vs_continuous(model, params, prompts: np.ndarray, new_tokens: int,
               "flash_attention": L * calls,
               "rmsnorm": n_norm * new_tokens * calls,
               "rmsnorm_fused": n_fused * new_tokens * calls,
-              "paged_decode_attention": 0, "ssd_scan": 0}
+              "paged_decode_attention": 0, "ssd_scan": 0, **NO_BACKWARD}
     if counts != expect:
         raise AssertionError(f"{cfg.name} Engine launches {counts} != {expect}")
     row = {"pass": "engine", "arch": cfg.name, "batch": len(prompts),
@@ -2482,7 +2509,7 @@ def engine_vs_continuous(model, params, prompts: np.ndarray, new_tokens: int,
     expect = {"decode_attention": 0, "flash_attention": L * cbe.n_prefill_calls,
               "paged_decode_attention": L * cbe.n_decode_steps,
               "rmsnorm": n_norm * calls, "rmsnorm_fused": n_fused * calls,
-              "ssd_scan": 0}
+              "ssd_scan": 0, **NO_BACKWARD}
     if counts != expect:
         raise AssertionError(f"{cfg.name} continuous launches {counts} != {expect}")
     equal = int((got == want).sum())
@@ -3232,7 +3259,7 @@ def check_whisper_launches(counts: dict, cfg, prefills: int, steps: int,
     want = {"flash_attention": prefills * (cfg.n_layers + 2 * cfg.dec_layers),
             "decode_attention": steps * 2 * cfg.dec_layers,
             "paged_decode_attention": 0, "rmsnorm": 0, "rmsnorm_fused": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, **NO_BACKWARD}
     if counts != want:
         raise AssertionError(f"{where}: launches {counts}, want {want}")
 
@@ -3312,19 +3339,561 @@ def phase_whisper(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+PHI_MOE = dict(H=32, KV=8, d=128)
+TRAIN_STEPS = 20
+TRAIN_CKPT_EVERY = 10
+
+
+def time_grad_ms(forward, inputs: tuple, grad_out, reps: int = 20,
+                 graph_calls: int = 10) -> float:
+    """Mean device time in ms of one ``torch.autograd.grad`` of
+    ``forward(*inputs)`` with respect to ``inputs`` (a library operator's
+    backward, timed as ``time_ms`` times a kernel).  The forward is
+    captured into one CUDA graph and ``graph_calls`` backward calls into
+    a second one in the same pool, as ``torch.cuda.make_graphed_callables``
+    does, so the backward runs on the capture stream; the backward graph
+    is replayed ``reps`` times between CUDA events, and host launch
+    overhead is not in the number."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            torch.autograd.grad(forward(*inputs), inputs, grad_out)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd):
+        out = forward(*inputs)
+    with torch.cuda.graph(bwd, pool=fwd.pool()):
+        for _ in range(graph_calls):
+            torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+    fwd.replay()
+    bwd.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        bwd.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * graph_calls)
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def flash_bwd_case(device, gen, tag, hd, B, S, T, causal=True,
+                   softcap=0.0) -> dict:
+    """``flash_attention_bwd`` (fp32) against its plain version on the
+    card, from the forward kernel's output and log-sum-exp; timed beside
+    the plain version, the backward of SDPA through ``autograd.grad``
+    under a CUDA graph (none with a softcap) and the bound: 2.5 times the forward's FLOPs at
+    the fp32 peak, or q, k, v, o, dO and the lse read and dq, dk, dv
+    written once over HBM's rate.  Tolerance 1e-4 of the largest |grad|
+    of each of dq, dk and dv."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_launch, _lse_like,
+                                                     flash_attention_bwd)
+    H, KV, d = hd["H"], hd["KV"], hd["d"]
+    f32 = torch.float32
+    q = torch.randn((B, S, H, d), generator=gen).to(device).transpose(1, 2)
+    k = torch.randn((B, T, KV, d), generator=gen).to(device).transpose(1, 2)
+    v = torch.randn((B, T, KV, d), generator=gen).to(device).transpose(1, 2)
+    do = torch.randn((B, S, H, d), generator=gen).to(device).transpose(1, 2)
+    lse = _lse_like(q)
+    o = _launch(q, k, v, causal, softcap, lse)
+    o_ref, lse_ref = ref.flash_attention_fwd_ref(q, k, v, causal, softcap)
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal, softcap)
+    again = flash_attention_bwd(q, k, v, o, lse, do, causal, softcap)
+    want = ref.flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, causal,
+                                       softcap)
+    torch.cuda.synchronize()
+    errs = {n: max_rel(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    big = B * H * S * T > 2e8
+    reps, calls = (3, 2) if big else (20, 10)
+    kern_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                                  softcap), reps, calls)
+    plain_ms = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, o_ref, lse_ref, do, causal, softcap), reps, calls)
+    lib_ms = None
+    if softcap == 0.0:
+        lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        mask = (torch.arange(T, device=device)[None, :]
+                <= torch.arange(S, device=device)[:, None] + (T - S))
+        lib_kw = ({} if not causal else {"is_causal": True} if S == T
+                  else {"attn_mask": mask})
+        lib_ms = time_grad_ms(lambda a, b, c: sdpa_gqa(a, b, c, **lib_kw),
+                              (lq, lk, lv), do, reps, calls)
+        del lq, lk, lv
+    flops, _ = flash_work(B, H, KV, S, T, d, f32, causal)
+    nbytes = 4 * (4 * B * H * S * d + 4 * B * KV * T * d + B * H * S)
+    b_ms, b_by = bound_ms(2.5 * flops, nbytes, f32)
+    res = {"kernel": "flash_attention_bwd", "shape": tag, "B": B, "H": H,
+           "KV": KV, "d": d, "S": S, "T": T, "causal": causal,
+           "softcap": softcap, "dtype": "float32",
+           "max_abs_err": max(float((g - w).abs().max())
+                              for g, w in zip(got, want)),
+           "rel_err_of_largest": errs, "tol": "1e-4 of the largest |grad|",
+           "deterministic": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "lse_max_abs_err": float((lse - lse_ref).abs().max()),
+           "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(res))
+    del want, got, again, o_ref, lse_ref
+    if not (max(errs.values()) <= 1e-4 and res["deterministic"]
+            and res["lse_max_abs_err"] <= 1e-4):
+        raise AssertionError(f"flash_attention_bwd disagrees: {res}")
+    return res
+
+
+def rmsnorm_bwd_case(device, gen, tag, shape, residual=False,
+                     stride=None) -> dict:
+    """``rmsnorm_bwd`` (fp32) against its plain version, from the forward
+    kernel's rstd (and its sum ``s`` in the residual form, where the
+    gradient at ``s`` adds to dx), timed beside the plain version, the
+    backward of ``F.rms_norm`` (after ``x + r`` in the residual form)
+    through ``autograd.grad`` under a CUDA graph and the bound (x, dy, d_sum, rstd and the
+    scale read, dx and dscale written once).  Tolerance 1e-5 of the
+    largest |value| of dx and of dscale."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+    d = shape[-1]
+    x = torch.randn(shape, generator=gen).to(device)
+    if stride:
+        x = strided_rows(x, stride)
+    scale = (torch.randn(d, generator=gen) * 0.1 + 1).to(device)
+    r = torch.randn(shape, generator=gen).to(device) if residual else None
+    dy = torch.randn(shape, generator=gen).to(device)
+    d_sum = torch.randn(shape, generator=gen).to(device) if residual else None
+    _, s, rstd = rmsnorm_fwd(x, scale, 1e-5, r)
+    xin = s if residual else x
+    got = rmsnorm_bwd(xin, scale, dy, 1e-5, d_sum, rstd)
+    again = rmsnorm_bwd(xin, scale, dy, 1e-5, d_sum, rstd)
+    want = ref.rmsnorm_bwd_ref(xin, scale, dy, 1e-5, d_sum)
+    torch.cuda.synchronize()
+    errs = {"dx": max_rel(got[0], want[0]), "dscale": max_rel(got[1], want[1])}
+    lx, ls = x.detach().clone().requires_grad_(True), scale.clone().requires_grad_(True)
+    lr = r.clone().requires_grad_(True) if residual else None
+    lib_ms = time_grad_ms(
+        lambda a, b, *c: F.rms_norm(a + c[0] if c else a, (d,), b, 1e-5),
+        (lx, ls) + ((lr,) if residual else ()), dy)
+    n = int(np.prod(shape))
+    rows = n // d
+    nbytes = 4 * (n * (4 if residual else 3) + 2 * d + rows)
+    b_ms, b_by = bound_ms(8 * n, nbytes, torch.float32)
+    res = {"kernel": "rmsnorm_bwd" + ("[residual]" if residual else ""),
+           "shape": tag, "dims": list(shape), "row_stride": stride or d,
+           "dtype": "float32",
+           "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+           "rel_err_of_largest": errs, "tol": "1e-5 of the largest |value|",
+           "deterministic": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "ms": time_ms(lambda: rmsnorm_bwd(xin, scale, dy, 1e-5, d_sum, rstd)),
+           "plain_ms": time_ms(lambda: ref.rmsnorm_bwd_ref(xin, scale, dy, 1e-5,
+                                                           d_sum)),
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(res))
+    if not (max(errs.values()) <= 1e-5 and res["deterministic"]):
+        raise AssertionError(f"rmsnorm_bwd disagrees: {res}")
+    return res
+
+
+def rmsnorm_bwd_many_rows(device) -> dict:
+    """``rmsnorm_bwd`` past 65,535 chunks of 64 rows: q_norm's rows at
+    batch 8 x seq 16,384 x 40 heads (5,242,880 rows of 128; 81,920
+    dscale partials), drawn on the card, against its plain version.
+    Correctness only (tolerance 1e-5 of the largest |value| of dx and of
+    dscale); the times are those of the training shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd, rmsnorm_fwd
+    gen = torch.Generator(device=device).manual_seed(23)
+    shape = (8, 16384, 40, 128)
+    x = torch.randn(shape, generator=gen, device=device)
+    dy = torch.randn(shape, generator=gen, device=device)
+    scale = torch.randn(128, generator=gen, device=device) * 0.1 + 1
+    _, _, rstd = rmsnorm_fwd(x, scale, 1e-5)
+    got = rmsnorm_bwd(x, scale, dy, 1e-5, None, rstd)
+    want = ref.rmsnorm_bwd_ref(x, scale, dy, 1e-5)
+    errs = {"dx": max_rel(got[0], want[0]), "dscale": max_rel(got[1], want[1])}
+    res = {"kernel": "rmsnorm_bwd", "shape": "q_norm-many-rows", "dims": list(shape),
+           "rows": x.numel() // 128, "rel_err_of_largest": errs,
+           "tol": "1e-5 of the largest |value|"}
+    print(json.dumps(res))
+    del x, dy, got, want, rstd
+    torch.cuda.empty_cache()
+    if not max(errs.values()) <= 1e-5:
+        raise AssertionError(f"rmsnorm_bwd disagrees past 65,535 chunks: {res}")
+    return res
+
+
+def train_kernel_cases(device) -> list:
+    """The backward kernels at the training path's shapes (fp32)."""
+    gen = torch.Generator().manual_seed(22)
+    rows = [flash_bwd_case(device, gen, "smollm", SMOLLM, 8, 128, 128),
+            flash_bwd_case(device, gen, "smollm", SMOLLM, 8, 2048, 2048),
+            flash_bwd_case(device, gen, "smollm-softcap", SMOLLM, 2, 256, 256,
+                           softcap=30.0),
+            flash_bwd_case(device, gen, "phi3.5-moe", PHI_MOE, 2, 512, 512),
+            flash_bwd_case(device, gen, "whisper-encoder", WHISPER, 2, 1500, 1500,
+                           causal=False),
+            flash_bwd_case(device, gen, "whisper-cross", WHISPER, 2, 64, 1500,
+                           causal=False)]
+    torch.cuda.empty_cache()
+    for residual in (False, True):
+        rows.append(rmsnorm_bwd_case(device, gen, "smollm-train", (8, 128, 576),
+                                     residual))
+    # qwen3-14b's q_norm rows (40 heads of 128) read in place, as rows of
+    # 128 inside rows of 192
+    rows.append(rmsnorm_bwd_case(device, gen, "q_norm-strided", (8, 128, 40, 128),
+                                 stride=192))
+    rows.append(rmsnorm_bwd_many_rows(device))
+    return rows
+
+
+def tree_equal(a, b) -> bool:
+    from repro_torch.utils import named_leaves
+    return all(na == nb and torch.equal(x, y) for (na, x), (nb, y)
+               in zip(named_leaves(a), named_leaves(b)))
+
+
+def check_train_launches(counts: dict, want: dict, steps: int, where: str) -> None:
+    """Exact launches of ``steps`` training steps, every kernel named
+    (``want`` per step; kernels not named must not launch)."""
+    expect = {k: 0 for k in counts}
+    expect.update({k: n * steps for k, n in want.items()})
+    if counts != expect:
+        raise AssertionError(f"{where}: launches {counts}, expected {expect}")
+
+
+def smollm_train_launches(L: int) -> dict:
+    """Per training step of a dense model with remat: forward L flash and
+    2L + 1 rmsnorm (L fused), recomputed per block in the backward (the
+    final norm is not), then one backward per forward call."""
+    return {"flash_attention": 2 * L, "rmsnorm": 4 * L + 1, "rmsnorm_fused": 2 * L,
+            "flash_attention_bwd": L, "rmsnorm_bwd": 2 * L + 1}
+
+
+def phase_train(device) -> dict:
+    """Phase 14: the backward kernels against their plain versions, then
+    ``repro_torch.launch.train``'s ``train()`` on smollm-135m at full
+    width and depth (fp32, the CLI's defaults) with exact launches and a
+    bit-equal resume, the loss falling on a repeated batch, a step at seq
+    2,048, card-against-CPU steps (smollm at 2 layers, phi3.5-moe at 1,
+    whisper-medium at 1 + 1), phi3.5-moe at one layer and whisper-medium
+    at full depth."""
+    import tempfile
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as cli
+    from repro_torch.train.train_loop import (init_train_state, make_train_step,
+                                              train)
+    out = {"kernels": train_kernel_cases(device)}
+    torch.cuda.empty_cache()
+    scratch = ROOT / "_scratch"
+    scratch.mkdir(exist_ok=True)
+
+    # --- smollm-135m at full width and depth through the CLI's train() ---
+    with tempfile.TemporaryDirectory(dir=scratch) as d1, \
+            tempfile.TemporaryDirectory(dir=scratch) as d2:
+        args = cli.parse_args(["--arch", "smollm-135m", "--steps", str(TRAIN_STEPS),
+                               "--ckpt-dir", d1, "--ckpt-every",
+                               str(TRAIN_CKPT_EVERY)])
+        model, opt, data, loop = cli.build(args)
+        cfg = model.cfg
+        assert (cfg.n_layers, cfg.d_model, cfg.dtype, cfg.remat) == (
+            30, 576, "float32", True)
+        stamps = []
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state_a, losses_a = train(model, opt, data, loop, log=print,
+                                  on_step=lambda s, m: stamps.append(
+                                      time.perf_counter()))
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_train_launches(counts, smollm_train_launches(cfg.n_layers),
+                             TRAIN_STEPS, "smollm-135m training")
+        # step times, leaving out the steps after a checkpoint write
+        steps = [b - a for i, (a, b) in enumerate(zip(stamps, stamps[1:]))
+                 if (i + 1) % TRAIN_CKPT_EVERY]
+        step_s = float(np.median(steps))
+        run = {"pass": "smollm-135m train", "batch": args.batch, "seq": args.seq,
+               "steps": TRAIN_STEPS, "launches": counts, "wall_s": wall,
+               "step_ms_median": step_s * 1e3,
+               "tokens_per_s": args.batch * args.seq / step_s,
+               "losses": losses_a, "max_memory_allocated": peak}
+        # interrupted at step 10, then resumed to 20 from the checkpoint
+        ops.reset_launch_counts()
+        loop_b = dataclasses.replace(loop, ckpt_dir=d2, total_steps=TRAIN_CKPT_EVERY)
+        _, first = train(model, opt, data, loop_b, log=print)
+        state_b, rest = train(model, opt, data,
+                              dataclasses.replace(loop_b, total_steps=TRAIN_STEPS),
+                              log=print)
+        resumed = ops.launch_counts()
+        check_train_launches(resumed, smollm_train_launches(cfg.n_layers),
+                             TRAIN_STEPS, "smollm-135m resumed training")
+        run["resume_losses_equal"] = first + rest == losses_a
+        run["resume_params_equal"] = tree_equal(state_a["params"], state_b["params"])
+        run["resume_opt_equal"] = tree_equal(state_a["opt"], state_b["opt"])
+        run["resume_launches"] = resumed
+        print(json.dumps({k: v for k, v in run.items() if k != "losses"}))
+        print(json.dumps({"smollm_train_losses": losses_a}))
+        if not (run["resume_losses_equal"] and run["resume_params_equal"]
+                and run["resume_opt_equal"]):
+            raise AssertionError(f"resumed training differs: {run}")
+    del state_b
+    out["smollm"] = run
+
+    # --- the device-busy share of two steps, the loss falling on one batch ---
+    step_fn = make_train_step(model, opt)
+    batch = next(iter(TokenStream(data)))
+    holder = {"state": state_a}
+
+    def one_step():
+        holder["state"], holder["m"] = step_fn(holder["state"], batch)
+
+    one_step()
+    out["smollm"]["profile"] = profiled_steps([one_step, one_step])
+    print(json.dumps({"smollm_train_profile": out["smollm"]["profile"]}))
+    del holder, state_a
+    state = init_train_state(model, opt, seed=5)
+    falling = []
+    for _ in range(5):
+        state, m = step_fn(state, batch)
+        falling.append(float(m["loss"]))
+    out["smollm"]["repeated_batch_losses"] = falling
+    print(json.dumps({"smollm_repeated_batch_losses": falling}))
+    if not falling[-1] < falling[0]:
+        raise AssertionError(f"the loss did not fall on a repeated batch: {falling}")
+
+    # --- one step at seq 2,048 ---
+    long = dataclasses.replace(data, seq_len=2048)
+    lbatch = next(iter(TokenStream(long)))
+    state, _ = step_fn(state, lbatch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, lbatch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    out["smollm"]["seq2048"] = {"batch": long.global_batch, "seq": 2048,
+                                "step_ms": long_s * 1e3,
+                                "tokens_per_s": long.global_batch * 2048 / long_s,
+                                "loss": float(m["loss"]),
+                                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    print(json.dumps({"smollm_seq2048_step": out["smollm"]["seq2048"]}))
+    del state, model, step_fn
+    torch.cuda.empty_cache()
+
+    out["parity"] = [train_parity(device, *run) for run in PARITY_RUNS]
+    out["moe"] = train_big(device, "phi3.5-moe-42b-a6.6b", n_layers=1)
+    out["whisper"] = train_big(device, "whisper-medium")
+    return out
+
+
+# (arch, depth cut, batch, seq, steps, weight seed, data seed): smollm at 2
+# layers; phi3.5-moe and whisper-medium at train_big's seeds and batch, so
+# the card's first loss is that of phi3.5-moe's run at the same depth (one
+# step: three took 155 s on an H100 with 8 host cores)
+PARITY_RUNS = (("smollm-135m", dict(n_layers=2), 2, 64, 1, 3, 7),
+               ("phi3.5-moe-42b-a6.6b", dict(n_layers=1), 8, 128, 1, 4, 2),
+               ("whisper-medium", dict(n_layers=1, dec_layers=1), 2, 64, 3, 4, 2))
+
+
+def step_grads(model, like, params: dict, batch: dict) -> tuple:
+    """(loss, {name: gradient}) of ``model.loss`` at the flat ``params``
+    (``like`` the tree they unflatten into)."""
+    from repro_torch.utils import unflatten_like
+    for t in params.values():
+        t.requires_grad_(True)
+    loss = model.loss(unflatten_like(like, iter(params.values())), batch)
+    grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    for t in params.values():
+        t.requires_grad_(False)
+    return float(loss.detach()), grads
+
+
+def train_parity(device, arch: str, replace: dict, batch: int, seq: int,
+                 steps: int, seed: int, data_seed: int) -> dict:
+    """``steps`` training steps of ``arch`` at full width, its depth cut
+    by ``replace`` (fp32, remat), from the same seeded weights and batches
+    on the card (kernels) and on the CPU (plain versions).  The first step
+    is held: the loss (moe: its load-balancing loss included) within 1e-5
+    relative, the grad norm within 1e-4 relative, every gradient within
+    1e-4 of its largest |value|, every parameter the card's AdamW step
+    writes within 1e-5 of its largest |value| of the same update computed
+    on the CPU from the card's gradients, and of the CPU's whole step
+    wherever the gradient is at least 1e-3 of the leaf's largest and,
+    clipped, at least 1e3 eps.  Elsewhere the whole step is printed, not held: AdamW's first
+    update is lr * g / (|g| + eps), so an element whose gradient is near
+    eps = 1e-8 turns a gradient difference of ~1e-6 of the leaf's largest
+    into a part of lr.  The later steps' losses on both sides are printed
+    beside each other."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream, make_frames
+    from repro_torch.models.registry import get_config, get_model
+    from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.utils import named_leaves
+    cfg = get_config(arch).replace(dtype="float32", **replace)
+    assert cfg.remat
+    opt = OptimizerConfig(warmup_steps=1)
+    stream = iter(TokenStream(DataConfig(cfg.vocab_size, seq, batch, seed=data_seed)))
+    batches = [next(stream) for _ in range(steps)]
+    if cfg.is_encdec:
+        frames = make_frames(cfg.d_model, batch, WHISPER_FRAMES, seed=31)
+        for b in batches:
+            b["frames"] = frames
+    cpu_model = get_model(cfg, device="cpu")
+    like = cpu_model.init_params(seed)
+    init = dict(named_leaves(like))
+    runs = []
+    for dev, model in ((device, get_model(cfg, device=device)), ("cpu", cpu_model)):
+        params = {n: t.to(dev) for n, t in init.items()}
+        loss, grads = step_grads(model, like, params, batches[0])
+        new, state, m = adamw_update(params, grads, init_opt_state(params, opt), opt)
+        if dev != "cpu":
+            grads = {n: t.cpu() for n, t in grads.items()}
+        first = (loss, float(m["grad_norm"]), grads, {n: t.cpu() for n, t in new.items()})
+        losses = [loss]
+        del params, grads, m
+        for b in batches[1:]:
+            loss, g = step_grads(model, like, new, b)
+            new, state, _ = adamw_update(new, g, state, opt)
+            losses.append(loss)
+            del g
+        runs.append(first + (losses,))
+        del new, state
+        torch.cuda.empty_cache()
+    (lc, gc, dc, nc, losses_c), (lh, gh, dh, nh, losses_h) = runs
+    del runs
+    # the card's step against the CPU's from the card's gradients
+    same, _, _ = adamw_update(init, dc, init_opt_state(init, opt), opt)
+    step_err = {n: max_rel(nc[n], same[n]) for n in same}
+    del same
+    grad_err = {n: max_rel(dc[n], dh[n]) for n in dh}
+    whole_err, held_err = {}, {}
+    clip = min(1.0, opt.clip_norm / gh)
+    for n in nh:
+        diff, top = (nc[n] - nh[n]).abs(), nh[n].abs().max().clamp_min(1e-30)
+        g = dh[n].abs()
+        held = (g >= 1e-3 * g.max()) & (clip * g >= 1e3 * opt.eps)
+        whole_err[n] = float(diff.max() / top)
+        held_err[n] = float(diff[held].max() / top) if held.any() else 0.0
+    n_w = max(whole_err, key=whole_err.get)
+    i = int((nc[n_w] - nh[n_w]).abs().argmax())
+    row = {"arch": arch, "reduced": replace, "batch": batch, "seq": seq,
+           "loss_card": lc, "loss_cpu": lh, "loss_rel": abs(lc - lh) / abs(lh),
+           "grad_norm_card": gc, "grad_norm_cpu": gh,
+           "grad_norm_rel": abs(gc - gh) / abs(gh),
+           "grad_err_of_largest": max(grad_err.values()),
+           "step_err_of_largest": max(step_err.values()),
+           "whole_step_param_err_of_largest": whole_err[n_w],
+           "whole_step_held_param_err_of_largest": max(held_err.values()),
+           "whole_step_worst": {"param": n_w, "grad_card": float(dc[n_w].flatten()[i]),
+                                "grad_cpu": float(dh[n_w].flatten()[i])},
+           "losses_card": losses_c, "losses_cpu": losses_h,
+           "losses_rel": [abs(a - b) / abs(b) for a, b in zip(losses_c, losses_h)]}
+    print(json.dumps({"train_parity": row}))
+    if not (row["loss_rel"] <= 1e-5 and row["grad_norm_rel"] <= 1e-4
+            and row["grad_err_of_largest"] <= 1e-4
+            and row["step_err_of_largest"] <= 1e-5
+            and row["whole_step_held_param_err_of_largest"] <= 1e-5):
+        raise AssertionError(f"{arch} training step: card and CPU differ: {row}")
+    return row
+
+
+def train_big(device, arch: str, steps: int = 3, **replace) -> dict:
+    """``steps`` training steps of ``arch`` at full width in fp32 (the
+    depth cut by ``replace``): phi3.5-moe at the CLI's batch (8 x 128)
+    with its load-balancing loss finite and nonzero; whisper-medium at 2
+    x (1,500 frames, 64 decoder tokens).  Exact backward launches."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream, make_frames
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, params, info = big_model(arch, device, seed=4, dtype="float32",
+                                    **replace)
+    cfg = model.cfg
+    if replace:
+        full = get_config(arch)
+        info["reduced"] = {k: f"{v} of {getattr(full, k)}"
+                           for k, v in replace.items()}
+        print(json.dumps({"reduced": info["reduced"], "arch": arch,
+                          "why": "fp32 parameters, gradients and both moments "
+                                 "of every layer do not fit one card"}))
+    opt = OptimizerConfig(warmup_steps=1)
+    state = {"params": params, "opt": init_opt_state(params, opt)}
+    del params
+    if cfg.is_encdec:
+        B, seq = 2, 64
+        frames = make_frames(cfg.d_model, B, WHISPER_FRAMES, seed=31)
+    else:
+        B, seq = 8, 128
+    stream = iter(TokenStream(DataConfig(cfg.vocab_size, seq, B, seed=2)))
+    step_fn = make_train_step(model, opt)
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        batch = next(stream)
+        if cfg.is_encdec:
+            batch["frames"] = frames
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    if cfg.is_encdec:       # encoder 24 + decoder 2 x 24 (self, cross), remat x2
+        L, Ld = cfg.n_layers, cfg.dec_layers
+        want = {"flash_attention": L + 4 * Ld, "flash_attention_bwd": L + 2 * Ld}
+    else:
+        want = smollm_train_launches(cfg.n_layers)
+    check_train_launches(counts, want, steps, f"{arch} training")
+    row = {"arch": arch, "model": info, "batch": B, "seq": seq, "steps": steps,
+           "losses": losses, "step_ms": [t * 1e3 for t in times],
+           "tokens_per_s": B * seq / float(np.median(times[1:])),
+           "launches": counts, "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if cfg.n_experts:
+        with torch.no_grad():
+            _, aux = model.forward(state["params"], batch)
+        row["aux_loss"] = float(aux)
+        if not (np.isfinite(row["aux_loss"]) and row["aux_loss"] > 0):
+            raise AssertionError(f"{arch}: load-balancing loss {row['aux_loss']}")
+    print(json.dumps(row))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: losses {losses}")
+    del state, model
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_summary(kernels: list, serve: list, engine: list,
                    tidal_row: dict, tenants: dict, ssm: dict,
                    big: tuple = (), xlstm: dict | None = None,
-                   whisper: dict | None = None) -> list:
+                   whisper: dict | None = None, train: dict | None = None) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
     shapes, with its launches from the serving phases (3, 5, 6, 7 and 8,
     the serving, engine and FaaS passes of ``big``: phases 9, 10 and 11,
-    those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13)."""
+    those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13) and
+    the training runs of phase 14 (``train``; the backward kernels run
+    there only)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
     launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0, "rmsnorm": 0,
-                "rmsnorm_fused": 0, "ssd": 0}
+                "rmsnorm_fused": 0, "ssd": 0, "flash_bwd": 0, "rmsnorm_bwd": 0}
     cp = tenants["control_plane"]
     rows = (list(serve) + list(engine) + [tidal_row, tenants,
                                           cp["learned_prefix"], cp["open_loop"]]
@@ -3340,6 +3909,9 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                  xlstm["engine_prompts_continuous"], xlstm["faas"]]
     if whisper is not None:
         rows.append(whisper["engine"])
+    if train is not None:
+        rows += [train["smollm"], {"launches": train["smollm"]["resume_launches"]},
+                 train["moe"], train["whisper"]]
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
@@ -3348,6 +3920,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
         launches["rmsnorm"] += row["launches"]["rmsnorm"]
         launches["rmsnorm_fused"] += row["launches"]["rmsnorm_fused"]
         launches["ssd"] += row["launches"]["ssd_scan"]
+        launches["flash_bwd"] += row["launches"].get("flash_attention_bwd", 0)
+        launches["rmsnorm_bwd"] += row["launches"].get("rmsnorm_bwd", 0)
     entries = [
         ("paged_decode_attention",
          pick(kernel="paged_decode_attention", case="serving", shape="smollm",
@@ -3383,6 +3957,17 @@ def kernel_summary(kernels: list, serve: list, engine: list,
          "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:79", launches["ssd"]),
     ]
+    if train is not None:
+        entries += [
+            ("flash_attention_bwd",
+             pick(kernel="flash_attention_bwd", shape="smollm", S=128, T=128),
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:86", launches["flash_bwd"]),
+            ("rmsnorm_bwd",
+             pick(kernel="rmsnorm_bwd", shape="smollm-train"),
+             "src/repro_torch/csrc/rmsnorm_bwd.cu",
+             "src/repro/kernels/rmsnorm.py:25", launches["rmsnorm_bwd"]),
+        ]
     out = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": n, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
@@ -3447,14 +4032,16 @@ def main(argv=None) -> int:
     kernels += xlstm["kernels"]
     whisper = timed("whisper", phase_whisper, device)
     kernels += whisper["kernels"]
+    train = timed("train", phase_train, device)
+    kernels += train["kernels"]
     summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm,
-                             (llama, moe, deepseek), xlstm, whisper)
+                             (llama, moe, deepseek), xlstm, whisper, train)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
          "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
          "llama": llama, "moe": moe, "deepseek": deepseek, "xlstm": xlstm,
-         "whisper": whisper, "summary": summary,
+         "whisper": whisper, "train": train, "summary": summary,
          "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,4 +1,4 @@
-"""Convert JAX parameters into the port's parameters.
+"""Convert JAX parameters (and optimizer states) into the port's.
 
 The JAX package keeps per-layer parameters stacked on a leading layer
 axis (``blocks.attn.wq`` is ``[L, D, H*hd]``; zamba's ``mamba.mixer.in_proj``
@@ -144,3 +144,20 @@ def jax_key(port_name: str) -> tuple:
     if head not in UNSTACKED or not layer.isdigit():
         return (port_name, ())
     return (f"{UNSTACKED[head]}.{leaf}", (int(layer),))
+
+
+def opt_state_from_jax(jax_opt: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """A port optimizer state (``train.optimizer.init_opt_state``'s
+    layout) from a JAX one given as numpy arrays: ``m`` and ``v``
+    unstacked leaf for leaf as :func:`params_from_jax` unstacks the
+    parameters (a factored ``v`` leaf's ``row`` [L, ...] and ``col``
+    unstacked with it, dtypes kept, bf16 included) and ``step`` a 0-d
+    int32 tensor, so a JAX state after k steps continues in the port.
+    The JAX optimizer factors a stacked leaf by its trailing two axes, the
+    port the per-layer leaf by the same two, so both factor the same
+    leaves as long as no stacked group is ``min_factored_size`` layers
+    deep with 1-D leaves."""
+    return {"m": params_from_jax(jax_opt["m"], cfg, device),
+            "v": params_from_jax(jax_opt["v"], cfg, device),
+            "step": torch.tensor(int(np.asarray(jax_opt["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -53,6 +53,11 @@
 // call is bit-identical.  A suffix prefill over a cached prefix therefore
 // gives bit for bit the rows of the whole-prompt prefill.
 //
+// Training: the fp32 kernel optionally writes each query row's log-sum-exp
+// of its scaled (capped, masked) scores, m + log(l) in fp32 [B, H, S], when
+// the caller passes a buffer; csrc/flash_attention_bwd.cu recomputes the
+// probabilities from it.  Serving passes none, and nothing else changes.
+//
 // The fp32 kernel: one block per (b, h, 16-row query tile) keeps the query
 // tile and a 32-key K/V tile in shared memory (fp32); each warp owns 4 query
 // rows; for a row, lane j scores key j of the tile, the warp takes max and
@@ -327,9 +332,10 @@ constexpr int kBK = 32;                      // keys per tile (one per lane)
 template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out, int H, int KV,
-                  int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os,
-                  float scale, float softcap, int causal) {
+                  const float* __restrict__ v, float* __restrict__ out,
+                  float* __restrict__ lse, int H, int KV, int S, int T_len,
+                  Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                  float softcap, int causal) {
   using T = float;
   constexpr int VEC = (D + 31) / 32;         // head-dim elements per lane
   constexpr int KROW = D + 4;                // padded K row (float4-aligned)
@@ -427,14 +433,16 @@ flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int e = lane + 32 * i;
       if (e < D) ob[row * os.s + e] = from_f32<T>(acc[rr][i] * inv);
     }
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * S + row] = m[rr] + logf(l[rr]);
   }
 }
 
 template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out,
-                        int B, int H, int KV, int S, int T_len, Strides qs,
-                        Strides ks, Strides vs, Strides os, float softcap,
-                        int causal, cudaStream_t stream) {
+                        float* lse, int B, int H, int KV, int S, int T_len,
+                        Strides qs, Strides ks, Strides vs, Strides os,
+                        float softcap, int causal, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (kBQ * D + kBK * (D + 4) + kBK * D);
   auto kernel = flash_fp32_kernel<D>;
   static bool smem_allowed = false;
@@ -444,8 +452,8 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, void* out,
   const float scale = 1.f / sqrtf(static_cast<float>(D));
   kernel<<<grid, block, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, KV, S, T_len, qs,
-      ks, vs, os, scale, softcap, causal);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, H, KV, S, T_len,
+      qs, ks, vs, os, scale, softcap, causal);
   return cudaGetLastError();
 }
 
@@ -461,15 +469,18 @@ bool aligned16(const void* p, const Strides& st) {
 // pointer 16-byte aligned and every stride a multiple of 8 elements, else
 // cudaErrorMisalignedAddress).  q, k, v and out share the dtype.  Strides
 // are in elements; the head-dim axis must be contiguous.  d is 16, 32, 64,
-// 80, 128 or 256.  Returns the launch's cudaError_t (0 on success).
+// 80, 128 or 256.  lse may be null; otherwise (fp32 only) it receives each
+// query row's log-sum-exp, fp32 [B, H, S] contiguous.  Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* out, int B, int H,
     int KV, int S, int T_len, int d, int64_t q_sb, int64_t q_sh, int64_t q_ss,
     int64_t k_sb, int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
     int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss, float softcap,
-    int causal, int dtype, void* stream) {
+    int causal, int dtype, void* lse, void* stream) {
   if (B < 1 || S < 1 || T_len < 1 || KV < 1 || H % KV != 0 ||
-      (causal && T_len < S) || B > 65535 || H > 65535 || (dtype != 0 && dtype != 1))
+      (causal && T_len < S) || B > 65535 || H > 65535 || (dtype != 0 && dtype != 1) ||
+      (lse != nullptr && dtype != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{q_sb, q_sh, q_ss}, ks{k_sb, k_sh, k_ss}, vs{v_sb, v_sh, v_ss},
       os{o_sb, o_sh, o_ss};
@@ -481,8 +492,9 @@ extern "C" int repro_flash_attention(
 #define REPRO_FLASH_DIM(D)                                                        \
   case D:                                                                         \
     return static_cast<int>(                                                      \
-        dtype == 0 ? launch_fp32<D>(q, k, v, out, B, H, KV, S, T_len, qs, ks, vs, \
-                                    os, softcap, causal, s)                       \
+        dtype == 0 ? launch_fp32<D>(q, k, v, out, static_cast<float*>(lse), B, H, \
+                                    KV, S, T_len, qs, ks, vs, os, softcap,        \
+                                    causal, s)                                    \
                    : launch_tc<D>(q, k, v, out, B, H, KV, S, T_len, qs, ks, vs,   \
                                   os, softcap, causal, s));
     REPRO_FLASH_DIM(16)

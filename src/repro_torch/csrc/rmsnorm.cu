@@ -42,6 +42,10 @@
 // Rows of x (and of r) are read through one row stride each (the leading
 // axes of a view such as x[:, -1:] collapse to it); the last axis is
 // contiguous; y and s are written contiguous.
+//
+// Training: when the caller passes an rstd buffer (fp32, one per row), the
+// row's rsqrt(mean + eps) lands there too, for csrc/rmsnorm_bwd.cu.
+// Serving passes none, and nothing else changes.
 
 #include "attention_common.cuh"
 
@@ -119,8 +123,9 @@ template <typename TX, typename TS, int CPL, bool BLOCK_ROW, bool RES>
 __global__ void __launch_bounds__(BLOCK_ROW ? kBlockWarps * 32 : kWarpRows * 32)
 rmsnorm_vec_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                    const TS* __restrict__ scale, TX* __restrict__ y,
-                   TX* __restrict__ s_out, int64_t rows, int d, int64_t x_stride,
-                   int64_t r_stride, float eps) {
+                   TX* __restrict__ s_out, float* __restrict__ rstd_out,
+                   int64_t rows, int d, int64_t x_stride, int64_t r_stride,
+                   float eps) {
   constexpr int V = 16 / sizeof(TX);                 // values per chunk
   constexpr int kRowThreads = BLOCK_ROW ? kBlockWarps * 32 : 32;
   const int64_t row = BLOCK_ROW ? static_cast<int64_t>(blockIdx.x)
@@ -159,6 +164,7 @@ rmsnorm_vec_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
   }
   ss = row_sum<BLOCK_ROW>(ss);
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  if (rstd_out != nullptr && tid == 0) rstd_out[row] = r;
 
   TX* yr = y + row * static_cast<int64_t>(d);
   TX* sr = RES ? s_out + row * static_cast<int64_t>(d) : nullptr;
@@ -180,8 +186,9 @@ template <typename TX, typename TS, bool BLOCK_ROW, bool RES>
 __global__ void __launch_bounds__(BLOCK_ROW ? kBlockWarps * 32 : kWarpRows * 32)
 rmsnorm_scalar_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                       const TS* __restrict__ scale, TX* __restrict__ y,
-                      TX* __restrict__ s_out, int64_t rows, int d,
-                      int64_t x_stride, int64_t r_stride, float eps) {
+                      TX* __restrict__ s_out, float* __restrict__ rstd_out,
+                      int64_t rows, int d, int64_t x_stride, int64_t r_stride,
+                      float eps) {
   constexpr int V = 16 / sizeof(TX);
   constexpr int kRowThreads = BLOCK_ROW ? kBlockWarps * 32 : 32;
   const int64_t row = BLOCK_ROW ? static_cast<int64_t>(blockIdx.x)
@@ -205,6 +212,7 @@ rmsnorm_scalar_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
     }
   ss = row_sum<BLOCK_ROW>(ss);
   const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  if (rstd_out != nullptr && tid == 0) rstd_out[row] = r;
 
   TX* yr = y + row * static_cast<int64_t>(d);
   for (int c0 = tid * V; c0 < d; c0 += kRowThreads * V)
@@ -218,6 +226,7 @@ rmsnorm_scalar_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
 struct Args {
   const void *x, *res, *scale;
   void *y, *s;
+  float* rstd;
   int64_t rows;
   int d;
   int64_t x_stride, r_stride;
@@ -239,7 +248,7 @@ cudaError_t launch_mode(const Args& a, bool vec, cudaStream_t stream) {
   const int per_lane = (a.d / V + kRowThreads - 1) / kRowThreads;   // chunks
 #define REPRO_RMSNORM_VEC(CPL)                                                    \
   rmsnorm_vec_kernel<TX, TS, CPL, BLOCK_ROW, RES><<<grid, block, 0, stream>>>(     \
-      xp, rp, sp, yp, op, a.rows, a.d, a.x_stride, a.r_stride, a.eps)
+      xp, rp, sp, yp, op, a.rstd, a.rows, a.d, a.x_stride, a.r_stride, a.eps)
   if (vec && per_lane <= 8) {
     if (per_lane <= 1) REPRO_RMSNORM_VEC(1);
     else if (per_lane <= 2) REPRO_RMSNORM_VEC(2);
@@ -248,7 +257,7 @@ cudaError_t launch_mode(const Args& a, bool vec, cudaStream_t stream) {
     else REPRO_RMSNORM_VEC(8);
   } else {
     rmsnorm_scalar_kernel<TX, TS, BLOCK_ROW, RES><<<grid, block, 0, stream>>>(
-        xp, rp, sp, yp, op, a.rows, a.d, a.x_stride, a.r_stride, a.eps);
+        xp, rp, sp, yp, op, a.rstd, a.rows, a.d, a.x_stride, a.r_stride, a.eps);
   }
 #undef REPRO_RMSNORM_VEC
   return cudaGetLastError();
@@ -272,17 +281,21 @@ cudaError_t launch_typed(const Args& a, bool vec, cudaStream_t stream) {
 // otherwise s receives x + res.  Strides are in elements; vec != 0 asks for
 // 16-byte accesses, which the caller grants only when x, res, y, s, the
 // scale and both row strides are aligned to them and d is a multiple of
-// 16 / sizeof(x).  Returns the launch's cudaError_t (0 on success).
+// 16 / sizeof(x).  rstd may be null; otherwise it receives each row's
+// rsqrt(mean + eps), fp32 [rows].  Returns the launch's cudaError_t (0 on
+// success).
 extern "C" int repro_rmsnorm(const void* x, const void* res, const void* scale,
                              void* y, void* s, int64_t rows, int d,
                              int64_t x_stride, int64_t r_stride, float eps,
-                             int x_dtype, int scale_dtype, int vec, void* stream) {
+                             int x_dtype, int scale_dtype, int vec, void* rstd,
+                             void* stream) {
   if (rows < 1 || rows > 0x7fffffffLL || d < 1 || x_stride < 0 || r_stride < 0 ||
       (res != nullptr && s == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool v = vec != 0;
   if (v && d % (x_dtype == 0 ? 4 : 8) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, res, scale, y, s, rows, d, x_stride, r_stride, eps};
+  const Args a{x, res, scale, y, s, static_cast<float*>(rstd), rows, d, x_stride,
+               r_stride, eps};
   auto st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && scale_dtype == 0)
     return static_cast<int>(launch_typed<float, float>(a, v, st));

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, meta, ref
+from repro_torch.kernels import _build, grad, meta, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -78,7 +78,11 @@ def decode_attention(q, k, v, length):
 
     Returns:
       [B, H, d] in ``q.dtype``.
+
+    Raises ``NotImplementedError`` off the CPU when a gradient is needed:
+    the kernel has no backward.
     """
+    grad.refuse("decode_attention", grad.DECODE_BWD, q, k, v)
     if meta.is_meta(q):
         return meta.kernel_call("decode_attention", (q, k, v),
                                 lambda: torch.empty_like(q))

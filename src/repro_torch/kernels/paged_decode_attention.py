@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, meta, ref
+from repro_torch.kernels import _build, grad, meta, ref
 from repro_torch.kernels.decode_attention import (HEAD_DIMS, MAX_GROUP, n_splits,
                                                  partials, split_rows)
 
@@ -50,9 +50,14 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
 
     Returns:
       [B, H, d] in ``q.dtype``.
+
+    Raises ``NotImplementedError`` off the CPU when a gradient is needed:
+    the kernel has no backward.
     """
     if (k_scales is None) != (v_scales is None):
         raise ValueError("pass both k_scales and v_scales, or neither")
+    grad.refuse("paged_decode_attention", grad.DECODE_BWD, q, k_pages, v_pages,
+                k_scales, v_scales)
     if meta.is_meta(q):
         return meta.kernel_call("paged_decode_attention",
                                 (q, k_pages, v_pages, page_table),

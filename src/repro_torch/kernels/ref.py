@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention, normalisation and SSD kernels.
+"""Plain PyTorch versions of the attention, normalisation and SSD kernels,
+and of the flash-attention and rmsnorm backward kernels.
 
 Each function states what its CUDA kernel computes, with no tiling: the
 kernel wrappers call these for tensors on the CPU, and ``chip_smoke.py``
@@ -22,20 +23,72 @@ def flash_attention_ref(q, k, v, causal: bool = True, softcap: float = 0.0):
     when causal.  The causal mask is aligned bottom-right
     (``col <= row + T - S``), so the last query row sees every key.
     Returns [B, H, S, d] in ``q.dtype``."""
+    return flash_attention_fwd_ref(q, k, v, causal, softcap)[0]
+
+
+def _flash_scores(q, k, causal: bool, softcap: float):
+    """Masked fp32 scores [B, KV, G, S, T] and, with a softcap, the tanh
+    of the capped scores (for the backward), else None."""
     B, H, S, d = q.shape
     KV, T = k.shape[1], k.shape[2]
-    G = H // KV
-    qg = q.reshape(B, KV, G, S, d).float()
+    qg = q.reshape(B, KV, H // KV, S, d).float()
     scores = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(d)
+    t = None
     if softcap > 0:
-        scores = torch.tanh(scores / softcap) * softcap
+        t = torch.tanh(scores / softcap)
+        scores = t * softcap
     if causal:
         mask = (torch.arange(T, device=q.device)[None, :]
                 <= torch.arange(S, device=q.device)[:, None] + (T - S))
         scores = scores.masked_fill(~mask, NEG_INF)
+    return scores, t
+
+
+def flash_attention_fwd_ref(q, k, v, causal: bool = True, softcap: float = 0.0):
+    """:func:`flash_attention_ref` and each query row's log-sum-exp of its
+    (scaled, capped, masked) scores, fp32 [B, H, S]: what the training
+    forward saves for the backward."""
+    B, H, S, d = q.shape
+    scores, _ = _flash_scores(q, k, causal, softcap)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", probs, v.float())
-    return out.reshape(B, H, S, d).to(q.dtype)
+    lse = torch.logsumexp(scores, dim=-1).reshape(B, H, S)
+    return out.reshape(B, H, S, d).to(q.dtype), lse
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                            softcap: float = 0.0):
+    """The gradients of :func:`flash_attention_ref` in the flash-attention-2
+    form, step by step (no autograd): the probabilities recomputed from q,
+    k and the saved row log-sum-exp ``lse`` [B, H, S], D = rowsum(dO * O),
+    dP = dO V^T, dS = P * (dP - D) (times ``1 - tanh^2`` under a softcap),
+    then dQ = dS K, dK = dS^T Q and dV = P^T dO, all over the scale
+    1/sqrt(d).  GQA: dK and dV sum over each KV head's query heads.  The
+    same mask rules as the forward.  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, H, S, d = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    G = H // KV
+    scores, t = _flash_scores(q, k, causal, softcap)
+    lse_g = lse.reshape(B, KV, G, S).float()
+    p = torch.exp(scores - lse_g[..., None])
+    if causal:
+        mask = (torch.arange(T, device=q.device)[None, :]
+                <= torch.arange(S, device=q.device)[:, None] + (T - S))
+        p = p.masked_fill(~mask, 0.0)
+    dog = do.reshape(B, KV, G, S, d).float()
+    og = o.reshape(B, KV, G, S, d).float()
+    qg = q.reshape(B, KV, G, S, d).float()
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, v.float())
+    D = (dog * og).sum(dim=-1)
+    ds = p * (dp - D[..., None])
+    if t is not None:
+        ds = ds * (1.0 - t * t)
+    ds = ds / math.sqrt(d)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, k.float()).reshape(B, H, S, d)
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def decode_attention_ref(q, k, v, length):
@@ -90,6 +143,33 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6, residual=None):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+def rmsnorm_rstd_ref(x, eps: float = 1e-6):
+    """Each row's ``rsqrt(mean(x**2) + eps)`` in fp32, x's leading shape:
+    what the training forward saves for the backward."""
+    return torch.rsqrt(x.float().square().mean(dim=-1) + eps)
+
+
+def rmsnorm_bwd_ref(x, scale, dy, eps: float = 1e-6, d_sum=None):
+    """The gradients of :func:`rmsnorm_ref`, step by step (no autograd).
+
+    ``x`` is the normalised input (in the residual form, the sum ``s = x
+    + r`` the forward returned), ``dy`` the gradient at the output.  Per
+    row, with rstd = rsqrt(mean(x^2) + eps), x^ = x * rstd and g = scale *
+    dy: dx = rstd * (g - x^ * mean(x^ * g)); ``d_sum``, the gradient
+    arriving at the residual form's second output, adds to it (it is then
+    the gradient of both x and r).  dscale sums dy * x^ over every row.
+    Returns (dx in x's dtype, dscale in scale's dtype)."""
+    d = x.shape[-1]
+    rstd = rmsnorm_rstd_ref(x, eps)[..., None]
+    xhat = x.float() * rstd
+    g = dy.float() * scale.float()
+    dx = rstd * (g - xhat * (xhat * g).mean(dim=-1, keepdim=True))
+    if d_sum is not None:
+        dx = dx + d_sum.float()
+    dscale = (dy.float() * xhat).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
 
 
 def ssd_scan_ref(xb, B_mat, C_mat, log_decay, h0=None):

@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, meta, ref
+from repro_torch.kernels import _build, grad, meta, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -59,7 +59,11 @@ def ssd_scan(xb, B_mat, C_mat, log_decay, chunk: int = 128, h0=None):
 
     Returns:
       (y [B, S, H, dh], h_final [B, H, dh, ds]), both fp32 and contiguous.
+
+    Raises ``NotImplementedError`` off the CPU when a gradient is needed:
+    the kernel has no backward yet (zamba trains on the CPU only).
     """
+    grad.refuse("ssd_scan", grad.SSD_SCAN_BWD, xb, B_mat, C_mat, log_decay, h0)
     Bb, S, H, dh = xb.shape
     ds = B_mat.shape[-1]
     if meta.is_meta(xb):

@@ -1,8 +1,10 @@
 """Model configuration (the port's own copy of ``repro.models.config``).
 
 Fields that only steer the TPU build (Pallas vs XLA attention, GSPMD
-sharding hints, rematerialisation) are left out: the port picks its
-attention implementation from the device a tensor lives on.
+sharding hints) are left out: the port picks its attention
+implementation from the device a tensor lives on.  ``remat`` is kept:
+the training forward recomputes each checkpointed block in the backward
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class ModelConfig:
     # --- numerics ---
     norm_eps: float = 1e-6
     dtype: str = "float32"               # compute/param dtype for live runs
+    remat: bool = True                   # checkpoint each block in training
     # fused projections: single [D, 2F] GLU matmul / single QKV matmul
     fused_glu: bool = False
     fused_qkv: bool = False
@@ -110,6 +113,7 @@ def reduced(cfg: ModelConfig, **extra) -> ModelConfig:
         d_ff=128 if cfg.d_ff else 0,
         vocab_size=256,
         dtype="float32",
+        remat=False,
     )
     if cfg.n_experts:
         ne, tk = min(cfg.n_experts, 8), min(cfg.top_k, 2)

@@ -45,7 +45,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamDraw, layernorm, normal_
-from repro_torch.models.transformer import to_device, torch_dtype
+from repro_torch.models.transformer import (cross_entropy, remat_call,
+                                            to_device, torch_dtype)
 
 
 def _ln_params(d: int) -> dict:
@@ -230,9 +231,11 @@ def _dec_layer(bp: dict, x, cfg: ModelConfig, self_attn, cross_attn):
 
 
 def decode_full(params: dict, cfg: ModelConfig, enc: torch.Tensor,
-                tokens: torch.Tensor) -> torch.Tensor:
+                tokens: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """Teacher-forced decoder pass over ``tokens`` [B, S_dec] -> logits
-    [B, S_dec, V]."""
+    [B, S_dec, V].  ``remat`` recomputes each decoder layer in the
+    backward (the reference checkpoints the decoder's scan body, not the
+    encoder's)."""
     _check_dec_len(cfg, tokens.shape[1])
     H, hd = cfg.n_heads, cfg.head_dim
     x = _embed(params, tokens, 0)
@@ -242,17 +245,31 @@ def decode_full(params: dict, cfg: ModelConfig, enc: torch.Tensor,
         return _flash(q, k, v, causal=False)
 
     for bp in params["dec_layers"]:
-        x = _dec_layer(bp, x, cfg, lambda q, k, v: _flash(q, k, v, True), cross)
+        x = remat_call(lambda h, bp=bp: _dec_layer(
+            bp, h, cfg, lambda q, k, v: _flash(q, k, v, True), cross), x, remat)
     return _head(params, x)
 
 
-@torch.no_grad()
 def forward(params: dict, cfg: ModelConfig, frames: torch.Tensor,
-            tokens: torch.Tensor):
+            tokens: torch.Tensor, training: bool = False):
     """Encoder then teacher-forced decoder -> (logits [B, S_dec, V], aux =
-    0)."""
-    logits = decode_full(params, cfg, encode(params, cfg, frames), tokens)
+    0).  ``training=False`` runs under ``no_grad``; ``training=True`` lets
+    gradients flow (the encoder's and cross-attention's non-causal flash
+    backward on a card) and, with ``cfg.remat``, recomputes each decoder
+    layer in the backward."""
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+        logits = decode_full(params, cfg, encode(params, cfg, frames), tokens,
+                             remat=training and cfg.remat)
     return logits, torch.zeros((), device=logits.device)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, frames: torch.Tensor,
+            tokens: torch.Tensor, labels: torch.Tensor,
+            aux_weight: float = 0.0) -> torch.Tensor:
+    """The reference's ``encdec.loss_fn``: the fp32 cross-entropy of the
+    training forward's logits (whisper has no auxiliary loss)."""
+    logits, _ = forward(params, cfg, frames, tokens, training=True)
+    return cross_entropy(logits, labels)
 
 
 def _cross_cache(cache: dict, B: int, T: int) -> dict:

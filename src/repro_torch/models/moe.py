@@ -129,3 +129,18 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         y = y + mlp_block(p["shared"], x, cfg.act)
     return y
 
+
+
+def moe_aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The Switch-style load-balancing loss of ``repro.models.moe.
+    moe_aux_loss`` over x [B, S, D]: E times the sum over experts of the
+    fraction of (token, k) picks each gets and its mean router
+    probability.  The router product, softmax and top-k are
+    :func:`route`'s (ties to the lower expert); the gradient reaches the
+    router through the mean probabilities only.  Returns a fp32 scalar."""
+    B, S, D = x.shape
+    E = cfg.n_experts
+    probs = torch.softmax((x.reshape(B * S, D) @ p["router"]).float(), dim=-1)
+    idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :cfg.top_k]
+    frac = F.one_hot(idx, E).float().mean(dim=(0, 1))
+    return E * (frac * probs.mean(dim=0)).sum()

@@ -136,11 +136,27 @@ class Model:
             raise ValueError(f"{self.cfg.name}: enc-dec inputs need 'frames'")
         return self._input(inputs["frames"], self.dtype)
 
-    def forward(self, params, inputs: dict):
+    # ---- training ----------------------------------------------------------
+    def forward(self, params, inputs: dict, training: bool = False):
+        """Full-sequence forward -> (logits, aux).  ``training=True`` is the
+        training forward (gradients, remat); the default runs under
+        ``no_grad``."""
         if self.is_encdec:
             return encdec.forward(params, self.cfg, self._frames(inputs),
-                                  self._tokens(inputs))
-        return transformer.forward(params, self.cfg, self._tokens(inputs))
+                                  self._tokens(inputs), training)
+        return transformer.forward(params, self.cfg, self._tokens(inputs),
+                                   training)
+
+    def loss(self, params, batch: dict) -> torch.Tensor:
+        """The training loss of ``batch`` (``tokens``, ``labels`` and, for
+        enc-dec, ``frames``), as the reference's ``Model.loss``."""
+        labels = self._input(batch["labels"])
+        if self.is_encdec:
+            return encdec.loss_fn(params, self.cfg, self._frames(batch),
+                                  self._tokens(batch), labels)
+        return transformer.loss_fn(params, self.cfg, self._tokens(batch), labels)
+
+    # ---- serving -----------------------------------------------------------
 
     def _ids(self, adapter_ids):
         if adapter_ids is None:

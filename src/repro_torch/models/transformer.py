@@ -18,7 +18,8 @@ With ``cfg.use_mla`` (deepseek-v3) a dense or moe block's attention is
 MLA (``models.mla``) and its cache the latent ``{'c_kv', 'k_rope'}``.
 
 Entry points:
-  forward(params, cfg, tokens)                        -> (logits, aux)
+  forward(params, cfg, tokens, training=False)        -> (logits, aux)
+  loss_fn(params, cfg, tokens, labels)                -> scalar loss
   prefill(params, cfg, tokens, cache)                 -> (last logits, cache)
   prefill_from(params, cfg, tokens, cache, offset)    -> (last logits, cache)
   decode_step(params, cfg, cache, tokens, pos)        -> (logits, cache)
@@ -27,6 +28,12 @@ Entry points:
   init_params(cfg, seed, device)                      -> params
   param_specs(cfg)                                    -> params on ``meta``
   make_cache / make_paged_cache                       -> cache dict
+
+``forward(training=True)`` is the training forward: gradients flow
+(through the kernels' backward kernels on a card), each block the
+reference checkpoints is recomputed in the backward when ``cfg.remat``
+(``torch.utils.checkpoint``), and ``aux`` sums the moe blocks' load-
+balancing losses.  The serving entry points run under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mla, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
@@ -265,12 +273,14 @@ def make_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int,
 
 def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
                  cache_pos, page_table=None, page_size: int = 0,
-                 adapters: Optional[dict] = None, adapter_ids=None):
+                 adapters: Optional[dict] = None, adapter_ids=None,
+                 aux: Optional[list] = None):
     """One decoder block (pre-norm attention, then the gated MLP or, for
     moe, the expert layer) over its parameters ``bp`` and its layer's
     cache (updated in place).  The layer loop below and the layer-streamed
     prefill (``core.streaming``) both run it.  ``adapters`` is this
-    layer's slice of an adapter bank (GQA blocks only)."""
+    layer's slice of an adapter bank (GQA blocks only).  A moe block
+    appends its load-balancing loss to ``aux`` when one is given."""
     h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
     if cfg.use_mla:
         if adapters is not None:
@@ -287,8 +297,20 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
                                adapter_ids=adapter_ids)
     h, x = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps, residual=a)
     if cfg.n_experts:
-        return x + moe.moe_block(bp["moe"], h, cfg)
+        m = moe.moe_block(bp["moe"], h, cfg)
+        if aux is not None:
+            aux.append(moe.moe_aux_loss(bp["moe"], h, cfg))
+        return x + m
     return x + mlp_block(bp["mlp"], h, cfg.act)
+
+
+def remat_call(fn, x, remat: bool):
+    """``fn(x)``; with ``remat`` its activations are recomputed in the
+    backward instead of kept (the reference's ``jax.checkpoint`` of a
+    block; nothing in a block draws random numbers)."""
+    if not remat:
+        return fn(x)
+    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
 
 
 def layer_cache(cache: Optional[dict], layer: int) -> Optional[dict]:
@@ -310,18 +332,21 @@ def _mamba_block(bp: dict, x, cfg: ModelConfig, state: Optional[dict]):
 
 
 def zamba_unit(mamba_params, shared_params, x, cfg: ModelConfig, positions,
-               cache: Optional[dict], unit: int, cache_pos):
+               cache: Optional[dict], unit: int, cache_pos,
+               remat: bool = False):
     """One zamba unit: ``attn_every`` Mamba2 blocks, then the SHARED
     attention + MLP block (``_dense_block`` over ``shared_attn``) with
     this unit's own K/V cache.  ``mamba_params(l)`` and
     ``shared_params()`` supply the weights when a block needs them, so the
     layer loop below and the layer-streamed prefill (``core.streaming``)
-    run the same body and each block waits only for its own weights."""
+    run the same body and each block waits only for its own weights.
+    ``remat`` (training, no cache) recomputes each Mamba2 block in the
+    backward, as the reference checkpoints its Mamba2 scan body."""
     every = cfg.attn_every
     for layer in range(unit * every, (unit + 1) * every):
-        x = _mamba_block(mamba_params(layer), x, cfg,
-                         layer_cache(None if cache is None else cache["mamba"],
-                                     layer))
+        state = layer_cache(None if cache is None else cache["mamba"], layer)
+        x = remat_call(lambda h, bp=mamba_params(layer), st=state:
+                       _mamba_block(bp, h, cfg, st), x, remat)
     kv = layer_cache(None if cache is None else cache["attn_kv"], unit)
     return _dense_block(shared_params(), x, cfg, positions, kv, cache_pos)
 
@@ -356,18 +381,20 @@ def _slstm_block(sp: dict, x, cfg: ModelConfig, state: Optional[dict]):
 
 
 def xlstm_unit(mlstm_params, slstm_params, x, cfg: ModelConfig,
-               cache: Optional[dict], unit: int):
+               cache: Optional[dict], unit: int, remat: bool = False):
     """One xlstm unit: its ``slstm_every - 1`` mLSTM blocks (mLSTM index
     ``unit * (slstm_every - 1) + j``), then its sLSTM block.
     ``mlstm_params(l)`` and ``slstm_params(unit)`` supply the weights when
     a block needs them, so the layer loop below and the layer-streamed
     prefill (``core.streaming``) run the same body and each block waits
-    only for its own weights."""
+    only for its own weights.  ``remat`` (training, no cache) recomputes
+    each mLSTM block in the backward, as the reference checkpoints its
+    mLSTM scan body (not the sLSTM block)."""
     _, m_per = xlstm_units(cfg)
     for layer in range(unit * m_per, (unit + 1) * m_per):
-        x = _mlstm_block(mlstm_params(layer), x, cfg,
-                         layer_cache(None if cache is None else cache["mlstm"],
-                                     layer))
+        state = layer_cache(None if cache is None else cache["mlstm"], layer)
+        x = remat_call(lambda h, bp=mlstm_params(layer), st=state:
+                       _mlstm_block(bp, h, cfg, st), x, remat)
     return _slstm_block(slstm_params(unit), x, cfg,
                         layer_cache(None if cache is None else cache["slstm"],
                                     unit))
@@ -390,25 +417,36 @@ def layer_bank(bank: Optional[dict], layer: int) -> Optional[dict]:
 
 
 def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
-             page_size: int = 0, adapter_bank=None, adapter_ids=None):
+             page_size: int = 0, adapter_bank=None, adapter_ids=None,
+             aux: Optional[list] = None, remat: bool = False):
+    """The layer loop.  ``aux`` collects the moe blocks' load-balancing
+    losses; ``remat`` (training, no cache) recomputes each block the
+    reference checkpoints in the backward."""
     if cfg.family in ("zamba", "xlstm") and adapter_bank is not None:
         raise NotImplementedError(
             f"{cfg.name}: adapter gather needs the dense block layout")
     if cfg.family == "xlstm":
         for unit in range(xlstm_units(cfg)[0]):
             x = xlstm_unit(params["mlstm"].__getitem__,
-                           params["slstm"].__getitem__, x, cfg, cache, unit)
+                           params["slstm"].__getitem__, x, cfg, cache, unit,
+                           remat)
         return x
     if cfg.family == "zamba":
         for unit in range(n_units(cfg)):
             x = zamba_unit(params["mamba"].__getitem__,
                            lambda: params["shared_attn"], x, cfg, positions,
-                           cache, unit, cache_pos)
+                           cache, unit, cache_pos, remat)
         return x
     for layer, bp in enumerate(params["layers"]):
-        x = _dense_block(bp, x, cfg, positions, layer_cache(cache, layer),
-                         cache_pos, page_table, page_size,
-                         layer_bank(adapter_bank, layer), adapter_ids)
+        def block(h, bp=bp, layer=layer):
+            out = None if aux is None else []
+            h = _dense_block(bp, h, cfg, positions, layer_cache(cache, layer),
+                             cache_pos, page_table, page_size,
+                             layer_bank(adapter_bank, layer), adapter_ids, out)
+            return h, out
+        x, out = remat_call(block, x, remat)
+        if out:
+            aux.extend(out)
     return x
 
 
@@ -421,15 +459,50 @@ def _head(params, cfg, x):
 # entry points
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor):
-    """Full-sequence causal forward -> (logits [B, S, V], aux = 0)."""
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            training: bool = False):
+    """Full-sequence causal forward -> (logits [B, S, V], aux), ``aux``
+    the fp32 sum of the moe blocks' load-balancing losses (0 for the
+    other families), as ``repro.models.transformer.forward``.
+
+    ``training=False`` runs under ``no_grad``.  ``training=True`` lets
+    gradients flow and, with ``cfg.remat``, recomputes each block the
+    reference checkpoints (every dense and moe block; zamba's Mamba2 and
+    xlstm's mLSTM blocks) in the backward."""
     _decoder_only(cfg)
+    if not training:
+        with torch.no_grad():
+            return _forward(params, cfg, tokens, False)
+    return _forward(params, cfg, tokens, cfg.remat)
+
+
+def _forward(params, cfg, tokens, remat: bool):
     B, S = tokens.shape
     x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    x = _decoder(params, cfg, x, positions, None, None)
-    return _head(params, cfg, x), torch.zeros((), device=x.device)
+    auxs: list = []
+    x = _decoder(params, cfg, x, positions, None, None, aux=auxs, remat=remat)
+    aux = (torch.stack(auxs).sum() if auxs
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    return _head(params, cfg, x), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy in fp32: ``logsumexp(logits) - logits[label]``
+    (the reference's ``loss_fn`` arithmetic)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, aux_weight: float = 0.01) -> torch.Tensor:
+    """The training loss of ``repro.models.transformer.loss_fn``: the fp32
+    cross-entropy of the training forward plus ``aux_weight`` times its
+    moe load-balancing loss."""
+    logits, aux = forward(params, cfg, tokens, training=True)
+    return cross_entropy(logits, labels) + aux_weight * aux
 
 
 @torch.no_grad()

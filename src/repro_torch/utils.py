@@ -32,6 +32,16 @@ def map_with_path(fn: Callable[[str, Any], Any], tree, prefix: str = ""):
     return fn(prefix[:-1], tree)
 
 
+def unflatten_like(like, leaves) -> Any:
+    """The nested dict/list shape of ``like`` with its leaves taken in
+    order from the iterator ``leaves`` (the inverse of :func:`named_leaves`)."""
+    if isinstance(like, dict):
+        return {k: unflatten_like(v, leaves) for k, v in like.items()}
+    if isinstance(like, list):
+        return [unflatten_like(v, leaves) for v in like]
+    return next(leaves)
+
+
 def tensor_nbytes(t) -> int:
     return t.numel() * t.element_size()
 

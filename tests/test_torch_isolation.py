@@ -29,9 +29,13 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 46, names
-for sub in ("core", "launch", "hw", "utils", "data"):
+for sub in ("core", "launch", "hw", "utils", "data", "train"):
     assert any(n == "repro_torch." + sub or n.startswith("repro_torch." + sub + ".")
                for n in names), sub
+for mod in ("repro_torch.launch.train", "repro_torch.train.optimizer",
+            "repro_torch.train.checkpoint", "repro_torch.train.train_loop",
+            "repro_torch.kernels.grad"):
+    assert mod in names, mod
 """
 
 

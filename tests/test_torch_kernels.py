@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -306,8 +307,10 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     ops.decode_attention(torch.zeros((1, 4, 16)), torch.zeros((1, 2, 8, 16)),
                          torch.zeros((1, 2, 8, 16)), 3)
     assert ops.launch_counts() == {"decode_attention": 0, "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "paged_decode_attention": 0, "rmsnorm": 0,
-                                   "rmsnorm_fused": 0, "ssd_scan": 0}
+                                   "rmsnorm_bwd": 0, "rmsnorm_fused": 0,
+                                   "ssd_scan": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -323,7 +326,20 @@ def test_cuda_sources_declare_their_entry_points():
     """Each wrapper's C symbol is defined with C linkage in csrc/."""
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
     assert set(sources) == {"paged_decode_attention.cu", "flash_attention.cu",
-                            "decode_attention.cu", "rmsnorm.cu", "ssd_scan.cu"}
+                            "decode_attention.cu", "rmsnorm.cu", "ssd_scan.cu",
+                            "flash_attention_bwd.cu", "rmsnorm_bwd.cu"}
+    # the backward kernels' entry points take what their wrappers pass
+    from repro_torch.kernels import flash_attention as flash_wrapper
+    for src, name, argtypes in (
+            ("flash_attention_bwd.cu", "repro_flash_attention_bwd",
+             flash_wrapper._BWD_ARGTYPES),
+            ("rmsnorm_bwd.cu", "repro_rmsnorm_bwd", None),
+            ("flash_attention.cu", "repro_flash_attention", flash_wrapper._ARGTYPES)):
+        if argtypes is None:
+            from repro_torch.kernels import rmsnorm as rms_wrapper
+            argtypes = rms_wrapper._BWD_ARGTYPES
+        head = sources[src].split(f'extern "C" int {name}(')[1].split(")")[0]
+        assert head.count(",") + 1 == len(argtypes), name
     assert 'extern "C" int repro_ssd_scan(' in sources["ssd_scan.cu"]
     assert 'extern "C" int repro_rmsnorm(' in sources["rmsnorm.cu"]
     # the C entry points take what the wrappers pass: rmsnorm's residual
@@ -343,3 +359,129 @@ def test_cuda_sources_declare_their_entry_points():
     assert 'extern "C" int repro_flash_attention(' in sources["flash_attention.cu"]
     for text in sources.values():
         assert "Replaces the TPU kernel src/repro/kernels/" in text
+
+
+# ---------------------------------------------------------------------------
+# backward plain versions (the backward kernels' references) and the
+# refusal of a gradient where a kernel has no backward
+# ---------------------------------------------------------------------------
+
+def _vjp_jax(fn, primals, cotangent):
+    _, vjp = jax.vjp(fn, *[jnp.asarray(p) for p in primals])
+    return [np.asarray(g) for g in vjp(cotangent)]
+
+
+def _close_to_largest(got, want, tol=1e-5):
+    """Within ``tol`` of the largest |value| of ``want``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.abs(got - want).max() <= tol * max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("B,H,KV,S,T,d,causal,softcap", [
+    (2, 9, 3, 24, 24, 16, True, 0.0),      # GQA (G = 3), square causal
+    (1, 4, 2, 8, 40, 16, True, 0.0),       # causal, bottom-right over T > S
+    (2, 4, 4, 12, 30, 16, False, 0.0),     # non-causal, cross-attention shape
+    (1, 4, 1, 16, 16, 32, True, 5.0),      # softcap, G = 4
+    (1, 2, 2, 10, 25, 16, False, 3.0),     # non-causal with a softcap
+])
+def test_flash_backward_ref_matches_autograd_and_jax_vjp(B, H, KV, S, T, d,
+                                                         causal, softcap):
+    """``flash_attention_bwd_ref`` (written step by step) against
+    ``torch.autograd.grad`` of the plain forward and ``jax.vjp`` of
+    ``repro.kernels.ref.flash_attention_ref``; the forward's saved
+    log-sum-exp against ``logsumexp`` of the scores.  Tolerance 1e-5 of
+    each gradient's largest |value| (fp32 summation order)."""
+    rng = np.random.default_rng(S * T + H)
+    q, do = (rng.standard_normal((B, H, S, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, KV, T, d)).astype(np.float32) for _ in range(2))
+    o, lse = tref.flash_attention_fwd_ref(_t(q), _t(k), _t(v), causal, softcap)
+    np.testing.assert_allclose(o.numpy(), tref.flash_attention_ref(
+        _t(q), _t(k), _t(v), causal, softcap).numpy(), **TOL)
+    got = tref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), o, lse, _t(do),
+                                       causal, softcap)
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    want_t = torch.autograd.grad(
+        tref.flash_attention_ref(tq, tk, tv, causal, softcap), (tq, tk, tv), _t(do))
+    want_j = _vjp_jax(lambda a, b, c: jref.flash_attention_ref(
+        a, b, c, causal=causal, softcap=softcap), (q, k, v), jnp.asarray(do))
+    for g, wt, wj in zip(got, want_t, want_j):
+        _close_to_largest(g.numpy(), wt.numpy())
+        _close_to_largest(g.numpy(), wj)
+    # the autograd path of the wrapper runs the same plain backward
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, softcap=softcap)
+    for g, w in zip(torch.autograd.grad(out, (tq, tk, tv), _t(do)), got):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("shape,residual", [
+    ((2, 5, 64), False), ((7, 48), True), ((3, 2, 4, 16), False), ((4, 80), True)])
+def test_rmsnorm_backward_ref_matches_autograd_and_jax_vjp(shape, residual):
+    """``rmsnorm_bwd_ref`` against ``torch.autograd.grad`` and ``jax.vjp``
+    of ``repro.kernels.ref.rmsnorm_ref``, plain and in the residual form
+    (where ``d_sum``, the gradient at ``s = x + r``, adds to both x's and
+    r's gradient).  Tolerance 1e-5 of each gradient's largest |value|."""
+    rng = np.random.default_rng(int(np.prod(shape)))
+    x, r, dy, ds = (rng.standard_normal(shape).astype(np.float32) for _ in range(4))
+    scale = (rng.standard_normal(shape[-1]) * 0.1 + 1).astype(np.float32)
+    eps = 1e-5
+    if residual:
+        s = x + r
+        dx, dsc = tref.rmsnorm_bwd_ref(_t(s), _t(scale), _t(dy), eps, d_sum=_t(ds))
+        tx, tr, tsc = (_t(a).requires_grad_(True) for a in (x, r, scale))
+        y, s_t = ops.rmsnorm(tx, tsc, eps, residual=tr)
+        gx, gr, gsc = torch.autograd.grad((y, s_t), (tx, tr, tsc), (_t(dy), _t(ds)))
+        assert torch.equal(gx, gr)
+        jx, jr, jsc = _vjp_jax(
+            lambda a, b, c: (jref.rmsnorm_ref(a + b, c, eps), a + b), (x, r, scale),
+            (jnp.asarray(dy), jnp.asarray(ds)))
+        want = [(gx, jx), (gsc, jsc)]
+        np.testing.assert_allclose(jx, jr, **TOL)
+    else:
+        dx, dsc = tref.rmsnorm_bwd_ref(_t(x), _t(scale), _t(dy), eps)
+        tx, tsc = (_t(a).requires_grad_(True) for a in (x, scale))
+        gx, gsc = torch.autograd.grad(tref.rmsnorm_ref(tx, tsc, eps), (tx, tsc), _t(dy))
+        jx, jsc = _vjp_jax(lambda a, c: jref.rmsnorm_ref(a, c, eps), (x, scale),
+                           jnp.asarray(dy))
+        want = [(gx, jx), (gsc, jsc)]
+    for got, (wt, wj) in zip((dx, dsc), want):
+        _close_to_largest(got.numpy(), wt.detach().numpy())
+        _close_to_largest(got.numpy(), wj)
+
+
+def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu():
+    """``ssd_scan``, ``decode_attention`` and ``paged_decode_attention``
+    have no backward kernel: off the CPU (``meta`` stands in for a card,
+    which this machine lacks) an input that requires grad raises instead
+    of a detached output; so do flash and rmsnorm in bf16, which have no
+    backward kernel yet.  Without grad mode, or on the CPU, they run."""
+    m = dict(device="meta")
+    q = torch.zeros((1, 4, 16), **m, requires_grad=True)
+    cache = torch.zeros((1, 2, 8, 16), **m)
+    arena = torch.zeros((3, 8, 2, 16), **m)
+    pt = torch.zeros((1, 2), dtype=torch.int32, **m)
+    with pytest.raises(NotImplementedError, match="decode_attention.*no backward"):
+        ops.decode_attention(q, cache, cache, 3)
+    with pytest.raises(NotImplementedError, match="paged_decode_attention"):
+        ops.paged_decode_attention(q, arena, arena, pt, 3)
+    xb = torch.zeros((1, 8, 2, 32), **m, requires_grad=True)
+    bc = torch.zeros((1, 8, 16), **m)
+    with pytest.raises(NotImplementedError, match="ssd_scan.*ssd_scan backward"):
+        ops.ssd_scan(xb, bc, bc, torch.zeros((1, 8, 2), **m), 4)
+    fq = torch.zeros((1, 4, 8, 16), dtype=torch.bfloat16, **m, requires_grad=True)
+    fk = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16, **m)
+    with pytest.raises(NotImplementedError, match="bf16 tensor-core backward"):
+        ops.flash_attention(fq, fk, fk)
+    with pytest.raises(NotImplementedError, match="bf16 tensor-core backward"):
+        ops.rmsnorm(fq, torch.ones(16, dtype=torch.bfloat16, **m))
+    with torch.no_grad():
+        assert ops.decode_attention(q, cache, cache, 3).shape == q.shape
+        assert ops.flash_attention(fq, fk, fk).shape == fq.shape
+    # fp32 on meta carries its gradient shape-only, both kernels counted
+    f32 = torch.zeros((1, 4, 8, 16), **m, requires_grad=True)
+    out = ops.flash_attention(f32, fk.float(), fk.float())
+    assert out.requires_grad and out.shape == f32.shape
+    # on the CPU the plain versions carry the gradient
+    cq = torch.randn((1, 4, 16), requires_grad=True)
+    out = ops.decode_attention(cq, torch.randn(1, 2, 8, 16), torch.randn(1, 2, 8, 16), 5)
+    assert out.grad_fn is not None
