@@ -182,7 +182,26 @@ Phases, in order; any failure raises and the process exits non-zero:
    phi3.5-moe at full width and 1 of 32 layers (printed as reduced) and
    whisper-medium at full width and depth (2 x 1,500 frames, 64 decoder
    tokens), 3 steps each with exact launches (phi3.5-moe's load-balancing
-   loss finite and nonzero).
+   loss finite and nonzero);
+15. tensor parallelism: llama3-8b at full width served by 2 ranks
+   sharing the card (``repro_torch.distributed.spawn``, gloo: NCCL
+   refuses two ranks on one device) through ``FaaSRuntime(mesh=
+   ServingMesh(1, 2))``, each rank's shard drawn on the card from the
+   seed (16 query / 4 KV heads, 8 GB per rank at full depth): per case a
+   paged bf16 / fp32 pass and an int8 one, each deploying with a 64-token
+   template prompt, then cold, fork (after an evict; its prefill streamed
+   while the rank's shard is in flight), a prefix hit and warm, the
+   launches of every rank read per invocation (L flash per prefill, L
+   paged decode per step, 2L + 1 rmsnorm per call) and the divergence
+   guard on every op; the same in one ``tp = 1`` process (at full depth
+   its bf16 pass only, all the comparison reads).  fp32 at 2
+   layers: greedy tokens of every invocation equal to ``tp = 1``; bf16 at
+   full depth (32 layers): the first prefill's logits within 5% of the
+   largest |logit| of ``tp = 1``'s (the share of equal greedy tokens
+   printed); fork TTFT, bytes streamed and pinned per rank, and the decode
+   step's host, device-span and collective ms per rank, each beside the
+   card's name and power limit.  Phase 2 also holds the kernels at one
+   rank's heads (llama3-8b 16 / 4 / 128, gemma-2b 4 / 1 / 256: G = 4).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -218,6 +237,10 @@ LLAMA3_8B = dict(H=32, KV=8, d=128)
 LLAMA2_13B = dict(H=40, KV=40, d=128)             # G = 1 at d = 128
 CHAMELEON_34B = dict(H=64, KV=8, d=128)
 GEMMA_2B = dict(H=8, KV=1, d=256)
+# one rank's heads at tp = 2 (phase 15): llama3-8b splits its KV heads
+# (G = 4, as at tp = 1), gemma-2b keeps its one KV head (G = 8 -> 4)
+LLAMA3_8B_TP2 = dict(H=16, KV=4, d=128)
+GEMMA_2B_TP2 = dict(H=4, KV=1, d=256)
 ZAMBA2_ATTN = dict(H=32, KV=32, d=80)             # the shared attention block
 ZAMBA2_SSD = dict(H=80, dh=64, ds=64, Q=128, d_inner=5120)
 PAGE_SIZE = 8
@@ -562,6 +585,13 @@ def phase_kernels(device) -> list:
     for int8 in (False, True):
         paged.append(("long", "llama3-8b", LLAMA3_8B, 4096, [4096], torch.bfloat16,
                       int8))
+    # one rank's heads at tp = 2, as phase 15 decodes them
+    lengths = [1] + rng.integers(2, 513, 6).tolist() + [512]
+    for int8 in (False, True):
+        paged.append(("serving", "llama3-8b/tp2", LLAMA3_8B_TP2, 512, lengths,
+                      torch.bfloat16, int8))
+        paged.append(("serving", "gemma-2b/tp2", GEMMA_2B_TP2, 512, lengths,
+                      torch.bfloat16, int8))
     for case in paged:
         results.append(paged_case(device, gen, *case))
 
@@ -575,7 +605,10 @@ def phase_kernels(device) -> list:
     # split), and lengths shorter than one split with a sequence of length 0
     decode_cases += [("long", "smollm", SMOLLM, 4096, [4096], torch.bfloat16),
                      ("long", "smollm", SMOLLM, 4096, [4096], torch.float32),
-                     ("long", "llama3-8b", LLAMA3_8B, 4096, [4096], torch.bfloat16)]
+                     ("long", "llama3-8b", LLAMA3_8B, 4096, [4096], torch.bfloat16),
+                     ("serving", "gemma-2b/tp2", GEMMA_2B_TP2, 512,
+                      [1] + rng.integers(2, 513, 6).tolist() + [512],
+                      torch.bfloat16)]
     for dtype in (torch.bfloat16, torch.float32):
         decode_cases.append(("short", "smollm", SMOLLM, 512,
                              [0, 1, 5, 63, 64, 65, 300, 512], dtype))
@@ -587,7 +620,9 @@ def phase_kernels(device) -> list:
         flash_cases += [(tag, heads, 1, 384, 384, torch.bfloat16, 0.0),
                         (tag, heads, 1, 64, 320, torch.bfloat16, 0.0),
                         (tag, heads, 1, 96, 96, torch.float32, 0.0)]
-    flash_cases += [("smollm", SMOLLM, 1, 384, 384, torch.float32, 0.0),
+    flash_cases += [("llama3-8b/tp2", LLAMA3_8B_TP2, 1, 96, 96, torch.bfloat16, 0.0),
+                    ("llama3-8b/tp2", LLAMA3_8B_TP2, 1, 24, 88, torch.bfloat16, 0.0),
+                    ("smollm", SMOLLM, 1, 384, 384, torch.float32, 0.0),
                     ("smollm", SMOLLM, 2, 256, 256, torch.bfloat16, 30.0),
                     ("smollm", SMOLLM, 1, 200, 333, torch.float32, 30.0)]
     for tag, hd, B, S, T, dtype, softcap in flash_cases:
@@ -2230,9 +2265,9 @@ def fitting_depth(cfg, device, cap: int | None = None) -> dict:
     at which ``big_faas`` fits: on the card a warm copy of the weights, a
     fork's copy and ``DEVICE_SLACK_BYTES`` within the free memory; on the
     host the function's checkpoint and its pinned pool (the weights'
-    exact bytes, laid out at ``HOST_ALIGN``), or earlier the random
-    draw's peak (the largest leaf in float32 and its cast), plus
-    ``HOST_SLACK_BYTES`` within ``host_free_bytes()``.  Read with nothing
+    exact bytes, laid out at ``HOST_ALIGN``) plus ``HOST_SLACK_BYTES``
+    within ``host_free_bytes()``; and on the card, earlier, the random
+    draw's peak (the largest leaf in float32 and its cast).  Read with nothing
     of the model allocated; returns the depth, the budget that stopped it
     and the bytes it was worked out from."""
     from repro_torch.core.merging import host_layout
@@ -2257,8 +2292,8 @@ def fitting_depth(cfg, device, cap: int | None = None) -> dict:
                     // (2 * layer_dev))
     by_host = int((host_free - HOST_SLACK_BYTES - base_dev - base_pin)
                   // (layer_dev + layer_pin))
-    if host_free - HOST_SLACK_BYTES < draw_peak:
-        by_host = 0
+    if device_free - DEVICE_SLACK_BYTES < draw_peak:
+        by_device = 0
     depth = min(cfg.n_layers, by_device, by_host, cap or cfg.n_layers)
     out = {"depth": depth, "cap": cap, "draw_peak_bytes": draw_peak,
            "limited_by": ("full depth" if depth == cfg.n_layers else
@@ -2294,12 +2329,13 @@ def pinned_bytes(server) -> dict:
 
 def big_model(arch: str, device, seed: int = 0, **replace) -> tuple:
     """``arch`` at full width (depth cut by ``replace``) with seeded random
-    weights, drawn on the CPU leaf by leaf and moved to the card."""
+    weights, drawn on the card leaf by leaf (a CPU draw of the 21-27 GB
+    models took 54-90 s of the script's time limit)."""
     from repro_torch.models.registry import get_config, get_model
     from repro_torch.utils import tree_bytes
     model = get_model(get_config(arch).replace(**replace), device=device)
     t0 = time.perf_counter()
-    params = model.init_params(seed=seed)
+    params = model.init_params(seed=seed, draw_on_device=True)
     torch.cuda.synchronize()
     info = {"arch": arch, "layers": model.cfg.n_layers,
             "d_model": model.cfg.d_model, "dtype": model.cfg.dtype,
@@ -3879,16 +3915,318 @@ def train_big(device, arch: str, steps: int = 3, **replace) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel serving, 2 ranks sharing one card
+# ---------------------------------------------------------------------------
+
+TP = 2
+TP_BACKEND = "gloo"            # NCCL refuses two ranks on one device
+TP_ARCH = "llama3-8b"
+TP_SEED = 7
+TP_NEW = 8                     # tokens per invocation
+TP_PROMPT = 96                 # tokens of a plain prompt
+TP_TEMPLATE = 64               # the template prompt (8 pages)
+TP_REUSE_SUFFIX = 24           # a prefix hit's own tokens
+# bf16 at full depth: the first prefill's logits at tp = 2 against tp = 1
+# for the same seed and prompt, as a share of the largest |logit|
+TP_BF16_LOGIT_BOUND = 5e-2
+
+
+def tp_requests(vocab: int) -> tuple:
+    """The template prompt and the invocations of one tensor-parallel
+    pass: cold, then (after an evict) a fork, a prefix hit, and the cold
+    prompt again warm (its tokens must equal the cold ones)."""
+    rng = np.random.default_rng(11)
+    tpl = rng.integers(1, vocab, TP_TEMPLATE).astype(np.int32)
+    a = rng.integers(1, vocab, TP_PROMPT).astype(np.int32)
+    b = rng.integers(1, vocab, TP_PROMPT).astype(np.int32)
+    hit = np.concatenate([tpl, rng.integers(1, vocab, TP_REUSE_SUFFIX)
+                          ]).astype(np.int32)
+    return tpl, [("cold", a), ("fork", b), ("warm-hit", hit), ("warm", a)]
+
+
+def _rank_memory(server) -> dict:
+    """One rank's page-locked pool bytes and device allocation."""
+    return {"registered_bytes": server.registered_bytes(),
+            "device_allocated_bytes": torch.cuda.memory_allocated(),
+            "device_peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _rank_counts() -> dict:
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    return {"launches": ops.launch_counts(),
+            "collectives": sharding.collective_stats()}
+
+
+def _rank_reset() -> None:
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    sharding.reset_collective_stats()
+
+
+def _rank_release() -> None:
+    release_host_memory()
+    torch.cuda.empty_cache()
+
+
+def _rank_decode_timing(model, params, steps: int) -> dict:
+    """One rank's decode step at 4 busy slots, position 127, over a paged
+    arena: the host's wall ms, the CUDA-event span ms (the card's time
+    line, waits in the collectives included) and the host ms inside the
+    collectives, per step (medians; every rank runs this together)."""
+    from repro_torch.distributed import sharding
+    B, ps, pos = 4, PAGE_SIZE, 127
+    bps = 128 // ps
+    arena = model.make_paged_cache(1 + B * bps, ps)
+    pt = (1 + np.arange(B * bps, dtype=np.int32)).reshape(B, bps)
+    toks = np.ones((B, 1), np.int32)
+    posv = np.full((B,), pos, np.int32)
+    host, dev, coll = [], [], []
+    for i in range(steps + 2):
+        sharding.reset_collective_stats()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e0.record()
+        model.decode_step_paged(params, arena, {"tokens": toks}, posv, pt, ps)
+        e1.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            host.append((time.perf_counter() - t0) * 1e3)
+            dev.append(e0.elapsed_time(e1))
+            coll.append(sharding.collective_stats()["seconds"] * 1e3)
+    return {"host_ms": float(np.median(host)), "device_span_ms": float(
+        np.median(dev)), "collective_ms": float(np.median(coll)),
+        "collectives_per_step": sharding.collective_stats()["calls"]}
+
+
+def _tp_pass(group, fn, model, kv_dtype, tpl, reqs) -> dict:
+    """One ``FaaSRuntime`` over the group's mesh: deploy with the template
+    prompt, then cold, fork, a prefix hit and warm, each invocation's
+    launches per rank read alone (counts set to 0 on every rank just
+    before it)."""
+    from repro_torch.runtime import FaaSRuntime
+    from repro_torch.runtime.gateway import InvocationRequest
+    cfg = model.cfg
+    rt = FaaSRuntime(mesh=group.mesh, device=group.device, n_slots=4,
+                     max_len=TP_PROMPT + TP_NEW + 24, page_size=PAGE_SIZE,
+                     trace_seq=TP_PROMPT, kv_dtype=kv_dtype, keep_alive_s=3600)
+    t0 = time.perf_counter()
+    rt.deploy(fn, {}, template_prompt=tpl, prewarm_seq=TP_PROMPT)
+    out = {"pass": "int8" if kv_dtype else "paged",
+           "deploy_s": time.perf_counter() - t0,
+           "memory_after_deploy": group.gather(_rank_memory, rt.server),
+           "requests": []}
+    rt.gateway.start_pump()
+    try:
+        for kind, prompt in reqs:
+            if kind == "fork":
+                rt.evict(fn.name)
+            group.gather(_rank_reset)
+            res = rt.submit(InvocationRequest(fn.name, prompt,
+                                              max_new_tokens=TP_NEW)).result()
+            counts = group.gather(_rank_counts)
+            row = {"want": kind, "kind": res.kind, "tokens": res.tokens.tolist(),
+                   "ttft_s": res.ttft_s, "e2e_s": res.e2e_s,
+                   "reused_prefix_len": res.reused_prefix_len,
+                   "launches_per_rank": [c["launches"] for c in counts],
+                   "collectives_per_rank": [c["collectives"] for c in counts]}
+            if res.fork_stats is not None:
+                row["fork_per_rank"] = [
+                    {"fork_s": st.fork_s, "streamed_bytes": st.streamed_bytes,
+                     "reused_bytes": st.reused_bytes,
+                     "replicated_bytes": st.replicated_bytes}
+                    for st in (res.fork_stats.per_rank or (res.fork_stats,))]
+            L = cfg.n_layers
+            for r, c in enumerate(row["launches_per_rank"]):
+                want = {"flash_attention": L,
+                        "paged_decode_attention": L * (TP_NEW - 1),
+                        "rmsnorm": (2 * L + 1) * TP_NEW,
+                        "decode_attention": 0, "ssd_scan": 0}
+                got = {k: c[k] for k in want}
+                if got != want:
+                    raise AssertionError(f"tp rank {r} {kind} launches {got}, "
+                                         f"want {want}")
+            out["requests"].append(row)
+            print(json.dumps({"tp_request": {k: v for k, v in row.items()
+                                             if k != "tokens"}}))
+        kinds = [r["kind"] for r in out["requests"]]
+        if kinds != ["cold", "fork", "warm", "warm"]:
+            raise AssertionError(f"tp invocation kinds {kinds}")
+        if out["requests"][2]["reused_prefix_len"] < TP_TEMPLATE - PAGE_SIZE:
+            raise AssertionError("tp: the template prefix was not reused")
+        if out["requests"][3]["tokens"] != out["requests"][0]["tokens"]:
+            raise AssertionError("tp: warm tokens differ from cold's")
+    finally:
+        rt.gateway.stop_pump()
+    if kv_dtype is None:
+        # the first prefill's logits, from the warm engine's weights
+        engine = next(w.engine for w in rt._engines.values())
+        pool = engine.pool
+        logits, _ = model.prefill(engine.params(), {"tokens": reqs[0][1][None]},
+                                  model.make_cache(1, pool.padded_len))
+        out["logits"] = logits.float().cpu().numpy()[0]
+        out["decode_step_per_rank"] = group.gather(
+            _rank_decode_timing, model, engine.params(), 8)
+    rt.evict()
+    del rt
+    group.gather(_rank_release)
+    return out
+
+
+def _tp_function(arch: str, replace: dict):
+    """On every rank: the model at full width under the rank's plan, its
+    shard of the weights drawn on the card from the seed, and one static
+    function over a host checkpoint of that shard."""
+    from repro_torch.core import api as tidal
+    from repro_torch.distributed import current_group
+    from repro_torch.models.registry import get_config, get_model
+    group = current_group()
+    model = get_model(get_config(arch).replace(**replace), device=group.device,
+                      plan=group.plan)
+    params = model.init_params(TP_SEED, draw_on_device=True)
+    fn = tidal.static_function("tp", model, params)
+    del params
+    _rank_release()
+    return fn
+
+
+def _tp_rank(group, arch: str, cases: tuple) -> dict | None:
+    """One rank of the tensor-parallel phase (``tp`` 1 or 2): per case
+    ``(tag, configuration, arenas)``, every rank builds its function
+    (``group.build``), then a pass per arena (None: the model's dtype)
+    runs on the controller."""
+    from repro_torch.utils import tree_bytes
+    if not group.is_controller:
+        group.serve()
+        return None
+    out = {}
+    for tag, replace, arenas in cases:
+        t0 = time.perf_counter()
+        fn = group.build(_tp_function, arch, replace)
+        model = fn.model
+        info = {"arch": arch, "layers": model.cfg.n_layers,
+                "dtype": model.cfg.dtype, "tp": group.size,
+                "backend": group.backend,
+                "local_heads": [model.local_cfg.n_heads,
+                                model.local_cfg.n_kv_heads],
+                "shard_bytes": tree_bytes(model.param_specs()),
+                "init_s": time.perf_counter() - t0}
+        tpl, reqs = tp_requests(model.cfg.vocab_size)
+        out[tag] = {"model": info,
+                    "passes": [_tp_pass(group, fn, model, kv, tpl, reqs)
+                               for kv in arenas]}
+        del fn, model
+        group.gather(_rank_release)
+    out["guard_ops"] = group.channel.n_ops
+    return out
+
+
+def tp_run(tp: int) -> dict:
+    """``_tp_rank`` on ``tp`` new processes (2 ranks share the one card)."""
+    from repro_torch.distributed import spawn
+    cases = tuple((tag, replace, two if tp > 1 else one)
+                  for tag, replace, two, one in TP_CASES)
+    t0 = time.perf_counter()
+    out = spawn(_tp_rank, tp, (TP_ARCH, cases), backend=TP_BACKEND,
+                device="cuda", guard=True, timeout_s=900)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# (tag, configuration, arenas at tp = 2, arenas at tp = 1): at full depth
+# tp = 1 serves the fp arena only, all that the bf16 comparison reads
+TP_CASES = (("fp32_2layers", {"n_layers": 2, "dtype": "float32"},
+             (None, "int8"), (None, "int8")),
+            ("bf16_full", {}, (None, "int8"), (None,)))
+
+
+def phase_tp(device) -> dict:
+    """llama3-8b at full width served tensor-parallel by 2 ranks sharing
+    the card (gloo), through ``FaaSRuntime(mesh=ServingMesh(1, 2))``:
+    fp32 at 2 layers with greedy tokens equal to ``tp = 1`` (cold, fork,
+    warm, prefix hit; fp and int8 arenas), then bf16 at full depth with
+    the first prefill's logits within ``TP_BF16_LOGIT_BOUND`` of ``tp =
+    1``'s and the share of equal greedy tokens over the fp arena (the
+    ``tp = 1`` side serves no int8 pass at full depth).  The ``tp = 1``
+    run is a process of its own too.  Launches per rank, the divergence guard on
+    every op, fork bytes and pinned bytes per rank, the decode step's
+    host, device-span and collective ms per rank."""
+    del device
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    torch.cuda.empty_cache()
+    out = {"backend": TP_BACKEND, "card": card,
+           "note": f"{TP} ranks sharing one card"}
+    print(json.dumps({"tp_backend": TP_BACKEND, "why": "NCCL refuses two "
+                      "ranks on one device (Duplicate GPU detected)"}))
+    runs = {1: tp_run(1), TP: tp_run(TP)}
+    out["wall_s"] = {str(k): v["wall_s"] for k, v in runs.items()}
+    out["guard_ops"] = runs[TP]["guard_ops"]
+    for tag, *_ in TP_CASES:
+        one, two = runs[1][tag], runs[TP][tag]
+        if two["model"]["local_heads"] != [16, 4]:
+            raise AssertionError(f"tp heads {two['model']['local_heads']}")
+        rows = []
+        for p1, p2 in zip(one["passes"], two["passes"]):
+            for r1, r2 in zip(p1["requests"], p2["requests"]):
+                same = [a == b for a, b in zip(r1["tokens"], r2["tokens"])]
+                rows.append({"pass": p2["pass"], "kind": r2["kind"],
+                             "equal_tokens": int(sum(same)),
+                             "tokens": len(same)})
+        agree = sum(r["equal_tokens"] for r in rows) / sum(r["tokens"]
+                                                           for r in rows)
+        l1, l2 = one["passes"][0]["logits"], two["passes"][0]["logits"]
+        gap = float(np.abs(l1 - l2).max() / np.abs(l1).max())
+        res = {"tp1": _strip_logits(one), "tp2": _strip_logits(two),
+               "token_agreement": agree, "per_request": rows,
+               "logit_gap_of_max": gap,
+               "argmax_equal": bool(l1.argmax() == l2.argmax())}
+        print(json.dumps({"tp_parity": {"case": tag, "card": card,
+                                        "note": out["note"],
+                                        "token_agreement": agree,
+                                        "logit_gap_of_max": gap,
+                                        "per_request": rows}}))
+        if tag.startswith("fp32") and agree != 1.0:
+            raise AssertionError(f"tp fp32 tokens differ from tp = 1: {rows}")
+        if not tag.startswith("fp32") and gap > TP_BF16_LOGIT_BOUND:
+            raise AssertionError(f"tp bf16 logits {gap} of the largest apart "
+                                 f"(bound {TP_BF16_LOGIT_BOUND})")
+        out[tag] = res
+    full = out["bf16_full"]["tp2"]
+    fork = full["passes"][0]["requests"][1]
+    print(json.dumps({"tp_numbers": {
+        "card": card, "note": out["note"], "backend": TP_BACKEND,
+        "guard_ops": out["guard_ops"],
+        "fork_ttft_ms": fork["ttft_s"] * 1e3,
+        "fork_per_rank": fork["fork_per_rank"],
+        "pinned_per_rank": [m["registered_bytes"] for m in
+                            full["passes"][0]["memory_after_deploy"]],
+        "decode_step_per_rank": full["passes"][0]["decode_step_per_rank"]}}))
+    return out
+
+
+def _strip_logits(run: dict) -> dict:
+    return {**run, "passes": [{k: v for k, v in p.items() if k != "logits"}
+                              for p in run["passes"]]}
+
+
+
 def kernel_summary(kernels: list, serve: list, engine: list,
                    tidal_row: dict, tenants: dict, ssm: dict,
                    big: tuple = (), xlstm: dict | None = None,
-                   whisper: dict | None = None, train: dict | None = None) -> list:
+                   whisper: dict | None = None, train: dict | None = None,
+                   tp: dict | None = None) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
     shapes, with its launches from the serving phases (3, 5, 6, 7 and 8,
     the serving, engine and FaaS passes of ``big``: phases 9, 10 and 11,
-    those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13) and
+    those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13),
     the training runs of phase 14 (``train``; the backward kernels run
-    there only)."""
+    there only) and every rank's invocations of phase 15 (``tp``)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
@@ -3912,6 +4250,13 @@ def kernel_summary(kernels: list, serve: list, engine: list,
     if train is not None:
         rows += [train["smollm"], {"launches": train["smollm"]["resume_launches"]},
                  train["moe"], train["whisper"]]
+    if tp is not None:
+        for tag, *_ in TP_CASES:
+            for run in ("tp1", "tp2"):
+                for p in tp[tag][run]["passes"]:
+                    rows += [{"pass": p["pass"], "launches": counts}
+                             for r in p["requests"]
+                             for counts in r["launches_per_rank"]]
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
@@ -4034,14 +4379,15 @@ def main(argv=None) -> int:
     kernels += whisper["kernels"]
     train = timed("train", phase_train, device)
     kernels += train["kernels"]
+    tp = timed("tp", phase_tp, device)
     summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm,
-                             (llama, moe, deepseek), xlstm, whisper, train)
+                             (llama, moe, deepseek), xlstm, whisper, train, tp)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
          "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
          "llama": llama, "moe": moe, "deepseek": deepseek, "xlstm": xlstm,
-         "whisper": whisper, "train": train, "summary": summary,
+         "whisper": whisper, "train": train, "tp": tp, "summary": summary,
          "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")

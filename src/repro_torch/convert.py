@@ -29,10 +29,11 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import encdec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import check_family, param_specs, to_device
-from repro_torch.utils import named_leaves
+from repro_torch.utils import map_with_path, named_leaves
 
 # JAX subtree stacked on a leading layer axis -> the port's per-layer list
 STACKED = {"blocks": "layers", "mamba": "mamba", "mlstm": "mlstm",
@@ -92,7 +93,8 @@ def _set(tree: dict, name: str, value) -> None:
     node[parts[-1]] = value
 
 
-def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
+def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda",
+                    plan=None) -> dict:
     """Port parameters from a JAX parameter tree given as numpy arrays.
 
     ``jax_params`` is the nested dict of ``repro.models.transformer.
@@ -100,7 +102,8 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
     of either) with leaves converted to numpy.  Stacked ``[n, ...]``
     leaves are unstacked into per-layer dicts; each group's ``n`` must be
     the model's (``n_layers``, xlstm's mLSTM blocks and units, whisper's
-    encoder and decoder layers).
+    encoder and decoder layers).  Under a sharding ``plan`` each leaf is
+    cut to the plan's rank's shard before it moves to ``device``.
     """
     check_family(cfg)
     specs = (encdec.param_specs if cfg.is_encdec else param_specs)(cfg)
@@ -116,6 +119,9 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda") -> dict:
                              f"model's {lengths.get(head)} {head} entries")
         for i, name in enumerate(port_names(path, lengths)):
             _set(params, name, t[i] if stacked else t)
+    if plan is not None and plan.tp > 1:
+        specs = dict(named_leaves(sharding.config_param_specs(cfg, plan.tp)))
+        params = map_with_path(lambda p, t: plan.shard(t, specs[p]), params)
     return to_device(params, device)
 
 

@@ -109,6 +109,10 @@ def apply_lora(weights: dict, model: Model, adapter: Checkpoint,
     """Merge a LoRA adapter into base weights (all traced ops).  A target
     named by a JAX stacked path merges row ``i`` of the reshaped delta
     into layer ``i``."""
+    if model.plan is not None:
+        raise NotImplementedError(
+            f"{model.cfg.name}: LoRA under tensor parallelism is ROADMAP "
+            "Queue 1, item 7")
     out = dict(weights)
     for path in sorted({k.rsplit(".", 1)[0] for k in adapter.arrays}):
         delta = adapter.load(path + ".A").matmul(

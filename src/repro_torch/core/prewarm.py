@@ -24,6 +24,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.distributed.group import mirrored
 from repro_torch.kernels import _build
 from repro_torch.utils import map_with_path
 
@@ -116,8 +117,10 @@ class ProcessPool:
         return w.ctx_ready and set(keys) <= w.loaded
 
 
+@mirrored(register=("return",))
 def zero_params(model) -> dict:
-    """Zero-filled parameters of ``model`` on its device (warm-up input).
+    """Zero-filled parameters of ``model`` on its device (warm-up input;
+    the rank's shapes under a sharding plan).
     Leaves of one shape and dtype share one zero tensor (warm-ups only
     read them), so every layer reads the same buffers: the warm-up input
     of llama2-13b takes ~1 GB, not a second 26 GB copy of the model."""

@@ -35,6 +35,8 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.group import mirrored
 from repro_torch.models import transformer
 from repro_torch.models.layers import embed_tokens, lm_head, rmsnorm
 from repro_torch.models.registry import Model
@@ -196,6 +198,7 @@ class ForkSession:
         return map_with_path(lambda p, _: self.leaf(p), self._specs[name],
                              f"{name}.")
 
+    @mirrored(register=("return",))
     def params(self) -> dict:
         """The full parameter dict (waits for every outstanding copy)."""
         if self._params is None:
@@ -212,6 +215,7 @@ def supports_streamed_prefill(model: Model) -> bool:
     return model.cfg.family in ("dense", "moe", "zamba", "xlstm")
 
 
+@mirrored()
 @torch.no_grad()
 def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
                      offset: int = 0):
@@ -224,10 +228,17 @@ def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
     and moe families only: a zamba or xlstm prefill starts at position
     0)."""
     model = session.model
-    cfg = model.cfg
+    cfg = model.local_cfg
     if not supports_streamed_prefill(model):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family has no streamed prefill")
+    with sharding.use_plan(model.plan, model.cfg):
+        return _streamed_prefill(session, inputs, cache, offset, cfg)
+
+
+def _streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
+                      offset: int, cfg):
+    model = session.model
     tokens = torch.as_tensor(inputs["tokens"], device=model.device)
     B, S = tokens.shape
     offset = int(offset)

@@ -23,8 +23,18 @@ Per registered function the server keeps:
   * dynamic weights are replayed from the traced DFG (materialized and
     copied), the only per-request work: under 1% of the model for LoRA.
 
-The port's copy of ``repro.core.template_server`` for one device; the
-sharding plans of the JAX server arrive with ROADMAP Queue 1, item 11.
+The port's copy of ``repro.core.template_server``.  Under a sharding plan
+(the functions' models') the server is one rank's: its host pool, its
+resident prefix and its streams hold the rank's shard (the function's
+initializer gives the rank's leaves: ``Model.init_params`` and
+``convert.params_from_jax`` under a plan), and ``register``, ``fork``,
+``set_resident_bytes`` and ``observe_ttft`` are device ops of the
+tensor-parallel channel, so every rank's residency follows the same
+decisions.  ``ForkStats`` then reports this rank's bytes, and the
+controller's copy lists every rank's under ``per_rank``.  Placing one
+function on several mesh slices (the JAX server's ``_resident_for`` and
+``_invalidate_placements``) comes with multi-instance serving, ROADMAP
+Queue 1, item 8.
 """
 
 from __future__ import annotations
@@ -40,6 +50,8 @@ from repro_torch.core.merging import pack_host_pool
 from repro_torch.core.streaming import ForkSession, StreamEntry, WeightStreamer
 from repro_torch.core.template import FunctionTemplate, generate_template
 from repro_torch.core.tracing import trace_weight_access, weight_sizes
+from repro_torch.distributed import sharding
+from repro_torch.distributed.group import mirrored
 from repro_torch.hw import H100_SXM, HardwareProfile
 from repro_torch.utils import named_leaves, tensor_nbytes
 
@@ -51,6 +63,8 @@ class ForkStats:
     dynamic_bytes: int = 0       # replayed request-specific weights
     fork_s: float = 0.0
     new_dynamic: tuple = ()
+    replicated_bytes: int = 0    # of the above, leaves every rank holds whole
+    per_rank: tuple = ()         # every rank's stats (the controller's copy)
 
 
 def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -59,10 +73,13 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 
 class TemplateServer:
+    @mirrored(register=("self",))
     def __init__(self, hw: HardwareProfile = H100_SXM,
                  device_budget_bytes: int = 1 << 62,
-                 trace_batch: int = 1, trace_seq: int = 64):
+                 trace_batch: int = 1, trace_seq: int = 64, plan=None):
         self.hw = hw
+        # the functions' sharding plan (None: one device)
+        self.plan = None if plan is None or plan.tp == 1 else plan
         self.device_budget = device_budget_bytes
         self.trace_batch = trace_batch
         self.trace_seq = trace_seq
@@ -74,7 +91,24 @@ class TemplateServer:
         self.host_buffers: dict = {}                  # fn -> HostBuffer
         self.device_cache: dict = {}                  # fn -> path -> tensor
         self._leaf_order: dict = {}                   # fn -> [path, ...]
+        self._leaf_specs: dict = {}                   # fn -> path -> spec
         self._functions: dict = {}
+
+    def mirror_digest(self) -> str:
+        """Host state compared across ranks by the divergence guard."""
+        return repr(sorted((fn, sorted(c)) for fn, c in
+                           self.device_cache.items()))
+
+    def _specs_for(self, fn_name: str):
+        """{path -> PartitionSpec} of the function's parameters under the
+        server's plan (None on one device), cached per function."""
+        if self.plan is None:
+            return None
+        if fn_name not in self._leaf_specs:
+            model = self._functions[fn_name].model
+            self._leaf_specs[fn_name] = sharding.leaf_param_specs(
+                model, self.plan.mesh)
+        return self._leaf_specs[fn_name]
 
     # ------------------------------------------------------------------
     def device_bytes_used(self) -> int:
@@ -86,6 +120,7 @@ class TemplateServer:
         allocator statistics do not see them)."""
         return sum(b.nbytes for b in self.host_buffers.values() if b.pinned)
 
+    @mirrored()
     def register(self, fn: LLMFunction, example_event: dict,
                  resident_bytes: int = 0,
                  template_prompt=None) -> FunctionTemplate:
@@ -95,6 +130,9 @@ class TemplateServer:
         runtimes bake its KV at deploy and serve later invocations
         suffix-only."""
         model = fn.model
+        if model.plan != self.plan:
+            raise ValueError(f"{fn.name}: its model's sharding plan is not "
+                             "the template server's")
         # a re-register without a template opts out; the new entry lands
         # only after the initializer ran (a failing one records nothing)
         self.template_prompts.pop(fn.name, None)
@@ -112,6 +150,7 @@ class TemplateServer:
                                      resident_bytes=resident_bytes)
         self.templates[fn.name] = template
         self._functions[fn.name] = fn
+        self._leaf_specs.pop(fn.name, None)
         self._leaf_order[fn.name] = [path for path, _ in trace.order]
 
         # host pool: materialize static weights once, in access order,
@@ -159,17 +198,25 @@ class TemplateServer:
             if path not in cache:
                 cache[path] = _to_device(pool[path], device)
 
+    @mirrored()
     def set_resident_bytes(self, fn_name: str, nbytes: int) -> None:
         self.templates[fn_name].resident_bytes = int(nbytes)
         self._refresh_residency(fn_name)
 
     # ------------------------------------------------------------------
-    def fork(self, fn_name: str, event: dict) -> tuple:
+    @mirrored(register=("return.0",), gather="return.1")
+    def fork(self, fn_name: str, event: dict, plan=None) -> tuple:
         """Adaptive state forking for one invocation.
 
         Returns ``(ForkSession, ForkStats)``: resident tensors are shared,
         dynamic weights replayed, and the rest stream in access order on
-        the streamer's thread."""
+        the streamer's thread.  Under a plan each rank forks its shard;
+        ``plan`` (the JAX signature's per-call mesh slice) must be the
+        server's."""
+        if plan is not None and plan.tp > 1 and plan != self.plan:
+            raise NotImplementedError(
+                "forking onto another mesh slice comes with multi-instance "
+                "serving (ROADMAP Queue 1, item 8)")
         t0 = time.perf_counter()
         fn = self._functions[fn_name]
         device = fn.model.device
@@ -204,6 +251,16 @@ class TemplateServer:
             entries.append(StreamEntry(key=key, fetch=lambda s=src: s))
             stats.streamed_bytes += tensor_nbytes(src)
 
+        specs = self._specs_for(fn_name)
+        if specs is not None:
+            whole = [path for path, spec in specs.items()
+                     if spec.model_dim is None]
+            held = {**{p: tensor_nbytes(t) for p, t in resident.items()},
+                    **{p: tensor_nbytes(t) for p, t in dynamic.items()},
+                    **{e.key[0]: tensor_nbytes(pool[e.key[0]])
+                       for e in entries}}
+            stats.replicated_bytes = sum(held.get(p, 0) for p in whole)
+
         streamer = WeightStreamer(entries, resident, dynamic,
                                   device=device).start()
         session = ForkSession(fn.model, streamer)
@@ -211,6 +268,7 @@ class TemplateServer:
         return session, stats
 
     # ------------------------------------------------------------------
+    @mirrored()
     def observe_ttft(self, fn_name: str, ttft_s: float) -> None:
         """Feed a measured TTFT back into Eq. 1 and refresh residency."""
         self.templates[fn_name].observe_ttft(ttft_s, self.hw)

@@ -1,0 +1,633 @@
+"""Ranks of one tensor-parallel instance: spawning, process groups, and the
+controller/worker channel (the port's counterpart of
+``repro.launch.mesh``).
+
+The JAX package is one program over sharded arrays.  The port runs one
+process per rank.  Rank 0 is the CONTROLLER: it alone holds the host
+stack (``FaaSRuntime``, the gateway, the engines' queues, sampling and
+every clock read).  The other ranks are WORKERS: they hold their shard
+of every device object and wait in :meth:`TPGroup.serve` for the
+controller's orders.
+
+The unit of an order is a device operation of the layer below the
+engines: a model call, a KV pool method, a template-server method, a
+fork session's parameters or streamed prefill.  Those functions carry
+the :func:`mirrored` decorator.  On the controller, a top-level call of
+one broadcasts ``(op, host arguments)`` on a CPU gloo group and then
+runs locally; each worker runs the same function with the same
+arguments on its own objects, and the model calls meet in their
+collectives.  Calls nested inside an op run locally on every rank (each
+rank runs the same outer op).  Host state below the engines (page
+tables, refcounts, residency) is therefore identical on every rank as
+long as every op ends alike on every rank, and everything above it,
+which reads clocks and threads, exists on the controller only: it
+cannot make two ranks diverge.
+
+After every op the ranks exchange its outcome (it returned, or the type
+it raised) on the control group.  An op that raised the same type on
+every rank (a request too large for a slot, say) leaves the same state
+everywhere: the controller's caller gets the error and the workers serve
+on.  Any other outcome (one rank out of memory, the controller raising
+after the op was broadcast) raises :class:`DivergenceError` on every
+rank, with the tracebacks of the ranks that raised; a worker lets it
+leave :meth:`TPGroup.serve`, so that :func:`spawn` reports it.  A rank
+that raises before a collective the others wait in is seen when that
+collective times out (``spawn``'s ``collective_timeout_s``).
+
+Arguments cross as host values: ints, numpy arrays, small tensors (a
+token batch, a page table), models by their configuration, and device
+objects by reference.  A device object (a cache, a parameter tree, a
+pool, a fork session, a prefix handle, a device page table) made by an
+op is registered under a number on every rank; the controller's handle
+of it carries that number (``_mid``), and when the controller drops the
+handle the workers drop their object at the next op.  Bulk tensors
+never cross the channel.
+
+``guard=True`` (the tests and ``chip_smoke.py`` set it) adds the
+divergence guard: before each op every rank hashes the op, its
+arguments and the host state of every object it touches (a pool's page
+table, refcounts and free lists), and the outcome the ranks exchange
+after it carries the hash of the result's host part.  A mismatch raises
+:class:`DivergenceError` on every rank instead of a hang inside a later
+collective.
+
+``spawn(fn, tp, ...)`` starts ``tp`` ranks with ``torch.multiprocessing``
+over a ``tcp://127.0.0.1`` store, runs ``fn(group, *args)`` on each and
+returns rank 0's result.  Rank ``r`` uses ``cuda:(r % device_count)``:
+on one card every rank shares it.  The backend is an argument, never a
+fallback: NCCL refuses two ranks on one device ("Duplicate GPU
+detected"), so one card takes ``gloo``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import functools
+import hashlib
+import importlib
+import os
+import pickle
+import queue as _queue
+import socket
+import threading
+import time
+import traceback
+import weakref
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.distributed.sharding import ServingMesh, serving_plan
+
+_GROUP: Optional["TPGroup"] = None
+# device tensors at most this many elements cross the channel by value
+SMALL_TENSOR = 1 << 16
+
+
+class DivergenceError(RuntimeError):
+    """Ranks disagreed on an op or its outcome (the divergence guard)."""
+
+
+def current_group() -> Optional["TPGroup"]:
+    """This process's tensor-parallel group (None outside :func:`spawn`)."""
+    return _GROUP
+
+
+def _channel() -> Optional["Channel"]:
+    return None if _GROUP is None else _GROUP.channel
+
+
+# ---------------------------------------------------------------------------
+# mirrored ops
+# ---------------------------------------------------------------------------
+
+def mirrored(register: tuple = (), gather: Optional[str] = None):
+    """Make a function (or method) a device op of the channel.
+
+    ``register`` names the results every rank files under a new number:
+    ``'return'``, ``'return.0'`` (a tuple's first item), ``'self'`` and
+    ``'self.cache'`` (a constructor's object and its arena).  ``gather``
+    names a result whose host value every rank sends to the controller,
+    which sets the list on it as ``per_rank``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            ch = _channel()
+            if ch is None or not ch.broadcasts():
+                return fn(*args, **kwargs)
+            return ch.call(fn, args, kwargs, register, gather)
+        wrapper._mirror_register = tuple(register)
+        wrapper._mirror_gather = gather
+        return wrapper
+    return deco
+
+
+def _resolve_op(name: str) -> tuple:
+    """(the op's wrapper, its owner: the class of a method or the module)."""
+    module, _, qual = name.partition(":")
+    obj = importlib.import_module(module)
+    owner = obj
+    for part in qual.split("."):
+        owner, obj = obj, getattr(obj, part)
+    return obj, owner
+
+
+class MirrorDict(dict):
+    """A registered tree of device tensors on the controller (a plain dict
+    cannot carry the number its workers file it under)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class _Ref:
+    mid: int
+
+
+@dataclasses.dataclass(frozen=True)
+class _ModelRef:
+    cfg: Any
+
+
+@dataclasses.dataclass(frozen=True)
+class _PlanRef:
+    """The rank's own sharding plan."""
+
+
+@dataclasses.dataclass(frozen=True)
+class _Small:
+    """A small device tensor sent by value (placed on the worker's device)."""
+    value: torch.Tensor
+
+
+_NEW = "__new_object__"
+_CLOSE = "__close__"
+
+
+def _digest(obj) -> str:
+    """Host state of an op's object for the divergence guard."""
+    fn = getattr(obj, "mirror_digest", None)
+    if fn is not None:
+        return fn()
+    if isinstance(obj, torch.Tensor):
+        return f"tensor{tuple(obj.shape)}{obj.dtype}"
+    if isinstance(obj, dict):
+        return "{" + ",".join(f"{k}:{_digest(v)}" for k, v in obj.items()) + "}"
+    return type(obj).__name__
+
+
+def _host_summary(x) -> Any:
+    """The part of a result that must agree across ranks (device values
+    differ: each rank holds its shard)."""
+    if isinstance(x, (tuple, list)):
+        return [_host_summary(v) for v in x]
+    if isinstance(x, (int, float, bool, str, type(None))):
+        return x
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    return _digest(x)
+
+
+def _hash(x) -> str:
+    return hashlib.sha1(repr(x).encode()).hexdigest()
+
+
+class Channel:
+    """The controller/worker channel of one group (see the module doc)."""
+
+    def __init__(self, group: "TPGroup"):
+        self.group = group
+        self.objs: dict = {}                 # worker: number -> object
+        self.models: dict = {}               # worker: config -> Model
+        self._next = 1
+        self._lock = threading.RLock()
+        self._local = threading.local()
+        self._frees: list = []
+        self._seq = 0
+        self.broken = False
+        self.n_ops = 0
+        # worker: the ops that raised here and on the controller alike,
+        # with their tracebacks
+        self.failures: list = []
+
+    # ---- controller -------------------------------------------------------
+    def broadcasts(self) -> bool:
+        """True for a top-level op on the controller."""
+        return (self.group.rank == 0 and self.group.size > 1
+                and not getattr(self._local, "depth", 0))
+
+    def _free(self, mid: int) -> None:
+        self._frees.append(mid)
+
+    def _encode(self, x):
+        mid = getattr(x, "_mid", None)
+        if isinstance(mid, int):
+            return _Ref(mid)
+        from repro_torch.distributed.sharding import ShardingPlan
+        from repro_torch.models.registry import Model
+        if isinstance(x, Model):
+            return _ModelRef(x.cfg)
+        if isinstance(x, ShardingPlan):
+            return _PlanRef()
+        if isinstance(x, torch.Tensor):
+            if x.device.type == "cpu":
+                return x
+            if x.numel() > SMALL_TENSOR:
+                raise TypeError(
+                    f"a {tuple(x.shape)} device tensor would cross the "
+                    "channel: bulk tensors must be device objects made by "
+                    "an op on every rank")
+            return _Small(x.cpu())
+        if isinstance(x, dict):
+            return {k: self._encode(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            out = [self._encode(v) for v in x]
+            return out if isinstance(x, list) else tuple(out)
+        if isinstance(x, (int, float, bool, str, bytes, type(None),
+                          np.ndarray, np.generic, torch.dtype)):
+            return x
+        raise TypeError(f"{type(x).__name__} cannot cross the channel")
+
+    def _send(self, msg) -> None:
+        import torch.distributed as dist
+        box = [msg]
+        dist.broadcast_object_list(box, src=0, group=self.group.ctrl_group)
+
+    def call(self, fn, args, kwargs, register, gather):
+        with self._lock:
+            if self.broken:
+                raise DivergenceError("the channel is broken: an earlier op "
+                                      "diverged")
+            self._local.depth = 1
+            try:
+                return self._call(fn, args, kwargs, register, gather)
+            finally:
+                self._local.depth = 0
+
+    def _call(self, fn, args, kwargs, register, gather):
+        op = f"{fn.__module__}:{fn.__qualname__}"
+        init = fn.__name__ == "__init__"
+        mids = list(range(self._next, self._next + len(register)))
+        self._next += len(register)
+        enc_args = ((_NEW,) + tuple(self._encode(a) for a in args[1:])
+                    if init else tuple(self._encode(a) for a in args))
+        frees, self._frees = self._frees, []
+        self._seq += 1
+        self._send((self._seq, op, enc_args, self._encode(kwargs), mids,
+                    frees))
+        self.n_ops += 1
+        if self.group.guard:
+            self._check(self._seq, op, args[init:], kwargs)
+        try:
+            result = fn(*args, **kwargs)
+        except BaseException as e:
+            self._outcome(self._seq, op, error=e)
+            raise
+        self._outcome(self._seq, op, result=result)
+        result = self._register(result, args, register, mids, controller=True)
+        if gather is not None:
+            self._gather_into(_select(result, args, gather))
+        return result
+
+    def _gather_into(self, obj) -> None:
+        import torch.distributed as dist
+        out = [None] * self.group.size
+        dist.gather_object(obj, out if self.group.rank == 0 else None, dst=0,
+                           group=self.group.ctrl_group)
+        if self.group.rank == 0:
+            obj.per_rank = tuple(out)
+
+    def _check(self, seq, op, *parts) -> None:
+        """The divergence guard: every rank's hash of the op (and the host
+        state it touches), compared on every rank before it runs."""
+        import torch.distributed as dist
+        mine = _hash((seq, op, [_digest_args(p) for p in parts]))
+        hashes = [None] * self.group.size
+        dist.all_gather_object(hashes, mine, group=self.group.ctrl_group)
+        if len(set(hashes)) != 1:
+            self.broken = True
+            raise DivergenceError(
+                f"op {seq} ({op}) diverged before running: rank hashes "
+                f"{[h[:12] for h in hashes]}")
+
+    def _outcome(self, seq, op, result=None, error=None) -> None:
+        """Every rank's outcome of an op (guard or not), compared on every
+        rank: it returned (with its host part's hash under the guard) or
+        raised a type.  Any difference raises :class:`DivergenceError`."""
+        import torch.distributed as dist
+        if error is None:
+            mine = ("returned",
+                    _hash(_host_summary(result)) if self.group.guard else "")
+            tb = ""
+        else:
+            mine = ("raised", type(error).__name__)
+            tb = "".join(traceback.format_exception(error))
+        outs = [None] * self.group.size
+        dist.all_gather_object(outs, (mine, tb), group=self.group.ctrl_group)
+        if len({o for o, _ in outs}) != 1:
+            self.broken = True
+            raise DivergenceError(
+                f"op {seq} ({op}) ended differently on the ranks: "
+                f"{[o for o, _ in outs]}" + "".join(
+                    f"\nrank {r} raised:\n{t}" for r, (_, t) in enumerate(outs)
+                    if t))
+
+    def _register(self, result, args, register, mids, controller: bool):
+        for sel, mid in zip(register, mids):
+            obj = _select(result, args, sel)
+            if isinstance(obj, dict) and not isinstance(obj, MirrorDict):
+                obj = MirrorDict(obj)
+                result = _replace(result, args, sel, obj)
+            if controller:
+                obj._mid = mid
+                f = weakref.finalize(obj, self._free, mid)
+                f.atexit = False
+            else:
+                self.objs[mid] = obj
+        return result
+
+    def close(self) -> None:
+        """Stop the workers (the controller's last order)."""
+        with self._lock:
+            if not self.broken and self.group.size > 1:
+                self._send((0, _CLOSE, (), {}, [], []))
+
+    # ---- worker -----------------------------------------------------------
+    def _decode(self, x):
+        if isinstance(x, _Ref):
+            return self.objs[x.mid]
+        if isinstance(x, _ModelRef):
+            key = pickle.dumps(x.cfg)
+            if key not in self.models:
+                from repro_torch.models.registry import Model
+                self.models[key] = Model(x.cfg, self.group.device,
+                                         plan=self.group.plan)
+            return self.models[key]
+        if isinstance(x, _PlanRef):
+            return self.group.plan
+        if isinstance(x, _Small):
+            return x.value.to(self.group.device)
+        if isinstance(x, dict):
+            return {k: self._decode(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [self._decode(v) for v in x]
+        if isinstance(x, tuple):
+            return tuple(self._decode(v) for v in x)
+        return x
+
+    def serve(self) -> int:
+        """Run the controller's ops until it closes the group; returns the
+        number of ops run."""
+        import torch.distributed as dist
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self.group.ctrl_group)
+            seq, op, args, kwargs, mids, frees = box[0]
+            for mid in frees:
+                self.objs.pop(mid, None)
+            if op == _CLOSE:
+                return self.n_ops
+            self.n_ops += 1
+            wrapper, owner = _resolve_op(op)
+            fn = wrapper.__wrapped__
+            init = bool(args) and isinstance(args[0], str) and args[0] == _NEW
+            args, kwargs = self._decode(args[init:]), self._decode(kwargs)
+            if init:
+                args = (object.__new__(owner),) + args
+            if self.group.guard:
+                self._check(seq, op, args[init:], kwargs)
+            try:
+                result = fn(*args, **kwargs)
+            except Exception as e:
+                # serve on only when the controller raised the same
+                self._outcome(seq, op, error=e)
+                self.failures.append((seq, op, traceback.format_exc()))
+                continue
+            self._outcome(seq, op, result=result)
+            result = self._register(result, args, wrapper._mirror_register,
+                                    mids, controller=False)
+            if wrapper._mirror_gather is not None:
+                self._gather_into(_select(result, args,
+                                          wrapper._mirror_gather))
+
+
+def _digest_args(x):
+    if isinstance(x, (list, tuple)):
+        return [_digest_args(v) for v in x]
+    if isinstance(x, dict) and not isinstance(x, MirrorDict):
+        return {k: _digest_args(v) for k, v in sorted(x.items())}
+    if isinstance(x, (int, float, bool, str, type(None))):
+        return x
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, torch.Tensor) and x.numel() <= SMALL_TENSOR:
+        return x.cpu().tolist()
+    return _digest(x)
+
+
+def _select(result, args, sel: str):
+    if sel == "return":
+        return result
+    if sel == "return.0":
+        return result[0]
+    if sel == "return.1":
+        return result[1]
+    if sel == "self":
+        return args[0]
+    if sel == "self.cache":
+        return args[0].cache
+    raise ValueError(f"unknown selector {sel!r}")
+
+
+def _replace(result, args, sel: str, obj):
+    if sel == "return":
+        return obj
+    if sel in ("return.0", "return.1"):
+        items = list(result)
+        items[int(sel[-1])] = obj
+        return tuple(items)
+    if sel == "self.cache":
+        args[0].cache = obj
+        return result
+    raise ValueError(f"{sel!r} cannot be replaced")
+
+
+# ---------------------------------------------------------------------------
+# the group of one instance
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _Gathered:
+    value: Any
+
+
+def _call_named(op: str, args: tuple):
+    return _resolve_op(op)[0](*args)
+
+
+@mirrored(gather="return")
+def _on_every_rank(op: str, args: tuple) -> _Gathered:
+    return _Gathered(_call_named(op, args))
+
+
+@mirrored(register=("return",))
+def _built_on_every_rank(op: str, args: tuple):
+    return _call_named(op, args)
+
+
+class TPGroup:
+    """The ranks of one tensor-parallel instance, as one process sees it."""
+
+    def __init__(self, rank: int, size: int, device, backend: str,
+                 data_group=None, ctrl_group=None, guard: bool = False):
+        self.rank, self.size = rank, size
+        self.device = torch.device(device)
+        self.backend = backend
+        self.data_group, self.ctrl_group = data_group, ctrl_group
+        self.guard = guard
+        self.mesh = ServingMesh(1, size)
+        self.plan = serving_plan(self.mesh, rank=rank, group=data_group)
+        self.channel = Channel(self)
+        self._bound = 0
+        self.closed = False
+
+    @property
+    def is_controller(self) -> bool:
+        return self.rank == 0
+
+    def bind(self, obj):
+        """File an object every rank built itself (in the same order on
+        every rank, before the workers serve) under one number; returns
+        the controller's handle (a dict becomes a :class:`MirrorDict`)."""
+        self._bound -= 1
+        return self.channel._register(obj, (), ("return",), [self._bound],
+                                      controller=self.rank == 0)
+
+    def serve(self) -> int:
+        """A worker's loop: run the controller's ops until it closes."""
+        if self.rank == 0:
+            raise RuntimeError("the controller does not serve a loop")
+        return self.channel.serve()
+
+    def gather(self, fn: Callable, *args) -> list:
+        """``fn(*args)`` on every rank (a module-level function of host
+        results), the list of results on the controller."""
+        res = _on_every_rank(f"{fn.__module__}:{fn.__qualname__}", args)
+        return [r.value for r in getattr(res, "per_rank", (res,))]
+
+    def build(self, fn: Callable, *args):
+        """``fn(*args)`` on every rank (a module-level function that makes
+        a device object, such as a function over the rank's shard of the
+        weights), filed under one number; the controller's result."""
+        return _built_on_every_rank(f"{fn.__module__}:{fn.__qualname__}",
+                                    args)
+
+    def close(self) -> None:
+        """The controller's last order: the workers leave :meth:`serve`."""
+        if self.rank == 0 and not self.closed:
+            self.closed = True
+            self.channel.close()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, tp, port, backend, device, guard, timeout_s, fn, args,
+               queue):
+    global _GROUP
+    import torch.distributed as dist
+    try:
+        torch.set_num_threads(max(1, min(4, (os.cpu_count() or 1) // tp)))
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device is available; pass "
+                                   "device='cpu' to run the ranks on the CPU")
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                                rank=rank, world_size=tp,
+                                timeout=datetime.timedelta(seconds=timeout_s))
+        # the control channel waits for the controller's next op for as
+        # long as the controller serves: its timeout is a day
+        ctrl = dist.new_group(backend="gloo",
+                              timeout=datetime.timedelta(days=1))
+        if dev.type == "cuda":
+            # one build of the kernel library, before any rank loads it
+            from repro_torch.kernels import _build
+            if rank == 0:
+                _build.build()
+            dist.barrier(group=ctrl)
+        _GROUP = TPGroup(rank, tp, dev, backend, dist.group.WORLD, ctrl,
+                         guard=guard)
+        out = fn(_GROUP, *args)
+        _GROUP.close()
+        queue.put(("ok", rank, out if rank == 0 else None))
+        dist.destroy_process_group()
+    except BaseException:
+        queue.put(("err", rank, traceback.format_exc()))
+        raise
+
+
+def spawn(fn: Callable, tp: int, args: tuple = (), *, backend: str = "gloo",
+          device="cuda", guard: bool = False, timeout_s: float = 3600.0,
+          collective_timeout_s: float = 600.0):
+    """Run ``fn(group, *args)`` on ``tp`` new rank processes and return
+    rank 0's result (``fn`` a module-level function; ``args`` picklable).
+
+    Rank 0 is the controller; a worker's ``fn`` calls ``group.serve()``.
+    A rank that fails stops the others and raises here with its
+    traceback; so does ``timeout_s``.  A collective that waits longer
+    than ``collective_timeout_s`` raises in its rank."""
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(r, tp, port, backend, str(device), guard,
+                               collective_timeout_s, fn, args, queue),
+                         name=f"tp-rank{r}")
+             for r in range(tp)]
+    for p in procs:
+        p.start()
+    results, errors = {}, {}
+    t_end = time.monotonic() + timeout_s
+    try:
+        while len(results) + len(errors) < tp:
+            try:
+                kind, rank, value = queue.get(timeout=0.2)
+                (results if kind == "ok" else errors)[rank] = value
+            except _queue.Empty:
+                pass
+            if errors:
+                break
+            dead = [p for p in procs if p.exitcode not in (None, 0)]
+            if dead:
+                time.sleep(0.5)
+                while not queue.empty():
+                    kind, rank, value = queue.get()
+                    (results if kind == "ok" else errors)[rank] = value
+                for p in dead:
+                    errors.setdefault(procs.index(p),
+                                      f"exited with code {p.exitcode}")
+                break
+            if time.monotonic() > t_end:
+                errors[-1] = f"timed out after {timeout_s} s"
+                break
+    finally:
+        if errors:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        raise RuntimeError("tensor-parallel ranks failed:\n" + "\n".join(
+            f"rank {r}: {msg}" for r, msg in sorted(errors.items())))
+    return results[0]

@@ -1,0 +1,511 @@
+"""Sharding plans of the port: tensor parallelism over a torch process
+group (the counterpart of ``repro.distributed.sharding``'s serving part).
+
+The JAX package runs one controller over sharded arrays and lets GSPMD
+insert the collectives; its placement is a shape heuristic ("largest
+divisible axis, ties to the last").  The port runs one process per rank
+(``distributed.group``) with explicit collectives, and assigns every
+parameter by its ROLE in the Megatron layout:
+
+  * ``wq`` / ``wk`` / ``wv`` (and their biases) and ``w_gate`` / ``w_up``
+    split by columns, along heads and ``d_ff``; ``wo`` and ``w_down``
+    split by rows, each followed by one ``all_reduce``; norms replicated;
+  * ``embed`` and ``lm_head`` vocab-parallel when the vocabulary divides
+    by the model axis: the embedding masks the rows a rank does not hold
+    and sums over ranks, the head's logits are gathered (an exact sum of
+    zero-padded slices); otherwise replicated;
+  * fused leaves split per part: ``wqkv`` as q, k and v each by heads,
+    ``w_gu`` as gate and up each by ``d_ff``;
+  * K/V heads that the model axis does not divide (MQA, the smoke
+    configs' single KV head) are not split along ``head_dim`` as the JAX
+    package's ``paged_cache_specs`` does: each rank keeps the KV heads its
+    slice of query heads reads, so a rank's attention sees G = (H / tp) /
+    KV_local query heads per KV head.
+
+A spec is a :class:`PartitionSpec`, a tuple of ``None`` or an axis name
+per dimension as in JAX.  Its ``parts`` say how a ``'model'`` dimension
+splits when it is not one even split over the ranks: a sequence of
+``(size, groups)`` segments, each cut into ``groups`` equal pieces, of
+which rank ``r`` keeps piece ``r * groups // tp`` (``groups < tp``: the
+piece is replicated over ``tp / groups`` ranks).
+
+The plan's functions keep the JAX names and signatures over a
+:class:`ServingMesh` ``(data, model)`` whose ``shape`` and
+``axis_names`` read like a JAX mesh's.  Training's parts (FSDP,
+``opt_state_specs``, ``batch_specs``, ``mode='fsdp2d'``) are ROADMAP
+Queue 1, item 9.
+
+At run time :func:`use_plan` scopes a plan over a model call (the
+counterpart of JAX's ``use_kernel_mesh``); :func:`all_reduce`,
+:func:`embed_lookup` and :func:`gather_vocab` are the layers'
+collectives, no-ops without a plan.  They sum in fp32 (gloo on one card
+takes bf16, but a bf16 sum would round each partial twice).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import time
+from typing import Any, Optional
+
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.utils import map_with_path, named_leaves
+
+MODEL = "model"
+DATA = "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingMesh:
+    """The serving mesh: ``data`` instances of ``model`` ranks each.
+    Only ``data = 1`` serves in the port (ROADMAP Queue 1, item 8)."""
+    data: int = 1
+    model: int = 1
+
+    def __post_init__(self):
+        if self.data < 1 or self.model < 1:
+            raise ValueError(f"mesh axes must be >= 1, got {self}")
+
+    @property
+    def shape(self) -> dict:
+        return {DATA: self.data, MODEL: self.model}
+
+    @property
+    def axis_names(self) -> tuple:
+        return (DATA, MODEL)
+
+    @property
+    def size(self) -> int:
+        return self.data * self.model
+
+
+class PartitionSpec(tuple):
+    """``P(None, 'model')``: one entry per dimension, as JAX's.  ``parts``
+    describes an uneven ``'model'`` dimension (see the module doc)."""
+
+    def __new__(cls, *entries, parts: Optional[tuple] = None):
+        spec = super().__new__(cls, entries)
+        spec.parts = None if parts is None else tuple(
+            (int(s), int(g)) for s, g in parts)
+        return spec
+
+    def __repr__(self) -> str:
+        inner = ", ".join(repr(e) for e in self)
+        return f"P({inner}" + (f", parts={self.parts})" if self.parts else ")")
+
+    def __eq__(self, other) -> bool:
+        return (tuple(self) == tuple(other)
+                and getattr(self, "parts", None) == getattr(other, "parts", None))
+
+    def __hash__(self) -> int:
+        return hash((tuple(self), self.parts))
+
+    @property
+    def model_dim(self) -> Optional[int]:
+        """The dimension over the model axis (None: replicated over it)."""
+        dims = [d for d, e in enumerate(self) if e == MODEL]
+        if len(dims) > 1:
+            raise ValueError(f"{self}: more than one dimension over 'model'")
+        return dims[0] if dims else None
+
+
+P = PartitionSpec
+
+
+def _replicated(ndim: int) -> PartitionSpec:
+    return P(*[None] * ndim)
+
+
+def _on(ndim: int, dim: int, parts=None) -> PartitionSpec:
+    entries = [None] * ndim
+    entries[dim] = MODEL
+    return P(*entries, parts=parts)
+
+
+# ---------------------------------------------------------------------------
+# what tensor parallelism serves
+# ---------------------------------------------------------------------------
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Raise for a configuration the port cannot split over ``tp`` ranks:
+    families other than dense (each names its ROADMAP item) and head or
+    width counts the model axis does not divide."""
+    if tp == 1:
+        return
+    if cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA under tensor parallelism is ROADMAP Queue 1, "
+            "item 5")
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: moe expert parallelism is ROADMAP Queue 1, item 4")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family under a sharding plan "
+            "is ROADMAP Queue 1, item 6")
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if H % tp:
+        raise ValueError(f"{cfg.name}: {H} query heads do not split over "
+                         f"{tp} ranks")
+    if KV % tp and tp % KV:
+        raise ValueError(f"{cfg.name}: {KV} KV heads neither split over nor "
+                         f"divide {tp} ranks")
+    if cfg.d_ff % tp:
+        raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
+                         f"{tp} ranks")
+
+
+def kv_groups(cfg: ModelConfig, tp: int) -> int:
+    """Pieces the KV heads are cut into: ``tp`` (KV heads split evenly)
+    or ``KV`` (fewer KV heads than ranks: one head per rank, shared)."""
+    return tp if cfg.n_kv_heads % tp == 0 else cfg.n_kv_heads
+
+
+def vocab_parallel(cfg: ModelConfig, tp: int) -> bool:
+    """Embedding and head split over the vocabulary (else replicated)."""
+    return tp > 1 and cfg.vocab_size % tp == 0
+
+
+def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """The configuration one rank computes with: its query heads, the KV
+    heads they read, its slice of ``d_ff`` and, vocab-parallel, of the
+    vocabulary.  ``head_dim`` and ``d_model`` stay."""
+    if tp == 1:
+        return cfg
+    check_tp(cfg, tp)
+    kv = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else 1
+    vocab = cfg.vocab_size // tp if vocab_parallel(cfg, tp) else cfg.vocab_size
+    return cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=kv,
+                       d_ff=cfg.d_ff // tp, vocab_size=vocab)
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardingPlan:
+    """Tensor-parallel placement for one process: the mesh, this
+    process's rank on the model axis and the torch process group the
+    collectives run over (None: specs only, no collectives)."""
+    mesh: ServingMesh
+    fsdp: bool = False
+    rank: int = 0
+    group: Any = None
+
+    def __post_init__(self):
+        if self.fsdp:
+            raise NotImplementedError(
+                "FSDP specs belong to training: ROADMAP Queue 1, item 9")
+        if not 0 <= self.rank < self.mesh.model:
+            raise ValueError(f"rank {self.rank} outside the model axis "
+                             f"{self.mesh.model}")
+
+    @property
+    def tp(self) -> int:
+        return self.mesh.model
+
+    def shard(self, tensor: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's piece of a full leaf (what JAX's ``named(spec)``
+        placement does for one device)."""
+        return shard_for_rank(tensor, spec, self)
+
+
+def serving_plan(mesh: ServingMesh, rank: Optional[int] = None,
+                 group=None) -> ShardingPlan:
+    """Tensor-parallel serving plan: TP over 'model', no FSDP.  ``rank``
+    and ``group`` default to this process's (``distributed.group``); a
+    plan outside any group places but cannot run a collective."""
+    if mesh.data != 1:
+        raise NotImplementedError(
+            "serving instances over a data axis (data > 1, locality "
+            "routing) are ROADMAP Queue 1, item 8")
+    if rank is None:
+        from repro_torch.distributed.group import current_group
+        tpg = current_group()
+        rank = 0 if tpg is None else tpg.rank
+        group = group if tpg is None else tpg.data_group
+    return ShardingPlan(mesh=mesh, rank=rank, group=group)
+
+
+# ---------------------------------------------------------------------------
+# specs (JAX names and signatures)
+# ---------------------------------------------------------------------------
+
+def _kv_spec(cfg: ModelConfig, ndim: int, dim: int, size: int, tp: int):
+    g = kv_groups(cfg, tp)
+    if g == 1:
+        return _replicated(ndim)
+    return _on(ndim, dim, None if g == tp else ((size, g),))
+
+
+def _param_spec(path: str, shape: tuple, cfg: ModelConfig,
+                tp: int) -> PartitionSpec:
+    ndim = len(shape)
+    leaf = path.rsplit(".", 1)[-1]
+    if tp == 1:
+        return _replicated(ndim)
+    if leaf == "embed":
+        return _on(2, 0) if vocab_parallel(cfg, tp) else _replicated(2)
+    if leaf == "lm_head":
+        return _on(2, 1) if vocab_parallel(cfg, tp) else _replicated(2)
+    hd, H, KV, F = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    if leaf in ("wq", "w_gate", "w_up"):
+        return _on(2, 1)
+    if leaf == "bq":
+        return _on(1, 0)
+    if leaf in ("wo", "w_down"):
+        return _on(2, 0)
+    if leaf in ("wk", "wv", "bk", "bv"):
+        return _kv_spec(cfg, ndim, ndim - 1, shape[-1], tp)
+    if leaf == "wqkv":
+        g = kv_groups(cfg, tp)
+        return _on(2, 1, ((H * hd, tp), (KV * hd, g), (KV * hd, g)))
+    if leaf == "w_gu":
+        return _on(2, 1, ((F, tp), (F, tp)))
+    if leaf.endswith("norm"):
+        return _replicated(ndim)
+    raise NotImplementedError(f"{path}: no tensor-parallel role")
+
+
+def param_specs(model, mesh, fsdp: bool = False, mode: str = "tp"):
+    """PartitionSpec tree matching the model's (global) parameter tree."""
+    if fsdp or mode != "tp":
+        raise NotImplementedError(
+            "FSDP and mode='fsdp2d' belong to training: ROADMAP Queue 1, "
+            "item 9")
+    return config_param_specs(model.cfg, mesh.shape[MODEL])
+
+
+def config_param_specs(cfg: ModelConfig, tp: int):
+    """:func:`param_specs` of a configuration over ``tp`` model ranks."""
+    from repro_torch.models import transformer
+    check_tp(cfg, tp)
+    return map_with_path(
+        lambda path, leaf: _param_spec(path, tuple(leaf.shape), cfg, tp),
+        transformer.param_specs(cfg))
+
+
+def leaf_param_specs(model, mesh) -> dict:
+    """{path -> PartitionSpec} for every parameter leaf."""
+    return dict(named_leaves(param_specs(model, mesh)))
+
+
+def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
+                replicate_model: bool = False):
+    """Specs of dense caches (leaves ``[L, B, T, KV, hd]``, the GLOBAL
+    shapes): the batch axis over 'data' when it divides (as the JAX
+    package places it), K/V heads over 'model' as the parameters place
+    the heads that fill them.  ``prefer_seq`` (the JAX package's
+    sequence-sharded decode cache) is not ported."""
+    if prefer_seq:
+        raise NotImplementedError(
+            "sequence-sharded caches (prefer_seq) are not in the port")
+    cfg = model.cfg
+    tp, dp = mesh.shape[MODEL], mesh.shape[DATA]
+    check_tp(cfg, tp)
+
+    def choose(path, leaf):
+        shape = tuple(leaf.shape)
+        ndim = len(shape)
+        entries = [None] * ndim
+        if ndim >= 2 and shape[1] % dp == 0 and shape[1] >= dp:
+            entries[1] = DATA
+        if replicate_model or tp == 1 or ndim < 4:
+            return P(*entries)
+        spec = _kv_spec(cfg, ndim, 3, shape[3], tp)
+        return P(*[e or s for e, s in zip(entries, spec)], parts=spec.parts)
+
+    return map_with_path(choose, cache_tree)
+
+
+def paged_cache_specs(cache_tree, mesh):
+    """Specs of block-paged arenas (leaves ``[L, n_pages, page_size, KV,
+    ...]``, the GLOBAL shapes; int8 scales ``[L, n_pages, page_size,
+    KV]``): the layer, page and in-page axes replicated (the page table
+    is host state), the KV heads over 'model': split when the axis
+    divides, one head per rank when the axis divides the ranks, else
+    replicated.  Shape arithmetic only, as in the JAX package."""
+    tp = mesh.shape[MODEL]
+
+    def choose(_, leaf):
+        shape = tuple(leaf.shape)
+        ndim = len(shape)
+        if tp == 1 or ndim < 4:
+            return _replicated(ndim)
+        kv = shape[3]
+        if kv % tp == 0:
+            return _on(ndim, 3)
+        if tp % kv == 0 and kv > 1:
+            return _on(ndim, 3, ((kv, kv),))
+        return _replicated(ndim)
+
+    return map_with_path(choose, cache_tree)
+
+
+def _segments(spec: PartitionSpec, size: int, tp: int) -> tuple:
+    parts = spec.parts or ((size, tp),)
+    if sum(s for s, _ in parts) != size:
+        raise ValueError(f"{spec}: parts cover {sum(s for s, _ in parts)} "
+                         f"of {size}")
+    return parts
+
+
+def validate_specs(spec_tree, shape_tree, mesh) -> list:
+    """Divisibility of every sharded dimension; returns the violations
+    ``(path, dim, size, pieces)``."""
+    bad = []
+    shapes = dict(named_leaves(shape_tree))
+    for path, spec in named_leaves(spec_tree):
+        shape = tuple(shapes[path].shape)
+        for d, name in enumerate(spec):
+            if name is None:
+                continue
+            if name == DATA:
+                n = mesh.shape[DATA]
+                if shape[d] % n:
+                    bad.append((path, d, shape[d], n))
+                continue
+            for seg, groups in _segments(spec, shape[d], mesh.shape[MODEL]):
+                if seg % groups:
+                    bad.append((path, d, seg, groups))
+    return bad
+
+
+def shard_for_rank(tensor: torch.Tensor, spec: PartitionSpec,
+                   plan: ShardingPlan) -> torch.Tensor:
+    """This rank's piece of a full leaf (a contiguous copy; the leaf
+    itself when the spec replicates it over the model axis)."""
+    d = spec.model_dim
+    if d is None:
+        return tensor
+    tp, r = plan.tp, plan.rank
+    pieces, start = [], 0
+    for seg, groups in _segments(spec, tensor.shape[d], tp):
+        width = seg // groups
+        first = start + (r * groups // tp) * width
+        pieces.append(tensor.narrow(d, first, width))
+        start += seg
+    return torch.cat(pieces, dim=d) if len(pieces) > 1 else pieces[0].contiguous()
+
+
+# ---------------------------------------------------------------------------
+# run time: the plan over a model call, and the layers' collectives
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _Scope:
+    plan: ShardingPlan
+    cfg: ModelConfig          # the rank's local configuration
+    vocab_split: bool         # embed and lm_head hold a vocabulary slice
+
+
+_SCOPE: contextvars.ContextVar = contextvars.ContextVar("tp_scope",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def use_plan(plan: Optional[ShardingPlan], cfg: Optional[ModelConfig] = None):
+    """Scope under which the layers run the rank's part of a model call
+    of the (global) configuration ``cfg``; a None plan is one device."""
+    scope = None
+    if plan is not None and plan.tp > 1:
+        scope = _Scope(plan, local_config(cfg, plan.tp),
+                       vocab_parallel(cfg, plan.tp))
+    token = _SCOPE.set(scope)
+    try:
+        yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def current_plan() -> Optional[ShardingPlan]:
+    scope = _SCOPE.get()
+    return None if scope is None else scope.plan
+
+
+def local_heads() -> Optional[tuple]:
+    """(query heads, KV heads) of the rank inside :func:`use_plan`."""
+    scope = _SCOPE.get()
+    return None if scope is None else (scope.cfg.n_heads, scope.cfg.n_kv_heads)
+
+
+# this process's collectives since the last reset: calls, host seconds
+# inside them and bytes reduced (what the chip smoke reads per step)
+_COLLECTIVES = {"calls": 0, "seconds": 0.0, "bytes": 0}
+
+
+def collective_stats() -> dict:
+    return dict(_COLLECTIVES)
+
+
+def reset_collective_stats() -> None:
+    _COLLECTIVES.update(calls=0, seconds=0.0, bytes=0)
+
+
+def _reduce(buf: torch.Tensor, plan: ShardingPlan) -> None:
+    """Sum ``buf`` (fp32) over the plan's ranks in place."""
+    if plan.group is None:
+        raise RuntimeError("this sharding plan has no process group: its "
+                           "model calls cannot run their collectives")
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dist.all_reduce(buf, group=plan.group)
+    _COLLECTIVES["calls"] += 1
+    _COLLECTIVES["seconds"] += time.perf_counter() - t0
+    _COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
+
+
+def _sum_over_ranks(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+    buf = x.float()
+    if buf is x:
+        buf = x.clone()
+    _reduce(buf, plan)
+    return buf.to(x.dtype)
+
+
+def all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """Sum a row-parallel product's partials over the model axis (fp32
+    in flight); ``x`` itself without a plan or on ``meta``."""
+    plan = current_plan()
+    if plan is None or x.is_meta:
+        return x
+    return _sum_over_ranks(x, plan)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of a vocab-parallel embedding: each rank looks up the tokens
+    in its slice (zeros elsewhere) and the ranks sum, which is exact."""
+    scope = _SCOPE.get()
+    tokens = tokens.long()
+    if scope is None or not scope.vocab_split or embed.is_meta:
+        return embed[tokens]
+    plan = scope.plan
+    vocab = embed.shape[0]
+    first = plan.rank * vocab
+    local = tokens - first
+    mine = (local >= 0) & (local < vocab)
+    rows = embed[local.clamp(0, vocab - 1)] * mine[..., None].to(embed.dtype)
+    return _sum_over_ranks(rows, plan)
+
+
+def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
+    """Full-vocabulary logits from each rank's slice: the slices placed in
+    a zeroed full row and summed over ranks (exact: one rank adds its
+    values, the others zeros)."""
+    scope = _SCOPE.get()
+    if scope is None or not scope.vocab_split:
+        return logits
+    plan = scope.plan
+    vocab = logits.shape[-1]
+    shape = tuple(logits.shape[:-1]) + (vocab * plan.tp,)
+    if logits.is_meta:
+        return logits.new_empty(shape)
+    full = torch.zeros(shape, dtype=torch.float32, device=logits.device)
+    full[..., plan.rank * vocab:(plan.rank + 1) * vocab] = logits
+    _reduce(full, plan)
+    return full.to(logits.dtype)

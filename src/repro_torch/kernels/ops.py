@@ -8,22 +8,49 @@ gradient when one is needed: their backward kernels count under
 ``flash_attention_bwd`` and ``rmsnorm_bwd``.  ``launch_counts`` reads how
 often each kernel was launched, so a run can show that its main path went
 through the kernels.
+
+Under a sharding plan (``distributed.sharding.use_plan``) each rank calls
+the same kernels on its own heads, as the JAX package's ``shard_map``
+wrappers run the kernel per 'model' shard; the attention entry points
+check that the query and KV heads they see are the rank's.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.kernels.flash_attention import (flash_attention,
+import functools
+
+from repro_torch.distributed import sharding
+from repro_torch.kernels.decode_attention import decode_attention as _decode
+from repro_torch.kernels.flash_attention import (flash_attention as _flash,
                                                  flash_attention_bwd)
-from repro_torch.kernels.paged_decode_attention import paged_decode_attention
+from repro_torch.kernels.paged_decode_attention import (
+    paged_decode_attention as _paged)
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
 from repro_torch.kernels.ssd_scan import ssd_scan
 
+
+def _rank_heads(kernel, kv_axis: int):
+    """``kernel`` checking, under a plan, that q's heads (axis 1) and the
+    cache's KV heads (``kv_axis`` of k) are the rank's local counts."""
+    def call(q, k, *args, **kwargs):
+        want = sharding.local_heads()
+        if want is not None and (q.shape[1], k.shape[kv_axis]) != want:
+            raise ValueError(
+                f"{kernel.__name__}: {q.shape[1]} query / {k.shape[kv_axis]} "
+                f"KV heads, but this rank holds {want[0]} / {want[1]}")
+        return kernel(q, k, *args, **kwargs)
+    return functools.update_wrapper(call, kernel, updated=())
+
+
+flash_attention = _rank_heads(_flash, 1)           # q [B,H,S,d], k [B,KV,T,d]
+decode_attention = _rank_heads(_decode, 1)         # q [B,H,d], k [B,KV,T,d]
+paged_decode_attention = _rank_heads(_paged, 2)    # k [P,ps,KV,d]
+
 KERNELS = {
-    "decode_attention": decode_attention,
-    "flash_attention": flash_attention,
+    "decode_attention": _decode,
+    "flash_attention": _flash,
     "flash_attention_bwd": flash_attention_bwd,
-    "paged_decode_attention": paged_decode_attention,
+    "paged_decode_attention": _paged,
     "rmsnorm": rmsnorm,
     "rmsnorm_bwd": rmsnorm_bwd,
     "ssd_scan": ssd_scan,

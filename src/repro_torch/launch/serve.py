@@ -32,7 +32,7 @@ latent paged arena, 256 experts and a shared one; 23 GB per layer) with
 asking for ``--layers``.  ``--lora`` targets the GQA query projection,
 which MLA and xLSTM do not have, so deepseek-v3 and xlstm-1.3b serve
 static functions only.
-llama2-70b serves only on the CPU until tensor parallelism is ported.
+llama2-70b (140 GB) needs ``--tp 4`` over four cards.
 whisper-medium (enc-dec) exits: as in the reference, it generates through
 the sequential ``Engine`` only (``Engine.generate(frames=)``).
 
@@ -42,8 +42,17 @@ requests are ticketed at their scheduled arrivals however far behind the
 engines are, and requests still queued past ``D`` seconds are shed.
 ``--predictive`` attaches the control plane (forecast-driven pre-forks
 and keep-alive, runtime-learned prefix bakes within ``--prefix-budget``
-bytes).  ``--tp`` and ``--instances`` belong to a later slice of the
-port and exit with a message naming it.
+bytes).
+
+``--tp N`` serves one tensor-parallel instance of N ranks, one process
+each (``repro_torch.distributed.spawn``; ``--backend``, default gloo,
+which also lets ranks share one card: NCCL refuses two ranks on one
+device).  Every rank draws its shard of the weights from the seed; rank
+0 runs the runtime and prints, the others serve its device ops.  The
+dense family only; ``--lora`` under ``--tp`` and ``--instances`` exit
+with a message naming their ROADMAP item.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu
 """
 
 from __future__ import annotations
@@ -57,6 +66,8 @@ import torch
 
 from repro_torch.core import api as tidal
 from repro_torch.data.pipeline import make_prompts
+from repro_torch.distributed import sharding, spawn
+from repro_torch.models import transformer
 from repro_torch.models.registry import ARCH_IDS, get_config, get_model
 from repro_torch.models.config import reduced
 from repro_torch.runtime.controlplane import ControlPlane
@@ -65,8 +76,8 @@ from repro_torch.runtime.faas import FaaSRuntime
 from repro_torch.runtime.gateway import InvocationRequest
 from repro_torch.utils import fmt_bytes, tree_bytes
 
-LATER = {"tp": "tensor parallelism (ROADMAP Queue 1, item 11)",
-         "instances": "multi-instance serving (ROADMAP Queue 1, item 11)"}
+LATER = {"instances": "multi-instance serving with locality routing "
+                      "(ROADMAP Queue 1, item 8)"}
 # the projection --lora adapts: the attention query weights of every
 # layer (dense, moe) or of zamba's one shared attention block; xlstm has
 # no attention, and the reference's --lora cannot target it either
@@ -154,14 +165,46 @@ def main(argv=None):
                     help="forecast horizon (s) for predictive pre-forking")
     ap.add_argument("--prefix-budget", type=int, default=1 << 22,
                     help="pinned-bytes budget for runtime-learned prefix KV")
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks of the one instance")
+    ap.add_argument("--backend", default="gloo",
+                    help="the ranks' torch.distributed backend (gloo or nccl)")
     ap.add_argument("--instances", type=int, default=1)
     args = ap.parse_args(argv)
     for flag, what in LATER.items():
         if getattr(args, flag) != ap.get_default(flag):
             sys.exit(f"--{flag.replace('_', '-')}: {what} is not in the "
                      "PyTorch port yet")
+    if args.tp > 1 and args.lora:
+        sys.exit("--lora: LoRA under tensor parallelism is ROADMAP Queue 1, "
+                 "item 7")
+    cfg = _config(args)
+    if args.device != "cpu" and args.layers is None:
+        # every rank's weights and a fork's copy, on the cards they share
+        weights = tree_bytes(transformer.param_specs(
+            sharding.local_config(cfg, args.tp)))
+        sharing = -(-args.tp // torch.cuda.device_count())
+        card = torch.cuda.get_device_properties(0).total_memory
+        if 2 * weights * sharing > card:
+            sys.exit(f"--arch {args.arch}: {fmt_bytes(weights)} of weights "
+                     f"per rank, {sharing} rank(s) per card, and a fork's "
+                     f"copy do not fit the card's {fmt_bytes(card)}; cut the "
+                     "depth with --layers")
+    if args.tp > 1:
+        sharding.check_tp(cfg, args.tp)
+        spawn(_serve_rank, args.tp, (args,), backend=args.backend,
+              device=args.device)
+    else:
+        serve(args)
 
+
+def _serve_rank(group, args) -> None:
+    serve(args, group)
+
+
+def _config(args):
+    """The served configuration: the full width of ``--arch`` on the card,
+    its smoke configuration on the CPU, ``--layers`` deep."""
     cfg = get_config(args.arch)
     if cfg.is_encdec:
         sys.exit(f"--arch {args.arch}: enc-dec serves through the sequential "
@@ -175,21 +218,41 @@ def main(argv=None):
                  "the GQA query projection blocks.attn.wq, which it does not "
                  "have")
     extra = {} if args.layers is None else {"n_layers": args.layers}
-    cpu = args.device == "cpu"
-    cfg = reduced(cfg, **extra) if cpu else cfg.replace(**extra)
-    model = get_model(cfg, device=args.device)
-    if not cpu and args.layers is None:
-        weights = tree_bytes(model.param_specs())
-        card = torch.cuda.get_device_properties(model.device).total_memory
-        if 2 * weights > card:
-            sys.exit(f"--arch {args.arch}: {fmt_bytes(weights)} of weights "
-                     f"and a fork's copy do not fit the card's "
-                     f"{fmt_bytes(card)}; cut the depth with --layers")
+    return reduced(cfg, **extra) if args.device == "cpu" else cfg.replace(**extra)
+
+
+def serve(args, group=None) -> None:
+    """Deploy and serve (on the controller rank of ``group`` when given;
+    its workers serve the controller's device ops)."""
+    cfg = _config(args)
+    device = args.device if group is None else group.device
+    model = get_model(cfg, device=device,
+                      plan=None if group is None else group.plan)
+    fns = []
+    for i in range(args.functions):
+        params = model.init_params(seed=args.seed + i)
+        name = f"fn-{i}"
+        if args.lora:
+            fns.append(tidal.lora_function(name, model, params,
+                                           [LORA_TARGET[cfg.family]],
+                                           n_adapters=3))
+        else:
+            fns.append(tidal.static_function(name, model, params))
+        del params
+    if group is not None:
+        fns = [group.bind(fn) for fn in fns]
+        if not group.is_controller:
+            group.serve()
+            return
+        print(f"tensor parallel: {group.size} ranks ({group.backend}), "
+              f"{model.local_cfg.n_heads} query / "
+              f"{model.local_cfg.n_kv_heads} KV heads per rank")
     rt = FaaSRuntime(n_slots=args.slots,
                      max_len=args.prompt_len + args.max_new,
                      keep_alive_s=args.keep_alive, trace_seq=args.prompt_len,
                      chunk_tokens=args.chunk_tokens, kv_dtype=args.kv_dtype,
-                     device=args.device)
+                     mesh=None if group is None else group.mesh,
+                     device=device)
     if args.predictive:
         ControlPlane(rt, pinned_bytes_budget=args.prefix_budget,
                      prewarm_horizon_s=args.prewarm_horizon)
@@ -198,16 +261,9 @@ def main(argv=None):
               f"{fmt_bytes(args.prefix_budget)}")
 
     rng = np.random.default_rng(args.seed)
-    for i in range(args.functions):
-        params = model.init_params(seed=args.seed + i)
-        name = f"fn-{i}"
-        if args.lora:
-            fn = tidal.lora_function(name, model, params,
-                                     [LORA_TARGET[cfg.family]], n_adapters=3)
-            rt.deploy(fn, {"adapter": "adapter-0"}, prewarm_seq=args.prompt_len)
-        else:
-            fn = tidal.static_function(name, model, params)
-            rt.deploy(fn, {}, prewarm_seq=args.prompt_len)
+    for fn in fns:
+        rt.deploy(fn, {"adapter": "adapter-0"} if args.lora else {},
+                  prewarm_seq=args.prompt_len)
     print(f"deployed {args.functions} function(s) of {cfg.name} "
           f"({cfg.n_layers} layers, {cfg.dtype}) on {rt.device}; warmed "
           f"{rt.exe_cache.stats.misses} entry points in "

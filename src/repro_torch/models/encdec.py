@@ -147,13 +147,14 @@ def param_tree(cfg: ModelConfig, gen: Optional[ParamDraw]) -> dict:
     }
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
-    """Random parameters from a seeded CPU ``ParamDraw``, each leaf cast
-    and moved to ``device`` as it is drawn (as the other families'
-    ``transformer.init_params``)."""
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                draw_on_device: bool = False) -> dict:
+    """Random parameters from a seeded ``ParamDraw`` (on the CPU unless
+    ``draw_on_device``), each leaf cast and moved to ``device`` as it is
+    drawn (as the other families' ``transformer.init_params``)."""
     dtype = torch_dtype(cfg.dtype)
-    return to_device(param_tree(cfg, ParamDraw(seed, device, dtype)), device,
-                     dtype)
+    draw = ParamDraw(seed, device, dtype, on_device=draw_on_device)
+    return to_device(param_tree(cfg, draw), device, dtype)
 
 
 def param_specs(cfg: ModelConfig) -> dict:

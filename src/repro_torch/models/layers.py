@@ -9,12 +9,14 @@ versions (CPU tensors), and so does every RMSNorm.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import quant
@@ -29,15 +31,40 @@ class ParamDraw:
     soon as it is drawn, so host memory holds one leaf at a time.  The
     scale is applied in place: the draw's peak is the float32 leaf and its
     cast (deepseek-v3's [256, 7168, 2048] expert leaves are 15 GB in
-    float32 each)."""
+    float32 each).  ``on_device`` draws on ``device`` from a generator of
+    its own: the same weights for a seed on one kind of device only."""
 
-    def __init__(self, seed: int, device="cpu", dtype=torch.float32):
-        self.gen = torch.Generator().manual_seed(seed)
+    def __init__(self, seed: int, device="cpu", dtype=torch.float32,
+                 on_device: bool = False):
+        draw_on = torch.device(device) if on_device else torch.device("cpu")
+        self.gen = torch.Generator(device=draw_on).manual_seed(seed)
+        self.draw_on = draw_on
         self.device, self.dtype = device, dtype
 
     def normal(self, shape: tuple, scale: float) -> torch.Tensor:
-        t = torch.randn(shape, generator=self.gen).mul_(scale)
-        return t.to(device=self.device, dtype=self.dtype)
+        t = torch.randn(shape, generator=self.gen, device=self.draw_on)
+        return t.mul_(scale).to(device=self.device, dtype=self.dtype)
+
+
+@dataclasses.dataclass
+class PendingDraw:
+    """A leaf not drawn yet: its shape, scale and place in the draw order."""
+    shape: tuple
+    scale: float
+    index: int
+
+
+class LazyDraw:
+    """Records the draws a parameter tree makes instead of making them, so
+    a sharded init can draw each full leaf in the one-device order and
+    keep only a slice of it."""
+
+    def __init__(self):
+        self.n = 0
+
+    def normal(self, shape: tuple, scale: float) -> PendingDraw:
+        self.n += 1
+        return PendingDraw(tuple(shape), scale, self.n)
 
 
 def normal_(draw: Optional[ParamDraw], shape, scale: Optional[float] = None):
@@ -115,10 +142,11 @@ def _sdpa(q, k, v, mask, softcap: float = 0.0):
 def init_attn_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if cfg.fused_qkv:
-        raise NotImplementedError(
-            "fused_qkv arrives with the sharding slice (ROADMAP Queue 1, item 11)")
-    p = {"wq": normal_(gen, (D, H * hd)), "wk": normal_(gen, (D, KV * hd)),
-         "wv": normal_(gen, (D, KV * hd)), "wo": normal_(gen, (H * hd, D))}
+        p = {"wqkv": normal_(gen, (D, (H + 2 * KV) * hd)),
+             "wo": normal_(gen, (H * hd, D))}
+    else:
+        p = {"wq": normal_(gen, (D, H * hd)), "wk": normal_(gen, (D, KV * hd)),
+             "wv": normal_(gen, (D, KV * hd)), "wo": normal_(gen, (H * hd, D))}
     if cfg.qkv_bias:
         p["bq"] = torch.zeros(H * hd)
         p["bk"] = torch.zeros(KV * hd)
@@ -158,15 +186,23 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``adapter_ids[b]``: q/k/v before the bias and reshape, ``wo`` after
     the output projection, as in the JAX package.
 
+    ``cfg.fused_qkv``: one ``wqkv`` product split into q, k and v, as in
+    the JAX package.  Under a sharding plan ``cfg`` is the rank's local
+    configuration (its heads) and the output projection's partial sums
+    meet the other ranks' in one ``all_reduce``.
+
     Caches are updated in place and the block returns ``(y, kv_cache)``.
     """
-    if cfg.fused_qkv:
-        raise NotImplementedError(
-            "fused_qkv arrives with the sharding slice (ROADMAP Queue 1, item 11)")
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.fused_qkv:
+        if adapters is not None:
+            raise NotImplementedError(
+                "adapter gather targets the unfused wq/wk/wv/wo projections")
+        q, k, v = (x @ p["wqkv"]).split([H * hd, KV * hd, KV * hd], dim=-1)
+    else:
+        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if adapters is not None:
         if "wq" in adapters:
             q = q + lora_delta(x, adapters["wq"], adapter_ids)
@@ -248,7 +284,7 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = out @ p["wo"]
     if adapters is not None and "wo" in adapters:
         y = y + lora_delta(out, adapters["wo"], adapter_ids)
-    return y, kv_cache
+    return sharding.all_reduce(y), kv_cache
 
 
 # ---------------------------------------------------------------------------
@@ -266,12 +302,16 @@ def init_mlp_params(gen: Optional[ParamDraw], d_model: int, d_ff: int,
 
 
 def mlp_block(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP; under a sharding plan over the rank's slice of
+    ``d_ff`` (``w_gu`` holds its gate and up slices side by side), the
+    down projection's partial sums meeting the other ranks' in one
+    ``all_reduce``."""
     if "w_gu" in p:
         g, u = (x @ p["w_gu"]).chunk(2, dim=-1)
     else:
         g, u = x @ p["w_gate"], x @ p["w_up"]
     a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return (a * u) @ p["w_down"]
+    return sharding.all_reduce((a * u) @ p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -280,13 +320,15 @@ def mlp_block(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
                  scale_by_dim: bool = False) -> torch.Tensor:
-    x = embed[tokens.long()]
+    """Embedding rows (a vocab-parallel lookup under a sharding plan)."""
+    x = sharding.embed_lookup(embed, tokens)
     if scale_by_dim:
         x = x * math.sqrt(embed.shape[1])
     return x
 
 
 def lm_head(x: torch.Tensor, params: dict, tied: bool) -> torch.Tensor:
-    if tied:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+    """Logits over the vocabulary (gathered from the ranks' slices under
+    a vocab-parallel plan)."""
+    w = params["embed"].T if tied else params["lm_head"]
+    return sharding.gather_vocab(x @ w)

@@ -6,8 +6,16 @@
     logits, cache = m.decode_step_paged(params, arena, {"tokens": t}, pos,
                                         page_table, page_size)
 
-A ``Model`` holds its device; every tensor it makes lives there.  The
-decoder families run ``models.transformer``, enc-dec (whisper)
+A ``Model`` holds its device; every tensor it makes lives there.  With a
+``plan`` (``distributed.sharding.ShardingPlan``) it is one rank's part of
+a tensor-parallel model: its parameters, caches and arenas hold the
+rank's shard (``local_cfg``: its heads, ``d_ff`` and vocabulary slice),
+its calls run under ``sharding.use_plan`` and meet the other ranks in
+their collectives, and the device ops below carry
+``distributed.group.mirrored`` (on a controller they broadcast to the
+workers).  ``init_params`` under a plan draws every full leaf from the
+seed and keeps the rank's slice, so one seed gives the same weights at
+every ``tp``.  The decoder families run ``models.transformer``, enc-dec (whisper)
 ``models.encdec``, whose prefill inputs also carry ``frames`` [B, S_enc,
 D] (cast to the model's dtype here, where the JAX package would promote
 a bf16 model's encoder to the frames' fp32).  Inputs that are ``meta``
@@ -18,10 +26,13 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.group import mirrored
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig, reduced
 
@@ -53,10 +64,29 @@ def resolve_device(device) -> torch.device:
 class Model:
     cfg: ModelConfig
     device: torch.device = "cuda"
+    plan: Optional[Any] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         transformer.check_family(self.cfg)
+        if self.plan is not None and self.plan.tp == 1:
+            self.plan = None
+        self._local_cfg = (self.cfg if self.plan is None
+                           else sharding.local_config(self.cfg, self.plan.tp))
+
+    @property
+    def local_cfg(self) -> ModelConfig:
+        """The configuration this rank computes with (``cfg`` at tp 1)."""
+        return self._local_cfg
+
+    def _scope(self):
+        return sharding.use_plan(self.plan, self.cfg)
+
+    def _no_plan(self, what: str) -> None:
+        if self.plan is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} under a sharding plan belongs to "
+                "training (ROADMAP Queue 1, item 9)")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -71,18 +101,31 @@ class Model:
         return encdec if self.is_encdec else transformer
 
     # ---- params / caches ------------------------------------------------
-    def init_params(self, seed: int = 0) -> dict:
-        return self._family.init_params(self.cfg, seed, self.device)
+    def init_params(self, seed: int = 0, draw_on_device: bool = False) -> dict:
+        """Random parameters from ``seed`` (see ``transformer.init_params``);
+        under a plan the rank's shard of them.  ``draw_on_device`` draws
+        on the model's device instead of the CPU: much faster for a
+        full-width model, and the same weights for the same seed on one
+        kind of device, not across devices."""
+        if self.plan is None:
+            return self._family.init_params(self.cfg, seed, self.device,
+                                            draw_on_device=draw_on_device)
+        specs = sharding.leaf_param_specs(self, self.plan.mesh)
+        return transformer.init_params(
+            self.cfg, seed, self.device, draw_on_device=draw_on_device,
+            shard=lambda path, t: self.plan.shard(t, specs[path]))
 
     def param_specs(self) -> dict:
-        """The parameter dict as shape-only ``meta`` tensors."""
-        return self._family.param_specs(self.cfg)
+        """The parameter dict as shape-only ``meta`` tensors (the rank's
+        shapes under a plan)."""
+        return self._family.param_specs(self.local_cfg)
 
+    @mirrored(register=("return",))
     def make_cache(self, batch: int, max_len: int, device=None) -> dict:
         """A dense cache on the model's device (or on ``device``: ``meta``
         for tracing).  Enc-dec: ``max_len`` is the encoder length (the
         cross K/V rows); the self cache has ``max_dec_len`` rows."""
-        return self._family.make_cache(self.cfg, batch, max_len,
+        return self._family.make_cache(self.local_cfg, batch, max_len,
                                        device or self.device)
 
     @property
@@ -95,11 +138,12 @@ class Model:
         if self.is_encdec:
             raise ValueError(f"{self.cfg.name}: enc-dec has no {what}")
 
+    @mirrored(register=("return",))
     def make_paged_cache(self, n_pages: int, page_size: int,
                          kv_dtype: str | None = None) -> dict:
         """Shared block-paged KV arena (see ``transformer.make_paged_cache``)."""
         self._no_encdec("paged KV layout")
-        return transformer.make_paged_cache(self.cfg, n_pages, page_size,
+        return transformer.make_paged_cache(self.local_cfg, n_pages, page_size,
                                             self.device, kv_dtype)
 
     def input_specs(self, mode: str, batch: int, seq: int) -> dict:
@@ -141,6 +185,7 @@ class Model:
         """Full-sequence forward -> (logits, aux).  ``training=True`` is the
         training forward (gradients, remat); the default runs under
         ``no_grad``."""
+        self._no_plan("the full-sequence forward")
         if self.is_encdec:
             return encdec.forward(params, self.cfg, self._frames(inputs),
                                   self._tokens(inputs), training)
@@ -150,6 +195,7 @@ class Model:
     def loss(self, params, batch: dict) -> torch.Tensor:
         """The training loss of ``batch`` (``tokens``, ``labels`` and, for
         enc-dec, ``frames``), as the reference's ``Model.loss``."""
+        self._no_plan("the training loss")
         labels = self._input(batch["labels"])
         if self.is_encdec:
             return encdec.loss_fn(params, self.cfg, self._frames(batch),
@@ -164,6 +210,13 @@ class Model:
         return torch.as_tensor(adapter_ids, dtype=torch.int32,
                                device=self.device)
 
+    def _check_bank(self, adapter_bank) -> None:
+        if adapter_bank is not None and self.plan is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: LoRA adapter banks under tensor "
+                "parallelism are ROADMAP Queue 1, item 7")
+
+    @mirrored()
     def prefill(self, params, inputs: dict, cache, adapter_bank=None,
                 adapter_ids=None):
         """Whole-prompt prefill; with an ``adapter_bank``, ``adapter_ids``
@@ -172,18 +225,26 @@ class Model:
         if self.is_encdec:
             return encdec.prefill(params, self.cfg, self._frames(inputs),
                                   self._tokens(inputs), cache)
-        return transformer.prefill(params, self.cfg, self._tokens(inputs), cache,
-                                   adapter_bank, self._ids(adapter_ids))
+        self._check_bank(adapter_bank)
+        with self._scope():
+            return transformer.prefill(params, self.local_cfg,
+                                       self._tokens(inputs), cache,
+                                       adapter_bank, self._ids(adapter_ids))
 
+    @mirrored()
     def prefill_from(self, params, inputs: dict, cache, offset: int,
                      adapter_bank=None, adapter_ids=None):
         """Suffix-only prefill against a cache holding a reused prompt
         prefix of ``offset`` tokens."""
         self._no_encdec("suffix-only prefill")
-        return transformer.prefill_from(params, self.cfg, self._tokens(inputs),
-                                        cache, offset, adapter_bank,
-                                        self._ids(adapter_ids))
+        self._check_bank(adapter_bank)
+        with self._scope():
+            return transformer.prefill_from(params, self.local_cfg,
+                                            self._tokens(inputs), cache,
+                                            offset, adapter_bank,
+                                            self._ids(adapter_ids))
 
+    @mirrored()
     def decode_step(self, params, cache, inputs: dict, pos):
         """One decode step; ``pos`` an int or an int [B] vector (enc-dec:
         a scalar only, the whole batch at one decoder position)."""
@@ -194,22 +255,27 @@ class Model:
                     "position; pos must be a scalar")
             return encdec.decode_step(params, self.cfg, cache,
                                       self._tokens(inputs), int(pos))
-        return transformer.decode_step(params, self.cfg, cache,
-                                       self._tokens(inputs), pos)
+        with self._scope():
+            return transformer.decode_step(params, self.local_cfg, cache,
+                                           self._tokens(inputs), pos)
 
+    @mirrored()
     def decode_step_paged(self, params, cache, inputs: dict, pos, page_table,
                           page_size: int, adapter_bank=None, adapter_ids=None):
         """One decode step over a block-paged arena: ``pos`` int [B] and
         ``page_table`` [B, NB] int32 on the model's device; with an
         ``adapter_bank``, ``adapter_ids`` [B] picks each slot's LoRA row."""
         self._no_encdec("paged decode path")
+        self._check_bank(adapter_bank)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         page_table = torch.as_tensor(page_table, dtype=torch.int32,
                                      device=self.device)
-        return transformer.decode_step_paged(params, self.cfg, cache,
-                                             self._tokens(inputs), pos,
-                                             page_table, page_size, adapter_bank,
-                                             self._ids(adapter_ids))
+        with self._scope():
+            return transformer.decode_step_paged(params, self.local_cfg, cache,
+                                                 self._tokens(inputs), pos,
+                                                 page_table, page_size,
+                                                 adapter_bank,
+                                                 self._ids(adapter_ids))
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -217,12 +283,13 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-def get_model(arch_or_cfg, device="cuda") -> Model:
-    """A ``Model`` on ``device``; raises when asked for a card that is absent."""
+def get_model(arch_or_cfg, device="cuda", plan=None) -> Model:
+    """A ``Model`` on ``device`` (one rank's part under ``plan``); raises
+    when asked for a card that is absent."""
     if isinstance(arch_or_cfg, ModelConfig):
-        return Model(arch_or_cfg, device)
-    return Model(get_config(arch_or_cfg), device)
+        return Model(arch_or_cfg, device, plan)
+    return Model(get_config(arch_or_cfg), device, plan)
 
 
-def get_smoke_model(arch: str, device="cuda", **extra) -> Model:
-    return Model(reduced(get_config(arch), **extra), device)
+def get_smoke_model(arch: str, device="cuda", plan=None, **extra) -> Model:
+    return Model(reduced(get_config(arch), **extra), device, plan)

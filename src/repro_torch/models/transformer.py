@@ -45,10 +45,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import mla, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (ParamDraw, attention_block,
-                                       embed_tokens, init_attn_params,
-                                       init_mlp_params, lm_head, mlp_block,
-                                       normal_, rmsnorm)
+from repro_torch.models.layers import (LazyDraw, ParamDraw, PendingDraw,
+                                       attention_block, embed_tokens,
+                                       init_attn_params, init_mlp_params,
+                                       lm_head, mlp_block, normal_, rmsnorm)
+from repro_torch.utils import map_with_path, named_leaves
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -160,16 +161,34 @@ def _param_tree(cfg: ModelConfig, gen: Optional[ParamDraw]) -> dict:
     return params
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                draw_on_device: bool = False, shard=None) -> dict:
     """Random parameters drawn from a seeded CPU ``torch.Generator`` (a
     fan-in scaled normal; norms ones, biases zeros): the same seed gives
     the same weights on every device.  Each leaf is cast and moved to
     ``device`` as soon as it is drawn, so host memory holds one leaf at a
-    time (llama2-13b would need 52 GB for its whole float32 tree)."""
+    time (llama2-13b would need 52 GB for its whole float32 tree).
+    ``draw_on_device``: see ``layers.ParamDraw``.
+
+    ``shard(path, leaf)`` (a sharding plan's) keeps a slice of each full
+    leaf: the leaves are drawn in the one-device order and each is cut
+    as soon as it is drawn, so every rank holds the weights of the same
+    seed at one leaf's transient cost."""
     _decoder_only(cfg)
     dtype = torch_dtype(cfg.dtype)
-    tree = _param_tree(cfg, ParamDraw(seed, device, dtype))
-    return to_device(tree, device, dtype)
+    draw = ParamDraw(seed, device, dtype, on_device=draw_on_device)
+    if shard is None:
+        return to_device(_param_tree(cfg, draw), device, dtype)
+    with torch.device("cpu"):
+        lazy = _param_tree(cfg, LazyDraw())
+    drawn = {}
+    for path, leaf in sorted(((p, t) for p, t in named_leaves(lazy)
+                              if isinstance(t, PendingDraw)),
+                             key=lambda pt: pt[1].index):
+        drawn[path] = shard(path, draw.normal(leaf.shape, leaf.scale))
+    return map_with_path(
+        lambda path, t: drawn[path] if path in drawn
+        else shard(path, t.to(device=device, dtype=dtype)), lazy)
 
 
 def param_specs(cfg: ModelConfig) -> dict:

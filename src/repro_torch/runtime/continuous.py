@@ -34,9 +34,14 @@ functions: each request carries an ``adapter_id`` and every prefill and
 decode gathers its slot's LoRA delta from the bank (id 0 = the null
 adapter, carried by free and foreign slots).
 
-Not ported yet, and raising ``NotImplementedError``: sharding plans
-(ROADMAP Queue 1, item 11).  Enc-dec models raise it too, as in the JAX
-package: they serve through the sequential ``Engine``.
+``plan`` (a ``distributed.sharding.ShardingPlan``, the model's) serves a
+tensor-parallel model: the engine runs on the controller rank only, and
+every call it makes into the model, the pool and the fork session is a
+device op that the workers run on their shards (``distributed.group``);
+token batches and page tables cross to them as host arrays.  Adapter
+banks under a plan raise ``NotImplementedError`` (ROADMAP Queue 1, item
+7).  Enc-dec models raise it too, as in the JAX package: they serve
+through the sequential ``Engine``.
 """
 
 from __future__ import annotations
@@ -140,10 +145,14 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "continuous batching needs per-slot decode positions; the "
                 "enc-dec family still serves through the sequential Engine")
-        if plan is not None:
+        if plan is not None and plan.tp > 1 and plan != model.plan:
+            raise ValueError("the engine's plan must be its model's: build "
+                             "the model under the plan (get_model(..., "
+                             "plan=plan))")
+        if adapter_bank is not None and model.plan is not None:
             raise NotImplementedError(
-                "sharding plans arrive with the tensor-parallel slice "
-                "(ROADMAP Queue 1, item 11)")
+                "LoRA adapter banks under tensor parallelism are ROADMAP "
+                "Queue 1, item 7")
         if not isinstance(params, (dict, ForkSession)):
             raise TypeError("params must be a parameter dict or a "
                             f"ForkSession, not {type(params).__name__}")
@@ -338,8 +347,13 @@ class ContinuousBatchingEngine:
         head = self._queue_head()
         return head if self._can_admit(head) else None
 
-    def _tokens(self, toks: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.ascontiguousarray(toks), device=self.device)
+    def _tokens(self, toks: np.ndarray):
+        """A host batch on the device; under a plan the host array itself,
+        which every rank's model call uploads to its own device."""
+        toks = np.ascontiguousarray(toks)
+        if self.model.plan is not None:
+            return toks
+        return torch.as_tensor(toks, device=self.device)
 
     def _streams(self) -> bool:
         """True while prefill must consume weights still in flight (never
@@ -614,7 +628,9 @@ class ContinuousBatchingEngine:
             for slot in decoding:
                 self.pool.ensure_len(slot, int(self._pos[slot]) + 1,
                                      owner=self._owner)
-            pt = self.pool.device_page_table(self._owner)
+            pt = (self.pool.host_page_table(self._owner)
+                  if self.model.plan is not None
+                  else self.pool.device_page_table(self._owner))
             bank = {}
             if self.adapter_bank is not None:
                 bank = {"adapter_bank": self.adapter_bank,

@@ -35,10 +35,16 @@ and sets each function's keep-alive.  :func:`measure_service_times`
 turns wall-clock cold/fork/warm measurements into the cluster
 scheduler's oracle.
 
-Left out, raising ``NotImplementedError`` with its ROADMAP item: ``mesh=``
-(Queue 1, item 11).  An enc-dec (whisper) function deploys, unwarmed, and
-its invocation raises ``NotImplementedError`` where the continuous engine
-is built, as in the JAX runtime.
+``mesh=ServingMesh(1, tp)`` serves one tensor-parallel instance: the
+runtime is the controller rank of a ``distributed.group`` of ``tp`` ranks
+(``spawn``), the only rank with host state, and its functions' models
+are built under the group's plan.  Every device op below the engines
+runs on every rank (``distributed.group.mirrored``).  Left out, raising
+``NotImplementedError`` with its ROADMAP item: a mesh with ``data > 1``,
+several instances with locality routing (Queue 1, item 8).  An enc-dec
+(whisper) function deploys, unwarmed, and its invocation raises
+``NotImplementedError`` where the continuous engine is built, as in the
+JAX runtime.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import torch
 from repro_torch.core.api import LLMFunction
 from repro_torch.core.prewarm import ExecutableCache, ProcessPool, zero_params
 from repro_torch.core.template_server import TemplateServer
+from repro_torch.distributed.group import current_group
 from repro_torch.models.adapters import check_bank_config, make_adapter_bank
 from repro_torch.models.registry import resolve_device
 from repro_torch.runtime.continuous import ContinuousBatchingEngine
@@ -63,13 +70,34 @@ from repro_torch.runtime.kv_pool import KVCachePool, PagedKVCachePool
 from repro_torch.runtime.prefix import PrefixIndex
 
 KINDS = ("warm", "fork", "cold")
-INSTANCE = 0                     # the one serving instance (no mesh yet)
+INSTANCE = 0                     # the one serving instance (data = 1)
 
 
 def _later(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} arrives with a later slice of the port (ROADMAP Queue 1, "
         f"item {item})")
+
+
+def _controller_plan(mesh):
+    """The group's plan for ``mesh`` (None: one device).  The runtime runs
+    on the controller rank of a group of ``mesh.model`` ranks."""
+    if mesh is None:
+        return None
+    if mesh.shape["data"] != 1:
+        raise _later("several serving instances over a mesh's data axis, "
+                     "with locality routing,", 8)
+    if mesh.shape["model"] == 1:
+        return None
+    group = current_group()
+    if group is None or group.size != mesh.shape["model"]:
+        raise RuntimeError(
+            f"a mesh of {mesh.shape['model']} model ranks serves inside a "
+            "group of as many ranks (repro_torch.distributed.spawn)")
+    if not group.is_controller:
+        raise RuntimeError("FaaSRuntime runs on the controller rank; the "
+                           "workers call group.serve()")
+    return group.plan
 
 
 def _engine_key(fn_name: str, event: dict) -> tuple:
@@ -87,11 +115,12 @@ class _WarmEngine:
 
 
 class FaaSRuntime:
-    """Serving runtime for deployed LLM functions on one device.
+    """Serving runtime for deployed LLM functions on one device, or on the
+    ranks of one tensor-parallel instance (``mesh``).
 
     ``device`` defaults to the card and raises without one; pass
     ``device="cpu"`` to serve on the CPU.  Every deployed function's model
-    must live on that device."""
+    must live on that device (under ``mesh``, the controller rank's)."""
 
     def __init__(self, server: Optional[TemplateServer] = None,
                  n_slots: int = 4, max_len: int = 64,
@@ -106,11 +135,14 @@ class FaaSRuntime:
                  brownout_threshold: float = 0.75,
                  brownout_max_new: Optional[int] = None,
                  device="cuda"):
-        if mesh is not None:
-            raise _later("multi-instance serving over a mesh", 11)
+        self.plan = _controller_plan(mesh)
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.server = server or TemplateServer(trace_batch=1,
-                                               trace_seq=trace_seq)
+                                               trace_seq=trace_seq,
+                                               plan=self.plan)
+        if self.server.plan != self.plan:
+            raise ValueError("the template server's plan is not the mesh's")
         self.n_slots = n_slots
         self.max_len = max_len
         self.page_size = page_size
@@ -158,10 +190,11 @@ class FaaSRuntime:
             if model.supports_paged_kv:
                 self._pools[key] = PagedKVCachePool(
                     model, self.n_slots, self.max_len,
-                    page_size=self.page_size, kv_dtype=self.kv_dtype)
+                    page_size=self.page_size, plan=model.plan,
+                    kv_dtype=self.kv_dtype)
             else:
                 self._pools[key] = KVCachePool(model, self.n_slots,
-                                               self.max_len)
+                                               self.max_len, plan=model.plan)
         return self._pools[key]
 
     def kv_pool_stats(self) -> dict:
@@ -192,6 +225,10 @@ class FaaSRuntime:
         if fn.model.device != self.device:
             raise ValueError(f"{fn.name}: model on {fn.model.device}, "
                              f"runtime on {self.device}")
+        if fn.model.plan != self.plan:
+            raise ValueError(f"{fn.name}: its model's sharding plan is not "
+                             "the runtime's mesh's (get_model(..., "
+                             "plan=group.plan))")
         if template_prompt is not None:
             if not fn.model.supports_paged_kv:
                 raise ValueError(
@@ -265,8 +302,7 @@ class FaaSRuntime:
         else:
             params = self.server.fork(fn_name, dict(event))[0].params()
         _, cache = model.prefill(
-            params, {"tokens": torch.as_tensor(prompt[None, :],
-                                               device=self.device)},
+            params, {"tokens": prompt[None, :]},
             model.make_cache(1, pool.padded_len))
         handle = pool.bake_prefix(cache, prompt)
         self._prefix_indexes.setdefault(key, PrefixIndex(self.page_size)
@@ -364,8 +400,7 @@ class FaaSRuntime:
         pool = self._pool_for(model)
         params = self._params_for_bake(fn_name, key[2], event)
         _, cache = model.prefill(
-            params, {"tokens": torch.as_tensor(tokens[None, :],
-                                               device=self.device)},
+            params, {"tokens": tokens[None, :]},
             model.make_cache(1, pool.padded_len))
         handle = pool.bake_prefix(cache, tokens)
         index = self._prefix_indexes.setdefault(key, PrefixIndex(self.page_size))
@@ -538,6 +573,9 @@ class FaaSRuntime:
         null adapter), and every function attached with
         :meth:`attach_adapter` decodes in that engine's batch.  The bank
         targets the attention projections in ``target_paths``."""
+        if fn.model.plan is not None:
+            raise _later("a shared base's adapter bank under tensor "
+                         "parallelism", 7)
         check_bank_config(fn.model, target_paths, n_adapters)
         if not fn.model.supports_paged_kv:
             raise ValueError(

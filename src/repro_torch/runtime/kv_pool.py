@@ -28,6 +28,14 @@ The arena lives on the model's device and is updated in place (JAX's
 functional ``arena.at[...].set`` becomes an indexed write on the current
 stream).
 
+Under a sharding plan (the model's; ``plan=`` as in the JAX pool must be
+that one) every rank's arena holds its local KV heads, fp and int8 with
+its scales alike, and the pools' methods are device ops of the
+tensor-parallel channel (``distributed.group.mirrored``): the controller's
+call runs on every rank with the same arguments, and the channel checks
+that it ended alike on every rank, so page tables, refcounts and free
+lists are identical on every rank.
+
 :class:`KVCachePool` is the dense slot pool (``repro.runtime.kv_pool.
 KVCachePool``): one cache from ``model.make_cache(n_slots, max_len)``
 whose batch axis (axis 1 of every leaf) is the slot axis, for the
@@ -45,6 +53,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.distributed.group import mirrored
 from repro_torch.models import quant
 from repro_torch.models.registry import Model
 from repro_torch.runtime.errors import PartitionViolation, PoolExhausted
@@ -81,6 +90,14 @@ class PrefixHandle:
         return self.n_tokens // self.page_size
 
 
+def _check_plan(model: Model, plan) -> None:
+    """A pool's ``plan`` (the JAX signature's) must be its model's: the
+    model's caches and arenas already hold the rank's KV heads."""
+    if plan is not None and plan.tp > 1 and plan != model.plan:
+        raise ValueError("the pool's plan must be its model's: build the "
+                         "model under the plan (get_model(..., plan=plan))")
+
+
 class KVCachePool:
     """Slot-indexed dense KV cache shared by one decode batch.
 
@@ -89,9 +106,12 @@ class KVCachePool:
     of a slot in place.  Free slots are handed out lowest first, as in the
     JAX pool, so the same operations give the same slots."""
 
-    def __init__(self, model: Model, n_slots: int, max_len: int):
+    @mirrored(register=("self", "self.cache"))
+    def __init__(self, model: Model, n_slots: int, max_len: int,
+                 plan=None):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
+        _check_plan(model, plan)
         self.model = model
         self.device = model.device
         self.n_slots = n_slots
@@ -106,6 +126,11 @@ class KVCachePool:
         """Slots currently unallocated."""
         return len(self._free)
 
+    def mirror_digest(self) -> str:
+        """Host state compared across ranks by the divergence guard."""
+        return f"KVCachePool{self._free}"
+
+    @mirrored()
     def alloc(self) -> int:
         """Claim a free slot; raises :class:`PoolExhausted` when none."""
         if not self._free:
@@ -114,6 +139,7 @@ class KVCachePool:
         self._free_set.discard(slot)
         return slot
 
+    @mirrored()
     def release(self, slot: int) -> None:
         """Return ``slot`` to the free list (double-release raises)."""
         if slot in self._free_set or not (0 <= slot < self.n_slots):
@@ -122,6 +148,7 @@ class KVCachePool:
         self._free_set.add(slot)
 
     # ---- cache movement ---------------------------------------------------
+    @mirrored()
     def write_slot(self, slot: int, sub_cache: dict) -> None:
         """Copy a batch-1 cache (same ``max_len`` layout) into ``slot``.
         The cache may be nested (zamba: ``mamba.{h,conv}``,
@@ -130,6 +157,7 @@ class KVCachePool:
         for path, arena in named_leaves(self.cache):
             arena[:, slot] = sub[path][:, 0].to(arena.dtype)
 
+    @mirrored(register=("return",))
     def read_slot(self, slot: int) -> dict:
         """``slot`` as a batch-1 cache (a copy)."""
         return map_with_path(lambda _, t: t[:, slot:slot + 1].clone(),
@@ -149,13 +177,15 @@ class PagedKVCachePool:
 
     NULL_PAGE = 0
 
+    @mirrored(register=("self", "self.cache"))
     def __init__(self, model: Model, n_slots: int, max_len: int,
                  page_size: int = 8, n_pages: Optional[int] = None,
-                 kv_dtype: Optional[str] = None):
+                 plan=None, kv_dtype: Optional[str] = None):
         if n_slots < 1:
             raise ValueError("n_slots must be >= 1")
         if page_size < 1:
             raise ValueError("page_size must be >= 1")
+        _check_plan(model, plan)
         if not model.supports_paged_kv:
             raise ValueError(
                 f"{model.cfg.name}: family {model.cfg.family!r} has no "
@@ -199,6 +229,15 @@ class PagedKVCachePool:
         self._device_pt: Optional[torch.Tensor] = None
         self._dirty_rows: set = set()
 
+    def mirror_digest(self) -> str:
+        """Host state compared across ranks by the divergence guard: the
+        page table, refcounts, free lists and reservations."""
+        return repr((self.page_table.tolist(), self._page_refs.tolist(),
+                     self._free_pages, self._free_slots, self._reserved,
+                     sorted(self._mapped.items()),
+                     sorted(self._budget.items()),
+                     sorted(self._slot_owner.items())))
+
     # ---- accounting -------------------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:
         """Pages needed to back ``n_tokens`` positions (minimum 1)."""
@@ -225,6 +264,7 @@ class PagedKVCachePool:
         return bool(self._free_slots) and fresh <= self.n_available_pages
 
     # ---- slot partitions (multi-tenancy) ----------------------------------
+    @mirrored()
     def register_owner(self, name: Optional[str] = None) -> int:
         """Mint an owner token partitioning the slot space."""
         self._next_owner += 1
@@ -233,6 +273,7 @@ class PagedKVCachePool:
         self._owner_dirty[token] = set()
         return token
 
+    @mirrored()
     def release_owner(self, owner: int) -> None:
         """Drop an owner token, releasing any slots it still holds."""
         if owner not in self._owners:
@@ -285,6 +326,7 @@ class PagedKVCachePool:
                 f"may not {verb} a slot held by {whose}")
 
     # ---- alloc / grow / release ------------------------------------------
+    @mirrored()
     def alloc(self, prompt_len: int, max_new_tokens: int,
               shared_prefix: Optional[PrefixHandle] = None,
               reuse_len: int = 0, budget_tokens: Optional[int] = None,
@@ -366,6 +408,7 @@ class PagedKVCachePool:
             self._touch(slot)
         return slot
 
+    @mirrored()
     def extend_budget(self, slot: int, n_tokens: int,
                       owner: Optional[int] = None) -> bool:
         """Grow ``slot``'s reserved block budget to cover ``n_tokens``.
@@ -394,6 +437,7 @@ class PagedKVCachePool:
         """Currently reserved block budget of an allocated slot."""
         return self._budget[slot]
 
+    @mirrored()
     def ensure_len(self, slot: int, n_tokens: int,
                    owner: Optional[int] = None) -> None:
         """Map pages so positions ``0 .. n_tokens-1`` are backed."""
@@ -429,6 +473,7 @@ class PagedKVCachePool:
         elif self._page_refs[page] < 0:
             raise AssertionError(f"page {page} refcount went negative")
 
+    @mirrored()
     def release(self, slot: int, owner: Optional[int] = None) -> None:
         """Retire ``slot``: unref its mapped pages and free the slot."""
         if slot in self._free_slot_set or not (0 <= slot < self.n_slots):
@@ -446,6 +491,7 @@ class PagedKVCachePool:
         self._touch(slot)
 
     # ---- prefix sharing ---------------------------------------------------
+    @mirrored(register=("return",))
     def bake_prefix(self, sub_cache: dict, tokens) -> PrefixHandle:
         """Materialize a prompt prefix as pinned shared pages.
 
@@ -466,6 +512,7 @@ class PagedKVCachePool:
         return PrefixHandle(pool=self, pages=tuple(pages),
                             n_tokens=n_tokens, tokens=tokens)
 
+    @mirrored()
     def release_prefix(self, handle: PrefixHandle) -> None:
         """Drop the handle's pin; pages free as their refcount hits 0."""
         if not handle.pinned or handle.pool is not self:
@@ -498,11 +545,13 @@ class PagedKVCachePool:
                 self.cache[key][:, idx] = q
                 self.cache[key + quant.SCALE_SUFFIX][:, idx] = s
 
+    @mirrored()
     def write_prompt(self, slot: int, sub_cache: dict, n_tokens: int,
                      owner: Optional[int] = None) -> None:
         """Write a prefilled prompt into ``slot``'s pages (allocating them)."""
         self.write_suffix(slot, sub_cache, 0, n_tokens, owner=owner)
 
+    @mirrored()
     def write_suffix(self, slot: int, sub_cache: dict, start_token: int,
                      n_tokens: int, owner: Optional[int] = None) -> None:
         """Write positions ``start_token .. n_tokens-1`` into ``slot``.
@@ -541,6 +590,7 @@ class PagedKVCachePool:
                     self._fp_dtype)
                 for key in quant.value_keys(self.cache)}
 
+    @mirrored(register=("return",))
     def read_slot(self, slot: int, n_tokens: int) -> dict:
         """Gather ``slot``'s first ``n_tokens`` positions as a dense fp
         cache of page-multiple length."""
@@ -548,6 +598,7 @@ class PagedKVCachePool:
         return self._gather_pages(self.page_table[slot, :nb],
                                   nb * self.page_size)
 
+    @mirrored(register=("return",))
     def read_slot_full(self, slot: int) -> dict:
         """Gather the slot's whole page-table row (``padded_len``
         positions) as the suffix-prefill working cache."""
@@ -566,6 +617,16 @@ class PagedKVCachePool:
             if self._slot_owner.get(slot) == owner:
                 out[i] = self.page_table[slot]
         return out
+
+    def host_page_table(self, owner: Optional[int] = None) -> np.ndarray:
+        """The page table as host int32 rows (with ``owner``, its masked
+        view): what a tensor-parallel decode step sends every rank, each
+        uploading it to its own device."""
+        if owner is None:
+            return self.page_table.copy()
+        if owner not in self._owners:
+            raise ValueError(f"unknown owner token {owner}")
+        return self._masked_rows(owner, range(self.n_slots))
 
     def device_page_table(self, owner: Optional[int] = None) -> torch.Tensor:
         """The page table as an int32 tensor on the pool's device.

@@ -137,9 +137,11 @@ def test_keep_alive_expiry_matches_jax(pkgs):
 
 
 def test_later_slices_raise_with_their_item():
-    """Only serving over a mesh still waits for its slice."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        torch_faas.FaaSRuntime(mesh=object(), device="cpu")
+    """Only several instances over a mesh's data axis still wait for
+    their slice (one tensor-parallel instance serves: test_torch_tp.py)."""
+    from repro_torch.distributed import ServingMesh
+    with pytest.raises(NotImplementedError, match="item 8"):
+        torch_faas.FaaSRuntime(mesh=ServingMesh(2, 1), device="cpu")
 
 
 def test_serve_cli_runs_on_the_cpu():
@@ -156,9 +158,9 @@ def test_serve_cli_runs_on_the_cpu():
     assert kinds == {"cold", "fork", "warm"}, res.stdout
     assert "p50 ttft" in res.stdout
     bad = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--tp", "2"],
+        [sys.executable, "-m", "repro_torch.launch.serve", "--instances", "2"],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
-    assert bad.returncode != 0 and "item 11" in bad.stderr
+    assert bad.returncode != 0 and "item 8" in bad.stderr
 
 
 def test_serve_cli_open_loop_predictive_on_the_cpu():

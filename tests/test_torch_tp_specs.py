@@ -1,0 +1,263 @@
+"""The port's sharding plans against ``repro.distributed.sharding``.
+
+The JAX package places every leaf by a shape heuristic (largest divisible
+axis, ties to the last); the port places by role in the Megatron layout.
+The specs are compared leaf by leaf over the same mesh (the port's
+``ServingMesh(1, 2)``, whose ``shape`` and ``axis_names`` the JAX
+functions read), and every difference must be one of the listed
+placements (ROADMAP Queue 3, "Differences the reference itself has"):
+nothing else differs.  Then the arithmetic the ranks rely on: shards
+reassemble the leaf, ``init_params`` under a plan keeps the slice of the
+one-device draw, ``validate_specs``, the kernels' head check and the
+refusals that name their ROADMAP items.  No process group is needed.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.distributed import sharding as jax_sharding  # noqa: E402
+from repro.models.registry import get_model as jax_model  # noqa: E402
+from repro.models.registry import get_smoke_model as jax_smoke  # noqa: E402
+from repro.utils import path_str  # noqa: E402
+from repro_torch.convert import group_lengths, port_names  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.distributed.sharding import P, ServingMesh  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models import transformer  # noqa: E402
+from repro_torch.models.registry import get_model, get_smoke_model  # noqa: E402
+from repro_torch.utils import named_leaves  # noqa: E402
+
+MESH = ServingMesh(1, 2)
+
+# where the port places a leaf otherwise than the JAX heuristic (JAX's
+# spec, the port's), at tp = 2
+ATTN_DIFFS = {
+    # JAX: rows (d_model is the larger axis); port: the KV heads' columns
+    "blocks.attn.wk": (("model", None), (None, "model")),
+    "blocks.attn.wv": (("model", None), (None, "model")),
+    # JAX: the output axis (ties go last); port: rows, then one all_reduce
+    "blocks.attn.wo": ((None, "model"), ("model", None)),
+    # JAX shards the norms' scales; the port replicates them
+    "blocks.attn_norm": (("model",), (None,)),
+    "blocks.mlp_norm": (("model",), (None,)),
+    "final_norm": (("model",), (None,)),
+}
+# one KV head: every rank keeps it (JAX splits wk / wv by rows)
+ONE_KV_DIFFS = {**ATTN_DIFFS,
+                "blocks.attn.wk": (("model", None), (None, None)),
+                "blocks.attn.wv": (("model", None), (None, None))}
+
+
+def _param_diffs(jm, tm) -> dict:
+    jspecs = jax.tree_util.tree_leaves_with_path(
+        jax_sharding.param_specs(jm, MESH),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    tspecs = dict(named_leaves(sharding.param_specs(tm, MESH)))
+    lengths = group_lengths(transformer.param_specs(tm.cfg))
+    out = {}
+    for p, spec in jspecs:
+        path = path_str(p)
+        names = port_names(path, lengths)
+        want = tuple(spec)[1:] if names != [path] else tuple(spec)
+        got = {tuple(tspecs[n]) for n in names}
+        assert len(got) == 1, path           # every layer alike
+        got = got.pop()
+        want = want + (None,) * (len(got) - len(want))
+        if got != want:
+            out[path] = (want, got)
+    assert set(tspecs) == {n for p, _ in jspecs
+                           for n in port_names(path_str(p), lengths)}
+    return out
+
+
+@pytest.mark.parametrize("kv,diffs", [(2, ATTN_DIFFS), (1, ONE_KV_DIFFS)])
+def test_smoke_param_specs_differ_from_jax_only_as_listed(kv, diffs):
+    jm = jax_smoke("smollm-135m", n_layers=2, n_kv_heads=kv)
+    tm = get_smoke_model("smollm-135m", device="cpu", n_layers=2,
+                         n_kv_heads=kv)
+    assert _param_diffs(jm, tm) == diffs
+
+
+def test_llama3_8b_param_specs_differ_from_jax_only_as_listed():
+    assert _param_diffs(jax_model("llama3-8b"),
+                        get_model("llama3-8b", device="cpu")) == ATTN_DIFFS
+
+
+@pytest.mark.parametrize("kv", [2, 1])
+def test_cache_specs_against_jax(kv):
+    """Dense and paged (fp and int8) caches: equal to JAX's with the KV
+    heads split; with one KV head JAX splits head_dim, the port keeps
+    the head on every rank."""
+    jm = jax_smoke("smollm-135m", n_layers=2, n_kv_heads=kv)
+    tm = get_smoke_model("smollm-135m", device="cpu", n_layers=2,
+                         n_kv_heads=kv)
+    got = sharding.cache_specs(tm, transformer.make_cache(
+        tm.cfg, 4, 16, device="meta"), MESH, batch=4)
+    want = jax_sharding.cache_specs(jm, jm.make_cache(4, 16, abstract=True),
+                                    MESH, batch=4)
+    for kv_dtype in (None, "int8"):
+        pg = sharding.paged_cache_specs(transformer.make_paged_cache(
+            tm.cfg, 9, 8, device="meta", kv_dtype=kv_dtype), MESH)
+        pw = jax_sharding.paged_cache_specs(jax.eval_shape(
+            lambda: jm.make_paged_cache(9, 8, kv_dtype=kv_dtype)), MESH)
+        got.update({f"paged.{kv_dtype}.{k}": v for k, v in pg.items()})
+        want.update({f"paged.{kv_dtype}.{k}": v for k, v in pw.items()})
+    diff = {k: (tuple(want[k]), tuple(v)) for k, v in got.items()
+            if tuple(v) != tuple(want[k])}
+    if kv == 2:
+        assert diff == {}
+    else:
+        head_dim = (None, None, None, None, "model")
+        assert diff == {
+            "k": ((None, "data", None, None, "model"),
+                  (None, "data", None, None, None)),
+            "v": ((None, "data", None, None, "model"),
+                  (None, "data", None, None, None)),
+            "paged.None.k": (head_dim, (None,) * 5),
+            "paged.None.v": (head_dim, (None,) * 5),
+            "paged.int8.k": (head_dim, (None,) * 5),
+            "paged.int8.v": (head_dim, (None,) * 5)}
+
+
+def test_validate_specs_llama3_8b_and_a_violation():
+    tm = get_model("llama3-8b", device="cpu")
+    specs = sharding.param_specs(tm, MESH)
+    assert sharding.validate_specs(specs, transformer.param_specs(tm.cfg),
+                                   MESH) == []
+    bad = sharding.validate_specs({"w": P(None, "model")},
+                                  {"w": torch.empty(4, 3, device="meta")}, MESH)
+    assert bad == [("w", 1, 3, 2)]
+
+
+@pytest.mark.parametrize("kv", [2, 1])
+def test_sharded_init_keeps_each_ranks_slice_of_one_draw(kv):
+    """``init_params`` under a plan draws every full leaf in the one-device
+    order and keeps the rank's slice: the two ranks' shards reassemble
+    the tp = 1 weights of the same seed (replicated leaves whole on each)."""
+    single = get_smoke_model("smollm-135m", device="cpu", n_layers=2,
+                             n_kv_heads=kv)
+    one = single.init_params(seed=4)
+    ranks = [get_model(single.cfg, device="cpu",
+                       plan=sharding.serving_plan(MESH, rank=r)
+                       ).init_params(seed=4) for r in range(2)]
+    specs = dict(named_leaves(sharding.config_param_specs(single.cfg, 2)))
+    local = dict(named_leaves(transformer.param_specs(
+        sharding.local_config(single.cfg, 2))))
+    shards = [dict(named_leaves(r)) for r in ranks]
+    for path, full in named_leaves(one):
+        spec = specs[path]
+        assert tuple(shards[0][path].shape) == tuple(local[path].shape)
+        d = spec.model_dim
+        if d is None:
+            assert all(torch.equal(s[path], full) for s in shards)
+        else:
+            assert torch.equal(torch.cat([s[path] for s in shards], dim=d),
+                               full), path
+
+
+def test_fused_leaves_split_per_part():
+    """``wqkv`` splits q, k and v each by heads and ``w_gu`` gate and up
+    each by ``d_ff``; with fewer KV heads than ranks each rank keeps the
+    KV head its query heads read."""
+    cfg = get_smoke_model("smollm-135m", device="cpu", n_kv_heads=1).cfg
+    cfg = cfg.replace(fused_qkv=True, fused_glu=True, n_heads=4)
+    H, KV, hd, F = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff
+    specs = dict(named_leaves(sharding.config_param_specs(cfg, 2)))
+    wqkv = torch.arange(cfg.d_model * (H + 2 * KV) * hd, dtype=torch.float32
+                        ).reshape(cfg.d_model, -1)
+    w_gu = torch.arange(cfg.d_model * 2 * F, dtype=torch.float32
+                        ).reshape(cfg.d_model, -1)
+    for r in range(2):
+        plan = sharding.serving_plan(MESH, rank=r)
+        q, k, v = wqkv.split([H * hd, KV * hd, KV * hd], dim=1)
+        want = torch.cat([q.chunk(2, dim=1)[r], k, v], dim=1)
+        got = sharding.shard_for_rank(wqkv, specs["layers.0.attn.wqkv"], plan)
+        assert torch.equal(got, want)
+        g, u = w_gu.chunk(2, dim=1)
+        got = sharding.shard_for_rank(w_gu, specs["layers.0.mlp.w_gu"], plan)
+        assert torch.equal(got, torch.cat([g.chunk(2, dim=1)[r],
+                                           u.chunk(2, dim=1)[r]], dim=1))
+
+
+def test_kv_heads_fewer_than_ranks_are_shared_by_query_group():
+    """KV = 2 over 4 ranks: ranks 0-1 keep KV head 0, ranks 2-3 head 1."""
+    cfg = get_smoke_model("smollm-135m", device="cpu", n_kv_heads=2).cfg
+    mesh = ServingMesh(1, 4)
+    spec = dict(named_leaves(sharding.config_param_specs(cfg, 4)))[
+        "layers.0.attn.wk"]
+    assert spec == P(None, "model", parts=((2 * cfg.head_dim, 2),))
+    wk = torch.arange(cfg.d_model * 2 * cfg.head_dim).reshape(cfg.d_model, -1)
+    heads = wk.chunk(2, dim=1)
+    for r in range(4):
+        got = sharding.shard_for_rank(wk, spec,
+                                      sharding.serving_plan(mesh, rank=r))
+        assert torch.equal(got, heads[r // 2])
+    assert sharding.local_config(cfg, 4).n_kv_heads == 1
+
+
+def test_kernels_check_the_ranks_heads():
+    cfg = get_smoke_model("smollm-135m", device="cpu", n_kv_heads=2).cfg
+    q = torch.randn(1, 4, 3, cfg.head_dim)          # all 4 heads
+    k = torch.randn(1, 2, 3, cfg.head_dim)
+    with sharding.use_plan(sharding.serving_plan(MESH, rank=0), cfg):
+        assert sharding.local_heads() == (2, 1)
+        with pytest.raises(ValueError, match="this rank holds 2 / 1"):
+            ops.flash_attention(q, k, k, causal=True)
+        out = ops.flash_attention(q[:, :2], k[:, :1], k[:, :1], causal=True)
+    assert out.shape == (1, 2, 3, cfg.head_dim)
+    assert sharding.local_heads() is None
+
+
+@pytest.mark.parametrize("arch,item", [("phi3.5-moe-42b-a6.6b", "item 4"),
+                                       ("deepseek-v3-671b", "item 5"),
+                                       ("zamba2-2.7b", "item 6"),
+                                       ("xlstm-1.3b", "item 6")])
+def test_other_families_under_a_plan_name_their_item(arch, item):
+    with pytest.raises(NotImplementedError, match=item):
+        get_smoke_model(arch, device="cpu",
+                        plan=sharding.serving_plan(MESH, rank=0))
+
+
+def test_data_axis_and_training_specs_name_their_items():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        sharding.serving_plan(ServingMesh(2, 2), rank=0)
+    tm = get_smoke_model("smollm-135m", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        sharding.param_specs(tm, MESH, fsdp=True)
+    plan = sharding.serving_plan(MESH, rank=0)
+    model = get_smoke_model("smollm-135m", device="cpu", plan=plan)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        model.forward(model.init_params(), {"tokens": np.zeros((1, 4), np.int32)})
+
+
+def test_lora_under_a_plan_names_its_item():
+    from repro_torch.core import api as tidal
+    plan = sharding.serving_plan(MESH, rank=0)
+    model = get_smoke_model("smollm-135m", device="cpu", plan=plan)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        tidal.lora_function("l", model, model.init_params(),
+                            ["blocks.attn.wq"]).run_initializer(
+            {"adapter": "adapter-0"})
+
+
+def test_fused_qkv_logits_match_jax_on_one_device():
+    """``fused_qkv`` (and ``fused_glu``) on one device: the converted JAX
+    weights give the JAX prefill's logits."""
+    import jax.numpy as jnp
+    from repro_torch import convert
+    jm = jax_smoke("smollm-135m", n_layers=2, n_kv_heads=2, fused_qkv=True,
+                   fused_glu=True)
+    jp = jm.init_params(jax.random.PRNGKey(3))
+    tm = get_smoke_model("smollm-135m", device="cpu", n_layers=2,
+                         n_kv_heads=2, fused_qkv=True, fused_glu=True)
+    tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg,
+                                 device="cpu")
+    toks = np.arange(1, 10, dtype=np.int32)[None]
+    want, _ = jm.prefill(jp, {"tokens": jnp.asarray(toks)}, jm.make_cache(1, 16))
+    got, _ = tm.prefill(tp, {"tokens": toks}, tm.make_cache(1, 16))
+    want = np.asarray(want)
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
