@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    attention kernels' registers, shared memory and spills (``-Xptxas
    -v``) and the measured pinned host-to-device copy rate, from a block of
    PyTorch's pinned allocator and from a view into a host-pool buffer
-   registered in place (``HostBuffer``: ``is_pinned()`` and the rate);
+   written and then registered in place, the two copied in turn
+   (``HostBuffer``: ``is_pinned()`` and at least 0.8x the allocator's
+   rate);
 2. kernels against their plain PyTorch versions on the card, at the
    serving path's shapes (smollm-135m heads and rows, llama3-8b's,
    llama2-13b's, phi3.5-moe's and deepseek-v3's rows (7168; ``q_a_norm``
@@ -90,7 +92,7 @@ Phases, in order; any failure raises and the process exits non-zero:
    prefill;
 10. phi3.5-moe-42b-a6.6b at full width (d_model 4096, 32 / 8 heads of
    128, 16 experts of 6400, top-2, capacity factor 1.25, bf16) and
-   the largest depth of its 32 layers, at most 8, at which a warm copy, a
+   the largest depth of its 32 layers, at most 4, at which a warm copy, a
    fork's copy and the arena fit the card and the host's memory (printed
    as reduced, with the budget that stopped it): the paged serving passes at 8
    slots (plain, chunked, int8), the (token, k) pairs the capacity drops
@@ -122,15 +124,15 @@ Phases, in order; any failure raises and the process exits non-zero:
    experts cut to 32 (logits within 1e-4 of the largest, routing and kept
    pairs equal) at 2 slots and at 8 slots with a 48-token chunked
    prefill, and streamed prefill equal to prefill;
-12. xlstm-1.3b at full width and depth (48 layers: 42 mLSTM and 6 sLSTM
-   blocks, d_model 2048, 4 heads, mLSTM head dim 1024, chunk 128,
-   vocabulary 50,304, bf16, 7.21 GB of seeded random weights): rmsnorm at
-   xLSTM's rows (8 and 512 rows of 2048 and 4096, both forms), then the
+12. xlstm-1.3b at full width, 16 of its 48 layers (14 mLSTM and 2 sLSTM
+   blocks, printed as reduced; d_model 2048, 4 heads, mLSTM head dim
+   1024, chunk 128, vocabulary 50,304, bf16, seeded random weights):
+   rmsnorm at xLSTM's rows (8 and 512 rows of 2048 and 4096, both forms), then the
    dense-pool ``ContinuousBatchingEngine`` (8 slots, 12 requests of 16
    new tokens, prompts of 32 to 512 tokens that keep the reference's
    chunk rule; tokens/s, TTFT, decode host ms, state bytes per slot), the
    sequential ``Engine`` (8 x 256 + 32) with the continuous engine's
-   tokens equal to it, exact launch counts (rmsnorm 103 per model call, 6
+   tokens equal to it, exact launch counts (rmsnorm 35 per model call, 2
    with the residual fused; no attention kernel, no ``ssd_scan``), the
    decode step at 8 busy slots beside its byte bound (the weights, and
    the recurrent state read and written once), a 512-token prefill with
@@ -171,10 +173,10 @@ Phases, in order; any failure raises and the process exits non-zero:
    timed beside the plain version, the library call's backward and the
    bound; then ``repro_torch.launch.train``'s ``train()`` on smollm-135m
    at full width and depth at the CLI's defaults (batch 8, seq 128,
-   remat) for 20 steps with a checkpoint every 10, exact launches per
+   remat) for 10 steps with a checkpoint every 5, exact launches per
    step (flash 2L, rmsnorm 4L + 1, 2L fused, flash backward L, rmsnorm
    backward 2L + 1), step time, tokens/s and peak memory, a second run
-   stopped at step 10 and resumed to 20 whose losses, parameters and
+   stopped at step 5 and resumed to 10 whose losses, parameters and
    optimizer state equal the first's bit for bit, the device-busy share
    of two steps under ``torch.profiler``, the loss falling over 5 steps
    on one batch, one step at seq 2,048; a 2-layer card-against-CPU step
@@ -187,21 +189,37 @@ Phases, in order; any failure raises and the process exits non-zero:
    sharing the card (``repro_torch.distributed.spawn``, gloo: NCCL
    refuses two ranks on one device) through ``FaaSRuntime(mesh=
    ServingMesh(1, 2))``, each rank's shard drawn on the card from the
-   seed (16 query / 4 KV heads, 8 GB per rank at full depth): per case a
+   seed (16 query / 4 KV heads, 8 GB per rank at full depth, 2.8 GB at
+   the 8 layers the bf16 case runs, printed as reduced): per case a
    paged bf16 / fp32 pass and an int8 one, each deploying with a 64-token
    template prompt, then cold, fork (after an evict; its prefill streamed
    while the rank's shard is in flight), a prefix hit and warm, the
    launches of every rank read per invocation (L flash per prefill, L
    paged decode per step, 2L + 1 rmsnorm per call) and the divergence
-   guard on every op; the same in one ``tp = 1`` process (at full depth
-   its bf16 pass only, all the comparison reads).  fp32 at 2
+   guard on every op; the same in one ``tp = 1`` process (in bf16
+   its fp-arena pass only, all the comparison reads).  fp32 at 2
    layers: greedy tokens of every invocation equal to ``tp = 1``; bf16 at
-   full depth (32 layers): the first prefill's logits within 5% of the
+   8 of 32 layers: the first prefill's logits within 5% of the
    largest |logit| of ``tp = 1``'s (the share of equal greedy tokens
    printed); fork TTFT, bytes streamed and pinned per rank, and the decode
    step's host, device-span and collective ms per rank, each beside the
    card's name and power limit.  Phase 2 also holds the kernels at one
-   rank's heads (llama3-8b 16 / 4 / 128, gemma-2b 4 / 1 / 256: G = 4).
+   rank's heads (llama3-8b 16 / 4 / 128, gemma-2b 4 / 1 / 256: G = 4);
+16. cluster: ``FaaSRuntime(mesh=ServingMesh(2, 1))``, two instances
+   sharing the card, serving smollm-135m at full width and depth (bf16,
+   paged arenas): a static and a LoRA function land on different
+   instances, the LoRA function's second engine (a new event) on its
+   warm instance, every invocation's greedy tokens equal the sequential
+   ``Engine``'s over the same weights, launches exact, and ``evict``
+   puts each instance's pool back at its baseline; then
+   ``measure_service_times`` on that runtime (two fresh functions, prompt
+   buckets of 64 and 256 tokens), each entry printed beside the port's
+   cost model for ``plan_for("smollm-135m", 1, L)`` on the card's profile
+   with the measured host-to-device rate, warm below fork and cold at
+   each bucket; then the port's ``ClusterSim`` with that table as its
+   oracle over a seeded trace under ``serverlessllm``, ``tidal`` and
+   ``tidal-dk`` (``summarize`` printed; every lookup served from the
+   table).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -447,17 +465,23 @@ def phase_device() -> dict:
             print("ptxas:", line.strip())
     ptxas = ptxas_report(log)
     print(json.dumps({"ptxas": ptxas}))
-    h2d = measure_h2d()
-    # the template server's host pools: one buffer registered in place, the
-    # weights views into it at HOST_ALIGN offsets
+    # the template server's host pools: one buffer, written and then
+    # registered in place, the weights views into it at HOST_ALIGN offsets.
+    # The buffer is written before it is page-locked, as pack_host_pool
+    # fills a pool (pages never touched before they are registered copy
+    # slower: tools/torch_host_pool_h2d.py).  Both sources are copied in
+    # turn in every round, so a change of the host's rate between them
+    # falls on both.
     from repro_torch.core.merging import HOST_ALIGN, HostBuffer
+    alloc = torch.empty(256 << 20, dtype=torch.uint8).pin_memory()
     hb = HostBuffer((256 << 20) + HOST_ALIGN)
+    hb.buf.fill_(1)
     hb.pin()
     view = hb.view(HOST_ALIGN, (256 << 20,), torch.uint8)
-    h2d_pool = measure_h2d(src=view)
     pool_view_pinned = view.is_pinned()
+    h2d, h2d_pool = measure_h2d((alloc, view))
     hb.release()
-    del hb, view
+    del hb, view, alloc
     print(f"pinned host->device copy: {h2d / 1e9:.2f} GB/s (pinned allocator), "
           f"{h2d_pool / 1e9:.2f} GB/s (a view into a registered host-pool "
           f"buffer, is_pinned {pool_view_pinned})")
@@ -536,27 +560,25 @@ def ptxas_report(log: str, kernels=("flash_tc_kernel", "flash_fp32_kernel",
     return rows
 
 
-def measure_h2d(nbytes: int = 256 << 20, reps: int = 5, src=None) -> float:
-    """Pinned host -> device copy rate (bytes/s) of one ``nbytes`` copy on
-    a side stream, as the weight streamer issues them (best of ``reps``);
-    from ``src`` when given, else from a block of PyTorch's pinned
-    allocator."""
-    if src is None:
-        src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
-    nbytes = src.numel()
-    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+def measure_h2d(srcs: tuple, reps: int = 10) -> list:
+    """Pinned host -> device copy rate (bytes/s) from each of ``srcs``
+    (uint8 host tensors), one copy of each in turn per round on a side
+    stream, as the weight streamer issues them; best of ``reps`` rounds."""
+    dst = torch.empty(max(s.numel() for s in srcs), dtype=torch.uint8,
+                      device="cuda")
     stream = torch.cuda.Stream()
-    best = float("inf")
+    best = [float("inf")] * len(srcs)
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(stream):
-            start.record()
-            dst.copy_(src, non_blocking=True)
-            end.record()
-        end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3)
-    return nbytes / best
+        for i, src in enumerate(srcs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                start.record()
+                dst[:src.numel()].copy_(src, non_blocking=True)
+                end.record()
+            end.synchronize()
+            best[i] = min(best[i], start.elapsed_time(end) / 1e3)
+    return [src.numel() / t for src, t in zip(srcs, best)]
 
 
 def phase_kernels(device) -> list:
@@ -2218,9 +2240,10 @@ def zamba_faas(model, params, prompts: list, h2d: float) -> dict:
 # the serving passes
 DEVICE_SLACK_BYTES = 6e9
 HOST_SLACK_BYTES = 10e9
-# phase 10's depth at most (its draw and serving passes grow with it; the
-# whole script keeps to its time limit with phase 11 after it)
-MOE_MAX_LAYERS = 8
+# phase 10's depth at most (its draw, deploys and serving passes grow with
+# it; the whole script keeps to its time limit with phases 11 to 16 after
+# it: 8 layers took the script to 1,165.8 s of its 1,200 on a slow host)
+MOE_MAX_LAYERS = 4
 # phase 11's fp32 card against CPU check: one full-width layer holds 256
 # experts of 46 GB in fp32 on each side, too much for the host
 DEEPSEEK_PARITY_EXPERTS = 32
@@ -3003,6 +3026,10 @@ XLSTM_RMSNORM_CASES = (("xlstm-decode", (8, 1, 2048)),
 # prompt lengths the reference's chunked mLSTM takes at ssm_chunk 128: at
 # most one chunk, or a multiple of it
 XLSTM_LENGTHS = (32, 64, 96, 128, 256, 384, 512)
+# phase 12's depth, two units of slstm_every = 8 layers: the whole script
+# keeps to its time limit (at 48 layers the phase took 84-123 s of a
+# script that reached 1,165.8 s of its 1,200 on a slow host)
+XLSTM_LAYERS = 16
 
 
 def xlstm_prefill_timing(model, params, S: int = 512, reps: int = 3) -> dict:
@@ -3065,13 +3092,13 @@ def xlstm_parity(device) -> dict:
 
 
 def phase_xlstm(device, h2d: float) -> dict:
-    """xlstm-1.3b at full width and depth (48 layers: 42 mLSTM and 6 sLSTM
-    blocks, d_model 2048, 4 heads, mLSTM head dim 1024, chunk 128, bf16,
-    7.21 GB of seeded random weights drawn leaf by leaf): rmsnorm at
-    xLSTM's rows, the dense-pool continuous engine (8 slots, 12 requests),
-    the sequential Engine (8 x 256 + 32) with the continuous engine's
-    tokens equal to it, exact launch counts (rmsnorm 103 per model call, 6
-    fused; no attention kernel, no ``ssd_scan``), the decode step at 8
+    """xlstm-1.3b at full width, ``XLSTM_LAYERS`` of its 48 layers (14
+    mLSTM and 2 sLSTM blocks, printed as reduced; d_model 2048, 4 heads,
+    mLSTM head dim 1024, chunk 128, bf16, seeded random weights drawn leaf
+    by leaf): rmsnorm at xLSTM's rows, the dense-pool continuous engine (8
+    slots, 12 requests), the sequential Engine (8 x 256 + 32) with the
+    continuous engine's tokens equal to it, exact launch counts (rmsnorm 35
+    per model call, 2 fused; no attention kernel, no ``ssd_scan``), the decode step at 8
     busy slots beside its byte bound (weights, and the recurrent state read
     and written), a 512-token prefill and its sLSTM loop's share,
     ``FaaSRuntime`` cold / warm / fork of a static function (a fork
@@ -3086,13 +3113,16 @@ def phase_xlstm(device, h2d: float) -> dict:
     for tag, shape in XLSTM_RMSNORM_CASES:
         rows += rmsnorm_case(device, gen, tag, shape, torch.bfloat16)
     torch.cuda.reset_peak_memory_stats()
-    model, params, info = big_model("xlstm-1.3b", device)
+    model, params, info = big_model("xlstm-1.3b", device, n_layers=XLSTM_LAYERS)
     cfg = model.cfg
     assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.slstm_every,
             cfg.mlstm_proj_factor, cfg.ssm_chunk, cfg.conv_width,
-            cfg.vocab_size) == (48, 2048, 4, 8, 2.0, 128, 4, 50304)
+            cfg.vocab_size) == (16, 2048, 4, 8, 2.0, 128, 4, 50304)
+    info["reduced"] = "n_layers 48 -> 16 (the script's time limit)"
+    print(f"xlstm-1.3b reduced: {info['reduced']} (full width; "
+          f"{info['param_bytes'] / 1e9:.2f} GB of weights)")
     per_call = (norm_launches(cfg), fused_norm_launches(cfg))
-    if per_call != (103, 6):
+    if per_call != (35, 2):
         raise AssertionError(f"xlstm-1.3b rmsnorm launches per call {per_call}")
     slot_bytes = tree_bytes(make_cache(cfg, 1, 512, device="meta"))
     out = {"model": info, "kernels": rows, "rmsnorm_per_call": per_call,
@@ -3380,8 +3410,8 @@ def phase_whisper(device) -> dict:
 # ---------------------------------------------------------------------------
 
 PHI_MOE = dict(H=32, KV=8, d=128)
-TRAIN_STEPS = 20
-TRAIN_CKPT_EVERY = 10
+TRAIN_STEPS = 10
+TRAIN_CKPT_EVERY = 5
 
 
 def time_grad_ms(forward, inputs: tuple, grad_out, reps: int = 20,
@@ -3667,7 +3697,7 @@ def phase_train(device) -> dict:
                "step_ms_median": step_s * 1e3,
                "tokens_per_s": args.batch * args.seq / step_s,
                "losses": losses_a, "max_memory_allocated": peak}
-        # interrupted at step 10, then resumed to 20 from the checkpoint
+        # interrupted at the first checkpoint, then resumed to the end
         ops.reset_launch_counts()
         loop_b = dataclasses.replace(loop, ckpt_dir=d2, total_steps=TRAIN_CKPT_EVERY)
         _, first = train(model, opt, data, loop_b, log=print)
@@ -3927,7 +3957,7 @@ TP_NEW = 8                     # tokens per invocation
 TP_PROMPT = 96                 # tokens of a plain prompt
 TP_TEMPLATE = 64               # the template prompt (8 pages)
 TP_REUSE_SUFFIX = 24           # a prefix hit's own tokens
-# bf16 at full depth: the first prefill's logits at tp = 2 against tp = 1
+# bf16: the first prefill's logits at tp = 2 against tp = 1
 # for the same seed and prompt, as a share of the largest |logit|
 TP_BF16_LOGIT_BOUND = 5e-2
 
@@ -4109,6 +4139,8 @@ def _tp_rank(group, arch: str, cases: tuple) -> dict | None:
         fn = group.build(_tp_function, arch, replace)
         model = fn.model
         info = {"arch": arch, "layers": model.cfg.n_layers,
+                "reduced": (None if "n_layers" not in replace else
+                            f"n_layers 32 -> {replace['n_layers']}"),
                 "dtype": model.cfg.dtype, "tp": group.size,
                 "backend": group.backend,
                 "local_heads": [model.local_cfg.n_heads,
@@ -4137,21 +4169,26 @@ def tp_run(tp: int) -> dict:
     return out
 
 
-# (tag, configuration, arenas at tp = 2, arenas at tp = 1): at full depth
-# tp = 1 serves the fp arena only, all that the bf16 comparison reads
+# (tag, configuration, arenas at tp = 2, arenas at tp = 1): in bf16 tp = 1
+# serves the fp arena only, all that the bf16 comparison reads.  bf16 runs
+# 8 of llama3-8b's 32 layers: the whole script keeps to its time limit
+# (phase 16 after it; at 32 layers the script took 1,165.8 s of its
+# 1,200 on a slow host)
+TP_BF16_LAYERS = 8
 TP_CASES = (("fp32_2layers", {"n_layers": 2, "dtype": "float32"},
              (None, "int8"), (None, "int8")),
-            ("bf16_full", {}, (None, "int8"), (None,)))
+            ("bf16_8layers", {"n_layers": TP_BF16_LAYERS}, (None, "int8"),
+             (None,)))
 
 
 def phase_tp(device) -> dict:
     """llama3-8b at full width served tensor-parallel by 2 ranks sharing
     the card (gloo), through ``FaaSRuntime(mesh=ServingMesh(1, 2))``:
     fp32 at 2 layers with greedy tokens equal to ``tp = 1`` (cold, fork,
-    warm, prefix hit; fp and int8 arenas), then bf16 at full depth with
-    the first prefill's logits within ``TP_BF16_LOGIT_BOUND`` of ``tp =
-    1``'s and the share of equal greedy tokens over the fp arena (the
-    ``tp = 1`` side serves no int8 pass at full depth).  The ``tp = 1``
+    warm, prefix hit; fp and int8 arenas), then bf16 at 8 of 32 layers
+    with the first prefill's logits within ``TP_BF16_LOGIT_BOUND`` of
+    ``tp = 1``'s and the share of equal greedy tokens over the fp arena
+    (the ``tp = 1`` side serves no int8 pass in bf16).  The ``tp = 1``
     run is a process of its own too.  Launches per rank, the divergence guard on
     every op, fork bytes and pinned bytes per rank, the decode step's
     host, device-span and collective ms per rank."""
@@ -4197,7 +4234,7 @@ def phase_tp(device) -> dict:
             raise AssertionError(f"tp bf16 logits {gap} of the largest apart "
                                  f"(bound {TP_BF16_LOGIT_BOUND})")
         out[tag] = res
-    full = out["bf16_full"]["tp2"]
+    full = out["bf16_8layers"]["tp2"]
     fork = full["passes"][0]["requests"][1]
     print(json.dumps({"tp_numbers": {
         "card": card, "note": out["note"], "backend": TP_BACKEND,
@@ -4207,6 +4244,204 @@ def phase_tp(device) -> dict:
         "pinned_per_rank": [m["registered_bytes"] for m in
                             full["passes"][0]["memory_after_deploy"]],
         "decode_step_per_rank": full["passes"][0]["decode_step_per_rank"]}}))
+    return out
+
+
+CLUSTER_BUCKETS = (64, 256)
+CLUSTER_POLICIES = ("serverlessllm", "tidal", "tidal-dk")
+
+
+def cluster_expected_launches(cfg, engines) -> dict:
+    """Exact kernel launches of the engines' runs: L flash per prefill
+    call, L paged decode per step, norm_launches per model call."""
+    L = attention_kernels(cfg)
+    steps = sum(e.n_decode_steps for e in engines)
+    prefills = sum(e.n_prefill_calls for e in engines)
+    calls = steps + prefills
+    return {"decode_attention": 0, "flash_attention": L * prefills,
+            "paged_decode_attention": L * steps,
+            "rmsnorm": norm_launches(cfg) * calls,
+            "rmsnorm_fused": fused_norm_launches(cfg) * calls,
+            "ssd_scan": 0, **NO_BACKWARD}
+
+
+def phase_cluster(device, h2d: float) -> dict:
+    """Phase 16: the cluster layer.  ``FaaSRuntime(mesh=ServingMesh(2, 1))``
+    serves smollm-135m at full width and depth on two instances sharing
+    the card (a static and a LoRA function placed apart, a warm
+    function's new engine routed to its instance, tokens equal to the
+    sequential ``Engine``'s over the same weights, exact launches, every
+    instance's pool back at its baseline after ``evict``); then
+    ``measure_service_times`` on that runtime at two prompt buckets, each
+    entry beside the port's cost model on the card's profile; then the
+    port's ``ClusterSim`` in measured mode over a seeded trace under three
+    policies, every lookup served from the measured table."""
+    from repro_torch.core import api as tidal
+    from repro_torch.core.plans import plan_for
+    from repro_torch.core.scheduler import (ClusterSim, FunctionProfile,
+                                            SchedulerConfig, make_trace,
+                                            summarize)
+    from repro_torch.core.template_server import TemplateServer
+    from repro_torch.distributed import ServingMesh
+    from repro_torch.hw import H100_SXM
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import Engine, FaaSRuntime
+    from repro_torch.runtime.faas import measure_service_times
+    model, p_static = full_model(device, seed=2)
+    p_lora = model.init_params(seed=3)
+    cfg, vocab = model.cfg, model.cfg.vocab_size
+    hw = H100_SXM.with_h2d(h2d)
+    rt = FaaSRuntime(mesh=ServingMesh(2, 1), device=device,
+                     server=TemplateServer(hw=hw, trace_seq=128), n_slots=4,
+                     max_len=512, page_size=PAGE_SIZE)
+    t0 = time.perf_counter()
+    for suffix in ("", "-m"):        # "-m": fresh functions, measured cold
+        rt.deploy(tidal.static_function("static" + suffix, model, p_static),
+                  {}, prewarm_seq=CLUSTER_BUCKETS[0])
+        rt.deploy(tidal.lora_function("lora" + suffix, model, p_lora,
+                                      ["blocks.attn.wq"], n_adapters=2),
+                  {"adapter": "adapter-0"}, prewarm_seq=CLUSTER_BUCKETS[0])
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    devices = [str(inst.device) for inst in rt.instances]
+    if devices != [str(device)] * 2:
+        raise AssertionError(f"instances on {devices}, want two on {device}")
+    for inst in rt.instances:        # every instance's pool, at its baseline
+        rt._pool_for(rt._model_on("static", inst), inst)
+    baseline = rt.kv_pool_stats()
+
+    # 1. two instances: placement, locality, tokens, launches, evict
+    rng = np.random.default_rng(16)
+    a0, a1 = {"adapter": "adapter-0"}, {"adapter": "adapter-1"}
+    plan = [("static", {}), ("lora", a0), ("static", {}), ("lora", a1),
+            ("lora", a0)]
+    prompts = [rng.integers(1, vocab, int(n)).astype(np.int32)
+               for n in rng.integers(32, 257, len(plan))]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [rt.submit(fn, ev, p, 16) for (fn, ev), p in zip(plan, prompts)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    keys = [(fn, tuple(sorted(ev.items()))) for fn, ev in plan]
+    placed = {k: rt._engines[k].instance for k in keys}
+    kinds = [r.kind for r in results]
+    expect = cluster_expected_launches(
+        cfg, [w.engine for w in rt._engines.values()])
+    if kinds != ["cold", "cold", "warm", "fork", "warm"]:
+        raise AssertionError(f"instances: kinds {kinds}")
+    if placed[keys[0]] == placed[keys[1]]:
+        raise AssertionError(f"both functions on instance {placed[keys[0]]}")
+    if placed[keys[3]] != placed[keys[1]]:
+        raise AssertionError(f"the LoRA function's new engine went to "
+                             f"instance {placed[keys[3]]}, not its warm "
+                             f"instance {placed[keys[1]]}")
+    if counts != expect:
+        raise AssertionError(f"instances launches {counts} != {expect}")
+    equal = []
+    for (fn, ev), key, p, r in zip(plan, keys, prompts, results):
+        params = rt._engines[key].engine.params()
+        want = Engine(model, params).generate(p[None], max_new_tokens=16)
+        equal.append(int((want.tokens[0] == r.tokens).sum()))
+    instances = rt.stats()["instances"]
+    rt.evict()
+    after = rt.kv_pool_stats()
+    if sorted(k[0] for k in baseline) != [0, 1] or after != baseline:
+        raise AssertionError(f"evict: pools {after} != baseline {baseline}")
+    row = {"pass": "instances", "devices": devices, "kinds": kinds,
+           "placed": {f"{k[0]}{dict(k[1]) or ''}": v for k, v in placed.items()},
+           "instances": instances, "launches": counts, "wall_s": wall,
+           "deploy_s": deploy_s, "tokens_equal_engine": f"{sum(equal)}/{16 * len(plan)}",
+           "ttft_ms": [r.ttft_s * 1e3 for r in results]}
+    print(json.dumps(row))
+    if sum(equal) != 16 * len(plan):
+        raise AssertionError(f"instances: tokens equal to the Engine's "
+                             f"{equal} of 16 each")
+
+    # 2. measured service times beside the cost model on the card's profile
+    measured_fns = {"static-m": {}, "lora-m": a1}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    table = measure_service_times(rt, measured_fns, max_new_tokens=4,
+                                  warm_reps=2, prompt_lens=list(CLUSTER_BUCKETS))
+    torch.cuda.synchronize()
+    measure_s = time.perf_counter() - t0
+    m_counts = ops.launch_counts()
+    if (m_counts["paged_decode_attention"] == 0 or m_counts["flash_attention"] == 0
+            or m_counts["decode_attention"]):
+        raise AssertionError(f"measurement launches {m_counts}")
+    check_norm_launches(m_counts, cfg, "measured service times")
+    print(table.summary())
+    profiles = {}
+    for fn in measured_fns:
+        tpl = rt.server.templates[fn]
+        profiles[fn] = FunctionProfile(
+            name=fn, plan_for_len=lambda n: plan_for("smollm-135m", 1, n),
+            dynamic_bytes=tpl.dynamic_bytes, template_bytes=tpl.resident_bytes,
+            model_bytes=tpl.total_bytes)
+    oracle = ClusterSim(SchedulerConfig(policy="tidal", hw=hw), profiles)
+    predict = {"warm": oracle._warm_ttft, "fork": oracle._fork_ttft,
+               "cold": oracle._cold_ttft}
+    service = []
+    for fn in measured_fns:
+        for kind in ("cold", "fork", "warm"):
+            for n, s in table._buckets(fn, kind) or []:
+                service.append({"fn": fn, "kind": kind, "prompt_len": n,
+                                "measured_ms": s * 1e3,
+                                "predicted_ms": predict[kind](profiles[fn], n) * 1e3})
+    for r in service:
+        print(json.dumps({"service_time": r}))
+    for fn in measured_fns:        # warm below fork and cold at each bucket
+        got = {k: dict(table._buckets(fn, k) or []) for k in ("cold", "fork",
+                                                              "warm")}
+        if (set(got["warm"]) != set(CLUSTER_BUCKETS)
+                or set(got["fork"]) != set(CLUSTER_BUCKETS)
+                or set(got["cold"]) != {CLUSTER_BUCKETS[0]}):
+            raise AssertionError(f"{fn}: measured {got}")
+        if not all(got["warm"][n] < min(got["fork"][n],
+                                        got["cold"].get(n, np.inf))
+                   for n in CLUSTER_BUCKETS):
+            raise AssertionError(f"{fn}: warm is not below fork and cold: {got}")
+
+    # 3. the simulator with the measured table as its oracle
+    class CountingTable:
+        def __init__(self):
+            self.lookups = self.hits = 0
+
+        def service_s(self, fn, kind, input_len):
+            self.lookups += 1
+            t = table.service_s(fn, kind, input_len)
+            self.hits += t is not None
+            return t
+
+    trace = make_trace({"static-m": 4.0, "lora-m": 4.0}, 30.0,
+                       {"static-m": "mail", "lora-m": "conv"}, seed=0)
+    sims = {}
+    for policy in CLUSTER_POLICIES:
+        counter = CountingTable()
+        res = ClusterSim(SchedulerConfig(n_gpus=2, policy=policy,
+                                         dk=policy == "tidal-dk",
+                                         keep_alive_s=2.0, hw=hw,
+                                         measured=counter),
+                         profiles).run(trace)
+        served = [r for r in res if not (r.rejected or r.shed)]
+        if len(res) != len(trace):
+            raise AssertionError(f"{policy}: {len(res)} results for "
+                                 f"{len(trace)} requests")
+        if counter.lookups != len(served) or counter.hits != counter.lookups:
+            raise AssertionError(f"{policy}: {counter.hits} of "
+                                 f"{counter.lookups} lookups from the table, "
+                                 f"{len(served)} served")
+        sims[policy] = {**summarize(res), "lookups": counter.lookups,
+                        "table_hits": counter.hits}
+        print(json.dumps({"cluster_sim": policy, **sims[policy]}))
+    out = {"instances": row, "measure_s": measure_s,
+           "measure_launches": m_counts, "service_times": service,
+           "h2d_gb_per_s": h2d / 1e9, "trace_requests": len(trace),
+           "sim": sims}
+    rt.evict()
     return out
 
 
@@ -4220,13 +4455,15 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                    tidal_row: dict, tenants: dict, ssm: dict,
                    big: tuple = (), xlstm: dict | None = None,
                    whisper: dict | None = None, train: dict | None = None,
-                   tp: dict | None = None) -> list:
+                   tp: dict | None = None, cluster: dict | None = None) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
     shapes, with its launches from the serving phases (3, 5, 6, 7 and 8,
     the serving, engine and FaaS passes of ``big``: phases 9, 10 and 11,
     those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13),
     the training runs of phase 14 (``train``; the backward kernels run
-    there only) and every rank's invocations of phase 15 (``tp``)."""
+    there only), every rank's invocations of phase 15 (``tp``) and the
+    two instances' invocations and service-time measurements of phase 16
+    (``cluster``)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
@@ -4257,6 +4494,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                     rows += [{"pass": p["pass"], "launches": counts}
                              for r in p["requests"]
                              for counts in r["launches_per_rank"]]
+    if cluster is not None:
+        rows += [cluster["instances"], {"launches": cluster["measure_launches"]}]
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
@@ -4380,14 +4619,17 @@ def main(argv=None) -> int:
     train = timed("train", phase_train, device)
     kernels += train["kernels"]
     tp = timed("tp", phase_tp, device)
+    cluster = timed("cluster", phase_cluster, device, h2d)
     summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm,
-                             (llama, moe, deepseek), xlstm, whisper, train, tp)
+                             (llama, moe, deepseek), xlstm, whisper, train, tp,
+                             cluster)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
          "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
          "llama": llama, "moe": moe, "deepseek": deepseek, "xlstm": xlstm,
-         "whisper": whisper, "train": train, "tp": tp, "summary": summary,
+         "whisper": whisper, "train": train, "tp": tp, "cluster": cluster,
+         "summary": summary,
          "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))
     print(f"total {time.perf_counter() - t0:.1f} s")

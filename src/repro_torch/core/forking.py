@@ -23,8 +23,11 @@ output, so the port has no counterpart.
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterable
 
 import torch
+
+from repro_torch.utils import named_leaves
 
 
 _BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -55,6 +58,13 @@ class DonationGuard:
         """Paths whose buffer changed content or storage (should be empty)."""
         return [k for k, v in buffers.items() if k in self.checksums and (
             self.ptrs[k] != v.data_ptr() or self.checksums[k] != _checksum(v))]
+
+
+def guarded_paths(params, template_paths: Iterable[str]) -> dict:
+    """``{path: tensor}`` of the leaves of ``params`` a template owns (the
+    buffers a :class:`DonationGuard` should watch)."""
+    tp = set(template_paths)
+    return {path: leaf for path, leaf in named_leaves(params) if path in tp}
 
 
 def copy_for_write(t: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,9 @@ A template holds, per LLM function:
   3. per-weight init DFG fingerprints, so dynamic components (LoRA) are
      excluded incrementally: one trace cannot prove a weight static.
 
-The port's copy of ``repro.core.template``; Eq. 1 is :func:`prefetch_bytes`
-(``repro.core.costmodel.prefetch_bytes``) over the port's H100 profile.
+The port's copy of ``repro.core.template``; Eq. 1 is the cost model's
+:func:`~repro_torch.core.costmodel.prefetch_bytes` over the port's H100
+profile.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from repro_torch.core.costmodel import prefetch_bytes
 from repro_torch.core.merging import plan_groups
 from repro_torch.core.tracing import AccessTrace
 from repro_torch.hw import HardwareProfile
@@ -27,11 +29,6 @@ from repro_torch.hw import HardwareProfile
 # tensors (Llama2-70B: 1200 -> 300); the same 4:1 reduction by default
 MERGE_THRESHOLD = 512
 MERGE_MAX_GROUPS = 300
-
-
-def prefetch_bytes(model_bytes: int, ttft_s: float, hw: HardwareProfile) -> int:
-    """M_prefetch = max(M_model - T_TTFT * B_host->device, 0)   (paper Eq. 1)."""
-    return int(max(model_bytes - ttft_s * hw.host_to_device_bw, 0))
 
 
 @dataclasses.dataclass

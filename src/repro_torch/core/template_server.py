@@ -31,10 +31,16 @@ initializer gives the rank's leaves: ``Model.init_params`` and
 ``set_resident_bytes`` and ``observe_ttft`` are device ops of the
 tensor-parallel channel, so every rank's residency follows the same
 decisions.  ``ForkStats`` then reports this rank's bytes, and the
-controller's copy lists every rank's under ``per_rank``.  Placing one
-function on several mesh slices (the JAX server's ``_resident_for`` and
-``_invalidate_placements``) comes with multi-instance serving, ROADMAP
-Queue 1, item 8.
+controller's copy lists every rank's under ``per_rank``.
+
+Several serving instances fork one function onto their devices
+(``fork(..., device=)``, the counterpart of the JAX server's per-call
+mesh slice): the resident prefix is placed once per (function, device)
+and reused by every later fork there (``_resident_for``), and dropped
+whenever residency changes (``_invalidate_placements``).  Instances on
+the function's own device share the one set of resident buffers, so
+``device_bytes_used`` counts them once; ``model_on`` gives the
+function's model on another device.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from repro_torch.core.tracing import trace_weight_access, weight_sizes
 from repro_torch.distributed import sharding
 from repro_torch.distributed.group import mirrored
 from repro_torch.hw import H100_SXM, HardwareProfile
+from repro_torch.models.registry import get_model, resolve_device
 from repro_torch.utils import named_leaves, tensor_nbytes
 
 
@@ -92,6 +99,10 @@ class TemplateServer:
         self.device_cache: dict = {}                  # fn -> path -> tensor
         self._leaf_order: dict = {}                   # fn -> [path, ...]
         self._leaf_specs: dict = {}                   # fn -> path -> spec
+        # (fn, device) -> resident buffers placed on another device than
+        # the function's model's, and the function's model there
+        self._placed_resident: dict = {}
+        self._placed_models: dict = {}
         self._functions: dict = {}
 
     def mirror_digest(self) -> str:
@@ -110,10 +121,42 @@ class TemplateServer:
                 model, self.plan.mesh)
         return self._leaf_specs[fn_name]
 
+    def model_on(self, fn_name: str, device) -> object:
+        """The function's model on ``device``: its own model when it lives
+        there, else one copy per device (same config and plan)."""
+        model = self._functions[fn_name].model
+        device = resolve_device(device)
+        if device == model.device:
+            return model
+        key = (fn_name, device)
+        if key not in self._placed_models:
+            self._placed_models[key] = get_model(model.cfg, device=device,
+                                                 plan=model.plan)
+        return self._placed_models[key]
+
+    def _resident_for(self, fn_name: str, device: torch.device) -> dict:
+        """The resident prefix as shared device buffers on ``device``:
+        placed once per (function, device) and reused by every later fork
+        there.  On the function's own device, the template's buffers."""
+        base = self.device_cache.get(fn_name, {})
+        if device == self._functions[fn_name].model.device:
+            return dict(base)
+        key = (fn_name, device)
+        if key not in self._placed_resident:
+            self._placed_resident[key] = {path: _to_device(t, device)
+                                          for path, t in base.items()}
+        return dict(self._placed_resident[key])
+
+    def _invalidate_placements(self, fn_name: str) -> None:
+        for key in [k for k in self._placed_resident if k[0] == fn_name]:
+            del self._placed_resident[key]
+
     # ------------------------------------------------------------------
     def device_bytes_used(self) -> int:
-        return sum(tensor_nbytes(t) for d in self.device_cache.values()
-                   for t in d.values())
+        """Bytes of resident buffers on every device, each buffer once."""
+        placed = [self.device_cache, self._placed_resident]
+        return sum(tensor_nbytes(t) for cache in placed
+                   for d in cache.values() for t in d.values())
 
     def registered_bytes(self) -> int:
         """Host bytes the pools hold page-locked in place (PyTorch's pinned
@@ -151,6 +194,8 @@ class TemplateServer:
         self.templates[fn.name] = template
         self._functions[fn.name] = fn
         self._leaf_specs.pop(fn.name, None)
+        for key in [k for k in self._placed_models if k[0] == fn.name]:
+            del self._placed_models[key]
         self._leaf_order[fn.name] = [path for path, _ in trace.order]
 
         # host pool: materialize static weights once, in access order,
@@ -188,6 +233,7 @@ class TemplateServer:
         return out
 
     def _refresh_residency(self, fn_name: str) -> None:
+        self._invalidate_placements(fn_name)
         pool = self.host_pool[fn_name]
         want = self._resident_leaves(fn_name)
         cache = self.device_cache.setdefault(fn_name, {})
@@ -205,21 +251,25 @@ class TemplateServer:
 
     # ------------------------------------------------------------------
     @mirrored(register=("return.0",), gather="return.1")
-    def fork(self, fn_name: str, event: dict, plan=None) -> tuple:
+    def fork(self, fn_name: str, event: dict, plan=None,
+             device=None) -> tuple:
         """Adaptive state forking for one invocation.
 
         Returns ``(ForkSession, ForkStats)``: resident tensors are shared,
         dynamic weights replayed, and the rest stream in access order on
         the streamer's thread.  Under a plan each rank forks its shard;
         ``plan`` (the JAX signature's per-call mesh slice) must be the
-        server's."""
+        server's.  ``device`` forks onto another device than the
+        function's model's (another serving instance's card): the session
+        then runs ``model_on(fn_name, device)``."""
         if plan is not None and plan.tp > 1 and plan != self.plan:
             raise NotImplementedError(
-                "forking onto another mesh slice comes with multi-instance "
-                "serving (ROADMAP Queue 1, item 8)")
+                "forking onto another rank group comes with several "
+                "tensor-parallel instances (ROADMAP Queue 1, item 8)")
         t0 = time.perf_counter()
         fn = self._functions[fn_name]
-        device = fn.model.device
+        model = self.model_on(fn_name, device or fn.model.device)
+        device = model.device
         template = self.templates[fn_name]
         pool = self.host_pool[fn_name]
 
@@ -228,10 +278,12 @@ class TemplateServer:
         for path in new_dyn:         # newly dynamic: out of pool and cache
             pool.pop(path, None)
             self.device_cache.get(fn_name, {}).pop(path, None)
+        if new_dyn:
+            self._invalidate_placements(fn_name)
         traced_by_path = dict(named_leaves(traced))
 
         stats = ForkStats(new_dynamic=tuple(sorted(new_dyn)))
-        resident = dict(self.device_cache.get(fn_name, {}))
+        resident = self._resident_for(fn_name, device)
         stats.reused_bytes = sum(tensor_nbytes(t) for t in resident.values())
 
         # dynamic weights: replay the DFG now (request-specific work)
@@ -263,7 +315,7 @@ class TemplateServer:
 
         streamer = WeightStreamer(entries, resident, dynamic,
                                   device=device).start()
-        session = ForkSession(fn.model, streamer)
+        session = ForkSession(model, streamer)
         stats.fork_s = time.perf_counter() - t0
         return session, stats
 

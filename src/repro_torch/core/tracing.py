@@ -152,3 +152,7 @@ def coverage(params, trace: AccessTrace) -> tuple:
     got = {p for p, _ in trace.order}
     return got, all_paths - got
 
+
+
+def total_order_bytes(params, trace: AccessTrace) -> int:
+    return sum(weight_sizes(params, trace.order).values())

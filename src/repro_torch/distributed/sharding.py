@@ -62,7 +62,9 @@ DATA = "data"
 @dataclasses.dataclass(frozen=True)
 class ServingMesh:
     """The serving mesh: ``data`` instances of ``model`` ranks each.
-    Only ``data = 1`` serves in the port (ROADMAP Queue 1, item 8)."""
+    ``FaaSRuntime`` serves ``data`` instances at ``model = 1`` or one
+    tensor-parallel instance at ``data = 1``; both above 1 (one rank
+    group per instance) is ROADMAP Queue 1, item 8."""
     data: int = 1
     model: int = 1
 

@@ -49,10 +49,19 @@ each (``repro_torch.distributed.spawn``; ``--backend``, default gloo,
 which also lets ranks share one card: NCCL refuses two ranks on one
 device).  Every rank draws its shard of the weights from the seed; rank
 0 runs the runtime and prints, the others serve its device ops.  The
-dense family only; ``--lora`` under ``--tp`` and ``--instances`` exit
-with a message naming their ROADMAP item.
+dense family only; ``--lora`` under ``--tp`` exits with a message
+naming its ROADMAP item.
+
+``--instances K`` serves K instances (``ServingMesh(K, 1)``), instance i
+on ``cuda:(i mod device_count)`` (K instances share one card), each with
+its own KV pools and warm engines; new engines go where the function is
+already warm unless that instance is busier (locality routing).  With
+``--tp > 1`` it exits: several tensor-parallel instances are ROADMAP
+Queue 1, item 8.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 \
+        --device cpu --layers 2
 """
 
 from __future__ import annotations
@@ -66,7 +75,7 @@ import torch
 
 from repro_torch.core import api as tidal
 from repro_torch.data.pipeline import make_prompts
-from repro_torch.distributed import sharding, spawn
+from repro_torch.distributed import ServingMesh, sharding, spawn
 from repro_torch.models import transformer
 from repro_torch.models.registry import ARCH_IDS, get_config, get_model
 from repro_torch.models.config import reduced
@@ -76,8 +85,6 @@ from repro_torch.runtime.faas import FaaSRuntime
 from repro_torch.runtime.gateway import InvocationRequest
 from repro_torch.utils import fmt_bytes, tree_bytes
 
-LATER = {"instances": "multi-instance serving with locality routing "
-                      "(ROADMAP Queue 1, item 8)"}
 # the projection --lora adapts: the attention query weights of every
 # layer (dense, moe) or of zamba's one shared attention block; xlstm has
 # no attention, and the reference's --lora cannot target it either
@@ -169,12 +176,14 @@ def main(argv=None):
                     help="tensor-parallel ranks of the one instance")
     ap.add_argument("--backend", default="gloo",
                     help="the ranks' torch.distributed backend (gloo or nccl)")
-    ap.add_argument("--instances", type=int, default=1)
+    ap.add_argument("--instances", type=int, default=1,
+                    help="serving instances (a mesh's data axis), with "
+                         "locality routing")
     args = ap.parse_args(argv)
-    for flag, what in LATER.items():
-        if getattr(args, flag) != ap.get_default(flag):
-            sys.exit(f"--{flag.replace('_', '-')}: {what} is not in the "
-                     "PyTorch port yet")
+    if args.instances > 1 and args.tp > 1:
+        sys.exit("--instances with --tp > 1: several tensor-parallel "
+                 "instances (one rank group per instance) are ROADMAP "
+                 "Queue 1, item 8, not in the PyTorch port yet")
     if args.tp > 1 and args.lora:
         sys.exit("--lora: LoRA under tensor parallelism is ROADMAP Queue 1, "
                  "item 7")
@@ -247,12 +256,15 @@ def serve(args, group=None) -> None:
         print(f"tensor parallel: {group.size} ranks ({group.backend}), "
               f"{model.local_cfg.n_heads} query / "
               f"{model.local_cfg.n_kv_heads} KV heads per rank")
+    mesh = group.mesh if group is not None else ServingMesh(args.instances, 1)
     rt = FaaSRuntime(n_slots=args.slots,
                      max_len=args.prompt_len + args.max_new,
                      keep_alive_s=args.keep_alive, trace_seq=args.prompt_len,
                      chunk_tokens=args.chunk_tokens, kv_dtype=args.kv_dtype,
-                     mesh=None if group is None else group.mesh,
-                     device=device)
+                     mesh=mesh, device=device)
+    if len(rt.instances) > 1:
+        print(f"instances: {len(rt.instances)} on "
+              f"{[str(inst.device) for inst in rt.instances]}")
     if args.predictive:
         ControlPlane(rt, pinned_bytes_budget=args.prefix_budget,
                      prewarm_horizon_s=args.prewarm_horizon)
@@ -301,6 +313,10 @@ def serve(args, group=None) -> None:
               f"e2e={res.e2e_s*1e3:7.1f}ms {detail} "
               f"tokens={[int(t) for t in res.tokens[:4]]}...")
 
+    if len(rt.instances) > 1:
+        placed = collections.Counter(w.instance for w in rt._engines.values())
+        print(f"warm engines per instance: "
+              f"{[placed[inst.idx] for inst in rt.instances]}")
     p50, p95 = (np.percentile(ttfts, q) * 1e3 if ttfts else float("nan")
                 for q in (50, 95))
     print(f"\np50 ttft {p50:.1f}ms  p95 {p95:.1f}ms  kinds={dict(kinds)}  "

@@ -293,3 +293,36 @@ def get_model(arch_or_cfg, device="cuda", plan=None) -> Model:
 
 def get_smoke_model(arch: str, device="cuda", plan=None, **extra) -> Model:
     return Model(reduced(get_config(arch), **extra), device, plan)
+
+
+# The ten architectures of the cost tables, in the reference registry's
+# order (its ARCH_IDS[:10]; the llama family is the paper's own and stays out)
+CELL_ARCHS = ("xlstm-1.3b", "gemma-2b", "qwen3-14b", "qwen2.5-32b",
+              "smollm-135m", "zamba2-2.7b", "phi3.5-moe-42b-a6.6b",
+              "deepseek-v3-671b", "chameleon-34b", "whisper-medium")
+
+# Shape set assigned to the LM pool (seq_len, global_batch).
+SHAPES = {
+    "train_4k": dict(mode="train", seq=4096, batch=256),
+    "prefill_32k": dict(mode="prefill", seq=32768, batch=32),
+    "decode_32k": dict(mode="decode", seq=32768, batch=128),
+    "long_500k": dict(mode="decode", seq=524288, batch=1),
+}
+
+
+def long_context_capable(cfg: ModelConfig) -> bool:
+    """long_500k needs sub-quadratic attention: ssm/hybrid only."""
+    return cfg.attention_kind in ("recurrent", "hybrid")
+
+
+def cells(archs=None) -> list[tuple[str, str]]:
+    """All (arch, shape) cells of the analytic cost tables, with the
+    long_500k skips of quadratic-attention archs."""
+    out = []
+    for a in archs or CELL_ARCHS:
+        cfg = get_config(a)
+        for s in SHAPES:
+            if s == "long_500k" and not long_context_capable(cfg):
+                continue
+            out.append((a, s))
+    return out

@@ -38,9 +38,11 @@ Wiring::
               _prune with per-function predictive keep-alive
 
 Cluster-simulator traces are the training/eval substrate: the same
-recorded trace replays through the JAX package's simulator for policy
-search and, via :func:`trace_schedule`, through
-``InvocationGateway.replay`` for the measured gate.
+recorded trace (a JSONL file of ``core.scheduler.export_trace``, read back
+by ``import_trace``) replays through the port's simulator
+(``core.scheduler.ClusterSim``) for policy search and, via
+:func:`trace_schedule`, through ``InvocationGateway.replay`` for the
+measured gate.
 """
 
 from __future__ import annotations
@@ -556,9 +558,9 @@ def trace_schedule(trace, prompt_for, max_new_tokens: int = 8,
     priorities carried through.
 
     Args:
-        trace: records read by attribute (``arrival_s``, ``fn_name``,
-            ``deadline_s``, ``priority``), such as the JAX package's
-            ``SimRequest``s; nothing here imports the simulator.
+        trace: the port's ``core.scheduler.SimRequest`` records (any
+            record with ``arrival_s``, ``fn_name``, ``deadline_s`` and
+            ``priority`` attributes).
         prompt_for: callable ``record -> int32 tokens`` (the sim only
             records ``input_len``; live replay needs real tokens).
         max_new_tokens: decode budget per request.

@@ -1,5 +1,5 @@
 """FaaS front end over the TIDAL stack: the port of
-``repro.runtime.faas.FaaSRuntime`` for one serving instance.
+``repro.runtime.faas.FaaSRuntime``.
 
 The front door is the async gateway: ``submit(InvocationRequest)`` returns
 an :class:`~repro_torch.runtime.gateway.InvocationHandle` ticket (stream
@@ -32,17 +32,28 @@ A :class:`~repro_torch.runtime.controlplane.ControlPlane` attached with
 ``attach_control_plane`` bakes runtime-observed hot prompt prefixes
 (``bake_runtime_prefix``), pre-forks engines ahead of forecast arrivals
 and sets each function's keep-alive.  :func:`measure_service_times`
-turns wall-clock cold/fork/warm measurements into the cluster
-scheduler's oracle.
+turns wall-clock cold/fork/warm measurements into the oracle of the
+cluster scheduler (``core.scheduler.SchedulerConfig.measured``).
+
+``mesh=ServingMesh(data, 1)`` serves ``data`` INSTANCES (TIDAL §6 on one
+host): instance ``i`` runs on ``cuda:(i mod device_count)`` (on the CPU
+every instance runs there), so two instances share a one-card machine.
+Every instance owns a KV pool per model (allocated once, engines borrow
+slots from it), its own warmed entry points and its own baked prefixes;
+instances on one device share the template server's resident buffers.
+New engines are placed by the locality policy ``core.scheduler.
+ClusterSim`` simulates: prefer the instance already warm for the
+function unless it holds more than ``locality_max_extra_load`` engines
+over the least-loaded instance.
 
 ``mesh=ServingMesh(1, tp)`` serves one tensor-parallel instance: the
 runtime is the controller rank of a ``distributed.group`` of ``tp`` ranks
 (``spawn``), the only rank with host state, and its functions' models
 are built under the group's plan.  Every device op below the engines
 runs on every rank (``distributed.group.mirrored``).  Left out, raising
-``NotImplementedError`` with its ROADMAP item: a mesh with ``data > 1``,
-several instances with locality routing (Queue 1, item 8).  An enc-dec
-(whisper) function deploys, unwarmed, and its invocation raises
+``NotImplementedError`` with its ROADMAP item: a mesh with ``data > 1``
+and ``model > 1``, one rank group per instance (Queue 1, item 8).  An
+enc-dec (whisper) function deploys, unwarmed, and its invocation raises
 ``NotImplementedError`` where the continuous engine is built, as in the
 JAX runtime.
 """
@@ -57,12 +68,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import api as tidal
 from repro_torch.core.api import LLMFunction
 from repro_torch.core.prewarm import ExecutableCache, ProcessPool, zero_params
 from repro_torch.core.template_server import TemplateServer
 from repro_torch.distributed.group import current_group
 from repro_torch.models.adapters import check_bank_config, make_adapter_bank
-from repro_torch.models.registry import resolve_device
+from repro_torch.models.registry import get_smoke_model, resolve_device
 from repro_torch.runtime.continuous import ContinuousBatchingEngine
 from repro_torch.runtime.gateway import (InvocationGateway, InvocationHandle,
                                          InvocationRequest)
@@ -70,7 +82,6 @@ from repro_torch.runtime.kv_pool import KVCachePool, PagedKVCachePool
 from repro_torch.runtime.prefix import PrefixIndex
 
 KINDS = ("warm", "fork", "cold")
-INSTANCE = 0                     # the one serving instance (data = 1)
 
 
 def _later(what: str, item: int) -> NotImplementedError:
@@ -79,25 +90,49 @@ def _later(what: str, item: int) -> NotImplementedError:
         f"item {item})")
 
 
-def _controller_plan(mesh):
-    """The group's plan for ``mesh`` (None: one device).  The runtime runs
-    on the controller rank of a group of ``mesh.model`` ranks."""
-    if mesh is None:
-        return None
-    if mesh.shape["data"] != 1:
-        raise _later("several serving instances over a mesh's data axis, "
-                     "with locality routing,", 8)
-    if mesh.shape["model"] == 1:
-        return None
+def _controller_plan(tp: int):
+    """The group's plan for ``tp`` model ranks.  The runtime runs on the
+    controller rank of a group of ``tp`` ranks."""
     group = current_group()
-    if group is None or group.size != mesh.shape["model"]:
+    if group is None or group.size != tp:
         raise RuntimeError(
-            f"a mesh of {mesh.shape['model']} model ranks serves inside a "
-            "group of as many ranks (repro_torch.distributed.spawn)")
+            f"a mesh of {tp} model ranks serves inside a group of as many "
+            "ranks (repro_torch.distributed.spawn)")
     if not group.is_controller:
         raise RuntimeError("FaaSRuntime runs on the controller rank; the "
                            "workers call group.serve()")
     return group.plan
+
+
+@dataclasses.dataclass
+class _Instance:
+    """One serving instance: a device, or the ranks of one tensor-parallel
+    group (``plan``)."""
+    idx: int
+    device: torch.device
+    plan: Optional[object] = None
+
+
+def _make_instances(mesh, device: torch.device) -> list:
+    """One instance per ``data`` slice of ``mesh`` (one without a mesh)."""
+    if mesh is None:
+        return [_Instance(0, device)]
+    if tuple(mesh.axis_names) != ("data", "model"):
+        raise ValueError(
+            "serving mesh must have axes ('data', 'model'): one instance "
+            f"per data slice, tensor-parallel over model (got "
+            f"{mesh.axis_names})")
+    data, tp = mesh.shape["data"], mesh.shape["model"]
+    if data > 1 and tp > 1:
+        raise _later("several tensor-parallel instances (a mesh with "
+                     "data > 1 and model > 1: one rank group per instance)", 8)
+    if tp > 1:
+        return [_Instance(0, device, _controller_plan(tp))]
+    if device.type != "cuda":
+        return [_Instance(i, device) for i in range(data)]
+    count = torch.cuda.device_count()
+    return [_Instance(i, torch.device("cuda", (device.index + i) % count))
+            for i in range(data)]
 
 
 def _engine_key(fn_name: str, event: dict) -> tuple:
@@ -108,6 +143,7 @@ def _engine_key(fn_name: str, event: dict) -> tuple:
 class _WarmEngine:
     engine: ContinuousBatchingEngine
     last_used_s: float
+    instance: int = 0
     # shared-adapter engines: fn_name -> bank row already loaded, and the
     # next free row (0 is the null adapter, never assigned)
     adapter_ids: dict = dataclasses.field(default_factory=dict)
@@ -115,19 +151,22 @@ class _WarmEngine:
 
 
 class FaaSRuntime:
-    """Serving runtime for deployed LLM functions on one device, or on the
-    ranks of one tensor-parallel instance (``mesh``).
+    """Serving runtime for deployed LLM functions on one device, on
+    several instances (``mesh=ServingMesh(data, 1)``) or on the ranks of
+    one tensor-parallel instance (``mesh=ServingMesh(1, tp)``).
 
     ``device`` defaults to the card and raises without one; pass
     ``device="cpu"`` to serve on the CPU.  Every deployed function's model
-    must live on that device (under ``mesh``, the controller rank's)."""
+    must live on that device (instance 0's; under a tensor-parallel mesh,
+    the controller rank's)."""
 
     def __init__(self, server: Optional[TemplateServer] = None,
                  n_slots: int = 4, max_len: int = 64,
                  keep_alive_s: float = 60.0, max_warm_engines: int = 8,
                  prewarm: bool = True, pool_workers: int = 2,
                  trace_seq: int = 32, page_size: int = 8,
-                 mesh=None, gateway_quantum: int = 2,
+                 mesh=None, locality_max_extra_load: int = 2,
+                 gateway_quantum: int = 2,
                  chunk_tokens: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
                  max_retries: int = 2, retry_backoff_s: float = 0.0,
@@ -135,9 +174,11 @@ class FaaSRuntime:
                  brownout_threshold: float = 0.75,
                  brownout_max_new: Optional[int] = None,
                  device="cuda"):
-        self.plan = _controller_plan(mesh)
         self.mesh = mesh
         self.device = resolve_device(device)
+        self.locality_max_extra_load = locality_max_extra_load
+        self.instances = _make_instances(mesh, self.device)
+        self.plan = self.instances[0].plan
         self.server = server or TemplateServer(trace_batch=1,
                                                trace_seq=trace_seq,
                                                plan=self.plan)
@@ -157,12 +198,13 @@ class FaaSRuntime:
         self._engines: dict = {}
         self._fn_keys: dict = {}
         self._invoked: set = set()
-        # one KV pool per model: allocated once and lent to engines slot
-        # by slot; eviction returns every borrowed slot and page
+        # one KV pool per (instance, model): allocated once and lent to
+        # engines slot by slot; eviction returns every borrowed slot and page
         self._pools: dict = {}
         # template-baked prompt-prefix KV: one pinned PrefixHandle and one
-        # PrefixIndex per (function, event key); static functions share
-        # one bake (event key ()), dynamic ones bake per event at fork
+        # PrefixIndex per (function, instance, event key); static functions
+        # share one bake per instance (event key ()), dynamic ones bake per
+        # event at fork
         self._prefix_handles: dict = {}
         self._prefix_indexes: dict = {}
         self._baked_events: dict = {}
@@ -184,8 +226,21 @@ class FaaSRuntime:
             brownout_max_new=brownout_max_new)
 
     # ------------------------------------------------------------------
-    def _pool_for(self, model) -> object:
-        key = (INSTANCE, id(model))
+    def _model_on(self, fn_name: str, inst: _Instance):
+        """The function's model as instance ``inst`` runs it."""
+        return self.server.model_on(fn_name, inst.device)
+
+    def _fork(self, fn_name: str, event: dict, inst: _Instance) -> tuple:
+        """Fork the function onto instance ``inst`` (its device)."""
+        if inst.device == self.functions[fn_name].model.device:
+            return self.server.fork(fn_name, event)
+        return self.server.fork(fn_name, event, device=inst.device)
+
+    def _pool_for(self, model, inst: Optional[_Instance] = None) -> object:
+        """The KV pool of ``model`` on instance ``inst`` (default: the
+        first)."""
+        inst = inst or self.instances[0]
+        key = (inst.idx, id(model))
         if key not in self._pools:
             if model.supports_paged_kv:
                 self._pools[key] = PagedKVCachePool(
@@ -255,13 +310,17 @@ class FaaSRuntime:
                              template_prompt=template_prompt)
         if template_prompt is not None:
             self._baked_events[fn.name] = dict(example_event or {})
-            self._bake_template_prefix(fn.name)
+            # the deploy-time bake is on the first instance; the others
+            # bake the first time the function forks onto them
+            self._bake_template_prefix(fn.name, self.instances[0])
         if self.prewarm and not fn.model.is_encdec:
             # enc-dec serves through the sequential Engine only, so there
             # are no continuous-engine entry points to warm (as in the JAX
             # runtime); its invocations raise where that engine is built.
-            # One zero-filled parameter set per deploy, built on first need
-            zeros = functools.cache(lambda: zero_params(fn.model))
+            # One zero-filled parameter set per device, built on first need
+            zeros = functools.cache(
+                lambda device: zero_params(self.server.model_on(fn.name,
+                                                                device)))
             self._fn_keys[fn.name] = self._prewarm_engine_fns(
                 fn, prewarm_seq, zeros)
             if template_prompt is not None or (
@@ -273,34 +332,37 @@ class FaaSRuntime:
             self.workers.prewarm_for_functions(self._fn_keys)
 
     # ------------------------------------------------------------------
-    def _prefix_key(self, fn_name: str, event: Optional[dict]) -> tuple:
-        """Bake identity: static functions share one bake, dynamic ones
-        bake per event (the event's dynamic weights change the KV)."""
+    def _prefix_key(self, fn_name: str, inst: _Instance,
+                    event: Optional[dict]) -> tuple:
+        """Bake identity: static functions share one bake per instance,
+        dynamic ones bake per event (the event's dynamic weights change
+        the KV)."""
         fn = self.functions[fn_name]
         ekey = () if fn.static else tuple(sorted(dict(event or {}).items()))
-        return (fn_name, INSTANCE, ekey)
+        return (fn_name, inst.idx, ekey)
 
-    def _bake_template_prefix(self, fn_name: str, params_fn=None,
+    def _bake_template_prefix(self, fn_name: str, inst: _Instance,
+                              params_fn=None,
                               event: Optional[dict] = None) -> None:
         """Prefill the function's template prompt once and pin its KV pages
-        in the shared arena, registering the prefix for admission-time
-        matching.  ``params_fn`` supplies already-forked params (the engine
+        in the instance's shared arena, registering the prefix for
+        admission-time matching.  ``params_fn`` supplies already-forked params (the engine
         being built), so a per-event bake does not stream the model a
         second time; without it (the deploy-time bake) it forks its own."""
         if fn_name not in self._baked_events:
             return
         if event is None:
             event = self._baked_events[fn_name]
-        key = self._prefix_key(fn_name, event)
+        key = self._prefix_key(fn_name, inst, event)
         prompt = self.server.template_prompts.get(fn_name)
         if key in self._prefix_handles or prompt is None:
             return
-        model = self.functions[fn_name].model
-        pool = self._pool_for(model)
+        model = self._model_on(fn_name, inst)
+        pool = self._pool_for(model, inst)
         if params_fn is not None:
             params = params_fn()
         else:
-            params = self.server.fork(fn_name, dict(event))[0].params()
+            params = self._fork(fn_name, dict(event), inst)[0].params()
         _, cache = model.prefill(
             params, {"tokens": prompt[None, :]},
             model.make_cache(1, pool.padded_len))
@@ -310,17 +372,20 @@ class FaaSRuntime:
         self._prefix_handles[key] = handle
 
     def _prefix_index_for(self, fn_name: str, event: Optional[dict],
+                          inst: _Instance,
                           params_fn=None) -> Optional[PrefixIndex]:
-        """The prefix index an engine of (function, event) consults; a
-        dynamic function bakes its template lazily per event."""
+        """The prefix index an engine of (function, event) consults on
+        instance ``inst``; a dynamic function bakes its template lazily
+        per (event, instance)."""
         if fn_name in self._baked_events:
-            self._bake_template_prefix(fn_name, params_fn=params_fn,
+            self._bake_template_prefix(fn_name, inst, params_fn=params_fn,
                                        event=event)
-        return self._prefix_indexes.get(self._prefix_key(fn_name, event))
+        return self._prefix_indexes.get(self._prefix_key(fn_name, inst,
+                                                         event))
 
     def release_template_prefix(self, fn_name: str) -> int:
-        """Unpin the function's baked prefix pages (they free once no live
-        slot aliases them) and stop baking.  Returns handles dropped."""
+        """Unpin the function's baked prefix pages on every instance (they
+        free once no live slot aliases them) and stop baking.  Returns handles dropped."""
         self._baked_events.pop(fn_name, None)
         keys = [k for k in self._prefix_handles if k[0] == fn_name]
         for k in keys:
@@ -341,19 +406,24 @@ class FaaSRuntime:
         control_plane.bind(self)
 
     def runtime_prefix_nbytes(self, fn_name: str, n_tokens: int) -> int:
-        """Pinned bytes a runtime bake of ``n_tokens`` would cost (the
-        control plane budgets before it bakes)."""
-        pool = self._pool_for(self.functions[fn_name].model)
+        """Pinned bytes a runtime bake of ``n_tokens`` would cost on the
+        function's preferred instance (the control plane budgets before it
+        bakes)."""
+        inst = self._pick_instance(fn_name)
+        pool = self._pool_for(self._model_on(fn_name, inst), inst)
         return pool.blocks_for(n_tokens) * pool.page_nbytes()
 
-    def _params_for_bake(self, fn_name: str, ekey: tuple, event: dict):
-        """Params to prefill a runtime bake under: a live warm engine's
-        (static functions accept any event's engine) or a fresh fork's."""
+    def _params_for_bake(self, fn_name: str, inst: _Instance, ekey: tuple,
+                         event: dict):
+        """Params to prefill a runtime bake under on instance ``inst``: a
+        live warm engine's there (static functions accept any event's
+        engine) or a fresh fork's."""
         fn = self.functions[fn_name]
         for k, w in self._engines.items():
-            if k[0] == fn_name and (fn.static or k[1] == ekey):
+            if k[0] == fn_name and w.instance == inst.idx and (
+                    fn.static or k[1] == ekey):
                 return w.engine.params()
-        return self.server.fork(fn_name, dict(event))[0].params()
+        return self._fork(fn_name, dict(event), inst)[0].params()
 
     def bake_runtime_prefix(self, fn_name: str, tokens,
                             event: Optional[dict] = None):
@@ -387,7 +457,8 @@ class FaaSRuntime:
                 f"{fn_name}: runtime prefix of {n} tokens leaves no "
                 f"suffix room within max_len={self.max_len}")
         event = dict(event or {})
-        key = self._prefix_key(fn_name, event)
+        inst = self._pick_instance(fn_name)
+        key = self._prefix_key(fn_name, inst, event)
         index = self._prefix_indexes.get(key)
         if index is not None:
             # probe with one sentinel token appended: a full-length match
@@ -396,9 +467,9 @@ class FaaSRuntime:
             hit = index.match(probe)
             if hit is not None and hit[1] >= n:
                 return None
-        model = fn.model
-        pool = self._pool_for(model)
-        params = self._params_for_bake(fn_name, key[2], event)
+        model = self._model_on(fn_name, inst)
+        pool = self._pool_for(model, inst)
+        params = self._params_for_bake(fn_name, inst, key[2], event)
         _, cache = model.prefill(
             params, {"tokens": tokens[None, :]},
             model.make_cache(1, pool.padded_len))
@@ -407,7 +478,8 @@ class FaaSRuntime:
         index.register(handle)
         self._runtime_prefix_handles.setdefault(key, []).append(handle)
         for k, w in self._engines.items():
-            if k[0] == fn_name and (() if fn.static else k[1]) == key[2]:
+            if (k[0] == fn_name and w.instance == inst.idx
+                    and (() if fn.static else k[1]) == key[2]):
                 w.engine.prefix_index = index
         return handle
 
@@ -464,8 +536,9 @@ class FaaSRuntime:
     def stats(self) -> dict:
         """Per-function service-class counters (cold/fork/warm admission
         kinds; terminal done/reuse_hits/shed/failed/cancelled/rejected)
-        with derived rates, the gateway's supervision stats and, when one
-        is attached, the control plane's."""
+        with derived rates, each instance's device and warm engines, the
+        gateway's supervision stats and, when one is attached, the control
+        plane's."""
         fns = {}
         for fn_name, c in self.fn_stats.items():
             d = dict(c)
@@ -478,60 +551,71 @@ class FaaSRuntime:
             if c.get("done"):
                 d["reuse_hit_rate"] = c.get("reuse_hits", 0) / c["done"]
             fns[fn_name] = d
-        out = {"functions": fns, "gateway": dict(self.gateway.stats)}
+        out = {"functions": fns,
+               "instances": [{"idx": inst.idx, "device": str(inst.device),
+                              "engines": self._load(inst)}
+                             for inst in self.instances],
+               "gateway": dict(self.gateway.stats)}
         if self.control_plane is not None:
             out["control_plane"] = dict(self.control_plane.stats)
         return out
 
     # ------------------------------------------------------------------
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @staticmethod
+    def _sync(device: torch.device) -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
 
     def _prewarm_engine_fns(self, fn: LLMFunction, seq: int, zeros) -> list:
         """Run the model's prefill (at ``seq``) and the pool-shaped decode
-        once on zero-filled inputs (``zeros()``), counted in the
-        ExecutableCache (one warm-up per model and shape, shared across its
-        functions)."""
-        model = fn.model
-        paged = model.supports_paged_kv
+        once on zero-filled inputs (``zeros(device)``) on every instance,
+        counted in the ExecutableCache (one warm-up per model, shape and
+        instance, shared across the model's functions)."""
+        paged = fn.model.supports_paged_kv
         bps = -(-self.max_len // self.page_size)
         prefill_len = bps * self.page_size if paged else self.max_len
-        kp = (id(model), "prefill", INSTANCE, 1, seq, self.max_len)
-        kd = (id(model), "decode-pool", INSTANCE, self.n_slots, self.max_len)
+        keys = []
+        for inst in self.instances:
+            model, dev = self._model_on(fn.name, inst), inst.device
+            kp = (id(fn.model), "prefill", inst.idx, 1, seq, self.max_len)
+            kd = (id(fn.model), "decode-pool", inst.idx, self.n_slots,
+                  self.max_len)
 
-        def warm_prefill():
-            model.prefill(zeros(),
-                          {"tokens": torch.zeros((1, seq), dtype=torch.int32,
-                                                 device=self.device)},
-                          model.make_cache(1, prefill_len))
-            self._sync()
-            return model.prefill
+            def warm_prefill(model=model, dev=dev):
+                model.prefill(zeros(dev),
+                              {"tokens": torch.zeros((1, seq),
+                                                     dtype=torch.int32,
+                                                     device=dev)},
+                              model.make_cache(1, prefill_len))
+                self._sync(dev)
+                return model.prefill
 
-        def warm_decode():
-            toks = torch.zeros((self.n_slots, 1), dtype=torch.int32,
-                               device=self.device)
-            pos = torch.zeros((self.n_slots,), dtype=torch.int32,
-                              device=self.device)
-            if paged:
-                cache = model.make_paged_cache(1 + self.n_slots * bps,
-                                               self.page_size,
-                                               kv_dtype=self.kv_dtype)
-                pt = torch.zeros((self.n_slots, bps), dtype=torch.int32,
-                                 device=self.device)
-                model.decode_step_paged(zeros(), cache,
-                                        {"tokens": toks}, pos, pt,
-                                        self.page_size)
-            else:
-                model.decode_step(zeros(),
-                                  model.make_cache(self.n_slots, self.max_len),
-                                  {"tokens": toks}, pos)
-            self._sync()
-            return model.decode_step_paged if paged else model.decode_step
+            def warm_decode(model=model, dev=dev):
+                toks = torch.zeros((self.n_slots, 1), dtype=torch.int32,
+                                   device=dev)
+                pos = torch.zeros((self.n_slots,), dtype=torch.int32,
+                                  device=dev)
+                if paged:
+                    cache = model.make_paged_cache(1 + self.n_slots * bps,
+                                                   self.page_size,
+                                                   kv_dtype=self.kv_dtype)
+                    pt = torch.zeros((self.n_slots, bps), dtype=torch.int32,
+                                     device=dev)
+                    model.decode_step_paged(zeros(dev), cache,
+                                            {"tokens": toks}, pos, pt,
+                                            self.page_size)
+                else:
+                    model.decode_step(zeros(dev),
+                                      model.make_cache(self.n_slots,
+                                                       self.max_len),
+                                      {"tokens": toks}, pos)
+                self._sync(dev)
+                return model.decode_step_paged if paged else model.decode_step
 
-        self.exe_cache.get_or_compile(kp, warm_prefill)
-        self.exe_cache.get_or_compile(kd, warm_decode)
-        return [kp, kd]
+            self.exe_cache.get_or_compile(kp, warm_prefill)
+            self.exe_cache.get_or_compile(kd, warm_decode)
+            keys += [kp, kd]
+        return keys
 
     def _prewarm_suffix_fns(self, fn: LLMFunction, zeros) -> list:
         """Warm the suffix-only prefill the engine buckets every reuse hit
@@ -540,25 +624,29 @@ class FaaSRuntime:
         PyTorch compiles nothing per shape, so only the first bucket runs
         (paying the lazy loads of ``prefill_from``'s kernels); the others
         are recorded, keeping the cache's hits and misses equal to JAX's."""
-        model = fn.model
-        if not model.supports_paged_kv:
+        if not fn.model.supports_paged_kv:
             return []
         ps = self.page_size
         bps = -(-self.max_len // ps)
+        out = []
+        for inst in self.instances:
+            model, dev = self._model_on(fn.name, inst), inst.device
 
-        def warm():
-            toks = torch.zeros((1, ps), dtype=torch.int32, device=self.device)
-            model.prefill_from(zeros(), {"tokens": toks},
-                               model.make_cache(1, bps * ps), 0)
-            self._sync()
-            return model.prefill_from
+            def warm(model=model, dev=dev):
+                toks = torch.zeros((1, ps), dtype=torch.int32, device=dev)
+                model.prefill_from(zeros(dev), {"tokens": toks},
+                                   model.make_cache(1, bps * ps), 0)
+                self._sync(dev)
+                return model.prefill_from
 
-        keys = [(id(model), "prefill-from", INSTANCE, k * ps, self.max_len)
-                for k in range(1, bps + 1)]
-        self.exe_cache.get_or_compile(keys[0], warm)
-        for key in keys[1:]:
-            self.exe_cache.get_or_compile(key, lambda: model.prefill_from)
-        return keys
+            keys = [(id(fn.model), "prefill-from", inst.idx, k * ps,
+                     self.max_len) for k in range(1, bps + 1)]
+            self.exe_cache.get_or_compile(keys[0], warm)
+            for key in keys[1:]:
+                self.exe_cache.get_or_compile(
+                    key, lambda model=model: model.prefill_from)
+            out += keys
+        return out
 
     # ------------------------------------------------------------------
     # many functions on one resident engine (shared base + adapter bank)
@@ -608,24 +696,25 @@ class FaaSRuntime:
         factors into a free bank row on its first invocation."""
         base_name, adapter, alpha = self._adapter_fns[fn_name]
         cfg = self._shared_bases[base_name]
-        key = ("__adapters__", base_name, INSTANCE)
+        inst = self._pick_instance(base_name)
+        key = ("__adapters__", base_name, inst.idx)
         warm = self._engines.get(key)
         stats = None
         if warm is None:
             kind = "fork" if base_name in self._invoked else "cold"
-            model = self.functions[base_name].model
-            session, stats = self.server.fork(base_name, {})
+            model = self._model_on(base_name, inst)
+            session, stats = self._fork(base_name, {}, inst)
             bank = make_adapter_bank(model, cfg["targets"], cfg["n_adapters"],
                                      cfg["rank"])
             engine = ContinuousBatchingEngine(
                 model, session, max_len=self.max_len,
-                page_size=self.page_size, pool=self._pool_for(model),
+                page_size=self.page_size, pool=self._pool_for(model, inst),
                 bucket_suffix=True, chunk_tokens=self.chunk_tokens,
                 adapter_bank=bank,
-                owner_name=f"adapters:{base_name}@{INSTANCE}")
+                owner_name=f"adapters:{base_name}@{inst.idx}")
             # no prefix index: baked KV is adapter-specific, and this
             # engine's batch mixes adapters
-            warm = _WarmEngine(engine, now)
+            warm = _WarmEngine(engine, now, inst.idx)
             self._engines[key] = warm
             self._invoked.add(base_name)
         else:
@@ -695,6 +784,29 @@ class FaaSRuntime:
             idle.remove(oldest)
             self._drop_engine(oldest)
 
+    def _load(self, inst: _Instance) -> int:
+        """Warm engines on instance ``inst``."""
+        return sum(1 for w in self._engines.values() if w.instance == inst.idx)
+
+    def _pick_instance(self, fn_name: str) -> _Instance:
+        """Locality routing across instances, the live analogue of
+        ``ClusterSim._pick_gpu``: prefer an instance already warm for this
+        function (its pool and entry points are hot) unless it holds more
+        than ``locality_max_extra_load`` engines over the least-loaded
+        instance."""
+        if len(self.instances) == 1:
+            return self.instances[0]
+        best_any = min(self.instances, key=lambda i: (self._load(i), i.idx))
+        warm_idx = {w.instance for k, w in self._engines.items()
+                    if k[0] == fn_name}
+        if warm_idx:
+            cands = [i for i in self.instances if i.idx in warm_idx]
+            best_warm = min(cands, key=lambda i: (self._load(i), i.idx))
+            if (self._load(best_warm) - self._load(best_any)
+                    <= self.locality_max_extra_load):
+                return best_warm
+        return best_any
+
     def _engine_for(self, fn_name: str, event: Optional[dict],
                     now: float) -> tuple:
         """Resolve (key, engine, kind, fork stats) for one invocation,
@@ -709,16 +821,17 @@ class FaaSRuntime:
             self._invoked.add(fn_name)
             return key, warm.engine, "warm", None
         kind = "fork" if fn_name in self._invoked else "cold"
-        model = self.functions[fn_name].model
-        session, stats = self.server.fork(fn_name, event or {})
+        inst = self._pick_instance(fn_name)
+        model = self._model_on(fn_name, inst)
+        session, stats = self._fork(fn_name, event or {}, inst)
         engine = ContinuousBatchingEngine(
             model, session, max_len=self.max_len, page_size=self.page_size,
-            pool=self._pool_for(model), bucket_suffix=True,
-            chunk_tokens=self.chunk_tokens, owner_name=f"{fn_name}@{INSTANCE}")
-        # a lazy per-event bake reuses THIS fork's params
-        engine.prefix_index = self._prefix_index_for(fn_name, event,
+            pool=self._pool_for(model, inst), bucket_suffix=True,
+            chunk_tokens=self.chunk_tokens, owner_name=f"{fn_name}@{inst.idx}")
+        # a lazy per-(event, instance) bake reuses THIS fork's params
+        engine.prefix_index = self._prefix_index_for(fn_name, event, inst,
                                                      params_fn=engine.params)
-        self._engines[key] = _WarmEngine(engine, now)
+        self._engines[key] = _WarmEngine(engine, now, inst.idx)
         self._invoked.add(fn_name)
         return key, engine, kind, stats
 
@@ -797,8 +910,8 @@ class MeasuredServiceTimes:
     outside the measured range), so the scheduler's per-request
     ``input_len`` actually changes the oracle's answer.
 
-    Satisfies the duck-typed ``SchedulerConfig.measured`` hook of the JAX
-    package's cluster scheduler: the sim
+    Satisfies the duck-typed ``SchedulerConfig.measured`` hook of the
+    port's cluster scheduler (``repro_torch.core.scheduler``): the sim
     calls ``service_s(fn_name, kind, input_len)`` and falls back to the
     analytic cost model whenever this returns None.  ``"*"`` is a wildcard
     function entry.  ``times`` values may be plain floats (one bucket) or
@@ -886,3 +999,35 @@ def measure_service_times(runtime: FaaSRuntime, fn_events: dict,
                 record(warm.kind, L, warm.ttft_s)
         times[fn_name] = per
     return MeasuredServiceTimes(times, measured_prompt_len=lens[0])
+
+
+def measure_smoke_service_times(functions: dict, arch: str = "smollm-135m",
+                                n_layers: int = 2, n_slots: int = 2,
+                                max_len: int = 32, trace_seq: int = 16,
+                                prompt_len: int = 16, max_new_tokens: int = 4,
+                                seed: int = 0, mesh=None,
+                                device="cuda") -> MeasuredServiceTimes:
+    """One-stop live measurement rig for the ``--measured`` demos
+    (``examples/torch_faas_cluster.py``): build a smoke-scale runtime on
+    ``device`` (the card by default; ``device="cpu"`` on the CPU), deploy
+    one variant per ``functions`` entry ({name: 'static' | 'lora'}) and
+    measure cold/fork/warm wall-clock service times for each."""
+    model = get_smoke_model(arch, device=device, n_layers=n_layers)
+    rt = FaaSRuntime(n_slots=n_slots, max_len=max_len, trace_seq=trace_seq,
+                     mesh=mesh, device=device)
+    params = model.init_params(seed=seed)
+    events: dict = {}
+    for name, kind in functions.items():
+        if kind == "lora":
+            rt.deploy(tidal.lora_function(name, model, params,
+                                          ["blocks.attn.wq"], n_adapters=2),
+                      {"adapter": "adapter-0"}, prewarm_seq=prompt_len)
+            events[name] = {"adapter": "adapter-1"}
+        elif kind == "static":
+            rt.deploy(tidal.static_function(name, model, params), {},
+                      prewarm_seq=prompt_len)
+            events[name] = {}
+        else:
+            raise ValueError(f"{name}: unknown function kind {kind!r}")
+    return measure_service_times(rt, events, prompt_len=prompt_len,
+                                 max_new_tokens=max_new_tokens)

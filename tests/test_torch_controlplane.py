@@ -5,10 +5,12 @@ fp32, the same weights carried by ``convert.params_from_jax``): arrival
 forecasts, the prefix observer's nominations, runtime-learned prefix
 bakes with their reuse hits and greedy tokens, pinned-budget churn,
 deferred reclaim under a live borrower, prewarm forks, predictive
-keep-alive, ``trace_schedule`` over a ``repro.core.scheduler`` trace and
-``measure_service_times``' service kinds must be equal.
+keep-alive, ``trace_schedule`` over each package's scheduler trace (the
+two traces equal) and ``measure_service_times``' service kinds must be
+equal.
 """
 
+import dataclasses
 import types
 
 import pytest
@@ -23,10 +25,11 @@ import repro.runtime.controlplane as jax_cp  # noqa: E402
 import repro.runtime.faas as jax_faas  # noqa: E402
 import repro.runtime.gateway as jax_gateway  # noqa: E402
 import repro_torch.core.api as torch_api  # noqa: E402
+import repro_torch.core.scheduler as torch_sched  # noqa: E402
 import repro_torch.runtime.controlplane as torch_cp  # noqa: E402
 import repro_torch.runtime.faas as torch_faas  # noqa: E402
 import repro_torch.runtime.gateway as torch_gateway  # noqa: E402
-from repro.core.scheduler import SimRequest, make_trace  # noqa: E402
+import repro.core.scheduler as jax_sched  # noqa: E402
 from repro.models.registry import get_smoke_model as jax_smoke  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.models.registry import get_smoke_model as torch_smoke  # noqa: E402
@@ -44,12 +47,14 @@ def pkgs():
     tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg,
                                  device="cpu")
     return [types.SimpleNamespace(
-                api=jax_api, cp=jax_cp, faas=jax_faas, model=jm, params=jp,
+                api=jax_api, cp=jax_cp, faas=jax_faas, sched=jax_sched,
+                model=jm, params=jp,
                 Request=jax_gateway.InvocationRequest,
                 runtime=jax_faas.FaaSRuntime,
                 pool=lambda rt: rt._pool_for(rt.instances[0], jm)),
             types.SimpleNamespace(
-                api=torch_api, cp=torch_cp, faas=torch_faas, model=tm,
+                api=torch_api, cp=torch_cp, faas=torch_faas,
+                sched=torch_sched, model=tm,
                 params=tp, Request=torch_gateway.InvocationRequest,
                 runtime=lambda **kw: torch_faas.FaaSRuntime(device="cpu", **kw),
                 pool=lambda rt: rt._pool_for(tm))]
@@ -241,16 +246,23 @@ def test_prewarm_and_predictive_keep_alive_match_jax(pkgs):
 
 
 def test_trace_schedule_of_a_scheduler_trace_matches_jax(pkgs):
-    """One ``repro.core.scheduler`` trace (its records read by attribute)
-    becomes the same gateway schedule in both packages."""
-    trace = make_trace({"mail-fn": 2.0, "code-fn": 1.0}, 5.0,
-                       {"mail-fn": "mail", "code-fn": "code"}, seed=3,
-                       fn_deadlines={"mail-fn": 0.25},
-                       fn_priorities={"code-fn": 2})
-    trace.append(SimRequest("fn", 5.5, 16, len(trace), deadline_s=0.2,
-                            priority=3))
+    """Each package's scheduler trace (equal for the same seed) becomes
+    the same gateway schedule in both packages."""
+    traces = {}
+    for P in pkgs:
+        trace = P.sched.make_trace({"mail-fn": 2.0, "code-fn": 1.0}, 5.0,
+                                   {"mail-fn": "mail", "code-fn": "code"},
+                                   seed=3, fn_deadlines={"mail-fn": 0.25},
+                                   fn_priorities={"code-fn": 2})
+        trace.append(P.sched.SimRequest("fn", 5.5, 16, len(trace),
+                                        deadline_s=0.2, priority=3))
+        traces[id(P)] = trace
+    jax_trace, port_trace = (traces[id(P)] for P in pkgs)
+    assert ([dataclasses.astuple(r) for r in port_trace]
+            == [dataclasses.astuple(r) for r in jax_trace])
 
     def scenario(P):
+        trace = traces[id(P)]
         sched = P.cp.trace_schedule(
             trace, lambda r: np.arange(r.input_len % 40 + 1, dtype=np.int32),
             max_new_tokens=2, event_for=lambda r: {"k": r.req_id})
@@ -259,7 +271,7 @@ def test_trace_schedule_of_a_scheduler_trace_matches_jax(pkgs):
                 for due, r in sched]
 
     rows = _both(pkgs, scenario)
-    assert len(rows) == len(trace) and rows[-1][5:] == (0.2, 3)
+    assert len(rows) == len(port_trace) and rows[-1][5:] == (0.2, 3)
 
 
 def test_measure_service_times_kinds_match_jax(pkgs):

@@ -137,11 +137,13 @@ def test_keep_alive_expiry_matches_jax(pkgs):
 
 
 def test_later_slices_raise_with_their_item():
-    """Only several instances over a mesh's data axis still wait for
-    their slice (one tensor-parallel instance serves: test_torch_tp.py)."""
+    """Only several tensor-parallel instances (data > 1 and model > 1)
+    still wait for their slice (several instances serve:
+    test_torch_instances.py; one tensor-parallel instance:
+    test_torch_tp.py)."""
     from repro_torch.distributed import ServingMesh
     with pytest.raises(NotImplementedError, match="item 8"):
-        torch_faas.FaaSRuntime(mesh=ServingMesh(2, 1), device="cpu")
+        torch_faas.FaaSRuntime(mesh=ServingMesh(2, 2), device="cpu")
 
 
 def test_serve_cli_runs_on_the_cpu():
@@ -158,7 +160,8 @@ def test_serve_cli_runs_on_the_cpu():
     assert kinds == {"cold", "fork", "warm"}, res.stdout
     assert "p50 ttft" in res.stdout
     bad = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--instances", "2"],
+        [sys.executable, "-m", "repro_torch.launch.serve", "--instances", "2",
+         "--tp", "2"],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
     assert bad.returncode != 0 and "item 8" in bad.stderr
 
