@@ -79,9 +79,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    2-layer fp32 card
    against CPU check, streamed prefill equal to prefill, and
    ``FaaSRuntime`` cold / fork / warm for a static zamba function;
-9. llama2-13b at full width and depth (40 layers, d_model 5120, 40 query
-   and key heads of 128, bf16, 26 GB of seeded random weights drawn leaf
-   by leaf): phase 3's paged serving passes (bf16 and int8 arenas), the
+9. llama2-13b at full width (d_model 5120, 40 query and key heads of
+   128, bf16) and 20 of its 40 layers (13.3 GB of seeded random weights
+   drawn leaf by leaf; cut for the script's time limit): phase 3's paged serving passes (bf16 and int8 arenas), the
    sequential ``Engine`` (8 x 256 + 32) with the continuous engine's
    tokens equal to it, exact launch counts, the decode step at 8 busy
    slots (host ms, device-busy share under ``torch.profiler``) beside its
@@ -185,26 +185,38 @@ Phases, in order; any failure raises and the process exits non-zero:
    whisper-medium at full width and depth (2 x 1,500 frames, 64 decoder
    tokens), 3 steps each with exact launches (phi3.5-moe's load-balancing
    loss finite and nonzero);
-15. tensor parallelism: llama3-8b at full width served by 2 ranks
-   sharing the card (``repro_torch.distributed.spawn``, gloo: NCCL
-   refuses two ranks on one device) through ``FaaSRuntime(mesh=
-   ServingMesh(1, 2))``, each rank's shard drawn on the card from the
-   seed (16 query / 4 KV heads, 8 GB per rank at full depth, 2.8 GB at
-   the 8 layers the bf16 case runs, printed as reduced): per case a
-   paged bf16 / fp32 pass and an int8 one, each deploying with a 64-token
-   template prompt, then cold, fork (after an evict; its prefill streamed
-   while the rank's shard is in flight), a prefix hit and warm, the
-   launches of every rank read per invocation (L flash per prefill, L
-   paged decode per step, 2L + 1 rmsnorm per call) and the divergence
-   guard on every op; the same in one ``tp = 1`` process (in bf16
-   its fp-arena pass only, all the comparison reads).  fp32 at 2
-   layers: greedy tokens of every invocation equal to ``tp = 1``; bf16 at
-   8 of 32 layers: the first prefill's logits within 5% of the
-   largest |logit| of ``tp = 1``'s (the share of equal greedy tokens
-   printed); fork TTFT, bytes streamed and pinned per rank, and the decode
-   step's host, device-span and collective ms per rank, each beside the
-   card's name and power limit.  Phase 2 also holds the kernels at one
-   rank's heads (llama3-8b 16 / 4 / 128, gemma-2b 4 / 1 / 256: G = 4);
+15. tensor parallelism: llama3-8b, phi3.5-moe-42b-a6.6b and
+   deepseek-v3-671b at full width served by 2 ranks sharing the card
+   (``repro_torch.distributed.spawn``, gloo: NCCL refuses two ranks on
+   one device) through ``FaaSRuntime(mesh=ServingMesh(1, 2))``, each
+   rank's shard drawn on the card from the seed (llama3-8b and
+   phi3.5-moe 16 query / 4 KV heads; phi3.5-moe 8 of its 16 experts,
+   whole; deepseek-v3 64 MLA heads, 128 of its 256 experts and half the
+   shared expert, its latent arena whole on each rank: 1,152 bytes per
+   token per layer, asserted): per case a paged bf16 / fp32 pass and an
+   int8 one, each deploying with a 64-token template prompt, then cold,
+   fork (after an evict; its prefill streamed while the rank's shard is
+   in flight), a prefix hit and warm, the launches of every rank read
+   per invocation (L flash per prefill and L paged decode per step for
+   GQA, none for MLA; 2L + 1 rmsnorm per call, 4L + 1 with MLA) and its
+   collectives (2L + 2 per model call: one per attention, one per moe
+   or MLP layer, the embedding and the head), each rank's weight bytes
+   against the configuration's reckoning, and the divergence guard on
+   every op; the same in one ``tp = 1`` process (in bf16 its fp-arena
+   pass only, all the comparison reads).  fp32 at 2 layers (llama3-8b
+   and phi3.5-moe): greedy tokens of every invocation equal to ``tp =
+   1``, and for phi3.5-moe the expert ids, ``keep`` masks and dropped
+   pairs of every moe call (``moe.watch`` on the controller) equal too;
+   bf16 (llama3-8b at 8 of 32 layers, phi3.5-moe at 4 of 32,
+   deepseek-v3 at 1 of 61): the first prefill's logits within 5% (2% for
+   deepseek-v3) of the largest |logit| of ``tp = 1``'s (the share of
+   equal greedy tokens printed).  deepseek-v3's fp32 parity is held on the CPU only
+   (``tests/test_torch_tp_moe.py``): one fp32 layer is ~53 GB per copy,
+   and a fork needs a second.  Fork TTFT, bytes streamed and pinned per
+   rank, and the decode step's host, device-span and collective ms per
+   rank, each beside the card's name and power limit.  Phase 2 also
+   holds the kernels at one rank's heads (llama3-8b and phi3.5-moe 16 /
+   4 / 128, gemma-2b 4 / 1 / 256: G = 4);
 16. cluster: ``FaaSRuntime(mesh=ServingMesh(2, 1))``, two instances
    sharing the card, serving smollm-135m at full width and depth (bf16,
    paged arenas): a static and a LoRA function land on different
@@ -2229,7 +2241,7 @@ def zamba_faas(model, params, prompts: list, h2d: float) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 9 and 10: llama2-13b at full depth, phi3.5-moe at cut depth
+# phases 9 and 10: llama2-13b and phi3.5-moe at cut depth
 # ---------------------------------------------------------------------------
 
 # phi3.5-moe-42b-a6.6b does not fit one card at its 32 layers (84 GB);
@@ -2247,6 +2259,10 @@ MOE_MAX_LAYERS = 4
 # phase 11's fp32 card against CPU check: one full-width layer holds 256
 # experts of 46 GB in fp32 on each side, too much for the host
 DEEPSEEK_PARITY_EXPERTS = 32
+# phase 9's depth: the whole script keeps to its time limit with phase
+# 15's moe and MLA cases (they added ~100-120 s); phase 9 took 33.2-35.9
+# s at 20 layers and 60.2-75.3 s at 40, the script 820.6-896.9 s at 20
+LLAMA_LAYERS = 20
 
 
 def meminfo() -> dict:
@@ -2382,8 +2398,25 @@ def moe_drops(calls) -> dict:
     return out
 
 
+def card_drawn_host_params(cfg, device, seed: int = 1) -> dict:
+    """Weights for ``cfg`` drawn on the card from ``seed`` and copied to
+    the host.  A card-against-CPU check holds both sides to the same
+    weights wherever they were drawn, and a CPU draw of one full-width
+    fp32 layer is slow (deepseek-v3's with 32 experts took 22.2 s, PR
+    25)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import to_device
+    params = get_model(cfg, device=device).init_params(seed=seed,
+                                                       draw_on_device=True)
+    host = to_device(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    return host
+
+
 def card_cpu_parity(cfg, device, seed: int = 1, n_slots: int = 2,
-                    chunk: int | None = None, cpu_params=None) -> dict:
+                    chunk: int | None = None, cpu_params=None,
+                    streamed: bool = True) -> dict:
     """``cfg`` (fp32, cut depth, full width): the same CPU-drawn weights on
     the card (kernels) and on the CPU (plain versions), through a paged
     pool of ``n_slots`` slots: a 100-token prefill (in ``chunk``-token
@@ -2392,8 +2425,10 @@ def card_cpu_parity(cfg, device, seed: int = 1, n_slots: int = 2,
     largest |logit| and tokens equal (moe: every call's expert ids and kept pairs equal; the free
     slots' rows take capacity too, so 8 slots at cf 1.25 drop pairs at
     decode); then the card's layer-streamed prefill of a forked session
-    equals its monolithic prefill bit for bit.  ``cpu_params``: weights
-    already drawn for ``cfg`` on the CPU (else drawn from ``seed``)."""
+    equals its monolithic prefill bit for bit (``streamed=False``: a
+    later call over the same configuration and weights, which ran it
+    already).  ``cpu_params``: weights for ``cfg`` already on the host
+    (else drawn from ``seed`` by :func:`card_drawn_host_params`)."""
     from repro_torch.core import api as tidal
     from repro_torch.core.streaming import streamed_prefill
     from repro_torch.core.template_server import TemplateServer
@@ -2404,7 +2439,7 @@ def card_cpu_parity(cfg, device, seed: int = 1, n_slots: int = 2,
     from repro_torch.utils import named_leaves
     cpu_model = get_model(cfg, device="cpu")
     if cpu_params is None:
-        cpu_params = cpu_model.init_params(seed=seed)
+        cpu_params = card_drawn_host_params(cfg, device, seed)
     card_model = get_model(cfg, device=device)
     card_params = to_device(cpu_params, card_model.device)
     prompt = np.random.default_rng(2).integers(1, cfg.vocab_size, 100).astype(np.int32)
@@ -2451,21 +2486,23 @@ def card_cpu_parity(cfg, device, seed: int = 1, n_slots: int = 2,
                for (s1, i1, k1), (s2, i2, k2) in zip(rt_gpu, rt_cpu)),
            "drops_card": moe_drops(rt_gpu), "drops_cpu": moe_drops(rt_cpu)}
     del cpu_params, cpu_model
-    srv = TemplateServer(trace_seq=64)
-    srv.register(tidal.static_function("f", card_model, card_params), {})
-    session, _ = srv.fork("f", {})
-    toks = prompt[None]
-    lg_s, c_s = streamed_prefill(session, {"tokens": toks}, card_model.make_cache(1, 128))
-    lg_m, c_m = card_model.prefill(card_params, {"tokens": toks},
-                                   card_model.make_cache(1, 128))
-    torch.cuda.synchronize()
-    res["streamed_prefill_equal"] = bool(torch.equal(lg_s, lg_m) and all(
-        torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(c_s),
-                                                    named_leaves(c_m))))
+    if streamed:
+        srv = TemplateServer(trace_seq=64)
+        srv.register(tidal.static_function("f", card_model, card_params), {})
+        session, _ = srv.fork("f", {})
+        toks = prompt[None]
+        lg_s, c_s = streamed_prefill(session, {"tokens": toks},
+                                     card_model.make_cache(1, 128))
+        lg_m, c_m = card_model.prefill(card_params, {"tokens": toks},
+                                       card_model.make_cache(1, 128))
+        torch.cuda.synchronize()
+        res["streamed_prefill_equal"] = bool(torch.equal(lg_s, lg_m) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(named_leaves(c_s),
+                                                        named_leaves(c_m))))
     print(json.dumps({"card_cpu_parity": res}))
     if not (err <= tol and res["tokens_equal"] and res["routing_equal"]
             and res["drops_card"] == res["drops_cpu"]
-            and res["streamed_prefill_equal"]):
+            and res.get("streamed_prefill_equal", not streamed)):
         raise AssertionError(f"card vs CPU parity failed: {res}")
     return res
 
@@ -2790,17 +2827,21 @@ def big_faas(model, params, h2d: float, lora_target=None, prompts=None,
 
 
 def phase_llama(device, h2d: float) -> dict:
-    """llama2-13b at full width and depth (40 layers, d_model 5120, 40
-    heads of 128 for queries and keys, bf16, 26 GB): the paged serving
+    """llama2-13b at full width and ``LLAMA_LAYERS`` of its 40 layers
+    (d_model 5120, 40 heads of 128 for queries and keys, bf16, 13.3 GB
+    at 20 layers): the paged serving
     passes (bf16 and int8 arenas), the sequential Engine against the
     continuous engine, the decode step against its weight-byte bound,
     ``FaaSRuntime`` cold / warm / fork; then a 2-layer fp32 card against
     CPU check and streamed prefill."""
     from repro_torch.models.registry import get_config
-    model, params, info = big_model("llama2-13b", device)
+    full = get_config("llama2-13b")
+    model, params, info = big_model("llama2-13b", device,
+                                    n_layers=LLAMA_LAYERS)
     cfg = model.cfg
-    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+    assert (full.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
             cfg.head_dim) == (40, 5120, 40, 40, 128)
+    info["reduced"] = f"n_layers {full.n_layers} -> {cfg.n_layers}"
     out = {"model": info}
     out["serve"], _ = phase_serve(model, params, passes=(
         ("paged", {}), ("int8", {"kv_dtype": "int8"})))
@@ -2902,9 +2943,10 @@ def phase_moe(device, h2d: float) -> dict:
     del one, one_params, one_bf16
     if fp32["routes_differ"] or fp32["max_abs_logit_diff"] > 1e-3:
         raise AssertionError(f"chunked prefill differs from the whole prefill: {fp32}")
-    cpu_params = get_model(small, device="cpu").init_params(seed=1)
+    cpu_params = card_drawn_host_params(small, device)
     out["parity"] = card_cpu_parity(small, device, cpu_params=cpu_params)
     out["parity_8_slots"] = card_cpu_parity(small, device, n_slots=8, chunk=48,
+                                            streamed=False,
                                             cpu_params=cpu_params)
     got = out["parity_8_slots"]["drops_card"]
     if not (got["decode_dropped"] and got["prefill_dropped"]):
@@ -3006,9 +3048,10 @@ def phase_deepseek(device, h2d: float) -> dict:
     print(f"deepseek-v3-671b parity reduced: n_layers {full.n_layers} -> 1, "
           f"n_experts {full.n_experts} -> {DEEPSEEK_PARITY_EXPERTS} (fp32 on the "
           f"card and on the CPU; every other width the config's)")
-    cpu_params = get_model(small, device="cpu").init_params(seed=1)
+    cpu_params = card_drawn_host_params(small, device)
     out["parity"] = card_cpu_parity(small, device, cpu_params=cpu_params)
     out["parity_8_slots"] = card_cpu_parity(small, device, n_slots=8, chunk=48,
+                                            streamed=False,
                                             cpu_params=cpu_params)
     return out
 
@@ -3768,11 +3811,14 @@ def phase_train(device) -> dict:
 
 
 # (arch, depth cut, batch, seq, steps, weight seed, data seed): smollm at 2
-# layers; phi3.5-moe and whisper-medium at train_big's seeds and batch, so
-# the card's first loss is that of phi3.5-moe's run at the same depth (one
-# step: three took 155 s on an H100 with 8 host cores)
+# layers; phi3.5-moe and whisper-medium at train_big's seeds, their
+# weights drawn on the card as train_big's are and copied to the host (a
+# CPU draw of phi3.5-moe's fp32 layer takes ~20 s).  phi3.5-moe runs one
+# step at half train_big's batch: the CPU's fp32 step at 8 x 128 took
+# ~100 s of the script's time limit (three took 155 s on an H100 with 8
+# host cores), the largest part of phase 14
 PARITY_RUNS = (("smollm-135m", dict(n_layers=2), 2, 64, 1, 3, 7),
-               ("phi3.5-moe-42b-a6.6b", dict(n_layers=1), 8, 128, 1, 4, 2),
+               ("phi3.5-moe-42b-a6.6b", dict(n_layers=1), 4, 128, 1, 4, 2),
                ("whisper-medium", dict(n_layers=1, dec_layers=1), 2, 64, 3, 4, 2))
 
 
@@ -3820,7 +3866,7 @@ def train_parity(device, arch: str, replace: dict, batch: int, seq: int,
         for b in batches:
             b["frames"] = frames
     cpu_model = get_model(cfg, device="cpu")
-    like = cpu_model.init_params(seed)
+    like = card_drawn_host_params(cfg, device, seed)
     init = dict(named_leaves(like))
     runs = []
     for dev, model in ((device, get_model(cfg, device=device)), ("cpu", cpu_model)):
@@ -3951,7 +3997,6 @@ def train_big(device, arch: str, steps: int = 3, **replace) -> dict:
 
 TP = 2
 TP_BACKEND = "gloo"            # NCCL refuses two ranks on one device
-TP_ARCH = "llama3-8b"
 TP_SEED = 7
 TP_NEW = 8                     # tokens per invocation
 TP_PROMPT = 96                 # tokens of a plain prompt
@@ -3960,6 +4005,10 @@ TP_REUSE_SUFFIX = 24           # a prefix hit's own tokens
 # bf16: the first prefill's logits at tp = 2 against tp = 1
 # for the same seed and prompt, as a share of the largest |logit|
 TP_BF16_LOGIT_BOUND = 5e-2
+# deepseek-v3's (1 layer) tighter: its sound gap read 1.10%, and one
+# rank's shared-expert partial left out read 3.89%, inside 5%; every
+# other planted fault read >= 52% (tools/torch_tp_fault_gap.py; H100)
+TP_MLA_LOGIT_BOUND = 2e-2
 
 
 def tp_requests(vocab: int) -> tuple:
@@ -4001,6 +4050,60 @@ def _rank_release() -> None:
     torch.cuda.empty_cache()
 
 
+def _rank_arena_bytes(model) -> dict:
+    """Bytes per token per layer of the paged arena this rank allocates
+    (bf16 / fp32 and int8 with its scales)."""
+    out = {}
+    for kv_dtype in (None, "int8"):
+        arena = model.make_paged_cache(1, PAGE_SIZE, kv_dtype=kv_dtype)
+        out[kv_dtype or str(model.dtype)[6:]] = sum(
+            t.numel() * t.element_size() for t in arena.values()) / (
+            model.cfg.n_layers * PAGE_SIZE)
+        del arena
+    return out
+
+
+def tp_reckoned_bytes(cfg, tp: int) -> int:
+    """One rank's weight bytes reckoned from the configuration alone (not
+    from the parameter tree): attention split by heads (MLA's a-side
+    whole), a dense MLP by ``d_ff``, a moe layer's experts by expert
+    (each whole), its shared experts by width and its router whole,
+    norms whole, embedding and head by vocabulary."""
+    D, L, V, E = cfg.d_model, cfg.n_layers, cfg.vocab_size, cfg.n_experts
+    H = cfg.n_heads // tp
+    if cfg.use_mla:
+        qr, kvr, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_dim
+        dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+        attn = (D * qr + qr + qr * H * (dn + dr) + D * (kvr + dr) + kvr
+                + kvr * H * (dn + dv) + H * dv * D)
+    else:
+        # KV heads split, or each rank keeping the one its queries read
+        hd, KV = cfg.head_dim, max(cfg.n_kv_heads // tp, 1)
+        attn = D * hd * (H + 2 * KV) + H * hd * D
+    if E:
+        Fd = cfg.moe_d_ff or cfg.d_ff
+        mlp = (D * E + 3 * (E // tp) * D * Fd
+               + 3 * D * Fd * cfg.n_shared_experts // tp)
+    else:
+        mlp = 3 * D * cfg.d_ff // tp
+    elt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return elt * (2 * (V // tp) * D + D + L * (2 * D + attn + mlp))
+
+
+def tp_routing(calls) -> list:
+    """The controller's moe calls of one invocation (``moe.watch``): per
+    call its rows, dropped pairs and a digest of its expert ids and
+    ``keep`` mask, compared across ``tp``."""
+    import hashlib
+    out = []
+    for S, idx, keep in calls:
+        idx, keep = idx.cpu(), keep.cpu()
+        digest = hashlib.sha1(idx.numpy().tobytes() + keep.numpy().tobytes())
+        out.append([int(S), int(idx.shape[0]), int((~keep).sum()),
+                    digest.hexdigest()[:16]])
+    return out
+
+
 def _rank_decode_timing(model, params, steps: int) -> dict:
     """One rank's decode step at 4 busy slots, position 127, over a paged
     arena: the host's wall ms, the CUDA-event span ms (the card's time
@@ -4038,9 +4141,16 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs) -> dict:
     prompt, then cold, fork, a prefix hit and warm, each invocation's
     launches per rank read alone (counts set to 0 on every rank just
     before it)."""
+    from repro_torch.models import moe
     from repro_torch.runtime import FaaSRuntime
     from repro_torch.runtime.gateway import InvocationRequest
     cfg = model.cfg
+    L, attn = cfg.n_layers, attention_kernels(cfg)
+    want = {"flash_attention": attn, "paged_decode_attention": attn * (TP_NEW - 1),
+            "rmsnorm": norm_launches(cfg) * TP_NEW,
+            "rmsnorm_fused": fused_norm_launches(cfg) * TP_NEW,
+            "decode_attention": 0, "ssd_scan": 0}
+    collectives = (2 * L + 2) * TP_NEW if group.size > 1 else 0
     rt = FaaSRuntime(mesh=group.mesh, device=group.device, n_slots=4,
                      max_len=TP_PROMPT + TP_NEW + 24, page_size=PAGE_SIZE,
                      trace_seq=TP_PROMPT, kv_dtype=kv_dtype, keep_alive_s=3600)
@@ -4056,33 +4166,39 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs) -> dict:
             if kind == "fork":
                 rt.evict(fn.name)
             group.gather(_rank_reset)
-            res = rt.submit(InvocationRequest(fn.name, prompt,
-                                              max_new_tokens=TP_NEW)).result()
+            with moe.watch() as calls:
+                res = rt.submit(InvocationRequest(
+                    fn.name, prompt, max_new_tokens=TP_NEW)).result()
             counts = group.gather(_rank_counts)
             row = {"want": kind, "kind": res.kind, "tokens": res.tokens.tolist(),
                    "ttft_s": res.ttft_s, "e2e_s": res.e2e_s,
                    "reused_prefix_len": res.reused_prefix_len,
                    "launches_per_rank": [c["launches"] for c in counts],
-                   "collectives_per_rank": [c["collectives"] for c in counts]}
+                   "collectives_per_rank": [c["collectives"] for c in counts],
+                   "routing": tp_routing(calls)}
+            del calls
             if res.fork_stats is not None:
                 row["fork_per_rank"] = [
                     {"fork_s": st.fork_s, "streamed_bytes": st.streamed_bytes,
                      "reused_bytes": st.reused_bytes,
                      "replicated_bytes": st.replicated_bytes}
                     for st in (res.fork_stats.per_rank or (res.fork_stats,))]
-            L = cfg.n_layers
-            for r, c in enumerate(row["launches_per_rank"]):
-                want = {"flash_attention": L,
-                        "paged_decode_attention": L * (TP_NEW - 1),
-                        "rmsnorm": (2 * L + 1) * TP_NEW,
-                        "decode_attention": 0, "ssd_scan": 0}
-                got = {k: c[k] for k in want}
-                if got != want:
-                    raise AssertionError(f"tp rank {r} {kind} launches {got}, "
-                                         f"want {want}")
+            for r, c in enumerate(counts):
+                got = {k: c["launches"][k] for k in want}
+                if got != want or c["collectives"]["calls"] != collectives:
+                    raise AssertionError(
+                        f"tp rank {r} {cfg.name} {kind}: launches {got} and "
+                        f"{c['collectives']['calls']} collectives, want {want} "
+                        f"and {collectives}")
+            if bool(row["routing"]) != bool(cfg.n_experts) or (
+                    cfg.n_experts and len(row["routing"]) != L * TP_NEW):
+                raise AssertionError(f"tp {cfg.name} {kind}: "
+                                     f"{len(row['routing'])} moe calls")
             out["requests"].append(row)
-            print(json.dumps({"tp_request": {k: v for k, v in row.items()
-                                             if k != "tokens"}}))
+            print(json.dumps({"tp_request": {
+                "arch": cfg.name, **{k: v for k, v in row.items()
+                                     if k not in ("tokens", "routing")},
+                "moe_dropped": sum(c[2] for c in row["routing"])}}))
         kinds = [r["kind"] for r in out["requests"]]
         if kinds != ["cold", "fork", "warm", "warm"]:
             raise AssertionError(f"tp invocation kinds {kinds}")
@@ -4124,30 +4240,41 @@ def _tp_function(arch: str, replace: dict):
     return fn
 
 
-def _tp_rank(group, arch: str, cases: tuple) -> dict | None:
+def _tp_rank(group, cases: tuple) -> dict | None:
     """One rank of the tensor-parallel phase (``tp`` 1 or 2): per case
-    ``(tag, configuration, arenas)``, every rank builds its function
-    (``group.build``), then a pass per arena (None: the model's dtype)
-    runs on the controller."""
+    ``(tag, architecture, configuration, arenas)``, every rank builds its
+    function (``group.build``), then a pass per arena (None: the model's
+    dtype) runs on the controller."""
+    from repro_torch.models.registry import get_config
     from repro_torch.utils import tree_bytes
     if not group.is_controller:
         group.serve()
         return None
     out = {}
-    for tag, replace, arenas in cases:
+    for tag, arch, replace, arenas in cases:
         t0 = time.perf_counter()
         fn = group.build(_tp_function, arch, replace)
         model = fn.model
-        info = {"arch": arch, "layers": model.cfg.n_layers,
+        cfg, local = model.cfg, model.local_cfg
+        first, end = local.expert_range
+        info = {"arch": arch, "layers": cfg.n_layers,
                 "reduced": (None if "n_layers" not in replace else
-                            f"n_layers 32 -> {replace['n_layers']}"),
-                "dtype": model.cfg.dtype, "tp": group.size,
+                            f"n_layers {get_config(arch).n_layers} -> "
+                            f"{replace['n_layers']}"),
+                "dtype": cfg.dtype, "tp": group.size,
                 "backend": group.backend,
-                "local_heads": [model.local_cfg.n_heads,
-                                model.local_cfg.n_kv_heads],
+                "local_heads": [local.n_heads, local.n_kv_heads],
+                "local_experts": end - first,
                 "shard_bytes": tree_bytes(model.param_specs()),
+                "reckoned_bytes": tp_reckoned_bytes(cfg, group.size),
+                "arena_bytes_per_token_per_layer": group.gather(
+                    _rank_arena_bytes, model),
                 "init_s": time.perf_counter() - t0}
-        tpl, reqs = tp_requests(model.cfg.vocab_size)
+        if info["shard_bytes"] != info["reckoned_bytes"]:
+            raise AssertionError(f"tp {tag}: {info['shard_bytes']} bytes per "
+                                 f"rank, reckoned {info['reckoned_bytes']}")
+        print(json.dumps({"tp_model": {"case": tag, **info}}))
+        tpl, reqs = tp_requests(cfg.vocab_size)
         out[tag] = {"model": info,
                     "passes": [_tp_pass(group, fn, model, kv, tpl, reqs)
                                for kv in arenas]}
@@ -4160,38 +4287,66 @@ def _tp_rank(group, arch: str, cases: tuple) -> dict | None:
 def tp_run(tp: int) -> dict:
     """``_tp_rank`` on ``tp`` new processes (2 ranks share the one card)."""
     from repro_torch.distributed import spawn
-    cases = tuple((tag, replace, two if tp > 1 else one)
-                  for tag, replace, two, one in TP_CASES)
+    cases = tuple((tag, arch, replace, two if tp > 1 else one)
+                  for tag, arch, replace, two, one in TP_CASES)
     t0 = time.perf_counter()
-    out = spawn(_tp_rank, tp, (TP_ARCH, cases), backend=TP_BACKEND,
+    out = spawn(_tp_rank, tp, (cases,), backend=TP_BACKEND,
                 device="cuda", guard=True, timeout_s=900)
     out["wall_s"] = time.perf_counter() - t0
     return out
 
 
-# (tag, configuration, arenas at tp = 2, arenas at tp = 1): in bf16 tp = 1
-# serves the fp arena only, all that the bf16 comparison reads.  bf16 runs
-# 8 of llama3-8b's 32 layers: the whole script keeps to its time limit
-# (phase 16 after it; at 32 layers the script took 1,165.8 s of its
-# 1,200 on a slow host)
+# (tag, architecture, configuration, arenas at tp = 2, arenas at tp = 1):
+# in bf16 tp = 1 serves the fp arena only, all that the bf16 comparison
+# reads.  bf16 runs 8 of llama3-8b's 32 layers: the whole script keeps to
+# its time limit (phase 16 after it; at 32 layers the script took
+# 1,165.8 s of its 1,200 on a slow host).  phi3.5-moe-42b-a6.6b runs 2
+# (fp32) and 4 (bf16) of its 32 layers, deepseek-v3-671b 1 of 61 (26.7 GB
+# at tp = 1): neither fits one card whole
 TP_BF16_LAYERS = 8
-TP_CASES = (("fp32_2layers", {"n_layers": 2, "dtype": "float32"},
+PHI_ARCH, DSV3_ARCH = "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
+TP_CASES = (("fp32_2layers", "llama3-8b", {"n_layers": 2, "dtype": "float32"},
              (None, "int8"), (None, "int8")),
-            ("bf16_8layers", {"n_layers": TP_BF16_LAYERS}, (None, "int8"),
+            ("bf16_8layers", "llama3-8b", {"n_layers": TP_BF16_LAYERS},
+             (None, "int8"), (None,)),
+            ("moe_fp32_2layers", PHI_ARCH, {"n_layers": 2, "dtype": "float32"},
+             (None, "int8"), (None, "int8")),
+            ("moe_bf16_4layers", PHI_ARCH, {"n_layers": 4}, (None, "int8"),
+             (None,)),
+            ("mla_bf16_1layer", DSV3_ARCH, {"n_layers": 1}, (None, "int8"),
              (None,)))
+# what one rank holds at tp = 2: (query heads, KV heads), whole experts
+TP_LOCAL = {"llama3-8b": ([16, 4], 0), PHI_ARCH: ([16, 4], 8),
+            DSV3_ARCH: ([64, 64], 128)}
+
+
+def tp_logit_bound(arch: str) -> float:
+    """The bound on ``arch``'s bf16 first-logit gap between tp = 2 and 1."""
+    return TP_MLA_LOGIT_BOUND if arch == DSV3_ARCH else TP_BF16_LOGIT_BOUND
 
 
 def phase_tp(device) -> dict:
-    """llama3-8b at full width served tensor-parallel by 2 ranks sharing
-    the card (gloo), through ``FaaSRuntime(mesh=ServingMesh(1, 2))``:
-    fp32 at 2 layers with greedy tokens equal to ``tp = 1`` (cold, fork,
-    warm, prefix hit; fp and int8 arenas), then bf16 at 8 of 32 layers
-    with the first prefill's logits within ``TP_BF16_LOGIT_BOUND`` of
-    ``tp = 1``'s and the share of equal greedy tokens over the fp arena
-    (the ``tp = 1`` side serves no int8 pass in bf16).  The ``tp = 1``
-    run is a process of its own too.  Launches per rank, the divergence guard on
-    every op, fork bytes and pinned bytes per rank, the decode step's
-    host, device-span and collective ms per rank."""
+    """llama3-8b, phi3.5-moe (expert parallelism) and deepseek-v3 (MLA
+    by heads over a replicated latent arena, experts by expert) at full
+    width served tensor-parallel by 2 ranks sharing the card (gloo),
+    through ``FaaSRuntime(mesh=ServingMesh(1, 2))``: fp32 at 2 layers
+    (llama3-8b, phi3.5-moe) with greedy tokens equal to ``tp = 1`` (cold,
+    fork, warm, prefix hit; fp and int8 arenas) and, for phi3.5-moe, the
+    controller's expert ids, ``keep`` masks and dropped pairs equal to
+    ``tp = 1``'s on every moe call; then bf16 (llama3-8b at 8 of 32
+    layers, phi3.5-moe at 4, deepseek-v3 at 1 of 61) with the first
+    prefill's logits within ``tp_logit_bound`` of ``tp = 1``'s (5%;
+    deepseek-v3 2%) and
+    the share of equal greedy tokens over the fp arena (the ``tp = 1``
+    side serves no int8 pass in bf16).  deepseek-v3 runs no fp32 case
+    here: one fp32 layer is ~53 GB per copy and a fork takes a second,
+    so its fp32 parity at tp = 2 is held on the CPU only
+    (``tests/test_torch_tp_moe.py``).  The ``tp = 1`` run is a process of
+    its own too.  Launches and collectives (2L + 2 per model call) per
+    rank, each rank's weight bytes against ``tp_reckoned_bytes``, the
+    latent arena's bytes per token per layer on each rank, the divergence
+    guard on every op, fork bytes and pinned bytes per rank, the decode
+    step's host, device-span and collective ms per rank."""
     del device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -4204,46 +4359,67 @@ def phase_tp(device) -> dict:
     runs = {1: tp_run(1), TP: tp_run(TP)}
     out["wall_s"] = {str(k): v["wall_s"] for k, v in runs.items()}
     out["guard_ops"] = runs[TP]["guard_ops"]
-    for tag, *_ in TP_CASES:
+    for tag, arch, *_ in TP_CASES:
         one, two = runs[1][tag], runs[TP][tag]
-        if two["model"]["local_heads"] != [16, 4]:
-            raise AssertionError(f"tp heads {two['model']['local_heads']}")
-        rows = []
+        heads, experts = TP_LOCAL[arch]
+        if (two["model"]["local_heads"], two["model"]["local_experts"]) != (
+                heads, experts):
+            raise AssertionError(f"tp {tag}: heads {two['model']['local_heads']}"
+                                 f", experts {two['model']['local_experts']}")
+        steps = [d["collectives_per_step"] for d in
+                 two["passes"][0]["decode_step_per_rank"]]
+        if steps != [2 * two["model"]["layers"] + 2] * TP:
+            raise AssertionError(f"tp {tag}: {steps} collectives per decode "
+                                 "step")
+        if arch == DSV3_ARCH:
+            # the latent arena is whole on every rank: (512 + 64) x bf16
+            arena = [a["bfloat16"] for a in
+                     two["model"]["arena_bytes_per_token_per_layer"]]
+            if arena != [1152.0] * TP:
+                raise AssertionError(f"tp latent arena bytes {arena}")
+        rows, routes = [], []
         for p1, p2 in zip(one["passes"], two["passes"]):
             for r1, r2 in zip(p1["requests"], p2["requests"]):
                 same = [a == b for a, b in zip(r1["tokens"], r2["tokens"])]
                 rows.append({"pass": p2["pass"], "kind": r2["kind"],
                              "equal_tokens": int(sum(same)),
                              "tokens": len(same)})
+                routes.append(r1["routing"] == r2["routing"])
         agree = sum(r["equal_tokens"] for r in rows) / sum(r["tokens"]
                                                            for r in rows)
         l1, l2 = one["passes"][0]["logits"], two["passes"][0]["logits"]
         gap = float(np.abs(l1 - l2).max() / np.abs(l1).max())
+        fp32 = "fp32" in tag
         res = {"tp1": _strip_logits(one), "tp2": _strip_logits(two),
                "token_agreement": agree, "per_request": rows,
+               "routing_equal_share": sum(routes) / len(routes),
                "logit_gap_of_max": gap,
                "argmax_equal": bool(l1.argmax() == l2.argmax())}
         print(json.dumps({"tp_parity": {"case": tag, "card": card,
                                         "note": out["note"],
                                         "token_agreement": agree,
+                                        "routing_equal_share":
+                                            res["routing_equal_share"],
                                         "logit_gap_of_max": gap,
                                         "per_request": rows}}))
-        if tag.startswith("fp32") and agree != 1.0:
-            raise AssertionError(f"tp fp32 tokens differ from tp = 1: {rows}")
-        if not tag.startswith("fp32") and gap > TP_BF16_LOGIT_BOUND:
-            raise AssertionError(f"tp bf16 logits {gap} of the largest apart "
-                                 f"(bound {TP_BF16_LOGIT_BOUND})")
+        if fp32 and (agree != 1.0 or not all(routes)):
+            raise AssertionError(f"tp {tag}: tokens or moe routing differ "
+                                 f"from tp = 1: {rows}, routing {routes}")
+        if not fp32 and gap > tp_logit_bound(arch):
+            raise AssertionError(f"tp {tag} logits {gap} of the largest apart "
+                                 f"(bound {tp_logit_bound(arch)})")
+        fork = two["passes"][0]["requests"][1]
+        print(json.dumps({"tp_numbers": {
+            "case": tag, "card": card, "note": out["note"],
+            "backend": TP_BACKEND, "guard_ops": out["guard_ops"],
+            "shard_bytes": two["model"]["shard_bytes"],
+            "fork_ttft_ms": fork["ttft_s"] * 1e3,
+            "fork_per_rank": fork["fork_per_rank"],
+            "pinned_per_rank": [m["registered_bytes"] for m in
+                                two["passes"][0]["memory_after_deploy"]],
+            "decode_step_per_rank": two["passes"][0]["decode_step_per_rank"],
+            "decode_step_tp1": one["passes"][0]["decode_step_per_rank"]}}))
         out[tag] = res
-    full = out["bf16_8layers"]["tp2"]
-    fork = full["passes"][0]["requests"][1]
-    print(json.dumps({"tp_numbers": {
-        "card": card, "note": out["note"], "backend": TP_BACKEND,
-        "guard_ops": out["guard_ops"],
-        "fork_ttft_ms": fork["ttft_s"] * 1e3,
-        "fork_per_rank": fork["fork_per_rank"],
-        "pinned_per_rank": [m["registered_bytes"] for m in
-                            full["passes"][0]["memory_after_deploy"]],
-        "decode_step_per_rank": full["passes"][0]["decode_step_per_rank"]}}))
     return out
 
 

@@ -20,7 +20,22 @@ parameter by its ROLE in the Megatron layout:
     configs' single KV head) are not split along ``head_dim`` as the JAX
     package's ``paged_cache_specs`` does: each rank keeps the KV heads its
     slice of query heads reads, so a rank's attention sees G = (H / tp) /
-    KV_local query heads per KV head.
+    KV_local query heads per KV head;
+  * moe: the experts' stacked leaves over 'model' on the expert axis
+    (expert parallelism, as the reference places them): rank ``r``
+    holds experts ``[r E / tp, (r + 1) E / tp)``, whole; the router
+    replicated (every rank routes every token); the shared experts
+    split like a dense MLP.  A moe layer's expert partial and shared
+    partial meet the other ranks' in ONE ``all_reduce``;
+  * MLA: the a-side (``wq_a``, ``wkv_a`` and their norms) replicated,
+    ``wq_b`` / ``wkv_b`` split by their head-major columns, ``wo`` by
+    rows.  The latent caches (``c_kv``, ``k_rope`` and their int8
+    scales) are replicated: every rank's heads read the whole latent.
+    The reference's cache specs split ``kv_lora_rank`` instead, which
+    would make ``latent @ wkv_b`` a partial sum over ranks (an
+    ``all_reduce`` of ``[B, T, H (dn + dv)]`` per layer per step); a
+    replicated latent costs 1,152 bytes per token per layer per rank
+    at bf16.
 
 A spec is a :class:`PartitionSpec`, a tuple of ``None`` or an axis name
 per dimension as in JAX.  Its ``parts`` say how a ``'model'`` dimension
@@ -52,7 +67,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import ModelConfig, RankConfig
 from repro_torch.utils import map_with_path, named_leaves
 
 MODEL = "model"
@@ -134,18 +149,12 @@ def _on(ndim: int, dim: int, parts=None) -> PartitionSpec:
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
     """Raise for a configuration the port cannot split over ``tp`` ranks:
-    families other than dense (each names its ROADMAP item) and head or
-    width counts the model axis does not divide."""
+    families other than dense and moe (GQA or MLA attention; each names
+    its ROADMAP item) and head, expert or width counts the model axis
+    does not divide."""
     if tp == 1:
         return
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA under tensor parallelism is ROADMAP Queue 1, "
-            "item 5")
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: moe expert parallelism is ROADMAP Queue 1, item 4")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family under a sharding plan "
             "is ROADMAP Queue 1, item 6")
@@ -153,10 +162,18 @@ def check_tp(cfg: ModelConfig, tp: int) -> None:
     if H % tp:
         raise ValueError(f"{cfg.name}: {H} query heads do not split over "
                          f"{tp} ranks")
-    if KV % tp and tp % KV:
+    if not cfg.use_mla and KV % tp and tp % KV:
         raise ValueError(f"{cfg.name}: {KV} KV heads neither split over nor "
                          f"divide {tp} ranks")
-    if cfg.d_ff % tp:
+    if cfg.family == "moe":
+        if cfg.n_experts % tp:
+            raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
+                             f"split over {tp} ranks")
+        if cfg.shared_width % tp:
+            raise ValueError(f"{cfg.name}: the shared experts' width "
+                             f"{cfg.shared_width} does not split over {tp} "
+                             "ranks")
+    elif cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
                          f"{tp} ranks")
 
@@ -172,17 +189,31 @@ def vocab_parallel(cfg: ModelConfig, tp: int) -> bool:
     return tp > 1 and cfg.vocab_size % tp == 0
 
 
-def local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
-    """The configuration one rank computes with: its query heads, the KV
-    heads they read, its slice of ``d_ff`` and, vocab-parallel, of the
-    vocabulary.  ``head_dim`` and ``d_model`` stay."""
+def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
+    """The configuration rank ``rank`` computes with (a
+    :class:`RankConfig`): its query heads, the KV heads they read, its
+    slice of ``d_ff`` and, vocab-parallel, of the vocabulary.
+    ``head_dim`` and ``d_model`` stay, and so do MLA's latent widths.  A
+    moe layer keeps the global ``n_experts`` (routing and the capacity
+    read it) and each expert's whole width ``moe_d_ff``; the rank's
+    expert range and its slice of the shared experts' width are stored
+    in their own fields."""
     if tp == 1:
         return cfg
     check_tp(cfg, tp)
     kv = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else 1
     vocab = cfg.vocab_size // tp if vocab_parallel(cfg, tp) else cfg.vocab_size
-    return cfg.replace(n_heads=cfg.n_heads // tp, n_kv_heads=kv,
-                       d_ff=cfg.d_ff // tp, vocab_size=vocab)
+    fields = {f.name: getattr(cfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    fields.update(n_heads=cfg.n_heads // tp, n_kv_heads=kv,
+                  d_ff=cfg.d_ff // tp, vocab_size=vocab)
+    moe = {}
+    if cfg.n_experts:
+        per = cfg.n_experts // tp
+        fields["moe_d_ff"] = cfg.moe_d_ff or cfg.d_ff
+        moe = dict(expert_first=rank * per, n_local_experts=per,
+                   shared_d_ff=cfg.shared_width // tp)
+    return RankConfig(**fields, **moe)
 
 
 # ---------------------------------------------------------------------------
@@ -245,12 +276,25 @@ def _kv_spec(cfg: ModelConfig, ndim: int, dim: int, size: int, tp: int):
     return _on(ndim, dim, None if g == tp else ((size, g),))
 
 
+# MLA's low-rank a-side: every rank computes the whole latent its heads read
+_MLA_REPLICATED = ("wq_a", "wkv_a")
+# the latent cache leaves of an MLA arena or dense cache (replicated)
+LATENT_LEAVES = ("c_kv", "k_rope", "c_kv_scale", "k_rope_scale")
+
+
 def _param_spec(path: str, shape: tuple, cfg: ModelConfig,
                 tp: int) -> PartitionSpec:
     ndim = len(shape)
-    leaf = path.rsplit(".", 1)[-1]
+    parts = path.split(".")
+    leaf = parts[-1]
     if tp == 1:
         return _replicated(ndim)
+    if "experts" in parts:               # [E, D, F] / [E, F, D]: by expert
+        return _on(ndim, 0)
+    if leaf == "router" or leaf in _MLA_REPLICATED:
+        return _replicated(ndim)
+    if leaf in ("wq_b", "wkv_b"):         # head-major columns
+        return _on(2, 1)
     if leaf == "embed":
         return _on(2, 0) if vocab_parallel(cfg, tp) else _replicated(2)
     if leaf == "lm_head":
@@ -302,8 +346,9 @@ def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
     """Specs of dense caches (leaves ``[L, B, T, KV, hd]``, the GLOBAL
     shapes): the batch axis over 'data' when it divides (as the JAX
     package places it), K/V heads over 'model' as the parameters place
-    the heads that fill them.  ``prefer_seq`` (the JAX package's
-    sequence-sharded decode cache) is not ported."""
+    the heads that fill them, MLA's latent leaves replicated over 'model'
+    (every rank allocates them whole).  ``prefer_seq`` (the JAX
+    package's sequence-sharded decode cache) is not ported."""
     if prefer_seq:
         raise NotImplementedError(
             "sequence-sharded caches (prefer_seq) are not in the port")
@@ -317,7 +362,8 @@ def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
         entries = [None] * ndim
         if ndim >= 2 and shape[1] % dp == 0 and shape[1] >= dp:
             entries[1] = DATA
-        if replicate_model or tp == 1 or ndim < 4:
+        if (replicate_model or tp == 1 or ndim < 4
+                or path.rsplit(".", 1)[-1] in LATENT_LEAVES):
             return P(*entries)
         spec = _kv_spec(cfg, ndim, 3, shape[3], tp)
         return P(*[e or s for e, s in zip(entries, spec)], parts=spec.parts)
@@ -331,13 +377,14 @@ def paged_cache_specs(cache_tree, mesh):
     KV]``): the layer, page and in-page axes replicated (the page table
     is host state), the KV heads over 'model': split when the axis
     divides, one head per rank when the axis divides the ranks, else
-    replicated.  Shape arithmetic only, as in the JAX package."""
+    replicated.  MLA's latent leaves (``LATENT_LEAVES``) are replicated:
+    every rank's pool allocates them whole."""
     tp = mesh.shape[MODEL]
 
-    def choose(_, leaf):
+    def choose(path, leaf):
         shape = tuple(leaf.shape)
         ndim = len(shape)
-        if tp == 1 or ndim < 4:
+        if tp == 1 or ndim < 4 or path.rsplit(".", 1)[-1] in LATENT_LEAVES:
             return _replicated(ndim)
         kv = shape[3]
         if kv % tp == 0:
@@ -380,8 +427,9 @@ def validate_specs(spec_tree, shape_tree, mesh) -> list:
 
 def shard_for_rank(tensor: torch.Tensor, spec: PartitionSpec,
                    plan: ShardingPlan) -> torch.Tensor:
-    """This rank's piece of a full leaf (a contiguous copy; the leaf
-    itself when the spec replicates it over the model axis)."""
+    """This rank's piece of a full leaf (a copy of its own, which never
+    keeps the full leaf's storage alive; the leaf itself when the spec
+    replicates it over the model axis)."""
     d = spec.model_dim
     if d is None:
         return tensor
@@ -392,7 +440,9 @@ def shard_for_rank(tensor: torch.Tensor, spec: PartitionSpec,
         first = start + (r * groups // tp) * width
         pieces.append(tensor.narrow(d, first, width))
         start += seg
-    return torch.cat(pieces, dim=d) if len(pieces) > 1 else pieces[0].contiguous()
+    if len(pieces) > 1:
+        return torch.cat(pieces, dim=d)
+    return pieces[0].clone(memory_format=torch.contiguous_format)
 
 
 # ---------------------------------------------------------------------------
@@ -416,7 +466,7 @@ def use_plan(plan: Optional[ShardingPlan], cfg: Optional[ModelConfig] = None):
     of the (global) configuration ``cfg``; a None plan is one device."""
     scope = None
     if plan is not None and plan.tp > 1:
-        scope = _Scope(plan, local_config(cfg, plan.tp),
+        scope = _Scope(plan, local_config(cfg, plan.tp, plan.rank),
                        vocab_parallel(cfg, plan.tp))
     token = _SCOPE.set(scope)
     try:

@@ -49,8 +49,11 @@ each (``repro_torch.distributed.spawn``; ``--backend``, default gloo,
 which also lets ranks share one card: NCCL refuses two ranks on one
 device).  Every rank draws its shard of the weights from the seed; rank
 0 runs the runtime and prints, the others serve its device ops.  The
-dense family only; ``--lora`` under ``--tp`` exits with a message
-naming its ROADMAP item.
+dense and moe families (GQA or MLA attention): a moe rank holds E / N
+whole experts, an MLA rank H / N heads and the whole latent arena, so
+``--arch phi3.5-moe-42b-a6.6b --tp 2 --layers 4`` and ``--arch
+deepseek-v3-671b --tp 2 --layers 1`` serve on one card; ``--lora``
+under ``--tp`` exits with a message naming its ROADMAP item.
 
 ``--instances K`` serves K instances (``ServingMesh(K, 1)``), instance i
 on ``cuda:(i mod device_count)`` (K instances share one card), each with
@@ -60,6 +63,8 @@ already warm unless that instance is busier (locality routing).  With
 Queue 1, item 8.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu \
+        --arch deepseek-v3-671b --layers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 \
         --device cpu --layers 2
 """
@@ -191,7 +196,7 @@ def main(argv=None):
     if args.device != "cpu" and args.layers is None:
         # every rank's weights and a fork's copy, on the cards they share
         weights = tree_bytes(transformer.param_specs(
-            sharding.local_config(cfg, args.tp)))
+            sharding.local_config(cfg, args.tp, 0)))
         sharing = -(-args.tp // torch.cuda.device_count())
         card = torch.cuda.get_device_properties(0).total_memory
         if 2 * weights * sharing > card:
@@ -253,9 +258,13 @@ def serve(args, group=None) -> None:
         if not group.is_controller:
             group.serve()
             return
+        local = model.local_cfg
+        heads = (f"{local.n_heads} MLA heads" if cfg.use_mla else
+                 f"{local.n_heads} query / {local.n_kv_heads} KV heads")
+        first, end = local.expert_range
+        experts = f", {end - first} experts" if cfg.n_experts else ""
         print(f"tensor parallel: {group.size} ranks ({group.backend}), "
-              f"{model.local_cfg.n_heads} query / "
-              f"{model.local_cfg.n_kv_heads} KV heads per rank")
+              f"{heads}{experts} per rank")
     mesh = group.mesh if group is not None else ServingMesh(args.instances, 1)
     rt = FaaSRuntime(n_slots=args.slots,
                      max_len=args.prompt_len + args.max_new,

@@ -91,8 +91,41 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.n_kv_heads * self.head_dim
 
+    @property
+    def expert_range(self) -> tuple:
+        """The experts ``[first, end)`` this configuration holds: all of
+        them on one device (see :class:`RankConfig`)."""
+        return (0, self.n_experts)
+
+    @property
+    def shared_width(self) -> int:
+        """The shared experts' MLP width (all of it on one device)."""
+        return (self.moe_d_ff or self.d_ff) * self.n_shared_experts
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """One tensor-parallel rank's configuration
+    (``distributed.sharding.local_config``): the shard's head, width and
+    vocabulary counts in the base fields, and the expert-parallel part of
+    a moe layer stored explicitly.  ``n_experts`` and ``capacity_factor``
+    stay global (routing and the capacity read them); the rank holds
+    experts ``[expert_first, expert_first + n_local_experts)`` and the
+    shared experts' width ``shared_d_ff``."""
+    expert_first: int = 0
+    n_local_experts: int = 0
+    shared_d_ff: int = 0
+
+    @property
+    def expert_range(self) -> tuple:
+        return (self.expert_first, self.expert_first + self.n_local_experts)
+
+    @property
+    def shared_width(self) -> int:
+        return self.shared_d_ff
 
 
 def reduced(cfg: ModelConfig, **extra) -> ModelConfig:

@@ -301,17 +301,23 @@ def init_mlp_params(gen: Optional[ParamDraw], d_model: int, d_ff: int,
             "w_down": normal_(gen, (d_ff, d_model))}
 
 
-def mlp_block(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """The gated MLP; under a sharding plan over the rank's slice of
-    ``d_ff`` (``w_gu`` holds its gate and up slices side by side), the
-    down projection's partial sums meeting the other ranks' in one
-    ``all_reduce``."""
+def mlp_partial(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP over the width its weights hold: under a sharding
+    plan the rank's slice of ``d_ff`` (``w_gu`` holds its gate and up
+    slices side by side), so the result is this rank's partial sum of
+    the down projection (the whole product on one device)."""
     if "w_gu" in p:
         g, u = (x @ p["w_gu"]).chunk(2, dim=-1)
     else:
         g, u = x @ p["w_gate"], x @ p["w_up"]
     a = F.silu(g) if act == "silu" else F.gelu(g, approximate="tanh")
-    return sharding.all_reduce((a * u) @ p["w_down"])
+    return (a * u) @ p["w_down"]
+
+
+def mlp_block(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP; under a sharding plan the ranks' partial sums
+    (:func:`mlp_partial`) meet in one ``all_reduce``."""
+    return sharding.all_reduce(mlp_partial(p, x, act))
 
 
 # ---------------------------------------------------------------------------

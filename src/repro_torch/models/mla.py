@@ -33,6 +33,13 @@ reference runs MLA in XLA, outside any Pallas kernel) except the three
 RMSNorms per block, which go to the ``rmsnorm`` kernel on a card;
 ``kv_a_norm`` reads a strided view of the ``wkv_a`` product (rows of
 ``kvr`` at a row stride of ``kvr + dr``) without a copy.
+
+Under a sharding plan (head parallelism) ``cfg`` is the rank's
+configuration with ``H / tp`` heads and ``wq_b`` / ``wkv_b`` hold those
+heads' columns: the a-side products and their norms run replicated, the
+latent cache is whole on every rank (every head reads all of it), and
+``out @ wo`` is a row-parallel partial summed over the ranks by one
+``all_reduce``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import quant
 from repro_torch.models.config import ModelConfig
@@ -160,7 +168,7 @@ def mla_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     mask = kv_pos[None, None, None, :] <= positions[:, :, None, None]
     probs = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
     out = product("bsht,bthd->bshd", probs, v.float()).to(x.dtype)
-    return out.reshape(B, S, H * dv) @ p["wo"], kv_cache
+    return sharding.all_reduce(out.reshape(B, S, H * dv) @ p["wo"]), kv_cache
 
 
 def _per_sequence(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

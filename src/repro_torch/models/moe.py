@@ -18,6 +18,18 @@ Where the bits could drift from the reference:
   * T counts every row of the call: free slots' rows of a decode step
     take capacity too (see ``runtime.continuous``).
 
+Under a sharding plan (expert parallelism) ``cfg`` is the rank's
+configuration (``distributed.sharding.local_config``): it keeps the
+global ``n_experts`` and capacity factor, and its ``expert_range`` names
+the experts the rank holds.  Every rank routes every token with the
+replicated router and computes the same global rows and ``keep``; a
+pair whose expert another rank holds goes to the discard row, so the
+rank's buffer is ``[E/tp * C + 1, D]`` and its batched products run over
+its own experts.  Its gate-weighted sum is a partial output, to which
+the shared experts' row-parallel partial is added; ONE ``all_reduce``
+sums both over the ranks.  Without a plan the block runs the same ops
+as the reference's layout, and that ``all_reduce`` returns its input.
+
 Nothing here needs a device: on ``meta`` tensors (tracing) the sort,
 cumulative sum and index writes run shape-only.
 
@@ -33,21 +45,26 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import init_mlp_params, mlp_block, normal_
+from repro_torch.models.layers import init_mlp_params, mlp_partial, normal_
 
 
 def make_moe_params(gen, cfg: ModelConfig) -> dict:
     """Router ``[D, E]`` and the experts' stacked gated MLPs ``[E, D, F]``
     / ``[E, F, D]``, drawn in the reference's order (router, gate, up,
-    down, then the shared experts' MLP)."""
+    down, then the shared experts' MLP).  A rank's configuration gives
+    the shapes of its shard: the experts of its ``expert_range`` and its
+    slice of the shared width."""
     D, E, Fd = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    first, end = cfg.expert_range
+    El = end - first
     p = {"router": normal_(gen, (D, E), scale=1.0 / math.sqrt(D)),
-         "experts": {"w_gate": normal_(gen, (E, D, Fd)),
-                     "w_up": normal_(gen, (E, D, Fd)),
-                     "w_down": normal_(gen, (E, Fd, D))}}
+         "experts": {"w_gate": normal_(gen, (El, D, Fd)),
+                     "w_up": normal_(gen, (El, D, Fd)),
+                     "w_down": normal_(gen, (El, Fd, D))}}
     if cfg.n_shared_experts:
-        p["shared"] = init_mlp_params(gen, D, Fd * cfg.n_shared_experts)
+        p["shared"] = init_mlp_params(gen, D, cfg.shared_width)
     return p
 
 
@@ -98,10 +115,28 @@ def dispatch(gate_idx: torch.Tensor, cfg: ModelConfig, capacity: int) -> tuple:
     return row, keep
 
 
+def local_rows(row: torch.Tensor, keep: torch.Tensor, gate_idx: torch.Tensor,
+               cfg: ModelConfig, capacity: int) -> tuple:
+    """A rank's rows of the global dispatch: the kept pairs whose expert
+    lies in ``cfg.expert_range`` keep their row, shifted to the rank's
+    buffer; every other pair takes the rank's discard row ``E_local *
+    C``.  Returns (row, mine) like :func:`dispatch`'s (row, keep); on one
+    device, the inputs themselves."""
+    first, end = cfg.expert_range
+    if (first, end) == (0, cfg.n_experts):
+        return row, keep
+    flat = gate_idx.reshape(-1)
+    mine = keep & (flat >= first) & (flat < end)
+    return torch.where(mine, row - first * capacity,
+                       torch.full_like(row, (end - first) * capacity)), mine
+
+
 def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D]."""
+    """x: [B, S, D] -> [B, S, D] (see the module doc for a plan)."""
     B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+    K = cfg.top_k
+    first, end = cfg.expert_range
+    El = end - first
     T = B * S
     C = expert_capacity(T, cfg)
     xf = x.reshape(T, D)
@@ -109,25 +144,28 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     row, keep = dispatch(gate_idx, cfg, C)
     for calls in _watches:
         calls.append((S, gate_idx, keep))
+    row, mine = local_rows(row, keep, gate_idx, cfg, C)
 
-    # scatter: each kept row of the [E, C, D] buffer receives one token row
-    buf = x.new_zeros((E * C + 1, D))
+    # scatter: each row of the [El, C, D] buffer this rank's kept pairs
+    # reach receives one token row
+    buf = x.new_zeros((El * C + 1, D))
     buf.index_copy_(0, row, xf.repeat_interleave(K, dim=0))
-    h = buf[:E * C].view(E, C, D)
+    h = buf[:El * C].view(El, C, D)
 
     ex = p["experts"]
     g, u = torch.bmm(h, ex["w_gate"]), torch.bmm(h, ex["w_up"])
     a = F.silu(g) if cfg.act == "silu" else F.gelu(g, approximate="tanh")
-    out = torch.bmm(a * u, ex["w_down"]).view(E * C, D)
+    out = torch.bmm(a * u, ex["w_down"]).view(El * C, D)
 
-    # gather back, zero the dropped pairs, combine with the gate weights
-    safe = torch.where(keep, row, torch.zeros_like(row))
-    gathered = out[safe].masked_fill(~keep[:, None], 0)
+    # gather back, zero the dropped (and other ranks') pairs, combine
+    # with the gate weights
+    safe = torch.where(mine, row, torch.zeros_like(row))
+    gathered = out[safe].masked_fill(~mine[:, None], 0)
     y = (gathered.view(T, K, D) * gate_w[..., None].to(x.dtype)).sum(dim=1)
     y = y.view(B, S, D)
     if "shared" in p:
-        y = y + mlp_block(p["shared"], x, cfg.act)
-    return y
+        y = y + mlp_partial(p["shared"], x, cfg.act)
+    return sharding.all_reduce(y)
 
 
 

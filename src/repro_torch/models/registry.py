@@ -9,7 +9,8 @@
 A ``Model`` holds its device; every tensor it makes lives there.  With a
 ``plan`` (``distributed.sharding.ShardingPlan``) it is one rank's part of
 a tensor-parallel model: its parameters, caches and arenas hold the
-rank's shard (``local_cfg``: its heads, ``d_ff`` and vocabulary slice),
+rank's shard (``local_cfg``: its heads, ``d_ff`` and vocabulary slice,
+a moe layer's experts and MLA's heads; MLA's latent arenas whole),
 its calls run under ``sharding.use_plan`` and meet the other ranks in
 their collectives, and the device ops below carry
 ``distributed.group.mirrored`` (on a controller they broadcast to the
@@ -72,7 +73,8 @@ class Model:
         if self.plan is not None and self.plan.tp == 1:
             self.plan = None
         self._local_cfg = (self.cfg if self.plan is None
-                           else sharding.local_config(self.cfg, self.plan.tp))
+                           else sharding.local_config(self.cfg, self.plan.tp,
+                                                      self.plan.rank))
 
     @property
     def local_cfg(self) -> ModelConfig:

@@ -172,8 +172,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 
     ``shard(path, leaf)`` (a sharding plan's) keeps a slice of each full
     leaf: the leaves are drawn in the one-device order and each is cut
-    as soon as it is drawn, so every rank holds the weights of the same
-    seed at one leaf's transient cost."""
+    as soon as it is drawn, into a copy of its own, so every rank holds
+    the weights of the same seed at one leaf's transient cost (the full
+    draw of one expert leaf, 3.76 GB for deepseek-v3's [256, 7168,
+    2048] in bf16, freed before the next is drawn)."""
     _decoder_only(cfg)
     dtype = torch_dtype(cfg.dtype)
     draw = ParamDraw(seed, device, dtype, on_device=draw_on_device)
@@ -299,7 +301,10 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
     cache (updated in place).  The layer loop below and the layer-streamed
     prefill (``core.streaming``) both run it.  ``adapters`` is this
     layer's slice of an adapter bank (GQA blocks only).  A moe block
-    appends its load-balancing loss to ``aux`` when one is given."""
+    appends its load-balancing loss to ``aux`` when one is given.  Under
+    a sharding plan ``cfg`` is the rank's configuration: MLA runs its
+    heads and the moe layer its experts (``models.mla``, ``models.moe``),
+    each ending in one ``all_reduce``."""
     h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
     if cfg.use_mla:
         if adapters is not None:

@@ -228,12 +228,13 @@ def test_engine_raises_for_later_slices(models):
     # forked sessions are served now; anything else is refused
     with pytest.raises(TypeError, match="ForkSession"):
         ContinuousBatchingEngine(tm, object(), n_slots=1, max_len=16)
-    # a sharding plan serves the dense family; moe under a plan and LoRA
-    # banks under tensor parallelism still wait for their items
+    # a sharding plan serves the dense and moe families; zamba under a
+    # plan and LoRA banks under tensor parallelism still wait for their
+    # items
     from repro_torch.distributed import ServingMesh, serving_plan
     plan = serving_plan(ServingMesh(1, 2), rank=0)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        torch_smoke("phi3.5-moe-42b-a6.6b", device="cpu", plan=plan)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        torch_smoke("zamba2-2.7b", device="cpu", plan=plan)
     sharded = torch_smoke("smollm-135m", device="cpu", n_layers=2, plan=plan)
     with pytest.raises(NotImplementedError, match="item 7"):
         ContinuousBatchingEngine(sharded, tp, n_slots=1, max_len=16,

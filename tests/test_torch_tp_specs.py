@@ -6,10 +6,13 @@ The specs are compared leaf by leaf over the same mesh (the port's
 ``ServingMesh(1, 2)``, whose ``shape`` and ``axis_names`` the JAX
 functions read), and every difference must be one of the listed
 placements (ROADMAP Queue 3, "Differences the reference itself has"):
-nothing else differs.  Then the arithmetic the ranks rely on: shards
-reassemble the leaf, ``init_params`` under a plan keeps the slice of the
-one-device draw, ``validate_specs``, the kernels' head check and the
-refusals that name their ROADMAP items.  No process group is needed.
+nothing else differs, at the smoke shapes and at the full shapes of
+llama3-8b, phi3.5-moe and deepseek-v3.  Then the arithmetic the ranks
+rely on: shards reassemble the leaf, ``init_params`` under a plan keeps
+the slice of the one-device draw (experts and MLA heads too), every
+cache spec cuts the global arena to the one a rank's pool allocates,
+``validate_specs``, the kernels' head check and the refusals that name
+their ROADMAP items.  No process group is needed.
 """
 
 import pytest
@@ -50,6 +53,24 @@ ATTN_DIFFS = {
 ONE_KV_DIFFS = {**ATTN_DIFFS,
                 "blocks.attn.wk": (("model", None), (None, None)),
                 "blocks.attn.wv": (("model", None), (None, None))}
+# moe: JAX splits the router's larger axis (d_model); every rank routes
+# every token with the whole router.  The experts agree (the expert axis)
+ROUTER_DIFF = {"blocks.moe.router": (("model", None), (None, None))}
+# the shared expert placed by role (columns, columns, rows); JAX by shape
+SHARED_DIFFS = {"blocks.moe.shared.w_gate": (("model", None), (None, "model")),
+                "blocks.moe.shared.w_up": (("model", None), (None, "model")),
+                "blocks.moe.shared.w_down": ((None, "model"), ("model", None))}
+NORM_DIFFS = {k: ATTN_DIFFS[k] for k in ("blocks.attn_norm",
+                                         "blocks.mlp_norm", "final_norm")}
+# MLA: the a-side replicated and wq_b / wkv_b on their columns as in JAX;
+# wo by rows (JAX takes the tie at the smoke shape's 64 x 64 to the last
+# axis, and rows at the full [16384, 7168])
+MLA_SMOKE_DIFFS = {**NORM_DIFFS, **ROUTER_DIFF, **SHARED_DIFFS,
+                   "blocks.attn.wo": ATTN_DIFFS["blocks.attn.wo"]}
+MLA_FULL_DIFFS = {**NORM_DIFFS, **ROUTER_DIFF, **SHARED_DIFFS}
+MOE_DIFFS = {"smoke": {**ONE_KV_DIFFS, **ROUTER_DIFF},
+             "full": {**ATTN_DIFFS, **ROUTER_DIFF}}
+PHI, DSV3 = "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
 
 
 def _param_diffs(jm, tm) -> dict:
@@ -85,6 +106,56 @@ def test_smoke_param_specs_differ_from_jax_only_as_listed(kv, diffs):
 def test_llama3_8b_param_specs_differ_from_jax_only_as_listed():
     assert _param_diffs(jax_model("llama3-8b"),
                         get_model("llama3-8b", device="cpu")) == ATTN_DIFFS
+
+
+@pytest.mark.parametrize("arch,size,diffs", [
+    (PHI, "smoke", MOE_DIFFS["smoke"]), (PHI, "full", MOE_DIFFS["full"]),
+    (DSV3, "smoke", MLA_SMOKE_DIFFS), (DSV3, "full", MLA_FULL_DIFFS)])
+def test_moe_and_mla_param_specs_differ_from_jax_only_as_listed(arch, size,
+                                                                diffs):
+    """Experts over the expert axis and MLA's b-side on its head columns
+    as in JAX; the router replicated, the shared expert by role, and the
+    attention and norms as in the dense family."""
+    if size == "smoke":
+        jm, tm = (jax_smoke(arch, n_layers=2),
+                  get_smoke_model(arch, device="cpu", n_layers=2))
+    else:
+        jm, tm = jax_model(arch), get_model(arch, device="cpu")
+    assert _param_diffs(jm, tm) == diffs
+
+
+@pytest.mark.parametrize("arch,experts", [(PHI, 8), (DSV3, 128)])
+def test_moe_and_mla_roles_at_full_width(arch, experts):
+    """Each rank holds E / 2 whole experts; MLA's a-side is replicated and
+    its b-side split on heads; the rank's configuration keeps the global
+    expert count and MLA's latent widths."""
+    cfg = get_model(arch, device="cpu").cfg
+    specs = dict(named_leaves(sharding.config_param_specs(cfg, 2)))
+    for leaf in ("w_gate", "w_up", "w_down"):
+        assert specs[f"layers.0.moe.experts.{leaf}"] == P("model", None, None)
+    assert specs["layers.0.moe.router"] == P(None, None)
+    for r in range(2):
+        local = sharding.local_config(cfg, 2, rank=r)
+        assert local.expert_range == (r * experts, (r + 1) * experts)
+        assert local.n_experts == cfg.n_experts
+        assert local.moe_d_ff == cfg.moe_d_ff
+        assert local.shared_width == cfg.shared_width // 2
+        assert local.n_heads == cfg.n_heads // 2
+        assert (local.kv_lora_rank, local.qk_rope_dim) == (
+            cfg.kv_lora_rank, cfg.qk_rope_dim)
+    shapes = dict(named_leaves(transformer.param_specs(local)))
+    assert shapes["layers.0.moe.experts.w_gate"].shape[0] == experts
+    if cfg.use_mla:
+        for leaf in ("wq_a", "wkv_a", "q_a_norm", "kv_a_norm"):
+            assert specs[f"layers.0.attn.{leaf}"].model_dim is None
+        assert specs["layers.0.attn.wq_b"] == P(None, "model")
+        assert specs["layers.0.attn.wkv_b"] == P(None, "model")
+        assert specs["layers.0.attn.wo"] == P("model", None)
+        assert shapes["layers.0.attn.wkv_b"].shape == (
+            cfg.kv_lora_rank, 64 * (cfg.qk_nope_dim + cfg.v_head_dim))
+    assert sharding.validate_specs(
+        sharding.config_param_specs(cfg, 2), transformer.param_specs(cfg),
+        MESH) == []
 
 
 @pytest.mark.parametrize("kv", [2, 1])
@@ -123,6 +194,75 @@ def test_cache_specs_against_jax(kv):
             "paged.int8.v": (head_dim, (None,) * 5)}
 
 
+def test_latent_cache_specs_against_jax():
+    """MLA's dense and paged (fp and int8) latent caches: the port
+    replicates ``c_kv`` and ``k_rope`` over 'model' (every rank's heads
+    read the whole latent), where JAX splits their last axis
+    (``kv_lora_rank``, ``qk_rope_dim``); the int8 scales agree."""
+    jm = jax_smoke(DSV3, n_layers=2)
+    tm = get_smoke_model(DSV3, device="cpu", n_layers=2)
+    got = sharding.cache_specs(tm, transformer.make_cache(
+        tm.cfg, 4, 16, device="meta"), MESH, batch=4)
+    want = jax_sharding.cache_specs(jm, jm.make_cache(4, 16, abstract=True),
+                                    MESH, batch=4)
+    for kv_dtype in (None, "int8"):
+        pg = sharding.paged_cache_specs(transformer.make_paged_cache(
+            tm.cfg, 9, 8, device="meta", kv_dtype=kv_dtype), MESH)
+        pw = jax_sharding.paged_cache_specs(jax.eval_shape(
+            lambda: jm.make_paged_cache(9, 8, kv_dtype=kv_dtype)), MESH)
+        got.update({f"paged.{kv_dtype}.{k}": v for k, v in pg.items()})
+        want.update({f"paged.{kv_dtype}.{k}": v for k, v in pw.items()})
+    diff = {k: (tuple(want[k]), tuple(v)) for k, v in got.items()
+            if tuple(v) != tuple(want[k])}
+    split, whole = (None, None, None, "model"), (None,) * 4
+    assert diff == {
+        "c_kv": ((None, "data", None, "model"), (None, "data", None, None)),
+        "k_rope": ((None, "data", None, "model"), (None, "data", None, None)),
+        "paged.None.c_kv": (split, whole), "paged.None.k_rope": (split, whole),
+        "paged.int8.c_kv": (split, whole), "paged.int8.k_rope": (split, whole)}
+
+
+def _shard_shape(shape: tuple, spec) -> tuple:
+    """The shape of one rank's piece of a ``shape`` leaf under ``spec``."""
+    d = spec.model_dim
+    if d is None:
+        return tuple(shape)
+    parts = spec.parts or ((shape[d], MESH.model),)
+    out = list(shape)
+    out[d] = sum(seg // groups for seg, groups in parts)
+    return tuple(out)
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("smollm-135m", {"n_kv_heads": 2}), ("smollm-135m", {"n_kv_heads": 1}),
+    (PHI, {}), (DSV3, {})], ids=["kv2", "kv1", "moe", "mla"])
+def test_cache_specs_cut_the_arena_a_ranks_pool_allocates(arch, extra):
+    """Every dense and paged (fp and int8) cache spec cuts the global
+    leaf to the leaf a rank's model allocates: K/V heads split or kept,
+    MLA's latent whole."""
+    from repro_torch.runtime.kv_pool import PagedKVCachePool
+    cfg = get_smoke_model(arch, device="cpu", n_layers=2, **extra).cfg
+    one = get_model(cfg, device="cpu")
+    for r in range(2):
+        rank = get_model(cfg, device="cpu",
+                         plan=sharding.serving_plan(MESH, rank=r))
+        dense = sharding.cache_specs(one, transformer.make_cache(
+            cfg, 4, 16, device="meta"), MESH, batch=4)
+        for k, t in transformer.make_cache(cfg, 4, 16, device="meta").items():
+            assert _shard_shape(tuple(t.shape), dense[k]) == tuple(
+                rank.make_cache(4, 16)[k].shape), (k, r)
+        for kv_dtype in (None, "int8"):
+            full = transformer.make_paged_cache(cfg, 9, 8, device="meta",
+                                                kv_dtype=kv_dtype)
+            specs = sharding.paged_cache_specs(full, MESH)
+            pool = PagedKVCachePool(rank, 2, 16, page_size=8, n_pages=9,
+                                    kv_dtype=kv_dtype)
+            assert set(pool.cache) == set(full)
+            for k, t in full.items():
+                assert _shard_shape(tuple(t.shape), specs[k]) == tuple(
+                    pool.cache[k].shape), (k, kv_dtype, r)
+
+
 def test_validate_specs_llama3_8b_and_a_violation():
     tm = get_model("llama3-8b", device="cpu")
     specs = sharding.param_specs(tm, MESH)
@@ -133,21 +273,18 @@ def test_validate_specs_llama3_8b_and_a_violation():
     assert bad == [("w", 1, 3, 2)]
 
 
-@pytest.mark.parametrize("kv", [2, 1])
-def test_sharded_init_keeps_each_ranks_slice_of_one_draw(kv):
-    """``init_params`` under a plan draws every full leaf in the one-device
-    order and keeps the rank's slice: the two ranks' shards reassemble
-    the tp = 1 weights of the same seed (replicated leaves whole on each)."""
-    single = get_smoke_model("smollm-135m", device="cpu", n_layers=2,
-                             n_kv_heads=kv)
+def _check_sharded_init(single) -> None:
     one = single.init_params(seed=4)
     ranks = [get_model(single.cfg, device="cpu",
                        plan=sharding.serving_plan(MESH, rank=r)
                        ).init_params(seed=4) for r in range(2)]
     specs = dict(named_leaves(sharding.config_param_specs(single.cfg, 2)))
     local = dict(named_leaves(transformer.param_specs(
-        sharding.local_config(single.cfg, 2))))
+        sharding.local_config(single.cfg, 2, 0))))
     shards = [dict(named_leaves(r)) for r in ranks]
+    for s in shards:        # a copy of its own, never a view of the draw
+        for t in s.values():
+            assert t.untyped_storage().nbytes() == t.numel() * t.element_size()
     for path, full in named_leaves(one):
         spec = specs[path]
         assert tuple(shards[0][path].shape) == tuple(local[path].shape)
@@ -157,6 +294,22 @@ def test_sharded_init_keeps_each_ranks_slice_of_one_draw(kv):
         else:
             assert torch.equal(torch.cat([s[path] for s in shards], dim=d),
                                full), path
+
+
+@pytest.mark.parametrize("kv", [2, 1])
+def test_sharded_init_keeps_each_ranks_slice_of_one_draw(kv):
+    """``init_params`` under a plan draws every full leaf in the one-device
+    order and keeps the rank's slice: the two ranks' shards reassemble
+    the tp = 1 weights of the same seed (replicated leaves whole on each)."""
+    _check_sharded_init(get_smoke_model("smollm-135m", device="cpu",
+                                        n_layers=2, n_kv_heads=kv))
+
+
+@pytest.mark.parametrize("arch", [PHI, DSV3])
+def test_sharded_init_keeps_each_ranks_experts_and_heads(arch):
+    """The same for the experts (rank r keeps experts [r E/2, (r+1) E/2)),
+    the shared expert and MLA's head columns."""
+    _check_sharded_init(get_smoke_model(arch, device="cpu", n_layers=2))
 
 
 def test_fused_leaves_split_per_part():
@@ -196,7 +349,7 @@ def test_kv_heads_fewer_than_ranks_are_shared_by_query_group():
         got = sharding.shard_for_rank(wk, spec,
                                       sharding.serving_plan(mesh, rank=r))
         assert torch.equal(got, heads[r // 2])
-    assert sharding.local_config(cfg, 4).n_kv_heads == 1
+    assert sharding.local_config(cfg, 4, 0).n_kv_heads == 1
 
 
 def test_kernels_check_the_ranks_heads():
@@ -212,8 +365,7 @@ def test_kernels_check_the_ranks_heads():
     assert sharding.local_heads() is None
 
 
-@pytest.mark.parametrize("arch,item", [("phi3.5-moe-42b-a6.6b", "item 4"),
-                                       ("deepseek-v3-671b", "item 5"),
+@pytest.mark.parametrize("arch,item", [("whisper-medium", "item 6"),
                                        ("zamba2-2.7b", "item 6"),
                                        ("xlstm-1.3b", "item 6")])
 def test_other_families_under_a_plan_name_their_item(arch, item):
@@ -234,10 +386,27 @@ def test_data_axis_and_training_specs_name_their_items():
         model.forward(model.init_params(), {"tokens": np.zeros((1, 4), np.int32)})
 
 
-def test_lora_under_a_plan_names_its_item():
+@pytest.mark.parametrize("arch,replace,tp,match", [
+    (PHI, {"n_experts": 6}, 4, "6 experts"),
+    (DSV3, {"n_heads": 126}, 4, "126 query heads"),
+    (DSV3, {"moe_d_ff": 2050}, 4, "shared experts' width 2050"),
+    ("llama3-8b", {"d_ff": 14338}, 4, "d_ff 14338")])
+def test_a_model_axis_that_does_not_divide_raises(arch, replace, tp, match):
+    """``check_tp`` accepts phi3.5-moe and deepseek-v3 as configured, and
+    raises where the model axis does not divide the experts, MLA's heads,
+    the shared experts' width or a dense MLP's ``d_ff``."""
+    cfg = get_model(arch, device="cpu").cfg
+    sharding.check_tp(cfg, tp)
+    with pytest.raises(ValueError, match=match):
+        sharding.check_tp(cfg.replace(**replace), tp)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", PHI])
+def test_lora_under_a_plan_names_its_item(arch):
+    """LoRA under TP (on a dense or a moe base) is ROADMAP item 7."""
     from repro_torch.core import api as tidal
     plan = sharding.serving_plan(MESH, rank=0)
-    model = get_smoke_model("smollm-135m", device="cpu", plan=plan)
+    model = get_smoke_model(arch, device="cpu", n_layers=2, plan=plan)
     with pytest.raises(NotImplementedError, match="item 7"):
         tidal.lora_function("l", model, model.init_params(),
                             ["blocks.attn.wq"]).run_initializer(

@@ -2,30 +2,42 @@
 """How far a faulty tensor-parallel run's logits land from one rank's,
 beside the bound ``chip_smoke.py`` holds the sound run to.
 
-    python3 tools/torch_tp_fault_gap.py [--layers N]
+    python3 tools/torch_tp_fault_gap.py [--case dense|moe|mla ...] [--layers N]
 
-llama3-8b at full width in bf16 (32 layers unless ``--layers``), its
-weights drawn on the card from ``chip_smoke.py``'s seed, prefills
-``chip_smoke.py``'s first tensor-parallel prompt (96 tokens) once in one
-process (``tp = 1``) and then in two gloo ranks sharing the card: sound,
-and with each planted fault in turn (planted at run time, undone after):
+Each case is one of phase 15's bf16 models at full width, its weights
+drawn on the card from ``chip_smoke.py``'s seed: ``dense`` llama3-8b
+(32 layers), ``moe`` phi3.5-moe (4 of 32, expert parallel) and ``mla``
+deepseek-v3 (1 of 61: MLA by heads over a moe layer with a shared
+expert); ``--layers`` sets the depth of every case run (default: all
+three).  Each prefills ``chip_smoke.py``'s first tensor-parallel prompt
+(96 tokens) once in one process (``tp = 1``) and then in two gloo ranks
+sharing the card: sound, and with each of its case's planted faults in
+turn (planted at run time, undone after):
 
   * ``skip_first_reduce``: the ``all_reduce`` after layer 0's attention
     skipped on every rank;
   * ``skip_last_reduce``: the ``all_reduce`` after the last layer's MLP
-    skipped on every rank;
-  * ``kv_heads_swapped``: rank 1's first two KV heads swapped in every
-    layer's ``wk`` and ``wv`` (a mis-sliced KV shard).
+    (moe: experts and shared expert together) skipped on every rank;
+  * ``kv_heads_swapped`` (dense): rank 1's first two KV heads swapped in
+    every layer's ``wk`` and ``wv`` (a mis-sliced KV shard);
+  * ``expert_range_shifted`` (moe, mla): rank 1 reads its expert range
+    one expert on (a wrong ``expert_first``): its pairs of its first
+    expert are lost and the others meet their neighbour's weights;
+  * ``shared_partial_dropped`` (mla): rank 1's shared-expert partial left
+    out of the moe layer's sum;
+  * ``wkv_b_heads_swapped`` (mla): rank 1's first two heads' columns of
+    every layer's ``wkv_b`` swapped (a mis-sliced head shard).
 
-Prints one JSON line: per run the largest |logit| gap to ``tp = 1`` as a
-share of the largest |logit| (``chip_smoke.py``'s ``logit_gap_of_max``)
-and whether the argmax agrees, beside the card's name and power limit
-and the bound.  Needs a CUDA device.
+Prints one JSON line: per case and run the largest |logit| gap to
+``tp = 1`` as a share of the largest |logit| (``chip_smoke.py``'s
+``logit_gap_of_max``) and whether the argmax agrees, beside the card's
+name and power limit and the case's bound.  Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,26 +52,39 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import chip_smoke  # noqa: E402
 from repro_torch.distributed import sharding, spawn  # noqa: E402
 from repro_torch.distributed.group import current_group, mirrored  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 
-FAULTS = ("skip_first_reduce", "skip_last_reduce", "kv_heads_swapped")
+# case: (architecture, depth, its faults)
+CASES = {
+    "dense": ("llama3-8b", get_config("llama3-8b").n_layers,
+              ("skip_first_reduce", "skip_last_reduce", "kv_heads_swapped")),
+    "moe": (chip_smoke.PHI_ARCH, 4,
+            ("skip_first_reduce", "skip_last_reduce", "expert_range_shifted")),
+    "mla": (chip_smoke.DSV3_ARCH, 1,
+            ("skip_first_reduce", "skip_last_reduce", "expert_range_shifted",
+             "shared_partial_dropped", "wkv_b_heads_swapped")),
+}
 _ALL_REDUCE = sharding.all_reduce
+_LOCAL_ROWS = moe.local_rows
+_MLP_PARTIAL = moe.mlp_partial
 
 
-def _model(layers: int):
+def _model(arch: str, layers: int):
     group = current_group()
-    cfg = get_config(chip_smoke.TP_ARCH).replace(n_layers=layers)
+    cfg = get_config(arch).replace(n_layers=layers)
     return get_model(cfg, device=group.device, plan=group.plan)
 
 
-def _draw(layers: int) -> dict:
+def _draw(arch: str, layers: int) -> dict:
     """Every rank: its shard of the weights, drawn on the card."""
-    return _model(layers).init_params(chip_smoke.TP_SEED, draw_on_device=True)
+    return _model(arch, layers).init_params(chip_smoke.TP_SEED,
+                                            draw_on_device=True)
 
 
 def _skipping(index: int):
     """``sharding.all_reduce`` with its ``index``-th call of a prefill
-    (two per layer: attention, then MLP) left out."""
+    (two per layer: attention, then MLP or moe) left out."""
     calls = [0]
 
     def all_reduce(x):
@@ -68,43 +93,70 @@ def _skipping(index: int):
     return all_reduce
 
 
+def _shifted_rows(row, keep, gate_idx, cfg, capacity):
+    """``moe.local_rows`` over an expert range one expert on."""
+    return _LOCAL_ROWS(row, keep, gate_idx, dataclasses.replace(
+        cfg, expert_first=cfg.expert_first + 1), capacity)
+
+
+def _swap_heads(w: torch.Tensor, width: int) -> None:
+    """Swap the first two ``width``-column heads of ``w`` in place."""
+    v = w.view(w.shape[0], -1, width)
+    v[:, [0, 1]] = v[:, [1, 0]]
+
+
 @mirrored()
-def _plant(fault, params: dict, layers: int) -> None:
+def _plant(fault, params: dict, arch: str, layers: int) -> None:
     """Plant ``fault`` on every rank (None: undo them all)."""
     sharding.all_reduce = {"skip_first_reduce": _skipping(0),
                            "skip_last_reduce": _skipping(2 * layers - 1),
                            }.get(fault, _ALL_REDUCE)
-    if fault == "kv_heads_swapped" and current_group().rank == 1:
-        hd = get_config(chip_smoke.TP_ARCH).head_dim
+    moe.local_rows, moe.mlp_partial = _LOCAL_ROWS, _MLP_PARTIAL
+    if current_group().rank != 1:
+        return
+    cfg = get_config(arch)
+    if fault == "expert_range_shifted":
+        moe.local_rows = _shifted_rows
+    elif fault == "shared_partial_dropped":
+        moe.mlp_partial = lambda p, x, act="silu": torch.zeros_like(x)
+    elif fault == "kv_heads_swapped":
         for layer in params["layers"]:
             for name in ("wk", "wv"):
-                w = layer["attn"][name].view(layer["attn"][name].shape[0],
-                                             -1, hd)
-                w[:, [0, 1]] = w[:, [1, 0]]
+                _swap_heads(layer["attn"][name], cfg.head_dim)
+    elif fault == "wkv_b_heads_swapped":
+        for layer in params["layers"]:
+            _swap_heads(layer["attn"]["wkv_b"],
+                        cfg.qk_nope_dim + cfg.v_head_dim)
 
 
-def _rank(group, layers: int, prompt: np.ndarray):
+# the faults that change the weights, and undo themselves when planted again
+_SELF_UNDOING = ("kv_heads_swapped", "wkv_b_heads_swapped")
+
+
+def _rank(group, arch: str, layers: int, faults: tuple, prompt: np.ndarray):
     if not group.is_controller:
         group.serve()
         return None
-    model = _model(layers)
-    params = group.build(_draw, layers)
+    model = _model(arch, layers)
+    params = group.build(_draw, arch, layers)
     out = {}
-    for fault in (None,) + (FAULTS if group.size > 1 else ()):
-        _plant(fault, params, layers)
+    for fault in (None,) + (faults if group.size > 1 else ()):
+        _plant(fault, params, arch, layers)
         logits, _ = model.prefill(params, {"tokens": prompt[None]},
                                   model.make_cache(1, 128))
         out[fault or "sound"] = logits.float().cpu().numpy()[0]
-        if fault == "kv_heads_swapped":
-            _plant(fault, params, layers)      # the swap undoes itself
-        _plant(None, params, layers)
+        if fault in _SELF_UNDOING:
+            _plant(fault, params, arch, layers)
+        _plant(None, params, arch, layers)
     return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int,
-                    default=get_config(chip_smoke.TP_ARCH).n_layers)
+    ap.add_argument("--case", action="append", choices=sorted(CASES),
+                    help="a case to run (repeatable; default: all)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="the depth of every case run (default: its own)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_tp_fault_gap.py: no CUDA device is available",
@@ -113,22 +165,26 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
-    cfg = get_config(chip_smoke.TP_ARCH)
-    _, reqs = chip_smoke.tp_requests(cfg.vocab_size)
-    prompt = reqs[0][1]
-    runs = {tp: spawn(_rank, tp, (args.layers, prompt),
-                      backend=chip_smoke.TP_BACKEND, device="cuda",
-                      timeout_s=900)
-            for tp in (1, chip_smoke.TP)}
-    ref = runs[1]["sound"]
-    gaps = {name: {"logit_gap_of_max": float(np.abs(got - ref).max()
-                                             / np.abs(ref).max()),
-                   "argmax_equal": bool(got.argmax() == ref.argmax())}
-            for name, got in runs[chip_smoke.TP].items()}
+    result = {}
+    for case in args.case or list(CASES):
+        arch, layers, faults = CASES[case]
+        layers = args.layers or layers
+        cfg = get_config(arch)
+        _, reqs = chip_smoke.tp_requests(cfg.vocab_size)
+        runs = {tp: spawn(_rank, tp, (arch, layers, faults, reqs[0][1]),
+                          backend=chip_smoke.TP_BACKEND, device="cuda",
+                          timeout_s=900)
+                for tp in (1, chip_smoke.TP)}
+        ref = runs[1]["sound"]
+        gaps = {name: {"logit_gap_of_max": float(np.abs(got - ref).max()
+                                                 / np.abs(ref).max()),
+                       "argmax_equal": bool(got.argmax() == ref.argmax())}
+                for name, got in runs[chip_smoke.TP].items()}
+        result[case] = {"arch": arch, "layers": layers, "dtype": cfg.dtype,
+                        "bound": chip_smoke.tp_logit_bound(arch), "runs": gaps}
     print(json.dumps({"tp_fault_gap": {
         "card": card, "note": f"{chip_smoke.TP} ranks sharing one card",
-        "arch": chip_smoke.TP_ARCH, "layers": args.layers, "dtype": cfg.dtype,
-        "bound": chip_smoke.TP_BF16_LOGIT_BOUND, "runs": gaps}}))
+        "cases": result}}))
     return 0
 
 
