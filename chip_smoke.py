@@ -216,7 +216,24 @@ Phases, in order; any failure raises and the process exits non-zero:
    rank, and the decode step's host, device-span and collective ms per
    rank, each beside the card's name and power limit.  Phase 2 also
    holds the kernels at one rank's heads (llama3-8b and phi3.5-moe 16 /
-   4 / 128, gemma-2b 4 / 1 / 256: G = 4);
+   4 / 128, gemma-2b 4 / 1 / 256: G = 4).  LoRA at tp = 2 (in the fp32
+   llama3-8b run of both processes): the case's function deployed as a
+   shared base whose bank adapts wq, wk, wv and wo, three adapter
+   functions attached and served together with it (the adapter rows of
+   every decode step printed), then a merged ``lora_function`` cold, forked
+   onto another adapter and warm: every function's greedy tokens equal
+   to ``tp = 1``, launches and collectives exact per rank; in the bf16
+   llama3-8b run the first prefill's logits through a bank row within
+   ``TP_LORA_LOGIT_BOUND`` of ``tp = 1``'s.  Two tensor-parallel
+   instances (``FaaSRuntime(mesh=ServingMesh(2, 2))``, 4 ranks sharing
+   the card over gloo, llama3-8b fp32 at 2 layers): cold on instance 0,
+   a fork kept there by locality, a fork routed to instance 1 once
+   instance 0 holds more than one extra engine (its template prefix
+   baked there at that fork), warm, and a prefix hit on each instance:
+   tokens equal to ``tp = 1``'s, launches exact on the serving group's
+   ranks and none on the other's, page-locked bytes per rank group
+   within 1.05 times the group's weights, fork bytes per rank alike in
+   both groups, and every rank's pools back after ``evict``;
 16. cluster: ``FaaSRuntime(mesh=ServingMesh(2, 1))``, two instances
    sharing the card, serving smollm-135m at full width and depth (bf16,
    paged arenas): a static and a LoRA function land on different
@@ -2254,8 +2271,9 @@ DEVICE_SLACK_BYTES = 6e9
 HOST_SLACK_BYTES = 10e9
 # phase 10's depth at most (its draw, deploys and serving passes grow with
 # it; the whole script keeps to its time limit with phases 11 to 16 after
-# it: 8 layers took the script to 1,165.8 s of its 1,200 on a slow host)
-MOE_MAX_LAYERS = 4
+# it: 8 layers took the script to 1,165.8 s of its 1,200 on a slow host,
+# and 4 until phase 15 served LoRA and two rank groups)
+MOE_MAX_LAYERS = 2
 # phase 11's fp32 card against CPU check: one full-width layer holds 256
 # experts of 46 GB in fp32 on each side, too much for the host
 DEEPSEEK_PARITY_EXPERTS = 32
@@ -4136,21 +4154,43 @@ def _rank_decode_timing(model, params, steps: int) -> dict:
         "collectives_per_step": sharding.collective_stats()["calls"]}
 
 
-def _tp_pass(group, fn, model, kv_dtype, tpl, reqs) -> dict:
+def _want_launches(cfg, prefills: int, decodes: int) -> dict:
+    """Every kernel's launches (and the collectives at tp > 1) of
+    ``prefills`` model prefills and ``decodes`` paged decode steps."""
+    attn, calls = attention_kernels(cfg), prefills + decodes
+    return {"flash_attention": attn * prefills,
+            "paged_decode_attention": attn * decodes,
+            "rmsnorm": norm_launches(cfg) * calls,
+            "rmsnorm_fused": fused_norm_launches(cfg) * calls,
+            "decode_attention": 0, "ssd_scan": 0,
+            "collectives": (2 * cfg.n_layers + 2) * calls}
+
+
+def _check_launches(tag: str, counts: list, wants: list) -> None:
+    """Each rank's launches and collectives against its want (a rank of
+    a group of one runs no collective)."""
+    for r, (c, want) in enumerate(zip(counts, wants)):
+        got = {k: c["launches"][k] for k in want if k != "collectives"}
+        got["collectives"] = c["collectives"]["calls"]
+        if got != want:
+            raise AssertionError(f"{tag} rank {r}: launches {got}, want {want}")
+
+
+def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
+             lora_logits: bool = False) -> dict:
     """One ``FaaSRuntime`` over the group's mesh: deploy with the template
     prompt, then cold, fork, a prefix hit and warm, each invocation's
     launches per rank read alone (counts set to 0 on every rank just
-    before it)."""
+    before it).  ``lora_logits``: the first prefill's logits through
+    row 1 of ``tp_lora_bank`` too."""
     from repro_torch.models import moe
     from repro_torch.runtime import FaaSRuntime
     from repro_torch.runtime.gateway import InvocationRequest
     cfg = model.cfg
-    L, attn = cfg.n_layers, attention_kernels(cfg)
-    want = {"flash_attention": attn, "paged_decode_attention": attn * (TP_NEW - 1),
-            "rmsnorm": norm_launches(cfg) * TP_NEW,
-            "rmsnorm_fused": fused_norm_launches(cfg) * TP_NEW,
-            "decode_attention": 0, "ssd_scan": 0}
-    collectives = (2 * L + 2) * TP_NEW if group.size > 1 else 0
+    L = cfg.n_layers
+    want = _want_launches(cfg, 1, TP_NEW - 1)
+    if group.size == 1:
+        want["collectives"] = 0
     rt = FaaSRuntime(mesh=group.mesh, device=group.device, n_slots=4,
                      max_len=TP_PROMPT + TP_NEW + 24, page_size=PAGE_SIZE,
                      trace_seq=TP_PROMPT, kv_dtype=kv_dtype, keep_alive_s=3600)
@@ -4183,13 +4223,8 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs) -> dict:
                      "reused_bytes": st.reused_bytes,
                      "replicated_bytes": st.replicated_bytes}
                     for st in (res.fork_stats.per_rank or (res.fork_stats,))]
-            for r, c in enumerate(counts):
-                got = {k: c["launches"][k] for k in want}
-                if got != want or c["collectives"]["calls"] != collectives:
-                    raise AssertionError(
-                        f"tp rank {r} {cfg.name} {kind}: launches {got} and "
-                        f"{c['collectives']['calls']} collectives, want {want} "
-                        f"and {collectives}")
+            _check_launches(f"tp {cfg.name} {kind}", counts,
+                            [want] * group.size)
             if bool(row["routing"]) != bool(cfg.n_experts) or (
                     cfg.n_experts and len(row["routing"]) != L * TP_NEW):
                 raise AssertionError(f"tp {cfg.name} {kind}: "
@@ -4215,6 +4250,13 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs) -> dict:
         logits, _ = model.prefill(engine.params(), {"tokens": reqs[0][1][None]},
                                   model.make_cache(1, pool.padded_len))
         out["logits"] = logits.float().cpu().numpy()[0]
+        if lora_logits:
+            logits, _ = model.prefill(engine.params(),
+                                      {"tokens": reqs[0][1][None]},
+                                      model.make_cache(1, pool.padded_len),
+                                      adapter_bank=tp_lora_bank(model),
+                                      adapter_ids=[1])
+            out["lora_logits"] = logits.float().cpu().numpy()[0]
         out["decode_step_per_rank"] = group.gather(
             _rank_decode_timing, model, engine.params(), 8)
     rt.evict()
@@ -4238,6 +4280,159 @@ def _tp_function(arch: str, replace: dict):
     del params
     _rank_release()
     return fn
+
+
+# LoRA at tp = 2 (phase 15's fp32 llama3-8b case): a shared base whose
+# bank targets every attention projection, three adapter functions
+# attached (seed, alpha: large enough that their tokens part from the
+# base's), and one merged ``lora_function``
+TP_LORA_TARGETS = ("blocks.attn.wq", "blocks.attn.wk", "blocks.attn.wv",
+                   "blocks.attn.wo")
+TP_LORA_ADAPTERS = ((1, 20.0), (2, 40.0), (3, 60.0))
+TP_LORA_RANK = 8
+
+
+# bf16 LoRA at tp = 2 (phase 15's bf16 llama3-8b case): the first prefill's
+# logits through bank row 1 against tp = 1's, as a share of the largest
+# |logit|.  The sound gap read 1.65%; planted faults read 15.5% (rank 1's
+# wq b heads swapped), 55.6% (the wo delta after the reduce) and 124.4%
+# (rank 1's bank row off by one) (tools/torch_tp_fault_gap.py --case
+# lora; H100)
+TP_LORA_BF16_CASE = "bf16_8layers"
+TP_LORA_LOGIT_BOUND = 5e-2
+
+
+def tp_lora_bank(model) -> dict:
+    """An adapter bank over ``TP_LORA_TARGETS`` with rows 1.. loaded from
+    ``TP_LORA_ADAPTERS`` (under a plan, every rank's shard of it)."""
+    from repro_torch.core import api as tidal
+    from repro_torch.models.adapters import load_adapter, make_adapter_bank
+    bank = make_adapter_bank(model, TP_LORA_TARGETS,
+                             len(TP_LORA_ADAPTERS) + 1, TP_LORA_RANK)
+    for i, (seed, alpha) in enumerate(TP_LORA_ADAPTERS, start=1):
+        ad = tidal.lora_checkpoint(f"tp-ad{seed}", model, list(TP_LORA_TARGETS),
+                                   rank=TP_LORA_RANK, seed=seed)
+        load_adapter(bank, i, ad, model, alpha=alpha)
+    return bank
+
+
+def _tp_lora_function(arch: str, replace: dict):
+    """On every rank: a merged ``lora_function`` (its query projection
+    adapted per event) over the rank's shard of the seed's weights."""
+    from repro_torch.core import api as tidal
+    from repro_torch.distributed import current_group
+    from repro_torch.models.registry import get_config, get_model
+    group = current_group()
+    model = get_model(get_config(arch).replace(**replace), device=group.device,
+                      plan=group.plan)
+    params = model.init_params(TP_SEED, draw_on_device=True)
+    fn = tidal.lora_function("tp-lora", model, params, ["blocks.attn.wq"],
+                             n_adapters=2, rank=TP_LORA_RANK)
+    del params
+    _rank_release()
+    return fn
+
+
+def _tp_lora(group, fn, model, arch: str, replace: dict) -> dict:
+    """LoRA on the group's ranks: ``fn`` as a shared base with three
+    attached adapter functions served together (the adapter rows of every
+    decode step recorded), then a merged ``lora_function`` cold, forked
+    onto another adapter and warm; every rank's launches exact."""
+    from repro_torch.core import api as tidal
+    from repro_torch.runtime import FaaSRuntime
+    from repro_torch.runtime.gateway import InvocationRequest
+    cfg = model.cfg
+    tp = group.size
+    kw = dict(mesh=group.mesh, device=group.device, n_slots=4,
+              max_len=TP_PROMPT + TP_NEW + 24, page_size=PAGE_SIZE,
+              trace_seq=TP_PROMPT, keep_alive_s=3600)
+    rt = FaaSRuntime(**kw)
+    rt.deploy_shared_base(fn, n_adapters=len(TP_LORA_ADAPTERS) + 1,
+                          rank=TP_LORA_RANK, target_paths=TP_LORA_TARGETS,
+                          prewarm_seq=TP_PROMPT)
+    names = [fn.name]
+    for i, (seed, alpha) in enumerate(TP_LORA_ADAPTERS, start=1):
+        ad = tidal.lora_checkpoint(f"tp-ad{seed}", model, list(TP_LORA_TARGETS),
+                                   rank=TP_LORA_RANK, seed=seed)
+        rt.attach_adapter(f"tp-ad{i}", fn.name, ad, alpha=alpha)
+        names.append(f"tp-ad{i}")
+    rng = np.random.default_rng(21)
+    prompts = {n: rng.integers(1, cfg.vocab_size, TP_PROMPT).astype(np.int32)
+               for n in names}
+    rows_per_step = []
+    decode = model.decode_step_paged
+
+    def recording(*args, **kwargs):
+        ids = kwargs.get("adapter_ids")
+        if ids is not None:
+            rows_per_step.append(sorted(
+                set(torch.as_tensor(ids).cpu().tolist()) - {0}))
+        return decode(*args, **kwargs)
+
+    model.decode_step_paged = recording
+    try:
+        group.gather(_rank_reset)
+        handles = {n: rt.submit(InvocationRequest(n, p, max_new_tokens=TP_NEW))
+                   for n, p in prompts.items()}
+        res = {n: h.result() for n, h in handles.items()}
+        counts = group.gather(_rank_counts)
+    finally:
+        del model.decode_step_paged
+    engines = [w.engine for w in rt._engines.values()]
+    want = _want_launches(cfg, sum(e.n_prefill_calls for e in engines),
+                          sum(e.n_decode_steps for e in engines))
+    if tp == 1:
+        want["collectives"] = 0
+    _check_launches(f"tp {tp} lora shared base", counts, [want] * tp)
+    # the base on each adapter function's prompt: what the adapter's
+    # tokens must part from
+    base_on = {n: rt.submit(InvocationRequest(
+        fn.name, prompts[n], max_new_tokens=TP_NEW)).result().tokens.tolist()
+        for n in names[1:]}
+    bank = rt._engines[("__adapters__", fn.name, 0)]
+    shared = {"tokens": {n: r.tokens.tolist() for n, r in res.items()},
+              "base_on_prompt": base_on,
+              "kinds": {n: r.kind for n, r in res.items()},
+              "rows": dict(bank.adapter_ids),
+              "rows_per_step": rows_per_step,
+              "launches_per_rank": [c["launches"] for c in counts],
+              "collectives_per_rank": [c["collectives"]["calls"]
+                                       for c in counts]}
+    rt.evict()
+    del rt, bank
+    group.gather(_rank_release)
+
+    merged_fn = group.build(_tp_lora_function, arch, replace)
+    rt = FaaSRuntime(**kw)
+    rt.deploy(merged_fn, {"adapter": "adapter-0"}, prewarm_seq=TP_PROMPT)
+    want = _want_launches(cfg, 1, TP_NEW - 1)
+    if tp == 1:
+        want["collectives"] = 0
+    merged = []
+    for kind, adapter in (("cold", "adapter-0"), ("fork", "adapter-1"),
+                          ("warm", "adapter-1")):
+        if kind == "fork":
+            rt.evict()
+        group.gather(_rank_reset)
+        r = rt.submit(InvocationRequest(
+            merged_fn.name, prompts[fn.name], event={"adapter": adapter},
+            max_new_tokens=TP_NEW)).result()
+        counts = group.gather(_rank_counts)
+        _check_launches(f"tp {tp} lora merged {kind}", counts, [want] * tp)
+        row = {"want": kind, "kind": r.kind, "tokens": r.tokens.tolist(),
+               "ttft_s": r.ttft_s,
+               "launches_per_rank": [c["launches"] for c in counts]}
+        if r.fork_stats is not None:
+            row["dynamic_bytes_per_rank"] = [
+                st.dynamic_bytes for st in (r.fork_stats.per_rank
+                                            or (r.fork_stats,))]
+        merged.append(row)
+    rt.evict()
+    del rt, merged_fn
+    group.gather(_rank_release)
+    if [m["kind"] for m in merged] != ["cold", "fork", "warm"]:
+        raise AssertionError(f"tp lora merged kinds {merged}")
+    return {"shared": shared, "merged": merged}
 
 
 def _tp_rank(group, cases: tuple) -> dict | None:
@@ -4276,11 +4471,143 @@ def _tp_rank(group, cases: tuple) -> dict | None:
         print(json.dumps({"tp_model": {"case": tag, **info}}))
         tpl, reqs = tp_requests(cfg.vocab_size)
         out[tag] = {"model": info,
-                    "passes": [_tp_pass(group, fn, model, kv, tpl, reqs)
+                    "passes": [_tp_pass(group, fn, model, kv, tpl, reqs,
+                                        lora_logits=tag == TP_LORA_BF16_CASE)
                                for kv in arenas]}
+        if tag == TP_LORA_CASE:
+            out[tag]["lora"] = _tp_lora(group, fn, model, arch, replace)
         del fn, model
         group.gather(_rank_release)
     out["guard_ops"] = group.channel.n_ops
+    return out
+
+
+# two tensor-parallel instances (``ServingMesh(2, 2)``: 4 ranks sharing
+# the card over gloo) serving phase 15's fp32 llama3-8b case: one static
+# function, a new engine per event, the second instance taken once the
+# first holds more than ``TP_LOCALITY_EXTRA`` engines over it.  Per
+# request (event, prompt index into ``tp_requests``' list, instance)
+TP_INSTANCES = 2
+TP_LOCALITY_EXTRA = 1
+TP_INSTANCE_REQUESTS = ((0, 0, 0), (1, 1, 0), (2, 0, 1), (0, 0, 0),
+                        (1, 2, 0), (2, 2, 1))
+
+
+def _tp_instances_rank(group, arch: str, replace: dict) -> dict | None:
+    """The controller of ``ServingMesh(2, 2)``: every rank builds its
+    function, then cold on instance 0, a fork kept there by locality, a
+    fork routed to instance 1 (its template prefix baked there at that
+    fork), warm, and a template-prefix hit on each instance; every rank's
+    launches read per request (the other group's ranks launch nothing),
+    the fork bytes and page-locked bytes per rank group, and every rank's
+    pools back at their baseline after ``evict``."""
+    from repro_torch.runtime import FaaSRuntime
+    from repro_torch.runtime.gateway import InvocationRequest
+    from repro_torch.utils import tree_bytes
+    if not group.is_controller:
+        group.serve()
+        return None
+    t0 = time.perf_counter()
+    fn = group.build(_tp_function, arch, replace)
+    model = fn.model
+    cfg, tp = model.cfg, group.size
+    weights = tree_bytes(model.param_specs()) * tp       # one group's
+    tpl, reqs = tp_requests(cfg.vocab_size)
+    rt = FaaSRuntime(mesh=group.mesh, device=group.device, n_slots=4,
+                     max_len=TP_PROMPT + TP_NEW + 24, page_size=PAGE_SIZE,
+                     trace_seq=TP_PROMPT, keep_alive_s=3600,
+                     locality_max_extra_load=TP_LOCALITY_EXTRA)
+    rt.deploy(fn, {}, template_prompt=tpl, prewarm_seq=TP_PROMPT)
+    out = {"ranks": [list(i.ranks) for i in rt.instances],
+           "init_s": time.perf_counter() - t0, "requests": []}
+    memory = group.gather(_rank_memory, rt.server)
+    out["pinned_per_group"] = [
+        sum(m["registered_bytes"] for m in memory[i * tp:(i + 1) * tp])
+        for i in range(TP_INSTANCES)]
+    out["group_weight_bytes"] = weights
+    for pinned in out["pinned_per_group"]:
+        if not weights <= pinned <= 1.05 * weights:
+            raise AssertionError(f"tp instances: {pinned} pinned bytes in a "
+                                 f"rank group of {weights} weight bytes")
+    baked = set()
+    for event, idx, inst in TP_INSTANCE_REQUESTS:
+        group.gather(_rank_reset)
+        res = rt.submit(InvocationRequest(
+            fn.name, reqs[idx][1], event={"v": event},
+            max_new_tokens=TP_NEW)).result()
+        counts = group.gather(_rank_counts)
+        (placed,) = [w.instance for k, w in rt._engines.items()
+                     if k == (fn.name, (("v", event),))]
+        if placed != inst:
+            raise AssertionError(f"tp instances: event {event} on instance "
+                                 f"{placed}, want {inst}")
+        # the first fork onto instance 1 bakes the template prefix there
+        bake = res.kind != "warm" and inst not in baked and inst > 0
+        baked.add(inst)
+        serving = _want_launches(cfg, 1 + bake, TP_NEW - 1)
+        idle = {k: 0 for k in serving}
+        _check_launches(f"tp instances event {event}", counts, [
+            serving if r // tp == inst else idle
+            for r in range(TP_INSTANCES * tp)])
+        row = {"event": event, "prompt": reqs[idx][0], "instance": placed,
+               "kind": res.kind, "tokens": res.tokens.tolist(),
+               "ttft_s": res.ttft_s, "reused_prefix_len": res.reused_prefix_len,
+               "launches_per_rank": [c["launches"] for c in counts],
+               "collectives_per_rank": [c["collectives"]["calls"]
+                                        for c in counts]}
+        if res.fork_stats is not None:
+            row["fork_per_rank"] = [
+                {"fork_s": st.fork_s, "streamed_bytes": st.streamed_bytes,
+                 "reused_bytes": st.reused_bytes}
+                for st in res.fork_stats.per_rank]
+        out["requests"].append(row)
+        print(json.dumps({"tp_instance_request": {
+            k: v for k, v in row.items() if k != "tokens"}}))
+    kinds = [r["kind"] for r in out["requests"]]
+    if kinds != ["cold", "fork", "fork", "warm", "warm", "warm"]:
+        raise AssertionError(f"tp instances kinds {kinds}")
+    for r in out["requests"][4:]:
+        if r["reused_prefix_len"] < TP_TEMPLATE - PAGE_SIZE:
+            raise AssertionError(f"tp instances: no prefix hit on instance "
+                                 f"{r['instance']}")
+    out["prefix_handles"] = sorted(k[1] for k in rt._prefix_handles)
+    if out["prefix_handles"] != list(range(TP_INSTANCES)):
+        raise AssertionError(f"tp instances: bakes {out['prefix_handles']}")
+    # every rank's pool: all slots back after evict (the template's pages
+    # still pinned), every page back once the template is released
+    out["pools_per_rank"] = {}
+    for stage, pinned in (("evict", True), ("release", False)):
+        if pinned:
+            rt.evict()
+        else:
+            rt.release_template_prefix(fn.name)
+        states = [group.gather(_pool_state, pool) for pool in rt._pools.values()]
+        for pool, ranks in zip(rt._pools.values(), states):
+            free = pool.n_pages - 1 - pinned * pool.blocks_for(TP_TEMPLATE)
+            if len(states) != TP_INSTANCES or ranks != [
+                    [pool.n_slots, free, free]] * tp:
+                raise AssertionError(f"tp instances after {stage}: {states}")
+        out["pools_per_rank"][stage] = states
+    del rt, fn, model
+    group.gather(_rank_release)
+    out["guard_ops"] = [ch.n_ops for ch in group.channels]
+    return out
+
+
+def _pool_state(pool) -> list:
+    """One rank's free slots, free pages and available pages."""
+    return [pool.n_free_slots, pool.n_free_pages, pool.n_available_pages]
+
+
+def tp_instances_run() -> dict:
+    """``_tp_instances_rank`` on ``TP_INSTANCES * TP`` new processes."""
+    from repro_torch.distributed import spawn
+    tag, arch, replace, *_ = next(c for c in TP_CASES if c[0] == TP_LORA_CASE)
+    t0 = time.perf_counter()
+    out = spawn(_tp_instances_rank, TP, (arch, replace), data=TP_INSTANCES,
+                backend=TP_BACKEND, device="cuda", guard=True, timeout_s=900)
+    out["case"] = tag
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4315,6 +4642,8 @@ TP_CASES = (("fp32_2layers", "llama3-8b", {"n_layers": 2, "dtype": "float32"},
              (None,)),
             ("mla_bf16_1layer", DSV3_ARCH, {"n_layers": 1}, (None, "int8"),
              (None,)))
+# the case whose tp = 1 and tp = 2 runs serve LoRA too (``_tp_lora``)
+TP_LORA_CASE = "fp32_2layers"
 # what one rank holds at tp = 2: (query heads, KV heads), whole experts
 TP_LOCAL = {"llama3-8b": ([16, 4], 0), PHI_ARCH: ([16, 4], 8),
             DSV3_ARCH: ([64, 64], 128)}
@@ -4346,7 +4675,10 @@ def phase_tp(device) -> dict:
     rank, each rank's weight bytes against ``tp_reckoned_bytes``, the
     latent arena's bytes per token per layer on each rank, the divergence
     guard on every op, fork bytes and pinned bytes per rank, the decode
-    step's host, device-span and collective ms per rank."""
+    step's host, device-span and collective ms per rank.  Then LoRA
+    (``_tp_lora``, ``tp_lora_parity``; the bf16 bank-row logits against
+    ``TP_LORA_LOGIT_BOUND``) and two rank groups of 2 ranks
+    (``tp_instances_run``, ``tp_instances_parity``)."""
     del device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -4357,7 +4689,9 @@ def phase_tp(device) -> dict:
     print(json.dumps({"tp_backend": TP_BACKEND, "why": "NCCL refuses two "
                       "ranks on one device (Duplicate GPU detected)"}))
     runs = {1: tp_run(1), TP: tp_run(TP)}
+    instances = tp_instances_run()
     out["wall_s"] = {str(k): v["wall_s"] for k, v in runs.items()}
+    out["wall_s"]["instances"] = instances["wall_s"]
     out["guard_ops"] = runs[TP]["guard_ops"]
     for tag, arch, *_ in TP_CASES:
         one, two = runs[1][tag], runs[TP][tag]
@@ -4395,12 +4729,34 @@ def phase_tp(device) -> dict:
                "routing_equal_share": sum(routes) / len(routes),
                "logit_gap_of_max": gap,
                "argmax_equal": bool(l1.argmax() == l2.argmax())}
+        if tag == TP_LORA_BF16_CASE:
+            a1, a2 = (r["passes"][0]["lora_logits"] for r in (one, two))
+            res["lora_logit_gap_of_max"] = float(np.abs(a1 - a2).max()
+                                                 / np.abs(a1).max())
+            res["lora_argmax_equal"] = bool(a1.argmax() == a2.argmax())
+            # the adapter's own effect must read above the bound, or the
+            # bound could not tell a bank that adds nothing
+            res["lora_effect_of_max"] = float(np.abs(a2 - l2).max()
+                                              / np.abs(l2).max())
+            if res["lora_logit_gap_of_max"] > TP_LORA_LOGIT_BOUND:
+                raise AssertionError(
+                    f"tp {tag} LoRA logits {res['lora_logit_gap_of_max']} of "
+                    f"the largest apart (bound {TP_LORA_LOGIT_BOUND})")
+            if res["lora_effect_of_max"] <= TP_LORA_LOGIT_BOUND:
+                raise AssertionError(
+                    f"tp {tag} LoRA logits only {res['lora_effect_of_max']} "
+                    f"of the largest from the base's (bound "
+                    f"{TP_LORA_LOGIT_BOUND})")
         print(json.dumps({"tp_parity": {"case": tag, "card": card,
                                         "note": out["note"],
                                         "token_agreement": agree,
                                         "routing_equal_share":
                                             res["routing_equal_share"],
                                         "logit_gap_of_max": gap,
+                                        "lora_logit_gap_of_max": res.get(
+                                            "lora_logit_gap_of_max"),
+                                        "lora_effect_of_max": res.get(
+                                            "lora_effect_of_max"),
                                         "per_request": rows}}))
         if fp32 and (agree != 1.0 or not all(routes)):
             raise AssertionError(f"tp {tag}: tokens or moe routing differ "
@@ -4419,8 +4775,89 @@ def phase_tp(device) -> dict:
                                 two["passes"][0]["memory_after_deploy"]],
             "decode_step_per_rank": two["passes"][0]["decode_step_per_rank"],
             "decode_step_tp1": one["passes"][0]["decode_step_per_rank"]}}))
+        if tag == TP_LORA_CASE:
+            res["lora"] = tp_lora_parity(one["lora"], two["lora"], card,
+                                         out["note"])
+            res["instances"] = tp_instances_parity(instances, one, card)
         out[tag] = res
+    out["instances"] = instances
     return out
+
+
+def tp_lora_parity(one: dict, two: dict, card: str, note: str) -> dict:
+    """LoRA at tp = 2 against tp = 1: every function's greedy tokens
+    equal (fp32), the bank rows, and the adapter rows of each decode
+    step."""
+    s1, s2 = one["shared"], two["shared"]
+    m1, m2 = one["merged"], two["merged"]
+    equal = {n: s1["tokens"][n] == s2["tokens"][n] for n in s2["tokens"]}
+    equal.update({f"base on {n}": s1["base_on_prompt"][n] == t
+                  for n, t in s2["base_on_prompt"].items()})
+    merged_equal = [a["tokens"] == b["tokens"] for a, b in zip(m1, m2)]
+    rows = sorted(s2["rows"].values())
+    steps = s2["rows_per_step"]
+    res = {"tokens_equal": equal, "merged_tokens_equal": merged_equal,
+           "kinds": s2["kinds"], "rows": s2["rows"],
+           "rows_per_step": steps,
+           "adapters_part_from_base": {
+               n: s2["tokens"][n] != t
+               for n, t in s2["base_on_prompt"].items()},
+           "collectives_per_rank": s2["collectives_per_rank"],
+           "merged_kinds": [m["kind"] for m in m2],
+           "merged_ttft_ms": [m["ttft_s"] * 1e3 for m in m2],
+           "merged_dynamic_bytes_per_rank": m2[1].get("dynamic_bytes_per_rank")}
+    print(json.dumps({"tp_lora": {"card": card, "note": note, **res}}))
+    if not all(equal.values()) or not all(merged_equal):
+        raise AssertionError(f"tp lora tokens differ from tp = 1: {equal}, "
+                             f"merged {merged_equal}")
+    if s1["rows"] != s2["rows"] or s1["rows_per_step"] != steps:
+        raise AssertionError("tp lora: bank rows or rows per step differ")
+    if not all(res["adapters_part_from_base"].values()):
+        raise AssertionError(f"tp lora: an adapter function's tokens equal "
+                             f"the base's on its prompt: "
+                             f"{res['adapters_part_from_base']}")
+    # every adapter row decodes in each of its TP_NEW - 1 steps, and
+    # the steps where all three decode gather all three rows
+    seen = {r: sum(r in st for st in steps) for r in rows}
+    if (rows != [1, 2, 3] or rows not in steps
+            or any(set(st) - set(rows) for st in steps)
+            or any(n != TP_NEW - 1 for n in seen.values())):
+        raise AssertionError(f"tp lora: adapter rows per decode step {steps}"
+                             f" (rows {rows}, steps per row {seen})")
+    dyn = res["merged_dynamic_bytes_per_rank"]
+    if not dyn or min(dyn) <= 0:
+        raise AssertionError(f"tp lora merged fork streamed {dyn} dynamic "
+                             f"bytes per rank: the merged delta is missing")
+    return res
+
+
+def tp_instances_parity(inst: dict, one: dict, card: str) -> dict:
+    """Two rank groups against tp = 1: every request's greedy tokens equal
+    the tp = 1 fp pass's for its prompt (fp32)."""
+    ref = {r["want"]: r["tokens"] for r in one["passes"][0]["requests"]}
+    equal = [r["tokens"] == ref[r["prompt"]] for r in inst["requests"]]
+    forks = [r for r in inst["requests"] if "fork_per_rank" in r]
+    res = {"ranks": inst["ranks"], "tokens_equal": equal,
+           "placed": [r["instance"] for r in inst["requests"]],
+           "kinds": [r["kind"] for r in inst["requests"]],
+           "reused_prefix_len": [r["reused_prefix_len"]
+                                 for r in inst["requests"]],
+           "fork_per_rank_group": {
+               r["instance"]: r["fork_per_rank"] for r in forks},
+           "pinned_per_group": inst["pinned_per_group"],
+           "group_weight_bytes": inst["group_weight_bytes"],
+           "guard_ops": inst["guard_ops"], "wall_s": inst["wall_s"]}
+    print(json.dumps({"tp_instances": {"card": card, "backend": TP_BACKEND,
+                                       **res}}))
+    if not all(equal):
+        raise AssertionError(f"tp instances tokens differ from tp = 1: "
+                             f"{equal}")
+    streamed = {i: [f["streamed_bytes"] for f in rows]
+                for i, rows in res["fork_per_rank_group"].items()}
+    if len(streamed) != TP_INSTANCES or len(
+            {tuple(v) for v in streamed.values()}) != 1:
+        raise AssertionError(f"tp instances: fork bytes per group {streamed}")
+    return res
 
 
 CLUSTER_BUCKETS = (64, 256)
@@ -4622,7 +5059,8 @@ def phase_cluster(device, h2d: float) -> dict:
 
 
 def _strip_logits(run: dict) -> dict:
-    return {**run, "passes": [{k: v for k, v in p.items() if k != "logits"}
+    return {**run, "passes": [{k: v for k, v in p.items()
+                               if k not in ("logits", "lora_logits")}
                               for p in run["passes"]]}
 
 
@@ -4637,7 +5075,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
     the serving, engine and FaaS passes of ``big``: phases 9, 10 and 11,
     those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13),
     the training runs of phase 14 (``train``; the backward kernels run
-    there only), every rank's invocations of phase 15 (``tp``) and the
+    there only), every rank's invocations of phase 15 (``tp``: its
+    passes, its LoRA functions and its two rank groups) and the
     two instances' invocations and service-time measurements of phase 16
     (``cluster``)."""
     def pick(**kw):
@@ -4670,6 +5109,14 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                     rows += [{"pass": p["pass"], "launches": counts}
                              for r in p["requests"]
                              for counts in r["launches_per_rank"]]
+                lora = tp[tag][run].get("lora")
+                if lora is not None:
+                    rows += [{"launches": counts} for counts in
+                             lora["shared"]["launches_per_rank"]]
+                    rows += [{"launches": counts} for r in lora["merged"]
+                             for counts in r["launches_per_rank"]]
+        rows += [{"launches": counts} for r in tp["instances"]["requests"]
+                 for counts in r["launches_per_rank"]]
     if cluster is not None:
         rows += [cluster["instances"], {"launches": cluster["measure_launches"]}]
     for row in rows:

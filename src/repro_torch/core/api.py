@@ -21,7 +21,10 @@ LoRA targets may also be given by the JAX package's stacked names
 shapes in the same order from the same seed as ``repro.core.api``
 (A ``[L*D, r]``, B ``[r, E]``), and :func:`apply_lora` splits the merged
 delta per layer, so one seed gives the same merged weights in both
-packages.
+packages.  Under a sharding plan (the model's) the factors keep the
+model's global widths, drawn alike on every rank, and each rank merges
+its shard of ``A @ B`` (its target's spec,
+``sharding.lora_delta_spec``) into its shard of the target.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import torch
 
 from repro_torch.convert import group_lengths, port_names
 from repro_torch.core.fingerprint import Checkpoint, tree_fingerprints
+from repro_torch.distributed import sharding
 from repro_torch.models.registry import Model
 from repro_torch.utils import map_with_path, named_leaves
 
@@ -75,10 +79,16 @@ def checkpoint_of(uri: str, params) -> Checkpoint:
                                        for path, t in named_leaves(params)})
 
 
+def _global_specs(model: Model) -> dict:
+    """The model's parameter specs at its global widths (a rank's model
+    computes with its shard, ``model.param_specs()``)."""
+    return model._family.param_specs(model.cfg)
+
+
 def _target_shape(model: Model, path: str) -> tuple:
-    """Shape of a LoRA target: a port path, or a JAX stacked path
+    """Global shape of a LoRA target: a port path, or a JAX stacked path
     (``blocks.*``, xlstm's ``mlstm.*``, ...) as ``[n, ...]``."""
-    specs = model.param_specs()
+    specs = _global_specs(model)
     names = port_names(path, group_lengths(specs))
     shapes = dict(named_leaves(specs))
     if names != [path]:
@@ -108,19 +118,21 @@ def apply_lora(weights: dict, model: Model, adapter: Checkpoint,
                alpha: float = 1.0) -> dict:
     """Merge a LoRA adapter into base weights (all traced ops).  A target
     named by a JAX stacked path merges row ``i`` of the reshaped delta
-    into layer ``i``."""
-    if model.plan is not None:
-        raise NotImplementedError(
-            f"{model.cfg.name}: LoRA under tensor parallelism is ROADMAP "
-            "Queue 1, item 7")
+    into layer ``i``.  Under the model's sharding plan each layer's delta
+    is cut to the rank's shard of its target."""
+    plan = model.plan
+    specs = (None if plan is None else
+             sharding.leaf_param_specs(model, plan.mesh))
     out = dict(weights)
     for path in sorted({k.rsplit(".", 1)[0] for k in adapter.arrays}):
         delta = adapter.load(path + ".A").matmul(
             adapter.load(path + ".B")).scale(alpha)
         delta = delta.reshape(_target_shape(model, path))
-        names = port_names(path, group_lengths(model.param_specs()))
+        names = port_names(path, group_lengths(_global_specs(model)))
         for i, name in enumerate(names):
             d = delta.select(i) if names != [path] else delta
+            if specs is not None:
+                d = d.shard(specs[name], plan)
             out[name] = out[name].add(d.astype(out[name].dtype))
     return out
 

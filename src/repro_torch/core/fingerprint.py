@@ -75,6 +75,19 @@ class TracedArray:
             fp=("select", int(index), self.fp), shape=self.shape[1:],
             dtype=self.dtype, _thunk=lambda: self.materialize()[index])
 
+    def shard(self, spec, plan) -> "TracedArray":
+        """The plan's rank's piece of this value under ``spec`` (a merged
+        LoRA delta cut as its target is)."""
+        from repro_torch.distributed.sharding import shard_for_rank
+        shape = list(self.shape)
+        if spec.model_dim is not None:
+            parts = spec.parts or ((shape[spec.model_dim], plan.tp),)
+            shape[spec.model_dim] = sum(s // g for s, g in parts)
+        return TracedArray(
+            fp=("shard", repr(spec), plan.tp, plan.rank, self.fp),
+            shape=tuple(shape), dtype=self.dtype,
+            _thunk=lambda: shard_for_rank(self.materialize(), spec, plan))
+
     def scale(self, alpha: float) -> "TracedArray":
         return TracedArray(
             fp=("scale", float(alpha), self.fp), shape=self.shape,

@@ -215,7 +215,7 @@ def supports_streamed_prefill(model: Model) -> bool:
     return model.cfg.family in ("dense", "moe", "zamba", "xlstm")
 
 
-@mirrored()
+@mirrored(values="return.0")
 @torch.no_grad()
 def streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
                      offset: int = 0):

@@ -41,6 +41,18 @@ whenever residency changes (``_invalidate_placements``).  Instances on
 the function's own device share the one set of resident buffers, so
 ``device_bytes_used`` counts them once; ``model_on`` gives the
 function's model on another device.
+
+Several tensor-parallel instances (one rank group each,
+``distributed.group``) fork onto another rank group with ``fork(...,
+plan=)``: every rank of every instance holds a server with its rank's
+shard in its own pinned host pool (so a machine pins each shard once per
+rank group), registration and Eq. 1 feedback reach them all, and a fork
+runs on the ranks of the plan's instance only.  The controller's copy
+of a fork onto another instance runs on its shadows (``meta`` tensors:
+no bytes move), with resident buffers per plan as in the reference's
+``_resident_for``.  A fork first offers the event to every instance's
+template (``observe_event``), so a weight a fork on one instance finds
+dynamic leaves every rank's pool and resident prefix alike.
 """
 
 from __future__ import annotations
@@ -57,7 +69,7 @@ from repro_torch.core.streaming import ForkSession, StreamEntry, WeightStreamer
 from repro_torch.core.template import FunctionTemplate, generate_template
 from repro_torch.core.tracing import trace_weight_access, weight_sizes
 from repro_torch.distributed import sharding
-from repro_torch.distributed.group import mirrored
+from repro_torch.distributed.group import SHADOW_DEVICE, current_group, mirrored
 from repro_torch.hw import H100_SXM, HardwareProfile
 from repro_torch.models.registry import get_model, resolve_device
 from repro_torch.utils import named_leaves, tensor_nbytes
@@ -121,27 +133,38 @@ class TemplateServer:
                 model, self.plan.mesh)
         return self._leaf_specs[fn_name]
 
-    def model_on(self, fn_name: str, device) -> object:
-        """The function's model on ``device``: its own model when it lives
-        there, else one copy per device (same config and plan)."""
+    def _other_plan(self, plan) -> bool:
+        """``plan`` is another instance's rank group than the server's."""
+        return (plan is not None and plan.tp > 1 and self.plan is not None
+                and plan.instance != self.plan.instance)
+
+    def model_on(self, fn_name: str, device, plan=None) -> object:
+        """The function's model on ``device`` (under ``plan``, another
+        instance's rank group: the controller's shadow of it): its own
+        model when it lives there, else one copy per device and plan
+        (same config)."""
         model = self._functions[fn_name].model
         device = resolve_device(device)
-        if device == model.device:
+        other = self._other_plan(plan)
+        if device == model.device and not other:
             return model
-        key = (fn_name, device)
+        key = (fn_name, device, plan.instance if other else None)
         if key not in self._placed_models:
-            self._placed_models[key] = get_model(model.cfg, device=device,
-                                                 plan=model.plan)
+            self._placed_models[key] = get_model(
+                model.cfg, device=device, plan=plan if other else model.plan)
         return self._placed_models[key]
 
-    def _resident_for(self, fn_name: str, device: torch.device) -> dict:
+    def _resident_for(self, fn_name: str, device: torch.device,
+                      plan=None) -> dict:
         """The resident prefix as shared device buffers on ``device``:
-        placed once per (function, device) and reused by every later fork
-        there.  On the function's own device, the template's buffers."""
+        placed once per (function, device, plan) and reused by every later
+        fork there.  On the function's own device, the template's
+        buffers."""
         base = self.device_cache.get(fn_name, {})
-        if device == self._functions[fn_name].model.device:
+        other = self._other_plan(plan)
+        if device == self._functions[fn_name].model.device and not other:
             return dict(base)
-        key = (fn_name, device)
+        key = (fn_name, device, plan.instance if other else None)
         if key not in self._placed_resident:
             self._placed_resident[key] = {path: _to_device(t, device)
                                           for path, t in base.items()}
@@ -250,7 +273,6 @@ class TemplateServer:
         self._refresh_residency(fn_name)
 
     # ------------------------------------------------------------------
-    @mirrored(register=("return.0",), gather="return.1")
     def fork(self, fn_name: str, event: dict, plan=None,
              device=None) -> tuple:
         """Adaptive state forking for one invocation.
@@ -258,39 +280,67 @@ class TemplateServer:
         Returns ``(ForkSession, ForkStats)``: resident tensors are shared,
         dynamic weights replayed, and the rest stream in access order on
         the streamer's thread.  Under a plan each rank forks its shard;
-        ``plan`` (the JAX signature's per-call mesh slice) must be the
-        server's.  ``device`` forks onto another device than the
-        function's model's (another serving instance's card): the session
-        then runs ``model_on(fn_name, device)``."""
-        if plan is not None and plan.tp > 1 and plan != self.plan:
-            raise NotImplementedError(
-                "forking onto another rank group comes with several "
-                "tensor-parallel instances (ROADMAP Queue 1, item 8)")
-        t0 = time.perf_counter()
-        fn = self._functions[fn_name]
-        model = self.model_on(fn_name, device or fn.model.device)
-        device = model.device
-        template = self.templates[fn_name]
-        pool = self.host_pool[fn_name]
+        ``plan`` (the JAX signature's per-call mesh slice) is the server's
+        or another instance's rank group, whose ranks then run the fork
+        (the controller's session is a shadow).  ``device`` forks onto
+        another device than the function's model's (another serving
+        instance's card): the session then runs ``model_on(fn_name,
+        device)``."""
+        group = current_group()
+        new_dyn = ()
+        if group is not None and group.n_instances > 1:
+            new_dyn = self.observe_event(fn_name, event)
+        session, stats = self._fork(fn_name, event, plan=plan, device=device)
+        stats.new_dynamic = new_dyn or stats.new_dynamic
+        return session, stats
 
-        traced, fps = fn.run_initializer(event)
-        new_dyn = template.observe_init(fps)
+    @mirrored()
+    def observe_event(self, fn_name: str, event: dict) -> tuple:
+        """Trace the initializer for ``event`` and drop the weights it
+        finds newly dynamic from the host pool and the resident prefix
+        (on every rank of every instance).  Returns them."""
+        fn = self._functions[fn_name]
+        return self._observe(fn_name, fn.run_initializer(event)[1])
+
+    def _observe(self, fn_name: str, fps: dict) -> tuple:
+        new_dyn = self.templates[fn_name].observe_init(fps)
+        pool = self.host_pool[fn_name]
         for path in new_dyn:         # newly dynamic: out of pool and cache
             pool.pop(path, None)
             self.device_cache.get(fn_name, {}).pop(path, None)
         if new_dyn:
             self._invalidate_placements(fn_name)
+        return tuple(sorted(new_dyn))
+
+    @mirrored(register=("return.0",), gather="return.1", route="plan")
+    def _fork(self, fn_name: str, event: dict, plan=None,
+              device=None) -> tuple:
+        t0 = time.perf_counter()
+        fn = self._functions[fn_name]
+        if self._other_plan(plan):
+            device = SHADOW_DEVICE
+        model = self.model_on(fn_name, device or fn.model.device, plan)
+        device = model.device
+        template = self.templates[fn_name]
+        pool = self.host_pool[fn_name]
+
+        traced, fps = fn.run_initializer(event)
+        new_dyn = self._observe(fn_name, fps)
         traced_by_path = dict(named_leaves(traced))
 
-        stats = ForkStats(new_dynamic=tuple(sorted(new_dyn)))
-        resident = self._resident_for(fn_name, device)
+        stats = ForkStats(new_dynamic=new_dyn)
+        resident = self._resident_for(fn_name, device, plan)
         stats.reused_bytes = sum(tensor_nbytes(t) for t in resident.values())
 
-        # dynamic weights: replay the DFG now (request-specific work)
+        # dynamic weights: replay the DFG now (request-specific work; a
+        # shadow takes the shapes only)
         dynamic: dict = {}
         for path in sorted(template.dynamic):
-            dynamic[path] = _to_device(traced_by_path[path].materialize(),
-                                       device)
+            ta = traced_by_path[path]
+            dynamic[path] = (
+                torch.empty(ta.shape, dtype=ta.dtype, device=device)
+                if device.type == "meta"
+                else _to_device(ta.materialize(), device))
             stats.dynamic_bytes += tensor_nbytes(dynamic[path])
 
         # the remaining static weights stream in traced access order

@@ -48,7 +48,16 @@ The plan's functions keep the JAX names and signatures over a
 :class:`ServingMesh` ``(data, model)`` whose ``shape`` and
 ``axis_names`` read like a JAX mesh's.  Training's parts (FSDP,
 ``opt_state_specs``, ``batch_specs``, ``mode='fsdp2d'``) are ROADMAP
-Queue 1, item 9.
+Queue 1, item 9.  A mesh with ``data > 1`` is one rank group per
+instance: :func:`serving_plan` gives the plan of one data slice (its
+instance index and that instance's process group), as the reference
+serves an instance on ``Mesh(mesh.devices[i:i + 1])``.
+
+A LoRA adapter bank splits as its targets do (:func:`adapter_bank_specs`):
+``b`` of ``wq`` / ``wk`` / ``wv`` by the target's columns (the rank's
+heads), ``a`` of ``wo`` by the target's rows; the other factor is
+replicated.  A merged delta ``A @ B`` takes its target's spec
+(:func:`lora_delta_spec`).
 
 At run time :func:`use_plan` scopes a plan over a model call (the
 counterpart of JAX's ``use_kernel_mesh``); :func:`all_reduce`,
@@ -76,10 +85,8 @@ DATA = "data"
 
 @dataclasses.dataclass(frozen=True)
 class ServingMesh:
-    """The serving mesh: ``data`` instances of ``model`` ranks each.
-    ``FaaSRuntime`` serves ``data`` instances at ``model = 1`` or one
-    tensor-parallel instance at ``data = 1``; both above 1 (one rank
-    group per instance) is ROADMAP Queue 1, item 8."""
+    """The serving mesh: ``data`` instances of ``model`` ranks each
+    (``model > 1``: one rank group per instance)."""
     data: int = 1
     model: int = 1
 
@@ -222,18 +229,22 @@ def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
 
 @dataclasses.dataclass
 class ShardingPlan:
-    """Tensor-parallel placement for one process: the mesh, this
-    process's rank on the model axis and the torch process group the
-    collectives run over (None: specs only, no collectives)."""
+    """Tensor-parallel placement for one process: the mesh of its
+    instance (``data == 1``), this process's rank on the model axis, the
+    torch process group the collectives run over (None: specs only, no
+    collectives) and the instance (the data slice) the plan serves."""
     mesh: ServingMesh
     fsdp: bool = False
     rank: int = 0
     group: Any = None
+    instance: int = 0
 
     def __post_init__(self):
         if self.fsdp:
             raise NotImplementedError(
                 "FSDP specs belong to training: ROADMAP Queue 1, item 9")
+        if self.mesh.data != 1:
+            raise ValueError(f"a plan serves one data slice, not {self.mesh}")
         if not 0 <= self.rank < self.mesh.model:
             raise ValueError(f"rank {self.rank} outside the model axis "
                              f"{self.mesh.model}")
@@ -249,20 +260,25 @@ class ShardingPlan:
 
 
 def serving_plan(mesh: ServingMesh, rank: Optional[int] = None,
-                 group=None) -> ShardingPlan:
-    """Tensor-parallel serving plan: TP over 'model', no FSDP.  ``rank``
-    and ``group`` default to this process's (``distributed.group``); a
+                 group=None, instance: Optional[int] = None) -> ShardingPlan:
+    """Tensor-parallel serving plan of one instance: TP over 'model', no
+    FSDP, over the slice ``ServingMesh(1, model)`` of ``mesh`` (data > 1:
+    instance ``instance`` of ``mesh.data``).  ``rank``, ``group`` and
+    ``instance`` default to this process's (``distributed.group``); a
     plan outside any group places but cannot run a collective."""
-    if mesh.data != 1:
-        raise NotImplementedError(
-            "serving instances over a data axis (data > 1, locality "
-            "routing) are ROADMAP Queue 1, item 8")
     if rank is None:
         from repro_torch.distributed.group import current_group
         tpg = current_group()
         rank = 0 if tpg is None else tpg.rank
         group = group if tpg is None else tpg.data_group
-    return ShardingPlan(mesh=mesh, rank=rank, group=group)
+        if instance is None and tpg is not None:
+            instance = tpg.instance
+    instance = instance or 0
+    if not 0 <= instance < mesh.data:
+        raise ValueError(f"instance {instance} outside the data axis "
+                         f"{mesh.data}")
+    return ShardingPlan(mesh=ServingMesh(1, mesh.model), rank=rank,
+                        group=group, instance=instance)
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +410,36 @@ def paged_cache_specs(cache_tree, mesh):
         return _replicated(ndim)
 
     return map_with_path(choose, cache_tree)
+
+
+def lora_delta_spec(cfg: ModelConfig, target: str, tp: int) -> PartitionSpec:
+    """The spec of a merged LoRA delta ``A @ B`` of one layer's attention
+    projection ``target`` (``wq``, ``wk``, ``wv`` or ``wo``, ``[in,
+    out]``): its target's, so that each rank adds its shard of the delta
+    to its shard of the weight."""
+    from repro_torch.models.adapters import target_dims
+    return _param_spec(f"layers.0.attn.{target}", target_dims(cfg, target),
+                       cfg, tp)
+
+
+def adapter_bank_specs(cfg: ModelConfig, targets, tp: int) -> dict:
+    """Specs of an adapter bank's leaves (``a: [L, N, in, r]``, ``b: [L,
+    N, r, out]``, the GLOBAL shapes) per target projection: the factor on
+    the target's split side follows the target's spec (``b`` of ``wq`` /
+    ``wk`` / ``wv`` by columns, as the rank's heads and KV heads; ``a``
+    of ``wo`` by rows), the other factor is replicated.  The layer and
+    adapter axes are replicated, so row 0 stays the null adapter on
+    every rank."""
+    out = {}
+    for name in targets:
+        spec = lora_delta_spec(cfg, name, tp)
+        a, b = _replicated(4), _replicated(4)
+        if spec.model_dim == 0:
+            a = _on(4, 2, spec.parts)
+        elif spec.model_dim == 1:
+            b = _on(4, 3, spec.parts)
+        out[name] = {"a": a, "b": b}
+    return out
 
 
 def _segments(spec: PartitionSpec, size: int, tp: int) -> tuple:

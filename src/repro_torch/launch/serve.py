@@ -52,21 +52,26 @@ device).  Every rank draws its shard of the weights from the seed; rank
 dense and moe families (GQA or MLA attention): a moe rank holds E / N
 whole experts, an MLA rank H / N heads and the whole latent arena, so
 ``--arch phi3.5-moe-42b-a6.6b --tp 2 --layers 4`` and ``--arch
-deepseek-v3-671b --tp 2 --layers 1`` serve on one card; ``--lora``
-under ``--tp`` exits with a message naming its ROADMAP item.
+deepseek-v3-671b --tp 2 --layers 1`` serve on one card; ``--lora
+--tp N`` merges each rank's shard of the adapter's delta into its shard
+of the query projection.
 
 ``--instances K`` serves K instances (``ServingMesh(K, 1)``), instance i
 on ``cuda:(i mod device_count)`` (K instances share one card), each with
 its own KV pools and warm engines; new engines go where the function is
 already warm unless that instance is busier (locality routing).  With
-``--tp > 1`` it exits: several tensor-parallel instances are ROADMAP
-Queue 1, item 8.
+``--tp N`` each instance is a rank group of N ranks (``ServingMesh(K,
+N)``, K N rank processes; on one card all of them share it over gloo).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu \
         --arch deepseek-v3-671b --layers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 \
         --device cpu --layers 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --lora \
+        --device cpu --layers 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 \
+        --tp 2 --device cpu --layers 2
 """
 
 from __future__ import annotations
@@ -185,19 +190,12 @@ def main(argv=None):
                     help="serving instances (a mesh's data axis), with "
                          "locality routing")
     args = ap.parse_args(argv)
-    if args.instances > 1 and args.tp > 1:
-        sys.exit("--instances with --tp > 1: several tensor-parallel "
-                 "instances (one rank group per instance) are ROADMAP "
-                 "Queue 1, item 8, not in the PyTorch port yet")
-    if args.tp > 1 and args.lora:
-        sys.exit("--lora: LoRA under tensor parallelism is ROADMAP Queue 1, "
-                 "item 7")
     cfg = _config(args)
     if args.device != "cpu" and args.layers is None:
         # every rank's weights and a fork's copy, on the cards they share
         weights = tree_bytes(transformer.param_specs(
             sharding.local_config(cfg, args.tp, 0)))
-        sharing = -(-args.tp // torch.cuda.device_count())
+        sharing = -(-args.tp * args.instances // torch.cuda.device_count())
         card = torch.cuda.get_device_properties(0).total_memory
         if 2 * weights * sharing > card:
             sys.exit(f"--arch {args.arch}: {fmt_bytes(weights)} of weights "
@@ -206,8 +204,8 @@ def main(argv=None):
                      "depth with --layers")
     if args.tp > 1:
         sharding.check_tp(cfg, args.tp)
-        spawn(_serve_rank, args.tp, (args,), backend=args.backend,
-              device=args.device)
+        spawn(_serve_rank, args.tp, (args,), data=args.instances,
+              backend=args.backend, device=args.device)
     else:
         serve(args)
 
@@ -265,13 +263,18 @@ def serve(args, group=None) -> None:
         experts = f", {end - first} experts" if cfg.n_experts else ""
         print(f"tensor parallel: {group.size} ranks ({group.backend}), "
               f"{heads}{experts} per rank")
+        if group.n_instances > 1:
+            ranks = [list(range(i * group.size, (i + 1) * group.size))
+                     for i in range(group.n_instances)]
+            print(f"instances: {group.n_instances} rank groups, ranks "
+                  f"{ranks} ({group.backend})")
     mesh = group.mesh if group is not None else ServingMesh(args.instances, 1)
     rt = FaaSRuntime(n_slots=args.slots,
                      max_len=args.prompt_len + args.max_new,
                      keep_alive_s=args.keep_alive, trace_seq=args.prompt_len,
                      chunk_tokens=args.chunk_tokens, kv_dtype=args.kv_dtype,
                      mesh=mesh, device=device)
-    if len(rt.instances) > 1:
+    if len(rt.instances) > 1 and group is None:
         print(f"instances: {len(rt.instances)} on "
               f"{[str(inst.device) for inst in rt.instances]}")
     if args.predictive:

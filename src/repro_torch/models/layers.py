@@ -179,7 +179,9 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     * paged (``page_table`` given, decode only): the cache leaves are one
       arena ``[P, page_size, KV, hd]``; this token's K/V (quantized on
       append for an int8 arena) are written into its page and the paged
-      decode kernel attends over the pages the table maps.
+      decode kernel attends over the pages the table maps.  The kernel
+      has no logit softcap: a config with one raises here, as the dense
+      decode branch does.
 
     With ``adapters`` (one layer's slice of an adapter bank) each targeted
     projection adds its per-sequence low-rank delta, bank row
@@ -225,6 +227,9 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if kv_cache is not None and page_table is not None:
         if S != 1:
             raise ValueError("paged attention is decode-only (S == 1)")
+        if softcap > 0:
+            raise NotImplementedError(
+                "paged_decode_attention has no logit softcap")
         ck, cv = kv_cache["k"], kv_cache["v"]
         pages = page_table[torch.arange(B, device=x.device),
                            (cache_pos // page_size).long()].long()

@@ -14,7 +14,10 @@ a moe layer's experts and MLA's heads; MLA's latent arenas whole),
 its calls run under ``sharding.use_plan`` and meet the other ranks in
 their collectives, and the device ops below carry
 ``distributed.group.mirrored`` (on a controller they broadcast to the
-workers).  ``init_params`` under a plan draws every full leaf from the
+workers; a model call's logits are what the controller reads of another
+instance's ranks).  An adapter bank under a plan holds the rank's shard
+(``models.adapters``): the q/k/v deltas are the rank's heads, and the wo
+delta joins the rank's partial before the one ``all_reduce``.  ``init_params`` under a plan draws every full leaf from the
 seed and keeps the rank's slice, so one seed gives the same weights at
 every ``tp``.  The decoder families run ``models.transformer``, enc-dec (whisper)
 ``models.encdec``, whose prefill inputs also carry ``frames`` [B, S_enc,
@@ -212,13 +215,7 @@ class Model:
         return torch.as_tensor(adapter_ids, dtype=torch.int32,
                                device=self.device)
 
-    def _check_bank(self, adapter_bank) -> None:
-        if adapter_bank is not None and self.plan is not None:
-            raise NotImplementedError(
-                f"{self.cfg.name}: LoRA adapter banks under tensor "
-                "parallelism are ROADMAP Queue 1, item 7")
-
-    @mirrored()
+    @mirrored(values="return.0")
     def prefill(self, params, inputs: dict, cache, adapter_bank=None,
                 adapter_ids=None):
         """Whole-prompt prefill; with an ``adapter_bank``, ``adapter_ids``
@@ -227,26 +224,24 @@ class Model:
         if self.is_encdec:
             return encdec.prefill(params, self.cfg, self._frames(inputs),
                                   self._tokens(inputs), cache)
-        self._check_bank(adapter_bank)
         with self._scope():
             return transformer.prefill(params, self.local_cfg,
                                        self._tokens(inputs), cache,
                                        adapter_bank, self._ids(adapter_ids))
 
-    @mirrored()
+    @mirrored(values="return.0")
     def prefill_from(self, params, inputs: dict, cache, offset: int,
                      adapter_bank=None, adapter_ids=None):
         """Suffix-only prefill against a cache holding a reused prompt
         prefix of ``offset`` tokens."""
         self._no_encdec("suffix-only prefill")
-        self._check_bank(adapter_bank)
         with self._scope():
             return transformer.prefill_from(params, self.local_cfg,
                                             self._tokens(inputs), cache,
                                             offset, adapter_bank,
                                             self._ids(adapter_ids))
 
-    @mirrored()
+    @mirrored(values="return.0")
     def decode_step(self, params, cache, inputs: dict, pos):
         """One decode step; ``pos`` an int or an int [B] vector (enc-dec:
         a scalar only, the whole batch at one decoder position)."""
@@ -261,14 +256,13 @@ class Model:
             return transformer.decode_step(params, self.local_cfg, cache,
                                            self._tokens(inputs), pos)
 
-    @mirrored()
+    @mirrored(values="return.0")
     def decode_step_paged(self, params, cache, inputs: dict, pos, page_table,
                           page_size: int, adapter_bank=None, adapter_ids=None):
         """One decode step over a block-paged arena: ``pos`` int [B] and
         ``page_table`` [B, NB] int32 on the model's device; with an
         ``adapter_bank``, ``adapter_ids`` [B] picks each slot's LoRA row."""
         self._no_encdec("paged decode path")
-        self._check_bank(adapter_bank)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         page_table = torch.as_tensor(page_table, dtype=torch.int32,
                                      device=self.device)

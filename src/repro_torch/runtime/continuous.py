@@ -38,10 +38,15 @@ adapter, carried by free and foreign slots).
 tensor-parallel model: the engine runs on the controller rank only, and
 every call it makes into the model, the pool and the fork session is a
 device op that the workers run on their shards (``distributed.group``);
-token batches and page tables cross to them as host arrays.  Adapter
-banks under a plan raise ``NotImplementedError`` (ROADMAP Queue 1, item
-7).  Enc-dec models raise it too, as in the JAX package: they serve
-through the sequential ``Engine``.
+token batches, page tables and adapter ids cross to them as host arrays.
+An adapter bank under a plan is the rank's shard on every rank
+(``models.adapters``); ``set_adapter``'s row writes are a device op, its
+``adapter_load`` fault point fires on the controller before the op is
+sent.  On another instance's ranks than the controller's, the engine
+drives the controller's shadows of that instance's objects and reads
+each model call's logits from the instance's first rank
+(``distributed.group``).  Enc-dec models raise ``NotImplementedError``,
+as in the JAX package: they serve through the sequential ``Engine``.
 """
 
 from __future__ import annotations
@@ -149,10 +154,6 @@ class ContinuousBatchingEngine:
             raise ValueError("the engine's plan must be its model's: build "
                              "the model under the plan (get_model(..., "
                              "plan=plan))")
-        if adapter_bank is not None and model.plan is not None:
-            raise NotImplementedError(
-                "LoRA adapter banks under tensor parallelism are ROADMAP "
-                "Queue 1, item 7")
         if not isinstance(params, (dict, ForkSession)):
             raise TypeError("params must be a parameter dict or a "
                             f"ForkSession, not {type(params).__name__}")
@@ -222,7 +223,9 @@ class ContinuousBatchingEngine:
 
     def set_adapter(self, idx: int, adapter, alpha: float = 1.0) -> None:
         """Load a LoRA checkpoint into bank row ``idx``, in place: steps
-        already issued run before the write on the engine's stream."""
+        already issued run before the write on the engine's stream.  Under
+        a plan every rank writes its shard of the row (a device op sent
+        after the fault point)."""
         if self.adapter_bank is None:
             raise ValueError("engine was built without an adapter bank")
         fault_point("adapter_load", f"row={idx}")

@@ -50,12 +50,22 @@ over the least-loaded instance.
 runtime is the controller rank of a ``distributed.group`` of ``tp`` ranks
 (``spawn``), the only rank with host state, and its functions' models
 are built under the group's plan.  Every device op below the engines
-runs on every rank (``distributed.group.mirrored``).  Left out, raising
-``NotImplementedError`` with its ROADMAP item: a mesh with ``data > 1``
-and ``model > 1``, one rank group per instance (Queue 1, item 8).  An
-enc-dec (whisper) function deploys, unwarmed, and its invocation raises
-``NotImplementedError`` where the continuous engine is built, as in the
-JAX runtime.
+runs on every rank (``distributed.group.mirrored``).  A shared base's
+adapter bank is the rank's shard on every rank.
+
+``mesh=ServingMesh(data, tp)`` with both above 1 serves ``data``
+tensor-parallel instances, each its own rank group of ``tp`` ranks
+(``spawn(..., data=data)``), as the reference serves instance ``i`` on
+``Mesh(mesh.devices[i:i + 1])``.  The runtime runs on the controller,
+rank 0 of instance 0; instance ``i``'s engines, KV pools, fork sessions
+and adapter banks are the controller's shadows of the objects its ranks
+hold (``distributed.group``), so every device op of instance ``i`` runs
+on its ranks alone.  Every instance owns a KV pool per model, built on
+its ranks; template prompts bake at deploy on instance 0 and at the
+first fork onto each other instance; locality routing is the same.
+An enc-dec (whisper) function deploys, unwarmed, and its invocation
+raises ``NotImplementedError`` where the continuous engine is built, as
+in the JAX runtime.
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ from repro_torch.core.api import LLMFunction
 from repro_torch.core.prewarm import ExecutableCache, ProcessPool, zero_params
 from repro_torch.core.template_server import TemplateServer
 from repro_torch.distributed.group import current_group
+from repro_torch.distributed.sharding import ServingMesh
 from repro_torch.models.adapters import check_bank_config, make_adapter_bank
 from repro_torch.models.registry import get_smoke_model, resolve_device
 from repro_torch.runtime.continuous import ContinuousBatchingEngine
@@ -84,33 +95,31 @@ from repro_torch.runtime.prefix import PrefixIndex
 KINDS = ("warm", "fork", "cold")
 
 
-def _later(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} arrives with a later slice of the port (ROADMAP Queue 1, "
-        f"item {item})")
-
-
-def _controller_plan(tp: int):
-    """The group's plan for ``tp`` model ranks.  The runtime runs on the
-    controller rank of a group of ``tp`` ranks."""
+def _controller_group(mesh):
+    """The group of ``mesh``'s ranks this runtime runs on the controller
+    of (``distributed.spawn``)."""
     group = current_group()
-    if group is None or group.size != tp:
+    if group is None or group.mesh != mesh:
         raise RuntimeError(
-            f"a mesh of {tp} model ranks serves inside a group of as many "
-            "ranks (repro_torch.distributed.spawn)")
+            f"a mesh of {mesh.data} x {mesh.model} ranks serves inside a "
+            "group of as many ranks (repro_torch.distributed.spawn(..., "
+            f"data={mesh.data}))")
     if not group.is_controller:
         raise RuntimeError("FaaSRuntime runs on the controller rank; the "
                            "workers call group.serve()")
-    return group.plan
+    return group
 
 
 @dataclasses.dataclass
 class _Instance:
     """One serving instance: a device, or the ranks of one tensor-parallel
-    group (``plan``)."""
+    group (``plan``; ``device`` is where this process holds its objects:
+    the controller's device for its own instance, the shadow device for
+    another's)."""
     idx: int
     device: torch.device
     plan: Optional[object] = None
+    ranks: tuple = ()
 
 
 def _make_instances(mesh, device: torch.device) -> list:
@@ -123,16 +132,21 @@ def _make_instances(mesh, device: torch.device) -> list:
             f"per data slice, tensor-parallel over model (got "
             f"{mesh.axis_names})")
     data, tp = mesh.shape["data"], mesh.shape["model"]
-    if data > 1 and tp > 1:
-        raise _later("several tensor-parallel instances (a mesh with "
-                     "data > 1 and model > 1: one rank group per instance)", 8)
     if tp > 1:
-        return [_Instance(0, device, _controller_plan(tp))]
+        group = _controller_group(ServingMesh(data, tp))
+        return [_Instance(i, group.device_of(i), group.plans[i],
+                          tuple(range(i * tp, (i + 1) * tp)))
+                for i in range(data)]
     if device.type != "cuda":
         return [_Instance(i, device) for i in range(data)]
     count = torch.cuda.device_count()
     return [_Instance(i, torch.device("cuda", (device.index + i) % count))
             for i in range(data)]
+
+
+def _group(inst: _Instance) -> Optional[int]:
+    """The rank group an instance is (None: a device)."""
+    return None if inst.plan is None else inst.idx
 
 
 def _engine_key(fn_name: str, event: dict) -> tuple:
@@ -152,8 +166,9 @@ class _WarmEngine:
 
 class FaaSRuntime:
     """Serving runtime for deployed LLM functions on one device, on
-    several instances (``mesh=ServingMesh(data, 1)``) or on the ranks of
-    one tensor-parallel instance (``mesh=ServingMesh(1, tp)``).
+    several instances (``mesh=ServingMesh(data, 1)``), on the ranks of
+    one tensor-parallel instance (``mesh=ServingMesh(1, tp)``) or of
+    several (``mesh=ServingMesh(data, tp)``, one rank group each).
 
     ``device`` defaults to the card and raises without one; pass
     ``device="cpu"`` to serve on the CPU.  Every deployed function's model
@@ -228,10 +243,13 @@ class FaaSRuntime:
     # ------------------------------------------------------------------
     def _model_on(self, fn_name: str, inst: _Instance):
         """The function's model as instance ``inst`` runs it."""
-        return self.server.model_on(fn_name, inst.device)
+        return self.server.model_on(fn_name, inst.device, inst.plan)
 
     def _fork(self, fn_name: str, event: dict, inst: _Instance) -> tuple:
-        """Fork the function onto instance ``inst`` (its device)."""
+        """Fork the function onto instance ``inst`` (its device, or its
+        rank group)."""
+        if inst.plan is not None:
+            return self.server.fork(fn_name, event, plan=inst.plan)
         if inst.device == self.functions[fn_name].model.device:
             return self.server.fork(fn_name, event)
         return self.server.fork(fn_name, event, device=inst.device)
@@ -317,10 +335,12 @@ class FaaSRuntime:
             # enc-dec serves through the sequential Engine only, so there
             # are no continuous-engine entry points to warm (as in the JAX
             # runtime); its invocations raise where that engine is built.
-            # One zero-filled parameter set per device, built on first need
+            # One zero-filled parameter set per device (per rank group
+            # under a plan), built on first need
             zeros = functools.cache(
-                lambda device: zero_params(self.server.model_on(fn.name,
-                                                                device)))
+                lambda device, group: zero_params(self.server.model_on(
+                    fn.name, device,
+                    None if group is None else self.instances[group].plan)))
             self._fn_keys[fn.name] = self._prewarm_engine_fns(
                 fn, prewarm_seq, zeros)
             if template_prompt is not None or (
@@ -553,6 +573,7 @@ class FaaSRuntime:
             fns[fn_name] = d
         out = {"functions": fns,
                "instances": [{"idx": inst.idx, "device": str(inst.device),
+                              "ranks": list(inst.ranks),
                               "engines": self._load(inst)}
                              for inst in self.instances],
                "gateway": dict(self.gateway.stats)}
@@ -581,31 +602,33 @@ class FaaSRuntime:
             kd = (id(fn.model), "decode-pool", inst.idx, self.n_slots,
                   self.max_len)
 
-            def warm_prefill(model=model, dev=dev):
-                model.prefill(zeros(dev),
-                              {"tokens": torch.zeros((1, seq),
-                                                     dtype=torch.int32,
-                                                     device=dev)},
+            def host_zeros(shape, dev=dev, plan=inst.plan):
+                # under a plan a host batch, which every rank uploads
+                z = np.zeros(shape, np.int32)
+                return z if plan is not None else torch.as_tensor(z, device=dev)
+
+            def warm_prefill(model=model, dev=dev, inst=inst,
+                             host_zeros=host_zeros):
+                model.prefill(zeros(dev, _group(inst)),
+                              {"tokens": host_zeros((1, seq))},
                               model.make_cache(1, prefill_len))
                 self._sync(dev)
                 return model.prefill
 
-            def warm_decode(model=model, dev=dev):
-                toks = torch.zeros((self.n_slots, 1), dtype=torch.int32,
-                                   device=dev)
-                pos = torch.zeros((self.n_slots,), dtype=torch.int32,
-                                  device=dev)
+            def warm_decode(model=model, dev=dev, inst=inst,
+                            host_zeros=host_zeros):
+                toks = host_zeros((self.n_slots, 1))
+                pos = host_zeros((self.n_slots,))
                 if paged:
                     cache = model.make_paged_cache(1 + self.n_slots * bps,
                                                    self.page_size,
                                                    kv_dtype=self.kv_dtype)
-                    pt = torch.zeros((self.n_slots, bps), dtype=torch.int32,
-                                     device=dev)
-                    model.decode_step_paged(zeros(dev), cache,
+                    pt = host_zeros((self.n_slots, bps))
+                    model.decode_step_paged(zeros(dev, _group(inst)), cache,
                                             {"tokens": toks}, pos, pt,
                                             self.page_size)
                 else:
-                    model.decode_step(zeros(dev),
+                    model.decode_step(zeros(dev, _group(inst)),
                                       model.make_cache(self.n_slots,
                                                        self.max_len),
                                       {"tokens": toks}, pos)
@@ -632,9 +655,11 @@ class FaaSRuntime:
         for inst in self.instances:
             model, dev = self._model_on(fn.name, inst), inst.device
 
-            def warm(model=model, dev=dev):
-                toks = torch.zeros((1, ps), dtype=torch.int32, device=dev)
-                model.prefill_from(zeros(dev), {"tokens": toks},
+            def warm(model=model, dev=dev, inst=inst):
+                toks = np.zeros((1, ps), np.int32)
+                if inst.plan is None:
+                    toks = torch.as_tensor(toks, device=dev)
+                model.prefill_from(zeros(dev, _group(inst)), {"tokens": toks},
                                    model.make_cache(1, bps * ps), 0)
                 self._sync(dev)
                 return model.prefill_from
@@ -656,14 +681,12 @@ class FaaSRuntime:
                            target_paths: tuple = ("blocks.attn.wq",),
                            example_event: Optional[dict] = None,
                            prewarm_seq: int = 32) -> None:
-        """Deploy ``fn`` as a SHARED BASE: one resident engine carries an
-        adapter bank of ``n_adapters - 1`` loadable rows (row 0 is the
-        null adapter), and every function attached with
-        :meth:`attach_adapter` decodes in that engine's batch.  The bank
-        targets the attention projections in ``target_paths``."""
-        if fn.model.plan is not None:
-            raise _later("a shared base's adapter bank under tensor "
-                         "parallelism", 7)
+        """Deploy ``fn`` as a SHARED BASE: one resident engine per
+        instance carries an adapter bank of ``n_adapters - 1`` loadable
+        rows (row 0 is the null adapter), and every function attached
+        with :meth:`attach_adapter` decodes in that engine's batch.  The
+        bank targets the attention projections in ``target_paths``; under
+        a plan every rank of the instance builds its shard of it."""
         check_bank_config(fn.model, target_paths, n_adapters)
         if not fn.model.supports_paged_kv:
             raise ValueError(

@@ -183,3 +183,22 @@ def test_dense_decode_dispatches_to_the_kernel(monkeypatch):
     tm.decode_step(tp, cache, {"tokens": np.ones((2, 1), np.int32)},
                    np.asarray([6, 4], np.int32))
     assert calls == [[7, 5]] * tm.cfg.n_layers
+
+
+@pytest.mark.parametrize("step", ["paged", "dense"])
+def test_decode_with_a_logit_softcap_raises(step):
+    """Neither decode kernel has a logit softcap (no config of the port
+    sets one): a smoke config with ``attn_logit_softcap=30.0`` raises at
+    the paged and the dense decode step alike, where the reference caps
+    the scores, instead of dropping the cap without a word."""
+    tm = torch_smoke("smollm-135m", device="cpu", n_layers=2,
+                     attn_logit_softcap=30.0)
+    params = tm.init_params(seed=0)
+    toks = {"tokens": np.ones((2, 1), np.int32)}
+    pos = np.asarray([3, 1], np.int32)
+    with pytest.raises(NotImplementedError, match="no logit softcap"):
+        if step == "paged":
+            tm.decode_step_paged(params, tm.make_paged_cache(5, 4), toks, pos,
+                                 np.asarray([[1, 2], [3, 4]], np.int32), 4)
+        else:
+            tm.decode_step(params, tm.make_cache(2, 8), toks, pos)

@@ -137,13 +137,18 @@ def test_keep_alive_expiry_matches_jax(pkgs):
 
 
 def test_later_slices_raise_with_their_item():
-    """Only several tensor-parallel instances (data > 1 and model > 1)
-    still wait for their slice (several instances serve:
-    test_torch_instances.py; one tensor-parallel instance:
-    test_torch_tp.py)."""
-    from repro_torch.distributed import ServingMesh
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """Several tensor-parallel instances serve now (test_torch_tp_instances
+    .py): a ``ServingMesh(2, 2)`` runtime runs on the controller of a
+    spawned group of 2 x 2 ranks and says so outside one.  What still
+    waits for its slice is a family other than dense and moe under a
+    plan, on any instance's slice (ROADMAP Queue 1, item 6)."""
+    from repro_torch.distributed import ServingMesh, serving_plan
+    with pytest.raises(RuntimeError, match=r"spawn\(\.\.\., data=2\)"):
         torch_faas.FaaSRuntime(mesh=ServingMesh(2, 2), device="cpu")
+    for instance in (0, 1):
+        plan = serving_plan(ServingMesh(2, 2), rank=0, instance=instance)
+        with pytest.raises(NotImplementedError, match="item 6"):
+            torch_smoke("zamba2-2.7b", device="cpu", plan=plan)
 
 
 def test_serve_cli_runs_on_the_cpu():
@@ -159,11 +164,13 @@ def test_serve_cli_runs_on_the_cpu():
     kinds = {l.split()[3] for l in lines}
     assert kinds == {"cold", "fork", "warm"}, res.stdout
     assert "p50 ttft" in res.stdout
+    # --instances 2 --tp 2 serves (test_torch_tp_instances.py); a zamba
+    # base under a plan still waits for ROADMAP Queue 1, item 6
     bad = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--instances", "2",
-         "--tp", "2"],
+         "--tp", "2", "--arch", "zamba2-2.7b", "--device", "cpu"],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
-    assert bad.returncode != 0 and "item 8" in bad.stderr
+    assert bad.returncode != 0 and "item 6" in bad.stderr
 
 
 def test_serve_cli_open_loop_predictive_on_the_cpu():

@@ -29,7 +29,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.core import api as tidal  # noqa: E402
 from repro_torch.core.forking import DonationGuard  # noqa: E402
 from repro_torch.core.template_server import TemplateServer  # noqa: E402
-from repro_torch.distributed import ServingMesh  # noqa: E402
+from repro_torch.distributed import ServingMesh, serving_plan  # noqa: E402
 from repro_torch.hw import H100_SXM  # noqa: E402
 from repro_torch.models.registry import get_smoke_model  # noqa: E402
 from repro_torch.runtime import faas as torch_faas  # noqa: E402
@@ -141,7 +141,17 @@ def test_serving_mesh_axes_validated():
 
 
 def test_tensor_parallel_instances_raise_naming_item_8():
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """Several tensor-parallel instances serve now (test_torch_tp_instances
+    .py): each data slice of ``ServingMesh(2, 2)`` has its plan (the
+    slice's mesh, the instance on the data axis), and a runtime over the
+    mesh asks for the spawned group of 2 x 2 ranks it runs in."""
+    for instance in (0, 1):
+        plan = serving_plan(ServingMesh(2, 2), rank=1, instance=instance)
+        assert (plan.mesh, plan.rank, plan.instance) == (
+            ServingMesh(1, 2), 1, instance)
+    with pytest.raises(ValueError, match="outside the data axis"):
+        serving_plan(ServingMesh(2, 2), rank=0, instance=2)
+    with pytest.raises(RuntimeError, match="2 x 2 ranks"):
         FaaSRuntime(mesh=ServingMesh(2, 2), device="cpu")
 
 

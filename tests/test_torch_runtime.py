@@ -228,14 +228,23 @@ def test_engine_raises_for_later_slices(models):
     # forked sessions are served now; anything else is refused
     with pytest.raises(TypeError, match="ForkSession"):
         ContinuousBatchingEngine(tm, object(), n_slots=1, max_len=16)
-    # a sharding plan serves the dense and moe families; zamba under a
-    # plan and LoRA banks under tensor parallelism still wait for their
-    # items
+    # a sharding plan serves the dense and moe families, and an adapter
+    # bank under it (the rank's shard); zamba under a plan still waits for
+    # its item
     from repro_torch.distributed import ServingMesh, serving_plan
+    from repro_torch.models.adapters import make_adapter_bank
     plan = serving_plan(ServingMesh(1, 2), rank=0)
     with pytest.raises(NotImplementedError, match="item 6"):
         torch_smoke("zamba2-2.7b", device="cpu", plan=plan)
     sharded = torch_smoke("smollm-135m", device="cpu", n_layers=2, plan=plan)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ContinuousBatchingEngine(sharded, tp, n_slots=1, max_len=16,
-                                 plan=plan, adapter_bank={})
+    bank = make_adapter_bank(sharded, ("blocks.attn.wq", "blocks.attn.wo"),
+                             3, 4)
+    eng = ContinuousBatchingEngine(sharded, tp, n_slots=1, max_len=16,
+                                   plan=plan, adapter_bank=bank)
+    cfg, local = sharded.cfg, sharded.local_cfg
+    assert eng.adapter_bank is bank
+    assert tuple(bank["wq"]["b"].shape) == (2, 3, 4, local.n_heads
+                                            * cfg.head_dim)
+    assert tuple(bank["wo"]["a"].shape) == (2, 3, local.n_heads
+                                            * cfg.head_dim, 4)
+    assert local.n_heads * 2 == cfg.n_heads

@@ -375,8 +375,14 @@ def test_other_families_under_a_plan_name_their_item(arch, item):
 
 
 def test_data_axis_and_training_specs_name_their_items():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        sharding.serving_plan(ServingMesh(2, 2), rank=0)
+    # a data axis serves (one rank group per instance): the plan of one
+    # data slice, as the reference's Mesh(mesh.devices[i:i + 1])
+    plan = sharding.serving_plan(ServingMesh(2, 2), rank=1, instance=1)
+    assert (plan.mesh, plan.tp, plan.rank, plan.instance) == (MESH, 2, 1, 1)
+    tm1 = get_smoke_model("smollm-135m", device="cpu", plan=plan)
+    assert tm1.local_cfg == get_smoke_model(
+        "smollm-135m", device="cpu",
+        plan=sharding.serving_plan(MESH, rank=1)).local_cfg
     tm = get_smoke_model("smollm-135m", device="cpu")
     with pytest.raises(NotImplementedError, match="item 9"):
         sharding.param_specs(tm, MESH, fsdp=True)
@@ -403,14 +409,82 @@ def test_a_model_axis_that_does_not_divide_raises(arch, replace, tp, match):
 
 @pytest.mark.parametrize("arch", ["smollm-135m", PHI])
 def test_lora_under_a_plan_names_its_item(arch):
-    """LoRA under TP (on a dense or a moe base) is ROADMAP item 7."""
+    """LoRA under TP (on a dense or a moe base) serves: a merged
+    ``lora_function``'s initializer gives each rank its shard of the
+    one-device merged weight (the delta cut as its target is), and the
+    static leaves its shard of the base."""
     from repro_torch.core import api as tidal
-    plan = sharding.serving_plan(MESH, rank=0)
-    model = get_smoke_model(arch, device="cpu", n_layers=2, plan=plan)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tidal.lora_function("l", model, model.init_params(),
-                            ["blocks.attn.wq"]).run_initializer(
-            {"adapter": "adapter-0"})
+    one = get_smoke_model(arch, device="cpu", n_layers=2)
+    want = tidal.lora_function("l", one, one.init_params(),
+                               ["blocks.attn.wq"]).run_initializer(
+        {"adapter": "adapter-1"})[0]
+    specs = sharding.leaf_param_specs(one, MESH)
+    for rank in range(2):
+        plan = sharding.serving_plan(MESH, rank=rank)
+        model = get_smoke_model(arch, device="cpu", n_layers=2, plan=plan)
+        got, fps = tidal.lora_function("l", model, model.init_params(),
+                                       ["blocks.attn.wq"]).run_initializer(
+            {"adapter": "adapter-1"})
+        assert fps["layers.1.attn.wq"][0] == "add"
+        for path in ("layers.0.attn.wq", "layers.1.attn.wq",
+                     "layers.0.attn.wo"):
+            full = dict(named_leaves(want))[path].materialize()
+            mine = dict(named_leaves(got))[path].materialize()
+            assert torch.equal(mine, plan.shard(full, specs[path])), path
+
+
+# an adapter bank's placements at tp = 2 (a: [L, N, in, r], b: [L, N, r,
+# out]): the factor on the target's split side follows the target
+BANK_SPECS = {
+    2: {"wq": (P(None, None, None, None), P(None, None, None, "model")),
+        "wk": (P(None, None, None, None), P(None, None, None, "model")),
+        "wv": (P(None, None, None, None), P(None, None, None, "model")),
+        "wo": (P(None, None, "model", None), P(None, None, None, None))},
+    # one KV head: every rank keeps it, so wk / wv's b is whole
+    1: {"wq": (P(None, None, None, None), P(None, None, None, "model")),
+        "wk": (P(None, None, None, None), P(None, None, None, None)),
+        "wv": (P(None, None, None, None), P(None, None, None, None)),
+        "wo": (P(None, None, "model", None), P(None, None, None, None))}}
+TARGETS = ("wq", "wk", "wv", "wo")
+
+
+@pytest.mark.parametrize("kv", [2, 1])
+def test_adapter_bank_and_delta_specs_are_listed(kv):
+    """The bank's leaf specs are the listed ones, nothing else differs;
+    a merged delta's spec is its target's; and the ranks' shards of a
+    loaded bank, put back together per spec, are the one-device bank."""
+    from repro_torch.core import api as tidal
+    from repro_torch.models import adapters
+    one = get_smoke_model("smollm-135m", device="cpu", n_layers=2,
+                          n_kv_heads=kv)
+    cfg = one.cfg
+    specs = sharding.adapter_bank_specs(cfg, TARGETS, 2)
+    assert {n: (s["a"], s["b"]) for n, s in specs.items()} == BANK_SPECS[kv]
+    leaves = dict(named_leaves(sharding.config_param_specs(cfg, 2)))
+    for name in TARGETS:
+        assert sharding.lora_delta_spec(cfg, name, 2) == \
+            leaves[f"layers.0.attn.{name}"]
+    paths = [f"blocks.attn.{n}" for n in TARGETS]
+    ad = tidal.lora_checkpoint("ad", one, paths, rank=4, seed=3)
+    want = adapters.load_adapter(adapters.make_adapter_bank(one, paths, 3, 4),
+                                 2, ad, one, alpha=0.5)
+    shards = []
+    for rank in range(2):
+        model = get_smoke_model("smollm-135m", device="cpu", n_layers=2,
+                                n_kv_heads=kv,
+                                plan=sharding.serving_plan(MESH, rank=rank))
+        bank = adapters.make_adapter_bank(model, paths, 3, 4)
+        shards.append(adapters.load_adapter(bank, 2, ad, model, alpha=0.5))
+    for name in TARGETS:
+        for k in ("a", "b"):
+            dim = specs[name][k].model_dim
+            if dim is None:
+                assert torch.equal(shards[0][name][k], want[name][k])
+                assert torch.equal(shards[1][name][k], want[name][k])
+            else:
+                got = torch.cat([s[name][k] for s in shards], dim=dim)
+                assert torch.equal(got, want[name][k]), (name, k)
+            assert not shards[1][name][k][:, 0].any()     # row 0 stays null
 
 
 def test_fused_qkv_logits_match_jax_on_one_device():

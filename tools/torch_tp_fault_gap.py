@@ -2,14 +2,17 @@
 """How far a faulty tensor-parallel run's logits land from one rank's,
 beside the bound ``chip_smoke.py`` holds the sound run to.
 
-    python3 tools/torch_tp_fault_gap.py [--case dense|moe|mla ...] [--layers N]
+    python3 tools/torch_tp_fault_gap.py [--case dense|moe|mla|lora ...]
+        [--layers N]
 
 Each case is one of phase 15's bf16 models at full width, its weights
 drawn on the card from ``chip_smoke.py``'s seed: ``dense`` llama3-8b
-(32 layers), ``moe`` phi3.5-moe (4 of 32, expert parallel) and ``mla``
+(32 layers), ``moe`` phi3.5-moe (4 of 32, expert parallel), ``mla``
 deepseek-v3 (1 of 61: MLA by heads over a moe layer with a shared
-expert); ``--layers`` sets the depth of every case run (default: all
-three).  Each prefills ``chip_smoke.py``'s first tensor-parallel prompt
+expert) and ``lora`` llama3-8b at phase 15's bf16 depth (8 of 32)
+through row 1 of ``chip_smoke.tp_lora_bank`` (wq, wk, wv and wo
+adapted); ``--layers`` sets the depth of every case run (default: all
+four).  Each prefills ``chip_smoke.py``'s first tensor-parallel prompt
 (96 tokens) once in one process (``tp = 1``) and then in two gloo ranks
 sharing the card: sound, and with each of its case's planted faults in
 turn (planted at run time, undone after):
@@ -26,7 +29,13 @@ turn (planted at run time, undone after):
   * ``shared_partial_dropped`` (mla): rank 1's shared-expert partial left
     out of the moe layer's sum;
   * ``wkv_b_heads_swapped`` (mla): rank 1's first two heads' columns of
-    every layer's ``wkv_b`` swapped (a mis-sliced head shard).
+    every layer's ``wkv_b`` swapped (a mis-sliced head shard);
+  * ``wo_delta_after_reduce`` (lora): every rank adds its wo delta after
+    the layer's ``all_reduce`` instead of before it;
+  * ``wq_b_columns_swapped`` (lora): rank 1's first two heads' columns of
+    the bank's ``wq`` ``b`` swapped (a mis-sliced adapter shard);
+  * ``bank_row_off_by_one`` (lora): rank 1 gathers its adapter rows one
+    row on (row 2, another adapter, for row 1).
 
 Prints one JSON line: per case and run the largest |logit| gap to
 ``tp = 1`` as a share of the largest |logit| (``chip_smoke.py``'s
@@ -52,6 +61,7 @@ sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 import chip_smoke  # noqa: E402
 from repro_torch.distributed import sharding, spawn  # noqa: E402
 from repro_torch.distributed.group import current_group, mirrored  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import get_config, get_model  # noqa: E402
 
@@ -64,10 +74,14 @@ CASES = {
     "mla": (chip_smoke.DSV3_ARCH, 1,
             ("skip_first_reduce", "skip_last_reduce", "expert_range_shifted",
              "shared_partial_dropped", "wkv_b_heads_swapped")),
+    "lora": ("llama3-8b", chip_smoke.TP_BF16_LAYERS,
+             ("wo_delta_after_reduce", "wq_b_columns_swapped",
+              "bank_row_off_by_one")),
 }
 _ALL_REDUCE = sharding.all_reduce
 _LOCAL_ROWS = moe.local_rows
 _MLP_PARTIAL = moe.mlp_partial
+_LORA_DELTA = model_layers.lora_delta
 
 
 def _model(arch: str, layers: int):
@@ -99,6 +113,25 @@ def _shifted_rows(row, keep, gate_idx, cfg, capacity):
         cfg, expert_first=cfg.expert_first + 1), capacity)
 
 
+def _delta_after_reduce(d_model: int):
+    """``lora_delta`` and ``all_reduce`` with the wo delta (at tp = 2 the
+    one slab whose output is ``d_model`` wide) held back from the rank's
+    partial and added after the layer's reduce."""
+    held = []
+
+    def lora_delta(x, slab, ids):
+        d = _LORA_DELTA(x, slab, ids)
+        if slab["b"].shape[-1] == d_model:
+            held.append(d)
+            return torch.zeros_like(d)
+        return d
+
+    def all_reduce(x):
+        y = _ALL_REDUCE(x)
+        return y + held.pop() if held else y
+    return lora_delta, all_reduce
+
+
 def _swap_heads(w: torch.Tensor, width: int) -> None:
     """Swap the first two ``width``-column heads of ``w`` in place."""
     v = w.view(w.shape[0], -1, width)
@@ -106,15 +139,27 @@ def _swap_heads(w: torch.Tensor, width: int) -> None:
 
 
 @mirrored()
-def _plant(fault, params: dict, arch: str, layers: int) -> None:
+def _plant(fault, params: dict, arch: str, layers: int,
+           bank: dict | None = None) -> None:
     """Plant ``fault`` on every rank (None: undo them all)."""
     sharding.all_reduce = {"skip_first_reduce": _skipping(0),
                            "skip_last_reduce": _skipping(2 * layers - 1),
                            }.get(fault, _ALL_REDUCE)
     moe.local_rows, moe.mlp_partial = _LOCAL_ROWS, _MLP_PARTIAL
+    model_layers.lora_delta = _LORA_DELTA
+    cfg = get_config(arch)
+    if fault == "wo_delta_after_reduce":
+        model_layers.lora_delta, sharding.all_reduce = _delta_after_reduce(
+            cfg.d_model)
     if current_group().rank != 1:
         return
-    cfg = get_config(arch)
+    if fault == "wq_b_columns_swapped":
+        b = bank["wq"]["b"]
+        v = b.view(*b.shape[:-1], -1, cfg.head_dim)
+        v[..., [0, 1], :] = v[..., [1, 0], :]
+    elif fault == "bank_row_off_by_one":
+        model_layers.lora_delta = (
+            lambda x, slab, ids: _LORA_DELTA(x, slab, ids + 1))
     if fault == "expert_range_shifted":
         moe.local_rows = _shifted_rows
     elif fault == "shared_partial_dropped":
@@ -130,24 +175,28 @@ def _plant(fault, params: dict, arch: str, layers: int) -> None:
 
 
 # the faults that change the weights, and undo themselves when planted again
-_SELF_UNDOING = ("kv_heads_swapped", "wkv_b_heads_swapped")
+_SELF_UNDOING = ("kv_heads_swapped", "wkv_b_heads_swapped",
+                 "wq_b_columns_swapped")
 
 
-def _rank(group, arch: str, layers: int, faults: tuple, prompt: np.ndarray):
+def _rank(group, arch: str, layers: int, faults: tuple, prompt: np.ndarray,
+          lora: bool = False):
     if not group.is_controller:
         group.serve()
         return None
     model = _model(arch, layers)
     params = group.build(_draw, arch, layers)
+    bank = chip_smoke.tp_lora_bank(model) if lora else None
+    adapters = {"adapter_bank": bank, "adapter_ids": [1]} if lora else {}
     out = {}
     for fault in (None,) + (faults if group.size > 1 else ()):
-        _plant(fault, params, arch, layers)
+        _plant(fault, params, arch, layers, bank)
         logits, _ = model.prefill(params, {"tokens": prompt[None]},
-                                  model.make_cache(1, 128))
+                                  model.make_cache(1, 128), **adapters)
         out[fault or "sound"] = logits.float().cpu().numpy()[0]
         if fault in _SELF_UNDOING:
-            _plant(fault, params, arch, layers)
-        _plant(None, params, arch, layers)
+            _plant(fault, params, arch, layers, bank)
+        _plant(None, params, arch, layers, bank)
     return out
 
 
@@ -171,7 +220,8 @@ def main(argv=None) -> int:
         layers = args.layers or layers
         cfg = get_config(arch)
         _, reqs = chip_smoke.tp_requests(cfg.vocab_size)
-        runs = {tp: spawn(_rank, tp, (arch, layers, faults, reqs[0][1]),
+        runs = {tp: spawn(_rank, tp, (arch, layers, faults, reqs[0][1],
+                                      case == "lora"),
                           backend=chip_smoke.TP_BACKEND, device="cuda",
                           timeout_s=900)
                 for tp in (1, chip_smoke.TP)}
@@ -180,8 +230,10 @@ def main(argv=None) -> int:
                                                  / np.abs(ref).max()),
                        "argmax_equal": bool(got.argmax() == ref.argmax())}
                 for name, got in runs[chip_smoke.TP].items()}
+        bound = (chip_smoke.TP_LORA_LOGIT_BOUND if case == "lora"
+                 else chip_smoke.tp_logit_bound(arch))
         result[case] = {"arch": arch, "layers": layers, "dtype": cfg.dtype,
-                        "bound": chip_smoke.tp_logit_bound(arch), "runs": gaps}
+                        "bound": bound, "runs": gaps}
     print(json.dumps({"tp_fault_gap": {
         "card": card, "note": f"{chip_smoke.TP} ranks sharing one card",
         "cases": result}}))
