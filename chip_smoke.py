@@ -25,7 +25,12 @@ Phases, in order; any failure raises and the process exits non-zero:
    zeros), each timed beside its roofline bound and one PyTorch library
    call; rmsnorm also in its residual form (``s`` equal to ``x + r`` and
    ``y`` to the unfused kernel on ``s``, bit for bit, timed beside ``x + r;
-   F.rms_norm`` and ``x + r`` then the kernel); then, at smollm-135m's,
+   F.rms_norm`` and ``x + r`` then the kernel) and in its split-row form
+   at one rank's slices at tp = 2 (2,560 of 5,120, 2,048 of 4,096 and
+   1,024 of 2,048: zamba2's Mamba2 norm, xlstm-1.3b's mLSTM and sLSTM
+   norms; each launch against its plain version, the slice beside the
+   other ranks' against the whole row's norm, the slice normalised alone
+   apart from it; timed beside ``F.rms_norm`` on the whole row); then, at smollm-135m's,
    llama3-8b's and gemma-2b's heads, bitwise
    invariance of the bf16 flash, decode and paged decode kernels (a
    suffix prefill's rows equal the whole prefill's, a sequence alone
@@ -67,8 +72,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    sequential) at zamba2-2.7b's shapes (H = 80, dh = ds = 64, chunk 128;
    S = 64, 128, 384, 512, a ragged 200, and B = 4 with an initial state,
    whose sequences run alone must give the batch's bits; B and C in bf16
-   and fp32), and ``flash_attention`` / ``decode_attention`` at
-   zamba2's head dim of 80, all timed, with the bitwise invariance checks
+   and fp32; one tp = 2 rank's 40 heads at S = 96 and B = 4 with h0),
+   and ``flash_attention`` / ``decode_attention`` at zamba2's head dim of
+   80 (and a rank's 16 heads), all timed, with the bitwise invariance checks
    (paged equal to dense included) at zamba2's heads; then zamba2-2.7b at full width
    (54 Mamba2 layers and one shared attention block applied 9 times,
    bf16, seeded random weights) through a dense-pool
@@ -185,8 +191,9 @@ Phases, in order; any failure raises and the process exits non-zero:
    whisper-medium at full width and depth (2 x 1,500 frames, 64 decoder
    tokens), 3 steps each with exact launches (phi3.5-moe's load-balancing
    loss finite and nonzero);
-15. tensor parallelism: llama3-8b, phi3.5-moe-42b-a6.6b and
-   deepseek-v3-671b at full width served by 2 ranks sharing the card
+15. tensor parallelism: llama3-8b, phi3.5-moe-42b-a6.6b,
+   deepseek-v3-671b, zamba2-2.7b and xlstm-1.3b at full width served by
+   2 ranks sharing the card
    (``repro_torch.distributed.spawn``, gloo: NCCL refuses two ranks on
    one device) through ``FaaSRuntime(mesh=ServingMesh(1, 2))``, each
    rank's shard drawn on the card from the seed (llama3-8b and
@@ -216,7 +223,20 @@ Phases, in order; any failure raises and the process exits non-zero:
    rank, and the decode step's host, device-span and collective ms per
    rank, each beside the card's name and power limit.  Phase 2 also
    holds the kernels at one rank's heads (llama3-8b and phi3.5-moe 16 /
-   4 / 128, gemma-2b 4 / 1 / 256: G = 4).  LoRA at tp = 2 (in the fp32
+   4 / 128, gemma-2b 4 / 1 / 256: G = 4).  zamba2-2.7b (16 query / 16
+   KV heads and 40 of 80 Mamba2 heads per rank, B and C whole) and
+   xlstm-1.3b (2 of 4 heads: the mLSTM's x_inner whole, its heads'
+   2,048 of 4,096, the sLSTM's 1,024 of 2,048 and half its post-MLP)
+   serve over the dense slot pool: no int8 arena, no template prefix,
+   so the third invocation is a plain warm one; fp32 at one unit (6
+   Mamba2 blocks and the shared block; 7 mLSTM blocks and 1 sLSTM) with
+   greedy tokens equal to ``tp = 1``, bf16 at two units (12 of 54; 16 of
+   48) with the first logits within ``tp_logit_bound``; every norm over
+   a split row runs the split-row rmsnorm (two launches and one
+   collective each), so a call makes 2L + 2U + 2 collectives (zamba) or
+   2M + 3U + 2 (xLSTM), and launches L ``ssd_scan`` and U flash per
+   zamba prefill, U ``decode_attention`` per step, all asserted per
+   rank.  LoRA at tp = 2 (in the fp32
    llama3-8b run of both processes): the case's function deployed as a
    shared base whose bank adapts wq, wk, wv and wo, three adapter
    functions attached and served together with it (the adapter rows of
@@ -290,6 +310,15 @@ LLAMA3_8B_TP2 = dict(H=16, KV=4, d=128)
 GEMMA_2B_TP2 = dict(H=4, KV=1, d=256)
 ZAMBA2_ATTN = dict(H=32, KV=32, d=80)             # the shared attention block
 ZAMBA2_SSD = dict(H=80, dh=64, ds=64, Q=128, d_inner=5120)
+# one rank's share of zamba2 at tp = 2 (phase 15): half the heads of the
+# shared block and of the Mamba2 mixer (B and C whole)
+ZAMBA2_ATTN_TP2 = dict(H=16, KV=16, d=80)
+ZAMBA2_SSD_TP2 = dict(H=40, dh=64, ds=64, Q=128, d_inner=2560)
+# the split-row rmsnorm at tp = 2 (phase 15): (tag, the rank's slice, the
+# whole row): Mamba2's gated norm, the mLSTM's and the sLSTM's norms
+SPLIT_RMSNORM_CASES = (("zamba2-mamba-norm/tp2", 2560, 5120),
+                       ("xlstm-mlstm-norm/tp2", 2048, 4096),
+                       ("xlstm-slstm-norm/tp2", 1024, 2048))
 PAGE_SIZE = 8
 SERVE_LAYERS = 30
 RMSNORM_CASES = (("smollm-decode", (8, 1, 576)), ("smollm-prefill", (384, 576)),
@@ -305,8 +334,10 @@ RMSNORM_CASES = (("smollm-decode", (8, 1, 576)), ("smollm-prefill", (384, 576)),
 # MLA's kv_a_norm reads the latent rows of the wkv_a product in place:
 # rows of 512 at a row stride of 576 (the latent and the rope key)
 STRIDED_RMSNORM_CASES = (("deepseek-v3-kv_a_norm", (8, 1, 512), 576),)
-# serving launches no backward kernel (training, phase 14, does)
-NO_BACKWARD = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0}
+# one device's serving launches no backward kernel (training, phase 14,
+# does) and no split-row rmsnorm (a row cut over ranks, phase 15)
+NOT_LAUNCHED = {"flash_attention_bwd": 0, "rmsnorm_bwd": 0,
+                "rmsnorm_split": 0}
 # zamba2-2.7b serving prompts: six take the JAX mixer's chunked branch
 # (<= 128 tokens or a multiple of 128), six are ragged
 ZAMBA_LENGTHS = (64, 200, 128, 300, 256, 150, 100, 333, 384, 250, 96, 180)
@@ -693,6 +724,13 @@ def phase_kernels(device) -> list:
     for tag, shape, stride in STRIDED_RMSNORM_CASES:
         for dtype in (torch.bfloat16, torch.float32):
             results += rmsnorm_case(device, gen, tag, shape, dtype, stride)
+    # the split-row form at one rank's slices: decode rows in both dtypes,
+    # a prefill's rows in bf16
+    for tag, d, d_global in SPLIT_RMSNORM_CASES:
+        for rows, dtype in (((8, 1), torch.bfloat16), ((8, 1), torch.float32),
+                            ((96,), torch.bfloat16)):
+            results.append(rmsnorm_split_case(device, gen, tag, rows + (d,),
+                                              d_global, dtype))
     return results + big_head_cases(device)
 
 
@@ -850,6 +888,82 @@ def rmsnorm_case(device, gen, tag, shape, dtype, stride=None) -> list:
         raise AssertionError(f"fused rmsnorm differs from its plain version, the "
                              f"add or the unfused kernel: {fused}")
     return [plain, fused]
+
+
+def rmsnorm_split_case(device, gen, tag, shape, d_global, dtype) -> dict:
+    """The split-row rmsnorm at one rank's slice ``shape`` of rows of
+    ``d_global``: the sums launch against its plain version (fp32, 1e-5
+    relative), the scaling launch against its plain version from the same
+    sums (within one bf16 ulp, or 1e-5 relative in fp32), both bit for
+    bit on a repeat; the slice put beside the other ranks' (their sums
+    added as the ``all_reduce`` would) against the whole row's one-launch
+    norm, and the slice normalised alone against it (it must differ).
+    Timed: the two launches (the collective between them runs on the
+    host), their plain versions, and ``F.rms_norm`` over the gathered
+    whole row for scale (no library call computes the split form)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_apply,
+                                             rmsnorm_sumsq)
+
+    def within_tol(out, want) -> tuple:
+        diff = (out.float() - want.float()).abs()
+        if out.dtype == torch.float32:
+            return float(diff.max()), bool((diff <= 1e-5 * want.float().abs()
+                                            ).all())
+        return float(diff.max()), bool((diff <= bf16_ulp(want)).all())
+
+    d = shape[-1]
+    x = torch.randn(shape, generator=gen).to(device, dtype)
+    # the other ranks' slices at twice the scale: a slice's own mean of
+    # squares is then a quarter of theirs, as rows of unequal halves have
+    rest = (2 * torch.randn(shape[:-1] + (d_global - d,), generator=gen)).to(
+        device, dtype)
+    scale = (torch.randn(d_global, generator=gen) * 0.1 + 1).to(device, dtype)
+    sums = rmsnorm_sumsq(x)
+    sums_err, sums_ok = within_tol(sums, ref.rmsnorm_sumsq_ref(x))
+    total = sums + rmsnorm_sumsq(rest)
+    y = rmsnorm_apply(x, total, scale[:d], d_global, 1e-5)
+    err, ok = within_tol(y, ref.rmsnorm_apply_ref(x, total, scale[:d],
+                                                  d_global, 1e-5))
+    same = (torch.equal(rmsnorm_sumsq(x), sums) and torch.equal(
+        rmsnorm_apply(x, total, scale[:d], d_global, 1e-5), y))
+    whole = rmsnorm(torch.cat([x, rest], -1), scale, 1e-5)[..., :d].float()
+    # one more ulp than the plain comparison: the whole row sums its
+    # squares in another order
+    whole_tol = (1e-5 * whole.abs() if dtype == torch.float32
+                 else 2 * bf16_ulp(whole))
+    diff = (y.float() - whole).abs()
+    alone = (rmsnorm(x, scale[:d], 1e-5).float() - whole).abs()
+    whole_ok = bool((diff <= whole_tol).all())
+    alone_apart = bool((alone > whole_tol).any())
+    whole_err, alone_err = float(diff.max()), float(alone.max())
+    n = int(np.prod(shape))
+    elt = torch.empty((), dtype=dtype).element_size()
+    rows = n // d
+    # x read once, y written once, the scale slice read once, and each
+    # row's sum written, read back after the reduce and read again
+    b_ms, b_by = bound_ms(4 * n, elt * (2 * n + d) + 12 * rows, dtype)
+    full = torch.cat([x, rest], -1)
+    res = {"kernel": "rmsnorm_split", "shape": tag, "dims": list(shape),
+           "d_global": d_global, "dtype": str(dtype)[6:],
+           "max_abs_err": max(err, sums_err), "sums_max_abs_err": sums_err,
+           "tol": "1e-5 relative" if dtype == torch.float32 else "1 bf16 ulp",
+           "deterministic": same, "whole_row_max_abs_err": whole_err,
+           "whole_row_tol": ("1e-5 relative" if dtype == torch.float32
+                             else "2 bf16 ulp"),
+           "slice_alone_max_abs_err": alone_err,
+           "ms": time_ms(lambda: rmsnorm_apply(x, rmsnorm_sumsq(x), scale[:d],
+                                               d_global, 1e-5)),
+           "plain_ms": time_ms(lambda: ref.rmsnorm_apply_ref(
+               x, ref.rmsnorm_sumsq_ref(x), scale[:d], d_global, 1e-5)),
+           "library_ms": None,
+           "whole_row_library_ms": time_ms(
+               lambda: F.rms_norm(full, (d_global,), scale, 1e-5)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(json.dumps(res))
+    if not (ok and sums_ok and same and whole_ok and alone_apart):
+        raise AssertionError(f"split-row rmsnorm disagrees: {res}")
+    return res
 
 
 def paged_case(device, gen, case, tag, hd, max_len, lengths, q_dtype,
@@ -1812,11 +1926,12 @@ def control_plane_run(rt, model, params) -> dict:
 # phase 8: the ssm family (ssd_scan, zamba2-2.7b)
 # ---------------------------------------------------------------------------
 
-def make_ssd_case(gen, B, S, bc_dtype, with_h0: bool, device) -> tuple:
+def make_ssd_case(gen, B, S, bc_dtype, with_h0: bool, device,
+                  c: dict = ZAMBA2_SSD) -> tuple:
     """Inputs as the zamba2 mixer makes them: xb [B, S, H, dh] fp32, B and
     C strided column slices of a [B, S, conv_ch] conv output, negative log
-    decays, and an optional initial state."""
-    c = ZAMBA2_SSD
+    decays, and an optional initial state (``c``: the mixer's heads, or
+    one rank's)."""
     d_in, ds = c["d_inner"], c["ds"]
     conv = (torch.randn((B, S, d_in + 2 * ds), generator=gen) * 0.5).to(
         device, bc_dtype)
@@ -1836,52 +1951,59 @@ def phase_ssm_kernels(device) -> list:
     from repro_torch.kernels.ssd_scan import ssd_scan
     gen = torch.Generator().manual_seed(8)
     rng = np.random.default_rng(8)
-    c = ZAMBA2_SSD
-    Q = c["Q"]
+    Q = ZAMBA2_SSD["Q"]
     results = []
-    # S = 64 and 384 are the ends of zamba2's serving prompts
-    for B, S, with_h0 in ((1, 128, False), (1, 512, False), (1, 200, False),
-                          (4, 256, True), (1, 64, False), (1, 384, False)):
-        for bc_dtype in (torch.bfloat16, torch.float32):
-            args = make_ssd_case(gen, B, S, bc_dtype, with_h0, device)
-            y, h = ssd_scan(*args[:4], Q, args[4])
-            y2, h2 = ssd_scan(*args[:4], Q, args[4])
-            plain = {"sequential": ref.ssd_scan_ref(*args)}
-            if S % Q == 0:
-                plain["chunked"] = ref.ssd_chunked_ref(*args[:4], Q, args[4])
-            torch.cuda.synchronize()
-            errs, ok = {}, True
-            for name, (yp, hp) in plain.items():
-                ey = float((y - yp).abs().max())
-                eh = float((h - hp).abs().max())
-                ty, th = 1e-4 * float(yp.abs().max()), 1e-4 * float(hp.abs().max())
-                errs[name] = {"y": ey, "h": eh, "tol_y": ty, "tol_h": th}
-                ok = ok and ey <= ty and eh <= th
-            same = torch.equal(y, y2) and torch.equal(h, h2)
-            kern_ms = time_ms(lambda: ssd_scan(*args[:4], Q, args[4]))
-            plain_ms = time_ms(lambda: ref.ssd_ref(*args[:4], Q, args[4]),
-                               reps=3, graph_calls=1)
-            flops, nbytes = ssd_work(B, S, c["H"], c["dh"], c["ds"], Q,
-                                     bc_dtype, with_h0)
-            b_ms, b_by = bound_ms(flops, nbytes, "tf32")
-            res = {"kernel": "ssd_scan", "shape": "zamba2-2.7b", "B": B, "S": S,
-                   "H": c["H"], "dh": c["dh"], "ds": c["ds"], "Q": Q,
-                   "h0": with_h0, "bc_dtype": str(bc_dtype)[6:],
-                   "max_abs_err": max(max(e["y"], e["h"]) for e in errs.values()),
-                   "errors": errs, "tol": "1e-4 of the largest |y| and |h|",
-                   "deterministic": same, "ms": kern_ms, "plain_ms": plain_ms,
-                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-            results.append(res)
-            print(json.dumps(res))
-            if not ok or not same:
-                raise AssertionError(f"ssd_scan disagrees: {res}")
-            if B > 1:
-                results.append(ssd_invariance(args, Q, y, h, bc_dtype))
+    # S = 64 and 384 are the ends of zamba2's serving prompts; one rank's
+    # 40 heads at tp = 2 (phase 15) at its prompt of 96 and at 256 with h0
+    full = ((1, 128, False), (1, 512, False), (1, 200, False),
+            (4, 256, True), (1, 64, False), (1, 384, False))
+    cases = ([(ZAMBA2_SSD, "zamba2-2.7b", dt) + c for c in full
+              for dt in (torch.bfloat16, torch.float32)]
+             + [(ZAMBA2_SSD_TP2, "zamba2-2.7b/tp2", torch.bfloat16) + c
+                for c in ((1, 96, False), (4, 256, True))])
+    for c, shape, bc_dtype, B, S, with_h0 in cases:
+        args = make_ssd_case(gen, B, S, bc_dtype, with_h0, device, c)
+        y, h = ssd_scan(*args[:4], Q, args[4])
+        y2, h2 = ssd_scan(*args[:4], Q, args[4])
+        plain = {"sequential": ref.ssd_scan_ref(*args)}
+        if S % Q == 0:
+            plain["chunked"] = ref.ssd_chunked_ref(*args[:4], Q, args[4])
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for name, (yp, hp) in plain.items():
+            ey = float((y - yp).abs().max())
+            eh = float((h - hp).abs().max())
+            ty, th = 1e-4 * float(yp.abs().max()), 1e-4 * float(hp.abs().max())
+            errs[name] = {"y": ey, "h": eh, "tol_y": ty, "tol_h": th}
+            ok = ok and ey <= ty and eh <= th
+        same = torch.equal(y, y2) and torch.equal(h, h2)
+        kern_ms = time_ms(lambda: ssd_scan(*args[:4], Q, args[4]))
+        plain_ms = time_ms(lambda: ref.ssd_ref(*args[:4], Q, args[4]),
+                           reps=3, graph_calls=1)
+        flops, nbytes = ssd_work(B, S, c["H"], c["dh"], c["ds"], Q,
+                                 bc_dtype, with_h0)
+        b_ms, b_by = bound_ms(flops, nbytes, "tf32")
+        res = {"kernel": "ssd_scan", "shape": shape, "B": B, "S": S,
+               "H": c["H"], "dh": c["dh"], "ds": c["ds"], "Q": Q,
+               "h0": with_h0, "bc_dtype": str(bc_dtype)[6:],
+               "max_abs_err": max(max(e["y"], e["h"]) for e in errs.values()),
+               "errors": errs, "tol": "1e-4 of the largest |y| and |h|",
+               "deterministic": same, "ms": kern_ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+        results.append(res)
+        print(json.dumps(res))
+        if not ok or not same:
+            raise AssertionError(f"ssd_scan disagrees: {res}")
+        if B > 1:
+            results.append(ssd_invariance(args, Q, y, h, bc_dtype, shape))
 
-    H, KV, d = ZAMBA2_ATTN["H"], ZAMBA2_ATTN["KV"], ZAMBA2_ATTN["d"]
-    for dtype in (torch.bfloat16, torch.float32):
+    for heads, shape, dtype, S in (
+            (ZAMBA2_ATTN, "zamba2-2.7b", torch.bfloat16, 384),
+            (ZAMBA2_ATTN, "zamba2-2.7b", torch.float32, 384),
+            (ZAMBA2_ATTN_TP2, "zamba2-2.7b/tp2", torch.bfloat16, 96)):
+        H, KV, d = heads["H"], heads["KV"], heads["d"]
         tol = 2e-5 if dtype == torch.float32 else 2e-2
-        S = T = 384
+        T = S
         q = torch.randn((1, H, S, d), generator=gen).to(device, dtype)
         k = torch.randn((1, KV, T, d), generator=gen).to(device, dtype)
         v = torch.randn((1, KV, T, d), generator=gen).to(device, dtype)
@@ -1890,7 +2012,7 @@ def phase_ssm_kernels(device) -> list:
                      ).abs().max())
         flops, nbytes = flash_work(1, H, KV, S, T, d, dtype)
         b_ms, b_by = bound_ms(flops, nbytes, dtype)
-        res = {"kernel": "flash_attention", "shape": "zamba2-2.7b", "B": 1,
+        res = {"kernel": "flash_attention", "shape": shape, "B": 1,
                "H": H, "KV": KV, "d": d, "S": S, "T": T, "dtype": str(dtype)[6:],
                "softcap": 0.0, "max_abs_err": err, "tol": tol,
                "ms": time_ms(lambda: flash_attention(q, k, v)),
@@ -1916,7 +2038,7 @@ def phase_ssm_kernels(device) -> list:
                 < ln[:, None].long())[:, None, None, :]
         flops, nbytes = decode_work(B, H, KV, d, lengths, dtype)
         b_ms, b_by = bound_ms(flops, nbytes, dtype)
-        res = {"kernel": "decode_attention", "shape": "zamba2-2.7b", "B": B,
+        res = {"kernel": "decode_attention", "shape": shape, "B": B,
                "H": H, "KV": KV, "d": d, "T": T, "max_len": int(max(lengths)),
                "dtype": str(dtype)[6:], "max_abs_err": err, "tol": tol,
                "ms": time_ms(lambda: decode_attention(q, k, v, ln)),
@@ -1932,7 +2054,8 @@ def phase_ssm_kernels(device) -> list:
     return results
 
 
-def ssd_invariance(args: tuple, Q: int, y, h, bc_dtype) -> dict:
+def ssd_invariance(args: tuple, Q: int, y, h, bc_dtype,
+                   shape: str = "zamba2-2.7b") -> dict:
     """Bitwise checks of ``ssd_scan`` that the layer-streamed prefill and
     batched prefills rely on: each sequence of a batch run alone gives the
     bits it got in the batch, and a repeated call gives the first call's;
@@ -1947,7 +2070,7 @@ def ssd_invariance(args: tuple, Q: int, y, h, bc_dtype) -> dict:
         alone.append(torch.equal(ya, y[s]) and torch.equal(ha, h[s]))
     yr, hr = ssd_scan(xb, Bm, Cm, ld, Q, h0)
     yu, hu = ssd_scan(xb, unaligned_copy(Bm), unaligned_copy(Cm), ld, Q, h0)
-    row = {"invariance": "ssd_scan zamba2-2.7b", "B": int(xb.shape[0]),
+    row = {"invariance": f"ssd_scan {shape}", "B": int(xb.shape[0]),
            "S": int(xb.shape[1]), "bc_dtype": str(bc_dtype)[6:],
            "ssd_alone_equals_batch": all(alone),
            "ssd_repeat_equal": torch.equal(yr, y) and torch.equal(hr, h),
@@ -1984,7 +2107,7 @@ def check_zamba_launches(counts: dict, cfg, prefills: int, steps: int,
             "decode_attention": units * steps,
             "rmsnorm": norm_launches(cfg) * (prefills + steps),
             "rmsnorm_fused": fused_norm_launches(cfg) * (prefills + steps),
-            "paged_decode_attention": 0, **NO_BACKWARD}
+            "paged_decode_attention": 0, **NOT_LAUNCHED}
     if counts != want:
         raise AssertionError(f"{where}: launches {counts} != {want} "
                              f"({prefills} prefills, {steps} decode steps)")
@@ -1997,7 +2120,7 @@ def check_xlstm_launches(counts: dict, cfg, calls: int, where: str) -> None:
     want = {"rmsnorm": norm_launches(cfg) * calls,
             "rmsnorm_fused": fused_norm_launches(cfg) * calls,
             "ssd_scan": 0, "flash_attention": 0, "decode_attention": 0,
-            "paged_decode_attention": 0, **NO_BACKWARD}
+            "paged_decode_attention": 0, **NOT_LAUNCHED}
     if counts != want:
         raise AssertionError(f"{where}: launches {counts} != {want} "
                              f"({calls} model calls)")
@@ -2599,7 +2722,7 @@ def engine_vs_continuous(model, params, prompts: np.ndarray, new_tokens: int,
               "flash_attention": L * calls,
               "rmsnorm": n_norm * new_tokens * calls,
               "rmsnorm_fused": n_fused * new_tokens * calls,
-              "paged_decode_attention": 0, "ssd_scan": 0, **NO_BACKWARD}
+              "paged_decode_attention": 0, "ssd_scan": 0, **NOT_LAUNCHED}
     if counts != expect:
         raise AssertionError(f"{cfg.name} Engine launches {counts} != {expect}")
     row = {"pass": "engine", "arch": cfg.name, "batch": len(prompts),
@@ -2623,7 +2746,7 @@ def engine_vs_continuous(model, params, prompts: np.ndarray, new_tokens: int,
     expect = {"decode_attention": 0, "flash_attention": L * cbe.n_prefill_calls,
               "paged_decode_attention": L * cbe.n_decode_steps,
               "rmsnorm": n_norm * calls, "rmsnorm_fused": n_fused * calls,
-              "ssd_scan": 0, **NO_BACKWARD}
+              "ssd_scan": 0, **NOT_LAUNCHED}
     if counts != expect:
         raise AssertionError(f"{cfg.name} continuous launches {counts} != {expect}")
     equal = int((got == want).sum())
@@ -3386,7 +3509,7 @@ def check_whisper_launches(counts: dict, cfg, prefills: int, steps: int,
     want = {"flash_attention": prefills * (cfg.n_layers + 2 * cfg.dec_layers),
             "decode_attention": steps * 2 * cfg.dec_layers,
             "paged_decode_attention": 0, "rmsnorm": 0, "rmsnorm_fused": 0,
-            "ssd_scan": 0, **NO_BACKWARD}
+            "ssd_scan": 0, **NOT_LAUNCHED}
     if counts != want:
         raise AssertionError(f"{where}: launches {counts}, want {want}")
 
@@ -4027,6 +4150,20 @@ TP_BF16_LOGIT_BOUND = 5e-2
 # rank's shared-expert partial left out read 3.89%, inside 5%; every
 # other planted fault read >= 52% (tools/torch_tp_fault_gap.py; H100)
 TP_MLA_LOGIT_BOUND = 2e-2
+# zamba2 (12 of 54 Mamba2 blocks, 2 units) and xlstm (16 of 48 blocks, 2
+# units) in bf16, each a third of its nearest planted fault: zamba2's
+# sound gap read 5.36% (a slice normalised alone 42.2%, B and C cut like
+# x 113.6%, a skipped out-projection reduce 112.3%), xlstm's 18.85% (rank
+# 1's sLSTM output ungathered 63.4%, a slice alone 112.9%, a skipped
+# reduce 135.7%).  Random-weight bf16 recurrences are noisy: one rank's
+# bf16 logits read 8.29% (zamba2) and 29.50% (xlstm) from the float32
+# prefill of the same draw, and tp = 2's no farther (10.32%, 27.24%)
+# (tools/torch_tp_fault_gap.py --case zamba --case xlstm --floor; H100)
+TP_ZAMBA_LOGIT_BOUND = 0.14
+TP_XLSTM_LOGIT_BOUND = 0.21
+# their fp32 cases' first logits besides equal tokens: 9.47e-6 (zamba2)
+# and 2.07e-5 (xlstm) of the largest read apart (H100)
+TP_RECURRENT_FP32_LOGIT_BOUND = 1e-4
 
 
 def tp_requests(vocab: int) -> tuple:
@@ -4081,12 +4218,23 @@ def _rank_arena_bytes(model) -> dict:
     return out
 
 
+def _rank_state_bytes(model) -> int:
+    """Bytes of one slot of the dense cache this rank allocates (zamba:
+    its Mamba2 heads' state, the conv window and the shared block's K/V
+    over 128 rows; xLSTM: its heads' states and the whole mLSTM conv)."""
+    from repro_torch.utils import tree_bytes
+    return tree_bytes(model.make_cache(1, 128))
+
+
 def tp_reckoned_bytes(cfg, tp: int) -> int:
     """One rank's weight bytes reckoned from the configuration alone (not
     from the parameter tree): attention split by heads (MLA's a-side
     whole), a dense MLP by ``d_ff``, a moe layer's experts by expert
     (each whole), its shared experts by width and its router whole,
-    norms whole, embedding and head by vocabulary."""
+    norms whole, embedding and head by vocabulary.  zamba and xLSTM:
+    ``tp_recurrent_bytes``."""
+    if cfg.family in ("zamba", "xlstm"):
+        return tp_recurrent_bytes(cfg, tp)
     D, L, V, E = cfg.d_model, cfg.n_layers, cfg.vocab_size, cfg.n_experts
     H = cfg.n_heads // tp
     if cfg.use_mla:
@@ -4108,6 +4256,68 @@ def tp_reckoned_bytes(cfg, tp: int) -> int:
     return elt * (2 * (V // tp) * D + D + L * (2 * D + attn + mlp))
 
 
+def tp_recurrent_bytes(cfg, tp: int) -> int:
+    """One zamba or xLSTM rank's weight bytes from the configuration
+    alone: Mamba2's z, x and dt columns and its heads' vectors by heads
+    with B and C whole, the shared block's attention by heads and MLP by
+    ``d_ff``; the mLSTM's x_inner half of up_proj and its conv whole, its
+    heads' columns (z, q, k, v, gates) and down_proj rows by heads; the
+    sLSTM by heads and its post-MLP by width where ``tp`` divides it;
+    norms whole, embedding and head by vocabulary."""
+    D, V = cfg.d_model, cfg.vocab_size
+    W = cfg.conv_width
+    if cfg.family == "zamba":
+        di, ds, H = cfg.ssm_expand * D, cfg.ssm_state, cfg.ssm_heads // tp
+        dil = di // tp
+        mamba = (D + D * (2 * dil + 2 * ds + H) + W * (dil + 2 * ds) + 3 * H
+                 + dil + dil * D)
+        hd, Hq, KV = cfg.head_dim, cfg.n_heads // tp, max(cfg.n_kv_heads // tp, 1)
+        shared = 2 * D + D * hd * (Hq + 2 * KV) + Hq * hd * D + 3 * D * cfg.d_ff // tp
+        blocks = cfg.n_layers * mamba + shared
+    else:
+        units = cfg.n_layers // cfg.slstm_every
+        n_m = units * (cfg.slstm_every - 1)
+        di = int(cfg.mlstm_proj_factor * D)
+        dil, H = di // tp, cfg.n_heads // tp
+        mlstm = (D + D * (di + dil) + W * di + 3 * di * dil + di * 2 * H
+                 + 2 * H + dil + dil * D)
+        Dl, dh = D // tp, D // cfg.n_heads
+        F_ = int(4 * D / 3)
+        mlp = 3 * D * (F_ // tp if F_ % tp == 0 else F_)
+        slstm = 2 * D + D * 4 * Dl + H * dh * 4 * dh + 4 * Dl + Dl + mlp
+        blocks = n_m * mlstm + units * slstm
+    elt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return elt * (2 * (V // tp) * D + D + blocks)
+
+
+def tp_collectives(cfg) -> int:
+    """Collectives of one model call at ``TP`` ranks: one per attention,
+    one per MLP or moe layer, the embedding and the head (2L + 2); zamba
+    two per Mamba2 block (the split norm's sums, ``out_proj``) and two per
+    application of the shared block (2L + 2U + 2); xLSTM two per mLSTM
+    block (the split norm's sums, ``down_proj``), and per sLSTM block the
+    split norm's sums, the gather of its heads and its post-MLP where
+    ``TP`` divides its width (2M + 3U + 2)."""
+    if cfg.family == "zamba":
+        return 2 * cfg.n_layers + 2 * attention_launches(cfg) + 2
+    if cfg.family == "xlstm":
+        n_m, n_s = xlstm_blocks(cfg)
+        mlp = int(4 * cfg.d_model / 3) % TP == 0
+        return 2 * n_m + (3 if mlp else 2) * n_s + 2
+    return 2 * cfg.n_layers + 2
+
+
+def split_norms(cfg) -> int:
+    """Norms of one model call over a row that tensor parallelism splits
+    (the split-row form's two launches each at tp > 1): Mamba2's gated
+    norm, the mLSTM's and the sLSTM's inner norms."""
+    if cfg.family == "zamba":
+        return cfg.n_layers
+    if cfg.family == "xlstm":
+        return sum(xlstm_blocks(cfg))
+    return 0
+
+
 def tp_routing(calls) -> list:
     """The controller's moe calls of one invocation (``moe.watch``): per
     call its rows, dropped pairs and a digest of its expert ids and
@@ -4124,16 +4334,27 @@ def tp_routing(calls) -> list:
 
 def _rank_decode_timing(model, params, steps: int) -> dict:
     """One rank's decode step at 4 busy slots, position 127, over a paged
-    arena: the host's wall ms, the CUDA-event span ms (the card's time
-    line, waits in the collectives included) and the host ms inside the
-    collectives, per step (medians; every rank runs this together)."""
+    arena (zamba and xLSTM: a dense cache): the host's wall ms, the
+    CUDA-event span ms (the card's time line, waits in the collectives
+    included) and the host ms inside the collectives, per step (medians;
+    every rank runs this together)."""
     from repro_torch.distributed import sharding
     B, ps, pos = 4, PAGE_SIZE, 127
     bps = 128 // ps
-    arena = model.make_paged_cache(1 + B * bps, ps)
-    pt = (1 + np.arange(B * bps, dtype=np.int32)).reshape(B, bps)
     toks = np.ones((B, 1), np.int32)
     posv = np.full((B,), pos, np.int32)
+    if model.supports_paged_kv:
+        arena = model.make_paged_cache(1 + B * bps, ps)
+        pt = (1 + np.arange(B * bps, dtype=np.int32)).reshape(B, bps)
+
+        def step():
+            model.decode_step_paged(params, arena, {"tokens": toks}, posv, pt,
+                                    ps)
+    else:
+        cache = model.make_cache(B, 128)
+
+        def step():
+            model.decode_step(params, cache, {"tokens": toks}, posv)
     host, dev, coll = [], [], []
     for i in range(steps + 2):
         sharding.reset_collective_stats()
@@ -4142,7 +4363,7 @@ def _rank_decode_timing(model, params, steps: int) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         e0.record()
-        model.decode_step_paged(params, arena, {"tokens": toks}, posv, pt, ps)
+        step()
         e1.record()
         torch.cuda.synchronize()
         if i >= 2:
@@ -4154,16 +4375,23 @@ def _rank_decode_timing(model, params, steps: int) -> dict:
         "collectives_per_step": sharding.collective_stats()["calls"]}
 
 
-def _want_launches(cfg, prefills: int, decodes: int) -> dict:
+def _want_launches(cfg, prefills: int, decodes: int, tp: int = TP) -> dict:
     """Every kernel's launches (and the collectives at tp > 1) of
-    ``prefills`` model prefills and ``decodes`` paged decode steps."""
+    ``prefills`` model prefills and ``decodes`` paged decode steps (zamba
+    and xLSTM: dense-cache decode steps; at tp > 1 their split rows take
+    the split-row rmsnorm's two launches in place of one rmsnorm)."""
     attn, calls = attention_kernels(cfg), prefills + decodes
+    split = split_norms(cfg) if tp > 1 else 0
+    recurrent = cfg.family in ("zamba", "xlstm")
     return {"flash_attention": attn * prefills,
-            "paged_decode_attention": attn * decodes,
-            "rmsnorm": norm_launches(cfg) * calls,
+            "paged_decode_attention": 0 if recurrent else attn * decodes,
+            "decode_attention": attn * decodes if recurrent else 0,
+            "ssd_scan": (cfg.n_layers * prefills if cfg.family == "zamba"
+                         else 0),
+            "rmsnorm": (norm_launches(cfg) - split) * calls,
             "rmsnorm_fused": fused_norm_launches(cfg) * calls,
-            "decode_attention": 0, "ssd_scan": 0,
-            "collectives": (2 * cfg.n_layers + 2) * calls}
+            "rmsnorm_split": 2 * split * calls,
+            "collectives": tp_collectives(cfg) * calls if tp > 1 else 0}
 
 
 def _check_launches(tag: str, counts: list, wants: list) -> None:
@@ -4188,14 +4416,16 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
     from repro_torch.runtime.gateway import InvocationRequest
     cfg = model.cfg
     L = cfg.n_layers
-    want = _want_launches(cfg, 1, TP_NEW - 1)
-    if group.size == 1:
-        want["collectives"] = 0
+    paged = model.supports_paged_kv
+    want = _want_launches(cfg, 1, TP_NEW - 1, group.size)
     rt = FaaSRuntime(mesh=group.mesh, device=group.device, n_slots=4,
                      max_len=TP_PROMPT + TP_NEW + 24, page_size=PAGE_SIZE,
                      trace_seq=TP_PROMPT, kv_dtype=kv_dtype, keep_alive_s=3600)
     t0 = time.perf_counter()
-    rt.deploy(fn, {}, template_prompt=tpl, prewarm_seq=TP_PROMPT)
+    # zamba and xLSTM serve over the dense slot pool, which bakes no
+    # template prefix: their third invocation is a plain warm one
+    rt.deploy(fn, {}, template_prompt=tpl if paged else None,
+              prewarm_seq=TP_PROMPT)
     out = {"pass": "int8" if kv_dtype else "paged",
            "deploy_s": time.perf_counter() - t0,
            "memory_after_deploy": group.gather(_rank_memory, rt.server),
@@ -4237,7 +4467,8 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
         kinds = [r["kind"] for r in out["requests"]]
         if kinds != ["cold", "fork", "warm", "warm"]:
             raise AssertionError(f"tp invocation kinds {kinds}")
-        if out["requests"][2]["reused_prefix_len"] < TP_TEMPLATE - PAGE_SIZE:
+        if paged and (out["requests"][2]["reused_prefix_len"]
+                      < TP_TEMPLATE - PAGE_SIZE):
             raise AssertionError("tp: the template prefix was not reused")
         if out["requests"][3]["tokens"] != out["requests"][0]["tokens"]:
             raise AssertionError("tp: warm tokens differ from cold's")
@@ -4247,8 +4478,9 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
         # the first prefill's logits, from the warm engine's weights
         engine = next(w.engine for w in rt._engines.values())
         pool = engine.pool
+        rows = pool.padded_len if paged else pool.max_len
         logits, _ = model.prefill(engine.params(), {"tokens": reqs[0][1][None]},
-                                  model.make_cache(1, pool.padded_len))
+                                  model.make_cache(1, rows))
         out["logits"] = logits.float().cpu().numpy()[0]
         if lora_logits:
             logits, _ = model.prefill(engine.params(),
@@ -4460,11 +4692,20 @@ def _tp_rank(group, cases: tuple) -> dict | None:
                 "backend": group.backend,
                 "local_heads": [local.n_heads, local.n_kv_heads],
                 "local_experts": end - first,
+                "local_widths": {"ssm_heads": local.ssm_heads,
+                                 "mamba": local.mamba_width,
+                                 "mlstm": local.mlstm_width,
+                                 "slstm": local.slstm_width,
+                                 "slstm_mlp": local.slstm_mlp_width},
                 "shard_bytes": tree_bytes(model.param_specs()),
                 "reckoned_bytes": tp_reckoned_bytes(cfg, group.size),
-                "arena_bytes_per_token_per_layer": group.gather(
-                    _rank_arena_bytes, model),
                 "init_s": time.perf_counter() - t0}
+        if model.supports_paged_kv:
+            info["arena_bytes_per_token_per_layer"] = group.gather(
+                _rank_arena_bytes, model)
+        else:
+            info["state_bytes_per_slot"] = group.gather(_rank_state_bytes,
+                                                        model)
         if info["shard_bytes"] != info["reckoned_bytes"]:
             raise AssertionError(f"tp {tag}: {info['shard_bytes']} bytes per "
                                  f"rank, reckoned {info['reckoned_bytes']}")
@@ -4629,9 +4870,14 @@ def tp_run(tp: int) -> dict:
 # its time limit (phase 16 after it; at 32 layers the script took
 # 1,165.8 s of its 1,200 on a slow host).  phi3.5-moe-42b-a6.6b runs 2
 # (fp32) and 4 (bf16) of its 32 layers, deepseek-v3-671b 1 of 61 (26.7 GB
-# at tp = 1): neither fits one card whole
+# at tp = 1): neither fits one card whole.  zamba2-2.7b and xlstm-1.3b
+# (dense slot pool: no int8 arena, no template prefix) run one unit in
+# fp32 (6 Mamba2 blocks and the shared block; 7 mLSTM blocks and an
+# sLSTM block) and two in bf16 (12 of 54 blocks; 16 of 48), depth cut
+# for the script's time limit, width never
 TP_BF16_LAYERS = 8
 PHI_ARCH, DSV3_ARCH = "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
+ZAMBA_ARCH, XLSTM_ARCH = "zamba2-2.7b", "xlstm-1.3b"
 TP_CASES = (("fp32_2layers", "llama3-8b", {"n_layers": 2, "dtype": "float32"},
              (None, "int8"), (None, "int8")),
             ("bf16_8layers", "llama3-8b", {"n_layers": TP_BF16_LAYERS},
@@ -4641,17 +4887,35 @@ TP_CASES = (("fp32_2layers", "llama3-8b", {"n_layers": 2, "dtype": "float32"},
             ("moe_bf16_4layers", PHI_ARCH, {"n_layers": 4}, (None, "int8"),
              (None,)),
             ("mla_bf16_1layer", DSV3_ARCH, {"n_layers": 1}, (None, "int8"),
+             (None,)),
+            ("zamba_fp32_1unit", ZAMBA_ARCH, {"n_layers": 6,
+                                              "dtype": "float32"},
+             (None,), (None,)),
+            ("xlstm_fp32_1unit", XLSTM_ARCH, {"n_layers": 8,
+                                              "dtype": "float32"},
+             (None,), (None,)),
+            ("zamba_bf16_2units", ZAMBA_ARCH, {"n_layers": 12}, (None,),
+             (None,)),
+            ("xlstm_bf16_2units", XLSTM_ARCH, {"n_layers": 16}, (None,),
              (None,)))
 # the case whose tp = 1 and tp = 2 runs serve LoRA too (``_tp_lora``)
 TP_LORA_CASE = "fp32_2layers"
 # what one rank holds at tp = 2: (query heads, KV heads), whole experts
 TP_LOCAL = {"llama3-8b": ([16, 4], 0), PHI_ARCH: ([16, 4], 8),
-            DSV3_ARCH: ([64, 64], 128)}
+            DSV3_ARCH: ([64, 64], 128), ZAMBA_ARCH: ([16, 16], 0),
+            XLSTM_ARCH: ([2, 2], 0)}
+# and its recurrent widths at tp = 2: zamba2's 40 of 80 Mamba2 heads
+# (2,560 of 5,120 channels); xlstm-1.3b's 2 of 4 heads (mLSTM 2,048 of
+# 4,096, sLSTM 1,024 of 2,048) and half its sLSTM post-MLP (1,365 of 2,730)
+TP_LOCAL_WIDTHS = {ZAMBA_ARCH: {"ssm_heads": 40, "mamba": 2560},
+                   XLSTM_ARCH: {"mlstm": 2048, "slstm": 1024,
+                                "slstm_mlp": 1365}}
 
 
 def tp_logit_bound(arch: str) -> float:
     """The bound on ``arch``'s bf16 first-logit gap between tp = 2 and 1."""
-    return TP_MLA_LOGIT_BOUND if arch == DSV3_ARCH else TP_BF16_LOGIT_BOUND
+    return {DSV3_ARCH: TP_MLA_LOGIT_BOUND, ZAMBA_ARCH: TP_ZAMBA_LOGIT_BOUND,
+            XLSTM_ARCH: TP_XLSTM_LOGIT_BOUND}.get(arch, TP_BF16_LOGIT_BOUND)
 
 
 def phase_tp(device) -> dict:
@@ -4675,9 +4939,13 @@ def phase_tp(device) -> dict:
     rank, each rank's weight bytes against ``tp_reckoned_bytes``, the
     latent arena's bytes per token per layer on each rank, the divergence
     guard on every op, fork bytes and pinned bytes per rank, the decode
-    step's host, device-span and collective ms per rank.  Then LoRA
-    (``_tp_lora``, ``tp_lora_parity``; the bf16 bank-row logits against
-    ``TP_LORA_LOGIT_BOUND``) and two rank groups of 2 ranks
+    step's host, device-span and collective ms per rank.  zamba2-2.7b
+    and xlstm-1.3b over the dense slot pool: fp32 at one unit with
+    tokens equal to ``tp = 1``, bf16 at two units within
+    ``tp_logit_bound``, each rank's widths (``TP_LOCAL_WIDTHS``), the
+    split-row rmsnorm's launches and ``tp_collectives`` per call.  Then
+    LoRA (``_tp_lora``, ``tp_lora_parity``; the bf16 bank-row logits
+    against ``TP_LORA_LOGIT_BOUND``) and two rank groups of 2 ranks
     (``tp_instances_run``, ``tp_instances_parity``)."""
     del device
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4693,16 +4961,21 @@ def phase_tp(device) -> dict:
     out["wall_s"] = {str(k): v["wall_s"] for k, v in runs.items()}
     out["wall_s"]["instances"] = instances["wall_s"]
     out["guard_ops"] = runs[TP]["guard_ops"]
-    for tag, arch, *_ in TP_CASES:
+    from repro_torch.models.registry import get_config
+    for tag, arch, replace, *_ in TP_CASES:
         one, two = runs[1][tag], runs[TP][tag]
         heads, experts = TP_LOCAL[arch]
         if (two["model"]["local_heads"], two["model"]["local_experts"]) != (
                 heads, experts):
             raise AssertionError(f"tp {tag}: heads {two['model']['local_heads']}"
                                  f", experts {two['model']['local_experts']}")
+        widths = {k: two["model"]["local_widths"][k]
+                  for k in TP_LOCAL_WIDTHS.get(arch, {})}
+        if widths != TP_LOCAL_WIDTHS.get(arch, {}):
+            raise AssertionError(f"tp {tag}: rank widths {widths}")
         steps = [d["collectives_per_step"] for d in
                  two["passes"][0]["decode_step_per_rank"]]
-        if steps != [2 * two["model"]["layers"] + 2] * TP:
+        if steps != [tp_collectives(get_config(arch).replace(**replace))] * TP:
             raise AssertionError(f"tp {tag}: {steps} collectives per decode "
                                  "step")
         if arch == DSV3_ARCH:
@@ -4761,6 +5034,10 @@ def phase_tp(device) -> dict:
         if fp32 and (agree != 1.0 or not all(routes)):
             raise AssertionError(f"tp {tag}: tokens or moe routing differ "
                                  f"from tp = 1: {rows}, routing {routes}")
+        if fp32 and arch in (ZAMBA_ARCH, XLSTM_ARCH) and (
+                gap > TP_RECURRENT_FP32_LOGIT_BOUND):
+            raise AssertionError(f"tp {tag} fp32 logits {gap} of the largest "
+                                 f"apart (bound {TP_RECURRENT_FP32_LOGIT_BOUND})")
         if not fp32 and gap > tp_logit_bound(arch):
             raise AssertionError(f"tp {tag} logits {gap} of the largest apart "
                                  f"(bound {tp_logit_bound(arch)})")
@@ -4875,7 +5152,7 @@ def cluster_expected_launches(cfg, engines) -> dict:
             "paged_decode_attention": L * steps,
             "rmsnorm": norm_launches(cfg) * calls,
             "rmsnorm_fused": fused_norm_launches(cfg) * calls,
-            "ssd_scan": 0, **NO_BACKWARD}
+            "ssd_scan": 0, **NOT_LAUNCHED}
 
 
 def phase_cluster(device, h2d: float) -> dict:
@@ -5083,7 +5360,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
     launches = {"paged": 0, "int8": 0, "flash": 0, "decode": 0, "rmsnorm": 0,
-                "rmsnorm_fused": 0, "ssd": 0, "flash_bwd": 0, "rmsnorm_bwd": 0}
+                "rmsnorm_fused": 0, "rmsnorm_split": 0, "ssd": 0,
+                "flash_bwd": 0, "rmsnorm_bwd": 0}
     cp = tenants["control_plane"]
     rows = (list(serve) + list(engine) + [tidal_row, tenants,
                                           cp["learned_prefix"], cp["open_loop"]]
@@ -5126,6 +5404,7 @@ def kernel_summary(kernels: list, serve: list, engine: list,
         launches["decode"] += row["launches"]["decode_attention"]
         launches["rmsnorm"] += row["launches"]["rmsnorm"]
         launches["rmsnorm_fused"] += row["launches"]["rmsnorm_fused"]
+        launches["rmsnorm_split"] += row["launches"].get("rmsnorm_split", 0)
         launches["ssd"] += row["launches"]["ssd_scan"]
         launches["flash_bwd"] += row["launches"].get("flash_attention_bwd", 0)
         launches["rmsnorm_bwd"] += row["launches"].get("rmsnorm_bwd", 0)
@@ -5164,6 +5443,15 @@ def kernel_summary(kernels: list, serve: list, engine: list,
          "src/repro_torch/csrc/ssd_scan.cu",
          "src/repro/kernels/ssd_scan.py:79", launches["ssd"]),
     ]
+    if tp is not None:
+        # the split-row form (two launches per norm over a row split by
+        # tensor parallelism): phase 15's zamba and xLSTM ranks
+        entries.append(
+            ("rmsnorm_split",
+             pick(kernel="rmsnorm_split", shape="zamba2-mamba-norm/tp2",
+                  dims=[8, 1, 2560], dtype="bfloat16"),
+             "src/repro_torch/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:25", launches["rmsnorm_split"]))
     if train is not None:
         entries += [
             ("flash_attention_bwd",

@@ -249,8 +249,8 @@ def _streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
                 "(recurrent state is not position-addressable), got "
                 f"offset={offset}")
         if cfg.family == "xlstm":
-            return _streamed_prefill_xlstm(session, tokens, cache)
-        return _streamed_prefill_zamba(session, tokens, cache)
+            return _streamed_prefill_xlstm(session, tokens, cache, cfg)
+        return _streamed_prefill_zamba(session, tokens, cache, cfg)
     x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)
     positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
     for layer in range(cfg.n_layers):
@@ -261,13 +261,13 @@ def _streamed_prefill(session: ForkSession, inputs: dict, cache: dict,
     return _streamed_head(session, x), cache
 
 
-def _streamed_prefill_zamba(session: ForkSession, tokens, cache: dict):
+def _streamed_prefill_zamba(session: ForkSession, tokens, cache: dict, cfg):
     """Zamba2 streamed prefill: per unit, ``attn_every`` Mamba2 blocks, each
     waiting only for its own layer's weights, then the SHARED attention +
     MLP block, fetched once (at the end of the first unit, where the traced
     order first needs it) and reused by every unit.  Runs
-    ``transformer.zamba_unit``, the body of the monolithic prefill."""
-    cfg = session.model.cfg
+    ``transformer.zamba_unit``, the body of the monolithic prefill, with
+    ``cfg`` the rank's configuration under a plan."""
     B, S = tokens.shape
     x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -285,15 +285,16 @@ def _streamed_prefill_zamba(session: ForkSession, tokens, cache: dict):
     return _streamed_head(session, x), cache
 
 
-def _streamed_prefill_xlstm(session: ForkSession, tokens, cache: dict):
+def _streamed_prefill_xlstm(session: ForkSession, tokens, cache: dict, cfg):
     """xLSTM streamed prefill, unit by unit: ``slstm_every - 1`` mLSTM
     blocks, then the unit's sLSTM block, each waiting only for its own
     weights.  Runs ``transformer.xlstm_unit``, the body of the monolithic
-    prefill, which also takes several sequences one at a time."""
-    cfg = session.model.cfg
+    prefill, which also takes several sequences one at a time; ``cfg`` is
+    the rank's configuration under a plan."""
     if tokens.shape[0] > 1:
         logits = [_streamed_prefill_xlstm(session, tokens[b:b + 1],
-                                          transformer.sequence_view(cache, b))[0]
+                                          transformer.sequence_view(cache, b),
+                                          cfg)[0]
                   for b in range(tokens.shape[0])]
         return torch.cat(logits), cache
     x = embed_tokens(session.leaf("embed"), tokens, scale_by_dim=cfg.scale_embed)

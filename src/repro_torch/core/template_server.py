@@ -82,7 +82,7 @@ class ForkStats:
     dynamic_bytes: int = 0       # replayed request-specific weights
     fork_s: float = 0.0
     new_dynamic: tuple = ()
-    replicated_bytes: int = 0    # of the above, leaves every rank holds whole
+    replicated_bytes: int = 0    # of the above, bytes every rank holds alike
     per_rank: tuple = ()         # every rank's stats (the controller's copy)
 
 
@@ -355,13 +355,12 @@ class TemplateServer:
 
         specs = self._specs_for(fn_name)
         if specs is not None:
-            whole = [path for path, spec in specs.items()
-                     if spec.model_dim is None]
             held = {**{p: tensor_nbytes(t) for p, t in resident.items()},
                     **{p: tensor_nbytes(t) for p, t in dynamic.items()},
                     **{e.key[0]: tensor_nbytes(pool[e.key[0]])
                        for e in entries}}
-            stats.replicated_bytes = sum(held.get(p, 0) for p in whole)
+            stats.replicated_bytes = sum(
+                sharding.whole_bytes(specs[p], n) for p, n in held.items())
 
         streamer = WeightStreamer(entries, resident, dynamic,
                                   device=device).start()

@@ -46,6 +46,26 @@
 // Training: when the caller passes an rstd buffer (fp32, one per row), the
 // row's rsqrt(mean + eps) lands there too, for csrc/rmsnorm_bwd.cu.
 // Serving passes none, and nothing else changes.
+//
+// The split-row form (repro_rmsnorm_sumsq, then repro_rmsnorm_apply) is
+// for a row that tensor parallelism cuts over ranks: Mamba2's gated norm
+// and the mLSTM's norm over the rank's heads' channels of d_inner, and the
+// sLSTM's norm over its heads' slice of d_model.  The TPU kernel has no
+// such form: under the reference's GSPMD the whole row's mean is one
+// partitioned reduction.  A rank normalising its slice alone would use
+// its slice's mean, a plausible-looking but wrong row.  So the first
+// launch writes each row's fp32 sum of squares over the rank's slice
+// [rows], the caller sums that buffer over the ranks (one all_reduce of
+// 4 bytes per row), and the second launch scales the slice by
+// rsqrt(total / d_global + eps) * scale.  Both are instantiations of the
+// kernels above (PHASE 1: the sums and nothing else; PHASE 2: y from the
+// given sums, no reduction), so a slice takes the same chunk-to-lane map,
+// load round and order of sums as a whole row of its width; PHASE 0 is
+// the one-launch norm, unchanged.  Bound: bytes, as the whole-row kernel:
+// the slice read twice (once per launch) and y written once, 3 x 2.5 KB
+// of bf16 for each of zamba2's decode rows at tp = 2 (2,560 of 5,120), a
+// few ns over 3.35 TB/s; at serving shapes both launches sit at launch
+// latency, and the collective between them on the host dominates.
 
 #include "attention_common.cuh"
 
@@ -119,13 +139,15 @@ __device__ __forceinline__ float add_rounded(float x, float r) {
   return to_f32(from_f32<TX>(x + r));  // what x + r gives in x's dtype
 }
 
-template <typename TX, typename TS, int CPL, bool BLOCK_ROW, bool RES>
+// PHASE 0: the whole row's norm; 1: each row's sum of squares into sums[row]
+// and nothing else; 2: y from the sums the caller gives, over d_norm.
+template <typename TX, typename TS, int CPL, bool BLOCK_ROW, bool RES, int PHASE>
 __global__ void __launch_bounds__(BLOCK_ROW ? kBlockWarps * 32 : kWarpRows * 32)
 rmsnorm_vec_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                    const TS* __restrict__ scale, TX* __restrict__ y,
                    TX* __restrict__ s_out, float* __restrict__ rstd_out,
-                   int64_t rows, int d, int64_t x_stride, int64_t r_stride,
-                   float eps) {
+                   float* __restrict__ sums, int64_t rows, int d, int d_norm,
+                   int64_t x_stride, int64_t r_stride, float eps) {
   constexpr int V = 16 / sizeof(TX);                 // values per chunk
   constexpr int kRowThreads = BLOCK_ROW ? kBlockWarps * 32 : 32;
   const int64_t row = BLOCK_ROW ? static_cast<int64_t>(blockIdx.x)
@@ -146,7 +168,7 @@ rmsnorm_vec_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
     const int c = min(tid + i * kRowThreads, nchunks - 1);
     xv[i].load(xr + c * V);
     if constexpr (RES) rv[i].load(rr + c * V);
-    sv[i].load(scale + c * V);
+    if constexpr (PHASE != 1) sv[i].load(scale + c * V);
   }
 
   float v[CPL][V];
@@ -159,11 +181,19 @@ rmsnorm_vec_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
       float a = xv[i].get(e);
       if constexpr (RES) a = add_rounded<TX>(a, rv[i].get(e));
       v[i][e] = a;
-      if (live) ss = fmaf(a, a, ss);
+      if (PHASE != 2 && live) ss = fmaf(a, a, ss);
     }
   }
-  ss = row_sum<BLOCK_ROW>(ss);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  if constexpr (PHASE == 2) {
+    ss = sums[row];
+  } else {
+    ss = row_sum<BLOCK_ROW>(ss);
+    if constexpr (PHASE == 1) {
+      if (tid == 0) sums[row] = ss;
+      return;
+    }
+  }
+  const float r = rsqrtf(ss / static_cast<float>(d_norm) + eps);
   if (rstd_out != nullptr && tid == 0) rstd_out[row] = r;
 
   TX* yr = y + row * static_cast<int64_t>(d);
@@ -182,13 +212,13 @@ rmsnorm_vec_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
 
 // Any row: element loads, the same chunk-to-thread map and order of sums
 // as rmsnorm_vec_kernel, x (and r) read again in the second pass.
-template <typename TX, typename TS, bool BLOCK_ROW, bool RES>
+template <typename TX, typename TS, bool BLOCK_ROW, bool RES, int PHASE>
 __global__ void __launch_bounds__(BLOCK_ROW ? kBlockWarps * 32 : kWarpRows * 32)
 rmsnorm_scalar_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
                       const TS* __restrict__ scale, TX* __restrict__ y,
                       TX* __restrict__ s_out, float* __restrict__ rstd_out,
-                      int64_t rows, int d, int64_t x_stride, int64_t r_stride,
-                      float eps) {
+                      float* __restrict__ sums, int64_t rows, int d, int d_norm,
+                      int64_t x_stride, int64_t r_stride, float eps) {
   constexpr int V = 16 / sizeof(TX);
   constexpr int kRowThreads = BLOCK_ROW ? kBlockWarps * 32 : 32;
   const int64_t row = BLOCK_ROW ? static_cast<int64_t>(blockIdx.x)
@@ -205,13 +235,21 @@ rmsnorm_scalar_kernel(const TX* __restrict__ x, const TX* __restrict__ res,
   };
 
   float ss = 0.f;
-  for (int c0 = tid * V; c0 < d; c0 += kRowThreads * V)
-    for (int e = c0; e < min(c0 + V, d); ++e) {
-      const float a = value(e);
-      ss = fmaf(a, a, ss);
+  if constexpr (PHASE == 2) {
+    ss = sums[row];
+  } else {
+    for (int c0 = tid * V; c0 < d; c0 += kRowThreads * V)
+      for (int e = c0; e < min(c0 + V, d); ++e) {
+        const float a = value(e);
+        ss = fmaf(a, a, ss);
+      }
+    ss = row_sum<BLOCK_ROW>(ss);
+    if constexpr (PHASE == 1) {
+      if (tid == 0) sums[row] = ss;
+      return;
     }
-  ss = row_sum<BLOCK_ROW>(ss);
-  const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+  }
+  const float r = rsqrtf(ss / static_cast<float>(d_norm) + eps);
   if (rstd_out != nullptr && tid == 0) rstd_out[row] = r;
 
   TX* yr = y + row * static_cast<int64_t>(d);
@@ -227,13 +265,14 @@ struct Args {
   const void *x, *res, *scale;
   void *y, *s;
   float* rstd;
+  float* sums;
   int64_t rows;
-  int d;
+  int d, d_norm;
   int64_t x_stride, r_stride;
   float eps;
 };
 
-template <typename TX, typename TS, bool BLOCK_ROW, bool RES>
+template <typename TX, typename TS, bool BLOCK_ROW, bool RES, int PHASE>
 cudaError_t launch_mode(const Args& a, bool vec, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(TX);
   constexpr int kRowThreads = BLOCK_ROW ? kBlockWarps * 32 : 32;
@@ -247,8 +286,9 @@ cudaError_t launch_mode(const Args& a, bool vec, cudaStream_t stream) {
   auto* op = static_cast<TX*>(a.s);
   const int per_lane = (a.d / V + kRowThreads - 1) / kRowThreads;   // chunks
 #define REPRO_RMSNORM_VEC(CPL)                                                    \
-  rmsnorm_vec_kernel<TX, TS, CPL, BLOCK_ROW, RES><<<grid, block, 0, stream>>>(     \
-      xp, rp, sp, yp, op, a.rstd, a.rows, a.d, a.x_stride, a.r_stride, a.eps)
+  rmsnorm_vec_kernel<TX, TS, CPL, BLOCK_ROW, RES, PHASE><<<grid, block, 0, stream>>>( \
+      xp, rp, sp, yp, op, a.rstd, a.sums, a.rows, a.d, a.d_norm, a.x_stride,     \
+      a.r_stride, a.eps)
   if (vec && per_lane <= 8) {
     if (per_lane <= 1) REPRO_RMSNORM_VEC(1);
     else if (per_lane <= 2) REPRO_RMSNORM_VEC(2);
@@ -256,8 +296,9 @@ cudaError_t launch_mode(const Args& a, bool vec, cudaStream_t stream) {
     else if (per_lane <= 4) REPRO_RMSNORM_VEC(4);
     else REPRO_RMSNORM_VEC(8);
   } else {
-    rmsnorm_scalar_kernel<TX, TS, BLOCK_ROW, RES><<<grid, block, 0, stream>>>(
-        xp, rp, sp, yp, op, a.rstd, a.rows, a.d, a.x_stride, a.r_stride, a.eps);
+    rmsnorm_scalar_kernel<TX, TS, BLOCK_ROW, RES, PHASE><<<grid, block, 0, stream>>>(
+        xp, rp, sp, yp, op, a.rstd, a.sums, a.rows, a.d, a.d_norm, a.x_stride,
+        a.r_stride, a.eps);
   }
 #undef REPRO_RMSNORM_VEC
   return cudaGetLastError();
@@ -267,11 +308,20 @@ template <typename TX, typename TS>
 cudaError_t launch_typed(const Args& a, bool vec, cudaStream_t stream) {
   const bool res = a.res != nullptr;
   if (a.d <= kWarpModeMaxD)
-    return res ? launch_mode<TX, TS, false, true>(a, vec, stream)
-               : launch_mode<TX, TS, false, false>(a, vec, stream);
+    return res ? launch_mode<TX, TS, false, true, 0>(a, vec, stream)
+               : launch_mode<TX, TS, false, false, 0>(a, vec, stream);
   const bool v = vec && a.d <= kBlockModeMaxD;
-  return res ? launch_mode<TX, TS, true, true>(a, v, stream)
-             : launch_mode<TX, TS, true, false>(a, v, stream);
+  return res ? launch_mode<TX, TS, true, true, 0>(a, v, stream)
+             : launch_mode<TX, TS, true, false, 0>(a, v, stream);
+}
+
+// The split-row form's launches (PHASE 1 or 2; no residual).
+template <typename TX, typename TS, int PHASE>
+cudaError_t launch_split(const Args& a, bool vec, cudaStream_t stream) {
+  if (a.d <= kWarpModeMaxD)
+    return launch_mode<TX, TS, false, false, PHASE>(a, vec, stream);
+  return launch_mode<TX, TS, true, false, PHASE>(a, vec && a.d <= kBlockModeMaxD,
+                                                 stream);
 }
 
 }  // namespace
@@ -294,8 +344,8 @@ extern "C" int repro_rmsnorm(const void* x, const void* res, const void* scale,
     return static_cast<int>(cudaErrorInvalidValue);
   const bool v = vec != 0;
   if (v && d % (x_dtype == 0 ? 4 : 8) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, res, scale, y, s, static_cast<float*>(rstd), rows, d, x_stride,
-               r_stride, eps};
+  const Args a{x, res, scale, y, s, static_cast<float*>(rstd), nullptr, rows, d, d,
+               x_stride, r_stride, eps};
   auto st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && scale_dtype == 0)
     return static_cast<int>(launch_typed<float, float>(a, v, st));
@@ -305,5 +355,51 @@ extern "C" int repro_rmsnorm(const void* x, const void* res, const void* scale,
     return static_cast<int>(launch_typed<__nv_bfloat16, float>(a, v, st));
   if (x_dtype == 1 && scale_dtype == 1)
     return static_cast<int>(launch_typed<__nv_bfloat16, __nv_bfloat16>(a, v, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split-row form, first launch: sums[row] = the fp32 sum of squares of
+// row `row` of x [rows, d] (the rank's slice), in the one-launch kernel's
+// order.  dtype codes and vec as for repro_rmsnorm.
+extern "C" int repro_rmsnorm_sumsq(const void* x, float* sums, int64_t rows, int d,
+                                   int64_t x_stride, int x_dtype, int vec,
+                                   void* stream) {
+  if (rows < 1 || rows > 0x7fffffffLL || d < 1 || x_stride < 0 || sums == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool v = vec != 0;
+  if (v && d % (x_dtype == 0 ? 4 : 8) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x, nullptr, nullptr, nullptr, nullptr, nullptr, sums, rows, d, d,
+               x_stride, 0, 0.f};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0) return static_cast<int>(launch_split<float, float, 1>(a, v, st));
+  if (x_dtype == 1)
+    return static_cast<int>(launch_split<__nv_bfloat16, float, 1>(a, v, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The split-row form, second launch: y = x * rsqrt(sums[row] / d_global +
+// eps) * scale over the slice x [rows, d], scale [d] (the rank's slice of
+// the norm's scale), sums the ranks' total per row (fp32 [rows]).
+extern "C" int repro_rmsnorm_apply(const void* x, const float* sums,
+                                   const void* scale, void* y, int64_t rows, int d,
+                                   int d_global, int64_t x_stride, float eps,
+                                   int x_dtype, int scale_dtype, int vec,
+                                   void* stream) {
+  if (rows < 1 || rows > 0x7fffffffLL || d < 1 || d_global < d || x_stride < 0 ||
+      sums == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool v = vec != 0;
+  if (v && d % (x_dtype == 0 ? 4 : 8) != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{x, nullptr, scale, y, nullptr, nullptr, const_cast<float*>(sums),
+               rows, d, d_global, x_stride, 0, eps};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (x_dtype == 0 && scale_dtype == 0)
+    return static_cast<int>(launch_split<float, float, 2>(a, v, st));
+  if (x_dtype == 0 && scale_dtype == 1)
+    return static_cast<int>(launch_split<float, __nv_bfloat16, 2>(a, v, st));
+  if (x_dtype == 1 && scale_dtype == 0)
+    return static_cast<int>(launch_split<__nv_bfloat16, float, 2>(a, v, st));
+  if (x_dtype == 1 && scale_dtype == 1)
+    return static_cast<int>(launch_split<__nv_bfloat16, __nv_bfloat16, 2>(a, v, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -35,7 +35,25 @@ parameter by its ROLE in the Megatron layout:
     would make ``latent @ wkv_b`` a partial sum over ranks (an
     ``all_reduce`` of ``[B, T, H (dn + dv)]`` per layer per step); a
     replicated latent costs 1,152 bytes per token per layer per rank
-    at bf16.
+    at bf16;
+  * zamba's Mamba2 mixer by heads: ``in_proj``'s z, x and dt columns and
+    ``conv_w``'s x channels split, its B and C columns whole (every head
+    reads them), ``dt_bias`` / ``a_log`` / ``d_skip`` and the gated
+    norm's scale by heads, ``out_proj`` by rows; its shared attention
+    block as a dense block;
+  * the mLSTM by heads, its ``x_inner`` (the first half of ``up_proj``)
+    and conv whole: ``wq`` / ``wk`` / ``wv`` contract over all of it, so
+    a split would cost an all-gather per block; the sLSTM by heads
+    (head-major ``w_in`` columns, ``r``'s blocks), its output gathered
+    to the whole row, its post-MLP split where the model axis divides
+    its width, else replicated;
+  * a norm over a row the model axis cuts (Mamba2's gated norm, the
+    mLSTM's and sLSTM's) adds the ranks' sums of squares in one
+    ``all_reduce`` (``layers.split_rmsnorm``);
+  * whisper: q / k / v by heads, ``wo`` and ``w2`` by rows, ``w1`` by
+    columns, the output biases, LayerNorms and ``dec_pos`` replicated,
+    the self and cross caches by heads (specs only: enc-dec serves
+    through the sequential ``Engine``, which takes no plan).
 
 A spec is a :class:`PartitionSpec`, a tuple of ``None`` or an axis name
 per dimension as in JAX.  Its ``parts`` say how a ``'model'`` dimension
@@ -62,7 +80,8 @@ replicated.  A merged delta ``A @ B`` takes its target's spec
 At run time :func:`use_plan` scopes a plan over a model call (the
 counterpart of JAX's ``use_kernel_mesh``); :func:`all_reduce`,
 :func:`embed_lookup` and :func:`gather_vocab` are the layers'
-collectives, no-ops without a plan.  They sum in fp32 (gloo on one card
+collectives, and :func:`gather_columns` the sLSTM's; no-ops without a
+plan.  They sum in fp32 (gloo on one card
 takes bf16, but a bf16 sum would round each partial twice).
 """
 
@@ -155,23 +174,25 @@ def _on(ndim: int, dim: int, parts=None) -> PartitionSpec:
 # ---------------------------------------------------------------------------
 
 def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise for a configuration the port cannot split over ``tp`` ranks:
-    families other than dense and moe (GQA or MLA attention; each names
-    its ROADMAP item) and head, expert or width counts the model axis
-    does not divide."""
+    """Raise for head, expert or width counts the model axis does not
+    divide: attention heads (zamba's shared block, whisper's), Mamba2's
+    ``ssm_heads``, the xLSTM heads, experts and MLP widths.  Every family
+    has specs; whisper serves through the sequential ``Engine`` only,
+    which takes no plan (``models.registry``)."""
     if tp == 1:
         return
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family under a sharding plan "
-            "is ROADMAP Queue 1, item 6")
     H, KV = cfg.n_heads, cfg.n_kv_heads
     if H % tp:
         raise ValueError(f"{cfg.name}: {H} query heads do not split over "
                          f"{tp} ranks")
+    if cfg.family == "xlstm":
+        return                  # every xLSTM width is H times a head's
     if not cfg.use_mla and KV % tp and tp % KV:
         raise ValueError(f"{cfg.name}: {KV} KV heads neither split over nor "
                          f"divide {tp} ranks")
+    if cfg.family == "zamba" and cfg.ssm_heads % tp:
+        raise ValueError(f"{cfg.name}: {cfg.ssm_heads} Mamba2 heads do not "
+                         f"split over {tp} ranks")
     if cfg.family == "moe":
         if cfg.n_experts % tp:
             raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
@@ -196,6 +217,12 @@ def vocab_parallel(cfg: ModelConfig, tp: int) -> bool:
     return tp > 1 and cfg.vocab_size % tp == 0
 
 
+def slstm_mlp_split(cfg: ModelConfig, tp: int) -> bool:
+    """The sLSTM post-MLP splits by its width (else replicated: every
+    rank runs all of it, no collective; the reference's own fallback)."""
+    return tp > 1 and cfg.slstm_mlp_width % tp == 0
+
+
 def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
     """The configuration rank ``rank`` computes with (a
     :class:`RankConfig`): its query heads, the KV heads they read, its
@@ -204,7 +231,10 @@ def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
     moe layer keeps the global ``n_experts`` (routing and the capacity
     read it) and each expert's whole width ``moe_d_ff``; the rank's
     expert range and its slice of the shared experts' width are stored
-    in their own fields."""
+    in their own fields, as are the recurrent mixers' widths: Mamba2's
+    ``ssm_heads`` and their channels, the mLSTM and sLSTM heads' widths
+    (the mLSTM's ``x_inner`` input stays whole) and the sLSTM post-MLP's
+    slice, or all of it where ``tp`` does not divide it."""
     if tp == 1:
         return cfg
     check_tp(cfg, tp)
@@ -220,7 +250,16 @@ def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
         fields["moe_d_ff"] = cfg.moe_d_ff or cfg.d_ff
         moe = dict(expert_first=rank * per, n_local_experts=per,
                    shared_d_ff=cfg.shared_width // tp)
-    return RankConfig(**fields, **moe)
+    zamba, xlstm = cfg.family == "zamba", cfg.family == "xlstm"
+    if zamba:
+        fields["ssm_heads"] = cfg.ssm_heads // tp
+    mlp = cfg.slstm_mlp_width
+    widths = dict(
+        mamba_d_inner=cfg.mamba_width // (tp if zamba else 1),
+        mlstm_d_inner=cfg.mlstm_width // (tp if xlstm else 1),
+        slstm_d=cfg.slstm_width // (tp if xlstm else 1),
+        slstm_d_ff=mlp // tp if xlstm and slstm_mlp_split(cfg, tp) else mlp)
+    return RankConfig(**fields, **moe, **widths)
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +337,57 @@ _MLA_REPLICATED = ("wq_a", "wkv_a")
 LATENT_LEAVES = ("c_kv", "k_rope", "c_kv_scale", "k_rope_scale")
 
 
+def _mixer_spec(group: str, leaf: str, cfg: ModelConfig,
+                tp: int) -> PartitionSpec:
+    """A recurrent mixer's leaf (``mamba.N.mixer.*``, ``mlstm.N.mixer.*``,
+    ``slstm.N.mixer.*``) by its role: its heads' columns split, whatever
+    every head reads whole, the output projection by rows."""
+    if group == "mamba":
+        di, H, bc = cfg.mamba_width, cfg.ssm_heads, 2 * cfg.ssm_state
+        if leaf == "in_proj":              # [D, z | x | B | C | dt]
+            return _on(2, 1, ((di, tp), (di, tp), (bc, 1), (H, tp)))
+        if leaf == "conv_w":               # [W, x | B | C]
+            return _on(2, 1, ((di, tp), (bc, 1)))
+        if leaf in ("dt_bias", "a_log", "d_skip", "norm"):
+            return _on(1, 0)
+        if leaf == "out_proj":
+            return _on(2, 0)
+    elif group == "mlstm":
+        di, H = cfg.mlstm_input_width, cfg.n_heads
+        if leaf == "up_proj":              # [D, x_inner (whole) | z]
+            return _on(2, 1, ((di, 1), (di, tp)))
+        if leaf == "conv_w":
+            return _replicated(2)
+        if leaf in ("wq", "wk", "wv"):
+            return _on(2, 1)
+        if leaf == "w_if":                 # [d_inner, input gates | forget]
+            return _on(2, 1, ((H, tp), (H, tp)))
+        if leaf == "b_if":
+            return _on(1, 0, ((H, tp), (H, tp)))
+        if leaf == "norm":
+            return _on(1, 0)
+        if leaf == "down_proj":
+            return _on(2, 0)
+    elif group == "slstm":
+        split = slstm_mlp_split(cfg, tp)
+        if leaf == "w_in":                 # head-major columns
+            return _on(2, 1)
+        if leaf in ("b", "norm"):
+            return _on(1, 0)
+        if leaf == "r":                    # [H, dh, 4 dh], block-diagonal
+            return _on(3, 0)
+        if leaf in ("w_gate", "w_up"):
+            return _on(2, 1) if split else _replicated(2)
+        if leaf == "w_down":
+            return _on(2, 0) if split else _replicated(2)
+    raise NotImplementedError(f"{group}.mixer.{leaf}: no tensor-parallel role")
+
+
+# whisper's leaves every rank holds whole: the output biases (added once,
+# after the all_reduce), the LayerNorms, the decoder positions
+_ENCDEC_REPLICATED = ("bo", "b2", "dec_pos", "scale", "bias")
+
+
 def _param_spec(path: str, shape: tuple, cfg: ModelConfig,
                 tp: int) -> PartitionSpec:
     ndim = len(shape)
@@ -305,6 +395,17 @@ def _param_spec(path: str, shape: tuple, cfg: ModelConfig,
     leaf = parts[-1]
     if tp == 1:
         return _replicated(ndim)
+    if len(parts) > 3 and parts[2] == "mixer":
+        return _mixer_spec(parts[0], leaf, cfg, tp)
+    if cfg.is_encdec:
+        if leaf in _ENCDEC_REPLICATED:
+            return _replicated(ndim)
+        if leaf == "w1":
+            return _on(2, 1)
+        if leaf == "b1":
+            return _on(1, 0)
+        if leaf == "w2":
+            return _on(2, 0)
     if "experts" in parts:               # [E, D, F] / [E, F, D]: by expert
         return _on(ndim, 0)
     if leaf == "router" or leaf in _MLA_REPLICATED:
@@ -345,11 +446,12 @@ def param_specs(model, mesh, fsdp: bool = False, mode: str = "tp"):
 
 def config_param_specs(cfg: ModelConfig, tp: int):
     """:func:`param_specs` of a configuration over ``tp`` model ranks."""
-    from repro_torch.models import transformer
+    from repro_torch.models import encdec, transformer
     check_tp(cfg, tp)
+    family = encdec if cfg.is_encdec else transformer
     return map_with_path(
         lambda path, leaf: _param_spec(path, tuple(leaf.shape), cfg, tp),
-        transformer.param_specs(cfg))
+        family.param_specs(cfg))
 
 
 def leaf_param_specs(model, mesh) -> dict:
@@ -357,14 +459,30 @@ def leaf_param_specs(model, mesh) -> dict:
     return dict(named_leaves(param_specs(model, mesh)))
 
 
+def _state_spec(group: str, leaf: str, ndim: int, cfg: ModelConfig,
+                tp: int) -> PartitionSpec:
+    """A recurrent state leaf (``[L, B, H, ...]``, or a conv window ``[L,
+    B, W-1, channels]``) over 'model': by heads, and a conv window as its
+    weight is placed (Mamba2's x channels split, B and C whole; the
+    mLSTM's whole)."""
+    if leaf != "conv":
+        return _on(ndim, 2)
+    if group == "mamba":
+        return _on(ndim, 3, ((cfg.mamba_width, tp), (2 * cfg.ssm_state, 1)))
+    return _replicated(ndim)
+
+
 def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
                 replicate_model: bool = False):
     """Specs of dense caches (leaves ``[L, B, T, KV, hd]``, the GLOBAL
     shapes): the batch axis over 'data' when it divides (as the JAX
     package places it), K/V heads over 'model' as the parameters place
-    the heads that fill them, MLA's latent leaves replicated over 'model'
-    (every rank allocates them whole).  ``prefer_seq`` (the JAX
-    package's sequence-sharded decode cache) is not ported."""
+    the heads that fill them (zamba's ``attn_kv``, whisper's ``self_kv``
+    and ``cross_kv`` too), MLA's latent leaves replicated over 'model'
+    (every rank allocates them whole), the recurrent states (``mamba``,
+    ``mlstm``, ``slstm``) by heads and their conv windows as the conv
+    weights (:func:`_state_spec`).  ``prefer_seq`` (the JAX package's
+    sequence-sharded decode cache) is not ported."""
     if prefer_seq:
         raise NotImplementedError(
             "sequence-sharded caches (prefer_seq) are not in the port")
@@ -378,10 +496,15 @@ def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
         entries = [None] * ndim
         if ndim >= 2 and shape[1] % dp == 0 and shape[1] >= dp:
             entries[1] = DATA
-        if (replicate_model or tp == 1 or ndim < 4
-                or path.rsplit(".", 1)[-1] in LATENT_LEAVES):
+        group, name = path.split(".")[0], path.rsplit(".", 1)[-1]
+        if replicate_model or tp == 1:
             return P(*entries)
-        spec = _kv_spec(cfg, ndim, 3, shape[3], tp)
+        if group in ("mamba", "mlstm", "slstm"):
+            spec = _state_spec(group, name, ndim, cfg, tp)
+        elif ndim < 4 or name in LATENT_LEAVES:
+            return P(*entries)
+        else:
+            spec = _kv_spec(cfg, ndim, 3, shape[3], tp)
         return P(*[e or s for e, s in zip(entries, spec)], parts=spec.parts)
 
     return map_with_path(choose, cache_tree)
@@ -415,10 +538,11 @@ def paged_cache_specs(cache_tree, mesh):
 def lora_delta_spec(cfg: ModelConfig, target: str, tp: int) -> PartitionSpec:
     """The spec of a merged LoRA delta ``A @ B`` of one layer's attention
     projection ``target`` (``wq``, ``wk``, ``wv`` or ``wo``, ``[in,
-    out]``): its target's, so that each rank adds its shard of the delta
-    to its shard of the weight."""
+    out]``; zamba's of its shared block): its target's, so that each rank
+    adds its shard of the delta to its shard of the weight."""
     from repro_torch.models.adapters import target_dims
-    return _param_spec(f"layers.0.attn.{target}", target_dims(cfg, target),
+    block = "shared_attn" if cfg.family == "zamba" else "layers.0"
+    return _param_spec(f"{block}.attn.{target}", target_dims(cfg, target),
                        cfg, tp)
 
 
@@ -469,6 +593,19 @@ def validate_specs(spec_tree, shape_tree, mesh) -> list:
                 if seg % groups:
                     bad.append((path, d, seg, groups))
     return bad
+
+
+def whole_bytes(spec: PartitionSpec, nbytes: int) -> int:
+    """Of a rank's ``nbytes`` of a leaf, the bytes every rank holds alike:
+    all of a replicated leaf, the segments of one group (``(size, 1)``:
+    Mamba2's B and C columns, the mLSTM's ``x_inner`` half of
+    ``up_proj``) of a split one."""
+    if spec.model_dim is None:
+        return nbytes
+    if not spec.parts:
+        return 0
+    piece = sum(seg // groups for seg, groups in spec.parts)
+    return nbytes * sum(seg for seg, groups in spec.parts if groups == 1) // piece
 
 
 def shard_for_rank(tensor: torch.Tensor, spec: PartitionSpec,
@@ -607,3 +744,21 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     full[..., plan.rank * vocab:(plan.rank + 1) * vocab] = logits
     _reduce(full, plan)
     return full.to(logits.dtype)
+
+
+def gather_columns(x: torch.Tensor) -> torch.Tensor:
+    """The whole last axis from each rank's contiguous slice of it (rank
+    ``r`` holds ``[r w, (r + 1) w)``): the slices placed in a zeroed full
+    row and summed over ranks (exact, one collective), as
+    :func:`gather_vocab`; ``x`` itself without a plan."""
+    plan = current_plan()
+    if plan is None:
+        return x
+    width = x.shape[-1]
+    shape = tuple(x.shape[:-1]) + (width * plan.tp,)
+    if x.is_meta:
+        return x.new_empty(shape)
+    full = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    full[..., plan.rank * width:(plan.rank + 1) * width] = x
+    _reduce(full, plan)
+    return full.to(x.dtype)

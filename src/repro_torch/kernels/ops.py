@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import (flash_attention as _flash,
                                                  flash_attention_bwd)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention as _paged)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_split
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 
@@ -53,6 +53,7 @@ KERNELS = {
     "paged_decode_attention": _paged,
     "rmsnorm": rmsnorm,
     "rmsnorm_bwd": rmsnorm_bwd,
+    "rmsnorm_split": rmsnorm_split,
     "ssd_scan": ssd_scan,
 }
 
@@ -60,7 +61,8 @@ KERNELS = {
 def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name, and under
     ``rmsnorm_fused`` the rmsnorm launches with the residual add fused in
-    (counted under ``rmsnorm`` too)."""
+    (counted under ``rmsnorm`` too).  ``rmsnorm_split`` counts both
+    launches of the split-row form (two per norm)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts["rmsnorm_fused"] = rmsnorm.fused_launches
     return counts
@@ -75,4 +77,5 @@ def reset_launch_counts() -> None:
 
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
            "flash_attention_bwd", "launch_counts", "paged_decode_attention",
-           "reset_launch_counts", "rmsnorm", "rmsnorm_bwd", "ssd_scan"]
+           "reset_launch_counts", "rmsnorm", "rmsnorm_bwd", "rmsnorm_split",
+           "ssd_scan"]

@@ -145,6 +145,20 @@ def rmsnorm_ref(x, scale, eps: float = 1e-6, residual=None):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(dt)
 
 
+def rmsnorm_sumsq_ref(x):
+    """Each row's sum of squares in fp32, x's leading shape: the split-row
+    form's first launch (the rank's slice of each row)."""
+    return x.float().square().sum(dim=-1)
+
+
+def rmsnorm_apply_ref(x, sums, scale, d_global: int, eps: float = 1e-6):
+    """The split-row form's second launch: ``x * rsqrt(sums / d_global +
+    eps) * scale`` over the slice x [..., d], with ``sums`` the whole
+    row's fp32 sum of squares over the ranks.  Returns x's dtype."""
+    r = torch.rsqrt(sums.float()[..., None] / d_global + eps)
+    return (x.float() * r * scale.float()).to(x.dtype)
+
+
 def rmsnorm_rstd_ref(x, eps: float = 1e-6):
     """Each row's ``rsqrt(mean(x**2) + eps)`` in fp32, x's leading shape:
     what the training forward saves for the backward."""

@@ -1,5 +1,8 @@
 """Row RMSNorm, optionally with the residual add fused in: wrappers of
 ``csrc/rmsnorm.cu`` and, for the gradient, ``csrc/rmsnorm_bwd.cu``.
+:func:`rmsnorm_split` is the split-row form of the same source, for a row
+that tensor parallelism cuts over ranks: two launches around the caller's
+sum over the ranks (``csrc/rmsnorm.cu``'s header note).
 
 For tensors on a CUDA device the wrappers launch the hand-written kernels
 or raise; for tensors on the CPU they run the plain versions in
@@ -28,6 +31,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 5                # x res scale y s
                 ctypes.c_float]                   # eps
              + [ctypes.c_int] * 3                 # x dtype, scale dtype, vec
              + [ctypes.c_void_p] * 2)             # rstd stream
+_SUMSQ_ARGTYPES = ([ctypes.c_void_p] * 2        # x sums
+                   + [ctypes.c_int64, ctypes.c_int,  # rows d
+                      ctypes.c_int64,                # x row stride
+                      ctypes.c_int, ctypes.c_int,    # x dtype, vec
+                      ctypes.c_void_p])              # stream
+_APPLY_ARGTYPES = ([ctypes.c_void_p] * 4        # x sums scale y
+                   + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # rows d d_global
+                      ctypes.c_int64, ctypes.c_float,  # x row stride, eps
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtypes, vec
+                      ctypes.c_void_p])              # stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8            # x scale dy d_sum rstd dx dscale partial
                  + [ctypes.c_int64, ctypes.c_int,  # rows d
                     ctypes.c_int64,                # x row stride
@@ -270,3 +283,93 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6, d_sum=None, rstd=None) -> tuple
 
 
 rmsnorm_bwd.launches = 0
+
+
+def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """The split-row form's first launch: each row's fp32 sum of squares,
+    x's leading shape.  x: [..., d] fp32 or bf16 (the row-stride rules of
+    :func:`rmsnorm`); on the CPU the plain version."""
+    lead = tuple(x.shape[:-1])
+    if meta.is_meta(x):
+        return meta.kernel_call("rmsnorm_split", (x,), lambda: torch.empty(
+            lead, dtype=torch.float32, device=x.device))
+    if x.device.type == "cpu":
+        return ref.rmsnorm_sumsq_ref(x)
+    _require(x.device.type == "cuda", f"unsupported device {x.device}")
+    _require(x.dtype in _DTYPES, f"dtype x={x.dtype}")
+    d = x.shape[-1]
+    stride = row_stride(x)
+    sums = torch.empty(lead, dtype=torch.float32, device=x.device)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return sums
+    per = 16 // x.element_size()
+    vec = d % per == 0 and stride % per == 0 and x.data_ptr() % 16 == 0
+    fn = _build.function("repro_rmsnorm_sumsq", _SUMSQ_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), sums.data_ptr(), rows, d, stride,
+                 _DTYPES[x.dtype], int(vec),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_sumsq: launch failed, cudaError_t {err}")
+    rmsnorm_split.launches += 1
+    return sums
+
+
+def rmsnorm_apply(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
+                  d_global: int, eps: float = 1e-6) -> torch.Tensor:
+    """The split-row form's second launch: ``x * rsqrt(sums / d_global +
+    eps) * scale`` over the slice ``x`` [..., d], with ``sums`` the whole
+    row's fp32 sum of squares (x's leading shape, contiguous) and
+    ``scale`` [d] the slice's scale; x's dtype, contiguous.  On the CPU
+    the plain version."""
+    if meta.is_meta(x):
+        return meta.kernel_call("rmsnorm_split", (x, sums, scale), lambda: torch.empty(
+            x.shape, dtype=x.dtype, device=x.device))
+    if x.device.type == "cpu":
+        return ref.rmsnorm_apply_ref(x, sums, scale, d_global, eps)
+    _require(x.device.type == "cuda", f"unsupported device {x.device}")
+    _require(scale.device == x.device and sums.device == x.device,
+             "x, sums and scale must be on one device")
+    _require(x.dtype in _DTYPES and scale.dtype in _DTYPES,
+             f"dtypes x={x.dtype} scale={scale.dtype}")
+    d = x.shape[-1]
+    _require(scale.shape == (d,) and scale.is_contiguous(),
+             f"scale of shape {tuple(scale.shape)} for rows of {d}")
+    _require(sums.dtype == torch.float32 and sums.is_contiguous()
+             and tuple(sums.shape) == tuple(x.shape[:-1]),
+             f"sums {tuple(sums.shape)} {sums.dtype} for x {tuple(x.shape)}")
+    _require(d_global >= d, f"d_global {d_global} below the slice's {d}")
+    stride = row_stride(x)
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rows = x.numel() // d if d else 0
+    if rows == 0:
+        return y
+    vec = vector_path(x, scale) and y.data_ptr() % 16 == 0
+    fn = _build.function("repro_rmsnorm_apply", _APPLY_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), sums.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                 rows, d, int(d_global), stride, float(eps),
+                 _DTYPES[x.dtype], _DTYPES[scale.dtype], int(vec),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_apply: launch failed, cudaError_t {err}")
+    rmsnorm_split.launches += 1
+    return y
+
+
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                  d_global: int, reduce) -> torch.Tensor:
+    """RMSNorm of rows that ranks hold in slices: ``x`` [..., d] is this
+    rank's slice of rows of ``d_global``, ``scale`` [d] its slice of the
+    scale, and ``reduce`` sums a fp32 ``[rows]`` buffer over the ranks
+    (``distributed.sharding.all_reduce``).  Two launches on the card
+    (:func:`rmsnorm_sumsq`, :func:`rmsnorm_apply`), each counted under
+    ``rmsnorm_split``; the plain versions on the CPU.  Serving only (no
+    gradient)."""
+    if grad.needs_grad(x, scale):
+        raise NotImplementedError("rmsnorm_split: no backward (serving only)")
+    return rmsnorm_apply(x, reduce(rmsnorm_sumsq(x)), scale, d_global, eps)
+
+
+rmsnorm_split.launches = 0    # the split-row form's launches (two per norm)

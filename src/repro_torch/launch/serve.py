@@ -54,7 +54,11 @@ whole experts, an MLA rank H / N heads and the whole latent arena, so
 ``--arch phi3.5-moe-42b-a6.6b --tp 2 --layers 4`` and ``--arch
 deepseek-v3-671b --tp 2 --layers 1`` serve on one card; ``--lora
 --tp N`` merges each rank's shard of the adapter's delta into its shard
-of the query projection.
+of the query projection.  zamba2-2.7b and xlstm-1.3b serve at ``--tp
+N`` too (a rank holds its Mamba2, attention, mLSTM and sLSTM heads; the
+norms over a split row run the split-row rmsnorm), ``--lora`` on zamba
+merging into its shared block's query projection.  whisper-medium
+exits under ``--tp`` as without it.
 
 ``--instances K`` serves K instances (``ServingMesh(K, 1)``), instance i
 on ``cuda:(i mod device_count)`` (K instances share one card), each with
@@ -66,6 +70,10 @@ N)``, K N rank processes; on one card all of them share it over gloo).
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu \
         --arch deepseek-v3-671b --layers 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu \
+        --arch zamba2-2.7b --lora
+    PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --device cpu \
+        --arch xlstm-1.3b
     PYTHONPATH=src python -m repro_torch.launch.serve --instances 2 \
         --device cpu --layers 2
     PYTHONPATH=src python -m repro_torch.launch.serve --tp 2 --lora \
@@ -257,8 +265,15 @@ def serve(args, group=None) -> None:
             group.serve()
             return
         local = model.local_cfg
-        heads = (f"{local.n_heads} MLA heads" if cfg.use_mla else
-                 f"{local.n_heads} query / {local.n_kv_heads} KV heads")
+        if cfg.family == "xlstm":
+            mlp = "split" if local.slstm_mlp_split else "whole"
+            heads = (f"{local.n_heads} mLSTM / sLSTM heads (sLSTM post-MLP "
+                     f"{mlp})")
+        else:
+            heads = (f"{local.n_heads} MLA heads" if cfg.use_mla else
+                     f"{local.n_heads} query / {local.n_kv_heads} KV heads")
+        if cfg.family == "zamba":
+            heads += f", {local.ssm_heads} Mamba2 heads"
         first, end = local.expert_range
         experts = f", {end - first} experts" if cfg.n_experts else ""
         print(f"tensor parallel: {group.size} ranks ({group.backend}), "

@@ -102,6 +102,39 @@ class ModelConfig:
         """The shared experts' MLP width (all of it on one device)."""
         return (self.moe_d_ff or self.d_ff) * self.n_shared_experts
 
+    # the recurrent mixers' inner widths (see :class:`RankConfig`)
+    @property
+    def mamba_width(self) -> int:
+        """Mamba2's ``d_inner``: the channels of its ``ssm_heads``."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def mlstm_input_width(self) -> int:
+        """The mLSTM's ``x_inner`` width, which ``wq`` / ``wk`` / ``wv``
+        contract over: whole on every rank."""
+        return int(self.mlstm_proj_factor * self.d_model)
+
+    @property
+    def mlstm_width(self) -> int:
+        """The mLSTM heads' width (q, k, v, the gate ``z`` and the norm)."""
+        return self.mlstm_input_width
+
+    @property
+    def slstm_width(self) -> int:
+        """The sLSTM heads' width (``d_model`` on one device)."""
+        return self.d_model
+
+    @property
+    def slstm_mlp_width(self) -> int:
+        """The sLSTM post-MLP's width, ``int(4 d_model / 3)``."""
+        return int(4 * self.d_model / 3)
+
+    @property
+    def slstm_mlp_split(self) -> bool:
+        """The sLSTM post-MLP holds a slice of its width (its partial
+        sums then meet in an ``all_reduce``); False on one device."""
+        return False
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -114,10 +147,19 @@ class RankConfig(ModelConfig):
     a moe layer stored explicitly.  ``n_experts`` and ``capacity_factor``
     stay global (routing and the capacity read them); the rank holds
     experts ``[expert_first, expert_first + n_local_experts)`` and the
-    shared experts' width ``shared_d_ff``."""
+    shared experts' width ``shared_d_ff``.  The recurrent mixers' widths
+    are the rank's heads' (``d_model`` stays global): Mamba2's channels
+    ``mamba_d_inner`` (its ``ssm_heads`` are in the base field), the
+    mLSTM heads' ``mlstm_d_inner`` (its ``x_inner`` input stays whole),
+    the sLSTM heads' ``slstm_d`` and the sLSTM post-MLP's ``slstm_d_ff``
+    (all of it where the model axis does not divide it)."""
     expert_first: int = 0
     n_local_experts: int = 0
     shared_d_ff: int = 0
+    mamba_d_inner: int = 0
+    mlstm_d_inner: int = 0
+    slstm_d: int = 0
+    slstm_d_ff: int = 0
 
     @property
     def expert_range(self) -> tuple:
@@ -126,6 +168,26 @@ class RankConfig(ModelConfig):
     @property
     def shared_width(self) -> int:
         return self.shared_d_ff
+
+    @property
+    def mamba_width(self) -> int:
+        return self.mamba_d_inner
+
+    @property
+    def mlstm_width(self) -> int:
+        return self.mlstm_d_inner
+
+    @property
+    def slstm_width(self) -> int:
+        return self.slstm_d
+
+    @property
+    def slstm_mlp_width(self) -> int:
+        return self.slstm_d_ff
+
+    @property
+    def slstm_mlp_split(self) -> bool:
+        return self.slstm_d_ff != int(4 * self.d_model / 3)
 
 
 def reduced(cfg: ModelConfig, **extra) -> ModelConfig:

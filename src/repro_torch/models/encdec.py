@@ -29,6 +29,14 @@ A layer's cache goes to the kernels as a strided ``[B, H, T, hd]`` view:
 nothing is copied.  One prefill launches 3 x 24 flash kernels at
 whisper-medium's depth, one decode step 2 x 24 ``decode_attention``.
 
+Under tensor parallelism only its placement exists, as in the reference:
+``distributed.sharding.param_specs`` and ``cache_specs`` place every leaf
+(q / k / v and their biases and the self and cross caches by heads,
+``wo`` and ``w2`` by rows, ``w1`` by columns, the output biases, the
+LayerNorms, ``dec_pos`` and the embedding whole), and a whisper model
+under a plan raises: enc-dec generates through the sequential
+``Engine``, which takes no plan.
+
 The JAX reference rounds the softmax probabilities to v's dtype before
 the P V product (``repro.models.layers._sdpa``); the kernels keep them in
 fp32 (bf16 on the tensor cores), so bf16 runs differ from it there.

@@ -92,6 +92,22 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     return ops.rmsnorm(x, scale, eps, residual=residual)
 
 
+def split_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of a row a sharding plan cuts over the ranks (the recurrent
+    mixers' inner norms): ``x`` and ``scale`` hold this rank's slice of
+    every row, and the mean of squares is the whole row's, the slices'
+    sums of squares added over the ranks (one ``all_reduce`` of a fp32
+    ``[rows]`` buffer) between the split-row form's two launches.  A
+    slice normalised alone would take its own mean.  Without a plan the
+    one-launch :func:`rmsnorm`."""
+    plan = sharding.current_plan()
+    if plan is None:
+        return ops.rmsnorm(x, scale, eps)
+    return ops.rmsnorm_split(x, scale, eps, x.shape[-1] * plan.tp,
+                             sharding.all_reduce)
+
+
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm with bias (whisper): fp32 statistics, the population

@@ -10,7 +10,8 @@ A ``Model`` holds its device; every tensor it makes lives there.  With a
 ``plan`` (``distributed.sharding.ShardingPlan``) it is one rank's part of
 a tensor-parallel model: its parameters, caches and arenas hold the
 rank's shard (``local_cfg``: its heads, ``d_ff`` and vocabulary slice,
-a moe layer's experts and MLA's heads; MLA's latent arenas whole),
+a moe layer's experts and MLA's heads, the recurrent mixers' heads and
+widths; MLA's latent arenas whole),
 its calls run under ``sharding.use_plan`` and meet the other ranks in
 their collectives, and the device ops below carry
 ``distributed.group.mirrored`` (on a controller they broadcast to the
@@ -75,6 +76,12 @@ class Model:
         transformer.check_family(self.cfg)
         if self.plan is not None and self.plan.tp == 1:
             self.plan = None
+        if self.plan is not None and self.cfg.is_encdec:
+            raise NotImplementedError(
+                f"{self.cfg.name}: enc-dec serves through the sequential "
+                "Engine, which takes no sharding plan (as the reference's "
+                "Engine; its continuous engine refuses enc-dec); "
+                "sharding.param_specs and cache_specs place its leaves")
         self._local_cfg = (self.cfg if self.plan is None
                            else sharding.local_config(self.cfg, self.plan.tp,
                                                       self.plan.rank))

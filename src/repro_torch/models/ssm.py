@@ -17,6 +17,13 @@ and the sLSTM its recurrence one step per token; both are PyTorch ops on
 every device, as the reference runs them in XLA outside any Pallas
 kernel.  Their RMSNorms go through the ``rmsnorm`` kernel.
 
+Under a sharding plan each mixer runs the rank's heads (``cfg`` is the
+rank's configuration, ``distributed.sharding.local_config``): the norm
+over a row the ranks split takes the split-row form
+(``layers.split_rmsnorm``), Mamba2's ``out_proj`` and the mLSTM's
+``down_proj`` end in one ``all_reduce``, and the sLSTM's heads are
+gathered to the whole row.
+
 States are carried in float32.
 """
 
@@ -28,9 +35,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamDraw, normal_, rmsnorm
+from repro_torch.models.layers import ParamDraw, normal_, split_rmsnorm
 
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
@@ -56,9 +64,10 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
 def init_mamba2_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     """One Mamba2 mixer's parameters (fan-in scaled normals; ``dt_bias``
     and ``a_log`` zeros, ``d_skip`` and the gated norm ones), in the JAX
-    package's layout.  ``gen=None`` gives uninitialized tensors (specs)."""
+    package's layout.  ``gen=None`` gives uninitialized tensors (specs).
+    Under a sharding plan ``cfg`` is the rank's: its heads' channels."""
     D = cfg.d_model
-    d_inner = cfg.ssm_expand * D
+    d_inner = cfg.mamba_width
     H, ds = cfg.ssm_heads, cfg.ssm_state
     conv_ch = d_inner + 2 * ds                  # x, B, C go through the conv
     return {
@@ -87,9 +96,14 @@ def mamba2_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     ``state`` ({'h': [B, H, dh, ds] fp32, 'conv': [B, W-1, conv_ch]}) seeds
     the recurrence and the conv; None means zeros.  Returns (y [B, S, D],
-    new_state); the caller stores the new state."""
+    new_state); the caller stores the new state.
+
+    Under a sharding plan ``cfg`` is the rank's: its heads' channels of
+    z, x and dt (B and C whole: every head reads them), the gated norm
+    over the row the ranks split (``split_rmsnorm``) and ``out_proj``'s
+    partial sums meeting in one ``all_reduce``."""
     B, S, D = x.shape
-    d_inner = cfg.ssm_expand * D
+    d_inner = cfg.mamba_width
     H, ds = cfg.ssm_heads, cfg.ssm_state
     dh = d_inner // H
 
@@ -120,12 +134,12 @@ def mamba2_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     y = y.to(x.dtype) + xs * p["d_skip"][:, None].to(x.dtype)
     y = y.reshape(B, S, d_inner)
-    y = rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return y @ p["out_proj"], {"h": hK, "conv": new_conv}
+    y = split_rmsnorm(y * F.silu(z), p["norm"], cfg.norm_eps)
+    return sharding.all_reduce(y @ p["out_proj"]), {"h": hK, "conv": new_conv}
 
 
 def mamba2_state_shape(cfg: ModelConfig, batch: int) -> dict:
-    d_inner = cfg.ssm_expand * cfg.d_model
+    d_inner = cfg.mamba_width
     H, ds = cfg.ssm_heads, cfg.ssm_state
     conv_ch = d_inner + 2 * ds
     return {
@@ -147,17 +161,20 @@ EMPTY_M = -1e9
 def make_mlstm_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     """One mLSTM mixer's parameters in the JAX package's layout (fan-in
     scaled normals; the gate bias zeros, the inner norm ones).
-    ``gen=None`` gives uninitialized tensors (specs)."""
+    ``gen=None`` gives uninitialized tensors (specs).  Under a sharding
+    plan ``cfg`` is the rank's: ``x_inner`` (its conv and the input of
+    ``wq`` / ``wk`` / ``wv`` / ``w_if``) whole, the heads' columns its
+    own."""
     D = cfg.d_model
-    d_inner = int(cfg.mlstm_proj_factor * D)
+    d_in, d_inner = cfg.mlstm_input_width, cfg.mlstm_width
     H = cfg.n_heads
     return {
-        "up_proj": normal_(gen, (D, 2 * d_inner)),            # x_inner, z gate
-        "conv_w": normal_(gen, (cfg.conv_width, d_inner), scale=0.5),
-        "wq": normal_(gen, (d_inner, d_inner)),
-        "wk": normal_(gen, (d_inner, d_inner)),
-        "wv": normal_(gen, (d_inner, d_inner)),
-        "w_if": normal_(gen, (d_inner, 2 * H), scale=0.01),   # input, forget
+        "up_proj": normal_(gen, (D, d_in + d_inner)),         # x_inner, z gate
+        "conv_w": normal_(gen, (cfg.conv_width, d_in), scale=0.5),
+        "wq": normal_(gen, (d_in, d_inner)),
+        "wk": normal_(gen, (d_in, d_inner)),
+        "wv": normal_(gen, (d_in, d_inner)),
+        "w_if": normal_(gen, (d_in, 2 * H), scale=0.01),      # input, forget
         "b_if": torch.zeros(2 * H),
         "norm": torch.ones(d_inner),
         "down_proj": normal_(gen, (d_inner, D)),
@@ -241,14 +258,20 @@ def mlstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     ``state`` ({'C', 'n', 'm'} float32 and 'conv' [B, W-1, d_inner] in the
     model dtype) seeds the recurrence and the conv; None means a fresh
-    one.  The caller stores the new state."""
+    one.  The caller stores the new state.
+
+    Under a sharding plan ``cfg`` is the rank's: ``x_inner`` and its conv
+    whole (every head's q, k and v contract over all of it), the rank's
+    heads of q, k, v, the gates and ``z``, the norm over the row the
+    ranks split (``split_rmsnorm``) and ``down_proj``'s partial sums
+    meeting in one ``all_reduce``."""
     B, S, D = x.shape
-    d_inner = int(cfg.mlstm_proj_factor * D)
+    d_in, d_inner = cfg.mlstm_input_width, cfg.mlstm_width
     H = cfg.n_heads
     dh = d_inner // H
 
     up = x @ p["up_proj"]
-    xi, z = up[..., :d_inner], up[..., d_inner:]
+    xi, z = up[..., :d_in], up[..., d_in:]
     xq, new_conv = causal_conv1d(xi, p["conv_w"],
                                  None if state is None else state["conv"])
     xq = F.silu(xq)
@@ -263,19 +286,19 @@ def mlstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y, new_inner = mlstm_chunked(q, k, v, i_raw, f_raw, cfg.ssm_chunk, state)
 
     y = y.reshape(B, S, d_inner)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
-    return y @ p["down_proj"], {"conv": new_conv, **new_inner}
+    y = split_rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
+    return (sharding.all_reduce(y @ p["down_proj"]),
+            {"conv": new_conv, **new_inner})
 
 
 def mlstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
-    d_inner = int(cfg.mlstm_proj_factor * cfg.d_model)
     H = cfg.n_heads
-    dh = d_inner // H
+    dh = cfg.mlstm_width // H
     return {
         "C": (batch, H, dh, dh),
         "n": (batch, H, dh),
         "m": (batch, H),
-        "conv": (batch, cfg.conv_width - 1, d_inner),
+        "conv": (batch, cfg.conv_width - 1, cfg.mlstm_input_width),
     }
 
 
@@ -285,16 +308,20 @@ def mlstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
 
 def make_slstm_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     """One sLSTM mixer's parameters, its post-MLP under ``mlp``, in the JAX
-    package's layout.  ``gen=None`` gives uninitialized tensors (specs)."""
+    package's layout.  ``gen=None`` gives uninitialized tensors (specs).
+    Under a sharding plan ``cfg`` is the rank's: its heads' columns of
+    ``w_in`` (head-major), rows of ``r`` and its slice of the post-MLP
+    where the model axis divides its width."""
     D = cfg.d_model
     H = cfg.n_heads
-    dh = D // H
-    F_mlp = int(4 * D / 3)
+    width = cfg.slstm_width
+    dh = width // H
+    F_mlp = cfg.slstm_mlp_width
     return {
-        "w_in": normal_(gen, (D, 4 * D)),                     # z, i, f, o
+        "w_in": normal_(gen, (D, 4 * width)),                 # z, i, f, o
         "r": normal_(gen, (H, dh, 4 * dh), scale=0.1),        # block-diagonal
-        "b": torch.zeros(4 * D),
-        "norm": torch.ones(D),
+        "b": torch.zeros(4 * width),
+        "norm": torch.ones(width),
         "mlp": {
             "w_gate": normal_(gen, (D, F_mlp)),
             "w_up": normal_(gen, (D, F_mlp)),
@@ -308,13 +335,19 @@ def slstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     """sLSTM with an exponential input gate and a stabiliser.  x: [B, S, D].
 
     ``state`` ({'c', 'n', 'h', 'm'}: [B, H, dh] float32) seeds the
-    recurrence; None means zeros.  Returns (y [B, S, D], new_state)."""
+    recurrence; None means zeros.  Returns (y [B, S, D], new_state).
+
+    Under a sharding plan ``cfg`` is the rank's: its heads run their
+    recurrence alone (``r`` is block-diagonal), the norm runs over the
+    row the ranks split (``split_rmsnorm``) and the rank's heads are
+    gathered to the whole row (``gather_columns``)."""
     B, S, D = x.shape
     H = cfg.n_heads
-    dh = D // H
+    width = cfg.slstm_width
+    dh = width // H
     f32 = torch.float32
 
-    pre = x @ p["w_in"] + p["b"]                               # [B,S,4D]
+    pre = x @ p["w_in"] + p["b"]                               # [B,S,4w]
     pre = pre.reshape(B, S, H, 4 * dh).to(f32)
 
     if state is None:
@@ -340,13 +373,13 @@ def slstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
         h = o_t * c / torch.clamp_min(n, 1e-6)
         m = m_new
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, D).to(x.dtype)
-    y = rmsnorm(y, p["norm"], cfg.norm_eps)
-    return y, {"c": c, "n": n, "h": h, "m": m}
+    y = torch.stack(hs, dim=1).reshape(B, S, width).to(x.dtype)
+    y = split_rmsnorm(y, p["norm"], cfg.norm_eps)
+    return sharding.gather_columns(y), {"c": c, "n": n, "h": h, "m": m}
 
 
 def slstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
     H = cfg.n_heads
-    dh = cfg.d_model // H
+    dh = cfg.slstm_width // H
     return {"c": (batch, H, dh), "n": (batch, H, dh),
             "h": (batch, H, dh), "m": (batch, H, dh)}

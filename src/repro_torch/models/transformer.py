@@ -48,7 +48,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (LazyDraw, ParamDraw, PendingDraw,
                                        attention_block, embed_tokens,
                                        init_attn_params, init_mlp_params,
-                                       lm_head, mlp_block, normal_, rmsnorm)
+                                       lm_head, mlp_block, mlp_partial,
+                                       normal_, rmsnorm)
 from repro_torch.utils import map_with_path, named_leaves
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -395,13 +396,18 @@ def _mlstm_block(bp: dict, x, cfg: ModelConfig, state: Optional[dict]):
 def _slstm_block(sp: dict, x, cfg: ModelConfig, state: Optional[dict]):
     """One xlstm sLSTM block: the pre-norm mixer and its residual, whose
     add the ``mlp_norm`` takes fused (the kernel's residual form), then
-    the post-MLP and its residual; the new state lands in ``state``."""
+    the post-MLP and its residual; the new state lands in ``state``.
+    Under a sharding plan the mixer's output comes back whole, and the
+    post-MLP is split (its partials meet in one ``all_reduce``) where the
+    model axis divides its width, else every rank runs all of it."""
     y, new_state = ssm.slstm_mixer(sp["mixer"],
                                    rmsnorm(x, sp["norm"], cfg.norm_eps),
                                    cfg, state)
     _store(state, new_state)
     h, x = rmsnorm(x, sp["mlp_norm"], cfg.norm_eps, residual=y)
-    return x + mlp_block(sp["mixer"]["mlp"], h, cfg.act)
+    if cfg.slstm_mlp_split:          # the rank's slice of the width
+        return x + mlp_block(sp["mixer"]["mlp"], h, cfg.act)
+    return x + mlp_partial(sp["mixer"]["mlp"], h, cfg.act)
 
 
 def xlstm_unit(mlstm_params, slstm_params, x, cfg: ModelConfig,

@@ -139,16 +139,21 @@ def test_keep_alive_expiry_matches_jax(pkgs):
 def test_later_slices_raise_with_their_item():
     """Several tensor-parallel instances serve now (test_torch_tp_instances
     .py): a ``ServingMesh(2, 2)`` runtime runs on the controller of a
-    spawned group of 2 x 2 ranks and says so outside one.  What still
-    waits for its slice is a family other than dense and moe under a
-    plan, on any instance's slice (ROADMAP Queue 1, item 6)."""
+    spawned group of 2 x 2 ranks and says so outside one.  zamba and
+    xLSTM build under a plan on any instance's slice (test_torch_tp_ssm
+    .py); whisper raises there with the reference's own limit: enc-dec
+    serves through the sequential ``Engine``, which takes no plan."""
     from repro_torch.distributed import ServingMesh, serving_plan
     with pytest.raises(RuntimeError, match=r"spawn\(\.\.\., data=2\)"):
         torch_faas.FaaSRuntime(mesh=ServingMesh(2, 2), device="cpu")
     for instance in (0, 1):
         plan = serving_plan(ServingMesh(2, 2), rank=0, instance=instance)
-        with pytest.raises(NotImplementedError, match="item 6"):
-            torch_smoke("zamba2-2.7b", device="cpu", plan=plan)
+        for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+            model = torch_smoke(arch, device="cpu", plan=plan)
+            assert model.plan.instance == instance
+            assert model.local_cfg.n_heads == model.cfg.n_heads // 2
+        with pytest.raises(NotImplementedError, match="sequential Engine"):
+            torch_smoke("whisper-medium", device="cpu", plan=plan)
 
 
 def test_serve_cli_runs_on_the_cpu():
@@ -164,13 +169,23 @@ def test_serve_cli_runs_on_the_cpu():
     kinds = {l.split()[3] for l in lines}
     assert kinds == {"cold", "fork", "warm"}, res.stdout
     assert "p50 ttft" in res.stdout
-    # --instances 2 --tp 2 serves (test_torch_tp_instances.py); a zamba
-    # base under a plan still waits for ROADMAP Queue 1, item 6
-    bad = subprocess.run(
+    # --instances 2 --tp 2 serves (test_torch_tp_instances.py), a zamba
+    # base too; whisper under --tp exits: enc-dec serves through the
+    # sequential Engine only, as in the reference
+    two = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--instances", "2",
-         "--tp", "2", "--arch", "zamba2-2.7b", "--device", "cpu"],
+         "--tp", "2", "--arch", "zamba2-2.7b", "--device", "cpu",
+         "--functions", "2", "--requests", "4", "--prompt-len", "16",
+         "--max-new", "4"],
+        capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=300)
+    assert two.returncode == 0, two.stdout + two.stderr
+    assert "instances: 2 rank groups" in two.stdout
+    assert len([l for l in two.stdout.splitlines() if l.startswith("req")]) == 4
+    bad = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--tp", "2",
+         "--arch", "whisper-medium", "--device", "cpu"],
         capture_output=True, text=True, env=env, cwd=str(ROOT), timeout=120)
-    assert bad.returncode != 0 and "item 6" in bad.stderr
+    assert bad.returncode != 0 and "sequential Engine" in bad.stderr
 
 
 def test_serve_cli_open_loop_predictive_on_the_cpu():

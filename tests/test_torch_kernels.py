@@ -300,7 +300,11 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
         ops.rmsnorm(fq, scale)
     with pytest.raises(ValueError, match="unsupported device"):
         ops.rmsnorm(fq, scale, residual=fq)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.rmsnorm_split(fq, scale, 1e-6, 32, lambda s: s)
     ops.rmsnorm(torch.ones((3, 16)), torch.ones(16))
+    ops.rmsnorm_split(torch.ones((3, 16)), torch.ones(16), 1e-6, 32,
+                      lambda s: s)
     ops.rmsnorm(torch.ones((3, 16)), torch.ones(16), residual=torch.ones((3, 16)))
     ops.flash_attention(torch.zeros((1, 4, 8, 16)), torch.zeros((1, 2, 8, 16)),
                         torch.zeros((1, 2, 8, 16)))
@@ -310,7 +314,7 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
                                    "flash_attention_bwd": 0,
                                    "paged_decode_attention": 0, "rmsnorm": 0,
                                    "rmsnorm_bwd": 0, "rmsnorm_fused": 0,
-                                   "ssd_scan": 0}
+                                   "rmsnorm_split": 0, "ssd_scan": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -229,13 +229,19 @@ def test_engine_raises_for_later_slices(models):
     with pytest.raises(TypeError, match="ForkSession"):
         ContinuousBatchingEngine(tm, object(), n_slots=1, max_len=16)
     # a sharding plan serves the dense and moe families, and an adapter
-    # bank under it (the rank's shard); zamba under a plan still waits for
-    # its item
+    # bank under it (the rank's shard); zamba and xLSTM under a plan too,
+    # over the dense pool; whisper under a plan raises: enc-dec serves
+    # through the sequential Engine, which takes no plan
     from repro_torch.distributed import ServingMesh, serving_plan
     from repro_torch.models.adapters import make_adapter_bank
     plan = serving_plan(ServingMesh(1, 2), rank=0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        torch_smoke("zamba2-2.7b", device="cpu", plan=plan)
+    zamba = torch_smoke("zamba2-2.7b", device="cpu", plan=plan)
+    zeng = ContinuousBatchingEngine(zamba, zamba.init_params(), n_slots=1,
+                                    max_len=16, plan=plan)
+    assert not zeng.paged
+    assert zeng.pool.cache["mamba"]["h"].shape[2] == zamba.cfg.ssm_heads // 2
+    with pytest.raises(NotImplementedError, match="sequential Engine"):
+        torch_smoke("whisper-medium", device="cpu", plan=plan)
     sharded = torch_smoke("smollm-135m", device="cpu", n_layers=2, plan=plan)
     bank = make_adapter_bank(sharded, ("blocks.attn.wq", "blocks.attn.wo"),
                              3, 4)

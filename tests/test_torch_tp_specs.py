@@ -73,22 +73,27 @@ MOE_DIFFS = {"smoke": {**ONE_KV_DIFFS, **ROUTER_DIFF},
 PHI, DSV3 = "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
 
 
-def _param_diffs(jm, tm) -> dict:
+def _param_diffs(jm, tm, with_parts: bool = False) -> dict:
+    """{JAX path: (JAX's spec, the port's)} where they differ;
+    ``with_parts`` also lists every port spec that cuts a dimension in
+    uneven parts (its ``parts`` third), which JAX's even split is not."""
     jspecs = jax.tree_util.tree_leaves_with_path(
         jax_sharding.param_specs(jm, MESH),
         is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
     tspecs = dict(named_leaves(sharding.param_specs(tm, MESH)))
-    lengths = group_lengths(transformer.param_specs(tm.cfg))
+    lengths = group_lengths(tm.param_specs())
     out = {}
     for p, spec in jspecs:
         path = path_str(p)
         names = port_names(path, lengths)
         want = tuple(spec)[1:] if names != [path] else tuple(spec)
-        got = {tuple(tspecs[n]) for n in names}
+        got = {(tuple(tspecs[n]), tspecs[n].parts) for n in names}
         assert len(got) == 1, path           # every layer alike
-        got = got.pop()
+        got, parts = got.pop()
         want = want + (None,) * (len(got) - len(want))
-        if got != want:
+        if with_parts and (got != want or parts):
+            out[path] = (want, got, parts)
+        elif got != want:
             out[path] = (want, got)
     assert set(tspecs) == {n for p, _ in jspecs
                            for n in port_names(path_str(p), lengths)}
@@ -365,13 +370,20 @@ def test_kernels_check_the_ranks_heads():
     assert sharding.local_heads() is None
 
 
-@pytest.mark.parametrize("arch,item", [("whisper-medium", "item 6"),
-                                       ("zamba2-2.7b", "item 6"),
-                                       ("xlstm-1.3b", "item 6")])
+@pytest.mark.parametrize("arch,item", [("whisper-medium", "sequential Engine"),
+                                       ("zamba2-2.7b", None),
+                                       ("xlstm-1.3b", None)])
 def test_other_families_under_a_plan_name_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_smoke_model(arch, device="cpu",
-                        plan=sharding.serving_plan(MESH, rank=0))
+    """zamba and xLSTM build under a plan (the rank's heads); whisper
+    raises naming the reference's own limit: enc-dec serves through the
+    sequential ``Engine``, which takes no plan."""
+    plan = sharding.serving_plan(MESH, rank=0)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            get_smoke_model(arch, device="cpu", plan=plan)
+        return
+    model = get_smoke_model(arch, device="cpu", plan=plan)
+    assert model.local_cfg.n_heads == model.cfg.n_heads // 2
 
 
 def test_data_axis_and_training_specs_name_their_items():
@@ -504,3 +516,175 @@ def test_fused_qkv_logits_match_jax_on_one_device():
     got, _ = tm.prefill(tp, {"tokens": toks}, tm.make_cache(1, 16))
     want = np.asarray(want)
     assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+# zamba, xLSTM and whisper: where the port places a leaf otherwise than the
+# JAX heuristic at tp = 2, as (JAX's spec, the port's, the port's uneven
+# parts).  The norms are replicated and the output projections split by
+# rows as in the dense family; besides:
+#   * Mamba2's B and C columns (of in_proj and conv_w, and the conv
+#     window) whole on every rank: every head reads them (one group); JAX
+#     cuts the fused columns evenly;
+#   * the mLSTM's x_inner whole (the first half of up_proj, conv_w and
+#     the conv window): wq / wk / wv contract over all of it, so a split
+#     would cost an all-gather per block; each rank computes its extra
+#     D x d_inner product instead (~11% of a block's weights at
+#     xlstm-1.3b), no collective;
+#   * the mLSTM's gates (w_if, b_if) split per gate by heads, the sLSTM's
+#     block-diagonal r by heads (JAX: its last axis), and the sLSTM
+#     post-MLP replicated where 2 does not divide its width (85 at the
+#     smoke d_model 64);
+#   * whisper: the output biases, LayerNorms and dec_pos replicated, and
+#     at full width the embedding (its vocabulary 51,865 is odd; JAX
+#     splits d_model).
+_NORM = (("model",), (None,), None)
+_ROWS = ((None, "model"), ("model", None), None)
+
+
+def _ssm_diffs(cfg) -> dict:
+    if cfg.family == "zamba":
+        di, bc, H = cfg.mamba_width, 2 * cfg.ssm_state, cfg.ssm_heads
+        return {
+            "final_norm": _NORM, "mamba.norm": _NORM,
+            "shared_attn.attn_norm": _NORM, "shared_attn.mlp_norm": _NORM,
+            "shared_attn.attn.wo": _ROWS,
+            "mamba.mixer.in_proj": ((None, "model"), (None, "model"),
+                                    ((di, 2), (di, 2), (bc, 1), (H, 2))),
+            "mamba.mixer.conv_w": ((None, "model"), (None, "model"),
+                                   ((di, 2), (bc, 1)))}
+    di, H = cfg.mlstm_input_width, cfg.n_heads
+    out = {
+        "final_norm": _NORM, "mlstm.norm": _NORM, "slstm.norm": _NORM,
+        "slstm.mlp_norm": _NORM,
+        "mlstm.mixer.conv_w": ((None, "model"), (None, None), None),
+        "mlstm.mixer.up_proj": ((None, "model"), (None, "model"),
+                                ((di, 1), (di, 2))),
+        "mlstm.mixer.w_if": (("model", None), (None, "model"),
+                             ((H, 2), (H, 2))),
+        "mlstm.mixer.b_if": (("model",), ("model",), ((H, 2), (H, 2))),
+        "slstm.mixer.r": ((None, None, "model"), ("model", None, None), None)}
+    if not sharding.slstm_mlp_split(cfg, 2):
+        out.update({
+            "slstm.mixer.mlp.w_gate": (("model", None), (None, None), None),
+            "slstm.mixer.mlp.w_up": (("model", None), (None, None), None),
+            "slstm.mixer.mlp.w_down": ((None, "model"), (None, None), None)})
+    return out
+
+
+def _whisper_diffs(full: bool) -> dict:
+    out = {"dec_pos": ((None, "model"), (None, None), None),
+           "enc_ln.bias": _NORM, "enc_ln.scale": _NORM,
+           "dec_ln.bias": _NORM, "dec_ln.scale": _NORM,
+           "enc_blocks.attn.wo": _ROWS, "enc_blocks.attn.bo": _NORM,
+           "enc_blocks.mlp.b2": _NORM, "dec_blocks.mlp.b2": _NORM}
+    for ln in ("ln1", "ln2"):
+        for leaf in ("bias", "scale"):
+            out[f"enc_blocks.{ln}.{leaf}"] = _NORM
+    for ln in ("ln1", "ln2", "ln3"):
+        for leaf in ("bias", "scale"):
+            out[f"dec_blocks.{ln}.{leaf}"] = _NORM
+    for attn in ("self_attn", "cross_attn"):
+        out[f"dec_blocks.{attn}.wo"] = _ROWS
+        out[f"dec_blocks.{attn}.bo"] = _NORM
+    if full:
+        out["embed"] = ((None, "model"), (None, None), None)
+    return out
+
+
+ZAMBA, XLSTM, WHISPER = "zamba2-2.7b", "xlstm-1.3b", "whisper-medium"
+
+
+@pytest.mark.parametrize("arch", [ZAMBA, XLSTM, WHISPER])
+@pytest.mark.parametrize("size", ["smoke", "full"])
+def test_recurrent_and_encdec_param_specs_differ_from_jax_only_as_listed(
+        arch, size):
+    if size == "smoke":
+        jm, tm = jax_smoke(arch), get_smoke_model(arch, device="cpu")
+    else:
+        jm, tm = jax_model(arch), get_model(arch, device="cpu")
+    want = (_whisper_diffs(size == "full") if arch == WHISPER
+            else _ssm_diffs(tm.cfg))
+    assert _param_diffs(jm, tm, with_parts=True) == want
+
+
+@pytest.mark.parametrize("arch", [ZAMBA, XLSTM, WHISPER])
+@pytest.mark.parametrize("size", ["smoke", "full"])
+def test_recurrent_and_encdec_cache_specs_against_jax(arch, size):
+    """The recurrent states by heads as in JAX, zamba's ``attn_kv`` and
+    whisper's ``self_kv`` / ``cross_kv`` by heads as in JAX; Mamba2's conv
+    window keeps B and C whole and the mLSTM's is whole (its weight's
+    placement)."""
+    if size == "smoke":
+        jm, tm = jax_smoke(arch), get_smoke_model(arch, device="cpu")
+    else:
+        jm, tm = jax_model(arch), get_model(arch, device="cpu")
+    got = dict(named_leaves(sharding.cache_specs(
+        tm, tm.make_cache(4, 16, device="meta"), MESH, batch=4)))
+    want = {path_str(p): s for p, s in jax.tree_util.tree_leaves_with_path(
+        jax_sharding.cache_specs(jm, jm.make_cache(4, 16, abstract=True),
+                                 MESH, batch=4),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))}
+    assert set(got) == set(want)
+    diff = {k: (tuple(want[k]), tuple(v), v.parts) for k, v in got.items()
+            if tuple(v) != tuple(want[k]) or v.parts}
+    cfg = tm.cfg
+    expect = {
+        ZAMBA: {"mamba.conv": ((None, "data", None, "model"),) * 2 + (
+            ((cfg.mamba_width, 2), (2 * cfg.ssm_state, 1)),)},
+        XLSTM: {"mlstm.conv": ((None, "data", None, "model"),
+                               (None, "data", None, None), None)},
+        WHISPER: {}}[arch]
+    assert diff == expect
+
+
+@pytest.mark.parametrize("arch,extra", [(ZAMBA, {}), (XLSTM, {}),
+                                        (XLSTM, {"d_model": 96})],
+                         ids=["zamba", "xlstm", "xlstm-split"])
+def test_sharded_init_keeps_each_ranks_ssm_heads(arch, extra):
+    """``init_params`` under a plan for the recurrent families: the ranks'
+    shards of every leaf, put back together per its spec (uneven parts
+    too), are the one-device draw."""
+    single = get_smoke_model(arch, device="cpu", **extra)
+    one = dict(named_leaves(single.init_params(seed=4)))
+    specs = dict(named_leaves(sharding.config_param_specs(single.cfg, 2)))
+    ranks = []
+    for r in range(2):
+        plan = sharding.serving_plan(MESH, rank=r)
+        model = get_smoke_model(arch, device="cpu", plan=plan, **extra)
+        ranks.append(dict(named_leaves(model.init_params(seed=4))))
+    for path, full in one.items():
+        for r in range(2):
+            plan = sharding.serving_plan(MESH, rank=r)
+            assert torch.equal(ranks[r][path],
+                               plan.shard(full, specs[path])), (path, r)
+
+
+def test_zamba_lora_delta_spec_names_the_shared_block():
+    """A merged LoRA delta on zamba targets its shared block: its spec is
+    ``shared_attn.attn.*``'s."""
+    cfg = get_smoke_model(ZAMBA, device="cpu").cfg
+    specs = dict(named_leaves(sharding.config_param_specs(cfg, 2)))
+    for name in TARGETS:
+        assert sharding.lora_delta_spec(cfg, name, 2) == \
+            specs[f"shared_attn.attn.{name}"]
+
+
+def test_whisper_specs_validate_and_the_tp_checks_of_the_families():
+    """Whisper's specs divide its full shapes; ``check_tp`` accepts
+    zamba2-2.7b and xlstm-1.3b at 2 and raises where Mamba2's or the
+    xLSTM's heads do not split."""
+    from repro_torch.models import encdec
+    cfg = get_model(WHISPER, device="cpu").cfg
+    assert sharding.validate_specs(sharding.config_param_specs(cfg, 2),
+                                   encdec.param_specs(cfg), MESH) == []
+    for arch in (ZAMBA, XLSTM):
+        full = get_model(arch, device="cpu").cfg
+        sharding.check_tp(full, 2)
+        assert sharding.validate_specs(
+            sharding.config_param_specs(full, 2),
+            transformer.param_specs(full), MESH) == []
+    with pytest.raises(ValueError, match="80 Mamba2 heads"):
+        sharding.check_tp(get_model(ZAMBA, device="cpu").cfg.replace(
+            n_heads=64, n_kv_heads=64), 32)
+    with pytest.raises(ValueError, match="4 query heads"):
+        sharding.check_tp(get_model(XLSTM, device="cpu").cfg, 8)
