@@ -268,7 +268,26 @@ Phases, in order; any failure raises and the process exits non-zero:
    each bucket; then the port's ``ClusterSim`` with that table as its
    oracle over a seeded trace under ``serverlessllm``, ``tidal`` and
    ``tidal-dk`` (``summarize`` printed; every lookup served from the
-   table).
+   table);
+17. train_tp: llama3-8b at full width (4,096 wide, 32 / 8 heads, d_ff
+   14,336, vocabulary 128,256; fp32, remat, as the training CLI; 2 of 32
+   layers for the script's time) trained from one seed's weights for 3
+   steps at 4 x 128 three ways on the card: one process, tp = 2 (2 ranks)
+   and FSDP over ``ServingMesh(2, 2)`` (4 ranks), all in one spawn of 4
+   gloo ranks (``spawn(..., data=2)``; rank 0 runs the one process, then
+   ranks 0 and 1 the tp = 2 run over their model-axis group, then all
+   four the FSDP run) through ``make_train_step`` under
+   ``group.training_plan``.  Held against the one process: step 1's loss
+   (1e-5 relative) and every gradient leaf put back together from the
+   ranks' pieces (1e-4 of its largest), the grad norms (1e-4), the
+   parameters after 3 steps (1e-5 where AdamW is well conditioned, the
+   criterion of ``train_parity``); exact kernel launches per rank per
+   step (flash 2L, rmsnorm 4L + 1 with 2L fused, flash backward L,
+   rmsnorm backward 2L + 1), exact collectives per step by kind with
+   their bytes (``train_tp_collectives``) and each rank's bytes of
+   parameters and optimizer state against ``train_tp_state_bytes``.
+   Printed: ms per step per rank, its collective ms (gloo through the
+   host: no measure of tensor-parallel speed) and peak allocation.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Detailed results go to
@@ -4404,13 +4423,15 @@ def _check_launches(tag: str, counts: list, wants: list) -> None:
             raise AssertionError(f"{tag} rank {r}: launches {got}, want {want}")
 
 
-def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
-             lora_logits: bool = False) -> dict:
-    """One ``FaaSRuntime`` over the group's mesh: deploy with the template
-    prompt, then cold, fork, a prefix hit and warm, each invocation's
-    launches per rank read alone (counts set to 0 on every rank just
-    before it).  ``lora_logits``: the first prefill's logits through
-    row 1 of ``tp_lora_bank`` too."""
+def _tp_pass(group, fn, model, kv_dtype, tpl, reqs, server,
+             lora_logits: bool = False, faults: bool = False) -> dict:
+    """One ``FaaSRuntime`` over the group's mesh and the case's template
+    ``server`` (every pass of a case deploys from the host pool its first
+    deploy packed): deploy with the template prompt, then cold, fork, a
+    prefix hit and warm, each invocation's launches per rank read alone
+    (counts set to 0 on every rank just before it).  ``lora_logits``:
+    the first prefill's logits through row 1 of ``tp_lora_bank`` too.
+    ``faults``: then ``_tp_fetch_faults``."""
     from repro_torch.models import moe
     from repro_torch.runtime import FaaSRuntime
     from repro_torch.runtime.gateway import InvocationRequest
@@ -4418,9 +4439,11 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
     L = cfg.n_layers
     paged = model.supports_paged_kv
     want = _want_launches(cfg, 1, TP_NEW - 1, group.size)
-    rt = FaaSRuntime(mesh=group.mesh, device=group.device, n_slots=4,
-                     max_len=TP_PROMPT + TP_NEW + 24, page_size=PAGE_SIZE,
-                     trace_seq=TP_PROMPT, kv_dtype=kv_dtype, keep_alive_s=3600)
+    rt = FaaSRuntime(server=server, mesh=group.mesh, device=group.device,
+                     n_slots=4, max_len=TP_PROMPT + TP_NEW + 24,
+                     page_size=PAGE_SIZE, kv_dtype=kv_dtype,
+                     keep_alive_s=3600)
+    packed = server.host_buffers.get(fn.name)
     t0 = time.perf_counter()
     # zamba and xLSTM serve over the dense slot pool, which bakes no
     # template prefix: their third invocation is a plain warm one
@@ -4428,6 +4451,7 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
               prewarm_seq=TP_PROMPT)
     out = {"pass": "int8" if kv_dtype else "paged",
            "deploy_s": time.perf_counter() - t0,
+           "host_pool_reused": server.host_buffers[fn.name] is packed,
            "memory_after_deploy": group.gather(_rank_memory, rt.server),
            "requests": []}
     rt.gateway.start_pump()
@@ -4472,6 +4496,9 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
             raise AssertionError("tp: the template prefix was not reused")
         if out["requests"][3]["tokens"] != out["requests"][0]["tokens"]:
             raise AssertionError("tp: warm tokens differ from cold's")
+        if faults:
+            out["faults"] = _tp_fetch_faults(group, rt, fn, reqs[1][1],
+                                             out["requests"][1]["tokens"])
     finally:
         rt.gateway.stop_pump()
     if kv_dtype is None:
@@ -4494,6 +4521,62 @@ def _tp_pass(group, fn, model, kv_dtype, tpl, reqs,
     rt.evict()
     del rt
     group.gather(_rank_release)
+    return out
+
+
+def _rank_fired() -> list:
+    """This rank's log of the installed fault plan."""
+    from repro_torch.runtime.faults import active_fault_plan
+    return [(f["point"], f["visit"]) for f in active_fault_plan().fired]
+
+
+def _tp_fetch_faults(group, rt, fn, prompt, want: list) -> dict:
+    """A ``weight_fetch`` fault in a fork's streamer on every rank (the
+    plan is installed on every rank, ``runtime.faults``): transient (the
+    first fetch fails once and is retried: the fork's tokens equal the
+    fault-free fork's), then permanent (three failures exhaust the
+    streamer's two retries: the invocation fails typed with no request
+    retry left, the workers serve on, and the next invocation is
+    served with the fault-free tokens).  Every rank's log is read."""
+    from repro_torch.runtime.errors import EngineFailure, WeightFetchFault
+    from repro_torch.runtime.faults import FaultPlan, FaultSpec, use_fault_plan
+    from repro_torch.runtime.gateway import InvocationRequest
+    out = {}
+    for name, times in (("transient", 1), ("permanent", 3)):
+        rt.evict(fn.name)
+        plan = FaultPlan([FaultSpec("weight_fetch", at=0, times=times)])
+        t0 = time.perf_counter()
+        with use_fault_plan(plan):
+            h = rt.submit(InvocationRequest(fn.name, prompt,
+                                            max_new_tokens=TP_NEW,
+                                            max_retries=0))
+            try:
+                res = h.result()
+                row = {"status": res.status, "kind": res.kind,
+                       "tokens_equal": res.tokens.tolist() == want}
+            except EngineFailure as e:
+                row = {"status": h.status, "error": type(e).__name__,
+                       "cause": type(e.__cause__).__name__}
+            row["fired_per_rank"] = group.gather(_rank_fired)
+        row["s"] = time.perf_counter() - t0
+        nxt = rt.submit(InvocationRequest(fn.name, prompt,
+                                          max_new_tokens=TP_NEW)).result()
+        row["next"] = {"kind": nxt.kind,
+                       "tokens_equal": nxt.tokens.tolist() == want}
+        visits = [v for _, v in row["fired_per_rank"][0]]
+        ok = (row["fired_per_rank"] == [row["fired_per_rank"][0]] * group.size
+              and row["next"]["tokens_equal"])
+        if name == "transient":
+            ok = ok and row.get("tokens_equal") and visits == [0]
+        else:
+            ok = ok and (row.get("error"), row.get("cause")) == (
+                EngineFailure.__name__, WeightFetchFault.__name__) \
+                and visits == [0, 1, 2]
+        print(json.dumps({"tp_fault": {"case": name, "tp": group.size,
+                                       **row}}))
+        if not ok:
+            raise AssertionError(f"tp weight_fetch fault ({name}): {row}")
+        out[name] = row
     return out
 
 
@@ -4672,6 +4755,7 @@ def _tp_rank(group, cases: tuple) -> dict | None:
     ``(tag, architecture, configuration, arenas)``, every rank builds its
     function (``group.build``), then a pass per arena (None: the model's
     dtype) runs on the controller."""
+    from repro_torch.core.template_server import TemplateServer
     from repro_torch.models.registry import get_config
     from repro_torch.utils import tree_bytes
     if not group.is_controller:
@@ -4711,10 +4795,17 @@ def _tp_rank(group, cases: tuple) -> dict | None:
                                  f"rank, reckoned {info['reckoned_bytes']}")
         print(json.dumps({"tp_model": {"case": tag, **info}}))
         tpl, reqs = tp_requests(cfg.vocab_size)
+        # one template server per case: its passes deploy from one host
+        # pool, packed and page-locked once
+        server = TemplateServer(trace_batch=1, trace_seq=TP_PROMPT,
+                                plan=group.plan)
         out[tag] = {"model": info,
-                    "passes": [_tp_pass(group, fn, model, kv, tpl, reqs,
-                                        lora_logits=tag == TP_LORA_BF16_CASE)
-                               for kv in arenas]}
+                    "passes": [_tp_pass(group, fn, model, kv, tpl, reqs, server,
+                                        lora_logits=tag == TP_LORA_BF16_CASE,
+                                        faults=(tag == TP_FAULT_CASE and i == 0
+                                                and group.size > 1))
+                               for i, kv in enumerate(arenas)]}
+        del server
         if tag == TP_LORA_CASE:
             out[tag]["lora"] = _tp_lora(group, fn, model, arch, replace)
         del fn, model
@@ -4900,6 +4991,8 @@ TP_CASES = (("fp32_2layers", "llama3-8b", {"n_layers": 2, "dtype": "float32"},
              (None,)))
 # the case whose tp = 1 and tp = 2 runs serve LoRA too (``_tp_lora``)
 TP_LORA_CASE = "fp32_2layers"
+# the case whose first pass at tp = 2 takes the weight_fetch faults
+TP_FAULT_CASE = "fp32_2layers"
 # what one rank holds at tp = 2: (query heads, KV heads), whole experts
 TP_LOCAL = {"llama3-8b": ([16, 4], 0), PHI_ARCH: ([16, 4], 8),
             DSV3_ARCH: ([64, 64], 128), ZAMBA_ARCH: ([16, 16], 0),
@@ -4958,6 +5051,16 @@ def phase_tp(device) -> dict:
                       "ranks on one device (Duplicate GPU detected)"}))
     runs = {1: tp_run(1), TP: tp_run(TP)}
     instances = tp_instances_run()
+    # deploys from one host pool per case: a case's first pass packs and
+    # page-locks it, its int8 pass reuses it (PR 27 packed it per pass)
+    deploys = {str(k): {kind: [p["deploy_s"] for tag, *_ in TP_CASES
+                               for p in v[tag]["passes"]
+                               if p["host_pool_reused"] == reused]
+                        for kind, reused in (("packed", False),
+                                             ("reused", True))}
+               for k, v in runs.items()}
+    print(json.dumps({"tp_deploys": deploys}))
+    out["deploys"] = deploys
     out["wall_s"] = {str(k): v["wall_s"] for k, v in runs.items()}
     out["wall_s"]["instances"] = instances["wall_s"]
     out["guard_ops"] = runs[TP]["guard_ops"]
@@ -5335,6 +5438,412 @@ def phase_cluster(device, h2d: float) -> dict:
     return out
 
 
+# phase 17: training under a sharding plan (llama3-8b at full width, fp32
+# as the training CLI trains, 2 of 32 layers for the script's time)
+TRAIN_TP_ARCH = "llama3-8b"
+TRAIN_TP_LAYERS = 2
+TRAIN_TP_BATCH, TRAIN_TP_SEQ, TRAIN_TP_STEPS = 4, 128, 3
+TRAIN_TP_SEED, TRAIN_TP_DATA_SEED = 7, 11
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, TRAIN_STATE_TOL = 1e-5, 1e-4, 1e-5
+
+
+def train_tp_config():
+    from repro_torch.models.registry import get_config
+    return get_config(TRAIN_TP_ARCH).replace(n_layers=TRAIN_TP_LAYERS,
+                                             dtype="float32")
+
+
+def train_tp_collectives(cfg, rows: int, seq: int, data_mean: bool,
+                         shard_bytes: list) -> dict:
+    """Collectives of one training step of a dense model at tp = 2 (a
+    vocab-parallel head, K/V heads split, remat) over ``rows`` rows per
+    rank, by kind: (calls, bytes).  all_reduce: the embedding's sum, the
+    attention and MLP sums per layer (2L), the recomputed attention sums
+    (L: remat stops at the last tensor a block's backward reads), the
+    copy ops' sums backward (q / k / v input and MLP input per layer, and
+    the head's input: 2L + 1), all of ``[rows, S, D]`` fp32; the loss's
+    max ``[rows, S]`` and its ``[2, rows, S]`` sum; the global norm (one
+    fp32); under FSDP the loss metric's mean (one fp32).  FSDP's
+    all_gather: every leaf twice (forward, and the recomputation or the
+    backward's first read), its model shard's bytes each time;
+    reduce_scatter: every gradient once, the same bytes
+    (``shard_bytes``: each leaf's model-shard bytes; empty at tp = 2)."""
+    L, D = cfg.n_layers, cfg.d_model
+    act = rows * seq * D * 4
+    big = 1 + 2 * L + L + 2 * L + 1
+    out = {"all_reduce": (big + 2 + 1 + int(data_mean),
+                          big * act + rows * seq * 4 + 2 * rows * seq * 4 + 4
+                          + 4 * int(data_mean))}
+    if shard_bytes:
+        out["all_gather"] = (2 * len(shard_bytes), 2 * sum(shard_bytes))
+        out["reduce_scatter"] = (len(shard_bytes), sum(shard_bytes))
+    return out
+
+
+def train_tp_state_bytes(cfg, plan) -> int:
+    """Bytes of parameters, ``m`` and ``v`` (fp32) and the step counter
+    one rank holds: each leaf's bytes over the pieces its spec cuts it
+    into (1 / (tp data) of a leaf split over both axes, whole for a leaf
+    replicated over both)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.models import transformer
+    from repro_torch.utils import named_leaves
+    specs = dict(named_leaves(sharding.plan_param_specs(cfg, plan)))
+    total = 0
+    for path, leaf in named_leaves(transformer.param_specs(cfg)):
+        pieces = 1
+        for entry in specs[path]:
+            if entry == "model":
+                pieces *= plan.mesh.model
+            elif entry == "data":
+                pieces *= plan.mesh.data
+        total += 3 * leaf.numel() * 4 // pieces
+    return total + 4
+
+
+def _train_tp_batches(cfg) -> list:
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    it = iter(TokenStream(DataConfig(cfg.vocab_size, TRAIN_TP_SEQ,
+                                     TRAIN_TP_BATCH, seed=TRAIN_TP_DATA_SEED)))
+    return [next(it) for _ in range(TRAIN_TP_STEPS)]
+
+
+def _train_tp_reference(cfg, opt, batches, device) -> dict:
+    """The one-process run (rank 0): 3 steps, each with its gradients,
+    exact launches per step; kept on the host: step 1's gradients, the
+    parameters after the last step and where AdamW was well conditioned
+    at every step (the clipped gradient at least 1e-3 of its leaf's
+    largest and 1e3 eps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import adamw_update, init_opt_state
+    from repro_torch.utils import named_leaves, unflatten_like
+    model = get_model(cfg, device=device)
+    params = model.init_params(TRAIN_TP_SEED, draw_on_device=True)
+    opt_state = init_opt_state(params, opt)
+    names = [n for n, _ in named_leaves(params)]
+    held, rows, grads1 = None, [], None
+    for i, b in enumerate(batches):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        leaves = [t for _, t in named_leaves(params)]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = model.loss(params, b)
+        grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        params, opt_state, m = adamw_update(
+            params, unflatten_like(params, iter(grads)), opt_state, opt)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "loss": float(loss.detach()),
+                     "grad_norm": float(m["grad_norm"]),
+                     "launches": ops.launch_counts()})
+        clip = min(1.0, opt.clip_norm / float(m["grad_norm"]))
+        ok = [g.abs() * clip >= max(1e-3 * float(g.abs().max()) * clip,
+                                    1e3 * opt.eps) for g in grads]
+        held = ok if held is None else [a & b for a, b in zip(held, ok)]
+        if i == 0:
+            grads1 = {n: g.cpu() for n, g in zip(names, grads)}
+        del grads, loss, leaves
+    check_train_launches_rows(rows, cfg, "train_tp one process")
+    out = {"rows": rows, "grads1": grads1,
+           "params": {n: t.cpu() for n, t in named_leaves(params)},
+           "held": {n: h.cpu() for n, h in zip(names, held)},
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, opt_state, model, held
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_train_launches_rows(rows: list, cfg, where: str) -> None:
+    for i, r in enumerate(rows):
+        check_train_launches(r["launches"],
+                             smollm_train_launches(cfg.n_layers), 1,
+                             f"{where} step {i + 1}")
+
+
+def _compare_pieces(plan, cfg, tree, want: dict | None, masked: bool = False,
+                    held: dict | None = None) -> dict:
+    """Every rank's piece of every leaf against the same piece of the one
+    process's ``want`` (host tensors on the plan's first rank), sent to
+    the rank that holds it (``dist.scatter`` through the host) and
+    compared there on the card: per leaf, max |got - want| over the
+    leaf's largest |want|; ``masked``, over the elements ``held`` marks
+    only: their max |got - want| and whether each is within
+    ``TRAIN_STATE_TOL`` (1 + |want|).  ``masked`` is the same on every
+    rank, ``want`` and ``held`` are the first rank's.  The first rank's
+    {leaf: result}; None elsewhere."""
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding
+    from repro_torch.utils import named_leaves
+    specs = dict(named_leaves(sharding.plan_param_specs(cfg, plan)))
+    first = plan.world_rank == 0
+    src = dist.get_global_rank(plan.world_group, 0)
+    plans = [sharding.training_plan(plan.mesh, rank=r % plan.mesh.model,
+                                    data_rank=r // plan.mesh.model,
+                                    fsdp=plan.fsdp, mode=plan.mode)
+             for r in range(plan.mesh.size)] if first else None
+
+    def mine(full_of, dtype):
+        recv = torch.empty(tuple(t.shape), dtype=dtype)
+        dist.scatter(recv, [p.shard(full_of, specs[path]).to(dtype).contiguous()
+                            for p in plans] if first else None,
+                     src=src, group=plan.world_group)
+        return recv.to(t.device)
+
+    local = {}
+    for path, t in named_leaves(tree):
+        w = mine(want[path] if first else None, torch.float32)
+        diff = (t.detach().float() - w).abs()
+        if not masked:
+            local[path] = (float(diff.max()), float(w.abs().max()))
+        else:
+            h = mine(held[path] if first else None, torch.uint8).bool()
+            local[path] = (float(diff[h].max()) if bool(h.any()) else 0.0,
+                           bool((diff <= TRAIN_STATE_TOL * (1 + w.abs()))[h].all()),
+                           int(h.sum()), h.numel())
+        del w, diff
+    ranks = [None] * plan.mesh.size if first else None
+    dist.gather_object(local, ranks, dst=src, group=plan.world_group)
+    if not first:
+        return None
+    out = {}
+    for path in local:
+        parts = [r[path] for r in ranks]
+        if not masked:
+            out[path] = max(p[0] for p in parts) / max(
+                max(p[1] for p in parts), 1e-30)
+        else:
+            out[path] = {"max_abs": max(p[0] for p in parts),
+                         "within": all(p[1] for p in parts),
+                         "held": sum(p[2] for p in parts),
+                         "size": sum(p[3] for p in parts)}
+    return out
+
+
+def _train_tp_run(group, plan, cfg, opt, batches, ref) -> dict | None:
+    """One sharded run on the plan's ranks: the rank's pieces of the seed's
+    weights (drawn leaf by leaf on the card), step 1 with its gradients
+    read, then ``make_train_step`` for every later batch; held against
+    the one process's ``ref`` on the plan's first rank."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import shard_rows
+    from repro_torch.distributed import fsdp, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.optimizer import adamw_update, init_opt_state
+    from repro_torch.train.train_loop import make_train_step
+    from repro_torch.utils import named_leaves, tree_bytes, unflatten_like
+    torch.cuda.reset_peak_memory_stats()
+    model = get_model(cfg, device=group.device, plan=plan)
+    params = model.init_params(TRAIN_TP_SEED, draw_on_device=True)
+    state = {"params": params,
+             "opt": init_opt_state(params, opt, model.layout)}
+    state_bytes = tree_bytes(state["params"]) + tree_bytes(state["opt"])
+    # step 1 by hand, to read its gradients: the pieces' gradients (the
+    # FSDP backward's mean included), then the optimizer under the layout,
+    # as make_train_step does
+    leaves = [t for _, t in named_leaves(params)]
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = model.loss(params, shard_rows(batches[0], plan.data_rank, plan.data))
+    grads = torch.autograd.grad(loss, leaves)
+    for t in leaves:
+        t.requires_grad_(False)
+    model.layout.end_step()
+    loss1 = float(fsdp.batch_mean(loss.detach(), model.layout))
+    names = [n for n, _ in named_leaves(params)]
+    grad_err = _compare_pieces(plan, cfg, dict(zip(names, grads)),
+                               ref and ref["grads1"])
+    new, new_opt, m1 = adamw_update(params, unflatten_like(params, iter(grads)),
+                                    state["opt"], opt, model.layout)
+    state = {"params": new, "opt": new_opt}
+    del grads, loss, leaves, params, new, new_opt
+    step = make_train_step(model, opt)
+    rows = []
+    for b in batches[1:]:
+        ops.reset_launch_counts()
+        sharding.reset_collective_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        coll = sharding.collective_stats()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "collective_ms": coll["seconds"] * 1e3,
+                     "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]),
+                     "launches": ops.launch_counts(),
+                     "collectives": coll})
+    param_err = _compare_pieces(plan, cfg, dict(named_leaves(state["params"])),
+                                ref and ref["params"], masked=True,
+                                held=ref and ref["held"])
+    mine = {"rows": rows, "state_bytes": state_bytes,
+            "grad_norm1": float(m1["grad_norm"]),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+    ranks = [None] * plan.mesh.size if plan.world_rank == 0 else None
+    dist.gather_object(mine, ranks, dst=dist.get_global_rank(
+        plan.world_group, 0), group=plan.world_group)
+    del state, model, step
+    torch.cuda.empty_cache()
+    if plan.world_rank != 0:
+        return None
+    return {"loss1": loss1, "grad_err": grad_err, "param_err": param_err,
+            "ranks": ranks}
+
+
+def _train_tp_rank(group) -> dict | None:
+    """Every rank of phase 17's spawn (see ``phase_train_tp``)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import ServingMesh, training_plan
+    from repro_torch.train.optimizer import OptimizerConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grid = group.training_plan(fsdp=True)          # SPMD from here on
+    cfg = train_tp_config()
+    opt = OptimizerConfig(warmup_steps=1)
+    batches = _train_tp_batches(cfg)
+    ref = None
+    t0 = time.perf_counter()
+    if group.global_rank == 0:
+        ref = _train_tp_reference(cfg, opt, batches, group.device)
+    dist.barrier(group=group.world_group)
+    out = {"one_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    if group.instance == 0:
+        two = training_plan(ServingMesh(1, group.size), rank=group.rank,
+                            group=group.data_group,
+                            world_group=group.data_group)
+        out["tp2"] = _train_tp_run(group, two, cfg, opt, batches, ref)
+    dist.barrier(group=group.world_group)
+    out["tp2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fsdp"] = _train_tp_run(group, grid, cfg, opt, batches, ref)
+    out["fsdp_s"] = time.perf_counter() - t0
+    if group.global_rank != 0:
+        return None
+    out["one"] = {k: ref[k] for k in ("rows", "peak_bytes")}
+    return out
+
+
+def train_tp_check(tag: str, run: dict, one: dict, cfg, plan) -> dict:
+    """Phase 17's checks of one sharded run against the one process."""
+    from repro_torch.distributed import sharding
+    from repro_torch.utils import named_leaves
+    one_rows = one["rows"]
+    if abs(run["loss1"] - one_rows[0]["loss"]) > TRAIN_LOSS_RTOL * abs(
+            one_rows[0]["loss"]):
+        raise AssertionError(f"train_tp {tag}: step 1 loss {run['loss1']} "
+                             f"against {one_rows[0]['loss']}")
+    worst = max(run["grad_err"].items(), key=lambda kv: kv[1])
+    if worst[1] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"train_tp {tag}: gradient {worst}")
+    bad = {n: e for n, e in run["param_err"].items() if not e["within"]}
+    if bad:
+        raise AssertionError(f"train_tp {tag}: parameters after "
+                             f"{TRAIN_TP_STEPS} steps {bad}")
+    for r in run["ranks"]:
+        norms = [r["grad_norm1"]] + [row["grad_norm"] for row in r["rows"]]
+        for i, (norm, ref) in enumerate(zip(norms, one_rows)):
+            if abs(norm - ref["grad_norm"]) > 1e-4 * ref["grad_norm"]:
+                raise AssertionError(f"train_tp {tag} step {i + 1}: grad norm "
+                                     f"{norm} against {ref['grad_norm']}")
+        check_train_launches_rows(r["rows"], cfg, f"train_tp {tag}")
+    shard = []
+    if plan.fsdp:
+        specs = dict(named_leaves(sharding.plan_param_specs(cfg, plan)))
+        from repro_torch.models import transformer
+        for path, leaf in named_leaves(transformer.param_specs(cfg)):
+            model_split = specs[path].model_dim is not None
+            shard.append(leaf.numel() * 4 // (plan.mesh.model if model_split
+                                              else 1))
+    rows_per_rank = TRAIN_TP_BATCH // plan.mesh.data
+    want = train_tp_collectives(cfg, rows_per_rank, TRAIN_TP_SEQ,
+                                plan.mesh.data > 1, shard)
+    state_want = train_tp_state_bytes(cfg, plan)
+    for rank, r in enumerate(run["ranks"]):
+        for i, row in enumerate(r["rows"], start=1):
+            c = row["collectives"]
+            got = {k: (n, None) for k, n in c["kinds"].items()}
+            if {k: n for k, (n, _) in got.items()} != {
+                    k: n for k, (n, _) in want.items()} or c["bytes"] != sum(
+                    b for _, b in want.values()):
+                raise AssertionError(
+                    f"train_tp {tag} rank {rank} step {i + 1}: collectives "
+                    f"{c['kinds']} / {c['bytes']} bytes, reckoned {want}")
+        if r["state_bytes"] != state_want:
+            raise AssertionError(f"train_tp {tag} rank {rank}: "
+                                 f"{r['state_bytes']} bytes of state, "
+                                 f"reckoned {state_want}")
+    summary = {
+        "case": tag, "mesh": [plan.mesh.data, plan.mesh.model],
+        "fsdp": plan.fsdp, "loss1": run["loss1"],
+        "loss1_one": one_rows[0]["loss"],
+        "losses": [run["loss1"]] + [row["loss"]
+                                    for row in run["ranks"][0]["rows"]],
+        "losses_one": [row["loss"] for row in one_rows],
+        "grad_max_rel": worst[1],
+        "param_max_abs": max(e["max_abs"] for e in run["param_err"].values()),
+        "held_share": (sum(e["held"] for e in run["param_err"].values())
+                       / sum(e["size"] for e in run["param_err"].values())),
+        "step_ms_per_rank": [[row["ms"] for row in r["rows"]]
+                             for r in run["ranks"]],
+        "collective_ms_per_rank": [[row["collective_ms"] for row in r["rows"]]
+                                   for r in run["ranks"]],
+        "collectives_per_step": {k: {"calls": n, "bytes": b}
+                                 for k, (n, b) in want.items()},
+        "state_bytes_per_rank": [r["state_bytes"] for r in run["ranks"]],
+        "state_bytes_reckoned": state_want,
+        "peak_bytes_per_rank": [r["peak_bytes"] for r in run["ranks"]],
+        "launches_per_rank_step": run["ranks"][0]["rows"][0]["launches"]}
+    print(json.dumps({"train_tp": summary}))
+    return summary
+
+
+def phase_train_tp(device) -> dict:
+    """Phase 17 (see the module doc): one spawn of 4 gloo ranks sharing
+    the card; the one process, tp = 2 and FSDP over (2, 2), each held
+    against the one process."""
+    from repro_torch.distributed import spawn
+    del device
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    torch.cuda.empty_cache()
+    cfg = train_tp_config()
+    t0 = time.perf_counter()
+    out = spawn(_train_tp_rank, TP, (), data=2, backend=TP_BACKEND,
+                device="cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    one = out["one"]
+    check_train_launches_rows(one["rows"], cfg, "train_tp one process")
+    res = {"card": card, "wall_s": wall,
+           "model": {"arch": TRAIN_TP_ARCH, "layers": cfg.n_layers,
+                     "reduced": f"n_layers 32 -> {cfg.n_layers}",
+                     "dtype": cfg.dtype, "batch": TRAIN_TP_BATCH,
+                     "seq": TRAIN_TP_SEQ, "steps": TRAIN_TP_STEPS},
+           "one": {"step_ms": [r["ms"] for r in one["rows"]],
+                   "losses": [r["loss"] for r in one["rows"]],
+                   "peak_bytes": one["peak_bytes"],
+                   "launches_per_step": one["rows"][0]["launches"]},
+           "seconds": {k: out[k] for k in ("one_s", "tp2_s", "fsdp_s")}}
+    print(json.dumps({"train_tp_one": {"card": card, **res["one"]}}))
+    from repro_torch.distributed.sharding import ServingMesh, training_plan
+    res["tp2"] = train_tp_check("tp2", out["tp2"], one, cfg,
+                                training_plan(ServingMesh(1, TP)))
+    res["fsdp"] = train_tp_check("fsdp_2x2", out["fsdp"], one, cfg,
+                                 training_plan(ServingMesh(2, TP), fsdp=True))
+    res["launch_rows"] = ([{"launches": r["launches"]} for r in one["rows"]]
+                          + [{"launches": row["launches"]}
+                             for key in ("tp2", "fsdp")
+                             for rk in out[key]["ranks"]
+                             for row in rk["rows"]])
+    return res
+
+
 def _strip_logits(run: dict) -> dict:
     return {**run, "passes": [{k: v for k, v in p.items()
                                if k not in ("logits", "lora_logits")}
@@ -5346,16 +5855,18 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                    tidal_row: dict, tenants: dict, ssm: dict,
                    big: tuple = (), xlstm: dict | None = None,
                    whisper: dict | None = None, train: dict | None = None,
-                   tp: dict | None = None, cluster: dict | None = None) -> list:
+                   tp: dict | None = None, cluster: dict | None = None,
+                   train_tp: dict | None = None) -> list:
     """One entry per kernel (and the int8 variant) at the main path's
     shapes, with its launches from the serving phases (3, 5, 6, 7 and 8,
     the serving, engine and FaaS passes of ``big``: phases 9, 10 and 11,
     those of ``xlstm``: phase 12, and ``whisper``'s Engine: phase 13),
     the training runs of phase 14 (``train``; the backward kernels run
     there only), every rank's invocations of phase 15 (``tp``: its
-    passes, its LoRA functions and its two rank groups) and the
+    passes, its LoRA functions and its two rank groups), the
     two instances' invocations and service-time measurements of phase 16
-    (``cluster``)."""
+    (``cluster``) and every rank's training steps of phase 17
+    (``train_tp``)."""
     def pick(**kw):
         return next(r for r in kernels if all(r.get(k) == v for k, v in kw.items()))
 
@@ -5397,6 +5908,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                  for counts in r["launches_per_rank"]]
     if cluster is not None:
         rows += [cluster["instances"], {"launches": cluster["measure_launches"]}]
+    if train_tp is not None:
+        rows += train_tp["launch_rows"]
     for row in rows:
         key = "int8" if row.get("pass") == "int8" else "paged"
         launches[key] += row["launches"]["paged_decode_attention"]
@@ -5531,15 +6044,18 @@ def main(argv=None) -> int:
     kernels += train["kernels"]
     tp = timed("tp", phase_tp, device)
     cluster = timed("cluster", phase_cluster, device, h2d)
+    train_tp = timed("train_tp", phase_train_tp, device)
     summary = kernel_summary(kernels, serve, engine, tidal_row, tenants, ssm,
                              (llama, moe, deepseek), xlstm, whisper, train, tp,
-                             cluster)
+                             cluster, train_tp)
     args.out.mkdir(parents=True, exist_ok=True)
     (args.out / "chip_smoke.json").write_text(json.dumps(
         {"device": dev, "kernels": kernels, "serve": serve, "parity": parity,
          "engine": engine, "tidal": tidal_row, "tenants": tenants, "ssm": ssm,
          "llama": llama, "moe": moe, "deepseek": deepseek, "xlstm": xlstm,
          "whisper": whisper, "train": train, "tp": tp, "cluster": cluster,
+         "train_tp": {k: v for k, v in train_tp.items()
+                      if k != "launch_rows"},
          "summary": summary,
          "phases_s": phases,
          "seconds": time.perf_counter() - t0}, indent=1))

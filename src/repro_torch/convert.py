@@ -103,7 +103,8 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda",
     leaves are unstacked into per-layer dicts; each group's ``n`` must be
     the model's (``n_layers``, xlstm's mLSTM blocks and units, whisper's
     encoder and decoder layers).  Under a sharding ``plan`` each leaf is
-    cut to the plan's rank's shard before it moves to ``device``.
+    cut to the plan's rank's shard (under a training plan its piece,
+    FSDP's cut included) before it moves to ``device``.
     """
     check_family(cfg)
     specs = (encdec.param_specs if cfg.is_encdec else param_specs)(cfg)
@@ -119,8 +120,8 @@ def params_from_jax(jax_params: dict, cfg: ModelConfig, device="cuda",
                              f"model's {lengths.get(head)} {head} entries")
         for i, name in enumerate(port_names(path, lengths)):
             _set(params, name, t[i] if stacked else t)
-    if plan is not None and plan.tp > 1:
-        specs = dict(named_leaves(sharding.config_param_specs(cfg, plan.tp)))
+    if plan is not None and plan.distributed:
+        specs = dict(named_leaves(sharding.plan_param_specs(cfg, plan)))
         params = map_with_path(lambda p, t: plan.shard(t, specs[p]), params)
     return to_device(params, device)
 
@@ -152,7 +153,8 @@ def jax_key(port_name: str) -> tuple:
     return (f"{UNSTACKED[head]}.{leaf}", (int(layer),))
 
 
-def opt_state_from_jax(jax_opt: dict, cfg: ModelConfig, device="cuda") -> dict:
+def opt_state_from_jax(jax_opt: dict, cfg: ModelConfig, device="cuda",
+                       plan=None) -> dict:
     """A port optimizer state (``train.optimizer.init_opt_state``'s
     layout) from a JAX one given as numpy arrays: ``m`` and ``v``
     unstacked leaf for leaf as :func:`params_from_jax` unstacks the
@@ -162,8 +164,17 @@ def opt_state_from_jax(jax_opt: dict, cfg: ModelConfig, device="cuda") -> dict:
     The JAX optimizer factors a stacked leaf by its trailing two axes, the
     port the per-layer leaf by the same two, so both factor the same
     leaves as long as no stacked group is ``min_factored_size`` layers
-    deep with 1-D leaves."""
-    return {"m": params_from_jax(jax_opt["m"], cfg, device),
-            "v": params_from_jax(jax_opt["v"], cfg, device),
-            "step": torch.tensor(int(np.asarray(jax_opt["step"])),
-                                 dtype=torch.int32, device=device)}
+    deep with 1-D leaves.  Under a training ``plan`` each leaf is cut to
+    the rank's piece by ``sharding.opt_state_specs``."""
+    state = {"m": params_from_jax(jax_opt["m"], cfg, "cpu"),
+             "v": params_from_jax(jax_opt["v"], cfg, "cpu"),
+             "step": torch.tensor(int(np.asarray(jax_opt["step"])),
+                                  dtype=torch.int32)}
+    if plan is not None and plan.distributed:
+        specs = sharding.opt_state_specs(
+            sharding.plan_param_specs(cfg, plan), plan.mesh, opt_state=state)
+        flat = dict(named_leaves(specs))
+        state = {k: map_with_path(
+            lambda p, t, k=k: plan.shard(t, flat[f"{k}.{p}"]), state[k])
+            for k in ("m", "v")} | {"step": state["step"]}
+    return to_device(state, device)

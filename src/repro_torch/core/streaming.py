@@ -36,7 +36,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.distributed import sharding
-from repro_torch.distributed.group import mirrored
+from repro_torch.distributed.group import current_group, mirrored
 from repro_torch.models import transformer
 from repro_torch.models.layers import embed_tokens, lm_head, rmsnorm
 from repro_torch.models.registry import Model
@@ -45,14 +45,15 @@ from repro_torch.utils import map_with_path
 _fault_point = None
 
 
-def _visit_fault_point(point: str, detail: str) -> None:
+def _visit_fault_point(point: str, detail: str,
+                       instance: Optional[int] = None) -> None:
     # lazy import: runtime.continuous imports this module, so repro_torch.
     # core must import before repro_torch.runtime finishes initializing
     global _fault_point
     if _fault_point is None:
         from repro_torch.runtime.faults import fault_point
         _fault_point = fault_point
-    _fault_point(point, detail)
+    _fault_point(point, detail, instance)
 
 
 @dataclasses.dataclass
@@ -83,6 +84,11 @@ class WeightStreamer:
         self.retry_backoff_s = float(retry_backoff_s)
         self.max_backoff_s = float(max_backoff_s)
         self.retries_used = 0
+        # the serving instance of the op that made this streamer: its
+        # fetch thread visits ``weight_fetch`` on that instance's copy of
+        # the fault plan (runtime.faults), as that instance's ranks do
+        group = current_group()
+        self._instance = None if group is None else group.op_instance()
         self._arrays: dict = {}
         self._events: dict = {e.key: threading.Event() for e in entries}
         self._copied: dict = {}           # key -> torch.cuda.Event (card only)
@@ -115,7 +121,8 @@ class WeightStreamer:
         attempt = 0
         while True:
             try:
-                _visit_fault_point("weight_fetch", f"{e.key[0]}:{e.key[1]}")
+                _visit_fault_point("weight_fetch", f"{e.key[0]}:{e.key[1]}",
+                                   self._instance)
                 return self._upload(e.fetch())
             except Exception:
                 attempt += 1

@@ -8,7 +8,11 @@ Per registered function the server keeps:
   * host-pool copies of every static weight: views into ONE host buffer
     of the static weights' exact bytes, laid out in traced access order
     (``merging.pack_host_pool``) and page-locked when the function's
-    model lives on a card;
+    model lives on a card.  A re-register packs a new buffer, except
+    where the caller asks to keep it (``keep_host_pool``: a runtime
+    adopting a function that another runtime registered over this
+    shared server) and the same function object's static weights and
+    their order are unchanged;
   * device tensors for the access-order resident prefix.
 
 ``fork`` implements adaptive state forking for a new invocation:
@@ -108,6 +112,7 @@ class TemplateServer:
         self.template_prompts: dict = {}
         self.host_pool: dict = {}                     # fn -> path -> tensor
         self.host_buffers: dict = {}                  # fn -> HostBuffer
+        self._packed_from: dict = {}                  # fn -> LLMFunction
         self.device_cache: dict = {}                  # fn -> path -> tensor
         self._leaf_order: dict = {}                   # fn -> [path, ...]
         self._leaf_specs: dict = {}                   # fn -> path -> spec
@@ -188,13 +193,16 @@ class TemplateServer:
 
     @mirrored()
     def register(self, fn: LLMFunction, example_event: dict,
-                 resident_bytes: int = 0,
-                 template_prompt=None) -> FunctionTemplate:
+                 resident_bytes: int = 0, template_prompt=None,
+                 keep_host_pool: bool = False) -> FunctionTemplate:
         """Build the function's template (offline or at first invocation).
 
         ``template_prompt`` records the function's shared prompt prefix:
         runtimes bake its KV at deploy and serve later invocations
-        suffix-only."""
+        suffix-only.  ``keep_host_pool`` keeps the host pool packed for
+        this same function object when its static weights and their
+        order are unchanged (else, and by default, a new one is
+        packed)."""
         model = fn.model
         if model.plan != self.plan:
             raise ValueError(f"{fn.name}: its model's sharding plan is not "
@@ -227,11 +235,15 @@ class TemplateServer:
         order = [p for p in self._leaf_order[fn.name] if p in leaves]
         seen = set(order)
         order += [p for p in leaves if p not in seen]
-        self.host_pool.pop(fn.name, None)         # a re-register's old pool
-        self.host_buffers.pop(fn.name, None)
-        self.host_buffers[fn.name], self.host_pool[fn.name] = pack_host_pool(
-            [(p, leaves[p]) for p in order if p not in template.dynamic],
-            pin=model.device.type == "cuda")
+        static = [p for p in order if p not in template.dynamic]
+        if (not keep_host_pool or self._packed_from.get(fn.name) is not fn
+                or list(self.host_pool.get(fn.name, ())) != static):
+            self.host_pool.pop(fn.name, None)     # a re-register's old pool
+            self.host_buffers.pop(fn.name, None)
+            self.host_buffers[fn.name], self.host_pool[fn.name] = \
+                pack_host_pool([(p, leaves[p]) for p in static],
+                               pin=model.device.type == "cuda")
+            self._packed_from[fn.name] = fn
         self._refresh_residency(fn.name)
         if template_prompt is not None:
             self.template_prompts[fn.name] = np.asarray(

@@ -59,6 +59,22 @@ class TokenStream:
             yield b
 
 
+def shard_rows(batch: dict, index: int, n: int) -> dict:
+    """Data rank ``index`` of ``n``'s rows of a global batch: the
+    ``index``-th of ``n`` equal row blocks of every array (the whole
+    batch when ``n == 1``)."""
+    if n == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"a batch of {v.shape[0]} rows does not split "
+                             f"over {n} data ranks")
+        rows = v.shape[0] // n
+        out[k] = v[index * rows:(index + 1) * rows]
+    return out
+
+
 def make_prompts(vocab_size: int, batch: int, length: int,
                  seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)

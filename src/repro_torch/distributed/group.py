@@ -74,6 +74,12 @@ after it carries the hash of the result's host part.  A mismatch raises
 :class:`DivergenceError` on every rank of the channel instead of a hang
 inside a later collective.
 
+TRAINING is SPMD: every rank runs the loop and none serves.  A rank
+function calls :meth:`TPGroup.training_plan` (its model-axis group, its
+data-axis group, the ranks of its model index in every data slice, and
+the world), after which no op is broadcast and :meth:`TPGroup.close`
+sends nothing.
+
 ``spawn(fn, tp, ..., data=K)`` starts ``K tp`` ranks with
 ``torch.multiprocessing`` over a ``tcp://127.0.0.1`` store, runs
 ``fn(group, *args)`` on each and returns rank 0's result.  Rank ``r``
@@ -280,6 +286,8 @@ class Channel:
             return _ModelRef(x.cfg)
         if isinstance(x, ShardingPlan):
             return _PlanRef()
+        if getattr(x, "mirror_by_value", False):
+            return x                         # a host object (a FaultPlan)
         if isinstance(x, torch.Tensor):
             if x.device.type == "cpu":
                 return x
@@ -530,13 +538,18 @@ class TPGroup:
                  data_group=None, ctrl_group=None, guard: bool = False,
                  mesh: Optional[ServingMesh] = None, instance: int = 0,
                  global_rank: Optional[int] = None,
-                 remote_ctrl_groups: Optional[dict] = None):
+                 remote_ctrl_groups: Optional[dict] = None,
+                 data_axis_group=None, world_group=None):
         self.rank, self.size = rank, size
         self.instance = instance
         self.global_rank = rank if global_rank is None else global_rank
         self.device = torch.device(device)
         self.backend = backend
         self.data_group, self.ctrl_group = data_group, ctrl_group
+        # training's groups: the ranks of this model index in every data
+        # slice, and every rank
+        self.data_axis_group, self.world_group = data_axis_group, world_group
+        self.spmd = False
         self.guard = guard
         self.mesh = mesh or ServingMesh(1, size)
         self.plan = serving_plan(self.mesh, rank=rank, group=data_group,
@@ -574,8 +587,9 @@ class TPGroup:
 
     # ---- the controller's side of an op ------------------------------------
     def broadcasts(self) -> bool:
-        """True for a top-level op on the controller."""
-        return (self.is_controller and self.mesh.size > 1
+        """True for a top-level op on the controller (never once the
+        group trains)."""
+        return (self.is_controller and self.mesh.size > 1 and not self.spmd
                 and not getattr(self._local, "depth", 0))
 
     def _route(self, fn, wrapper, args, kwargs) -> list:
@@ -608,10 +622,17 @@ class TPGroup:
                         f"instance {ch.idx}'s channel is broken: an earlier "
                         "op diverged")
             self._local.depth = 1
+            self._local.instance = chans[0].idx if len(chans) == 1 else None
             try:
                 return self._call(fn, wrapper, args, kwargs, chans)
             finally:
                 self._local.depth = 0
+                self._local.instance = None
+
+    def op_instance(self) -> Optional[int]:
+        """The instance of the op this thread runs on the controller (None
+        outside an op, on a worker, or for an op sent to every instance)."""
+        return getattr(self._local, "instance", None)
 
     def _call(self, fn, wrapper, args, kwargs, chans):
         op = f"{fn.__module__}:{fn.__qualname__}"
@@ -692,8 +713,21 @@ class TPGroup:
         return _built_on_every_rank(f"{fn.__module__}:{fn.__qualname__}",
                                     args)
 
+    def training_plan(self, fsdp: bool = False, mode: str = "tp"):
+        """This rank's plan of the whole mesh for training (SPMD: from
+        here on every rank runs its own loop, and no op is broadcast)."""
+        from repro_torch.distributed.sharding import training_plan
+        self.spmd = True
+        return training_plan(self.mesh, rank=self.rank,
+                             data_rank=self.instance, group=self.data_group,
+                             data_group=self.data_axis_group,
+                             world_group=self.world_group, fsdp=fsdp,
+                             mode=mode)
+
     def close(self) -> None:
         """The controller's last order: the workers leave :meth:`serve`."""
+        if self.spmd:
+            self.closed = True
         if self.is_controller and not self.closed:
             self.closed = True
             with self._lock:
@@ -737,6 +771,14 @@ def _rank_main(rank, tp, data, port, backend, device, guard, timeout_s, fn,
             ctrls.append(dist.new_group(sorted({0, *ranks}),
                                         backend="gloo", timeout=day))
         data_group = data_groups[instance]
+        # training's data-axis groups (the ranks of one model index) and
+        # the world (every rank makes them, in the same order)
+        axis_groups = [dist.new_group(list(range(m, world, tp)),
+                                      backend=backend, timeout=timeout)
+                       if data > 1 else None for m in range(tp)]
+        world_group = (dist.new_group(list(range(world)), backend=backend,
+                                      timeout=timeout)
+                       if data > 1 else data_group)
         if dev.type == "cuda":
             # one build of the kernel library, before any rank loads it
             from repro_torch.kernels import _build
@@ -746,7 +788,9 @@ def _rank_main(rank, tp, data, port, backend, device, guard, timeout_s, fn,
         _GROUP = TPGroup(local, tp, dev, backend, data_group, ctrls[instance],
                          guard=guard, mesh=ServingMesh(data, tp),
                          instance=instance, global_rank=rank,
-                         remote_ctrl_groups=dict(enumerate(ctrls)))
+                         remote_ctrl_groups=dict(enumerate(ctrls)),
+                         data_axis_group=axis_groups[local],
+                         world_group=world_group)
         out = fn(_GROUP, *args)
         _GROUP.close()
         queue.put(("ok", rank, out if rank == 0 else None))

@@ -64,12 +64,23 @@ piece is replicated over ``tp / groups`` ranks).
 
 The plan's functions keep the JAX names and signatures over a
 :class:`ServingMesh` ``(data, model)`` whose ``shape`` and
-``axis_names`` read like a JAX mesh's.  Training's parts (FSDP,
-``opt_state_specs``, ``batch_specs``, ``mode='fsdp2d'``) are ROADMAP
-Queue 1, item 9.  A mesh with ``data > 1`` is one rank group per
-instance: :func:`serving_plan` gives the plan of one data slice (its
-instance index and that instance's process group), as the reference
-serves an instance on ``Mesh(mesh.devices[i:i + 1])``.
+``axis_names`` read like a JAX mesh's.  A SERVING plan with ``data > 1``
+is one rank group per instance: :func:`serving_plan` gives the plan of
+one data slice (its instance index and that instance's process group),
+as the reference serves an instance on ``Mesh(mesh.devices[i:i + 1])``.
+
+A TRAINING plan (:func:`training_plan`) spans the whole mesh: the batch
+splits over 'data' (each data rank takes its rows), the model over
+'model' as above, and with ``fsdp=True`` every leaf is also stored cut
+over 'data' (ZeRO-3, ``distributed.fsdp``) on the dimension the
+reference's rule picks (:func:`param_specs`): the output dimension
+first, the contraction dimension last, never a dimension 'model' holds,
+none for MLA's ``wq_b`` / ``wkv_b``, and MLA's a-side replicated.
+``mode='fsdp2d'`` has no tensor parallelism: each leaf is stored over
+the whole (data x model) grid on its largest divisible dimension (else
+over 'model' alone) and gathered whole before its layer runs; every
+rank computes the whole model on its data rows.  The data axis is
+``('data',)`` here: the port has no 'pod' axis.
 
 A LoRA adapter bank splits as its targets do (:func:`adapter_bank_specs`):
 ``b`` of ``wq`` / ``wk`` / ``wv`` by the target's columns (the rank's
@@ -82,7 +93,16 @@ counterpart of JAX's ``use_kernel_mesh``); :func:`all_reduce`,
 :func:`embed_lookup` and :func:`gather_vocab` are the layers'
 collectives, and :func:`gather_columns` the sLSTM's; no-ops without a
 plan.  They sum in fp32 (gloo on one card
-takes bf16, but a bf16 sum would round each partial twice).
+takes bf16, but a bf16 sum would round each partial twice).  Each has
+its adjoint for training (Megatron's f and g): :func:`all_reduce` sums
+forward and is the identity backward; :func:`copy_to_model`, placed
+where a replicated activation or leaf enters work split over 'model'
+(q / k / v, gate / up, the LM head, MLA's b-side, the moe gates), is
+the identity forward and sums backward; a lookup or a gather's
+backward takes the rank's slice.  :func:`vocab_cross_entropy` is the
+loss over a vocab-parallel head without gathering its logits: each
+rank's max, then its sum of exponentials and its target logits, reduced
+as ``[B, S]`` floats.
 """
 
 from __future__ import annotations
@@ -268,29 +288,64 @@ def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
 
 @dataclasses.dataclass
 class ShardingPlan:
-    """Tensor-parallel placement for one process: the mesh of its
-    instance (``data == 1``), this process's rank on the model axis, the
-    torch process group the collectives run over (None: specs only, no
-    collectives) and the instance (the data slice) the plan serves."""
+    """Placement for one process.  Serving (``training=False``): the mesh
+    of its instance (``data == 1``), this process's rank on the model
+    axis, the torch process group the collectives run over (None: specs
+    only, no collectives) and the instance (the data slice) the plan
+    serves.  Training (:func:`training_plan`): the whole mesh, this
+    rank's index on 'data' (``data_rank``), the data-axis group (the
+    ranks of its model index in every data slice) and the world group,
+    ``fsdp`` and ``mode`` ('tp' or 'fsdp2d').  ``prefer_seq`` (the
+    reference's sequence-sharded decode cache) places specs only: a
+    model built under it raises."""
     mesh: ServingMesh
     fsdp: bool = False
     rank: int = 0
     group: Any = None
     instance: int = 0
+    training: bool = False
+    mode: str = "tp"
+    data_rank: int = 0
+    data_group: Any = None
+    world_group: Any = None
+    prefer_seq: bool = False
 
     def __post_init__(self):
-        if self.fsdp:
-            raise NotImplementedError(
-                "FSDP specs belong to training: ROADMAP Queue 1, item 9")
-        if self.mesh.data != 1:
-            raise ValueError(f"a plan serves one data slice, not {self.mesh}")
+        if self.mode not in ("tp", "fsdp2d"):
+            raise ValueError(f"mode must be 'tp' or 'fsdp2d', got {self.mode!r}")
+        if not self.training:
+            if self.fsdp or self.mode != "tp":
+                raise ValueError("FSDP and mode='fsdp2d' place training "
+                                 "state: use sharding.training_plan")
+            if self.mesh.data != 1:
+                raise ValueError(f"a plan serves one data slice, not "
+                                 f"{self.mesh}")
         if not 0 <= self.rank < self.mesh.model:
             raise ValueError(f"rank {self.rank} outside the model axis "
                              f"{self.mesh.model}")
+        if not 0 <= self.data_rank < self.mesh.data:
+            raise ValueError(f"data rank {self.data_rank} outside the data "
+                             f"axis {self.mesh.data}")
 
     @property
     def tp(self) -> int:
-        return self.mesh.model
+        """Ranks the model's heads and widths split over (1 under
+        ``fsdp2d``, where 'model' only stores)."""
+        return 1 if self.mode == "fsdp2d" else self.mesh.model
+
+    @property
+    def data(self) -> int:
+        return self.mesh.data
+
+    @property
+    def world_rank(self) -> int:
+        """This rank's index over the (data x model) grid."""
+        return self.data_rank * self.mesh.model + self.rank
+
+    @property
+    def distributed(self) -> bool:
+        """True when a model call under this plan meets other ranks."""
+        return self.mesh.size > 1
 
     def shard(self, tensor: torch.Tensor, spec) -> torch.Tensor:
         """This rank's piece of a full leaf (what JAX's ``named(spec)``
@@ -318,6 +373,18 @@ def serving_plan(mesh: ServingMesh, rank: Optional[int] = None,
                          f"{mesh.data}")
     return ShardingPlan(mesh=ServingMesh(1, mesh.model), rank=rank,
                         group=group, instance=instance)
+
+
+def training_plan(mesh: ServingMesh, rank: int = 0, data_rank: int = 0,
+                  group=None, data_group=None, world_group=None,
+                  fsdp: bool = False, mode: str = "tp") -> ShardingPlan:
+    """The plan of one rank of a training mesh: model rank ``rank`` of
+    data slice ``data_rank``, with the model-axis, data-axis and world
+    groups its collectives run over (``distributed.group.TPGroup.
+    training_plan`` fills them in; None: specs only)."""
+    return ShardingPlan(mesh=mesh, fsdp=fsdp, rank=rank, group=group,
+                        training=True, mode=mode, data_rank=data_rank,
+                        data_group=data_group, world_group=world_group)
 
 
 # ---------------------------------------------------------------------------
@@ -436,27 +503,149 @@ def _param_spec(path: str, shape: tuple, cfg: ModelConfig,
 
 
 def param_specs(model, mesh, fsdp: bool = False, mode: str = "tp"):
-    """PartitionSpec tree matching the model's (global) parameter tree."""
-    if fsdp or mode != "tp":
-        raise NotImplementedError(
-            "FSDP and mode='fsdp2d' belong to training: ROADMAP Queue 1, "
-            "item 9")
-    return config_param_specs(model.cfg, mesh.shape[MODEL])
+    """PartitionSpec tree matching the model's (global) parameter tree:
+    ``mode='tp'`` places by role over 'model' (and with ``fsdp`` also over
+    'data'); ``mode='fsdp2d'`` stores over the (data x model) grid with no
+    tensor parallelism (see the module doc)."""
+    return config_param_specs(model.cfg, mesh.shape[MODEL], fsdp=fsdp,
+                              mode=mode, data=mesh.shape[DATA])
 
 
-def config_param_specs(cfg: ModelConfig, tp: int):
-    """:func:`param_specs` of a configuration over ``tp`` model ranks."""
+# MLA's b-side takes no FSDP: its only other dimension is the latent rank
+# the products contract over (the reference's rule)
+_MLA_NO_FSDP = ("wq_b", "wkv_b")
+
+
+def _fsdp_spec(path: str, shape: tuple, spec: PartitionSpec, cfg: ModelConfig,
+               data: int) -> PartitionSpec:
+    """``spec`` with 'data' added by the reference's ZeRO-3 rule
+    (``repro.distributed.sharding._choose_param_spec``): the output
+    dimension first, then the middle ones, the contraction dimension
+    last; a dimension 'model' holds or that 'data' does not divide is
+    passed over, and so are MLA's a-side (replicated) and b-side."""
+    leaf = path.rsplit(".", 1)[-1]
+    if data == 1 or (cfg.use_mla and (leaf in _MLA_NO_FSDP
+                                      or leaf in _MLA_REPLICATED
+                                      or leaf in ("q_a_norm", "kv_a_norm"))):
+        return spec
+    ndim = len(shape)
+    order = ([ndim - 1] + [d for d in range(ndim) if d < ndim - 2]
+             + ([ndim - 2] if ndim >= 2 else []))
+    for d in order:
+        if spec[d] is None and shape[d] % data == 0 and shape[d] >= data:
+            entries = list(spec)
+            entries[d] = DATA
+            return P(*entries, parts=spec.parts)
+    return spec
+
+
+def _fsdp2d_spec(shape: tuple, data: int, model: int) -> PartitionSpec:
+    """The reference's ``mode='fsdp2d'``: the largest dimension the whole
+    grid divides (ties to the last) over ``('data', 'model')``, else the
+    first dimension 'model' divides over 'model' alone, else replicated."""
+    n = data * model
+    best, best_size = None, 0
+    for d, size in enumerate(shape):
+        if size % n == 0 and size >= best_size:
+            best, best_size = d, size
+    entries = [None] * len(shape)
+    if best is not None:
+        entries[best] = (DATA, MODEL)
+    else:
+        for d, size in enumerate(shape):
+            if size % model == 0 and size >= model:
+                entries[d] = MODEL
+                break
+    return P(*entries)
+
+
+def config_param_specs(cfg: ModelConfig, tp: int, fsdp: bool = False,
+                       mode: str = "tp", data: int = 1):
+    """:func:`param_specs` of a configuration over a (``data``, ``tp``)
+    mesh."""
     from repro_torch.models import encdec, transformer
-    check_tp(cfg, tp)
     family = encdec if cfg.is_encdec else transformer
-    return map_with_path(
-        lambda path, leaf: _param_spec(path, tuple(leaf.shape), cfg, tp),
-        family.param_specs(cfg))
+    shapes = family.param_specs(cfg)
+    if mode == "fsdp2d":
+        return map_with_path(
+            lambda path, leaf: _fsdp2d_spec(tuple(leaf.shape), data, tp),
+            shapes)
+    if mode != "tp":
+        raise ValueError(f"mode must be 'tp' or 'fsdp2d', got {mode!r}")
+    check_tp(cfg, tp)
+
+    def choose(path, leaf):
+        spec = _param_spec(path, tuple(leaf.shape), cfg, tp)
+        return _fsdp_spec(path, tuple(leaf.shape), spec, cfg, data) if fsdp \
+            else spec
+
+    return map_with_path(choose, shapes)
+
+
+def plan_param_specs(cfg: ModelConfig, plan: ShardingPlan):
+    """The parameter specs a plan places a model's leaves by."""
+    return config_param_specs(cfg, plan.mesh.model, fsdp=plan.fsdp,
+                              mode=plan.mode, data=plan.mesh.data)
 
 
 def leaf_param_specs(model, mesh) -> dict:
-    """{path -> PartitionSpec} for every parameter leaf."""
+    """{path -> PartitionSpec} for every parameter leaf (a model under a
+    training plan: the plan's FSDP and mode)."""
+    plan = getattr(model, "plan", None)
+    if plan is not None and plan.training:
+        return dict(named_leaves(plan_param_specs(model.cfg, plan)))
     return dict(named_leaves(param_specs(model, mesh)))
+
+
+def opt_state_specs(p_specs, mesh, factored: bool = False, opt_state=None):
+    """Optimizer-state specs: ``m`` and ``v`` mirror the parameters'
+    specs.  A factored second moment's ``row`` (the parameter's shape
+    without its last axis) and ``col`` (without its second to last) keep
+    the parameter's entries on the axes they keep, so each rank holds the
+    rows and columns of its own piece; the reference gives both ``P()``
+    (replicated), having no spec of their rank to mirror.  ``factored``
+    is read from ``opt_state``'s leaves, as the reference does."""
+    del mesh, factored
+    if opt_state is None:
+        return {"m": p_specs, "v": p_specs, "step": P()}
+    specs = dict(named_leaves(p_specs))
+
+    def pick(path, leaf):
+        for suffix, drop in ((".row", -1), (".col", -2)):
+            if path.endswith(suffix) and path[:-len(suffix)] in specs:
+                spec = specs[path[:-len(suffix)]]
+                entries = list(spec)
+                del entries[drop]
+                keep = spec.model_dim is not None and spec.model_dim != (
+                    len(spec) + drop)
+                return P(*entries, parts=spec.parts if keep else None)
+        spec = specs.get(path)
+        if spec is not None and len(spec) == len(leaf.shape):
+            return spec
+        return _replicated(len(leaf.shape))
+
+    return {"m": map_with_path(pick, opt_state["m"]),
+            "v": map_with_path(pick, opt_state["v"]), "step": P()}
+
+
+def batch_specs(batch_tree, mesh, seq_parallel: bool = False):
+    """A global batch's specs: the batch axis over 'data' where it
+    divides, and with ``seq_parallel`` the sequence axis over 'model' (as
+    the reference; a sequence-parallel train step is ROADMAP Queue 1,
+    item 11)."""
+    dp, tp = mesh.shape[DATA], mesh.shape[MODEL]
+
+    def choose(path, leaf):
+        shape = tuple(leaf.shape)
+        entries = [None] * len(shape)
+        if shape and shape[0] % dp == 0 and shape[0] >= dp:
+            entries[0] = DATA
+        if (seq_parallel and len(shape) >= 2 and shape[1] % tp == 0
+                and shape[1] >= tp):
+            entries[1] = MODEL
+        return P(*entries)
+
+    return map_with_path(choose, batch_tree)
 
 
 def _state_spec(group: str, leaf: str, ndim: int, cfg: ModelConfig,
@@ -481,11 +670,11 @@ def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
     and ``cross_kv`` too), MLA's latent leaves replicated over 'model'
     (every rank allocates them whole), the recurrent states (``mamba``,
     ``mlstm``, ``slstm``) by heads and their conv windows as the conv
-    weights (:func:`_state_spec`).  ``prefer_seq`` (the JAX package's
-    sequence-sharded decode cache) is not ported."""
-    if prefer_seq:
-        raise NotImplementedError(
-            "sequence-sharded caches (prefer_seq) are not in the port")
+    weights (:func:`_state_spec`).  ``prefer_seq`` (the reference's
+    flash-decoding cache, which only its dry-run uses) puts 'model' on
+    an attention cache's sequence axis instead of its heads (the
+    recurrent states keep theirs): specs only, since no pool or model of
+    the port attends over a sequence split (ROADMAP Queue 1, item 10)."""
     cfg = model.cfg
     tp, dp = mesh.shape[MODEL], mesh.shape[DATA]
     check_tp(cfg, tp)
@@ -501,6 +690,10 @@ def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
             return P(*entries)
         if group in ("mamba", "mlstm", "slstm"):
             spec = _state_spec(group, name, ndim, cfg, tp)
+        elif (prefer_seq and ndim >= 3 and entries[2] is None
+              and shape[2] % tp == 0 and shape[2] >= tp):
+            entries[2] = MODEL
+            return P(*entries)
         elif ndim < 4 or name in LATENT_LEAVES:
             return P(*entries)
         else:
@@ -584,8 +777,8 @@ def validate_specs(spec_tree, shape_tree, mesh) -> list:
         for d, name in enumerate(spec):
             if name is None:
                 continue
-            if name == DATA:
-                n = mesh.shape[DATA]
+            if name in (DATA, (DATA, MODEL)):
+                n = mesh.shape[DATA] * (1 if name == DATA else mesh.shape[MODEL])
                 if shape[d] % n:
                     bad.append((path, d, shape[d], n))
                 continue
@@ -608,24 +801,66 @@ def whole_bytes(spec: PartitionSpec, nbytes: int) -> int:
     return nbytes * sum(seg for seg, groups in spec.parts if groups == 1) // piece
 
 
+def _even_piece(tensor: torch.Tensor, dim: int, n: int, index: int):
+    width = tensor.shape[dim] // n
+    return tensor.narrow(dim, index * width, width)
+
+
 def shard_for_rank(tensor: torch.Tensor, spec: PartitionSpec,
                    plan: ShardingPlan) -> torch.Tensor:
     """This rank's piece of a full leaf (a copy of its own, which never
     keeps the full leaf's storage alive; the leaf itself when the spec
-    replicates it over the model axis)."""
+    replicates it): its 'model' piece (by ``parts`` where uneven), then
+    under a training plan its 'data' piece, or its piece of the whole
+    grid for a ``('data', 'model')`` entry."""
+    d = spec.model_dim
+    out = tensor
+    if d is not None:
+        tp, r = plan.mesh.model, plan.rank
+        pieces, start = [], 0
+        for seg, groups in _segments(spec, tensor.shape[d], tp):
+            width = seg // groups
+            first = start + (r * groups // tp) * width
+            pieces.append(tensor.narrow(d, first, width))
+            start += seg
+        out = torch.cat(pieces, dim=d) if len(pieces) > 1 else pieces[0]
+    for dim, entry in enumerate(spec):
+        if entry == DATA and plan.mesh.data > 1:
+            out = _even_piece(out, dim, plan.mesh.data, plan.data_rank)
+        elif entry == (DATA, MODEL):
+            out = _even_piece(out, dim, plan.mesh.size, plan.world_rank)
+    if out is tensor:
+        return tensor
+    return out.clone(memory_format=torch.contiguous_format)
+
+
+def assemble(pieces: list, spec: PartitionSpec, plan: ShardingPlan):
+    """The whole leaf from every rank's piece (``pieces[r]`` is grid rank
+    ``r``'s, ``r = data_rank * model + model_rank``): the inverse of
+    :func:`shard_for_rank` over ``plan``'s mesh."""
+    D, M = plan.mesh.data, plan.mesh.model
+    for d, entry in enumerate(spec):
+        if entry == (DATA, MODEL):
+            return torch.cat(pieces, dim=d)
+    for d, entry in enumerate(spec):
+        if entry == DATA and D > 1:
+            pieces = [torch.cat(pieces[m::M], dim=d) for m in range(M)]
+            break
+    else:
+        pieces = pieces[:M]
     d = spec.model_dim
     if d is None:
-        return tensor
-    tp, r = plan.tp, plan.rank
-    pieces, start = [], 0
-    for seg, groups in _segments(spec, tensor.shape[d], tp):
+        return pieces[0]
+    out, segs = [], _segments(spec, pieces[0].shape[d] * M, M) if not \
+        spec.parts else spec.parts
+    start = 0
+    for seg, groups in segs:
         width = seg // groups
-        first = start + (r * groups // tp) * width
-        pieces.append(tensor.narrow(d, first, width))
-        start += seg
-    if len(pieces) > 1:
-        return torch.cat(pieces, dim=d)
-    return pieces[0].clone(memory_format=torch.contiguous_format)
+        for j in range(groups):
+            r = next(r for r in range(M) if r * groups // M == j)
+            out.append(pieces[r].narrow(d, start, width))
+        start += width
+    return torch.cat(out, dim=d)
 
 
 # ---------------------------------------------------------------------------
@@ -637,6 +872,7 @@ class _Scope:
     plan: ShardingPlan
     cfg: ModelConfig          # the rank's local configuration
     vocab_split: bool         # embed and lm_head hold a vocabulary slice
+    kv_split: bool            # the K/V projections hold the rank's heads
 
 
 _SCOPE: contextvars.ContextVar = contextvars.ContextVar("tp_scope",
@@ -646,11 +882,13 @@ _SCOPE: contextvars.ContextVar = contextvars.ContextVar("tp_scope",
 @contextlib.contextmanager
 def use_plan(plan: Optional[ShardingPlan], cfg: Optional[ModelConfig] = None):
     """Scope under which the layers run the rank's part of a model call
-    of the (global) configuration ``cfg``; a None plan is one device."""
+    of the (global) configuration ``cfg``; a None plan (or one with no
+    tensor parallelism) is one device."""
     scope = None
     if plan is not None and plan.tp > 1:
         scope = _Scope(plan, local_config(cfg, plan.tp, plan.rank),
-                       vocab_parallel(cfg, plan.tp))
+                       vocab_parallel(cfg, plan.tp),
+                       kv_groups(cfg, plan.tp) == plan.tp)
     token = _SCOPE.set(scope)
     try:
         yield
@@ -669,30 +907,49 @@ def local_heads() -> Optional[tuple]:
     return None if scope is None else (scope.cfg.n_heads, scope.cfg.n_kv_heads)
 
 
+def kv_split() -> bool:
+    """True unless a plan's ranks each hold the whole K/V projections
+    (one KV head, kept by every rank)."""
+    scope = _SCOPE.get()
+    return scope is None or scope.kv_split
+
+
 # this process's collectives since the last reset: calls, host seconds
-# inside them and bytes reduced (what the chip smoke reads per step)
-_COLLECTIVES = {"calls": 0, "seconds": 0.0, "bytes": 0}
+# inside them and bytes moved (what the chip smoke reads per step), and
+# the calls by kind ('all_reduce', 'all_gather', 'reduce_scatter')
+_COLLECTIVES = {"calls": 0, "seconds": 0.0, "bytes": 0, "kinds": {}}
 
 
 def collective_stats() -> dict:
-    return dict(_COLLECTIVES)
+    out = dict(_COLLECTIVES)
+    out["kinds"] = dict(_COLLECTIVES["kinds"])
+    return out
 
 
 def reset_collective_stats() -> None:
-    _COLLECTIVES.update(calls=0, seconds=0.0, bytes=0)
+    _COLLECTIVES.update(calls=0, seconds=0.0, bytes=0, kinds={})
 
 
-def _reduce(buf: torch.Tensor, plan: ShardingPlan) -> None:
-    """Sum ``buf`` (fp32) over the plan's ranks in place."""
+def count_collective(kind: str, t0: float, nbytes: int) -> None:
+    """Record one collective that started at ``t0`` and moved ``nbytes``
+    (this rank's buffer)."""
+    _COLLECTIVES["calls"] += 1
+    _COLLECTIVES["seconds"] += time.perf_counter() - t0
+    _COLLECTIVES["bytes"] += nbytes
+    kinds = _COLLECTIVES["kinds"]
+    kinds[kind] = kinds.get(kind, 0) + 1
+
+
+def _reduce(buf: torch.Tensor, plan: ShardingPlan, op=None) -> None:
+    """Sum (or ``op``) ``buf`` (fp32) over the plan's model ranks in
+    place."""
     if plan.group is None:
         raise RuntimeError("this sharding plan has no process group: its "
                            "model calls cannot run their collectives")
     import torch.distributed as dist
     t0 = time.perf_counter()
-    dist.all_reduce(buf, group=plan.group)
-    _COLLECTIVES["calls"] += 1
-    _COLLECTIVES["seconds"] += time.perf_counter() - t0
-    _COLLECTIVES["bytes"] += buf.numel() * buf.element_size()
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=plan.group)
+    count_collective("all_reduce", t0, buf.numel() * buf.element_size())
 
 
 def _sum_over_ranks(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
@@ -703,18 +960,80 @@ def _sum_over_ranks(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
     return buf.to(x.dtype)
 
 
+class _SumForward(torch.autograd.Function):
+    """Sum over the model ranks forward, the identity backward (a
+    row-parallel product's partials; the gradient of the replicated sum
+    is every rank's already)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        return _sum_over_ranks(x, plan)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """The identity forward, a sum over the model ranks backward: where
+    a replicated tensor enters work split over the ranks, each rank's
+    gradient of it is a partial."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over_ranks(grad.contiguous(), ctx.plan), None
+
+
+class _PlaceSlices(torch.autograd.Function):
+    """The whole last axis from each rank's contiguous slice (zeros
+    elsewhere, summed over the ranks: exact); backward, the rank's
+    slice of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        width = x.shape[-1]
+        ctx.first, ctx.width = plan.rank * width, width
+        full = torch.zeros(tuple(x.shape[:-1]) + (width * plan.tp,),
+                           dtype=torch.float32, device=x.device)
+        full[..., ctx.first:ctx.first + width] = x
+        _reduce(full, plan)
+        return full.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad[..., ctx.first:ctx.first + ctx.width], None
+
+
 def all_reduce(x: torch.Tensor) -> torch.Tensor:
     """Sum a row-parallel product's partials over the model axis (fp32
-    in flight); ``x`` itself without a plan or on ``meta``."""
+    in flight; the identity backward); ``x`` itself without a plan or on
+    ``meta``."""
     plan = current_plan()
     if plan is None or x.is_meta:
         return x
-    return _sum_over_ranks(x, plan)
+    return _SumForward.apply(x, plan)
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Where a replicated tensor enters work split over the model axis:
+    the identity forward, the sum of the ranks' gradients backward; ``x``
+    itself when no gradient flows or without a plan."""
+    plan = current_plan()
+    if plan is None or x.is_meta or not (torch.is_grad_enabled()
+                                         and x.requires_grad):
+        return x
+    return _SumBackward.apply(x, plan)
 
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of a vocab-parallel embedding: each rank looks up the tokens
-    in its slice (zeros elsewhere) and the ranks sum, which is exact."""
+    in its slice (zeros elsewhere) and the ranks sum, which is exact;
+    backward, each rank's rows take their tokens' gradient."""
     scope = _SCOPE.get()
     tokens = tokens.long()
     if scope is None or not scope.vocab_split or embed.is_meta:
@@ -725,7 +1044,7 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     local = tokens - first
     mine = (local >= 0) & (local < vocab)
     rows = embed[local.clamp(0, vocab - 1)] * mine[..., None].to(embed.dtype)
-    return _sum_over_ranks(rows, plan)
+    return _SumForward.apply(rows, plan)
 
 
 def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
@@ -736,14 +1055,10 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     if scope is None or not scope.vocab_split:
         return logits
     plan = scope.plan
-    vocab = logits.shape[-1]
-    shape = tuple(logits.shape[:-1]) + (vocab * plan.tp,)
     if logits.is_meta:
-        return logits.new_empty(shape)
-    full = torch.zeros(shape, dtype=torch.float32, device=logits.device)
-    full[..., plan.rank * vocab:(plan.rank + 1) * vocab] = logits
-    _reduce(full, plan)
-    return full.to(logits.dtype)
+        return logits.new_empty(tuple(logits.shape[:-1])
+                                + (logits.shape[-1] * plan.tp,))
+    return _PlaceSlices.apply(logits, plan)
 
 
 def gather_columns(x: torch.Tensor) -> torch.Tensor:
@@ -754,11 +1069,33 @@ def gather_columns(x: torch.Tensor) -> torch.Tensor:
     plan = current_plan()
     if plan is None:
         return x
-    width = x.shape[-1]
-    shape = tuple(x.shape[:-1]) + (width * plan.tp,)
     if x.is_meta:
-        return x.new_empty(shape)
-    full = torch.zeros(shape, dtype=torch.float32, device=x.device)
-    full[..., plan.rank * width:(plan.rank + 1) * width] = x
-    _reduce(full, plan)
-    return full.to(x.dtype)
+        return x.new_empty(tuple(x.shape[:-1]) + (x.shape[-1] * plan.tp,))
+    return _PlaceSlices.apply(x, plan)
+
+
+def vocab_split() -> bool:
+    """True inside :func:`use_plan` when the head holds a vocab slice."""
+    scope = _SCOPE.get()
+    return scope is not None and scope.vocab_split
+
+
+def vocab_cross_entropy(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """The mean token cross-entropy (fp32) of a vocab-parallel head's
+    logits ``[B, S, V / tp]`` without gathering them: each rank's max
+    (one MAX reduce, no gradient), then its sums of exponentials and its
+    target logits, reduced together as a ``[2, B, S]`` fp32 buffer; ``log
+    sum exp - target``, as the one-device loss."""
+    import torch.distributed as dist
+    plan = current_plan()
+    lf = logits.float()
+    vocab = lf.shape[-1]
+    top = lf.detach().amax(dim=-1)
+    _reduce(top, plan, dist.ReduceOp.MAX)
+    sumexp = torch.exp(lf - top[..., None]).sum(dim=-1)
+    local = labels.long() - plan.rank * vocab
+    mine = (local >= 0) & (local < vocab)
+    gold = lf.gather(-1, local.clamp(0, vocab - 1)[..., None])[..., 0]
+    both = _SumForward.apply(torch.stack([sumexp, gold * mine]), plan)
+    return (torch.log(both[0]) + top - both[1]).mean()

@@ -207,20 +207,27 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     ``cfg.fused_qkv``: one ``wqkv`` product split into q, k and v, as in
     the JAX package.  Under a sharding plan ``cfg`` is the rank's local
     configuration (its heads) and the output projection's partial sums
-    meet the other ranks' in one ``all_reduce``.
+    meet the other ranks' in one ``all_reduce``.  For training, the
+    input enters the rank's heads through ``sharding.copy_to_model`` (its
+    gradient summed over the ranks), and so do the q / k norm scales;
+    K/V projections every rank holds whole (one KV head) take their
+    input as it is and enter the rank's attention after the rope.
 
     Caches are updated in place and the block returns ``(y, kv_cache)``.
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
+    kv_split = sharding.kv_split()
+    xq = sharding.copy_to_model(x)
+    xkv = xq if kv_split else x
     if cfg.fused_qkv:
         if adapters is not None:
             raise NotImplementedError(
                 "adapter gather targets the unfused wq/wk/wv/wo projections")
-        q, k, v = (x @ p["wqkv"]).split([H * hd, KV * hd, KV * hd], dim=-1)
+        q, k, v = (xq @ p["wqkv"]).split([H * hd, KV * hd, KV * hd], dim=-1)
     else:
-        q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+        q, k, v = xq @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
     if adapters is not None:
         if "wq" in adapters:
             q = q + lora_delta(x, adapters["wq"], adapter_ids)
@@ -234,10 +241,13 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q = rmsnorm(q, sharding.copy_to_model(p["q_norm"]), cfg.norm_eps)
+        k = rmsnorm(k, sharding.copy_to_model(p["k_norm"]) if kv_split
+                    else p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if not kv_split:
+        k, v = sharding.copy_to_model(k), sharding.copy_to_model(v)
     softcap = cfg.attn_logit_softcap
 
     if kv_cache is not None and page_table is not None:
@@ -337,8 +347,9 @@ def mlp_partial(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
 
 def mlp_block(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     """The gated MLP; under a sharding plan the ranks' partial sums
-    (:func:`mlp_partial`) meet in one ``all_reduce``."""
-    return sharding.all_reduce(mlp_partial(p, x, act))
+    (:func:`mlp_partial`) meet in one ``all_reduce``, and the input's
+    gradient is summed over them (``copy_to_model``)."""
+    return sharding.all_reduce(mlp_partial(p, sharding.copy_to_model(x), act))
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +365,13 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor,
     return x
 
 
-def lm_head(x: torch.Tensor, params: dict, tied: bool) -> torch.Tensor:
+def lm_head(x: torch.Tensor, params: dict, tied: bool,
+            gather: bool = True) -> torch.Tensor:
     """Logits over the vocabulary (gathered from the ranks' slices under
-    a vocab-parallel plan)."""
+    a vocab-parallel plan; ``gather=False``: the rank's slice, for
+    ``sharding.vocab_cross_entropy``)."""
     w = params["embed"].T if tied else params["lm_head"]
-    return sharding.gather_vocab(x @ w)
+    if not sharding.vocab_split():
+        return x @ w
+    logits = sharding.copy_to_model(x) @ w
+    return sharding.gather_vocab(logits) if gather else logits

@@ -39,7 +39,10 @@ configuration with ``H / tp`` heads and ``wq_b`` / ``wkv_b`` hold those
 heads' columns: the a-side products and their norms run replicated, the
 latent cache is whole on every rank (every head reads all of it), and
 ``out @ wo`` is a row-parallel partial summed over the ranks by one
-``all_reduce``.
+``all_reduce``.  For training, the replicated a-side's outputs enter the
+rank's heads through ``sharding.copy_to_model`` (the query latent before
+``wq_b``, the KV latent before ``wkv_b``, the rope key before the
+scores), so its gradient is every head's, summed over the ranks.
 """
 
 from __future__ import annotations
@@ -122,7 +125,7 @@ def mla_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     # queries (low rank)
     q_lat = rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
-    q = (q_lat @ p["wq_b"]).reshape(B, S, H, dn + dr)
+    q = (sharding.copy_to_model(q_lat) @ p["wq_b"]).reshape(B, S, H, dn + dr)
     q_nope = q[..., :dn]
     q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -152,6 +155,7 @@ def mla_attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
             lat, kr = cc, cr
     else:
         lat, kr = c_kv, k_rope
+    lat, kr = sharding.copy_to_model(lat), sharding.copy_to_model(kr)
     T = lat.shape[1]
 
     # re-expand per-head keys and values from the latent (model dtype)

@@ -29,6 +29,11 @@ its own experts.  Its gate-weighted sum is a partial output, to which
 the shared experts' row-parallel partial is added; ONE ``all_reduce``
 sums both over the ranks.  Without a plan the block runs the same ops
 as the reference's layout, and that ``all_reduce`` returns its input.
+For training, the tokens enter the rank's experts and shared slice
+through ``sharding.copy_to_model``, and so do the gate weights: each
+rank's gates weight its own experts' outputs only, so their gradient
+(and the router's behind it) is a partial that the copy sums.  The
+router itself reads the replicated input as it is.
 
 Nothing here needs a device: on ``meta`` tensors (tracing) the sort,
 cumulative sum and index writes run shape-only.
@@ -45,7 +50,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import init_mlp_params, mlp_partial, normal_
 
@@ -148,8 +153,9 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     # scatter: each row of the [El, C, D] buffer this rank's kept pairs
     # reach receives one token row
+    xc = sharding.copy_to_model(x)
     buf = x.new_zeros((El * C + 1, D))
-    buf.index_copy_(0, row, xf.repeat_interleave(K, dim=0))
+    buf.index_copy_(0, row, xc.reshape(T, D).repeat_interleave(K, dim=0))
     h = buf[:El * C].view(El, C, D)
 
     ex = p["experts"]
@@ -161,10 +167,11 @@ def moe_block(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # with the gate weights
     safe = torch.where(mine, row, torch.zeros_like(row))
     gathered = out[safe].masked_fill(~mine[:, None], 0)
+    gate_w = sharding.copy_to_model(gate_w)
     y = (gathered.view(T, K, D) * gate_w[..., None].to(x.dtype)).sum(dim=1)
     y = y.view(B, S, D)
     if "shared" in p:
-        y = y + mlp_partial(p["shared"], x, cfg.act)
+        y = y + mlp_partial(p["shared"], xc, cfg.act)
     return sharding.all_reduce(y)
 
 
@@ -180,5 +187,12 @@ def moe_aux_loss(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     E = cfg.n_experts
     probs = torch.softmax((x.reshape(B * S, D) @ p["router"]).float(), dim=-1)
     idx = torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :cfg.top_k]
-    frac = F.one_hot(idx, E).float().mean(dim=(0, 1))
-    return E * (frac * probs.mean(dim=0)).sum()
+    if not fsdp.batch_split():
+        frac = F.one_hot(idx, E).float().mean(dim=(0, 1))
+        return E * (frac * probs.mean(dim=0)).sum()
+    # a data-parallel rank's rows: the global batch's fractions and mean
+    # probabilities (the ranks' counts and sums added, distributed.fsdp)
+    n = fsdp.batch_sum(torch.tensor(float(B * S), device=x.device))
+    frac = fsdp.batch_sum(F.one_hot(idx, E).float().sum(dim=(0, 1)))
+    frac = frac / (n * cfg.top_k)
+    return E * (frac * fsdp.batch_sum(probs.sum(dim=0)) / n).sum()

@@ -8,7 +8,10 @@
 
 A ``Model`` holds its device; every tensor it makes lives there.  With a
 ``plan`` (``distributed.sharding.ShardingPlan``) it is one rank's part of
-a tensor-parallel model: its parameters, caches and arenas hold the
+a tensor-parallel model (under a training plan also its data-parallel
+and FSDP part: ``forward(training=True)`` and ``loss`` of the dense and
+moe families, MLA included, run on the rank's rows through
+``distributed.fsdp``): its parameters, caches and arenas hold the
 rank's shard (``local_cfg``: its heads, ``d_ff`` and vocabulary slice,
 a moe layer's experts and MLA's heads, the recurrent mixers' heads and
 widths; MLA's latent arenas whole),
@@ -29,6 +32,7 @@ tensors (``input_specs``, tracing) pass through as they are.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 from typing import Any, Optional
@@ -36,7 +40,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.distributed import sharding
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.distributed.group import mirrored
 from repro_torch.models import encdec, transformer
 from repro_torch.models.config import ModelConfig, reduced
@@ -74,8 +78,13 @@ class Model:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         transformer.check_family(self.cfg)
-        if self.plan is not None and self.plan.tp == 1:
+        if self.plan is not None and not self.plan.distributed:
             self.plan = None
+        if self.plan is not None and self.plan.prefer_seq:
+            raise NotImplementedError(
+                f"{self.cfg.name}: no pool or model of the port attends over "
+                "a sequence-sharded cache (prefer_seq places the reference's "
+                "dry-run specs only): ROADMAP Queue 1, item 10")
         if self.plan is not None and self.cfg.is_encdec:
             raise NotImplementedError(
                 f"{self.cfg.name}: enc-dec serves through the sequential "
@@ -85,6 +94,7 @@ class Model:
         self._local_cfg = (self.cfg if self.plan is None
                            else sharding.local_config(self.cfg, self.plan.tp,
                                                       self.plan.rank))
+        self._layout = None
 
     @property
     def local_cfg(self) -> ModelConfig:
@@ -94,11 +104,43 @@ class Model:
     def _scope(self):
         return sharding.use_plan(self.plan, self.cfg)
 
-    def _no_plan(self, what: str) -> None:
-        if self.plan is not None:
+    def _training_scope(self, what: str):
+        """The scope of a training call: none without a plan; under a
+        training plan the rank's plan and its FSDP layout.  Raises for a
+        serving plan, for the families a plan cannot train yet and for
+        K/V heads shared by some but not all ranks."""
+        if self.plan is None:
+            return contextlib.nullcontext()
+        cfg = self.cfg
+        if not self.plan.training:
+            raise ValueError(f"{cfg.name}: {what} under a serving plan: "
+                             "train under sharding.training_plan")
+        if cfg.family in ("zamba", "xlstm") or cfg.is_encdec:
             raise NotImplementedError(
-                f"{self.cfg.name}: {what} under a sharding plan belongs to "
-                "training (ROADMAP Queue 1, item 9)")
+                f"{cfg.name}: {what} of the {cfg.family!r} family under a "
+                "sharding plan needs the split-row norm's backward (and "
+                "zamba the ssd_scan backward): ROADMAP Queue 1, item 11")
+        tp = self.plan.tp
+        groups = sharding.kv_groups(cfg, tp)
+        if tp > 1 and (1 < groups < tp or (groups == 1 and cfg.fused_qkv)):
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.n_kv_heads} KV heads shared by several "
+                f"of {tp} ranks need their gradient summed over them (a "
+                "fused wqkv cannot take it apart from q's): ROADMAP Queue 1, "
+                "item 11")
+        stack = contextlib.ExitStack()
+        stack.enter_context(self._scope())
+        stack.enter_context(fsdp.use_layout(self.layout))
+        return stack
+
+    @property
+    def layout(self):
+        """The FSDP layout of a model under a training plan (None
+        otherwise)."""
+        if self._layout is None and self.plan is not None and self.plan.training:
+            self._layout = fsdp.Layout(
+                self.plan, sharding.plan_param_specs(self.cfg, self.plan))
+        return self._layout
 
     @property
     def dtype(self) -> torch.dtype:
@@ -196,23 +238,25 @@ class Model:
     def forward(self, params, inputs: dict, training: bool = False):
         """Full-sequence forward -> (logits, aux).  ``training=True`` is the
         training forward (gradients, remat); the default runs under
-        ``no_grad``."""
-        self._no_plan("the full-sequence forward")
-        if self.is_encdec:
-            return encdec.forward(params, self.cfg, self._frames(inputs),
-                                  self._tokens(inputs), training)
-        return transformer.forward(params, self.cfg, self._tokens(inputs),
-                                   training)
+        ``no_grad``.  Under a training plan: the rank's rows in, the
+        logits of the whole vocabulary out."""
+        with self._training_scope("the full-sequence forward"):
+            if self.is_encdec:
+                return encdec.forward(params, self.cfg, self._frames(inputs),
+                                      self._tokens(inputs), training)
+            return transformer.forward(params, self.local_cfg,
+                                       self._tokens(inputs), training)
 
     def loss(self, params, batch: dict) -> torch.Tensor:
         """The training loss of ``batch`` (``tokens``, ``labels`` and, for
         enc-dec, ``frames``), as the reference's ``Model.loss``."""
-        self._no_plan("the training loss")
-        labels = self._input(batch["labels"])
-        if self.is_encdec:
-            return encdec.loss_fn(params, self.cfg, self._frames(batch),
-                                  self._tokens(batch), labels)
-        return transformer.loss_fn(params, self.cfg, self._tokens(batch), labels)
+        with self._training_scope("the training loss"):
+            labels = self._input(batch["labels"])
+            if self.is_encdec:
+                return encdec.loss_fn(params, self.cfg, self._frames(batch),
+                                      self._tokens(batch), labels)
+            return transformer.loss_fn(params, self.local_cfg,
+                                       self._tokens(batch), labels)
 
     # ---- serving -----------------------------------------------------------
 

@@ -34,15 +34,22 @@ Entry points:
 reference checkpoints is recomputed in the backward when ``cfg.remat``
 (``torch.utils.checkpoint``), and ``aux`` sums the moe blocks' load-
 balancing losses.  The serving entry points run under ``no_grad``.
+Under a training plan (``distributed.fsdp``) the dense and moe
+families gather each layer's leaves as the layer starts (inside the
+remat'd block, so its recomputation gathers again), the embedding and
+the head theirs where they are read, and ``loss_fn`` takes a
+vocab-parallel head's loss without gathering its logits.
 """
 
 from __future__ import annotations
 
+import contextvars
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.models import mla, moe, quant, ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (LazyDraw, ParamDraw, PendingDraw,
@@ -332,10 +339,14 @@ def _dense_block(bp: dict, x, cfg: ModelConfig, positions, layer_cache,
 def remat_call(fn, x, remat: bool):
     """``fn(x)``; with ``remat`` its activations are recomputed in the
     backward instead of kept (the reference's ``jax.checkpoint`` of a
-    block; nothing in a block draws random numbers)."""
+    block; nothing in a block draws random numbers).  The recomputation
+    runs in the context of the forward (a sharding plan's scope and its
+    FSDP layout), so it meets the other ranks in the same collectives."""
     if not remat:
         return fn(x)
-    return checkpoint(fn, x, use_reentrant=False, preserve_rng_state=False)
+    ctx = contextvars.copy_context()
+    return checkpoint(lambda h: ctx.run(fn, h), x, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def layer_cache(cache: Optional[dict], layer: int) -> Optional[dict]:
@@ -470,6 +481,7 @@ def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
     for layer, bp in enumerate(params["layers"]):
         def block(h, bp=bp, layer=layer):
             out = None if aux is None else []
+            bp = fsdp.gathered(bp, f"layers.{layer}")
             h = _dense_block(bp, h, cfg, positions, layer_cache(cache, layer),
                              cache_pos, page_table, page_size,
                              layer_bank(adapter_bank, layer), adapter_ids, out)
@@ -480,9 +492,12 @@ def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
     return x
 
 
-def _head(params, cfg, x):
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    return lm_head(x, params, cfg.tied_embeddings)
+def _head(params, cfg, x, gather: bool = True):
+    x = rmsnorm(x, fsdp.gathered(params["final_norm"], "final_norm"),
+                cfg.norm_eps)
+    head = {k: fsdp.gathered(params[k], k)
+            for k in ("embed", "lm_head") if k in params}
+    return lm_head(x, head, cfg.tied_embeddings, gather)
 
 
 # ---------------------------------------------------------------------------
@@ -506,15 +521,16 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return _forward(params, cfg, tokens, cfg.remat)
 
 
-def _forward(params, cfg, tokens, remat: bool):
+def _forward(params, cfg, tokens, remat: bool, gather: bool = True):
     B, S = tokens.shape
-    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    x = embed_tokens(fsdp.gathered(params["embed"], "embed"), tokens,
+                     scale_by_dim=cfg.scale_embed)
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     auxs: list = []
     x = _decoder(params, cfg, x, positions, None, None, aux=auxs, remat=remat)
     aux = (torch.stack(auxs).sum() if auxs
            else torch.zeros((), dtype=torch.float32, device=x.device))
-    return _head(params, cfg, x), aux
+    return _head(params, cfg, x, gather), aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -531,8 +547,12 @@ def loss_fn(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """The training loss of ``repro.models.transformer.loss_fn``: the fp32
     cross-entropy of the training forward plus ``aux_weight`` times its
     moe load-balancing loss."""
-    logits, aux = forward(params, cfg, tokens, training=True)
-    return cross_entropy(logits, labels) + aux_weight * aux
+    if not sharding.vocab_split():
+        logits, aux = forward(params, cfg, tokens, training=True)
+        return cross_entropy(logits, labels) + aux_weight * aux
+    _decoder_only(cfg)
+    logits, aux = _forward(params, cfg, tokens, cfg.remat, gather=False)
+    return sharding.vocab_cross_entropy(logits, labels) + aux_weight * aux
 
 
 @torch.no_grad()

@@ -294,7 +294,9 @@ class FaaSRuntime:
         first-call costs (§5.1).  ``template_prompt`` (int32 tokens) is the
         function's shared prompt prefix: its KV is baked once into pinned
         pages of the paged arena, and every invocation whose prompt starts
-        with it prefills only the suffix."""
+        with it prefills only the suffix.  Over a ``server`` another
+        runtime shares, a first deploy of a function object the server
+        already holds keeps its host pool; a re-deploy packs anew."""
         if fn.model.device != self.device:
             raise ValueError(f"{fn.name}: model on {fn.model.device}, "
                              f"runtime on {self.device}")
@@ -318,14 +320,18 @@ class FaaSRuntime:
                     f"shorter than one page ({self.page_size}): it could "
                     "never be matched, only pin dead pages")
         # a re-deploy REPLACES the function: its warm engines serve the old
-        # params and its baked prefix was computed under them
-        if fn.name in self.functions:
+        # params and its baked prefix was computed under them.  A first
+        # deploy over a shared server keeps the host pool another runtime
+        # packed for this same function object
+        redeploy = fn.name in self.functions
+        if redeploy:
             self.evict(fn.name)
         self.release_template_prefix(fn.name)
         self._drop_runtime_prefixes(fn.name)
         self.functions[fn.name] = fn
         self.server.register(fn, example_event or {},
-                             template_prompt=template_prompt)
+                             template_prompt=template_prompt,
+                             keep_host_pool=not redeploy)
         if template_prompt is not None:
             self._baked_events[fn.name] = dict(example_event or {})
             # the deploy-time bake is on the first instance; the others

@@ -27,6 +27,37 @@ The active plan is process-global (``install_fault_plan`` /
 :func:`use_fault_plan`), *not* thread-local, because faults must reach
 work executing on the gateway's background pump thread and the weight
 streamer's fetch thread.
+
+Under tensor parallelism (``distributed.group``: one process per rank,
+rank 0 the controller) installing, uninstalling and resetting a plan are
+mirrored ops: every rank of every instance holds a copy of the plan, so
+a point visited INSIDE a device op fires at the same visit on every rank
+of the instance, the op raises the same type everywhere and the workers
+serve on.  The points split so:
+
+==================  ====================================================
+point               where it is visited under tensor parallelism
+==================  ====================================================
+``weight_fetch``    inside an op, on every rank: a fork session's
+                    streamer (``core.streaming``), started by the
+                    template server's ``fork`` op; its retries run alike
+                    on every rank
+``prefill_chunk``   on the controller only, before the prefill op is
+                    broadcast (``runtime.continuous``)
+``decode_quantum``  on the controller only, before the decode op
+``adapter_load``    on the controller only, before ``set_adapter``'s op
+``engine_step``     on the controller only (the engine loop is host state)
+==================  ====================================================
+
+With several instances (``ServingMesh(K, N)``) each instance has a copy
+of its own: instance ``i``'s ranks use it, and so does the controller
+when it runs instance ``i``'s ops on its shadows, since one shared
+counter would count visits that instance ``i``'s ranks never make.  The
+installed plan is instance 0's copy and counts the controller-only
+points of every instance (one counter, as in one process); its
+``fired`` merges the other copies' logs, each entry marked with its
+``instance``.  (The reference runs every instance in one process, where
+one counter takes the instances' visits in thread order.)
 """
 
 from __future__ import annotations
@@ -36,6 +67,7 @@ import dataclasses
 import threading
 from typing import Dict, Iterable, List, Optional, Tuple
 
+from repro_torch.distributed.group import current_group, mirrored
 from repro_torch.runtime.errors import (
     AdapterLoadFault,
     DecodeFault,
@@ -134,7 +166,40 @@ class FaultPlan:
         self._lock = threading.Lock()
         self._spec_visits = [0] * len(self.specs)
         self.counts: Dict[str, int] = {p: 0 for p in INJECTION_POINTS}
-        self.fired: List[dict] = []
+        self._fired: List[dict] = []
+        # the controller's copies for instances 1.. of a ServingMesh(K, N)
+        self.instance_copies: Dict[int, "FaultPlan"] = {}
+
+    # a plan crosses a tensor-parallel channel by value (distributed.group)
+    mirror_by_value = True
+
+    def __getstate__(self) -> dict:
+        state = dict(self.__dict__)
+        del state["_lock"]
+        state["instance_copies"] = {}
+        return state
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state)
+        self._lock = threading.Lock()
+
+    def copy(self) -> "FaultPlan":
+        """A copy with its own counters and log (at this plan's state)."""
+        out = FaultPlan.__new__(FaultPlan)
+        out.__setstate__(self.__getstate__())
+        out._spec_visits = list(self._spec_visits)
+        out.counts = dict(self.counts)
+        out._fired = list(self._fired)
+        return out
+
+    @property
+    def fired(self) -> List[dict]:
+        """The fired faults: this plan's, then each instance copy's with
+        its ``instance``."""
+        out = list(self._fired)
+        for i, c in sorted(self.instance_copies.items()):
+            out.extend(dict(e, instance=i) for e in c._fired)
+        return out
 
     @classmethod
     def bernoulli(cls, seed: int, rates: Dict[str, float],
@@ -169,12 +234,21 @@ class FaultPlan:
         return cls(specs, seed=seed)
 
     def reset(self) -> "FaultPlan":
-        """Zero all visit counters and the fired log; return ``self``."""
+        """Zero all visit counters and the fired log; return ``self``.
+        The installed plan is reset on every rank (a mirrored op)."""
+        if self is _active_plan:
+            _reset_active()
+        else:
+            self._reset_local()
+        return self
+
+    def _reset_local(self) -> None:
         with self._lock:
             self._spec_visits = [0] * len(self.specs)
             self.counts = {p: 0 for p in INJECTION_POINTS}
-            self.fired = []
-        return self
+            self._fired = []
+        for c in self.instance_copies.values():
+            c._reset_local()
 
     def check(self, point: str, detail: str = "") -> None:
         """Count one visit of ``point``; raise if a spec schedules it.
@@ -206,7 +280,7 @@ class FaultPlan:
                 if hit is None and spec.at <= visit < spec.at + spec.times:
                     hit = (i, visit)
             if hit is not None:
-                self.fired.append({
+                self._fired.append({
                     "point": point,
                     "detail": detail,
                     "spec": hit[0],
@@ -223,17 +297,46 @@ _active_plan: Optional[FaultPlan] = None
 _active_lock = threading.Lock()
 
 
-def install_fault_plan(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
-    """Install ``plan`` process-wide (``None`` uninstalls); return the old one."""
+@mirrored()
+def _install(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
+    """Set the active plan on this rank (every rank of every instance
+    under tensor parallelism; the controller keeps a copy per other
+    instance for the ops it runs on that instance's shadows); returns
+    the old one."""
     global _active_plan
+    group = current_group()
+    if (plan is not None and group is not None and group.is_controller
+            and group.n_instances > 1):
+        plan.instance_copies = {i: plan.copy()
+                                for i in range(1, group.n_instances)}
     with _active_lock:
         prev, _active_plan = _active_plan, plan
     return prev
 
 
-def active_fault_plan() -> Optional[FaultPlan]:
-    """Return the currently installed plan, or ``None``."""
-    return _active_plan
+@mirrored()
+def _reset_active() -> None:
+    if _active_plan is not None:
+        _active_plan._reset_local()
+
+
+def install_fault_plan(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
+    """Install ``plan`` process-wide (``None`` uninstalls); return the old
+    one.  Under tensor parallelism every rank installs a copy."""
+    return _install(plan)
+
+
+def active_fault_plan(instance: Optional[int] = None) -> Optional[FaultPlan]:
+    """Return the currently installed plan, or ``None``; on a controller
+    running another instance's op (or given that ``instance``), that
+    instance's copy of it."""
+    plan = _active_plan
+    if plan is None or not plan.instance_copies:
+        return plan
+    if instance is None:
+        group = current_group()
+        instance = None if group is None else group.op_instance()
+    return plan.instance_copies.get(instance, plan)
 
 
 @contextlib.contextmanager
@@ -253,16 +356,20 @@ def use_fault_plan(plan: FaultPlan):
         install_fault_plan(prev)
 
 
-def fault_point(point: str, detail: str = "") -> None:
+def fault_point(point: str, detail: str = "",
+                instance: Optional[int] = None) -> None:
     """Visit a named injection point; no-op unless a plan is installed.
 
     Args:
         point: injection-point name (one of :data:`INJECTION_POINTS`).
         detail: site-specific context string for matching and logging.
+        instance: the serving instance whose copy of the plan counts the
+            visit (a thread started inside an op names the op's; None:
+            the op running on this thread, else the installed plan).
 
     Raises:
         InjectedFault: when the active plan schedules this visit.
     """
-    plan = _active_plan
+    plan = active_fault_plan(instance)
     if plan is not None:
         plan.check(point, detail)

@@ -9,6 +9,14 @@ reference returns new arrays), one leaf at a time.  It is plain tensor
 arithmetic on every device: the reference's optimizer is XLA, not a
 Pallas kernel.  ``torch.optim.AdamW`` is not used: it has neither the
 global-norm clip nor the factored second moment.
+
+Under a training plan each rank updates its own pieces (the update is
+elementwise) and reads the rest from a ``distributed.fsdp.Layout``: the
+global norm adds every rank's squares in one ``all_reduce``, each leaf
+counted once (a piece that ``copies`` ranks hold alike is divided by
+``copies``), and a factored leaf's row and column means add the pieces
+of a split axis over the ranks that hold them.  Which leaves factor is
+read from the whole leaf's shape, as on one device.
 """
 
 from __future__ import annotations
@@ -47,17 +55,20 @@ def _is_factorable(shape, cfg: OptimizerConfig) -> bool:
             and shape[-2] >= cfg.min_factored_size)
 
 
-def init_opt_state(params, cfg: OptimizerConfig) -> dict:
+def init_opt_state(params, cfg: OptimizerConfig, layout=None) -> dict:
     """Zeroed ``m`` and ``v`` beside every parameter (in ``state_dtype``
-    when set; a factored ``v`` is fp32 rows and columns) and ``step`` 0."""
+    when set; a factored ``v`` is fp32 rows and columns) and ``step`` 0;
+    under a plan's ``layout`` beside every piece."""
     dt = _STATE_DTYPES[cfg.state_dtype] if cfg.state_dtype else None
     device = next(t for _, t in named_leaves(params)).device
 
     def m_of(p):
         return torch.zeros(p.shape, dtype=dt or p.dtype, device=p.device)
 
-    def v_of(p):
-        if _is_factorable(p.shape, cfg):
+    def v_of(path, p):
+        shape = (p.shape if layout is None
+                 else layout.global_shape(path, tuple(p.shape)))
+        if _is_factorable(shape, cfg):
             return {"row": torch.zeros(p.shape[:-1], dtype=torch.float32,
                                        device=p.device),
                     "col": torch.zeros(p.shape[:-2] + p.shape[-1:],
@@ -65,7 +76,7 @@ def init_opt_state(params, cfg: OptimizerConfig) -> dict:
         return m_of(p)
 
     return {"m": map_with_path(lambda _, p: m_of(p), params),
-            "v": map_with_path(lambda _, p: v_of(p), params),
+            "v": map_with_path(v_of, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
@@ -74,9 +85,28 @@ def _lr_at(step: torch.Tensor, cfg: OptimizerConfig) -> torch.Tensor:
     return cfg.lr * warm
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for _, t in named_leaves(tree)))
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32; under a plan's
+    ``layout`` over every rank's pieces, each leaf counted once."""
+    if layout is None:
+        return torch.sqrt(sum(t.float().square().sum()
+                              for _, t in named_leaves(tree)))
+    total = sum(t.float().square().sum() / layout.copies(path)
+                for path, t in named_leaves(tree))
+    return torch.sqrt(_sum_over(total.reshape(1), layout.world)[0])
+
+
+def _sum_over(t: torch.Tensor, axis) -> torch.Tensor:
+    from repro_torch.distributed import fsdp
+    return fsdp.all_reduce(t.contiguous(), axis) if axis.n > 1 else t
+
+
+def _mean(x: torch.Tensor, dim: int, size: int, axis) -> torch.Tensor:
+    """The mean over ``dim`` of a whole axis of ``size`` whose other
+    pieces ``axis``'s ranks hold (None: all of it here)."""
+    if axis is None:
+        return x.mean(dim=dim)
+    return _sum_over(x.sum(dim=dim), axis) / size
 
 
 def _leaves_like(tree, like) -> list:
@@ -90,12 +120,14 @@ def _leaves_like(tree, like) -> list:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, opt_state: dict, cfg: OptimizerConfig):
+def adamw_update(params, grads, opt_state: dict, cfg: OptimizerConfig,
+                 layout=None):
     """One AdamW step: global-norm clip, linear warmup, bias correction,
     decoupled weight decay.  Returns (new_params, new_opt_state,
-    {'grad_norm', 'lr'}), as ``repro.train.optimizer.adamw_update``."""
+    {'grad_norm', 'lr'}), as ``repro.train.optimizer.adamw_update``;
+    under a plan's ``layout`` over this rank's pieces (module doc)."""
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, layout)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = _lr_at(step, cfg)
     b1, b2 = cfg.b1, cfg.b2
@@ -105,16 +137,22 @@ def adamw_update(params, grads, opt_state: dict, cfg: OptimizerConfig):
     bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
                                        device=stepf.device), stepf)
 
-    def upd(p, g, m, v):
+    def upd(path, p, g, m, v):
         g = g.float() * scale
         m_new = b1 * m.float() + (1 - b1) * g
         mhat = m_new / bc1
         if isinstance(v, dict):           # factored second moment
             g2 = g.square() + 1e-30
-            row = b2 * v["row"] + (1 - b2) * g2.mean(dim=-1)
-            col = b2 * v["col"] + (1 - b2) * g2.mean(dim=-2)
+            nd = g2.dim()
+            split = {} if layout is None else layout.split_dims(path)
+            shape = g2.shape if layout is None else layout.global_shape(
+                path, tuple(g2.shape))
+            last, second = split.get(nd - 1), split.get(nd - 2)
+            row = b2 * v["row"] + (1 - b2) * _mean(g2, -1, shape[-1], last)
+            col = b2 * v["col"] + (1 - b2) * _mean(g2, -2, shape[-2], second)
             # rank-1 reconstruction: v ~ row x col / mean(row)
-            denom = torch.clamp(row.mean(dim=-1, keepdim=True), min=1e-30)
+            denom = torch.clamp(
+                _mean(row, -1, shape[-2], second)[..., None], min=1e-30)
             vhat = (row[..., :, None] * col[..., None, :]
                     / denom[..., None]) / bc2
             v_new = {"row": row, "col": col}
@@ -126,9 +164,11 @@ def adamw_update(params, grads, opt_state: dict, cfg: OptimizerConfig):
         p_new = p.float() - lr * delta
         return p_new.to(p.dtype), m_new.to(m.dtype), v_new
 
+    paths = [path for path, _ in named_leaves(params)]
     p_flat = _leaves_like(params, params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        p_flat, _leaves_like(grads, params), _leaves_like(opt_state["m"], params),
+    out = [upd(path, p, g, m, v) for path, p, g, m, v in zip(
+        paths, p_flat, _leaves_like(grads, params),
+        _leaves_like(opt_state["m"], params),
         _leaves_like(opt_state["v"], params))]
     new_params = unflatten_like(params, iter(o[0] for o in out))
     new_m = unflatten_like(params, iter(o[1] for o in out))

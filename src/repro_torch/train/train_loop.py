@@ -10,6 +10,15 @@ newest checkpoint, the data stream's position included, and saves every
 ``PRNGKey(0)``; the port draws them from ``seed``
 (``models.layers.ParamDraw``), so the two start from other weights
 unless a caller carries them across (``convert.params_from_jax``).
+
+Under a training plan (a model built with ``sharding.training_plan``;
+``distributed.spawn`` starts the ranks and every rank runs this loop)
+the step takes the rank's rows of the global batch
+(``data.pipeline.shard_rows``), its gradients are its pieces' (the FSDP
+gathers' backward reduce-scatters and averages them,
+``distributed.fsdp``), the optimizer reads the plan's layout, the
+``loss`` metric is the global batch's, and each rank checkpoints its own
+pieces with the stream's position under ``rank<k>/`` of the directory.
 """
 
 from __future__ import annotations
@@ -19,7 +28,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.data.pipeline import DataConfig, TokenStream
+from repro_torch.data.pipeline import DataConfig, TokenStream, shard_rows
+from repro_torch.distributed import fsdp
 from repro_torch.models.registry import Model
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
@@ -27,14 +37,26 @@ from repro_torch.train.optimizer import (OptimizerConfig, adamw_update,
 from repro_torch.utils import named_leaves, unflatten_like
 
 
-def make_train_step(model: Model, opt_cfg: OptimizerConfig) -> Callable:
+def make_train_step(model: Model, opt_cfg: OptimizerConfig,
+                    seq_parallel: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``state``
     is ``{'params', 'opt'}``, ``batch`` the stream's ``{'tokens',
     'labels'}`` (and ``frames`` for enc-dec) as numpy or tensors, and
-    ``metrics`` ``{'loss', 'grad_norm', 'lr'}`` as 0-d tensors."""
+    ``metrics`` ``{'loss', 'grad_norm', 'lr'}`` as 0-d tensors.
+    ``seq_parallel`` (the reference's sequence-sharded batch) raises: its
+    attention would have to run across sequence shards."""
+    if seq_parallel:
+        raise NotImplementedError(
+            "a sequence-parallel train step (the batch's sequence axis over "
+            "'model') needs attention across sequence shards: ROADMAP "
+            "Queue 1, item 11")
+
+    plan, layout = model.plan, model.layout
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
+        if plan is not None:
+            batch = shard_rows(batch, plan.data_rank, plan.data)
         leaves = [t for _, t in named_leaves(params)]
         for t in leaves:
             t.requires_grad_(True)
@@ -42,9 +64,12 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig) -> Callable:
         grads = torch.autograd.grad(loss, leaves)
         for t in leaves:
             t.requires_grad_(False)
+        if layout is not None:
+            layout.end_step()
         new_params, new_opt, metrics = adamw_update(
-            params, unflatten_like(params, iter(grads)), state["opt"], opt_cfg)
-        metrics = dict(metrics, loss=loss.detach())
+            params, unflatten_like(params, iter(grads)), state["opt"], opt_cfg,
+            layout)
+        metrics = dict(metrics, loss=fsdp.batch_mean(loss.detach(), layout))
         return {"params": new_params, "opt": new_opt}, metrics
 
     return train_step
@@ -53,7 +78,17 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig) -> Callable:
 def init_train_state(model: Model, opt_cfg: OptimizerConfig,
                      seed: int = 0) -> dict:
     params = model.init_params(seed)
-    return {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    return {"params": params,
+            "opt": init_opt_state(params, opt_cfg, model.layout)}
+
+
+def checkpoint_dir(model: Model, directory: str) -> str:
+    """Where a rank keeps its checkpoints: ``directory`` on one device,
+    ``directory/rank<k>`` under a plan (``k`` its index on the grid)."""
+    if model.plan is None:
+        return directory
+    import os
+    return os.path.join(directory, f"rank{model.plan.world_rank}")
 
 
 @dataclasses.dataclass
@@ -75,10 +110,11 @@ def train(model: Model, opt_cfg: OptimizerConfig, data_cfg: DataConfig,
     stream = TokenStream(data_cfg)
     state = init_train_state(model, opt_cfg, seed)
     start_step = 0
-    if loop_cfg.ckpt_dir:
+    ckpt_dir = loop_cfg.ckpt_dir and checkpoint_dir(model, loop_cfg.ckpt_dir)
+    if ckpt_dir:
         try:
             state, start_step, extra = ckpt_lib.restore_checkpoint(
-                loop_cfg.ckpt_dir, state)
+                ckpt_dir, state)
             stream.restore(extra["data"])
             log(f"resumed from step {start_step}")
         except FileNotFoundError:
@@ -96,8 +132,8 @@ def train(model: Model, opt_cfg: OptimizerConfig, data_cfg: DataConfig,
         if (step + 1) % loop_cfg.log_every == 0:
             log(f"step {step + 1} loss {float(metrics['loss']):.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f}")
-        if loop_cfg.ckpt_dir and (step + 1) % loop_cfg.ckpt_every == 0:
-            ckpt_lib.save_checkpoint(loop_cfg.ckpt_dir, step + 1, state,
+        if ckpt_dir and (step + 1) % loop_cfg.ckpt_every == 0:
+            ckpt_lib.save_checkpoint(ckpt_dir, step + 1, state,
                                      extra={"data": stream.state()},
                                      keep=loop_cfg.keep)
     return state, losses

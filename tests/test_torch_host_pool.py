@@ -125,6 +125,30 @@ def test_host_layout_and_buffer_views():
     assert not hb.pinned
 
 
+def test_a_runtime_adopting_a_shared_servers_function_keeps_its_pool():
+    """A second ``FaaSRuntime`` over the same server deploys the same
+    function object from the host pool the first packed (one host copy
+    for both); a re-deploy on a runtime packs anew, and the adopting
+    runtime serves the same tokens."""
+    from repro_torch.runtime import FaaSRuntime
+    model = get_smoke_model("smollm-135m", device="cpu", n_layers=2)
+    fn = tidal.static_function("f", model, model.init_params(seed=3))
+    srv = TemplateServer(trace_seq=16)
+    prompt = np.arange(1, 10, dtype=np.int32)
+    tokens = []
+    for _ in range(2):
+        rt = FaaSRuntime(server=srv, device="cpu", n_slots=2, max_len=32,
+                         page_size=4, prewarm=False)
+        before = srv.host_buffers.get("f")
+        rt.deploy(fn, {})
+        assert (srv.host_buffers["f"] is before) == (before is not None)
+        tokens.append(rt.submit("f", {}, prompt, 4).tokens.tolist())
+    kept = srv.host_buffers["f"]
+    rt.deploy(fn, {})
+    assert srv.host_buffers["f"] is not kept
+    assert tokens[0] == tokens[1]
+
+
 def test_reregister_replaces_the_buffer():
     srv, fn, event = _server("smollm-135m", False)
     first = srv.host_buffers["f"]

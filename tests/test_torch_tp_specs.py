@@ -395,13 +395,17 @@ def test_data_axis_and_training_specs_name_their_items():
     assert tm1.local_cfg == get_smoke_model(
         "smollm-135m", device="cpu",
         plan=sharding.serving_plan(MESH, rank=1)).local_cfg
-    tm = get_smoke_model("smollm-135m", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sharding.param_specs(tm, MESH, fsdp=True)
-    plan = sharding.serving_plan(MESH, rank=0)
-    model = get_smoke_model("smollm-135m", device="cpu", plan=plan)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        model.forward(model.init_params(), {"tokens": np.zeros((1, 4), np.int32)})
+    # training under a plan (item 9) covers the dense and moe families; a
+    # recurrent model's loss under a training plan names item 11
+    batch = {"tokens": np.zeros((1, 4), np.int32),
+             "labels": np.zeros((1, 4), np.int32)}
+    plan = sharding.training_plan(MESH, rank=0)
+    tm = get_smoke_model("zamba2-2.7b", device="cpu", plan=plan)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tm.loss(tm.init_params(), batch)
+    model = get_smoke_model("xlstm-1.3b", device="cpu", plan=plan)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        model.loss(model.init_params(), batch)
 
 
 @pytest.mark.parametrize("arch,replace,tp,match", [
@@ -688,3 +692,181 @@ def test_whisper_specs_validate_and_the_tp_checks_of_the_families():
             n_heads=64, n_kv_heads=64), 32)
     with pytest.raises(ValueError, match="4 query heads"):
         sharding.check_tp(get_model(XLSTM, device="cpu").cfg, 8)
+
+
+# ---------------------------------------------------------------------------
+# training's specs (ROADMAP Queue 1, item 9) against the reference's
+# ---------------------------------------------------------------------------
+
+GRID = ServingMesh(2, 2)
+DENSE = "llama3-8b"
+
+
+def _train_diffs(jm, tm, mesh, **kw) -> dict:
+    """{JAX path: (JAX's spec, the port's)} of ``param_specs(**kw)``."""
+    jspecs = jax.tree_util.tree_leaves_with_path(
+        jax_sharding.param_specs(jm, mesh, **kw),
+        is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    tspecs = dict(named_leaves(sharding.param_specs(tm, mesh, **kw)))
+    lengths = group_lengths(tm.param_specs())
+    out = {}
+    for p, spec in jspecs:
+        path = path_str(p)
+        names = port_names(path, lengths)
+        want = tuple(spec)[1:] if names != [path] else tuple(spec)
+        got = {tuple(tspecs[n]) for n in names}
+        assert len(got) == 1, path
+        got = got.pop()
+        want = want + (None,) * (len(got) - len(want))
+        if got != want:
+            out[path] = (want, got)
+    return out
+
+
+TRAIN_DIFFS = {(DENSE, "smoke"): ONE_KV_DIFFS, (DENSE, "full"): ATTN_DIFFS,
+               (PHI, "smoke"): MOE_DIFFS["smoke"],
+               (PHI, "full"): MOE_DIFFS["full"],
+               (DSV3, "smoke"): MLA_SMOKE_DIFFS, (DSV3, "full"): MLA_FULL_DIFFS}
+
+
+def _pair_at(arch, size):
+    if size == "smoke":
+        return (jax_smoke(arch, n_layers=2),
+                get_smoke_model(arch, device="cpu", n_layers=2))
+    return jax_model(arch), get_model(arch, device="cpu")
+
+
+@pytest.mark.parametrize("arch,size", sorted(TRAIN_DIFFS))
+def test_fsdp_and_fsdp2d_param_specs_against_jax(arch, size):
+    """Over (data 2, model 2).  ``fsdp=True``: the leaves that differ are
+    exactly those whose 'model' placement differs at tp = 2 (the listed
+    role-based placements), each with 'data' where the reference's ZeRO-3
+    rule puts it beside the port's 'model' dimension: the norms on their
+    only axis (JAX: 'model' there), wk / wv / wo and the shared expert on
+    the dimension 'model' leaves free, the router on its expert axis.
+    ``mode='fsdp2d'``: identical to the reference's, leaf for leaf."""
+    jm, tm = _pair_at(arch, size)
+    diffs = _train_diffs(jm, tm, GRID, fsdp=True)
+    assert set(diffs) == set(TRAIN_DIFFS[(arch, size)])
+    for path, (want, got) in diffs.items():
+        assert "data" in got, path
+        if path.endswith("norm"):
+            assert (want, got) == (("model",), ("data",))
+    assert _train_diffs(jm, tm, GRID, mode="fsdp2d") == {}
+
+
+def test_fsdp_rule_skips_mla_and_the_model_dimension():
+    """MLA's a-side stays replicated and its b-side takes no 'data'; a
+    dimension 'model' holds never takes 'data'; the rank's pieces put
+    back together give the leaf (``assemble``)."""
+    cfg = get_model(DSV3, device="cpu").cfg
+    specs = dict(named_leaves(sharding.config_param_specs(
+        cfg, 2, fsdp=True, data=2)))
+    for leaf in ("wq_a", "wkv_a", "q_a_norm", "kv_a_norm"):
+        assert specs[f"layers.0.attn.{leaf}"] == P(*[None] * len(
+            specs[f"layers.0.attn.{leaf}"]))
+    assert specs["layers.0.attn.wq_b"] == P(None, "model")
+    assert specs["layers.0.attn.wkv_b"] == P(None, "model")
+    assert specs["layers.0.moe.experts.w_gate"] == P("model", None, "data")
+    small = get_smoke_model(DENSE, device="cpu", n_layers=2)
+    for mode, fsdp in (("tp", True), ("fsdp2d", False)):
+        tspecs = dict(named_leaves(sharding.param_specs(small, GRID, fsdp=fsdp,
+                                                        mode=mode)))
+        plans = [sharding.training_plan(GRID, rank=r % 2, data_rank=r // 2,
+                                        fsdp=fsdp, mode=mode) for r in range(4)]
+        for path, leaf in named_leaves(transformer.param_specs(small.cfg)):
+            full = torch.randn(tuple(leaf.shape))
+            pieces = [pl.shard(full, tspecs[path]) for pl in plans]
+            assert torch.equal(sharding.assemble(pieces, tspecs[path],
+                                                 plans[0]), full), path
+
+
+def test_opt_state_specs_against_jax():
+    """``m`` and ``v`` mirror the parameters' specs as in the reference; a
+    factored second moment's ``row`` and ``col`` keep the parameter's
+    entries on the axes they keep, where the reference replicates them
+    (``P()``: it has no spec of their rank to mirror)."""
+    from repro.train import optimizer as jopt
+    from repro_torch.train import optimizer as topt
+    jm, tm = _pair_at(DENSE, "smoke")
+    kw = dict(factored=True, min_factored_size=16)
+    jp = jm.init_params(jax.random.PRNGKey(0))
+    jstate = jopt.init_opt_state(jp, jopt.OptimizerConfig(**kw))
+    tstate = topt.init_opt_state(tm.param_specs(), topt.OptimizerConfig(**kw))
+    jp_specs = jax_sharding.param_specs(jm, GRID, fsdp=True)
+    tp_specs = sharding.param_specs(tm, GRID, fsdp=True)
+    jo = jax_sharding.opt_state_specs(jp_specs, GRID, opt_state=jstate)
+    to = sharding.opt_state_specs(tp_specs, GRID, opt_state=tstate)
+    assert jo["step"] == to["step"] == P()
+    flat_p = dict(named_leaves(tp_specs))
+    assert dict(named_leaves(to["m"])) == flat_p
+    for path, spec in named_leaves(to["v"]):
+        base, _, part = path.rpartition(".")
+        if part == "row":
+            assert spec == P(*tuple(flat_p[base])[:-1]), path
+        elif part == "col":
+            assert spec == P(*(tuple(flat_p[base])[:-2]
+                               + tuple(flat_p[base])[-1:])), path
+        else:
+            assert spec == flat_p[path], path
+    factored = [p for p, _ in named_leaves(to["v"]) if p.endswith(".row")]
+    assert factored
+    # the reference: m mirrors, factored rows and columns replicated
+    jleaves = jax.tree_util.tree_leaves_with_path(
+        jo["v"], is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    assert {path_str(p) for p, s in jleaves if tuple(s) == ()} >= {
+        "blocks.attn.wq.row", "blocks.attn.wq.col"}
+    assert jax.tree_util.tree_structure(
+        jo["m"], is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec)
+    ) == jax.tree_util.tree_structure(
+        jp_specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+
+
+@pytest.mark.parametrize("seq_parallel", [False, True])
+def test_batch_specs_match_jax(seq_parallel):
+    batch = {"tokens": np.zeros((8, 16), np.int32),
+             "labels": np.zeros((8, 16), np.int32),
+             "odd": np.zeros((3, 5), np.int32)}
+    want = jax_sharding.batch_specs(batch, GRID, seq_parallel=seq_parallel)
+    got = sharding.batch_specs(batch, GRID, seq_parallel=seq_parallel)
+    assert {k: tuple(v) for k, v in want.items()} == {
+        k: tuple(v) for k, v in got.items()}
+
+
+@pytest.mark.parametrize("arch", [DENSE, DSV3])
+def test_prefer_seq_cache_specs_match_jax_and_models_refuse(arch):
+    """``cache_specs(prefer_seq=True)``: 'model' on an attention cache's
+    sequence axis (MLA's latent too), the batch over 'data', as the
+    reference; a model built under a plan that prefers it raises naming
+    item 10 (so no pool can be built either)."""
+    jm, tm = _pair_at(arch, "smoke")
+    jcache = jm.make_cache(4, 32, abstract=True)
+    tcache = tm.make_cache(4, 32, device="meta")
+    for mesh in (MESH, GRID):
+        want = jax_sharding.cache_specs(jm, jcache, mesh, 4, prefer_seq=True)
+        got = sharding.cache_specs(tm, tcache, mesh, 4, prefer_seq=True)
+        jl = {path_str(p): tuple(s) for p, s in jax.tree_util.
+              tree_leaves_with_path(want, is_leaf=lambda x: isinstance(
+                  x, jax.sharding.PartitionSpec))}
+        tl = {p: tuple(s) for p, s in named_leaves(got)}
+        assert jl == tl
+        assert all(s[2] == "model" for s in tl.values())
+    plan = sharding.ShardingPlan(MESH, prefer_seq=True)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        get_smoke_model(arch, device="cpu", plan=plan)
+
+
+@pytest.mark.parametrize("arch", [DENSE, PHI, DSV3])
+def test_training_specs_validate_at_16x16(arch):
+    """``param_specs(fsdp=True)`` and ``mode='fsdp2d'`` of the full-width
+    configs divide every shape over (data 16, model 16), as the
+    reference's production mesh."""
+    cfg = get_model(arch, device="cpu").cfg
+    mesh = ServingMesh(16, 16)
+    shapes = transformer.param_specs(cfg)
+    for kw in (dict(fsdp=True), dict(mode="fsdp2d")):
+        specs = sharding.config_param_specs(cfg, 16, data=16, **kw)
+        assert sharding.validate_specs(specs, shapes, mesh) == []
+        placed = [s for _, s in named_leaves(specs)
+                  if any(e is not None for e in s)]
+        assert placed
