@@ -379,19 +379,21 @@ extern "C" int repro_rmsnorm_sumsq(const void* x, float* sums, int64_t rows, int
 
 // The split-row form, second launch: y = x * rsqrt(sums[row] / d_global +
 // eps) * scale over the slice x [rows, d], scale [d] (the rank's slice of
-// the norm's scale), sums the ranks' total per row (fp32 [rows]).
+// the norm's scale), sums the ranks' total per row (fp32 [rows]).  rstd may
+// be null; otherwise it receives each row's rsqrt(sums / d_global + eps)
+// (training: csrc/rmsnorm_bwd.cu's split-row backward reads it).
 extern "C" int repro_rmsnorm_apply(const void* x, const float* sums,
                                    const void* scale, void* y, int64_t rows, int d,
                                    int d_global, int64_t x_stride, float eps,
-                                   int x_dtype, int scale_dtype, int vec,
+                                   int x_dtype, int scale_dtype, int vec, void* rstd,
                                    void* stream) {
   if (rows < 1 || rows > 0x7fffffffLL || d < 1 || d_global < d || x_stride < 0 ||
       sums == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool v = vec != 0;
   if (v && d % (x_dtype == 0 ? 4 : 8) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x, nullptr, scale, y, nullptr, nullptr, const_cast<float*>(sums),
-               rows, d, d_global, x_stride, 0, eps};
+  const Args a{x, nullptr, scale, y, nullptr, static_cast<float*>(rstd),
+               const_cast<float*>(sums), rows, d, d_global, x_stride, 0, eps};
   auto st = static_cast<cudaStream_t>(stream);
   if (x_dtype == 0 && scale_dtype == 0)
     return static_cast<int>(launch_split<float, float, 2>(a, v, st));

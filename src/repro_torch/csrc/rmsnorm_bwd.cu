@@ -34,6 +34,20 @@
 //      compensated (Kahan), so its error does not grow with the row count.
 // So dscale's bits are the same run to run, as a resumed training run
 // needs.
+//
+// The split-row form (repro_rmsnorm_bwd_split_dot, then
+// repro_rmsnorm_bwd_split) is the gradient of csrc/rmsnorm.cu's split-row
+// form, for a row that tensor parallelism cuts over ranks (Mamba2's gated
+// norm, the mLSTM's and the sLSTM's norms).  The row sum mean(x^ * g)
+// spans the whole row, so it is split around the caller's sum over the
+// ranks: the first launch writes each row's fp32 dot of (scale * dy) and x
+// over the rank's slice [rows] (one warp or block per row, the same
+// reduction as step 1), the caller adds the ranks' dots (one all_reduce of
+// 4 bytes per row), and the second launch forms the slice's
+// dx = rstd * (g - x * rstd^2 * dot / d_global) from the forward's rstd
+// (the rsqrt of the reduced sums, which the forward's second launch
+// wrote) and then the slice's dscale by steps 2 and 3.  Bound: bytes, as
+// above, x and dy read twice (once per launch).
 
 #include "attention_common.cuh"
 
@@ -60,12 +74,17 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <bool BLOCK_ROW>
+// SPLIT 0: the whole row (mean from this row's sum); 1: the split-row
+// form's first launch (each row's dot of scale * dy and x into dots, and
+// nothing else); 2: its second launch (the mean from the ranks' dots over
+// d_global).
+template <bool BLOCK_ROW, int SPLIT>
 __global__ void __launch_bounds__(BLOCK_ROW ? kBlockWarps * 32 : kWarpRows * 32)
 rmsnorm_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ dy, const float* __restrict__ d_sum,
                       const float* __restrict__ rstd, float* __restrict__ dx,
-                      int64_t rows, int d, int64_t x_stride) {
+                      float* __restrict__ dots, int64_t rows, int d, int d_global,
+                      int64_t x_stride) {
   constexpr int kRowThreads = BLOCK_ROW ? kBlockWarps * 32 : 32;
   const int64_t row = BLOCK_ROW ? static_cast<int64_t>(blockIdx.x)
                                 : static_cast<int64_t>(blockIdx.x) * kWarpRows +
@@ -74,11 +93,23 @@ rmsnorm_bwd_dx_kernel(const float* __restrict__ x, const float* __restrict__ sca
   const int tid = BLOCK_ROW ? threadIdx.x : (threadIdx.x & 31);
   const float* xr = x + row * x_stride;
   const float* dyr = dy + row * static_cast<int64_t>(d);
+  if constexpr (SPLIT == 1) {
+    float acc = 0.f;
+    for (int c = tid; c < d; c += kRowThreads) acc = fmaf(xr[c], scale[c] * dyr[c], acc);
+    acc = row_sum<BLOCK_ROW>(acc);
+    if (tid == 0) dots[row] = acc;
+    return;
+  }
   const float rs = rstd[row];
-  float acc = 0.f;
-  for (int c = tid; c < d; c += kRowThreads)
-    acc = fmaf(xr[c] * rs, scale[c] * dyr[c], acc);
-  const float mean = row_sum<BLOCK_ROW>(acc) / static_cast<float>(d);
+  float mean;
+  if constexpr (SPLIT == 2) {
+    mean = rs * dots[row] / static_cast<float>(d_global);
+  } else {
+    float acc = 0.f;
+    for (int c = tid; c < d; c += kRowThreads)
+      acc = fmaf(xr[c] * rs, scale[c] * dyr[c], acc);
+    mean = row_sum<BLOCK_ROW>(acc) / static_cast<float>(d);
+  }
   float* dxr = dx + row * static_cast<int64_t>(d);
   const float* dsr = d_sum == nullptr ? nullptr : d_sum + row * static_cast<int64_t>(d);
   for (int c = tid; c < d; c += kRowThreads) {
@@ -120,6 +151,43 @@ rmsnorm_bwd_dscale_kernel(const float* __restrict__ partial, float* __restrict__
   dscale[col] = acc;
 }
 
+// Step 1 (SPLIT 0 or 2: dx; 1: the dots) over every row.
+template <int SPLIT>
+cudaError_t launch_rows(const float* x, const float* scale, const float* dy,
+                        const float* d_sum, const float* rstd, float* dx, float* dots,
+                        int64_t rows, int d, int d_global, int64_t x_stride,
+                        cudaStream_t st) {
+  if (d <= kWarpModeMaxD) {
+    const unsigned blocks = static_cast<unsigned>((rows + kWarpRows - 1) / kWarpRows);
+    rmsnorm_bwd_dx_kernel<false, SPLIT><<<blocks, kWarpRows * 32, 0, st>>>(
+        x, scale, dy, d_sum, rstd, dx, dots, rows, d, d_global, x_stride);
+  } else {
+    rmsnorm_bwd_dx_kernel<true, SPLIT>
+        <<<static_cast<unsigned>(rows), kBlockWarps * 32, 0, st>>>(
+            x, scale, dy, d_sum, rstd, dx, dots, rows, d, d_global, x_stride);
+  }
+  return cudaGetLastError();
+}
+
+// Steps 2 and 3: dscale from dy, x and rstd in a fixed order.
+cudaError_t launch_dscale(const float* x, const float* dy, const float* rstd,
+                          float* dscale, float* partial, int64_t rows, int d,
+                          int64_t x_stride, cudaStream_t st) {
+  const int chunks = static_cast<int>((rows + kChunkRows - 1) / kChunkRows);
+  const unsigned col_blocks = static_cast<unsigned>((d + kColThreads - 1) / kColThreads);
+  rmsnorm_bwd_partial_kernel<<<dim3(chunks, col_blocks), kColThreads, 0, st>>>(
+      x, dy, rstd, partial, rows, d, x_stride);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_bwd_dscale_kernel<<<col_blocks, kColThreads, 0, st>>>(partial, dscale, chunks, d);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int64_t rows, int d, int64_t x_stride) {
+  return rows < 1 || rows > 0x7fffffffLL || d < 1 || d > 65535 * kColThreads ||
+         x_stride < d;
+}
+
 }  // namespace
 
 // fp32 only.  x [rows, d] through its row stride (last axis contiguous);
@@ -130,33 +198,55 @@ extern "C" int repro_rmsnorm_bwd(const void* x, const void* scale, const void* d
                                  const void* d_sum, const void* rstd, void* dx,
                                  void* dscale, void* partial, int64_t rows, int d,
                                  int64_t x_stride, void* stream) {
-  if (rows < 1 || rows > 0x7fffffffLL || d < 1 || d > 65535 * kColThreads ||
-      x_stride < d || dscale == nullptr || partial == nullptr)
+  if (bad_shape(rows, d, x_stride) || dscale == nullptr || partial == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const float*>(x);
-  const auto* sp = static_cast<const float*>(scale);
   const auto* dyp = static_cast<const float*>(dy);
-  const auto* dsp = static_cast<const float*>(d_sum);
   const auto* rp = static_cast<const float*>(rstd);
-  auto* dxp = static_cast<float*>(dx);
-  if (d <= kWarpModeMaxD) {
-    const unsigned blocks = static_cast<unsigned>((rows + kWarpRows - 1) / kWarpRows);
-    rmsnorm_bwd_dx_kernel<false><<<blocks, kWarpRows * 32, 0, st>>>(
-        xp, sp, dyp, dsp, rp, dxp, rows, d, x_stride);
-  } else {
-    rmsnorm_bwd_dx_kernel<true><<<static_cast<unsigned>(rows), kBlockWarps * 32, 0, st>>>(
-        xp, sp, dyp, dsp, rp, dxp, rows, d, x_stride);
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_rows<0>(xp, static_cast<const float*>(scale), dyp,
+                                   static_cast<const float*>(d_sum), rp,
+                                   static_cast<float*>(dx), nullptr, rows, d, d, x_stride, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int chunks = static_cast<int>((rows + kChunkRows - 1) / kChunkRows);
-  const unsigned col_blocks = static_cast<unsigned>((d + kColThreads - 1) / kColThreads);
-  rmsnorm_bwd_partial_kernel<<<dim3(chunks, col_blocks), kColThreads, 0, st>>>(
-      xp, dyp, rp, static_cast<float*>(partial), rows, d, x_stride);
-  err = cudaGetLastError();
+  return static_cast<int>(launch_dscale(xp, dyp, rp, static_cast<float*>(dscale),
+                                        static_cast<float*>(partial), rows, d, x_stride,
+                                        st));
+}
+
+// The split-row form, first launch: dots[row] = the fp32 dot of scale * dy
+// and x over row `row` of the rank's slice x [rows, d] (scale [d] its
+// slice of the scale; dy [rows, d] contiguous).
+extern "C" int repro_rmsnorm_bwd_split_dot(const void* x, const void* scale,
+                                           const void* dy, void* dots, int64_t rows,
+                                           int d, int64_t x_stride, void* stream) {
+  if (bad_shape(rows, d, x_stride) || dots == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_rows<1>(
+      static_cast<const float*>(x), static_cast<const float*>(scale),
+      static_cast<const float*>(dy), nullptr, nullptr, nullptr, static_cast<float*>(dots),
+      rows, d, d, x_stride, static_cast<cudaStream_t>(stream)));
+}
+
+// The split-row form, second launch: the slice's dx [rows, d] and dscale
+// [d] from dots (the ranks' total per row) and rstd (the forward's, from
+// the reduced sums), over rows of d_global; partial as repro_rmsnorm_bwd.
+extern "C" int repro_rmsnorm_bwd_split(const void* x, const void* scale, const void* dy,
+                                       const void* dots, const void* rstd, void* dx,
+                                       void* dscale, void* partial, int64_t rows, int d,
+                                       int d_global, int64_t x_stride, void* stream) {
+  if (bad_shape(rows, d, x_stride) || d_global < d || dscale == nullptr ||
+      partial == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* dyp = static_cast<const float*>(dy);
+  const auto* rp = static_cast<const float*>(rstd);
+  cudaError_t err = launch_rows<2>(xp, static_cast<const float*>(scale), dyp, nullptr, rp,
+                                   static_cast<float*>(dx),
+                                   const_cast<float*>(static_cast<const float*>(dots)),
+                                   rows, d, d_global, x_stride, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rmsnorm_bwd_dscale_kernel<<<col_blocks, kColThreads, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<float*>(dscale), chunks, d);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dscale(xp, dyp, rp, static_cast<float*>(dscale),
+                                        static_cast<float*>(partial), rows, d, x_stride,
+                                        st));
 }

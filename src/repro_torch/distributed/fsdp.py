@@ -22,8 +22,11 @@ knows each leaf's piece:
     takes the ``all_reduce`` alone;
   * the optimizer reads :meth:`Layout.split_dims` (the groups that hold
     the other pieces of a split dimension: a factored second moment sums
-    its row and column means over them) and :meth:`Layout.copies` (how
-    many ranks hold the same piece: the global norm counts a leaf once).
+    its row and column means over them), :meth:`Layout.copies` (how
+    many ranks hold the same piece: the global norm counts a leaf once)
+    and :meth:`Layout.model_weights` (a 'model' dimension whose parts
+    some ranks hold alike, as Mamba2's B / C columns of ``in_proj``:
+    those elements count once too).
 
 With a remat'd block (``cfg.remat``) the recomputed forward gathers its
 leaves again and no saved-tensor hook is reached inside it.
@@ -146,6 +149,7 @@ class Layout:
         self._leaves = {p: self._leaf(s) for p, s in self.specs.items()}
         # gathered leaves of the step in flight: id -> (weakref, _Regather)
         self._gathered: dict = {}
+        self._weights: dict = {}          # model_weights by path
 
     def _leaf(self, spec: PartitionSpec) -> _Leaf:
         n_mean = self.mean_axis.n
@@ -207,6 +211,24 @@ class Layout:
             out[leaf.dim] = leaf.store
         return out
 
+    def model_weights(self, path: str) -> Optional[tuple]:
+        """``(dim, weights)`` for a leaf whose 'model' dimension is cut in
+        parts (``PartitionSpec.parts``) some of which several model ranks
+        hold alike (a part of ``g`` pieces over ``tp`` ranks: each element
+        on ``tp / g`` of them): ``weights`` [the piece's size on ``dim``]
+        is ``g / tp`` per element, so a sum over the ranks counts each
+        element once.  None for every other leaf."""
+        if path not in self._weights:
+            spec, tp = self.specs[path], self.model.n
+            d = spec.model_dim
+            out = None
+            if (d is not None and not self.fsdp2d and tp > 1 and spec.parts
+                    and any(g != tp for _, g in spec.parts)):
+                out = (d, torch.cat([torch.full((size // g,), g / tp)
+                                     for size, g in spec.parts]))
+            self._weights[path] = out
+        return self._weights[path]
+
     def copies(self, path: str) -> int:
         """Ranks holding the same piece of a leaf as this one."""
         pieces = 1
@@ -217,8 +239,12 @@ class Layout:
     def global_shape(self, path: str, shape: tuple) -> tuple:
         """The whole leaf's shape from a piece's."""
         out = list(shape)
+        spec = self.specs[path]
         for d, axis in self.split_dims(path).items():
-            out[d] *= axis.n
+            if d == spec.model_dim and spec.parts and axis is self.model:
+                out[d] = sum(size for size, _ in spec.parts)
+            else:
+                out[d] *= axis.n
         return tuple(out)
 
 

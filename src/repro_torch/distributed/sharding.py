@@ -97,9 +97,13 @@ takes bf16, but a bf16 sum would round each partial twice).  Each has
 its adjoint for training (Megatron's f and g): :func:`all_reduce` sums
 forward and is the identity backward; :func:`copy_to_model`, placed
 where a replicated activation or leaf enters work split over 'model'
-(q / k / v, gate / up, the LM head, MLA's b-side, the moe gates), is
-the identity forward and sums backward; a lookup or a gather's
-backward takes the rank's slice.  :func:`vocab_cross_entropy` is the
+(q / k / v, gate / up, the LM head, MLA's b-side, the moe gates, the
+recurrent mixers' inputs, whisper's encoder output at every
+cross-attention), is the identity forward and sums backward;
+:func:`sum_grad_columns` sums a replicated weight's gradient where it
+feeds split work through an input every rank holds (Mamba2's B / C
+columns, the mLSTM's ``x_inner`` columns and conv); a lookup or a
+gather's backward takes the rank's slice.  :func:`vocab_cross_entropy` is the
 loss over a vocab-parallel head without gathering its logits: each
 rank's max, then its sum of exponentials and its target logits, reduced
 as ``[B, S]`` floats.
@@ -632,7 +636,7 @@ def batch_specs(batch_tree, mesh, seq_parallel: bool = False):
     """A global batch's specs: the batch axis over 'data' where it
     divides, and with ``seq_parallel`` the sequence axis over 'model' (as
     the reference; a sequence-parallel train step is ROADMAP Queue 1,
-    item 11)."""
+    item 10)."""
     dp, tp = mesh.shape[DATA], mesh.shape[MODEL]
 
     def choose(path, leaf):
@@ -1007,6 +1011,51 @@ class _PlaceSlices(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad[..., ctx.first:ctx.first + ctx.width], None
+
+
+def rank_sum(plan: ShardingPlan):
+    """A function summing a fp32 buffer over ``plan``'s model ranks (no
+    gradient; a ``meta`` buffer passes through), bound to the plan: what a
+    kernel's autograd Function calls in its backward, which runs outside
+    the plan's scope."""
+    def reduce(buf: torch.Tensor) -> torch.Tensor:
+        return buf if buf.is_meta else _sum_over_ranks(buf, plan)
+    return reduce
+
+
+class _SumGradColumns(torch.autograd.Function):
+    """The identity forward; backward, the gradient's columns
+    ``[start, stop)`` (last axis) summed over the model ranks."""
+
+    @staticmethod
+    def forward(ctx, w, plan, start, stop):
+        ctx.plan, ctx.start, ctx.stop = plan, start, stop
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        cols = grad[..., ctx.start:ctx.stop]
+        cols.copy_(_sum_over_ranks(cols.contiguous(), ctx.plan))
+        return grad, None, None, None
+
+
+def sum_grad_columns(w: torch.Tensor, start: int = 0,
+                     stop: Optional[int] = None) -> torch.Tensor:
+    """A replicated weight whose columns ``[start, stop)`` (last axis;
+    all of them by default) feed work the ranks split, through an input
+    every rank holds whole: the identity forward, those columns'
+    gradient summed over the model ranks backward (each rank's is its
+    heads' partial).  Where the weight's input also enters the rank's
+    own columns, the input's gradient is summed at its copy op
+    (:func:`copy_to_model`), so it is not summed here a second time.
+    ``w`` itself when no gradient flows or without a plan."""
+    plan = current_plan()
+    if plan is None or w.is_meta or not (torch.is_grad_enabled()
+                                         and w.requires_grad):
+        return w
+    stop = w.shape[-1] if stop is None else stop
+    return _SumGradColumns.apply(w, plan, start, stop)
 
 
 def all_reduce(x: torch.Tensor) -> torch.Tensor:

@@ -2,21 +2,21 @@
 whose kernel has no backward.
 
 A kernel wrapper hands back a tensor that the autograd graph knows
-nothing of unless the wrapper itself defines the gradient.  ``flash_
-attention`` and ``rmsnorm`` do (a ``torch.autograd.Function`` whose
-backward launches a backward kernel, fp32 only); ``decode_attention``,
-``paged_decode_attention`` and ``ssd_scan`` do not, so on any device but
-the CPU (where the plain versions are differentiable PyTorch) they raise
-rather than return an output whose gradient would silently be zero.
+nothing of unless the wrapper itself defines the gradient.
+``flash_attention``, ``rmsnorm`` (whole-row and split-row) and
+``ssd_scan`` do (a ``torch.autograd.Function`` whose backward launches a
+backward kernel, fp32 only); ``decode_attention`` and
+``paged_decode_attention`` do not, so on any device but the CPU (where
+the plain versions are differentiable PyTorch) they raise rather than
+return an output whose gradient would silently be zero.
 """
 
 from __future__ import annotations
 
 import torch
 
-# ROADMAP items that would give a kernel its backward
-SSD_SCAN_BWD = "ROADMAP Queue 2, 'ssd_scan backward'"
-BF16_BWD = "ROADMAP Queue 2, 'bf16 tensor-core backward kernels'"
+# the ROADMAP item that would give the bf16 calls their backward kernels
+BF16_BWD = "ROADMAP Queue 2, item 7, 'bf16 tensor-core backward kernels'"
 DECODE_BWD = "decode kernels serve inference only: train through forward()"
 
 

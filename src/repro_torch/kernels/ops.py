@@ -3,11 +3,12 @@
 Each entry point dispatches on where its tensors live: a CUDA tensor runs
 the hand-written kernel (``csrc/``), a CPU tensor its plain PyTorch
 version (``ref.py``), a ``meta`` tensor (tracing) an empty output of the
-right shape (``meta.py``).  ``flash_attention`` and ``rmsnorm`` carry a
-gradient when one is needed: their backward kernels count under
-``flash_attention_bwd`` and ``rmsnorm_bwd``.  ``launch_counts`` reads how
-often each kernel was launched, so a run can show that its main path went
-through the kernels.
+right shape (``meta.py``).  ``flash_attention``, ``rmsnorm``,
+``rmsnorm_split`` and ``ssd_scan`` carry a gradient when one is needed:
+their backward kernels count under ``flash_attention_bwd``,
+``rmsnorm_bwd``, ``rmsnorm_split_bwd`` and ``ssd_scan_bwd``.
+``launch_counts`` reads how often each kernel was launched, so a run can
+show that its main path went through the kernels.
 
 Under a sharding plan (``distributed.sharding.use_plan``) each rank calls
 the same kernels on its own heads, as the JAX package's ``shard_map``
@@ -25,8 +26,9 @@ from repro_torch.kernels.flash_attention import (flash_attention as _flash,
                                                  flash_attention_bwd)
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention as _paged)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_split
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd, rmsnorm_split,
+                                         rmsnorm_split_bwd)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 
 
 def _rank_heads(kernel, kv_axis: int):
@@ -54,7 +56,9 @@ KERNELS = {
     "rmsnorm": rmsnorm,
     "rmsnorm_bwd": rmsnorm_bwd,
     "rmsnorm_split": rmsnorm_split,
+    "rmsnorm_split_bwd": rmsnorm_split_bwd,
     "ssd_scan": ssd_scan,
+    "ssd_scan_bwd": ssd_scan_bwd,
 }
 
 
@@ -62,7 +66,8 @@ def launch_counts() -> dict:
     """Kernel launches since the last reset, by kernel name, and under
     ``rmsnorm_fused`` the rmsnorm launches with the residual add fused in
     (counted under ``rmsnorm`` too).  ``rmsnorm_split`` counts both
-    launches of the split-row form (two per norm)."""
+    launches of the split-row form (two per norm), ``rmsnorm_split_bwd``
+    both of its backward."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts["rmsnorm_fused"] = rmsnorm.fused_launches
     return counts
@@ -78,4 +83,4 @@ def reset_launch_counts() -> None:
 __all__ = ["KERNELS", "decode_attention", "flash_attention",
            "flash_attention_bwd", "launch_counts", "paged_decode_attention",
            "reset_launch_counts", "rmsnorm", "rmsnorm_bwd", "rmsnorm_split",
-           "ssd_scan"]
+           "rmsnorm_split_bwd", "ssd_scan", "ssd_scan_bwd"]

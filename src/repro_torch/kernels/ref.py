@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the attention, normalisation and SSD kernels,
-and of the flash-attention and rmsnorm backward kernels.
+and of the flash-attention, rmsnorm (whole-row and split-row) and SSD
+backward kernels.
 
 Each function states what its CUDA kernel computes, with no tiling: the
 kernel wrappers call these for tensors on the CPU, and ``chip_smoke.py``
@@ -159,6 +160,30 @@ def rmsnorm_apply_ref(x, sums, scale, d_global: int, eps: float = 1e-6):
     return (x.float() * r * scale.float()).to(x.dtype)
 
 
+def rmsnorm_split_dot_ref(x, scale, dy):
+    """The split-row backward's first launch: each row's fp32 sum of
+    ``dy * scale * x`` over the rank's slice, x's leading shape (the
+    ranks' sums are added before the second launch)."""
+    return (dy.float() * scale.float() * x.float()).sum(dim=-1)
+
+
+def rmsnorm_split_bwd_ref(x, scale, dy, dots, rstd, d_global: int):
+    """The split-row backward's second launch: the gradients of
+    :func:`rmsnorm_apply_ref` over the rank's slice, given ``dots`` the
+    whole row's sum of ``dy * scale * x`` over the ranks and ``rstd`` the
+    forward's ``rsqrt(sums / d_global + eps)`` (fp32, x's leading shape).
+    Per row ``dx = rstd * (g - x * rstd^2 * dots / d_global)`` with ``g
+    = scale * dy``; ``dscale`` sums ``dy * x * rstd`` over the rows (the
+    slice's scale).  Returns (dx in x's dtype, dscale in scale's dtype)."""
+    d = x.shape[-1]
+    r = rstd.float()[..., None]
+    xf = x.float()
+    g = dy.float() * scale.float()
+    dx = r * (g - xf * (r * r * dots.float()[..., None] / d_global))
+    dscale = (dy.float() * xf * r).reshape(-1, d).sum(dim=0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
 def rmsnorm_rstd_ref(x, eps: float = 1e-6):
     """Each row's ``rsqrt(mean(x**2) + eps)`` in fp32, x's leading shape:
     what the training forward saves for the backward."""
@@ -255,3 +280,47 @@ def ssd_ref(xb, B_mat, C_mat, log_decay, chunk: int, h0=None):
     if S % min(chunk, S) == 0:
         return ssd_chunked_ref(xb, B_mat, C_mat, log_decay, chunk, h0)
     return ssd_scan_ref(xb, B_mat, C_mat, log_decay, h0)
+
+
+def ssd_scan_bwd_ref(xb, B_mat, C_mat, log_decay, dy, h0=None, dh_final=None):
+    """The gradients of the SSD recurrence (:func:`ssd_scan_ref`), step by
+    step backward (no autograd): the states ``h_t`` of the forward
+    recurrence, then from the last row to the first, with ``gh`` the
+    gradient at ``h_t`` (``dh_final`` at the end, or zeros),
+    ``gh += dy_t C_t^T``, ``dx_t = gh B_t``, ``dB_t = sum_h gh^T x_t``,
+    ``dC_t = sum_h h_t^T dy_t``, ``dld_t = exp(ld_t) <gh, h_{t-1}>``,
+    then ``gh *= exp(ld_t)`` (the gradient at ``h_{t-1}``).  B and C are
+    shared by every head, so dB and dC sum over heads.
+
+    xb: [B, S, H, dh]; B_mat, C_mat: [B, S, ds]; log_decay: [B, S, H];
+    dy: [B, S, H, dh]; h0, dh_final: optional [B, H, dh, ds].  Returns
+    (dxb, dB, dC, dlog_decay, dh0): fp32, dB and dC in B's dtype, dh0
+    None when ``h0`` is None."""
+    Bb, S, H, dh = xb.shape
+    ds = B_mat.shape[-1]
+    f32 = torch.float32
+    x, Bf, Cf = xb.float(), B_mat.float(), C_mat.float()
+    ld, g = log_decay.float(), dy.float()
+    h = (torch.zeros((Bb, H, dh, ds), dtype=f32, device=xb.device)
+         if h0 is None else h0.float())
+    hs = [h]
+    for t in range(S):
+        h = torch.exp(ld[:, t])[:, :, None, None] * h + torch.einsum(
+            "bs,bhd->bhds", Bf[:, t], x[:, t])
+        hs.append(h)
+    gh = (torch.zeros((Bb, H, dh, ds), dtype=f32, device=xb.device)
+          if dh_final is None else dh_final.float().clone())
+    dx = torch.empty_like(x)
+    dB = torch.empty((Bb, S, ds), dtype=f32, device=xb.device)
+    dC = torch.empty_like(dB)
+    dld = torch.empty_like(ld)
+    for t in reversed(range(S)):
+        gh = gh + torch.einsum("bhd,bs->bhds", g[:, t], Cf[:, t])
+        dx[:, t] = torch.einsum("bhds,bs->bhd", gh, Bf[:, t])
+        dB[:, t] = torch.einsum("bhds,bhd->bs", gh, x[:, t])
+        dC[:, t] = torch.einsum("bhds,bhd->bs", hs[t + 1], g[:, t])
+        decay = torch.exp(ld[:, t])
+        dld[:, t] = decay * torch.einsum("bhds,bhds->bh", gh, hs[t])
+        gh = decay[:, :, None, None] * gh
+    return (dx, dB.to(B_mat.dtype), dC.to(C_mat.dtype), dld,
+            None if h0 is None else gh)

@@ -1,8 +1,9 @@
 """Row RMSNorm, optionally with the residual add fused in: wrappers of
 ``csrc/rmsnorm.cu`` and, for the gradient, ``csrc/rmsnorm_bwd.cu``.
-:func:`rmsnorm_split` is the split-row form of the same source, for a row
-that tensor parallelism cuts over ranks: two launches around the caller's
-sum over the ranks (``csrc/rmsnorm.cu``'s header note).
+:func:`rmsnorm_split` is the split-row form of the same sources, for a
+row that tensor parallelism cuts over ranks: two launches around the
+caller's sum over the ranks, forward and backward (the sources' header
+notes).
 
 For tensors on a CUDA device the wrappers launch the hand-written kernels
 or raise; for tensors on the CPU they run the plain versions in
@@ -40,7 +41,15 @@ _APPLY_ARGTYPES = ([ctypes.c_void_p] * 4        # x sums scale y
                    + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # rows d d_global
                       ctypes.c_int64, ctypes.c_float,  # x row stride, eps
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,  # dtypes, vec
-                      ctypes.c_void_p])              # stream
+                      ctypes.c_void_p, ctypes.c_void_p])  # rstd stream
+_SPLIT_DOT_ARGTYPES = ([ctypes.c_void_p] * 4    # x scale dy dots
+                       + [ctypes.c_int64, ctypes.c_int,  # rows d
+                          ctypes.c_int64,                # x row stride
+                          ctypes.c_void_p])              # stream
+_SPLIT_BWD_ARGTYPES = ([ctypes.c_void_p] * 8    # x scale dy dots rstd dx dscale partial
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # rows d d_global
+                          ctypes.c_int64,                # x row stride
+                          ctypes.c_void_p])              # stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 8            # x scale dy d_sum rstd dx dscale partial
                  + [ctypes.c_int64, ctypes.c_int,  # rows d
                     ctypes.c_int64,                # x row stride
@@ -241,27 +250,16 @@ def rmsnorm_bwd(x, scale, dy, eps: float = 1e-6, d_sum=None, rstd=None) -> tuple
                                  device=scale.device)))
     if x.device.type == "cpu":
         return ref.rmsnorm_bwd_ref(x, scale, dy, eps, d_sum)
-    _require(x.device.type == "cuda", f"unsupported device {x.device}")
-    if not (x.dtype == scale.dtype == dy.dtype == torch.float32):
-        raise NotImplementedError(
-            f"rmsnorm_bwd: x {x.dtype}, scale {scale.dtype}, dy {dy.dtype}: "
-            f"float32 only ({grad.BF16_BWD})")
-    d = x.shape[-1]
-    rows = x.numel() // d if d else 0
-    _require(scale.shape == (d,) and scale.is_contiguous(),
-             f"scale of shape {tuple(scale.shape)} for rows of {d}")
-    _require(dy.shape == x.shape, f"dy {tuple(dy.shape)} for x {tuple(x.shape)}")
-    _require(d_sum is None or (d_sum.shape == x.shape
-                               and d_sum.dtype == torch.float32),
-             "d_sum must be fp32 of x's shape")
-    _require(rstd is not None and rstd.dtype == torch.float32
-             and rstd.numel() == rows and rstd.is_contiguous(),
-             "rstd: the forward's fp32 rstd, one per row, contiguous")
-    tensors = (scale, dy, rstd) + (() if d_sum is None else (d_sum,))
-    _require(all(t.device == x.device for t in tensors),
-             "all tensors must be on one device")
-    stride = row_stride(x)
     dy = dy.contiguous()
+    rows, d, stride = _bwd_check("rmsnorm_bwd", x, scale, dy)
+    _require(d_sum is None or (d_sum.shape == x.shape
+                               and d_sum.dtype == torch.float32
+                               and d_sum.device == x.device),
+             "d_sum must be fp32 of x's shape, on x's device")
+    _require(rstd is not None and rstd.dtype == torch.float32
+             and rstd.numel() == rows and rstd.is_contiguous()
+             and rstd.device == x.device,
+             "rstd: the forward's fp32 rstd, one per row, contiguous")
     d_sum = None if d_sum is None else d_sum.contiguous()
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
@@ -317,16 +315,20 @@ def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm_apply(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
-                  d_global: int, eps: float = 1e-6) -> torch.Tensor:
+                  d_global: int, eps: float = 1e-6,
+                  rstd: torch.Tensor | None = None) -> torch.Tensor:
     """The split-row form's second launch: ``x * rsqrt(sums / d_global +
     eps) * scale`` over the slice ``x`` [..., d], with ``sums`` the whole
     row's fp32 sum of squares (x's leading shape, contiguous) and
-    ``scale`` [d] the slice's scale; x's dtype, contiguous.  On the CPU
-    the plain version."""
+    ``scale`` [d] the slice's scale; x's dtype, contiguous.  ``rstd``
+    (fp32, one per row, contiguous) receives each row's rsqrt when given.
+    On the CPU the plain version."""
     if meta.is_meta(x):
         return meta.kernel_call("rmsnorm_split", (x, sums, scale), lambda: torch.empty(
             x.shape, dtype=x.dtype, device=x.device))
     if x.device.type == "cpu":
+        if rstd is not None:
+            rstd.copy_(torch.rsqrt(sums.float() / d_global + eps))
         return ref.rmsnorm_apply_ref(x, sums, scale, d_global, eps)
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
     _require(scale.device == x.device and sums.device == x.device,
@@ -339,6 +341,10 @@ def rmsnorm_apply(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
     _require(sums.dtype == torch.float32 and sums.is_contiguous()
              and tuple(sums.shape) == tuple(x.shape[:-1]),
              f"sums {tuple(sums.shape)} {sums.dtype} for x {tuple(x.shape)}")
+    _require(rstd is None or (rstd.dtype == torch.float32 and rstd.is_contiguous()
+                              and rstd.shape == sums.shape
+                              and rstd.device == x.device),
+             "rstd must be fp32 of the sums' shape, contiguous")
     _require(d_global >= d, f"d_global {d_global} below the slice's {d}")
     stride = row_stride(x)
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -351,6 +357,7 @@ def rmsnorm_apply(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
         err = fn(x.data_ptr(), sums.data_ptr(), scale.data_ptr(), y.data_ptr(),
                  rows, d, int(d_global), stride, float(eps),
                  _DTYPES[x.dtype], _DTYPES[scale.dtype], int(vec),
+                 None if rstd is None else rstd.data_ptr(),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rmsnorm_apply: launch failed, cudaError_t {err}")
@@ -358,17 +365,138 @@ def rmsnorm_apply(x: torch.Tensor, sums: torch.Tensor, scale: torch.Tensor,
     return y
 
 
+def _bwd_check(name: str, x, scale, dy) -> tuple:
+    """(rows, d, row stride) of a backward launch's inputs (fp32, one
+    device, dy contiguous of x's shape), for :func:`rmsnorm_bwd` and the
+    split-row backward."""
+    _require(x.device.type == "cuda", f"unsupported device {x.device}")
+    if not (x.dtype == scale.dtype == dy.dtype == torch.float32):
+        raise NotImplementedError(
+            f"{name}: x {x.dtype}, scale {scale.dtype}, dy {dy.dtype}: "
+            f"float32 only ({grad.BF16_BWD})")
+    d = x.shape[-1]
+    _require(scale.shape == (d,) and scale.is_contiguous(),
+             f"scale of shape {tuple(scale.shape)} for rows of {d}")
+    _require(dy.shape == x.shape and dy.is_contiguous(),
+             f"dy {tuple(dy.shape)} for x {tuple(x.shape)}, contiguous")
+    _require(scale.device == x.device == dy.device,
+             "x, scale and dy must be on one device")
+    return x.numel() // d if d else 0, d, row_stride(x)
+
+
+def rmsnorm_split_dot(x: torch.Tensor, scale: torch.Tensor,
+                      dy: torch.Tensor) -> torch.Tensor:
+    """The split-row backward's first launch: each row's fp32 dot of
+    ``scale * dy`` and ``x`` over the rank's slice, x's leading shape
+    (counted under ``rmsnorm_split_bwd``).  On the CPU the plain
+    version."""
+    lead = tuple(x.shape[:-1])
+    if meta.is_meta(x):
+        return meta.kernel_call("rmsnorm_split_bwd", (x, scale, dy), lambda: torch.empty(
+            lead, dtype=torch.float32, device=x.device))
+    if x.device.type == "cpu":
+        return ref.rmsnorm_split_dot_ref(x, scale, dy)
+    dy = dy.contiguous()
+    rows, d, stride = _bwd_check("rmsnorm_split backward", x, scale, dy)
+    dots = torch.empty(lead, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dots
+    fn = _build.function("repro_rmsnorm_bwd_split_dot", _SPLIT_DOT_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dots.data_ptr(),
+                 rows, d, stride, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_split_dot: launch failed, cudaError_t {err}")
+    rmsnorm_split_bwd.launches += 1
+    return dots
+
+
+def rmsnorm_split_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                      dots: torch.Tensor, rstd: torch.Tensor,
+                      d_global: int) -> tuple:
+    """The split-row backward's second launch: the slice's ``(dx,
+    dscale)`` (fp32) from ``dots`` (the ranks' total of
+    :func:`rmsnorm_split_dot`, contiguous) and ``rstd`` (the forward's,
+    from the reduced sums; fp32, contiguous), over rows of ``d_global``.
+    On the card one call runs the dx launch and dscale's two passes
+    (counted as one); on the CPU the plain version."""
+    if meta.is_meta(x):
+        return meta.kernel_call(
+            "rmsnorm_split_bwd", (x, scale, dy, dots, rstd),
+            lambda: (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                     torch.empty(scale.shape, dtype=scale.dtype,
+                                 device=scale.device)))
+    if x.device.type == "cpu":
+        return ref.rmsnorm_split_bwd_ref(x, scale, dy, dots, rstd, d_global)
+    dy = dy.contiguous()
+    rows, d, stride = _bwd_check("rmsnorm_split backward", x, scale, dy)
+    _require(all(t.dtype == torch.float32 and t.is_contiguous() and t.numel() == rows
+                 and t.device == x.device for t in (dots, rstd)),
+             "dots and rstd: fp32, one per row, contiguous")
+    _require(d_global >= d, f"d_global {d_global} below the slice's {d}")
+    dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+    dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dscale.zero_()
+    partial = torch.empty((-(-rows // BWD_CHUNK_ROWS), d), dtype=torch.float32,
+                          device=x.device)
+    fn = _build.function("repro_rmsnorm_bwd_split", _SPLIT_BWD_ARGTYPES)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dots.data_ptr(),
+                 rstd.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+                 partial.data_ptr(), rows, d, int(d_global), stride,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rmsnorm_split_bwd: launch failed, cudaError_t {err}")
+    rmsnorm_split_bwd.launches += 1
+    return dx, dscale
+
+
+rmsnorm_split_bwd.launches = 0   # the split-row backward's launches (two per norm)
+
+
+class _SplitFunction(torch.autograd.Function):
+    """Forward: the split-row form's two launches around ``reduce`` (the
+    second also writing each row's rstd); backward: each row's dot, the
+    same ``reduce`` over the ranks, then the slice's dx and dscale.
+    ``reduce`` is bound to the plan at the forward: the backward runs
+    outside the plan's scope (on the card in autograd's own thread)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, d_global, reduce):
+        sums = reduce(rmsnorm_sumsq(x))
+        rstd = torch.empty(sums.shape, dtype=torch.float32, device=x.device)
+        y = rmsnorm_apply(x, sums, scale, d_global, eps, rstd=rstd)
+        ctx.save_for_backward(x, scale, rstd)
+        ctx.d_global, ctx.reduce = d_global, reduce
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, rstd = ctx.saved_tensors
+        dots = ctx.reduce(rmsnorm_split_dot(x, scale, dy))
+        dx, dscale = rmsnorm_split_bwd(x, scale, dy, dots, rstd, ctx.d_global)
+        return dx, dscale, None, None, None
+
+
 def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
                   d_global: int, reduce) -> torch.Tensor:
     """RMSNorm of rows that ranks hold in slices: ``x`` [..., d] is this
     rank's slice of rows of ``d_global``, ``scale`` [d] its slice of the
     scale, and ``reduce`` sums a fp32 ``[rows]`` buffer over the ranks
-    (``distributed.sharding.all_reduce``).  Two launches on the card
-    (:func:`rmsnorm_sumsq`, :func:`rmsnorm_apply`), each counted under
-    ``rmsnorm_split``; the plain versions on the CPU.  Serving only (no
-    gradient)."""
+    (bound to the plan: ``distributed.sharding.rank_sum``).  Two launches
+    on the card (:func:`rmsnorm_sumsq`, :func:`rmsnorm_apply`), each
+    counted under ``rmsnorm_split``; the plain versions on the CPU.  When
+    a gradient is needed the output carries it (:class:`_SplitFunction`:
+    two more launches, counted under ``rmsnorm_split_bwd``, around a
+    second ``reduce``); off the CPU that takes fp32, and bf16 raises
+    ``NotImplementedError``."""
     if grad.needs_grad(x, scale):
-        raise NotImplementedError("rmsnorm_split: no backward (serving only)")
+        if x.device.type != "cpu" and not (x.dtype == scale.dtype == torch.float32):
+            raise NotImplementedError(
+                f"rmsnorm_split: no {x.dtype} backward kernel on "
+                f"{x.device.type} ({grad.BF16_BWD}); train in float32")
+        return _SplitFunction.apply(x, scale, eps, d_global, reduce)
     return rmsnorm_apply(x, reduce(rmsnorm_sumsq(x)), scale, d_global, eps)
 
 

@@ -5,16 +5,22 @@ port's ``repro.launch.train``, the same flags and ``--device``).
         --steps 100 --ckpt-dir /tmp/ckpt
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
         --smoke --device cpu --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b \\
+        --steps 10                                  # on a card
 
 Without ``--smoke`` the full configuration of ``--arch`` trains in
 float32, as the reference's CLI trains it; ``--smoke`` takes the reduced
 configuration.  The model lives on ``--device``: ``cuda`` by default,
 which raises without a card, or ``cpu`` when asked.  On the card the
-forward runs the flash-attention and rmsnorm kernels and the backward
-their backward kernels (fp32); zamba raises there at its ``ssd_scan``
-call, which has no backward kernel yet, and trains on the CPU only.
-Weights are random from a seed; the data is ``TokenStream``'s synthetic
-Zipf stream.
+forward runs the flash-attention, rmsnorm and ``ssd_scan`` kernels and
+the backward their backward kernels (fp32), so every family trains
+there (zamba2-2.7b at full depth: 2.4 B parameters, ~39 GB of fp32
+parameters, gradients and moments).  Weights are random from seed 0,
+drawn on the model's device (``init_train_state(draw_on_device=)``): a
+card run therefore starts from other weights than a ``--device cpu``
+run.  The data is ``TokenStream``'s synthetic Zipf stream.  Training under a sharding plan has no flag here, as the
+reference's CLI has none: a rank function builds the model under
+``group.training_plan`` (``distributed.spawn``).
 """
 
 from __future__ import annotations
@@ -68,7 +74,8 @@ def main(argv=None) -> None:
     model, opt, data, loop = build(args)
     n = sum(t.numel() for _, t in named_leaves(model.param_specs()))
     print(f"{model.cfg.name}: {n / 1e6:.1f}M params on {model.device}")
-    _, losses = train(model, opt, data, loop)
+    _, losses = train(model, opt, data, loop,
+                      draw_on_device=model.device.type != "cpu")
     print(f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
 
 

@@ -29,13 +29,21 @@ A layer's cache goes to the kernels as a strided ``[B, H, T, hd]`` view:
 nothing is copied.  One prefill launches 3 x 24 flash kernels at
 whisper-medium's depth, one decode step 2 x 24 ``decode_attention``.
 
-Under tensor parallelism only its placement exists, as in the reference:
-``distributed.sharding.param_specs`` and ``cache_specs`` place every leaf
-(q / k / v and their biases and the self and cross caches by heads,
-``wo`` and ``w2`` by rows, ``w1`` by columns, the output biases, the
-LayerNorms, ``dec_pos`` and the embedding whole), and a whisper model
-under a plan raises: enc-dec generates through the sequential
-``Engine``, which takes no plan.
+Under a sharding plan ``distributed.sharding.param_specs`` and
+``cache_specs`` place every leaf (q / k / v and their biases and the self
+and cross caches by heads, ``wo`` and ``w2`` by rows, ``w1`` by columns,
+the output biases, the LayerNorms and ``dec_pos`` whole, the embedding by
+vocabulary where the model axis divides it).  Whisper trains under a
+training plan (``cfg`` the rank's heads and MLP slice): every
+LayerNorm's output enters the rank's heads or MLP slice through
+``sharding.copy_to_model``, and so does the encoder's output at every
+cross-attention's K / V; ``wo`` and ``w2`` end in one ``all_reduce``
+each, their biases added once after it; the embedding's lookup and the
+tied head run vocab-parallel where the embedding is split, the loss
+without gathering the logits; under FSDP each block gathers its leaves
+as it starts (a remat'd decoder block again when it is recomputed).
+Serving under a plan raises, as in the reference: enc-dec generates
+through the sequential ``Engine``, which takes no plan.
 
 The JAX reference rounds the softmax probabilities to v's dtype before
 the P V product (``repro.models.layers._sdpa``); the kernels keep them in
@@ -50,11 +58,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import fsdp, sharding
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ParamDraw, layernorm, normal_
+from repro_torch.models.layers import ParamDraw, layernorm, lm_head, normal_
 from repro_torch.models.transformer import (cross_entropy, remat_call,
                                             to_device, torch_dtype)
+from repro_torch.utils import map_with_path
 
 
 def _ln_params(d: int) -> dict:
@@ -75,7 +85,8 @@ def _mlp2_params(gen: Optional[ParamDraw], d: int, f: int) -> dict:
 
 
 def _mlp2(p: dict, x: torch.Tensor) -> torch.Tensor:
-    return F.gelu(x @ p["w1"] + p["b1"], approximate="tanh") @ p["w2"] + p["b2"]
+    h = F.gelu(sharding.copy_to_model(x) @ p["w1"] + p["b1"], approximate="tanh")
+    return sharding.all_reduce(h @ p["w2"]) + p["b2"]
 
 
 def _ln(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -87,10 +98,12 @@ def _heads(x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
 
 
 def _proj_q(p: dict, x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
+    """The rank's query heads; ``x`` has passed the copy op."""
     return _heads(x @ p["wq"] + p["bq"], H, hd)
 
 
 def _proj_kv(p: dict, x: torch.Tensor, H: int, hd: int) -> tuple:
+    """The rank's key and value heads; ``x`` has passed the copy op."""
     return (_heads(x @ p["wk"], H, hd),
             _heads(x @ p["wv"] + p["bv"], H, hd))
 
@@ -113,7 +126,7 @@ def _decode(q, k, v, lengths) -> torch.Tensor:
 
 
 def _out(p: dict, a: torch.Tensor) -> torch.Tensor:
-    return a @ p["wo"] + p["bo"]
+    return sharding.all_reduce(a @ p["wo"]) + p["bo"]
 
 
 def sinusoids(length: int, channels: int) -> np.ndarray:
@@ -156,13 +169,19 @@ def param_tree(cfg: ModelConfig, gen: Optional[ParamDraw]) -> dict:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
-                draw_on_device: bool = False) -> dict:
+                draw_on_device: bool = False, shard=None) -> dict:
     """Random parameters from a seeded ``ParamDraw`` (on the CPU unless
     ``draw_on_device``), each leaf cast and moved to ``device`` as it is
-    drawn (as the other families' ``transformer.init_params``)."""
+    drawn (as the other families' ``transformer.init_params``).
+    ``shard(path, leaf)`` (a sharding plan's) then keeps each leaf's
+    piece (the whole tree is drawn first: 3.1 GB for whisper-medium in
+    fp32)."""
     dtype = torch_dtype(cfg.dtype)
     draw = ParamDraw(seed, device, dtype, on_device=draw_on_device)
-    return to_device(param_tree(cfg, draw), device, dtype)
+    params = to_device(param_tree(cfg, draw), device, dtype)
+    if shard is None:
+        return params
+    return map_with_path(shard, params)
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -197,13 +216,14 @@ def encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor
     H, hd = cfg.n_heads, cfg.head_dim
     pos = torch.from_numpy(sinusoids(S, D)).to(frames.device, frames.dtype)
     x = frames + pos[None]
-    for bp in params["enc_layers"]:
-        h = _ln(x, bp["ln1"])
+    for i, bp in enumerate(params["enc_layers"]):
+        bp = fsdp.gathered(bp, f"enc_layers.{i}")
+        h = sharding.copy_to_model(_ln(x, bp["ln1"]))
         q = _proj_q(bp["attn"], h, H, hd)
         k, v = _proj_kv(bp["attn"], h, H, hd)
         x = x + _out(bp["attn"], _flash(q, k, v, causal=False))
         x = x + _mlp2(bp["mlp"], _ln(x, bp["ln2"]))
-    return _ln(x, params["enc_ln"])
+    return _ln(x, fsdp.gathered(params["enc_ln"], "enc_ln"))
 
 
 def _check_dec_len(cfg: ModelConfig, n: int) -> None:
@@ -216,11 +236,17 @@ def _check_dec_len(cfg: ModelConfig, n: int) -> None:
 
 def _embed(params: dict, tokens: torch.Tensor, start: int) -> torch.Tensor:
     S = tokens.shape[1]
-    return params["embed"][tokens.long()] + params["dec_pos"][start:start + S][None]
+    embed = fsdp.gathered(params["embed"], "embed")
+    pos = fsdp.gathered(params["dec_pos"], "dec_pos")
+    return sharding.embed_lookup(embed, tokens) + pos[start:start + S][None]
 
 
-def _head(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return _ln(x, params["dec_ln"]) @ params["embed"].T
+def _head(params: dict, x: torch.Tensor, gather: bool = True) -> torch.Tensor:
+    """Logits over the vocabulary from the tied embedding (the rank's
+    vocabulary slice with ``gather=False`` under a vocab-parallel plan)."""
+    x = _ln(x, fsdp.gathered(params["dec_ln"], "dec_ln"))
+    return lm_head(x, {"embed": fsdp.gathered(params["embed"], "embed")},
+                   True, gather)
 
 
 def _dec_layer(bp: dict, x, cfg: ModelConfig, self_attn, cross_attn):
@@ -229,34 +255,38 @@ def _dec_layer(bp: dict, x, cfg: ModelConfig, self_attn, cross_attn):
     q)`` (``p`` the block's cross-attention weights) attend, with or
     without a cache."""
     H, hd = cfg.n_heads, cfg.head_dim
-    h = _ln(x, bp["ln1"])
+    h = sharding.copy_to_model(_ln(x, bp["ln1"]))
     p = bp["self_attn"]
     q = _proj_q(p, h, H, hd)
     k, v = _proj_kv(p, h, H, hd)
     x = x + _out(p, self_attn(q, k, v))
     p = bp["cross_attn"]
-    x = x + _out(p, cross_attn(p, _proj_q(p, _ln(x, bp["ln2"]), H, hd)))
+    h = sharding.copy_to_model(_ln(x, bp["ln2"]))
+    x = x + _out(p, cross_attn(p, _proj_q(p, h, H, hd)))
     return x + _mlp2(bp["mlp"], _ln(x, bp["ln3"]))
 
 
 def decode_full(params: dict, cfg: ModelConfig, enc: torch.Tensor,
-                tokens: torch.Tensor, remat: bool = False) -> torch.Tensor:
+                tokens: torch.Tensor, remat: bool = False,
+                gather: bool = True) -> torch.Tensor:
     """Teacher-forced decoder pass over ``tokens`` [B, S_dec] -> logits
-    [B, S_dec, V].  ``remat`` recomputes each decoder layer in the
-    backward (the reference checkpoints the decoder's scan body, not the
-    encoder's)."""
+    [B, S_dec, V] (the rank's vocabulary slice with ``gather=False``
+    under a vocab-parallel plan).  ``remat`` recomputes each decoder
+    layer in the backward (the reference checkpoints the decoder's scan
+    body, not the encoder's)."""
     _check_dec_len(cfg, tokens.shape[1])
     H, hd = cfg.n_heads, cfg.head_dim
     x = _embed(params, tokens, 0)
 
     def cross(p, q):
-        k, v = _proj_kv(p, enc, H, hd)
+        k, v = _proj_kv(p, sharding.copy_to_model(enc), H, hd)
         return _flash(q, k, v, causal=False)
 
-    for bp in params["dec_layers"]:
-        x = remat_call(lambda h, bp=bp: _dec_layer(
-            bp, h, cfg, lambda q, k, v: _flash(q, k, v, True), cross), x, remat)
-    return _head(params, x)
+    for i, bp in enumerate(params["dec_layers"]):
+        x = remat_call(lambda h, i=i, bp=bp: _dec_layer(
+            fsdp.gathered(bp, f"dec_layers.{i}"), h, cfg,
+            lambda q, k, v: _flash(q, k, v, True), cross), x, remat)
+    return _head(params, x, gather)
 
 
 def forward(params: dict, cfg: ModelConfig, frames: torch.Tensor,
@@ -276,9 +306,15 @@ def loss_fn(params: dict, cfg: ModelConfig, frames: torch.Tensor,
             tokens: torch.Tensor, labels: torch.Tensor,
             aux_weight: float = 0.0) -> torch.Tensor:
     """The reference's ``encdec.loss_fn``: the fp32 cross-entropy of the
-    training forward's logits (whisper has no auxiliary loss)."""
-    logits, _ = forward(params, cfg, frames, tokens, training=True)
-    return cross_entropy(logits, labels)
+    training forward's logits (whisper has no auxiliary loss); under a
+    vocab-parallel plan from each rank's slice of them
+    (``sharding.vocab_cross_entropy``)."""
+    if not sharding.vocab_split():
+        logits, _ = forward(params, cfg, frames, tokens, training=True)
+        return cross_entropy(logits, labels)
+    logits = decode_full(params, cfg, encode(params, cfg, frames), tokens,
+                         remat=cfg.remat, gather=False)
+    return sharding.vocab_cross_entropy(logits, labels)
 
 
 def _cross_cache(cache: dict, B: int, T: int) -> dict:

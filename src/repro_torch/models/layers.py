@@ -99,13 +99,14 @@ def split_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     every row, and the mean of squares is the whole row's, the slices'
     sums of squares added over the ranks (one ``all_reduce`` of a fp32
     ``[rows]`` buffer) between the split-row form's two launches.  A
-    slice normalised alone would take its own mean.  Without a plan the
-    one-launch :func:`rmsnorm`."""
+    slice normalised alone would take its own mean.  Training, its
+    backward sums each row's dot over the ranks the same way.  Without a
+    plan the one-launch :func:`rmsnorm`."""
     plan = sharding.current_plan()
     if plan is None:
         return ops.rmsnorm(x, scale, eps)
     return ops.rmsnorm_split(x, scale, eps, x.shape[-1] * plan.tp,
-                             sharding.all_reduce)
+                             sharding.rank_sum(plan))
 
 
 def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

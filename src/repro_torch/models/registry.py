@@ -85,7 +85,8 @@ class Model:
                 f"{self.cfg.name}: no pool or model of the port attends over "
                 "a sequence-sharded cache (prefer_seq places the reference's "
                 "dry-run specs only): ROADMAP Queue 1, item 10")
-        if self.plan is not None and self.cfg.is_encdec:
+        if (self.plan is not None and self.cfg.is_encdec
+                and not self.plan.training):
             raise NotImplementedError(
                 f"{self.cfg.name}: enc-dec serves through the sequential "
                 "Engine, which takes no sharding plan (as the reference's "
@@ -107,19 +108,14 @@ class Model:
     def _training_scope(self, what: str):
         """The scope of a training call: none without a plan; under a
         training plan the rank's plan and its FSDP layout.  Raises for a
-        serving plan, for the families a plan cannot train yet and for
-        K/V heads shared by some but not all ranks."""
+        serving plan and for K/V heads shared by some but not all
+        ranks."""
         if self.plan is None:
             return contextlib.nullcontext()
         cfg = self.cfg
         if not self.plan.training:
             raise ValueError(f"{cfg.name}: {what} under a serving plan: "
                              "train under sharding.training_plan")
-        if cfg.family in ("zamba", "xlstm") or cfg.is_encdec:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} of the {cfg.family!r} family under a "
-                "sharding plan needs the split-row norm's backward (and "
-                "zamba the ssd_scan backward): ROADMAP Queue 1, item 11")
         tp = self.plan.tp
         groups = sharding.kv_groups(cfg, tp)
         if tp > 1 and (1 < groups < tp or (groups == 1 and cfg.fused_qkv)):
@@ -127,7 +123,7 @@ class Model:
                 f"{cfg.name}: {cfg.n_kv_heads} KV heads shared by several "
                 f"of {tp} ranks need their gradient summed over them (a "
                 "fused wqkv cannot take it apart from q's): ROADMAP Queue 1, "
-                "item 11")
+                "item 10")
         stack = contextlib.ExitStack()
         stack.enter_context(self._scope())
         stack.enter_context(fsdp.use_layout(self.layout))
@@ -165,7 +161,7 @@ class Model:
             return self._family.init_params(self.cfg, seed, self.device,
                                             draw_on_device=draw_on_device)
         specs = sharding.leaf_param_specs(self, self.plan.mesh)
-        return transformer.init_params(
+        return self._family.init_params(
             self.cfg, seed, self.device, draw_on_device=draw_on_device,
             shard=lambda path, t: self.plan.shard(t, specs[path]))
 
@@ -242,7 +238,8 @@ class Model:
         logits of the whole vocabulary out."""
         with self._training_scope("the full-sequence forward"):
             if self.is_encdec:
-                return encdec.forward(params, self.cfg, self._frames(inputs),
+                return encdec.forward(params, self.local_cfg,
+                                      self._frames(inputs),
                                       self._tokens(inputs), training)
             return transformer.forward(params, self.local_cfg,
                                        self._tokens(inputs), training)
@@ -253,7 +250,8 @@ class Model:
         with self._training_scope("the training loss"):
             labels = self._input(batch["labels"])
             if self.is_encdec:
-                return encdec.loss_fn(params, self.cfg, self._frames(batch),
+                return encdec.loss_fn(params, self.local_cfg,
+                                      self._frames(batch),
                                       self._tokens(batch), labels)
             return transformer.loss_fn(params, self.local_cfg,
                                        self._tokens(batch), labels)

@@ -22,7 +22,13 @@ rank's configuration, ``distributed.sharding.local_config``): the norm
 over a row the ranks split takes the split-row form
 (``layers.split_rmsnorm``), Mamba2's ``out_proj`` and the mLSTM's
 ``down_proj`` end in one ``all_reduce``, and the sLSTM's heads are
-gathered to the whole row.
+gathered to the whole row.  For training, each mixer's input enters the
+rank's heads through ``sharding.copy_to_model`` (its gradient summed
+over the ranks), and the replicated weights that turn it into what
+every head reads (Mamba2's B / C columns of ``in_proj`` and ``conv_w``,
+the mLSTM's ``x_inner`` columns of ``up_proj`` and its conv) have their
+gradients summed over the ranks (``sharding.sum_grad_columns``): each
+rank's is its heads' part.
 
 States are carried in float32.
 """
@@ -107,12 +113,15 @@ def mamba2_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     H, ds = cfg.ssm_heads, cfg.ssm_state
     dh = d_inner // H
 
-    zxbcdt = x @ p["in_proj"]
+    bc = 2 * d_inner, 2 * d_inner + 2 * ds           # B and C's columns
+    zxbcdt = (sharding.copy_to_model(x)
+              @ sharding.sum_grad_columns(p["in_proj"], *bc))
     z = zxbcdt[..., :d_inner]
     xc = zxbcdt[..., d_inner:2 * d_inner + 2 * ds]
     dt_raw = zxbcdt[..., 2 * d_inner + 2 * ds:]
 
-    xc, new_conv = causal_conv1d(xc, p["conv_w"],
+    conv_w = sharding.sum_grad_columns(p["conv_w"], d_inner, d_inner + 2 * ds)
+    xc, new_conv = causal_conv1d(xc, conv_w,
                                  None if state is None else state["conv"])
     xc = F.silu(xc)
     xs = xc[..., :d_inner].reshape(B, S, H, dh)
@@ -270,9 +279,10 @@ def mlstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     H = cfg.n_heads
     dh = d_inner // H
 
-    up = x @ p["up_proj"]
+    up = (sharding.copy_to_model(x)
+          @ sharding.sum_grad_columns(p["up_proj"], 0, d_in))
     xi, z = up[..., :d_in], up[..., d_in:]
-    xq, new_conv = causal_conv1d(xi, p["conv_w"],
+    xq, new_conv = causal_conv1d(xi, sharding.sum_grad_columns(p["conv_w"]),
                                  None if state is None else state["conv"])
     xq = F.silu(xq)
 
@@ -347,7 +357,7 @@ def slstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dh = width // H
     f32 = torch.float32
 
-    pre = x @ p["w_in"] + p["b"]                               # [B,S,4w]
+    pre = sharding.copy_to_model(x) @ p["w_in"] + p["b"]       # [B,S,4w]
     pre = pre.reshape(B, S, H, 4 * dh).to(f32)
 
     if state is None:

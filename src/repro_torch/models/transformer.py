@@ -34,9 +34,10 @@ Entry points:
 reference checkpoints is recomputed in the backward when ``cfg.remat``
 (``torch.utils.checkpoint``), and ``aux`` sums the moe blocks' load-
 balancing losses.  The serving entry points run under ``no_grad``.
-Under a training plan (``distributed.fsdp``) the dense and moe
-families gather each layer's leaves as the layer starts (inside the
-remat'd block, so its recomputation gathers again), the embedding and
+Under a training plan (``distributed.fsdp``) every family gathers each
+block's leaves as the block starts (inside a remat'd block, so its
+recomputation gathers again; zamba's shared block once per forward,
+its uses' gradients summed before the one scatter), the embedding and
 the head theirs where they are read, and ``loss_fn`` takes a
 vocab-parallel head's loss without gathering its logits.
 """
@@ -377,12 +378,14 @@ def zamba_unit(mamba_params, shared_params, x, cfg: ModelConfig, positions,
     layer loop below and the layer-streamed prefill (``core.streaming``)
     run the same body and each block waits only for its own weights.
     ``remat`` (training, no cache) recomputes each Mamba2 block in the
-    backward, as the reference checkpoints its Mamba2 scan body."""
+    backward, as the reference checkpoints its Mamba2 scan body; a block
+    asks for its weights inside the recomputed part, so an FSDP gather
+    there runs again."""
     every = cfg.attn_every
     for layer in range(unit * every, (unit + 1) * every):
         state = layer_cache(None if cache is None else cache["mamba"], layer)
-        x = remat_call(lambda h, bp=mamba_params(layer), st=state:
-                       _mamba_block(bp, h, cfg, st), x, remat)
+        x = remat_call(lambda h, layer=layer, st=state:
+                       _mamba_block(mamba_params(layer), h, cfg, st), x, remat)
     kv = layer_cache(None if cache is None else cache["attn_kv"], unit)
     return _dense_block(shared_params(), x, cfg, positions, kv, cache_pos)
 
@@ -434,8 +437,8 @@ def xlstm_unit(mlstm_params, slstm_params, x, cfg: ModelConfig,
     _, m_per = xlstm_units(cfg)
     for layer in range(unit * m_per, (unit + 1) * m_per):
         state = layer_cache(None if cache is None else cache["mlstm"], layer)
-        x = remat_call(lambda h, bp=mlstm_params(layer), st=state:
-                       _mlstm_block(bp, h, cfg, st), x, remat)
+        x = remat_call(lambda h, layer=layer, st=state:
+                       _mlstm_block(mlstm_params(layer), h, cfg, st), x, remat)
     return _slstm_block(slstm_params(unit), x, cfg,
                         layer_cache(None if cache is None else cache["slstm"],
                                     unit))
@@ -468,15 +471,20 @@ def _decoder(params, cfg, x, positions, cache, cache_pos, page_table=None,
             f"{cfg.name}: adapter gather needs the dense block layout")
     if cfg.family == "xlstm":
         for unit in range(xlstm_units(cfg)[0]):
-            x = xlstm_unit(params["mlstm"].__getitem__,
-                           params["slstm"].__getitem__, x, cfg, cache, unit,
-                           remat)
+            x = xlstm_unit(
+                lambda l: fsdp.gathered(params["mlstm"][l], f"mlstm.{l}"),
+                lambda u: fsdp.gathered(params["slstm"][u], f"slstm.{u}"),
+                x, cfg, cache, unit, remat)
         return x
     if cfg.family == "zamba":
+        # the shared block is gathered once: its uses' gradients add up in
+        # the one gathered leaf, whose backward scatters their sum
+        shared = fsdp.gathered(params["shared_attn"], "shared_attn")
         for unit in range(n_units(cfg)):
-            x = zamba_unit(params["mamba"].__getitem__,
-                           lambda: params["shared_attn"], x, cfg, positions,
-                           cache, unit, cache_pos, remat)
+            x = zamba_unit(
+                lambda l: fsdp.gathered(params["mamba"][l], f"mamba.{l}"),
+                lambda: shared, x, cfg, positions, cache, unit, cache_pos,
+                remat)
         return x
     for layer, bp in enumerate(params["layers"]):
         def block(h, bp=bp, layer=layer):

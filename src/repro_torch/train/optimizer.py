@@ -14,9 +14,11 @@ Under a training plan each rank updates its own pieces (the update is
 elementwise) and reads the rest from a ``distributed.fsdp.Layout``: the
 global norm adds every rank's squares in one ``all_reduce``, each leaf
 counted once (a piece that ``copies`` ranks hold alike is divided by
-``copies``), and a factored leaf's row and column means add the pieces
-of a split axis over the ranks that hold them.  Which leaves factor is
-read from the whole leaf's shape, as on one device.
+``copies``, and the columns of a 'model' dimension that some ranks hold
+alike by their share, ``Layout.model_weights``), and a factored leaf's
+row and column means add the pieces of a split axis over the ranks that
+hold them.  Which leaves factor is read from the whole leaf's shape, as
+on one device.
 """
 
 from __future__ import annotations
@@ -91,9 +93,29 @@ def global_norm(tree, layout=None) -> torch.Tensor:
     if layout is None:
         return torch.sqrt(sum(t.float().square().sum()
                               for _, t in named_leaves(tree)))
-    total = sum(t.float().square().sum() / layout.copies(path)
-                for path, t in named_leaves(tree))
+    total = sum(_weighted(t.float().square(), layout, path).sum()
+                / layout.copies(path) for path, t in named_leaves(tree))
     return torch.sqrt(_sum_over(total.reshape(1), layout.world)[0])
+
+
+def _weighted(x: torch.Tensor, layout, path: str,
+              dim: Optional[int] = None, axis: int = -1) -> torch.Tensor:
+    """``x`` with the elements of a leaf's 'model' dimension that several
+    ranks hold alike weighted by their share (``Layout.model_weights``),
+    so a sum over the ranks counts them once: ``x`` is the leaf's square
+    (``dim`` None) or a statistic whose ``axis`` is the leaf's dimension
+    ``dim``, weighted only when that is the 'model' one."""
+    mw = None if layout is None else layout.model_weights(path)
+    if mw is None:
+        return x
+    d, w = mw
+    if dim is None:
+        axis = d
+    elif dim != d:
+        return x
+    shape = [1] * x.dim()
+    shape[axis] = -1
+    return x * w.to(x.device).reshape(shape)
 
 
 def _sum_over(t: torch.Tensor, axis) -> torch.Tensor:
@@ -148,11 +170,14 @@ def adamw_update(params, grads, opt_state: dict, cfg: OptimizerConfig,
             shape = g2.shape if layout is None else layout.global_shape(
                 path, tuple(g2.shape))
             last, second = split.get(nd - 1), split.get(nd - 2)
-            row = b2 * v["row"] + (1 - b2) * _mean(g2, -1, shape[-1], last)
-            col = b2 * v["col"] + (1 - b2) * _mean(g2, -2, shape[-2], second)
+            row = b2 * v["row"] + (1 - b2) * _mean(
+                _weighted(g2, layout, path, nd - 1, -1), -1, shape[-1], last)
+            col = b2 * v["col"] + (1 - b2) * _mean(
+                _weighted(g2, layout, path, nd - 2, -2), -2, shape[-2], second)
             # rank-1 reconstruction: v ~ row x col / mean(row)
-            denom = torch.clamp(
-                _mean(row, -1, shape[-2], second)[..., None], min=1e-30)
+            denom = torch.clamp(_mean(_weighted(row, layout, path, nd - 2, -1),
+                                      -1, shape[-2], second)[..., None],
+                                min=1e-30)
             vhat = (row[..., :, None] * col[..., None, :]
                     / denom[..., None]) / bc2
             v_new = {"row": row, "col": col}

@@ -49,7 +49,7 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
         raise NotImplementedError(
             "a sequence-parallel train step (the batch's sequence axis over "
             "'model') needs attention across sequence shards: ROADMAP "
-            "Queue 1, item 11")
+            "Queue 1, item 10")
 
     plan, layout = model.plan, model.layout
 
@@ -76,8 +76,14 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig,
 
 
 def init_train_state(model: Model, opt_cfg: OptimizerConfig,
-                     seed: int = 0) -> dict:
-    params = model.init_params(seed)
+                     seed: int = 0, draw_on_device: bool = False) -> dict:
+    """Parameters from ``seed`` and zeroed optimizer state.  By default
+    the parameters are drawn on the host, so a seed gives the same weights
+    on every device; ``draw_on_device`` draws them on the model's device
+    (``layers.ParamDraw``: other weights than the host's for the same
+    seed), as a card run of a large model does (a host draw of
+    zamba2-2.7b's 2.4 B fp32 parameters takes tens of seconds)."""
+    params = model.init_params(seed, draw_on_device=draw_on_device)
     return {"params": params,
             "opt": init_opt_state(params, opt_cfg, model.layout)}
 
@@ -102,13 +108,15 @@ class TrainLoopConfig:
 
 def train(model: Model, opt_cfg: OptimizerConfig, data_cfg: DataConfig,
           loop_cfg: TrainLoopConfig, log: Callable[[str], None] = print,
-          seed: int = 0, on_step: Optional[Callable] = None):
+          seed: int = 0, on_step: Optional[Callable] = None,
+          draw_on_device: bool = False):
     """Fault-tolerant training: resumes from the newest checkpoint in
     ``loop_cfg.ckpt_dir`` if there is one.  Returns (state, losses), the
     losses of the steps this call ran.  ``on_step(step, metrics)``, when
-    given, is called after every step (timing)."""
+    given, is called after every step (timing).  ``seed`` and
+    ``draw_on_device``: :func:`init_train_state`."""
     stream = TokenStream(data_cfg)
-    state = init_train_state(model, opt_cfg, seed)
+    state = init_train_state(model, opt_cfg, seed, draw_on_device)
     start_step = 0
     ckpt_dir = loop_cfg.ckpt_dir and checkpoint_dir(model, loop_cfg.ckpt_dir)
     if ckpt_dir:

@@ -314,7 +314,8 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
                                    "flash_attention_bwd": 0,
                                    "paged_decode_attention": 0, "rmsnorm": 0,
                                    "rmsnorm_bwd": 0, "rmsnorm_fused": 0,
-                                   "rmsnorm_split": 0, "ssd_scan": 0}
+                                   "rmsnorm_split": 0, "rmsnorm_split_bwd": 0,
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -331,17 +332,25 @@ def test_cuda_sources_declare_their_entry_points():
     sources = {p.name: p.read_text() for p in _build.CSRC.glob("*.cu")}
     assert set(sources) == {"paged_decode_attention.cu", "flash_attention.cu",
                             "decode_attention.cu", "rmsnorm.cu", "ssd_scan.cu",
-                            "flash_attention_bwd.cu", "rmsnorm_bwd.cu"}
-    # the backward kernels' entry points take what their wrappers pass
+                            "flash_attention_bwd.cu", "rmsnorm_bwd.cu",
+                            "ssd_scan_bwd.cu"}
+    # the backward kernels' entry points (and the split-row forms') take
+    # what their wrappers pass
     from repro_torch.kernels import flash_attention as flash_wrapper
+    from repro_torch.kernels import rmsnorm as rms_wrapper
+    from repro_torch.kernels import ssd_scan as ssd_wrapper
     for src, name, argtypes in (
             ("flash_attention_bwd.cu", "repro_flash_attention_bwd",
              flash_wrapper._BWD_ARGTYPES),
-            ("rmsnorm_bwd.cu", "repro_rmsnorm_bwd", None),
+            ("rmsnorm_bwd.cu", "repro_rmsnorm_bwd", rms_wrapper._BWD_ARGTYPES),
+            ("rmsnorm_bwd.cu", "repro_rmsnorm_bwd_split_dot",
+             rms_wrapper._SPLIT_DOT_ARGTYPES),
+            ("rmsnorm_bwd.cu", "repro_rmsnorm_bwd_split",
+             rms_wrapper._SPLIT_BWD_ARGTYPES),
+            ("rmsnorm.cu", "repro_rmsnorm_sumsq", rms_wrapper._SUMSQ_ARGTYPES),
+            ("rmsnorm.cu", "repro_rmsnorm_apply", rms_wrapper._APPLY_ARGTYPES),
+            ("ssd_scan_bwd.cu", "repro_ssd_scan_bwd", ssd_wrapper._BWD_ARGTYPES),
             ("flash_attention.cu", "repro_flash_attention", flash_wrapper._ARGTYPES)):
-        if argtypes is None:
-            from repro_torch.kernels import rmsnorm as rms_wrapper
-            argtypes = rms_wrapper._BWD_ARGTYPES
         head = sources[src].split(f'extern "C" int {name}(')[1].split(")")[0]
         assert head.count(",") + 1 == len(argtypes), name
     assert 'extern "C" int repro_ssd_scan(' in sources["ssd_scan.cu"]
@@ -454,11 +463,13 @@ def test_rmsnorm_backward_ref_matches_autograd_and_jax_vjp(shape, residual):
 
 
 def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu():
-    """``ssd_scan``, ``decode_attention`` and ``paged_decode_attention``
-    have no backward kernel: off the CPU (``meta`` stands in for a card,
-    which this machine lacks) an input that requires grad raises instead
-    of a detached output; so do flash and rmsnorm in bf16, which have no
-    backward kernel yet.  Without grad mode, or on the CPU, they run."""
+    """``decode_attention`` and ``paged_decode_attention`` have no
+    backward kernel: off the CPU (``meta`` stands in for a card, which
+    a CPU-only run lacks) an input that requires grad raises instead of a
+    detached output; so do flash, rmsnorm and ``ssd_scan`` (bf16 B and C)
+    in bf16, which have no backward kernel yet (ROADMAP Queue 2 item 7).
+    ``ssd_scan`` in fp32 carries its gradient shape-only on ``meta``, as
+    flash does.  Without grad mode, or on the CPU, they run."""
     m = dict(device="meta")
     q = torch.zeros((1, 4, 16), **m, requires_grad=True)
     cache = torch.zeros((1, 2, 8, 16), **m)
@@ -469,9 +480,12 @@ def test_kernels_without_a_backward_refuse_a_gradient_off_the_cpu():
     with pytest.raises(NotImplementedError, match="paged_decode_attention"):
         ops.paged_decode_attention(q, arena, arena, pt, 3)
     xb = torch.zeros((1, 8, 2, 32), **m, requires_grad=True)
-    bc = torch.zeros((1, 8, 16), **m)
-    with pytest.raises(NotImplementedError, match="ssd_scan.*ssd_scan backward"):
+    bc = torch.zeros((1, 8, 16), dtype=torch.bfloat16, **m)
+    with pytest.raises(NotImplementedError,
+                       match="ssd_scan.*item 7, 'bf16 tensor-core backward"):
         ops.ssd_scan(xb, bc, bc, torch.zeros((1, 8, 2), **m), 4)
+    y, h = ops.ssd_scan(xb, bc.float(), bc.float(), torch.zeros((1, 8, 2), **m), 4)
+    assert y.requires_grad and y.shape == xb.shape and h.shape == (1, 2, 32, 16)
     fq = torch.zeros((1, 4, 8, 16), dtype=torch.bfloat16, **m, requires_grad=True)
     fk = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16, **m)
     with pytest.raises(NotImplementedError, match="bf16 tensor-core backward"):

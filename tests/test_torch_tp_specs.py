@@ -395,17 +395,30 @@ def test_data_axis_and_training_specs_name_their_items():
     assert tm1.local_cfg == get_smoke_model(
         "smollm-135m", device="cpu",
         plan=sharding.serving_plan(MESH, rank=1)).local_cfg
-    # training under a plan (item 9) covers the dense and moe families; a
-    # recurrent model's loss under a training plan names item 11
+    # training under a plan covers every family: the recurrent and enc-dec
+    # models build under a training plan with the rank's heads and their
+    # pieces of one draw (whisper included, which no serving plan takes);
+    # what is left names item 10: K/V heads that some but not all ranks
+    # share, and a sequence-parallel step
+    plan = sharding.training_plan(MESH, rank=1)
+    for arch in ("zamba2-2.7b", "xlstm-1.3b", "whisper-medium"):
+        tm = get_smoke_model(arch, device="cpu", plan=plan)
+        assert tm.local_cfg.n_heads == tm.cfg.n_heads // 2
+        one = dict(named_leaves(get_smoke_model(arch, device="cpu").init_params(2)))
+        specs = sharding.leaf_param_specs(tm, MESH)
+        for path, piece in named_leaves(tm.init_params(2)):
+            assert torch.equal(piece, plan.shard(one[path], specs[path])), path
     batch = {"tokens": np.zeros((1, 4), np.int32),
              "labels": np.zeros((1, 4), np.int32)}
-    plan = sharding.training_plan(MESH, rank=0)
-    tm = get_smoke_model("zamba2-2.7b", device="cpu", plan=plan)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.loss(tm.init_params(), batch)
-    model = get_smoke_model("xlstm-1.3b", device="cpu", plan=plan)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        model.loss(model.init_params(), batch)
+    shared = get_smoke_model("llama3-8b", device="cpu", n_kv_heads=2,
+                             plan=sharding.training_plan(ServingMesh(1, 4)))
+    with pytest.raises(NotImplementedError, match="item 10"):
+        shared.loss(shared.init_params(), batch)
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_loop import make_train_step
+    with pytest.raises(NotImplementedError, match="item 10"):
+        make_train_step(get_smoke_model("zamba2-2.7b", device="cpu", plan=plan),
+                        OptimizerConfig(), seq_parallel=True)
 
 
 @pytest.mark.parametrize("arch,replace,tp,match", [

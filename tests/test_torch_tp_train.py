@@ -4,9 +4,12 @@ step on one device.
 Two spawns of gloo ranks (``repro_torch.distributed.spawn``): tp = 2
 (``ServingMesh(1, 2)``), and (data 2, model 2) with FSDP and under
 ``mode='fsdp2d'`` (four ranks).  For the smoke dense (llama3-8b), moe
-(phi3.5-moe) and MLA (deepseek-v3) configs at 2 layers in fp32, every
-rank starts from the JAX package's state converted and cut to its piece
-(``convert.params_from_jax`` / ``opt_state_from_jax`` with ``plan=``):
+(phi3.5-moe) and MLA (deepseek-v3) configs at 2 layers, and the smoke
+zamba (4 Mamba2 blocks, the shared block used twice), xlstm (3 mLSTM
+blocks and an sLSTM block) and whisper (2 + 2 layers, 24 frames) configs
+at their smoke depths, in fp32, every rank starts from the JAX package's
+state converted and cut to its piece (``convert.params_from_jax`` /
+``opt_state_from_jax`` with ``plan=``):
 
   * the loss and every gradient leaf at the initial weights (the pieces
     put back together, ``sharding.assemble``) against
@@ -20,7 +23,11 @@ rank starts from the JAX package's state converted and cut to its piece
   * one planted fault per trouble spot reads beyond the tolerance: the
     copy op's backward sum skipped at one layer, the moe gates' copy
     skipped (the router's gradient left partial), a replicated leaf
-    counted tp times in the global norm.
+    counted tp times in the global norm; the split-row norm's backward
+    sum skipped (zamba), Mamba2's B / C columns' gradient sum skipped
+    (zamba), the mLSTM's ``x_inner`` columns' sum skipped (xlstm), and
+    zamba's shared block taking the gradient of one of its two uses
+    under FSDP.
 
 Tolerances are ``tests/test_torch_train.py``'s (fp32; summation order
 only): the loss within 1e-5 relative, each gradient leaf within 1e-4 of
@@ -60,12 +67,22 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4          # of each leaf's largest |value|
 STATE_TOL = 1e-5
 DENSE, PHI, DSV3 = "llama3-8b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
+ZAMBA, XLSTM, WHISPER = "zamba2-2.7b", "xlstm-1.3b", "whisper-medium"
 ARCHS = (DENSE, PHI, DSV3)
+RECURRENT = (ZAMBA, XLSTM, WHISPER)      # and enc-dec
 B, S = 4, 16
+FRAMES = 24                             # whisper's encoder rows
+
+
+def _smoke_kw(arch) -> dict:
+    """The smoke depth: 2 layers for the decoder families; zamba, xlstm
+    and whisper at their own smoke depths (two zamba units, one xLSTM
+    unit, 2 + 2 whisper layers), as both packages' ``reduced`` give."""
+    return {} if arch in RECURRENT else {"n_layers": 2}
 
 
 def _cfg(arch, **kw):
-    return reduced(get_config(arch), n_layers=2, **kw)
+    return reduced(get_config(arch), **_smoke_kw(arch), **kw)
 
 
 def _opt(factored: bool):
@@ -76,9 +93,12 @@ def _opt(factored: bool):
 def _batches(cfg, n: int = 3) -> list:
     out = []
     for s in range(n):
-        toks = np.random.default_rng(s).integers(
-            0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        rng = np.random.default_rng(s)
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
         out.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        if cfg.is_encdec:
+            out[-1]["frames"] = (rng.standard_normal((B, FRAMES, cfg.d_model))
+                                 * 0.1).astype(np.float32)
     return out
 
 
@@ -221,8 +241,83 @@ class _norm_counts_copies:
         return False
 
 
+class _split_norm_partial:
+    """The split-row norm's backward sum skipped: each norm's second
+    reduce (its backward dots) returns the rank's own."""
+
+    def __init__(self, model):
+        pass
+
+    def __enter__(self):
+        self.real = sharding.rank_sum
+
+        def rank_sum(plan):
+            reduce, calls = self.real(plan), [0]
+
+            def once(buf):
+                calls[0] += 1
+                return reduce(buf) if calls[0] == 1 else buf
+            return once
+        sharding.rank_sum = rank_sum
+        return self
+
+    def __exit__(self, *exc):
+        sharding.rank_sum = self.real
+        return False
+
+
+class _columns_partial:
+    """A replicated weight's columns keep the rank's partial gradient:
+    Mamba2's B / C columns (zamba) or the mLSTM's ``x_inner`` columns and
+    conv (xlstm), whichever the model has."""
+
+    def __init__(self, model):
+        pass
+
+    def __enter__(self):
+        self.real = sharding.sum_grad_columns
+        sharding.sum_grad_columns = lambda w, *a, **k: w
+        return self
+
+    def __exit__(self, *exc):
+        sharding.sum_grad_columns = self.real
+        return False
+
+
+class _shared_block_once:
+    """zamba's shared block takes the gradient of its first use only (the
+    later units read it detached)."""
+
+    def __init__(self, model):
+        pass
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self.mod, self.real = transformer, transformer.zamba_unit
+        real = self.real
+
+        def unit(mamba_params, shared_params, x, cfg, positions, cache, u,
+                 *rest):
+            if u > 0:
+                tree = shared_params()
+                detached = {k: ({n: t.detach() for n, t in v.items()}
+                                if isinstance(v, dict) else v.detach())
+                            for k, v in tree.items()}
+                shared_params = lambda: detached  # noqa: E731
+            return real(mamba_params, shared_params, x, cfg, positions, cache,
+                        u, *rest)
+        transformer.zamba_unit = unit
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.zamba_unit = self.real
+        return False
+
+
 PLANTS = {"skip_copy": _skip_copy, "partial_router": _partial_router,
-          "norm_copies": _norm_counts_copies}
+          "norm_copies": _norm_counts_copies,
+          "split_norm_sum": _split_norm_partial, "bc_sum": _columns_partial,
+          "x_inner_sum": _columns_partial, "shared_once": _shared_block_once}
 
 
 def _resume(plan, arch: str, root: str) -> dict:
@@ -271,14 +366,22 @@ def _key(kind="step", arch=DENSE, mode="tp", fsdp=False, factored=False,
     return (kind, arch, mode, fsdp, factored, remat, plant)
 
 
-TP_CASES = ([_key(arch=a) for a in ARCHS]
-            + [_key(factored=True), _key(remat=True),
+# the recurrent and enc-dec families' trouble spots (RECURRENT_PLANTS)
+RECURRENT_PLANTS = (_key(arch=ZAMBA, plant="split_norm_sum"),
+                    _key(arch=ZAMBA, plant="bc_sum"),
+                    _key(arch=XLSTM, plant="x_inner_sum"),
+                    _key(arch=ZAMBA, fsdp=True, plant="shared_once"))
+TP_CASES = ([_key(arch=a) for a in ARCHS + RECURRENT]
+            + [_key(factored=True), _key(arch=ZAMBA, factored=True),
+               _key(remat=True),
                _key(plant="skip_copy"), _key(arch=PHI, plant="partial_router"),
-               _key(plant="norm_copies")])
-GRID_CASES = ([_key(arch=a, fsdp=True) for a in ARCHS]
-              + [_key(arch=a, mode="fsdp2d") for a in ARCHS]
+               _key(plant="norm_copies")]
+            + [k for k in RECURRENT_PLANTS if not k[3]])
+GRID_CASES = ([_key(arch=a, fsdp=True) for a in ARCHS + RECURRENT]
+              + [_key(arch=a, mode="fsdp2d") for a in ARCHS + RECURRENT]
               + [_key(fsdp=True, factored=True),
-                 _key(kind="resume", fsdp=True)])
+                 _key(kind="resume", fsdp=True)]
+              + [k for k in RECURRENT_PLANTS if k[3]])
 
 
 @functools.lru_cache(maxsize=None)
@@ -286,7 +389,7 @@ def _jax_model(arch: str) -> tuple:
     """The JAX smoke model, its weights and its jitted loss gradient."""
     import jax
     from repro.models.registry import get_smoke_model as jax_smoke
-    jm = jax_smoke(arch, n_layers=2)
+    jm = jax_smoke(arch, **_smoke_kw(arch))
     return jm, jm.init_params(jax.random.PRNGKey(0)), jax.jit(
         jax.value_and_grad(jm.loss))
 
@@ -465,9 +568,9 @@ def test_planted_faults_exceed_the_tolerance(runs, jax_states):
 
 def test_seq_parallel_and_shared_kv_training_name_their_items():
     """A seq-parallel batch's specs place (the sequence over 'model'), its
-    train step raises naming item 11, and so does a loss whose K/V heads
-    some but not all ranks share (the recurrent families' refusals are in
-    ``test_torch_tp_specs.py``)."""
+    train step raises naming item 10, and so does a loss whose K/V heads
+    some but not all ranks share (what is left of training under a plan;
+    the recurrent and enc-dec families train, the tests above)."""
     from repro_torch.distributed.sharding import ServingMesh
     mesh = ServingMesh(2, 2)
     batch = {"tokens": np.zeros((4, 8), np.int32)}
@@ -476,13 +579,67 @@ def test_seq_parallel_and_shared_kv_training_name_their_items():
     from repro_torch.train.train_loop import make_train_step
     plan = sharding.training_plan(mesh, fsdp=True, mode="fsdp2d")
     model = get_model(_cfg(DENSE), device="cpu", plan=plan)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         make_train_step(model, topt.OptimizerConfig(), seq_parallel=True)
     # two KV heads over four ranks: each head's gradient would need a sum
     # over the two ranks that share it
     shared = get_model(_cfg(DENSE, n_kv_heads=2), device="cpu",
                        plan=sharding.training_plan(ServingMesh(1, 4)))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 10"):
         shared.loss(shared.init_params(), {
             "tokens": np.zeros((1, 4), np.int32),
             "labels": np.zeros((1, 4), np.int32)})
+
+
+# the recurrent and enc-dec families' collectives of one step at tp = 2,
+# per kind (smoke shapes: vocabulary 256, every model vocab-parallel)
+def _recurrent_collectives(arch) -> int:
+    """all_reduces of one tp = 2 step without remat: zamba (L Mamba2
+    blocks, U uses of the shared block) forward 1 + 2L + 2U + 2 (the
+    embedding, each block's split-norm sums and out-projection, each
+    use's attention and MLP sums, the loss's max and sums), backward
+    4L + 2U + 1 (each block's input copy, B / C columns of ``in_proj``
+    and ``conv_w``, the split norm's dots; each use's two copies; the
+    head); xlstm (M mLSTM, U sLSTM blocks, the post-MLP whole) forward
+    1 + 2M + 2U + 2, backward 4M + 2U + 1 (the mLSTM's ``x_inner``
+    columns and conv in place of B / C; the sLSTM's input copy and split
+    norm); whisper (L + Ld layers) forward 2L + 3Ld + 1 + 2 (the
+    embedding's sum, the loss), backward 2L + 4Ld + 1 (ln1's and the MLP
+    input's copies per layer, and per decoder layer the cross
+    attention's query and encoder-output copies); the optimizer's norm 1."""
+    cfg = _cfg(arch)
+    if arch == ZAMBA:
+        from repro_torch.models.transformer import n_units
+        L, U = cfg.n_layers, n_units(cfg)
+        return (1 + 2 * L + 2 * U + 2) + (4 * L + 2 * U + 1) + 1
+    if arch == XLSTM:
+        from repro_torch.models.transformer import xlstm_units
+        U, per = xlstm_units(cfg)
+        M = U * per
+        return (1 + 2 * M + 2 * U + 2) + (4 * M + 2 * U + 1) + 1
+    L, Ld = cfg.n_layers, cfg.dec_layers
+    return (2 * L + 3 * Ld + 3) + (2 * L + 4 * Ld + 1) + 1
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_and_encdec_collectives_per_step_at_tp2(runs, arch):
+    """Each carried step at tp = 2 runs the reckoned all_reduces and no
+    other collective; the gradient read alone runs them less the
+    optimizer's."""
+    got = runs[_key(arch=arch)]
+    want = _recurrent_collectives(arch)
+    assert got["calls_step"] == [{"all_reduce": want}] * 2
+    assert got["calls_grad"] == want - 1
+
+
+@pytest.mark.parametrize("key", RECURRENT_PLANTS, ids=lambda k: k[6])
+def test_recurrent_and_encdec_planted_faults_exceed_the_tolerance(
+        runs, jax_states, key):
+    """Each new trouble spot planted moves some gradient leaf past 1e-4 of
+    its largest: the split norm's backward sum, Mamba2's B / C columns'
+    sum, the mLSTM's ``x_inner`` columns' sum, and the shared block's
+    later uses (under FSDP) — while the sound runs above hold."""
+    arch = key[1]
+    errs = _grad_errors(runs[key]["grads"],
+                        _want(jax_states[(arch, False)], arch, "grads"))
+    assert max(errs.values()) > GRAD_TOL, max(errs.items(), key=lambda e: e[1])

@@ -327,6 +327,24 @@ def test_learns_the_batch(arch):
     assert all(torch.isfinite(t).all() for _, t in named_leaves(state["params"]))
 
 
+def test_init_train_state_draws_the_seed_on_the_host_unless_asked():
+    """``init_train_state`` (and so ``train``) draws the seed's weights on
+    the host by default, the same as ``init_params(seed)`` on any device;
+    ``draw_on_device`` takes the model's device's generator."""
+    m = torch_smoke("smollm-135m", device="cpu", n_layers=2)
+    opt = topt.OptimizerConfig(lr=1e-3, warmup_steps=1)
+    state = init_train_state(m, opt, seed=3)
+    want = dict(named_leaves(m.init_params(3)))
+    for name, got in named_leaves(state["params"]):
+        assert torch.equal(got, want[name]), name
+    asked = init_train_state(m, opt, seed=3, draw_on_device=True)
+    want = dict(named_leaves(m.init_params(3, draw_on_device=True)))
+    for name, got in named_leaves(asked["params"]):
+        assert torch.equal(got, want[name]), name
+    assert all(float(t.abs().max()) == 0.0
+               for _, t in named_leaves(state["opt"]["m"]))
+
+
 def test_resume_equals_uninterrupted():
     """Interrupted at step 3 and resumed to 6: the same losses and bits as
     six steps in one run (tests/test_train.py's resume test)."""
