@@ -24,19 +24,43 @@
 // aligned), so the cache is read in its storage layout and nothing is
 // transposed per step.  paged_decode_attention.cu runs the same body over
 // its page arena, so the two give the same bits over the same rows.
+//
+// Two more entries serve a cache whose sequence axis is split over the
+// model ranks (flash-decoding across ranks; the reference's dry run places
+// every decode cache so):
+//   * repro_decode_attention_slice: the same two launches over one rank's
+//     rows [B, KV, T_r, d] (lengths counted within the slice, 0 where the
+//     slice holds none of a sequence's rows), writing the merged output in
+//     fp32 and each (b, query head)'s log-sum-exp, fp32 (-inf for no
+//     rows).  Bound: as the one-rank kernel, the slice's selected K/V bytes
+//     over the memory rate.
+//   * repro_decode_merge_ranks: the second launch alone over R ranks'
+//     gathered (o, lse) [R, B, H, d] and [R, B, H], in rank order, skipping
+//     a rank with no rows, into [B, H, d] in the cache's dtype.  Bound:
+//     R (d + 1) fp32 reads and one write per (b, head): bytes.
 
 #include "decode_split.cuh"
 
 namespace {
 
-template <typename T>
+template <typename T, typename TO = T>
 cudaError_t launch_typed(const void* q, const void* k, const void* v,
                          const void* lens, void* part_acc, void* part_ml, void* out,
                          int B, int H, int KV, int d, int T_len, int n_splits,
-                         CacheStrides ks, CacheStrides vs, cudaStream_t stream) {
+                         CacheStrides ks, CacheStrides vs, cudaStream_t stream,
+                         float* lse = nullptr) {
   const DenseRows<T> rows{static_cast<const T*>(k), static_cast<const T*>(v), ks, vs};
-  return launch_decode<T>(q, rows, lens, part_acc, part_ml, out, B, H, KV, d,
-                          T_len, n_splits, stream);
+  return launch_decode<T, DenseRows<T>, TO>(q, rows, lens, part_acc, part_ml, out, B,
+                                            H, KV, d, T_len, n_splits, stream, lse);
+}
+
+bool dense_args_ok(const void* q, const void* k, const void* v, const void* out,
+                   int dtype, int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb,
+                   int64_t v_st, int64_t v_sh) {
+  const int64_t vec = dtype == 0 ? 4 : 8;
+  return aligned16(q) && aligned16(k) && aligned16(v) && aligned16(out) &&
+         !(k_sb % vec || k_st % vec || k_sh % vec || v_sb % vec || v_st % vec ||
+           v_sh % vec);
 }
 
 }  // namespace
@@ -57,9 +81,7 @@ extern "C" int repro_decode_attention(
   if (!decode_args_ok(B, H, KV, d, T_len, split, n_splits) ||
       (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t vec = dtype == 0 ? 4 : 8;
-  if (!aligned16(q) || !aligned16(k) || !aligned16(v) || !aligned16(out) ||
-      k_sb % vec || k_st % vec || k_sh % vec || v_sb % vec || v_st % vec || v_sh % vec)
+  if (!dense_args_ok(q, k, v, out, dtype, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
     return static_cast<int>(cudaErrorMisalignedAddress);
   auto s = static_cast<cudaStream_t>(stream);
   const CacheStrides ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
@@ -70,4 +92,44 @@ extern "C" int repro_decode_attention(
   return static_cast<int>(launch_typed<__nv_bfloat16>(q, k, v, lengths, part_acc,
                                                        part_ml, out, B, H, KV, d,
                                                        T_len, n_splits, ks, vs, s));
+}
+
+// The slice entry: as repro_decode_attention over one rank's T_len rows,
+// but out is [B, H, d] fp32 whatever q's dtype, and lse [B, H] fp32
+// receives each row's log-sum-exp.
+extern "C" int repro_decode_attention_slice(
+    const void* q, const void* k, const void* v, const void* lengths,
+    void* part_acc, void* part_ml, void* out, void* lse, int B, int H, int KV, int d,
+    int T_len, int split, int n_splits, int64_t k_sb, int64_t k_st, int64_t k_sh,
+    int64_t v_sb, int64_t v_st, int64_t v_sh, int dtype, void* stream) {
+  if (!decode_args_ok(B, H, KV, d, T_len, split, n_splits) ||
+      (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!dense_args_ok(q, k, v, out, dtype, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  auto s = static_cast<cudaStream_t>(stream);
+  const CacheStrides ks{k_sb, k_st, k_sh}, vs{v_sb, v_st, v_sh};
+  auto* lp = static_cast<float*>(lse);
+  if (dtype == 0)
+    return static_cast<int>(launch_typed<float, float>(
+        q, k, v, lengths, part_acc, part_ml, out, B, H, KV, d, T_len, n_splits, ks,
+        vs, s, lp));
+  return static_cast<int>(launch_typed<__nv_bfloat16, float>(
+      q, k, v, lengths, part_acc, part_ml, out, B, H, KV, d, T_len, n_splits, ks, vs,
+      s, lp));
+}
+
+// The rank merge: o [R, B, H, d] and lse [R, B, H] fp32, contiguous, into
+// out [B, H, d] (dtype 0 = float32, 1 = bfloat16).  One launch.
+extern "C" int repro_decode_merge_ranks(const void* o, const void* lse, void* out,
+                                        int R, int B, int H, int d, int dtype,
+                                        void* stream) {
+  if (R < 1 || B < 1 || H < 1 || H > 65535 || d < 1 || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const auto* op = static_cast<const float*>(o);
+  const auto* lp = static_cast<const float*>(lse);
+  if (dtype == 0)
+    return static_cast<int>(launch_merge_ranks<float>(op, lp, out, R, B, H, d, s));
+  return static_cast<int>(launch_merge_ranks<__nv_bfloat16>(op, lp, out, R, B, H, d, s));
 }

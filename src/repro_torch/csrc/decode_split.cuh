@@ -38,6 +38,10 @@
 //      the partials in a fixed order (its warps take every 16th split,
 //      lanes the elements), skipping empty ones, and normalises (l clamped
 //      at 1e-30, so a sequence of length 0 gives zeros).
+// The slice entry of decode_attention.cu runs both over one rank's rows
+// of a sequence-sharded cache and also writes each row's log-sum-exp; the
+// same merge kernel then combines R ranks' gathered (o, lse) in rank
+// order (RankParts), as it combines one call's splits.
 // No atomics.  Element offsets are 64-bit.
 
 #pragma once
@@ -372,17 +376,51 @@ decode_split_kernel(const TQ* __restrict__ q, const Rows rows,
 
 constexpr int kMergeSlices = 16;   // warps of a merge block at most
 
-// One block per (b, KV head, query head, 32 head-dim elements): the
-// partials merged in a fixed order.  Warp 0 finds the largest m of the live
-// splits and the normaliser; then lane e of warp w sums element e of every
-// w-th split, and warp 0 adds the warps' sums in warp order.  The number of
-// warps, min(16, n_splits), depends on T alone.  Empty partials (l = 0) add
-// nothing and their accumulators are never used.
-template <typename T>
+// Where the merge reads its parts: per (bh = b * KV + KV head, part s,
+// query head g of the KV head's G) an (m, l) pair and a [d] fp32 row.
+// SplitParts are one call's split-KV partials: un-normalised accumulators
+// [B * KV, n_splits, G, d] and (m, l) [B * KV, n_splits, G, 2].
+struct SplitParts {
+  const float* acc;
+  const float* ml;
+  int n;                                              // splits
+  __device__ float2 ml_at(int bh, int s, int g, int G) const {
+    return reinterpret_cast<const float2*>(ml)[(static_cast<int64_t>(bh) * n + s) * G + g];
+  }
+  __device__ const float* acc_at(int bh, int s, int g, int G, int d) const {
+    return acc + ((static_cast<int64_t>(bh) * n + s) * G + g) * d;
+  }
+};
+
+// RankParts are R ranks' results of the slice entry, gathered in rank
+// order: o [R, B, H, d] fp32 (normalised) and lse [R, B, H] fp32.  A part
+// is m = lse, l = 1 and the row o, so the merge's arithmetic gives
+// sum_r exp(lse_r - max) o_r / sum_r exp(lse_r - max); a rank whose slice
+// held no rows (lse = -inf) has l = 0 and is skipped.
+struct RankParts {
+  const float* o;
+  const float* lse;
+  int n, B, H, KV;                                    // n: ranks
+  __device__ float2 ml_at(int bh, int s, int g, int G) const {
+    const float x = lse[(static_cast<int64_t>(s) * B + bh / KV) * H + (bh % KV) * G + g];
+    return make_float2(x, x > -INFINITY ? 1.f : 0.f);
+  }
+  __device__ const float* acc_at(int bh, int s, int g, int G, int d) const {
+    return o + ((static_cast<int64_t>(s) * B + bh / KV) * H + (bh % KV) * G + g) * d;
+  }
+};
+
+// One block per (b, KV head, query head, 32 head-dim elements): the parts
+// merged in a fixed order.  Warp 0 finds the largest m of the live parts
+// and the normaliser; then lane e of warp w sums element e of every w-th
+// part, and warp 0 adds the warps' sums in warp order.  The number of
+// warps, min(16, parts), depends on T (or R) alone.  Empty parts (l = 0)
+// add nothing and their rows are never read.  With lse_out, block z = 0
+// also writes the row's log-sum-exp (m + log l; -inf for no rows).
+template <typename T, typename Parts>
 __global__ void __launch_bounds__(kMergeSlices * 32)
-decode_merge_kernel(const float* __restrict__ part_acc,
-                    const float* __restrict__ part_ml, T* __restrict__ out, int H,
-                    int KV, int d, int n_splits) {
+decode_merge_kernel(const Parts parts, T* __restrict__ out,
+                    float* __restrict__ lse_out, int H, int KV, int d) {
   __shared__ float sm_part[kMergeSlices][32];
   __shared__ float sm_max, sm_l;
   const int bh = blockIdx.x, g = blockIdx.y, G = gridDim.y;
@@ -390,19 +428,17 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int slices = blockDim.x >> 5;
   const int e = blockIdx.z * 32 + lane;
-  const float2* ml = reinterpret_cast<const float2*>(part_ml) +
-                     static_cast<int64_t>(bh) * n_splits * G + g;   // stride G
-  const float* pacc = part_acc + (static_cast<int64_t>(bh) * n_splits * G + g) * d;
+  const int n_parts = parts.n;
   if (warp == 0) {
     float mx = kMaskValue;
-    for (int s = lane; s < n_splits; s += 32) {
-      const float2 x = ml[s * G];
+    for (int s = lane; s < n_parts; s += 32) {
+      const float2 x = parts.ml_at(bh, s, g, G);
       if (x.y > 0.f) mx = fmaxf(mx, x.x);
     }
     mx = warp_max(mx);
     float lsum = 0.f;
-    for (int s = lane; s < n_splits; s += 32) {
-      const float2 x = ml[s * G];
+    for (int s = lane; s < n_parts; s += 32) {
+      const float2 x = parts.ml_at(bh, s, g, G);
       if (x.y > 0.f) lsum += x.y * expf(x.x - mx);
     }
     lsum = warp_sum(lsum);
@@ -416,19 +452,21 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   float a = 0.f;
   if (e < d) {
 #pragma unroll 4
-    for (int s = warp; s < n_splits; s += slices) {
-      const float2 x = ml[s * G];
-      const float v = pacc[static_cast<int64_t>(s) * G * d + e];
+    for (int s = warp; s < n_parts; s += slices) {
+      const float2 x = parts.ml_at(bh, s, g, G);
+      const float v = parts.acc_at(bh, s, g, G, d)[e];
       a += x.y > 0.f ? v * expf(x.x - mx) : 0.f;
     }
   }
   sm_part[warp][lane] = a;
   __syncthreads();
+  const int64_t row = static_cast<int64_t>(b) * H + kvh * G + g;
   if (warp == 0 && e < d) {
     for (int w = 1; w < slices; ++w) a += sm_part[w][lane];
-    out[(static_cast<int64_t>(b) * H + kvh * G + g) * d + e] =
-        from_f32<T>(a / fmaxf(sm_l, 1e-30f));
+    out[row * d + e] = from_f32<T>(a / fmaxf(sm_l, 1e-30f));
   }
+  if (lse_out != nullptr && threadIdx.x == 0 && blockIdx.z == 0)
+    lse_out[row] = sm_l > 0.f ? mx + logf(sm_l) : -INFINITY;
 }
 
 // ---------------------------------------------------------------------------
@@ -470,13 +508,14 @@ cudaError_t launch_dim(const TQ* q, const Rows& rows, const int32_t* lens,
 }
 
 // Both launches of one call on ``stream``: the partials over T_len
-// allocated rows, then the merge into out [B, H, d].  d is 64, 80, 128 or
-// 256.  Returns the first failing cudaError_t.
-template <typename TQ, typename Rows>
+// allocated rows, then the merge into out [B, H, d] (in TO: q's type, or
+// fp32 for the slice entry, which also asks for lse_out [B, H]).  d is
+// 64, 80, 128 or 256.  Returns the first failing cudaError_t.
+template <typename TQ, typename Rows, typename TO = TQ>
 cudaError_t launch_decode(const void* q, const Rows& rows, const void* lens,
                           void* part_acc, void* part_ml, void* out, int B, int H,
                           int KV, int d, int T_len, int n_splits,
-                          cudaStream_t stream) {
+                          cudaStream_t stream, float* lse_out = nullptr) {
   const auto* qp = static_cast<const TQ*>(q);
   const auto* lp = static_cast<const int32_t*>(lens);
   auto* pa = static_cast<float*>(part_acc);
@@ -499,8 +538,21 @@ cudaError_t launch_decode(const void* q, const Rows& rows, const void* lens,
   if (err != cudaSuccess) return err;
   const dim3 merge_grid(B * KV, H / KV, (d + 31) / 32);
   const int slices = n_splits < kMergeSlices ? n_splits : kMergeSlices;
-  decode_merge_kernel<TQ><<<merge_grid, slices * 32, 0, stream>>>(
-      pa, pm, static_cast<TQ*>(out), H, KV, d, n_splits);
+  decode_merge_kernel<TO, SplitParts><<<merge_grid, slices * 32, 0, stream>>>(
+      SplitParts{pa, pm, n_splits}, static_cast<TO*>(out), lse_out, H, KV, d);
+  return cudaGetLastError();
+}
+
+// The merge alone over R ranks' gathered (o, lse) (RankParts), into out
+// [B, H, d] of type T, in rank order: one block per (b, query head, 32
+// head-dim elements).
+template <typename T>
+cudaError_t launch_merge_ranks(const float* o, const float* lse, void* out, int R,
+                               int B, int H, int d, cudaStream_t stream) {
+  const dim3 grid(B, H, (d + 31) / 32);
+  const int slices = R < kMergeSlices ? R : kMergeSlices;
+  decode_merge_kernel<T, RankParts><<<grid, slices * 32, 0, stream>>>(
+      RankParts{o, lse, R, B, H, 1}, static_cast<T*>(out), nullptr, H, 1, d);
   return cudaGetLastError();
 }
 

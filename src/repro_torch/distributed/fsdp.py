@@ -37,7 +37,9 @@ fractions and mean probabilities, as the reference's one program does).
 Its backward scales by the number of batch shards, so that the mean the
 leaves' backward takes leaves that statistic's gradient whole.
 
-Every collective counts in ``sharding.collective_stats`` under its kind.
+Every collective counts in ``sharding.collective_stats`` under its kind;
+over ``meta`` tensors it never runs, and counts inside
+``sharding.counting_meta`` (the dry run's shape-only trace).
 """
 
 from __future__ import annotations
@@ -70,6 +72,10 @@ def _all_gather(piece: torch.Tensor, dim: int, axis: _Axis) -> torch.Tensor:
     piece = piece.contiguous()
     t0 = time.perf_counter()
     parts = [torch.empty_like(piece) for _ in range(axis.n)]
+    if piece.is_meta:
+        full = torch.cat(parts, dim=dim)
+        sharding.count_meta_collective("all_gather", full)
+        return full
     dist.all_gather(parts, piece, group=axis.group)
     sharding.count_collective("all_gather", t0,
                               piece.numel() * piece.element_size() * axis.n)
@@ -81,6 +87,9 @@ def _reduce_scatter(full: torch.Tensor, dim: int, axis: _Axis) -> torch.Tensor:
     chunks = [c.contiguous() for c in full.chunk(axis.n, dim=dim)]
     out = torch.empty_like(chunks[0])
     t0 = time.perf_counter()
+    if full.is_meta:
+        sharding.count_meta_collective("reduce_scatter", full)
+        return out
     dist.reduce_scatter(out, chunks, group=axis.group)
     sharding.count_collective("reduce_scatter", t0,
                               full.numel() * full.element_size())
@@ -91,6 +100,9 @@ def all_reduce(t: torch.Tensor, axis: _Axis, op=None) -> torch.Tensor:
     """``t`` summed (or ``op``) over ``axis``'s ranks in place."""
     import torch.distributed as dist
     t0 = time.perf_counter()
+    if t.is_meta:
+        sharding.count_meta_collective("all_reduce", t)
+        return t
     dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=axis.group)
     sharding.count_collective("all_reduce", t0, t.numel() * t.element_size())
     return t
@@ -174,7 +186,7 @@ class Layout:
         """The whole leaf (this rank's 'model' shard of it) from its
         piece, gathered with the backward of the module doc."""
         leaf = self._leaves[path]
-        if not self.active or piece.is_meta:
+        if not self.active:
             return piece
         full = _Materialize.apply(piece, leaf)
         if leaf.store is not None:

@@ -80,7 +80,8 @@ none for MLA's ``wq_b`` / ``wkv_b``, and MLA's a-side replicated.
 the whole (data x model) grid on its largest divisible dimension (else
 over 'model' alone) and gathered whole before its layer runs; every
 rank computes the whole model on its data rows.  The data axis is
-``('data',)`` here: the port has no 'pod' axis.
+``('data',)`` here: the port has no 'pod' axis (the dry run's
+multi-pod mesh folds it into data, ``launch.mesh``).
 
 A LoRA adapter bank splits as its targets do (:func:`adapter_bank_specs`):
 ``b`` of ``wq`` / ``wk`` / ``wv`` by the target's columns (the rank's
@@ -102,8 +103,12 @@ recurrent mixers' inputs, whisper's encoder output at every
 cross-attention), is the identity forward and sums backward;
 :func:`sum_grad_columns` sums a replicated weight's gradient where it
 feeds split work through an input every rank holds (Mamba2's B / C
-columns, the mLSTM's ``x_inner`` columns and conv); a lookup or a
-gather's backward takes the rank's slice.  :func:`vocab_cross_entropy` is the
+columns, the mLSTM's ``x_inner`` columns and conv); :func:`sum_grad_kv`
+sums a KV head's projections' gradients over the ranks that share the
+head (``1 < kv_groups < tp``, the plan's ``kv_group``); a lookup or a
+gather's backward takes the rank's slice.  Under a ``prefer_seq`` plan
+:func:`seq_shard` gives the attention its sequence-split layout and
+:func:`gather_model` is its ``all_gather`` over the model axis.  :func:`vocab_cross_entropy` is the
 loss over a vocab-parallel head without gathering its logits: each
 rank's max, then its sum of exponentials and its target logits, reduced
 as ``[B, S]`` floats.
@@ -299,9 +304,12 @@ class ShardingPlan:
     serves.  Training (:func:`training_plan`): the whole mesh, this
     rank's index on 'data' (``data_rank``), the data-axis group (the
     ranks of its model index in every data slice) and the world group,
-    ``fsdp`` and ``mode`` ('tp' or 'fsdp2d').  ``prefer_seq`` (the
-    reference's sequence-sharded decode cache) places specs only: a
-    model built under it raises."""
+    ``fsdp`` and ``mode`` ('tp' or 'fsdp2d').  ``prefer_seq`` (serving
+    only; the reference's flash-decoding cache) splits an attention
+    cache's sequence axis over the model ranks: a model under it prefills
+    from position 0 and decodes over the split (``models.layers``).
+    ``kv_group`` (training, ``1 < kv_groups < tp``): the process group of
+    the ranks that hold this rank's KV head (:func:`with_kv_groups`)."""
     mesh: ServingMesh
     fsdp: bool = False
     rank: int = 0
@@ -313,6 +321,7 @@ class ShardingPlan:
     data_group: Any = None
     world_group: Any = None
     prefer_seq: bool = False
+    kv_group: Any = None
 
     def __post_init__(self):
         if self.mode not in ("tp", "fsdp2d"):
@@ -324,6 +333,9 @@ class ShardingPlan:
             if self.mesh.data != 1:
                 raise ValueError(f"a plan serves one data slice, not "
                                  f"{self.mesh}")
+        elif self.prefer_seq:
+            raise ValueError("prefer_seq places a serving cache; a training "
+                             "plan has none")
         if not 0 <= self.rank < self.mesh.model:
             raise ValueError(f"rank {self.rank} outside the model axis "
                              f"{self.mesh.model}")
@@ -358,12 +370,15 @@ class ShardingPlan:
 
 
 def serving_plan(mesh: ServingMesh, rank: Optional[int] = None,
-                 group=None, instance: Optional[int] = None) -> ShardingPlan:
+                 group=None, instance: Optional[int] = None,
+                 prefer_seq: bool = False) -> ShardingPlan:
     """Tensor-parallel serving plan of one instance: TP over 'model', no
     FSDP, over the slice ``ServingMesh(1, model)`` of ``mesh`` (data > 1:
     instance ``instance`` of ``mesh.data``).  ``rank``, ``group`` and
     ``instance`` default to this process's (``distributed.group``); a
-    plan outside any group places but cannot run a collective."""
+    plan outside any group places but cannot run a collective.
+    ``prefer_seq``: the attention caches split by sequence (see
+    :class:`ShardingPlan`)."""
     if rank is None:
         from repro_torch.distributed.group import current_group
         tpg = current_group()
@@ -376,7 +391,7 @@ def serving_plan(mesh: ServingMesh, rank: Optional[int] = None,
         raise ValueError(f"instance {instance} outside the data axis "
                          f"{mesh.data}")
     return ShardingPlan(mesh=ServingMesh(1, mesh.model), rank=rank,
-                        group=group, instance=instance)
+                        group=group, instance=instance, prefer_seq=prefer_seq)
 
 
 def training_plan(mesh: ServingMesh, rank: int = 0, data_rank: int = 0,
@@ -389,6 +404,29 @@ def training_plan(mesh: ServingMesh, rank: int = 0, data_rank: int = 0,
     return ShardingPlan(mesh=mesh, fsdp=fsdp, rank=rank, group=group,
                         training=True, mode=mode, data_rank=data_rank,
                         data_group=data_group, world_group=world_group)
+
+
+def with_kv_groups(plan: ShardingPlan, cfg: ModelConfig) -> ShardingPlan:
+    """``plan`` with its ``kv_group``: under a training plan whose KV
+    heads are shared by some but not all model ranks (``1 < kv_groups <
+    tp``), one process group per (data slice, KV head) of the ranks that
+    hold that head, made with ``dist.new_group`` by every rank in the same
+    order (so every rank must call this as it builds its model); the plan
+    itself otherwise, or when it has no process group (specs only)."""
+    tp = plan.tp
+    g = kv_groups(cfg, tp) if tp > 1 and not cfg.use_mla else tp
+    if (not plan.training or not 1 < g < tp or plan.group is None
+            or plan.kv_group is not None):
+        return plan
+    import torch.distributed as dist
+    mine = None
+    for i in range(plan.mesh.data):
+        for j in range(g):
+            group = dist.new_group([i * tp + r for r in range(tp)
+                                    if r * g // tp == j])
+            if i == plan.data_rank and j == plan.rank * g // tp:
+                mine = group
+    return dataclasses.replace(plan, kv_group=mine)
 
 
 # ---------------------------------------------------------------------------
@@ -675,10 +713,11 @@ def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
     (every rank allocates them whole), the recurrent states (``mamba``,
     ``mlstm``, ``slstm``) by heads and their conv windows as the conv
     weights (:func:`_state_spec`).  ``prefer_seq`` (the reference's
-    flash-decoding cache, which only its dry-run uses) puts 'model' on
-    an attention cache's sequence axis instead of its heads (the
-    recurrent states keep theirs): specs only, since no pool or model of
-    the port attends over a sequence split (ROADMAP Queue 1, item 10)."""
+    flash-decoding cache, the default of its dry run's decode cells)
+    puts 'model' on an attention cache's sequence axis instead of its
+    heads (the recurrent states keep theirs), as the reference does; a
+    model under a ``prefer_seq`` plan allocates so (``Model.make_cache``),
+    except MLA's latent, which stays whole on every rank."""
     cfg = model.cfg
     tp, dp = mesh.shape[MODEL], mesh.shape[DATA]
     check_tp(cfg, tp)
@@ -872,11 +911,27 @@ def assemble(pieces: list, spec: PartitionSpec, plan: ShardingPlan):
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A sequence-split cache's layout on this rank (``prefer_seq``):
+    rank ``rank`` of ``tp`` holds rows ``[rank T_r, (rank + 1) T_r)`` of
+    all ``n_kv`` KV heads; each rank computes the new token's K/V for
+    its own KV heads (``kv_groups`` pieces: rank ``r`` holds piece ``r *
+    kv_groups // tp``)."""
+    rank: int
+    tp: int
+    n_kv: int
+    kv_groups: int
+
+
+@dataclasses.dataclass(frozen=True)
 class _Scope:
     plan: ShardingPlan
     cfg: ModelConfig          # the rank's local configuration
     vocab_split: bool         # embed and lm_head hold a vocabulary slice
     kv_split: bool            # the K/V projections hold the rank's heads
+    kv_shared: Any = None     # the group sharing this rank's KV head
+    seq: Optional[SeqShard] = None
+    kv_whole: bool = False    # one KV head, its projections on every rank
 
 
 _SCOPE: contextvars.ContextVar = contextvars.ContextVar("tp_scope",
@@ -890,9 +945,14 @@ def use_plan(plan: Optional[ShardingPlan], cfg: Optional[ModelConfig] = None):
     tensor parallelism) is one device."""
     scope = None
     if plan is not None and plan.tp > 1:
+        groups = kv_groups(cfg, plan.tp)
+        seq = None
+        if plan.prefer_seq and seq_split_cache(cfg):
+            seq = SeqShard(plan.rank, plan.tp, cfg.n_kv_heads, groups)
         scope = _Scope(plan, local_config(cfg, plan.tp, plan.rank),
-                       vocab_parallel(cfg, plan.tp),
-                       kv_groups(cfg, plan.tp) == plan.tp)
+                       vocab_parallel(cfg, plan.tp), groups == plan.tp,
+                       plan.kv_group if 1 < groups < plan.tp else None, seq,
+                       groups == 1)
     token = _SCOPE.set(scope)
     try:
         yield
@@ -905,63 +965,130 @@ def current_plan() -> Optional[ShardingPlan]:
     return None if scope is None else scope.plan
 
 
+def seq_split_cache(cfg: ModelConfig) -> bool:
+    """True when ``prefer_seq`` splits ``cfg``'s attention cache by
+    sequence: a GQA cache (dense, moe, zamba's shared block).  MLA's
+    latent stays whole on every rank, as the port places it; the
+    recurrent states keep their heads; enc-dec serves without a plan."""
+    return (not cfg.use_mla and not cfg.is_encdec
+            and cfg.family in ("dense", "moe", "zamba"))
+
+
+def seq_shard() -> Optional[SeqShard]:
+    """The sequence-split cache layout inside :func:`use_plan` of a
+    ``prefer_seq`` plan (None otherwise)."""
+    scope = _SCOPE.get()
+    return None if scope is None else scope.seq
+
+
 def local_heads() -> Optional[tuple]:
     """(query heads, KV heads) of the rank inside :func:`use_plan`."""
     scope = _SCOPE.get()
     return None if scope is None else (scope.cfg.n_heads, scope.cfg.n_kv_heads)
 
 
-def kv_split() -> bool:
-    """True unless a plan's ranks each hold the whole K/V projections
-    (one KV head, kept by every rank)."""
+def kv_whole() -> bool:
+    """True inside :func:`use_plan` when every rank holds the whole K/V
+    projections (one KV head, kept by every rank)."""
     scope = _SCOPE.get()
-    return scope is None or scope.kv_split
+    return scope is not None and scope.kv_whole
 
 
 # this process's collectives since the last reset: calls, host seconds
-# inside them and bytes moved (what the chip smoke reads per step), and
-# the calls by kind ('all_reduce', 'all_gather', 'reduce_scatter')
-_COLLECTIVES = {"calls": 0, "seconds": 0.0, "bytes": 0, "kinds": {}}
+# inside them and bytes moved (what the chip smoke reads per step), the
+# calls by kind ('all_reduce', 'all_gather', 'reduce_scatter') and the
+# bytes by kind.  A collective over ``meta`` tensors never runs; inside
+# :func:`counting_meta` (a shape-only trace: the dry run) it is recorded
+# with its bytes, elsewhere (a controller's shadows of another instance)
+# it is not.
+_COLLECTIVES = {"calls": 0, "seconds": 0.0, "bytes": 0, "kinds": {},
+                "bytes_by_kind": {}}
+_COUNT_META: contextvars.ContextVar = contextvars.ContextVar("count_meta",
+                                                            default=False)
+
+
+@contextlib.contextmanager
+def counting_meta():
+    """Scope in which collectives over ``meta`` tensors are recorded."""
+    token = _COUNT_META.set(True)
+    try:
+        yield
+    finally:
+        _COUNT_META.reset(token)
+
+
+def count_meta_collective(kind: str, t: torch.Tensor) -> None:
+    """Record a collective over the ``meta`` tensor ``t`` (its bytes as
+    :func:`count_collective` counts them) inside :func:`counting_meta`."""
+    if _COUNT_META.get():
+        count_collective(kind, time.perf_counter(),
+                         t.numel() * t.element_size())
 
 
 def collective_stats() -> dict:
     out = dict(_COLLECTIVES)
     out["kinds"] = dict(_COLLECTIVES["kinds"])
+    out["bytes_by_kind"] = dict(_COLLECTIVES["bytes_by_kind"])
     return out
 
 
 def reset_collective_stats() -> None:
-    _COLLECTIVES.update(calls=0, seconds=0.0, bytes=0, kinds={})
+    _COLLECTIVES.update(calls=0, seconds=0.0, bytes=0, kinds={},
+                        bytes_by_kind={})
 
 
 def count_collective(kind: str, t0: float, nbytes: int) -> None:
     """Record one collective that started at ``t0`` and moved ``nbytes``
-    (this rank's buffer)."""
+    (this rank's buffer: an all_reduce's, an all_gather's gathered
+    output, a reduce_scatter's input)."""
     _COLLECTIVES["calls"] += 1
     _COLLECTIVES["seconds"] += time.perf_counter() - t0
     _COLLECTIVES["bytes"] += nbytes
-    kinds = _COLLECTIVES["kinds"]
+    kinds, by = _COLLECTIVES["kinds"], _COLLECTIVES["bytes_by_kind"]
     kinds[kind] = kinds.get(kind, 0) + 1
+    by[kind] = by.get(kind, 0) + nbytes
 
 
-def _reduce(buf: torch.Tensor, plan: ShardingPlan, op=None) -> None:
-    """Sum (or ``op``) ``buf`` (fp32) over the plan's model ranks in
-    place."""
-    if plan.group is None:
+def _reduce(buf: torch.Tensor, plan: ShardingPlan, op=None,
+            group: Any = None) -> None:
+    """Sum (or ``op``) ``buf`` (fp32) over the plan's model ranks (or
+    ``group``'s) in place; on ``meta`` recorded only."""
+    if buf.is_meta:
+        count_meta_collective("all_reduce", buf)
+        return
+    group = plan.group if group is None else group
+    if group is None:
         raise RuntimeError("this sharding plan has no process group: its "
                            "model calls cannot run their collectives")
     import torch.distributed as dist
     t0 = time.perf_counter()
-    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=plan.group)
+    dist.all_reduce(buf, op=op or dist.ReduceOp.SUM, group=group)
     count_collective("all_reduce", t0, buf.numel() * buf.element_size())
 
 
-def _sum_over_ranks(x: torch.Tensor, plan: ShardingPlan) -> torch.Tensor:
+def _sum_over_ranks(x: torch.Tensor, plan: ShardingPlan,
+                    group: Any = None) -> torch.Tensor:
     buf = x.float()
     if buf is x:
         buf = x.clone()
-    _reduce(buf, plan)
+    _reduce(buf, plan, group=group)
     return buf.to(x.dtype)
+
+
+def gather_model(x: torch.Tensor) -> torch.Tensor:
+    """``[tp, *x.shape]``: every model rank's ``x``, in rank order (one
+    ``all_gather``; no gradient).  On ``meta`` recorded only."""
+    plan = current_plan()
+    x = x.contiguous()
+    t0 = time.perf_counter()
+    out = x.new_empty((plan.tp,) + tuple(x.shape))
+    if x.is_meta:
+        count_meta_collective("all_gather", out)
+        return out
+    import torch.distributed as dist
+    dist.all_gather(list(out.unbind(0)), x, group=plan.group)
+    count_collective("all_gather", t0, out.numel() * out.element_size())
+    return out
 
 
 class _SumForward(torch.autograd.Function):
@@ -1019,7 +1146,7 @@ def rank_sum(plan: ShardingPlan):
     kernel's autograd Function calls in its backward, which runs outside
     the plan's scope."""
     def reduce(buf: torch.Tensor) -> torch.Tensor:
-        return buf if buf.is_meta else _sum_over_ranks(buf, plan)
+        return _sum_over_ranks(buf, plan)
     return reduce
 
 
@@ -1028,16 +1155,16 @@ class _SumGradColumns(torch.autograd.Function):
     ``[start, stop)`` (last axis) summed over the model ranks."""
 
     @staticmethod
-    def forward(ctx, w, plan, start, stop):
-        ctx.plan, ctx.start, ctx.stop = plan, start, stop
+    def forward(ctx, w, plan, start, stop, group=None):
+        ctx.plan, ctx.start, ctx.stop, ctx.group = plan, start, stop, group
         return w.view_as(w)
 
     @staticmethod
     def backward(ctx, grad):
         grad = grad.contiguous().clone()
         cols = grad[..., ctx.start:ctx.stop]
-        cols.copy_(_sum_over_ranks(cols.contiguous(), ctx.plan))
-        return grad, None, None, None
+        cols.copy_(_sum_over_ranks(cols.contiguous(), ctx.plan, ctx.group))
+        return grad, None, None, None, None
 
 
 def sum_grad_columns(w: torch.Tensor, start: int = 0,
@@ -1051,11 +1178,24 @@ def sum_grad_columns(w: torch.Tensor, start: int = 0,
     (:func:`copy_to_model`), so it is not summed here a second time.
     ``w`` itself when no gradient flows or without a plan."""
     plan = current_plan()
-    if plan is None or w.is_meta or not (torch.is_grad_enabled()
-                                         and w.requires_grad):
+    if plan is None or not (torch.is_grad_enabled() and w.requires_grad):
         return w
     stop = w.shape[-1] if stop is None else stop
     return _SumGradColumns.apply(w, plan, start, stop)
+
+
+def sum_grad_kv(w: torch.Tensor) -> torch.Tensor:
+    """A K/V projection leaf (``wk``, ``wv``, ``bk``, ``bv``) of a KV head
+    shared by some but not all ranks (``1 < kv_groups < tp``): the
+    identity forward, its gradient summed over the ranks that hold the
+    head (the plan's ``kv_group``) backward; each rank's is the partial
+    of its own query heads.  ``w`` itself otherwise."""
+    scope = _SCOPE.get()
+    if (scope is None or scope.kv_shared is None
+            or not (torch.is_grad_enabled() and w.requires_grad)):
+        return w
+    return _SumGradColumns.apply(w, scope.plan, 0, w.shape[-1],
+                                 scope.kv_shared)
 
 
 def all_reduce(x: torch.Tensor) -> torch.Tensor:
@@ -1063,7 +1203,7 @@ def all_reduce(x: torch.Tensor) -> torch.Tensor:
     in flight; the identity backward); ``x`` itself without a plan or on
     ``meta``."""
     plan = current_plan()
-    if plan is None or x.is_meta:
+    if plan is None:
         return x
     return _SumForward.apply(x, plan)
 
@@ -1073,8 +1213,7 @@ def copy_to_model(x: torch.Tensor) -> torch.Tensor:
     the identity forward, the sum of the ranks' gradients backward; ``x``
     itself when no gradient flows or without a plan."""
     plan = current_plan()
-    if plan is None or x.is_meta or not (torch.is_grad_enabled()
-                                         and x.requires_grad):
+    if plan is None or not (torch.is_grad_enabled() and x.requires_grad):
         return x
     return _SumBackward.apply(x, plan)
 
@@ -1085,7 +1224,7 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     backward, each rank's rows take their tokens' gradient."""
     scope = _SCOPE.get()
     tokens = tokens.long()
-    if scope is None or not scope.vocab_split or embed.is_meta:
+    if scope is None or not scope.vocab_split:
         return embed[tokens]
     plan = scope.plan
     vocab = embed.shape[0]
@@ -1103,11 +1242,7 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     scope = _SCOPE.get()
     if scope is None or not scope.vocab_split:
         return logits
-    plan = scope.plan
-    if logits.is_meta:
-        return logits.new_empty(tuple(logits.shape[:-1])
-                                + (logits.shape[-1] * plan.tp,))
-    return _PlaceSlices.apply(logits, plan)
+    return _PlaceSlices.apply(logits, scope.plan)
 
 
 def gather_columns(x: torch.Tensor) -> torch.Tensor:
@@ -1118,8 +1253,6 @@ def gather_columns(x: torch.Tensor) -> torch.Tensor:
     plan = current_plan()
     if plan is None:
         return x
-    if x.is_meta:
-        return x.new_empty(tuple(x.shape[:-1]) + (x.shape[-1] * plan.tp,))
     return _PlaceSlices.apply(x, plan)
 
 

@@ -138,9 +138,10 @@ def flash_attention(q, k, v, causal: bool = True, softcap: float = 0.0):
     """
     if grad.needs_grad(q, k, v):
         if q.device.type != "cpu" and q.dtype != torch.float32:
-            raise NotImplementedError(
+            grad.refuse_bf16(
+                "flash_attention_bwd",
                 f"flash_attention: no {q.dtype} backward kernel on "
-                f"{q.device.type} ({grad.BF16_BWD}); train in float32")
+                f"{q.device.type} ({grad.BF16_BWD}); train in float32", q)
         return _FlashFunction.apply(q, k, v, causal, softcap)
     if meta.is_meta(q):
         return meta.kernel_call("flash_attention", (q, k, v),

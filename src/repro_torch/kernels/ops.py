@@ -13,7 +13,10 @@ show that its main path went through the kernels.
 Under a sharding plan (``distributed.sharding.use_plan``) each rank calls
 the same kernels on its own heads, as the JAX package's ``shard_map``
 wrappers run the kernel per 'model' shard; the attention entry points
-check that the query and KV heads they see are the rank's.
+check that the query and KV heads they see are the rank's.  Over a
+sequence-sharded cache (a plan's ``prefer_seq``) every rank runs
+``decode_attention_slice`` on all heads over its rows and
+``decode_merge_ranks`` on the ranks' gathered results.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import functools
 
 from repro_torch.distributed import sharding
 from repro_torch.kernels.decode_attention import decode_attention as _decode
+from repro_torch.kernels.decode_attention import (decode_attention_slice,
+                                                  decode_merge_ranks)
 from repro_torch.kernels.flash_attention import (flash_attention as _flash,
                                                  flash_attention_bwd)
 from repro_torch.kernels.paged_decode_attention import (
@@ -50,6 +55,8 @@ paged_decode_attention = _rank_heads(_paged, 2)    # k [P,ps,KV,d]
 
 KERNELS = {
     "decode_attention": _decode,
+    "decode_attention_slice": decode_attention_slice,
+    "decode_merge_ranks": decode_merge_ranks,
     "flash_attention": _flash,
     "flash_attention_bwd": flash_attention_bwd,
     "paged_decode_attention": _paged,
@@ -80,7 +87,8 @@ def reset_launch_counts() -> None:
     rmsnorm.fused_launches = 0
 
 
-__all__ = ["KERNELS", "decode_attention", "flash_attention",
+__all__ = ["KERNELS", "decode_attention", "decode_attention_slice",
+           "decode_merge_ranks", "flash_attention",
            "flash_attention_bwd", "launch_counts", "paged_decode_attention",
            "reset_launch_counts", "rmsnorm", "rmsnorm_bwd", "rmsnorm_split",
            "rmsnorm_split_bwd", "ssd_scan", "ssd_scan_bwd"]

@@ -110,6 +110,40 @@ def decode_attention_ref(q, k, v, length):
     return out.reshape(B, H, d).to(q.dtype)
 
 
+def decode_attention_slice_ref(q, k, v, length):
+    """:func:`decode_attention_ref` over one rank's rows of a
+    sequence-sharded cache, and its log-sum-exp.
+
+    q: [B, H, d]; k, v: [B, KV, T_r, d], the rank's rows; length: int or
+    [B] valid rows within the slice (0: none).  Returns (o [B, H, d]
+    fp32, lse [B, H] fp32): a sequence with no rows here gives zeros and
+    -inf (m = -inf, l = 0)."""
+    B, H, d = q.shape
+    KV, T = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KV, H // KV, d).float()
+    scores = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) / math.sqrt(d)
+    length = torch.as_tensor(length, device=q.device).reshape(-1).expand(B)
+    valid = torch.arange(T, device=q.device)[None, :] < length[:, None]
+    scores = scores.masked_fill(~valid[:, None, None, :], -math.inf)
+    lse = torch.logsumexp(scores, dim=-1)                      # -inf: no rows
+    has = (length > 0)[:, None, None]
+    probs = torch.exp(scores - torch.where(has, lse, 0.0)[..., None])
+    out = torch.einsum("bkgt,bktd->bkgd", probs, v.float())
+    return out.reshape(B, H, d), lse.reshape(B, H)
+
+
+def decode_merge_ranks_ref(o, lse, dtype):
+    """R ranks' :func:`decode_attention_slice_ref` results merged: o [R, B,
+    H, d] fp32 and lse [R, B, H] fp32 into ``sum_r exp(lse_r - m) o_r /
+    sum_r exp(lse_r - m)`` over the ranks with rows (m their largest lse),
+    in ``dtype``; zeros where no rank has rows."""
+    live = lse > -math.inf
+    m = torch.where(live, lse, NEG_INF).amax(dim=0)
+    w = torch.where(live, torch.exp(lse - m), 0.0)              # [R, B, H]
+    num = (w[..., None] * o.float()).sum(dim=0)
+    return (num / w.sum(dim=0).clamp_min(1e-30)[..., None]).to(dtype)
+
+
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths,
                                k_scales=None, v_scales=None):
     """One-token attention against a block-paged KV arena.

@@ -210,9 +210,10 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
         _check_residual(x, residual)
     if grad.needs_grad(x, scale, residual):
         if x.device.type != "cpu" and not (x.dtype == scale.dtype == torch.float32):
-            raise NotImplementedError(
+            grad.refuse_bf16(
+                "rmsnorm_bwd",
                 f"rmsnorm: no {x.dtype} backward kernel on {x.device.type} "
-                f"({grad.BF16_BWD}); train in float32")
+                f"({grad.BF16_BWD}); train in float32", x)
         return _RmsnormFunction.apply(x, scale, eps, residual)
     if meta.is_meta(x):
         return _meta_call(x, scale, residual)
@@ -493,9 +494,10 @@ def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, eps: float,
     ``NotImplementedError``."""
     if grad.needs_grad(x, scale):
         if x.device.type != "cpu" and not (x.dtype == scale.dtype == torch.float32):
-            raise NotImplementedError(
+            grad.refuse_bf16(
+                "rmsnorm_split_bwd",
                 f"rmsnorm_split: no {x.dtype} backward kernel on "
-                f"{x.device.type} ({grad.BF16_BWD}); train in float32")
+                f"{x.device.type} ({grad.BF16_BWD}); train in float32", x)
         return _SplitFunction.apply(x, scale, eps, d_global, reduce)
     return rmsnorm_apply(x, reduce(rmsnorm_sumsq(x)), scale, d_global, eps)
 

@@ -182,9 +182,10 @@ def ssd_scan(xb, B_mat, C_mat, log_decay, chunk: int = 128, h0=None):
     """
     if grad.needs_grad(xb, B_mat, C_mat, log_decay, h0):
         if xb.device.type != "cpu" and B_mat.dtype != torch.float32:
-            raise NotImplementedError(
+            grad.refuse_bf16(
+                "ssd_scan_bwd",
                 f"ssd_scan: no backward kernel for {B_mat.dtype} B and C on "
-                f"{xb.device.type} ({grad.BF16_BWD}); train in float32")
+                f"{xb.device.type} ({grad.BF16_BWD}); train in float32", xb)
         return _SsdScanFunction.apply(xb, B_mat, C_mat, log_decay, chunk, h0)
     if meta.is_meta(xb):
         return _meta_call(xb, B_mat, C_mat, log_decay, h0)

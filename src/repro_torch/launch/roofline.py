@@ -8,11 +8,10 @@ Three terms per (arch x shape x chips), in seconds:
     collective = coll bytes  / interconnect bandwidth per chip
 
 over a :class:`~repro_torch.hw.HardwareProfile` (``H100_SXM`` by
-default).  The FLOPs and bytes come from ``launch.analytic_cost``, split
-evenly over the chips; the collective bytes per chip are the caller's.
-The reference's dry-run side (the compiled-HLO collective parser,
-``dryrun``, ``report``, ``mesh``) reads XLA artifacts and has no
-counterpart here.
+default: data-sheet rates, not measurements).  The FLOPs and bytes come
+from ``launch.analytic_cost``, split evenly over the chips; the
+collective bytes per chip from :func:`collective_bytes`, the port's
+counterpart of the reference's compiled-HLO parser.
 """
 
 from __future__ import annotations
@@ -20,6 +19,36 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.hw import H100_SXM, HardwareProfile
+
+
+# the reference's collective kinds (XLA's names), and the port's
+COLLECTIVE_KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                    "collective-permute")
+_PORT_KIND = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+              "reduce_scatter": "reduce-scatter"}
+
+
+def collective_bytes(stats: dict) -> dict:
+    """Per-kind byte totals of one rank's step from the port's collective
+    record (``distributed.sharding.collective_stats()`` after the step),
+    under the reference's keys: ``bytes`` and ``count`` by kind,
+    ``total_bytes`` and ``total_count``.
+
+    The reference parses the partitioned HLO, where a scan body appears
+    once, and scales each collective by its loop's trip count
+    (``scan_trips``).  The port's step runs eagerly and records every
+    collective every layer makes, so no scaling is needed and
+    ``scan_trips`` has no counterpart.  A byte count is this rank's
+    buffer: an all_reduce's, an all_gather's gathered output (the HLO's
+    result size), a reduce_scatter's input."""
+    out = {k: 0.0 for k in COLLECTIVE_KINDS}
+    count = {k: 0 for k in COLLECTIVE_KINDS}
+    for kind, n in stats["kinds"].items():
+        name = _PORT_KIND.get(kind, kind)
+        count[name] += n
+        out[name] += float(stats["bytes_by_kind"].get(kind, 0))
+    return {"bytes": out, "count": count, "total_bytes": sum(out.values()),
+            "total_count": sum(count.values())}
 
 
 @dataclasses.dataclass

@@ -212,23 +212,30 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     input enters the rank's heads through ``sharding.copy_to_model`` (its
     gradient summed over the ranks), and so do the q / k norm scales;
     K/V projections every rank holds whole (one KV head) take their
-    input as it is and enter the rank's attention after the rope.
+    input as it is and enter the rank's attention after the rope; a KV
+    head some but not all ranks share sums its projections' gradients
+    over those ranks (``sharding.sum_grad_kv``).
+
+    Under a ``prefer_seq`` plan the dense cache holds this rank's slice of
+    the sequence axis for every KV head (:func:`_seq_split_attention`).
 
     Caches are updated in place and the block returns ``(y, kv_cache)``.
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
-    kv_split = sharding.kv_split()
+    kv_whole = sharding.kv_whole()
     xq = sharding.copy_to_model(x)
-    xkv = xq if kv_split else x
+    xkv = x if kv_whole else xq
+    wk, wv = (sharding.sum_grad_kv(p[n]) for n in ("wk", "wv")) \
+        if "wk" in p else (None, None)
     if cfg.fused_qkv:
         if adapters is not None:
             raise NotImplementedError(
                 "adapter gather targets the unfused wq/wk/wv/wo projections")
         q, k, v = (xq @ p["wqkv"]).split([H * hd, KV * hd, KV * hd], dim=-1)
     else:
-        q, k, v = xq @ p["wq"], xkv @ p["wk"], xkv @ p["wv"]
+        q, k, v = xq @ p["wq"], xkv @ wk, xkv @ wv
     if adapters is not None:
         if "wq" in adapters:
             q = q + lora_delta(x, adapters["wq"], adapter_ids)
@@ -237,21 +244,29 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
         if "wv" in adapters:
             v = v + lora_delta(x, adapters["wv"], adapter_ids)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q + p["bq"]
+        k = k + sharding.sum_grad_kv(p["bk"])
+        v = v + sharding.sum_grad_kv(p["bv"])
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, KV, hd)
     v = v.reshape(B, S, KV, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, sharding.copy_to_model(p["q_norm"]), cfg.norm_eps)
-        k = rmsnorm(k, sharding.copy_to_model(p["k_norm"]) if kv_split
-                    else p["k_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"] if kv_whole
+                    else sharding.copy_to_model(p["k_norm"]), cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    if not kv_split:
+    if kv_whole:
         k, v = sharding.copy_to_model(k), sharding.copy_to_model(v)
     softcap = cfg.attn_logit_softcap
+    seq = sharding.seq_shard()
 
-    if kv_cache is not None and page_table is not None:
+    if kv_cache is not None and seq is not None:
+        if page_table is not None:
+            raise NotImplementedError(
+                "a paged arena is not split by sequence (prefer_seq)")
+        out = _seq_split_attention(q, k, v, kv_cache, cache_pos, seq, softcap)
+    elif kv_cache is not None and page_table is not None:
         if S != 1:
             raise ValueError("paged attention is decode-only (S == 1)")
         if softcap > 0:
@@ -317,6 +332,86 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if adapters is not None and "wo" in adapters:
         y = y + lora_delta(out, adapters["wo"], adapter_ids)
     return sharding.all_reduce(y), kv_cache
+
+
+def _kv_heads(x: torch.Tensor, seq) -> torch.Tensor:
+    """The whole KV-head axis from every rank's ``x [tp, ..., KV_r, hd]``
+    (gathered in rank order): the ranks' heads side by side when they
+    split the heads, else one rank's copy of each shared head (rank ``j
+    tp / kv_groups`` holds head ``j``)."""
+    if seq.kv_groups != seq.tp:
+        x = x[::seq.tp // seq.kv_groups]
+    x = x.movedim(0, -3)                             # [..., tp', KV_r, hd]
+    return x.reshape(tuple(x.shape[:-3]) + (seq.n_kv, x.shape[-1]))
+
+
+def _seq_split_attention(q, k, v, kv_cache: dict, cache_pos, seq,
+                         softcap: float) -> torch.Tensor:
+    """Attention over a cache whose sequence axis is split over the model
+    ranks (``prefer_seq``; rank ``r`` holds positions ``[r T_r, (r + 1)
+    T_r)`` of all ``n_kv`` KV heads; ``q`` [B, S, H_r, hd], ``k`` / ``v``
+    [B, S, KV_r, hd] are this rank's heads).  Returns the rank's heads'
+    output [B, S, H_r, hd].
+
+    * A prefill from position 0 attends over its own k, v (the flash
+      kernel, as without the split), then gathers every rank's K/V rows
+      (one ``all_gather``) and writes this rank's positions of them.
+    * A decode step (S == 1) gathers q and the new token's K/V rows from
+      every rank (one ``all_gather``); the rank that owns the position
+      writes the row.  Every rank runs ``decode_attention_slice`` over its
+      rows for all H query heads, the ranks' ``(o, lse)`` are gathered (one
+      ``all_gather``, fp32) and ``decode_merge_ranks`` combines them in
+      rank order; the rank keeps its own heads' rows.
+    A suffix or chunked prefill raises (ROADMAP Queue 1, item 10)."""
+    B, S, Hr, hd = q.shape
+    KVr = k.shape[2]
+    ck, cv = kv_cache["k"], kv_cache["v"]             # [B, T_r, KV, hd]
+    Tr, r0 = ck.shape[1], seq.rank * ck.shape[1]
+    if S > 1:
+        if not (isinstance(cache_pos, int) and cache_pos == 0):
+            raise NotImplementedError(
+                "a suffix or chunked prefill over a sequence-sharded cache "
+                "(prefer_seq): ROADMAP Queue 1, item 10")
+        if S > Tr * seq.tp:
+            raise ValueError(f"a prompt of {S} tokens overflows a cache of "
+                             f"{Tr * seq.tp} rows")
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                  v.transpose(1, 2), causal=True,
+                                  softcap=softcap).transpose(1, 2)
+        kv = _kv_heads(sharding.gather_model(torch.cat([k, v], dim=-1)), seq)
+        n = min(max(S - r0, 0), Tr)
+        ck[:, :n] = kv[:, r0:r0 + n, :, :hd].to(ck.dtype)
+        cv[:, :n] = kv[:, r0:r0 + n, :, hd:].to(cv.dtype)
+        return out
+    if softcap > 0:
+        raise NotImplementedError("decode_attention has no logit softcap")
+    H = Hr * seq.tp
+    rows = sharding.gather_model(torch.cat(
+        [q.reshape(B, Hr * hd), k.reshape(B, KVr * hd), v.reshape(B, KVr * hd)],
+        dim=-1))                                      # [tp, B, (Hr + 2 KVr) hd]
+    q_all = rows[..., :Hr * hd].reshape(seq.tp, B, Hr, hd).transpose(0, 1)
+    q_all = q_all.reshape(B, H, hd).contiguous()
+    k_new = _kv_heads(rows[..., Hr * hd:(Hr + KVr) * hd]
+                      .reshape(seq.tp, B, KVr, hd), seq)
+    v_new = _kv_heads(rows[..., (Hr + KVr) * hd:].reshape(seq.tp, B, KVr, hd),
+                      seq)
+    pos = torch.as_tensor(cache_pos, dtype=torch.int64, device=q.device)
+    pos = pos.reshape(-1).expand(B)
+    local = pos - r0
+    mine = ((local >= 0) & (local < Tr))[:, None, None]
+    b, at = torch.arange(B, device=q.device), local.clamp(0, Tr - 1)
+    ck[b, at] = torch.where(mine, k_new.to(ck.dtype), ck[b, at])
+    cv[b, at] = torch.where(mine, v_new.to(cv.dtype), cv[b, at])
+    lengths = (pos + 1 - r0).clamp(0, Tr).to(torch.int32)
+    o, lse = ops.decode_attention_slice(q_all, ck.transpose(1, 2),
+                                        cv.transpose(1, 2), lengths)
+    parts = sharding.gather_model(torch.cat([o.reshape(B, H * hd), lse],
+                                            dim=-1))  # [tp, B, H (hd + 1)]
+    merged = ops.decode_merge_ranks(
+        parts[..., :H * hd].reshape(seq.tp, B, H, hd),
+        parts[..., H * hd:].contiguous(), q.dtype)
+    first = seq.rank * Hr
+    return merged[:, first:first + Hr][:, None]
 
 
 # ---------------------------------------------------------------------------

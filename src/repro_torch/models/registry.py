@@ -80,11 +80,8 @@ class Model:
         transformer.check_family(self.cfg)
         if self.plan is not None and not self.plan.distributed:
             self.plan = None
-        if self.plan is not None and self.plan.prefer_seq:
-            raise NotImplementedError(
-                f"{self.cfg.name}: no pool or model of the port attends over "
-                "a sequence-sharded cache (prefer_seq places the reference's "
-                "dry-run specs only): ROADMAP Queue 1, item 10")
+        if self.plan is not None and self.plan.training:
+            self.plan = sharding.with_kv_groups(self.plan, self.cfg)
         if (self.plan is not None and self.cfg.is_encdec
                 and not self.plan.training):
             raise NotImplementedError(
@@ -108,8 +105,8 @@ class Model:
     def _training_scope(self, what: str):
         """The scope of a training call: none without a plan; under a
         training plan the rank's plan and its FSDP layout.  Raises for a
-        serving plan and for K/V heads shared by some but not all
-        ranks."""
+        serving plan and for a fused ``wqkv`` whose one KV head every rank
+        shares (its gradient cannot be summed apart from q's)."""
         if self.plan is None:
             return contextlib.nullcontext()
         cfg = self.cfg
@@ -118,12 +115,11 @@ class Model:
                              "train under sharding.training_plan")
         tp = self.plan.tp
         groups = sharding.kv_groups(cfg, tp)
-        if tp > 1 and (1 < groups < tp or (groups == 1 and cfg.fused_qkv)):
+        if tp > 1 and groups == 1 and cfg.fused_qkv:
             raise NotImplementedError(
-                f"{cfg.name}: {cfg.n_kv_heads} KV heads shared by several "
-                f"of {tp} ranks need their gradient summed over them (a "
-                "fused wqkv cannot take it apart from q's): ROADMAP Queue 1, "
-                "item 10")
+                f"{cfg.name}: {cfg.n_kv_heads} KV head shared by all {tp} "
+                "ranks needs its gradient summed over them, which a fused "
+                "wqkv cannot take apart from q's: ROADMAP Queue 1, item 10")
         stack = contextlib.ExitStack()
         stack.enter_context(self._scope())
         stack.enter_context(fsdp.use_layout(self.layout))
@@ -170,13 +166,46 @@ class Model:
         shapes under a plan)."""
         return self._family.param_specs(self.local_cfg)
 
+    @property
+    def seq_split(self) -> bool:
+        """True when this rank's attention cache holds a slice of the
+        sequence axis (a ``prefer_seq`` plan over a GQA cache)."""
+        return (self.plan is not None and self.plan.prefer_seq
+                and self.plan.tp > 1 and sharding.seq_split_cache(self.cfg))
+
+    def refuse_seq_split(self, what: str) -> None:
+        """Raise for ``what`` (a pool, an engine, a suffix prefill) over
+        a sequence-sharded cache."""
+        if self.seq_split:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} over a sequence-sharded cache "
+                "(prefer_seq): only a prefill from position 0 and the dense "
+                "decode step attend over it: ROADMAP Queue 1, item 10")
+
     @mirrored(register=("return",))
     def make_cache(self, batch: int, max_len: int, device=None) -> dict:
         """A dense cache on the model's device (or on ``device``: ``meta``
         for tracing).  Enc-dec: ``max_len`` is the encoder length (the
-        cross K/V rows); the self cache has ``max_dec_len`` rows."""
-        return self._family.make_cache(self.local_cfg, batch, max_len,
-                                       device or self.device)
+        cross K/V rows); the self cache has ``max_dec_len`` rows.  Under a
+        ``prefer_seq`` plan the attention K/V leaves hold every KV head
+        over this rank's ``max_len / tp`` positions (rank ``r``: positions
+        ``[r max_len / tp, (r + 1) max_len / tp)``); MLA's latent stays
+        whole and the recurrent states keep the rank's heads."""
+        device = device or self.device
+        if not self.seq_split:
+            return self._family.make_cache(self.local_cfg, batch, max_len,
+                                           device)
+        tp, cfg = self.plan.tp, self.cfg
+        if max_len % tp:
+            raise ValueError(f"{cfg.name}: a sequence-sharded cache of "
+                             f"{max_len} rows does not split over {tp} ranks")
+        cache = transformer.make_cache(self.local_cfg, batch, max_len // tp,
+                                       device)
+        kv = cache["attn_kv"] if cfg.family == "zamba" else cache
+        for name in ("k", "v"):
+            shape = tuple(kv[name].shape[:3]) + (cfg.n_kv_heads, cfg.head_dim)
+            kv[name] = torch.zeros(shape, dtype=kv[name].dtype, device=device)
+        return cache
 
     @property
     def supports_paged_kv(self) -> bool:
@@ -193,6 +222,7 @@ class Model:
                          kv_dtype: str | None = None) -> dict:
         """Shared block-paged KV arena (see ``transformer.make_paged_cache``)."""
         self._no_encdec("paged KV layout")
+        self.refuse_seq_split("a paged KV pool")
         return transformer.make_paged_cache(self.local_cfg, n_pages, page_size,
                                             self.device, kv_dtype)
 
@@ -284,6 +314,7 @@ class Model:
         """Suffix-only prefill against a cache holding a reused prompt
         prefix of ``offset`` tokens."""
         self._no_encdec("suffix-only prefill")
+        self.refuse_seq_split("a suffix or chunked prefill")
         with self._scope():
             return transformer.prefill_from(params, self.local_cfg,
                                             self._tokens(inputs), cache,
@@ -312,6 +343,7 @@ class Model:
         ``page_table`` [B, NB] int32 on the model's device; with an
         ``adapter_bank``, ``adapter_ids`` [B] picks each slot's LoRA row."""
         self._no_encdec("paged decode path")
+        self.refuse_seq_split("the paged decode step")
         pos = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
         page_table = torch.as_tensor(page_table, dtype=torch.int32,
                                      device=self.device)

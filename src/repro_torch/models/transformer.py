@@ -600,7 +600,8 @@ def _prefill(params, cfg, tokens, cache, offset: int, adapter_bank,
                            offset, adapter_bank, adapter_ids)[0]
                   for b in range(B)]
         return torch.cat(logits), cache
-    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    x = embed_tokens(fsdp.gathered(params["embed"], "embed"), tokens,
+                     scale_by_dim=cfg.scale_embed)
     positions = (offset + torch.arange(S, device=x.device))[None, :].expand(B, S)
     x = _decoder(params, cfg, x, positions, cache, offset,
                  adapter_bank=adapter_bank, adapter_ids=adapter_ids)
@@ -615,7 +616,8 @@ def decode_step(params: dict, cfg: ModelConfig, cache: dict,
     positions."""
     _decoder_only(cfg)
     B = tokens.shape[0]
-    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    x = embed_tokens(fsdp.gathered(params["embed"], "embed"), tokens,
+                     scale_by_dim=cfg.scale_embed)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     pos = pos.reshape(-1).expand(B).contiguous()
     x = _decoder(params, cfg, x, pos[:, None], cache, pos)
@@ -636,7 +638,8 @@ def decode_step_paged(params: dict, cfg: ModelConfig, cache: dict,
     only."""
     _decoder_only(cfg)
     _check_positional(cfg, "paged decode path")
-    x = embed_tokens(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    x = embed_tokens(fsdp.gathered(params["embed"], "embed"), tokens,
+                     scale_by_dim=cfg.scale_embed)
     pos = torch.as_tensor(pos, dtype=torch.int32, device=x.device)
     x = _decoder(params, cfg, x, pos[:, None], cache, pos,
                  page_table=page_table, page_size=page_size,

@@ -84,6 +84,8 @@ class Engine:
     def __init__(self, model: Model, params: Any,
                  prefill_fn: Optional[Callable] = None,
                  decode_fn: Optional[Callable] = None):
+        if getattr(model, "seq_split", False):
+            model.refuse_seq_split("the Engine")
         self.model = model
         self.params = params
         self.prefill_fn = prefill_fn or model.prefill

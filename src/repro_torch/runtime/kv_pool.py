@@ -92,7 +92,10 @@ class PrefixHandle:
 
 def _check_plan(model: Model, plan) -> None:
     """A pool's ``plan`` (the JAX signature's) must be its model's: the
-    model's caches and arenas already hold the rank's KV heads."""
+    model's caches and arenas already hold the rank's KV heads.  No pool
+    takes a sequence-sharded cache (a ``prefer_seq`` plan)."""
+    if getattr(model, "seq_split", False):
+        model.refuse_seq_split("a KV pool")
     if plan is not None and plan.tp > 1 and plan != model.plan:
         raise ValueError("the pool's plan must be its model's: build the "
                          "model under the plan (get_model(..., plan=plan))")

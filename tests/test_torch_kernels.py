@@ -311,6 +311,8 @@ def test_wrappers_refuse_other_devices_and_count_only_launches(monkeypatch):
     ops.decode_attention(torch.zeros((1, 4, 16)), torch.zeros((1, 2, 8, 16)),
                          torch.zeros((1, 2, 8, 16)), 3)
     assert ops.launch_counts() == {"decode_attention": 0, "flash_attention": 0,
+                                   "decode_attention_slice": 0,
+                                   "decode_merge_ranks": 0,
                                    "flash_attention_bwd": 0,
                                    "paged_decode_attention": 0, "rmsnorm": 0,
                                    "rmsnorm_bwd": 0, "rmsnorm_fused": 0,

@@ -24,12 +24,19 @@ keeps it): the weights are the JAX package's, converted per rank by
     is forged, instead of hanging;
   * with the guard off, an op that raises on one rank only raises
     ``DivergenceError`` on every rank, and ``spawn`` reports the worker's
-    (a spawn of its own per case: the channel is broken after it).
+    (a spawn of its own per case: the channel is broken after it);
+  * under a ``prefer_seq`` plan (the cache split by sequence, each rank
+    holding half the positions of every KV head) a prefill and greedy
+    decode steps through ``decode_attention_slice`` and
+    ``decode_merge_ranks`` give the JAX ``decode_step``'s tokens and fp32
+    logits, with two ``all_gather`` per layer per step beside the
+    ``all_reduce`` of one device's plan.
 
 The rank functions below import no JAX (each rank process imports this
 module).  ``test_torch_tp_specs.py`` holds the specs against JAX's.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -201,6 +208,73 @@ def _pool_ops(group, model) -> dict:
             "guard": guard}
 
 
+def _prefer_seq_decode(jax_params: dict, kv: int, prompt) -> dict:
+    """On every rank: a prefill, then greedy decode steps, under the
+    group's plan with ``prefer_seq``; the tokens, every step's logits, the
+    calls of the slice and merge entries and one step's collectives."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    group = current_group()
+    plan = dataclasses.replace(group.plan, prefer_seq=True)
+    cfg = _cfg(kv)
+    model = get_model(cfg, device="cpu", plan=plan)
+    params = convert.params_from_jax(jax_params, cfg, device="cpu", plan=plan)
+    calls = {"slice": 0, "merge": 0}
+    real = ops.decode_attention_slice, ops.decode_merge_ranks
+
+    def counted(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+    ops.decode_attention_slice = counted("slice", real[0])
+    ops.decode_merge_ranks = counted("merge", real[1])
+    try:
+        cache = model.make_cache(1, MAX_LEN)
+        logits, cache = model.prefill(params, {"tokens": prompt[None]}, cache)
+        steps, tokens = [logits.numpy()], [int(logits.argmax(-1))]
+        kinds = None
+        for i in range(NEW - 1):
+            sharding.reset_collective_stats()
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": np.array([[tokens[-1]]], np.int32)},
+                len(prompt) + i)
+            kinds = sharding.collective_stats()["kinds"]
+            steps.append(logits.numpy())
+            tokens.append(int(logits.argmax(-1)))
+    finally:
+        ops.decode_attention_slice, ops.decode_merge_ranks = real
+    return {"tokens": tokens, "logits": np.stack(steps), "calls": calls,
+            "kinds": kinds, "cache_rows": int(cache["k"].shape[2])}
+
+
+SPLIT_ARCHS = ("phi3.5-moe-42b-a6.6b", "zamba2-2.7b")
+
+
+def _split_against_heads(arch: str) -> dict:
+    """On every rank: the smoke ``arch`` (moe; zamba's shared attention
+    block) decoding over a cache split by sequence and over the cache
+    split by heads, from the same seeded weights: both steps' logits."""
+    group = current_group()
+    cfg = reduced(get_config(arch), dtype="float32")
+    prompt = np.random.default_rng(2).integers(1, cfg.vocab_size, 9)
+    out = {}
+    for seq in (False, True):
+        plan = dataclasses.replace(group.plan, prefer_seq=seq)
+        model = get_model(cfg, device="cpu", plan=plan)
+        params = model.init_params(seed=4)
+        cache = model.make_cache(1, MAX_LEN)
+        logits, cache = model.prefill(params, {"tokens": prompt[None]}, cache)
+        steps = [logits.numpy()]
+        for i in range(3):
+            logits, cache = model.decode_step(
+                params, cache, {"tokens": np.array(
+                    [[int(steps[-1].argmax())]], np.int32)}, len(prompt) + i)
+            steps.append(logits.numpy())
+        out[seq] = np.stack(steps)
+    return out
+
+
 def _ranks(group, jax_params: dict) -> dict:
     """Every scenario, on every rank: the workers serve, the controller
     drives and returns what the tests check."""
@@ -231,8 +305,12 @@ def _ranks(group, jax_params: dict) -> dict:
         batch = np.stack([reqs[0][1], reqs[0][1][::-1]])
         r["engine"] = Engine(m, p).generate(batch, NEW,
                                             cache_len=MAX_LEN).tokens
+        r["prefer_seq"] = group.gather(_prefer_seq_decode, jax_params[kv], kv,
+                                       reqs[0][1])
         out[kv] = r
-    out["pool"] = _pool_ops(group, models[1])
+    out["split"] = {a: group.gather(_split_against_heads, a)
+                    for a in SPLIT_ARCHS}
+    out["pool"] = _pool_ops(group, models[1])      # breaks the channel last
     return out
 
 
@@ -301,6 +379,50 @@ def test_sequential_engine_under_the_plan_matches_jax(tp, jax_side, kv):
     batch = np.stack([reqs[0][1], reqs[0][1][::-1]])
     want = Engine(jm, jp).generate(batch, NEW, cache_len=MAX_LEN).tokens
     np.testing.assert_array_equal(tp[kv]["engine"], np.asarray(want))
+
+
+@pytest.mark.parametrize("kv", KVS)
+def test_prefer_seq_decode_matches_the_jax_decode_step(tp, jax_side, kv):
+    """The cache split by sequence over the two ranks: greedy tokens equal
+    the JAX ``prefill`` + ``decode_step``'s, every step's fp32 logits
+    within 1e-5 of their largest, on both ranks alike; each layer of a
+    step runs the slice and merge entries once and two ``all_gather``
+    (q with the new K/V rows, then the ranks' (o, lse)) beside the
+    one-device plan's 2L + 2 ``all_reduce``."""
+    import jax.numpy as jnp
+    jm, jp, _ = jax_side[kv]
+    _, reqs = _workload()
+    prompt = reqs[0][1]
+    logits, cache = jm.prefill(jp, {"tokens": jnp.asarray(prompt[None])},
+                               jm.make_cache(1, MAX_LEN))
+    want, toks = [np.asarray(logits)], [int(np.argmax(logits))]
+    for i in range(NEW - 1):
+        logits, cache = jm.decode_step(
+            jp, cache, {"tokens": jnp.asarray([[toks[-1]]], jnp.int32)},
+            len(prompt) + i)
+        want.append(np.asarray(logits))
+        toks.append(int(np.argmax(logits)))
+    want = np.stack(want)
+    ranks = tp[kv]["prefer_seq"]
+    L = 2
+    for got in ranks:
+        assert got["tokens"] == toks
+        assert np.abs(got["logits"] - want).max() <= 1e-5 * np.abs(want).max()
+        assert got["cache_rows"] == MAX_LEN // 2
+        assert got["calls"] == {"slice": L * (NEW - 1),
+                                "merge": L * (NEW - 1)}
+        assert got["kinds"] == {"all_reduce": 2 * L + 2, "all_gather": 2 * L}
+
+
+@pytest.mark.parametrize("arch", SPLIT_ARCHS)
+def test_prefer_seq_decode_equals_the_head_split_decode(tp, arch):
+    """The moe family and zamba's shared attention block over a cache
+    split by sequence give the logits of the same weights over the cache
+    split by heads (held against the JAX package elsewhere), within 1e-5
+    of the largest, on both ranks."""
+    for got in tp["split"][arch]:
+        seq, heads = got[True], got[False]
+        assert np.abs(seq - heads).max() <= 1e-5 * np.abs(heads).max()
 
 
 @pytest.mark.parametrize("kv", KVS)

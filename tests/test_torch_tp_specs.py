@@ -398,8 +398,9 @@ def test_data_axis_and_training_specs_name_their_items():
     # training under a plan covers every family: the recurrent and enc-dec
     # models build under a training plan with the rank's heads and their
     # pieces of one draw (whisper included, which no serving plan takes);
-    # what is left names item 10: K/V heads that some but not all ranks
-    # share, and a sequence-parallel step
+    # what is left names item 10: one KV head every rank shares through a
+    # fused wqkv, and a sequence-parallel step (K/V heads shared by some
+    # but not all ranks train: tests/test_torch_tp_train.py)
     plan = sharding.training_plan(MESH, rank=1)
     for arch in ("zamba2-2.7b", "xlstm-1.3b", "whisper-medium"):
         tm = get_smoke_model(arch, device="cpu", plan=plan)
@@ -410,7 +411,7 @@ def test_data_axis_and_training_specs_name_their_items():
             assert torch.equal(piece, plan.shard(one[path], specs[path])), path
     batch = {"tokens": np.zeros((1, 4), np.int32),
              "labels": np.zeros((1, 4), np.int32)}
-    shared = get_smoke_model("llama3-8b", device="cpu", n_kv_heads=2,
+    shared = get_smoke_model("llama3-8b", device="cpu", fused_qkv=True,
                              plan=sharding.training_plan(ServingMesh(1, 4)))
     with pytest.raises(NotImplementedError, match="item 10"):
         shared.loss(shared.init_params(), batch)
@@ -850,8 +851,9 @@ def test_batch_specs_match_jax(seq_parallel):
 def test_prefer_seq_cache_specs_match_jax_and_models_refuse(arch):
     """``cache_specs(prefer_seq=True)``: 'model' on an attention cache's
     sequence axis (MLA's latent too), the batch over 'data', as the
-    reference; a model built under a plan that prefers it raises naming
-    item 10 (so no pool can be built either)."""
+    reference; a model built under a plan that prefers it decodes over
+    the split (``tests/test_torch_prefer_seq.py``), but a paged pool over
+    it raises naming item 10."""
     jm, tm = _pair_at(arch, "smoke")
     jcache = jm.make_cache(4, 32, abstract=True)
     tcache = tm.make_cache(4, 32, device="meta")
@@ -865,8 +867,11 @@ def test_prefer_seq_cache_specs_match_jax_and_models_refuse(arch):
         assert jl == tl
         assert all(s[2] == "model" for s in tl.values())
     plan = sharding.ShardingPlan(MESH, prefer_seq=True)
+    model = get_smoke_model(arch, device="cpu", plan=plan)
+    if not model.seq_split:              # MLA: the latent stays whole
+        return
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_smoke_model(arch, device="cpu", plan=plan)
+        model.make_paged_cache(4, 8)
 
 
 @pytest.mark.parametrize("arch", [DENSE, PHI, DSV3])

@@ -20,6 +20,11 @@ state converted and cut to its piece (``convert.params_from_jax`` /
   * the collectives per step at tp = 2, with remat off and on;
   * a run stopped and resumed from its per-rank checkpoints at (2, 2)
     equals the uninterrupted run bit for bit;
+  * K/V heads shared by some but not all ranks: smoke chameleon (q / k
+    norms) with 2 KV heads over tp = 4, on the four ranks of the grid
+    spawn as one model axis, each head's projections' gradients summed
+    over its two ranks (``sharding.sum_grad_kv``), against the JAX step;
+    the sum skipped reads beyond the gradient tolerance;
   * one planted fault per trouble spot reads beyond the tolerance: the
     copy op's backward sum skipped at one layer, the moe gates' copy
     skipped (the router's gradient left partial), a replicated leaf
@@ -67,6 +72,7 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4          # of each leaf's largest |value|
 STATE_TOL = 1e-5
 DENSE, PHI, DSV3 = "llama3-8b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
+CHAM = "chameleon-34b"                   # 2 KV heads over tp = 4 (tp4 cases)
 ZAMBA, XLSTM, WHISPER = "zamba2-2.7b", "xlstm-1.3b", "whisper-medium"
 ARCHS = (DENSE, PHI, DSV3)
 RECURRENT = (ZAMBA, XLSTM, WHISPER)      # and enc-dec
@@ -78,6 +84,8 @@ def _smoke_kw(arch) -> dict:
     """The smoke depth: 2 layers for the decoder families; zamba, xlstm
     and whisper at their own smoke depths (two zamba units, one xLSTM
     unit, 2 + 2 whisper layers), as both packages' ``reduced`` give."""
+    if arch == CHAM:
+        return {"n_layers": 2, "n_kv_heads": 2}
     return {} if arch in RECURRENT else {"n_layers": 2}
 
 
@@ -314,7 +322,25 @@ class _shared_block_once:
         return False
 
 
+class _kv_sum_skipped:
+    """A shared KV head's projections keep each rank's partial gradient
+    (the subgroup sum skipped)."""
+
+    def __init__(self, model):
+        pass
+
+    def __enter__(self):
+        self.real = sharding.sum_grad_kv
+        sharding.sum_grad_kv = lambda w: w
+        return self
+
+    def __exit__(self, *exc):
+        sharding.sum_grad_kv = self.real
+        return False
+
+
 PLANTS = {"skip_copy": _skip_copy, "partial_router": _partial_router,
+          "kv_sum": _kv_sum_skipped,
           "norm_copies": _norm_counts_copies,
           "split_norm_sum": _split_norm_partial, "bc_sum": _columns_partial,
           "x_inner_sum": _columns_partial, "shared_once": _shared_block_once}
@@ -349,6 +375,11 @@ def _ranks(group, cases: list, jax_states: dict, root: str) -> dict:
     for key in cases:
         kind, arch, mode, fsdp, factored, remat, plant = key
         plan = group.training_plan(fsdp=fsdp, mode=mode)
+        if kind == "tp4":
+            # the grid's four ranks as one model axis
+            plan = sharding.training_plan(
+                sharding.ServingMesh(1, 4), rank=group.global_rank,
+                group=group.world_group, world_group=group.world_group)
         if kind == "resume":
             out[key] = _resume(plan, arch, root)
             continue
@@ -381,7 +412,9 @@ GRID_CASES = ([_key(arch=a, fsdp=True) for a in ARCHS + RECURRENT]
               + [_key(arch=a, mode="fsdp2d") for a in ARCHS + RECURRENT]
               + [_key(fsdp=True, factored=True),
                  _key(kind="resume", fsdp=True)]
-              + [k for k in RECURRENT_PLANTS if k[3]])
+              + [k for k in RECURRENT_PLANTS if k[3]]
+              + [_key(kind="tp4", arch=CHAM),
+                 _key(kind="tp4", arch=CHAM, plant="kv_sum")])
 
 
 @functools.lru_cache(maxsize=None)
@@ -430,7 +463,7 @@ def _jax_state(arch: str, factored: bool) -> dict:
 def jax_states():
     return {(a, f): _jax_state(a, f)
             for a, f in {(k[1], k[4]) for k in TP_CASES + GRID_CASES
-                         if k[0] == "step"}}
+                         if k[0] in ("step", "tp4")}}
 
 
 @pytest.fixture(scope="module")
@@ -478,6 +511,22 @@ STEP_CASES = [k for k in TP_CASES + GRID_CASES
 def test_train_step_under_a_plan_matches_jax(runs, jax_states, key):
     """Loss and every gradient at the initial weights, then two steps from
     the JAX state after one: losses, grad norms, parameters and moments."""
+    _check_step(runs, jax_states, key)
+
+
+def test_shared_kv_heads_train_at_tp4_against_jax(runs, jax_states):
+    """2 KV heads over 4 ranks (each head on two of them): the step held
+    as above; the planted control, each rank's K/V projection gradients
+    left partial, moves ``wk`` / ``wv`` past the gradient tolerance."""
+    _check_step(runs, jax_states, _key(kind="tp4", arch=CHAM))
+    errs = _grad_errors(runs[_key(kind="tp4", arch=CHAM, plant="kv_sum")]
+                        ["grads"], _want(jax_states[(CHAM, False)], CHAM,
+                                         "grads"))
+    assert max(v for n, v in errs.items()
+               if n.endswith(("wk", "wv"))) > GRAD_TOL
+
+
+def _check_step(runs, jax_states, key):
     _, arch, *_ = key
     factored = key[4]
     js, got = jax_states[(arch, factored)], runs[key]
@@ -568,9 +617,10 @@ def test_planted_faults_exceed_the_tolerance(runs, jax_states):
 
 def test_seq_parallel_and_shared_kv_training_name_their_items():
     """A seq-parallel batch's specs place (the sequence over 'model'), its
-    train step raises naming item 10, and so does a loss whose K/V heads
-    some but not all ranks share (what is left of training under a plan;
-    the recurrent and enc-dec families train, the tests above)."""
+    train step raises naming item 10, and so does a loss through a fused
+    ``wqkv`` whose one KV head every rank shares (what is left of training
+    under a plan; shared heads unfused and the recurrent and enc-dec
+    families train, the tests above)."""
     from repro_torch.distributed.sharding import ServingMesh
     mesh = ServingMesh(2, 2)
     batch = {"tokens": np.zeros((4, 8), np.int32)}
@@ -581,9 +631,9 @@ def test_seq_parallel_and_shared_kv_training_name_their_items():
     model = get_model(_cfg(DENSE), device="cpu", plan=plan)
     with pytest.raises(NotImplementedError, match="item 10"):
         make_train_step(model, topt.OptimizerConfig(), seq_parallel=True)
-    # two KV heads over four ranks: each head's gradient would need a sum
-    # over the two ranks that share it
-    shared = get_model(_cfg(DENSE, n_kv_heads=2), device="cpu",
+    # one KV head over four ranks through a fused wqkv: its gradient cannot
+    # be summed apart from q's (two heads over four ranks train, above)
+    shared = get_model(_cfg(DENSE, fused_qkv=True), device="cpu",
                        plan=sharding.training_plan(ServingMesh(1, 4)))
     with pytest.raises(NotImplementedError, match="item 10"):
         shared.loss(shared.init_params(), {
