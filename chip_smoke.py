@@ -129,11 +129,11 @@ Phases, in order; any failure raises and the process exits non-zero:
    the pairs the capacity drops at cf 1.25, a dropless 8-slot pass equal
    to the sequential ``Engine`` run prompt by prompt, the arena's bytes
    per token per layer (1,152 bf16, 584 int8) beside a GQA cache's at 128
-   heads of 128, the decode step beside its byte bound, ``FaaSRuntime``
-   cold / warm / fork of a static function (a fork streams the whole
-   model; page-locked bytes within 1.05 times the weights, as in phases
-   9 and 10); exact launch counts (rmsnorm 4L+1 per call, L fused, no
-   attention kernel); then 1-layer fp32 card against CPU checks with the
+   heads of 128, the decode step beside its byte bound (no
+   ``FaaSRuntime`` pass here: its 26.7 GB host checkpoint and pinned
+   pool cost ~27 s of the script's time; phase 15 serves deepseek-v3
+   through ``FaaSRuntime`` at tp = 2); exact launch counts (rmsnorm 4L+1
+   per call, L fused, no attention kernel); then 1-layer fp32 card against CPU checks with the
    experts cut to 32 (logits within 1e-4 of the largest, routing and kept
    pairs equal) at 2 slots and at 8 slots with a 48-token chunked
    prefill, and streamed prefill equal to prefill;
@@ -285,7 +285,23 @@ Phases, in order; any failure raises and the process exits non-zero:
    beside one process's dense decode, fp32 at 2 layers with the tokens
    equal, bf16 at 8 layers with the first logits within the case's
    bound, the launches and each step's collectives by kind and bytes
-   against ``tp_seq_collectives``;
+   against ``tp_seq_collectives``.  Heads the model axis does not divide
+   (``sharding.head_split``): smollm-135m at full width and all 30
+   layers (9 query / 3 KV heads: 6 / 2 on rank 0, 3 / 1 on rank 1)
+   through ``FaaSRuntime`` cold, fork, prefix hit and warm, fp32 with
+   greedy tokens equal to ``tp = 1`` and bf16 with the first logits
+   within 5%, launches and collectives exact on both ranks; whisper-medium
+   at full width and depth under the plan (8 of 16 heads per rank in the
+   encoder, the decoder's self-attention and its cross-attention), a
+   prefill of 2 x 1,500 frames and 16 greedy decode steps through
+   ``Model`` (the sequential ``Engine`` takes no plan for enc-dec, as the
+   reference's), fp32 tokens equal to ``tp = 1`` and bf16 first logits
+   within 5%, 72 flash launches per prefill and 48 ``decode_attention``
+   per step on each rank, 120 and 72 collectives; and ``python -m
+   repro_torch.launch.serve --tp 2 --arch smollm-135m`` on the card
+   (run beside phase 18; its lines name each rank's heads).  Phase 2
+   holds the kernels at those ranks' heads (smollm 6 / 2 and 3 / 1,
+   qwen3-14b's (16, 16) ranks 3 / 1 and 2 / 1 at d = 128, whisper 8 / 8);
 16. cluster: ``FaaSRuntime(mesh=ServingMesh(2, 1))``, two instances
    sharing the card, serving smollm-135m at full width and depth (bf16,
    paged arenas): a static and a LoRA function land on different
@@ -316,7 +332,8 @@ Phases, in order; any failure raises and the process exits non-zero:
    four the FSDP run) through ``make_train_step`` under
    ``group.training_plan``.  Held against the one process: step 1's loss
    (1e-5 relative) and every gradient leaf put back together from the
-   ranks' pieces (1e-4 of its largest, or 4 times the model's fp32
+   ranks' pieces (each cut on the first rank's card and sent to the
+   rank that holds it; 1e-4 of its largest, or 4 times the model's fp32
    floor where that is larger: the gradients' largest move under weights
    perturbed by 1e-7, ``grad_floor``), the grad norms (1e-4), the
    parameters (1e-5 where AdamW is well conditioned, the criterion of
@@ -339,10 +356,13 @@ Phases, in order; any failure raises and the process exits non-zero:
    of tensor-parallel speed) and peak allocation;
 18. dryrun: one rank of chameleon-34b ``decode_32k`` on the production
    mesh (16, 16) at its full per-rank size (~4.3 GB of weights drawn on
-   the card, 3.2 GB of cache split by sequence) through
+   the card, 3.2 GB of cache split by sequence), then in the same process
+   qwen3-14b's ``decode_32k`` rank 0 (its 40 heads split unevenly: 3
+   query heads on 1 KV head, the busiest rank; ~1.8 GB of weights, 5.4 GB
+   of cache), each through
    ``repro_torch.launch.dryrun.run_cell`` under torch's fake process group
    (set up and destroyed around the cell): the step's peak allocation above its
-   arguments within 10% of the ``meta`` reckoning of the same step, its
+   arguments within 5% of the ``meta`` reckoning of the same step, its
    collectives by kind and bytes equal to the reckoning's, the slice and
    merge entries once per layer per step; its device ms printed beside
    the roofline's ``H100_SXM`` terms (the fake group moves no data: no
@@ -392,6 +412,12 @@ GEMMA_2B = dict(H=8, KV=1, d=256)
 # (G = 4, as at tp = 1), gemma-2b keeps its one KV head (G = 8 -> 4)
 LLAMA3_8B_TP2 = dict(H=16, KV=4, d=128)
 GEMMA_2B_TP2 = dict(H=4, KV=1, d=256)
+# ranks of heads the model axis does not divide (sharding.head_split):
+# smollm-135m at tp = 2 (phase 15; G = 3 on both), qwen3-14b at (16, 16)
+# (phase 18's cell; G = 3 and 2), whisper-medium at tp = 2 (G = 1)
+SMOLLM_TP2 = (dict(H=6, KV=2, d=64), dict(H=3, KV=1, d=64))
+QWEN3_14B_16 = (dict(H=3, KV=1, d=128), dict(H=2, KV=1, d=128))
+WHISPER_TP2 = dict(H=8, KV=8, d=64)
 ZAMBA2_ATTN = dict(H=32, KV=32, d=80)             # the shared attention block
 ZAMBA2_SSD = dict(H=80, dh=64, ds=64, Q=128, d_inner=5120)
 # one rank's share of zamba2 at tp = 2 (phase 15): half the heads of the
@@ -856,7 +882,35 @@ def phase_kernels(device) -> list:
                             ((96,), torch.bfloat16)):
             results.append(rmsnorm_split_case(device, gen, tag, rows + (d,),
                                               d_global, dtype))
-    return results + big_head_cases(device) + decode_split_cases(device)
+    return (results + big_head_cases(device) + decode_split_cases(device)
+            + rank_head_cases(device))
+
+
+def rank_head_cases(device) -> list:
+    """The attention kernels at the heads of ranks that split unevenly
+    (``SMOLLM_TP2``, ``QWEN3_14B_16``, ``WHISPER_TP2``): dense decode at
+    B = 8 over lengths to 512 (whisper's self cache: to 448), paged decode
+    and flash at S = T = 96 at smollm's ranks, in bf16."""
+    gen = torch.Generator().manual_seed(31)
+    rng = np.random.default_rng(31)
+    results = []
+    lengths = [1] + rng.integers(2, 513, 6).tolist() + [512]
+    for i, heads in enumerate(SMOLLM_TP2):
+        tag = f"smollm/tp2-rank{i}"
+        results.append(decode_case(device, gen, "serving", tag, heads, 512,
+                                   lengths, torch.bfloat16))
+        results.append(paged_case(device, gen, "serving", tag, heads, 512,
+                                  lengths, torch.bfloat16, False))
+        results.append(flash_case(device, gen, tag, heads, 1, 96, 96,
+                                  torch.bfloat16, 0.0))
+    for i, heads in enumerate(QWEN3_14B_16):
+        results.append(decode_case(device, gen, "serving",
+                                   f"qwen3-14b/16-rank{i}", heads, 512, lengths,
+                                   torch.bfloat16))
+    results.append(decode_case(device, gen, "serving", "whisper-medium/tp2",
+                               WHISPER_TP2, 448,
+                               [min(n, 448) for n in lengths], torch.bfloat16))
+    return results
 
 
 def big_head_cases(device) -> list:
@@ -3407,7 +3461,7 @@ def latent_arena_bytes(model) -> dict:
     return out
 
 
-def phase_deepseek(device, h2d: float) -> dict:
+def phase_deepseek(device) -> dict:
     """deepseek-v3-671b at full width (d_model 7168, 128 heads; MLA ranks
     1536 / 512, dims 128 / 64 / 128; 256 experts of 2048, top-8, one
     shared expert; capacity factor 1.25; vocabulary 129,280; bf16) at the
@@ -3416,8 +3470,8 @@ def phase_deepseek(device, h2d: float) -> dict:
     arena, the (token, k) pairs the capacity drops (an untimed pass), a
     dropless (cf = E/K) 8-slot pass equal to the sequential ``Engine`` run
     prompt by prompt, the arena's bytes per token, the decode step beside
-    its byte bound, ``FaaSRuntime`` cold / warm / fork of a static
-    function; then 1-layer fp32 card against CPU checks with the experts
+    its byte bound (no ``FaaSRuntime`` pass: phase 15 serves deepseek-v3
+    through it at tp = 2); then 1-layer fp32 card against CPU checks with the experts
     cut to 32 (logits within 1e-4 of the largest, routing and kept pairs
     equal) at 2 slots and at 8 slots with a 48-token chunked prefill, and
     streamed prefill equal to prefill.  No attention kernel runs (MLA
@@ -3469,7 +3523,6 @@ def phase_deepseek(device, h2d: float) -> dict:
     dec_prompts = np.random.default_rng(7).integers(1, cfg.vocab_size, (8, 256))
     out["decode_step"] = decode_profile(model, params,
                                         list(dec_prompts.astype(np.int32)))
-    out["faas"] = big_faas(model, params, h2d)
     del model, params, dropless
     torch.cuda.empty_cache()
     release_host_memory()
@@ -4156,7 +4209,8 @@ def rmsnorm_split_bwd_case(device, gen, tag, shape, d_global) -> dict:
     row through ``autograd.grad`` under a CUDA graph (no library call
     computes the split form); bound: x and dy read, each row's rstd and
     dot read (the dot written before the reduce), dx and the slice's
-    dscale written, once each."""
+    dscale written, once each.  An empty slice (a rank without a head)
+    gives zero sums and dots and launches nothing."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import (rmsnorm_apply, rmsnorm_split_bwd,
                                              rmsnorm_split_dot, rmsnorm_sumsq)
@@ -4184,6 +4238,21 @@ def rmsnorm_split_bwd_case(device, gen, tag, shape, d_global) -> dict:
     other = rmsnorm_split_bwd(rest, sc_rest, dy_rest, dots, rstd_rest, d_global)
     full, dy_full = torch.cat([x, rest], -1), torch.cat([dy, dy_rest], -1)
     whole = ref.rmsnorm_bwd_ref(full, scale, dy_full, 1e-5)
+    # a rank that holds none of the row (heads split unevenly): zero sums
+    # and dots, though the allocator hands back a block just filled with
+    # NaN, an empty dx and no launch
+    from repro_torch.kernels import ops
+    counted = ops.launch_counts()
+    none, dy_none = x[..., :0], dy[..., :0].contiguous()
+    del_me = torch.full(sums.shape, float("nan"), device=device)
+    del del_me
+    sums0 = rmsnorm_sumsq(none)
+    dots0 = rmsnorm_split_dot(none, sc[:0], dy_none)
+    dx0, ds0 = rmsnorm_split_bwd(none, sc[:0], dy_none, dots, rstd, d_global)
+    empty_ok = bool((sums0 == 0).all() and (dots0 == 0).all()
+                    and sums0.shape == dots0.shape == sums.shape
+                    and dx0.shape == none.shape and ds0.shape == (0,)
+                    and ops.launch_counts() == counted)
     torch.cuda.synchronize()
     errs = {"dots": dots_err, "dx": max_rel(got[0], want[0]),
             "dscale": max_rel(got[1], want[1]),
@@ -4198,6 +4267,7 @@ def rmsnorm_split_bwd_case(device, gen, tag, shape, d_global) -> dict:
            "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got, want)),
            "rel_err_of_largest": errs, "tol": "1e-5 of the largest |value|",
            "deterministic": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "empty_slice_ok": empty_ok,
            "ms": time_ms(lambda: rmsnorm_split_bwd(
                x, sc, dy, rmsnorm_split_dot(x, sc, dy), rstd, d_global)),
            "plain_ms": time_ms(lambda: ref.rmsnorm_split_bwd_ref(
@@ -4206,7 +4276,7 @@ def rmsnorm_split_bwd_case(device, gen, tag, shape, d_global) -> dict:
                lambda a, b: F.rms_norm(a, (d_global,), b, 1e-5), (lx, ls), dy_full),
            "bound_ms": b_ms, "bound_by": b_by}
     print(json.dumps(res))
-    if not (max(errs.values()) <= 1e-5 and res["deterministic"]):
+    if not (max(errs.values()) <= 1e-5 and res["deterministic"] and empty_ok):
         raise AssertionError(f"split-row rmsnorm backward disagrees: {res}")
     return res
 
@@ -4860,7 +4930,7 @@ def tp_reckoned_bytes(cfg, tp: int) -> int:
     if cfg.family in ("zamba", "xlstm"):
         return tp_recurrent_bytes(cfg, tp)
     D, L, V, E = cfg.d_model, cfg.n_layers, cfg.vocab_size, cfg.n_experts
-    H = cfg.n_heads // tp
+    H, KV = rank0_heads(cfg, tp)
     if cfg.use_mla:
         qr, kvr, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.qk_rope_dim
         dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
@@ -4868,7 +4938,7 @@ def tp_reckoned_bytes(cfg, tp: int) -> int:
                 + kvr * H * (dn + dv) + H * dv * D)
     else:
         # KV heads split, or each rank keeping the one its queries read
-        hd, KV = cfg.head_dim, max(cfg.n_kv_heads // tp, 1)
+        hd = cfg.head_dim
         attn = D * hd * (H + 2 * KV) + H * hd * D
     if E:
         Fd = cfg.moe_d_ff or cfg.d_ff
@@ -4877,7 +4947,26 @@ def tp_reckoned_bytes(cfg, tp: int) -> int:
     else:
         mlp = 3 * D * cfg.d_ff // tp
     elt = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    return elt * (2 * (V // tp) * D + D + L * (2 * D + attn + mlp))
+    # embedding and head (one tied leaf), by vocabulary where it splits
+    vocab = (1 if cfg.tied_embeddings else 2) * (V // tp if V % tp == 0
+                                                 else V) * D
+    return elt * (vocab + D + L * (2 * D + attn + mlp))
+
+
+def rank0_heads(cfg, tp: int) -> tuple:
+    """Rank 0's (query heads, KV heads) of ``tp``, by the rule of
+    uneven splits written out from the configuration alone: with ``KV >=
+    tp`` the first rank takes ceil(KV / tp) whole KV groups; with ``KV <
+    tp`` one KV head and ceil(G / ceil(tp / KV)) of its G query heads.
+    Where the model axis divides the heads: H / tp and KV / tp (or 1)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    if cfg.use_mla:
+        return H // tp, KV
+    G = H // KV
+    if KV >= tp:
+        kv = -(-KV // tp)
+        return kv * G, kv
+    return -(-G // -(-tp // KV)), 1
 
 
 def tp_recurrent_bytes(cfg, tp: int) -> int:
@@ -5463,6 +5552,113 @@ def tp_seq_parity(tag: str, one: dict, ranks: list, cfg, card: str) -> dict:
     return res
 
 
+# whisper-medium at full width and depth under a serving plan (phase 15):
+# (tag, configuration); a prefill of TP_WHISPER_BATCH sequences of the
+# 30 s window's 1,500 frames and a WHISPER_PROMPT-token prompt, then
+# TP_WHISPER_STEPS greedy decode steps, through ``Model`` (the
+# sequential Engine takes no plan for enc-dec, as the reference's)
+WHISPER_ARCH = "whisper-medium"
+TP_WHISPER_CASES = (("whisper_fp32", {"dtype": "float32"}),
+                    ("whisper_bf16", {}))
+TP_WHISPER_BATCH = 2
+TP_WHISPER_STEPS = 16
+
+
+def _tp_whisper(replace: dict) -> dict:
+    """On every rank: whisper-medium under the rank's plan (one process:
+    no plan), weights drawn on the card from the seed, the prefill and
+    greedy decode steps; the tokens, the first logits, the rank's heads,
+    its launches and collectives (the prefill's and all)."""
+    from repro_torch.distributed import current_group, sharding
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import get_config, get_model
+    group = current_group()
+    model = get_model(get_config(WHISPER_ARCH).replace(**replace),
+                      device=group.device,
+                      plan=group.plan if group.size > 1 else None)
+    params = model.init_params(TP_SEED, draw_on_device=True)
+    cfg, B = model.cfg, TP_WHISPER_BATCH
+    rng = np.random.default_rng(TP_SEED)
+    frames = torch.from_numpy((rng.standard_normal(
+        (B, WHISPER_FRAMES, cfg.d_model)) * 0.1).astype(np.float32))
+    prompts = rng.integers(0, cfg.vocab_size, (B, WHISPER_PROMPT)
+                           ).astype(np.int32)
+    ops.reset_launch_counts()
+    sharding.reset_collective_stats()
+    cache = model.make_cache(B, WHISPER_FRAMES)
+    logits, cache = model.prefill(
+        params, {"frames": frames.to(group.device), "tokens": prompts}, cache)
+    torch.cuda.synchronize()
+    prefill = {"launches": ops.launch_counts(),
+               "collectives": sharding.collective_stats()["calls"]}
+    first = logits.float().cpu().numpy()
+    tokens = [logits.argmax(-1)]
+    for i in range(TP_WHISPER_STEPS):
+        logits, cache = model.decode_step(
+            params, cache, {"tokens": tokens[-1][:, None]}, WHISPER_PROMPT + i)
+        tokens.append(logits.argmax(-1))
+    torch.cuda.synchronize()
+    out = {"tokens": torch.stack(tokens, 1).cpu().tolist(), "logits": first,
+           "heads": [model.local_cfg.n_heads, model.local_cfg.n_kv_heads],
+           "prefill": prefill, "launches": ops.launch_counts(),
+           "collectives": sharding.collective_stats()["calls"]}
+    del model, params, cache
+    _rank_release()
+    return out
+
+
+def tp_whisper_parity(tag: str, one: dict, ranks: list, card: str) -> dict:
+    """phase 15's whisper case against one process: on every rank 8 of
+    the 16 heads, fp32 greedy tokens equal, bf16 first logits within
+    ``TP_BF16_LOGIT_BOUND``; per rank 3L flash launches in the prefill
+    and 2L ``decode_attention`` per step (L = 24 decoder layers; the
+    encoder's 24 in the 3L), no rmsnorm; collectives 2 per encoder layer
+    and 3 per decoder layer in the prefill (the vocabulary is odd: the
+    embedding and head are whole), 3 per decoder layer per step.  The
+    rank's kernels run on every rank in both runs (the one process's
+    launches are held too)."""
+    from repro_torch.models.registry import get_config
+    cfg = get_config(WHISPER_ARCH)
+    Le, Ld, n = cfg.n_layers, cfg.dec_layers, TP_WHISPER_STEPS
+    # a vocabulary the ranks split adds the embedding's sum and the head's
+    # gather to every call (whisper-medium's 51,865 does not split)
+    vocab = 2 if cfg.vocab_size % TP == 0 else 0
+    gap = max(float(np.abs(r["logits"] - one["logits"]).max()
+                    / np.abs(one["logits"]).max()) for r in ranks)
+    same = [r["tokens"] == one["tokens"] for r in ranks]
+    res = {"case": tag, "card": card, "steps": n, "batch": TP_WHISPER_BATCH,
+           "frames": WHISPER_FRAMES, "logit_gap_of_max": gap,
+           "tokens_equal": same, "heads_per_rank": [r["heads"] for r in ranks],
+           "collectives_per_rank": [r["collectives"] for r in ranks]}
+    print(json.dumps({"tp_whisper": res}))
+    want_prefill = {"flash_attention": Le + 2 * Ld, "decode_attention": 0,
+                    "rmsnorm": 0}
+    want_all = {"flash_attention": Le + 2 * Ld, "decode_attention": 2 * Ld * n,
+                "rmsnorm": 0}
+    for r, got in enumerate([one] + ranks):
+        for what, want in ((got["prefill"]["launches"], want_prefill),
+                           (got["launches"], want_all)):
+            seen = {k: what[k] for k in want}
+            if seen != want:
+                raise AssertionError(f"tp {tag} rank {r}: launches {seen}, "
+                                     f"want {want}")
+    for r, got in enumerate(ranks):
+        if got["heads"] != [cfg.n_heads // TP] * 2:
+            raise AssertionError(f"tp {tag} rank {r}: heads {got['heads']}")
+        if (got["prefill"]["collectives"], got["collectives"]) != (
+                2 * Le + 3 * Ld + vocab,
+                2 * Le + 3 * Ld + vocab + (3 * Ld + vocab) * n):
+            raise AssertionError(f"tp {tag} rank {r}: collectives "
+                                 f"{got['prefill']['collectives']} / "
+                                 f"{got['collectives']}")
+    if "fp32" in tag and not all(same):
+        raise AssertionError(f"tp {tag}: tokens differ from one process: {res}")
+    if "fp32" not in tag and gap > TP_BF16_LOGIT_BOUND:
+        raise AssertionError(f"tp {tag}: logits {gap} of the largest apart "
+                             f"(bound {TP_BF16_LOGIT_BOUND})")
+    return res
+
+
 # the case the two runs of phase 15 never hold at once (``tp_runs``), and
 # how long the tp = 2 run waits for the one process to end before it
 TP_GATED = "mla_bf16_1layer"
@@ -5493,8 +5689,19 @@ def _tp_rank(group, cases: tuple, gate: str | None = None) -> dict | None:
         group.serve()
         return None
     out = {}
+
+    def whisper():
+        if TP_WHISPER_CASES[0][0] in out:
+            return
+        for tag, replace in TP_WHISPER_CASES:
+            t0 = time.perf_counter()
+            out[tag] = group.gather(_tp_whisper, replace)
+            print(f"  tp {group.size} {tag}: {time.perf_counter() - t0:.1f} s",
+                  file=sys.stderr, flush=True)
+
     for tag, arch, replace, arenas in cases:
         if gate and tag == TP_GATED:
+            whisper()             # before the wait for the one process
             out["gate_wait_s"] = _wait_for(gate)
         t0 = time.perf_counter()
         fn = group.build(_tp_function, arch, replace)
@@ -5545,6 +5752,7 @@ def _tp_rank(group, cases: tuple, gate: str | None = None) -> dict | None:
         group.gather(_rank_release)
         if tag in TP_SEQ_CASES:
             out[tag]["seq"] = group.gather(_tp_seq_decode, arch, replace)
+    whisper()
     out["guard_ops"] = group.channel.n_ops
     return out
 
@@ -5729,6 +5937,9 @@ def tp_runs() -> dict:
 # for the script's time limit, width never
 TP_BF16_LAYERS = 8
 PHI_ARCH, DSV3_ARCH = "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
+# smollm-135m at full width and depth: 9 query / 3 KV heads split
+# unevenly over the two ranks (6 / 2 and 3 / 1)
+SMOLLM_ARCH = "smollm-135m"
 ZAMBA_ARCH, XLSTM_ARCH = "zamba2-2.7b", "xlstm-1.3b"
 TP_CASES = (("fp32_2layers", "llama3-8b", {"n_layers": 2, "dtype": "float32"},
              (None, "int8"), (None, "int8")),
@@ -5747,7 +5958,10 @@ TP_CASES = (("fp32_2layers", "llama3-8b", {"n_layers": 2, "dtype": "float32"},
             ("zamba_bf16_2units", ZAMBA_ARCH, {"n_layers": 12}, (None,),
              (None,)),
             ("xlstm_bf16_2units", XLSTM_ARCH, {"n_layers": 16}, (None,),
-             (None,)))
+             (None,)),
+            ("smollm_fp32_30layers", SMOLLM_ARCH, {"dtype": "float32"},
+             (None,), (None,)),
+            ("smollm_bf16_30layers", SMOLLM_ARCH, {}, (None,), (None,)))
 # the case whose tp = 1 and tp = 2 runs serve LoRA too (``_tp_lora``)
 TP_LORA_CASE = "fp32_2layers"
 # the case whose first pass at tp = 2 takes the weight_fetch faults
@@ -5755,7 +5969,7 @@ TP_FAULT_CASE = "fp32_2layers"
 # what one rank holds at tp = 2: (query heads, KV heads), whole experts
 TP_LOCAL = {"llama3-8b": ([16, 4], 0), PHI_ARCH: ([16, 4], 8),
             DSV3_ARCH: ([64, 64], 128), ZAMBA_ARCH: ([16, 16], 0),
-            XLSTM_ARCH: ([2, 2], 0)}
+            XLSTM_ARCH: ([2, 2], 0), SMOLLM_ARCH: ([6, 2], 0)}
 # and its recurrent widths at tp = 2: zamba2's 40 of 80 Mamba2 heads
 # (2,560 of 5,120 channels); xlstm-1.3b's 2 of 4 heads (mLSTM 2,048 of
 # 4,096, sLSTM 1,024 of 2,048) and half its sLSTM post-MLP (1,365 of 2,730)
@@ -5927,6 +6141,43 @@ def phase_tp(device) -> dict:
             res["instances"] = tp_instances_parity(instances, one, card)
         out[tag] = res
     out["instances"] = instances
+    for tag, _ in TP_WHISPER_CASES:
+        out[tag] = {"parity": tp_whisper_parity(tag, runs[1][tag][0],
+                                                runs[TP][tag], card),
+                    "launches": [r["launches"] for run in (1, TP)
+                                 for r in runs[run][tag]]}
+    return out
+
+
+SERVE_CLI_TP = ["--tp", "2", "--arch", SMOLLM_ARCH, "--functions", "2",
+                "--requests", "6", "--prompt-len", "64", "--max-new", "8"]
+
+
+def serve_cli_tp() -> dict:
+    """``python -m repro_torch.launch.serve`` with ``SERVE_CLI_TP`` on the
+    card (smollm-135m at full width and depth, 2 gloo ranks sharing the
+    card): exit 0, its heads line naming the uneven split (6 / 2 and 3 /
+    1), every request served."""
+    import os
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *SERVE_CLI_TP], capture_output=True, text=True,
+                         timeout=600, cwd=str(ROOT),
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    lines = [l for l in run.stdout.splitlines() if l.startswith("req")]
+    heads = next((l for l in run.stdout.splitlines()
+                  if l.startswith("tensor parallel")), None)
+    out = {"argv": SERVE_CLI_TP, "returncode": run.returncode,
+           "heads_line": heads, "kinds": sorted({l.split()[2] for l in lines}),
+           "requests": len(lines), "wall_s": time.perf_counter() - t0,
+           "p50_line": next((l for l in run.stdout.splitlines()
+                             if l.startswith("p50")), None)}
+    print(json.dumps({"serve_cli_tp": out}))
+    if (run.returncode != 0 or len(lines) != 6 or heads is None
+            or "6 query / 2 KV heads on rank 0" not in heads
+            or "6/2, 3/1" not in heads or "cold" not in out["kinds"]):
+        raise AssertionError(f"serve --tp 2: {out}\n{run.stdout[-2000:]}\n"
+                             f"{run.stderr[-3000:]}")
     return out
 
 
@@ -6489,8 +6740,9 @@ def check_train_launches_rows(rows: list, cfg, tp: int, where: str) -> None:
 def _compare_pieces(plan, cfg, tree, want: dict | None, masked: bool = False,
                     held: dict | None = None) -> dict:
     """Every rank's piece of every leaf against the same piece of the one
-    process's ``want`` (host tensors on the plan's first rank), sent to
-    the rank that holds it (``dist.scatter`` through the host) and
+    process's ``want`` (host tensors on the plan's first rank), cut on
+    that rank's card (the host's strided copies took ~45 s of the phase),
+    sent to the rank that holds it (``dist.scatter`` through the host) and
     compared there on the card: per leaf, max |got - want| over the
     leaf's largest |want|; ``masked``, over the elements ``held`` marks
     only: their max |got - want| and whether each is within
@@ -6510,9 +6762,15 @@ def _compare_pieces(plan, cfg, tree, want: dict | None, masked: bool = False,
 
     def mine(full_of, dtype):
         recv = torch.empty(tuple(t.shape), dtype=dtype)
-        dist.scatter(recv, [p.shard(full_of, specs[path]).to(dtype).contiguous()
-                            for p in plans] if first else None,
-                     src=src, group=plan.world_group)
+        pieces = None
+        if first:
+            whole = full_of.to(t.device, dtype)
+            if all(e is None for e in specs[path]):
+                pieces = [whole.cpu()] * len(plans)
+            else:
+                pieces = [p.shard(whole, specs[path]).cpu() for p in plans]
+            del whole
+        dist.scatter(recv, pieces, src=src, group=plan.world_group)
         return recv.to(t.device)
 
     local = {}
@@ -6908,11 +7166,15 @@ def phase_train_tp(device, spawned: Background) -> dict:
 # a cache split by sequence (2,048 of 32,768 rows of every KV head), the
 # rank's 4 of 64 query heads, no FSDP (the reference's decode default);
 # ~4.3 GB of weights and 3.2 GB of cache drawn on the card from the seed
-DRYRUN_CELL = ("chameleon-34b", "decode_32k")
-DRYRUN_PEAK_TOL = 0.10
+# qwen3-14b decode_32k at (16, 16): its 40 / 8 heads split unevenly over
+# the model axis; rank 0 (the reckoned one) holds 3 query heads on 1 KV
+# head, the most of any rank; ~1.8 GB of weights and 5.4 GB of cache
+DRYRUN_CELLS = (("chameleon-34b", "decode_32k", (4, 1)),
+                ("qwen3-14b", "decode_32k", (3, 1)))
+DRYRUN_PEAK_TOL = 0.05
 
 
-def dry_run_cell() -> dict:
+def dry_run_cell(arch: str, shape: str) -> dict:
     """``launch.dryrun.run_cell`` on the card (its fake process group is
     this process's default group while the cell runs and is destroyed
     with it: no later phase sees it), the kernel launches of its two card
@@ -6921,34 +7183,56 @@ def dry_run_cell() -> dict:
     from repro_torch.launch import dryrun
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    art = dryrun.run_cell(*DRYRUN_CELL, device="cuda", verbose=False)
+    art = dryrun.run_cell(arch, shape, device="cuda", verbose=False)
     art["launches"] = ops.launch_counts()
     art["wall_s"] = time.perf_counter() - t0
     return art
 
 
 def phase_dryrun(device) -> dict:
-    """One rank of ``DRYRUN_CELL`` on the production mesh (16, 16), run
-    on the card under torch's fake process group, held against the ``meta`` reckoning of the same step: the step's peak
-    allocation above its arguments within ``DRYRUN_PEAK_TOL`` of the
-    reckoned peak, the collectives by kind and bytes equal, the slice
-    and merge entries launched once per layer per step; the step's device
-    ms printed beside the roofline's terms (``H100_SXM`` data-sheet
-    rates).  The fake group moves no data: the logits are not read."""
+    """One rank of each of ``DRYRUN_CELLS`` on the production mesh (16,
+    16), one after the other in this process, run on the card under
+    torch's fake process group, held against the ``meta`` reckoning of the
+    same step: the rank's query / KV heads, the step's peak allocation
+    above its arguments within ``DRYRUN_PEAK_TOL`` of the reckoned peak,
+    the collectives by kind and bytes equal, the slice and merge entries
+    launched once per layer per step; the step's device ms printed beside
+    the roofline's terms (``H100_SXM`` data-sheet rates).  The fake group
+    moves no data: the logits are not read.  ``serve_cli_tp`` (phase 15's
+    CLI run) runs beside it."""
     del device
+    cli = Background(serve_cli_tp)
+    try:
+        cells = [dryrun_cell_check(arch, shape, heads)
+                 for arch, shape, heads in DRYRUN_CELLS]
+    finally:
+        served = cli.join()
+    launches = {}
+    for c in cells:
+        for k, v in c["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    return {"cells": cells, "launches": launches, "serve_cli_tp": served}
+
+
+def dryrun_cell_check(arch: str, shape: str, heads: tuple) -> dict:
+    """One cell of ``phase_dryrun``."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     torch.cuda.empty_cache()
-    art = dry_run_cell()
+    art = dry_run_cell(arch, shape)
     if "refused" in art or "refused" in art.get("card", {"refused": "none"}):
-        raise AssertionError(f"dry run {DRYRUN_CELL} refused: {art}")
+        raise AssertionError(f"dry run {arch} {shape} refused: {art}")
     from repro_torch.models.registry import get_config
     on_card, mem = art["card"], art["memory"]
-    L = get_config(DRYRUN_CELL[0]).n_layers
+    L = get_config(arch).n_layers
     reckoned = mem["temp_size_in_bytes"]
     peak = on_card["peak_above_arguments"]
-    out = {"cell": list(DRYRUN_CELL), "mesh": art["meta"]["mesh"],
+    rank = art["meta"]["rank_heads"]
+    if (rank["query"], rank["kv"]) != heads or rank["most_query"] != heads[0]:
+        raise AssertionError(f"dry run {arch}: rank 0's heads {rank}")
+    out = {"cell": [arch, shape], "mesh": art["meta"]["mesh"],
+           "rank_heads": rank,
            "card": card, "step_ms": on_card["step_ms"],
            "roofline_ms": {k: art["roofline"][k] * 1e3 for k in
                            ("compute_s", "memory_s", "collective_s")},
@@ -7017,9 +7301,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                ssm["faas"]])
     for phase in big:
         rows += list(phase["serve"]) + [phase["engine"],
-                                        phase["engine"]["continuous"],
-                                        phase["faas"]] + (
-            [phase["faas_lora"]] if "faas_lora" in phase else [])
+                                        phase["engine"]["continuous"]] + [
+            phase[k] for k in ("faas", "faas_lora") if k in phase]
     if xlstm is not None:
         rows += [xlstm["serve"], xlstm["engine"],
                  xlstm["engine_prompts_continuous"], xlstm["faas"]]
@@ -7045,6 +7328,8 @@ def kernel_summary(kernels: list, serve: list, engine: list,
                  for counts in r["launches_per_rank"]]
         rows += [{"launches": r["launches"]} for tag in TP_SEQ_CASES
                  for run in ("tp1", "tp2") for r in tp[tag][run]["seq"]]
+        rows += [{"launches": c} for tag, _ in TP_WHISPER_CASES
+                 for c in tp[tag]["launches"]]
     if cluster is not None:
         rows += [cluster["instances"], {"launches": cluster["measure_launches"]}]
     if train_tp is not None:
@@ -7209,7 +7494,7 @@ def main(argv=None) -> int:
     train_tp = timed("train_tp", phase_train_tp, device, train_tp_ranks)
     llama = timed("llama", phase_llama, device, h2d)
     moe = timed("moe", phase_moe, device, h2d)
-    deepseek = timed("deepseek", phase_deepseek, device, h2d)
+    deepseek = timed("deepseek", phase_deepseek, device)
     xlstm = timed("xlstm", phase_xlstm, device, h2d)
     kernels += xlstm["kernels"]
     whisper = timed("whisper", phase_whisper, device)

@@ -81,8 +81,9 @@ class TracedArray:
         from repro_torch.distributed.sharding import shard_for_rank
         shape = list(self.shape)
         if spec.model_dim is not None:
-            parts = spec.parts or ((shape[spec.model_dim], plan.tp),)
-            shape[spec.model_dim] = sum(s // g for s, g in parts)
+            from repro_torch.distributed.sharding import piece_size
+            shape[spec.model_dim] = piece_size(spec, shape[spec.model_dim],
+                                               plan.tp, plan.rank)
         return TracedArray(
             fp=("shard", repr(spec), plan.tp, plan.rank, self.fp),
             shape=tuple(shape), dtype=self.dtype,

@@ -372,7 +372,8 @@ class TemplateServer:
                     **{e.key[0]: tensor_nbytes(pool[e.key[0]])
                        for e in entries}}
             stats.replicated_bytes = sum(
-                sharding.whole_bytes(specs[p], n) for p, n in held.items())
+                sharding.whole_bytes(specs[p], n, self.plan.tp, self.plan.rank)
+                for p, n in held.items())
 
         streamer = WeightStreamer(entries, resident, dynamic,
                                   device=device).start()

@@ -227,8 +227,9 @@ class Layout:
         """``(dim, weights)`` for a leaf whose 'model' dimension is cut in
         parts (``PartitionSpec.parts``) some of which several model ranks
         hold alike (a part of ``g`` pieces over ``tp`` ranks: each element
-        on ``tp / g`` of them): ``weights`` [the piece's size on ``dim``]
-        is ``g / tp`` per element, so a sum over the ranks counts each
+        on ``tp / g`` of them; a KV head of an uneven split on the ranks
+        of its block): ``weights`` [the piece's size on ``dim``] is one
+        over those ranks per element, so a sum over the ranks counts each
         element once.  None for every other leaf."""
         if path not in self._weights:
             spec, tp = self.specs[path], self.model.n
@@ -236,8 +237,9 @@ class Layout:
             out = None
             if (d is not None and not self.fsdp2d and tp > 1 and spec.parts
                     and any(g != tp for _, g in spec.parts)):
-                out = (d, torch.cat([torch.full((size // g,), g / tp)
-                                     for size, g in spec.parts]))
+                out = (d, torch.cat([
+                    torch.full((width,), weight) for width, weight in
+                    sharding.piece_weights(spec, tp, self.model.index)]))
             self._weights[path] = out
         return self._weights[path]
 

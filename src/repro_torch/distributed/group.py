@@ -69,8 +69,10 @@ the channel.
 ``guard=True`` (the tests and ``chip_smoke.py`` set it) adds the
 divergence guard: before each op every rank hashes the op, its
 arguments and the host state of every object it touches (a pool's page
-table, refcounts and free lists), and the outcome the ranks exchange
-after it carries the hash of the result's host part.  A mismatch raises
+table, refcounts and free lists; a tensor by its shape and dtype, a
+cache leaf's head axis left out, since ranks of heads split unevenly
+hold other counts of heads), and the outcome the ranks exchange after
+it carries the hash of the result's host part.  A mismatch raises
 :class:`DivergenceError` on every rank of the channel instead of a hang
 inside a later collective.
 
@@ -110,7 +112,7 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import (ServingMesh, ShardingPlan,
-                                              serving_plan)
+                                              cache_head_axis, serving_plan)
 
 _GROUP: Optional["TPGroup"] = None
 # device tensors at most this many elements cross the channel by value
@@ -200,15 +202,27 @@ _NEW = "__new_object__"
 _CLOSE = "__close__"
 
 
-def _digest(obj) -> str:
-    """Host state of an op's object for the divergence guard."""
+def _path(path: str, key) -> str:
+    return f"{path}.{key}" if path else str(key)
+
+
+def _digest(obj, path: str = "") -> str:
+    """Host state of an op's object (at ``path`` in a tree) for the
+    divergence guard."""
     fn = getattr(obj, "mirror_digest", None)
     if fn is not None:
         return fn()
     if isinstance(obj, torch.Tensor):
-        return f"tensor{tuple(obj.shape)}{obj.dtype}"
+        # a cache leaf's head axis left out: the ranks of heads split
+        # unevenly (``sharding.head_split``) hold other counts of heads
+        shape = list(obj.shape)
+        axis = cache_head_axis(path, obj.dim())
+        if axis is not None:
+            shape[axis] = "heads"
+        return f"tensor{tuple(shape)}{obj.dtype}"
     if isinstance(obj, dict):
-        return "{" + ",".join(f"{k}:{_digest(v)}" for k, v in obj.items()) + "}"
+        return "{" + ",".join(f"{k}:{_digest(v, _path(path, k))}"
+                              for k, v in obj.items()) + "}"
     return type(obj).__name__
 
 
@@ -464,11 +478,12 @@ class Channel:
                 self._value(result, args, wrapper._mirror_values, send=True)
 
 
-def _digest_args(x):
+def _digest_args(x, path: str = ""):
     if isinstance(x, (list, tuple)):
-        return [_digest_args(v) for v in x]
+        return [_digest_args(v, path) for v in x]
     if isinstance(x, dict) and not isinstance(x, MirrorDict):
-        return {k: _digest_args(v) for k, v in sorted(x.items())}
+        return {k: _digest_args(v, _path(path, k))
+                for k, v in sorted(x.items())}
     if isinstance(x, (int, float, bool, str, type(None))):
         return x
     if isinstance(x, np.ndarray):
@@ -476,7 +491,7 @@ def _digest_args(x):
     if (isinstance(x, torch.Tensor) and not x.is_meta
             and x.numel() <= SMALL_TENSOR):
         return x.cpu().tolist()
-    return _digest(x)
+    return _digest(x, path)
 
 
 def _select(result, args, sel: str):

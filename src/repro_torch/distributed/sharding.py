@@ -21,6 +21,15 @@ parameter by its ROLE in the Megatron layout:
     package's ``paged_cache_specs`` does: each rank keeps the KV heads its
     slice of query heads reads, so a rank's attention sees G = (H / tp) /
     KV_local query heads per KV head;
+  * heads the model axis does not divide (smollm's 9 over 2, gemma's 8
+    over 16) split unevenly (:func:`head_split`): the KV heads first, in
+    contiguous runs of whole query groups (``KV >= tp``) or each over a
+    contiguous block of ranks (``KV < tp``), then each KV head's query
+    heads over its block, the larger pieces first; every rank keeps the
+    uniform G of the kernels' contract, rank 0 holds the most in every
+    cell of the dry run, and a rank may hold none (it adds zeros to the
+    output projection's sum).  Where the axis divides, this is the even
+    placement above;
   * moe: the experts' stacked leaves over 'model' on the expert axis
     (expert parallelism, as the reference places them): rank ``r``
     holds experts ``[r E / tp, (r + 1) E / tp)``, whole; the router
@@ -52,15 +61,19 @@ parameter by its ROLE in the Megatron layout:
     ``all_reduce`` (``layers.split_rmsnorm``);
   * whisper: q / k / v by heads, ``wo`` and ``w2`` by rows, ``w1`` by
     columns, the output biases, LayerNorms and ``dec_pos`` replicated,
-    the self and cross caches by heads (specs only: enc-dec serves
-    through the sequential ``Engine``, which takes no plan).
+    the self and cross caches by heads (its ``Model.prefill`` and
+    ``decode_step`` serve under a plan; the sequential ``Engine`` takes
+    none for enc-dec, as the reference's).
 
 A spec is a :class:`PartitionSpec`, a tuple of ``None`` or an axis name
 per dimension as in JAX.  Its ``parts`` say how a ``'model'`` dimension
 splits when it is not one even split over the ranks: a sequence of
 ``(size, groups)`` segments, each cut into ``groups`` equal pieces, of
 which rank ``r`` keeps piece ``r * groups // tp`` (``groups < tp``: the
-piece is replicated over ``tp / groups`` ranks).
+piece is replicated over ``tp / groups`` ranks), or, for heads split
+unevenly, ``groups`` a tuple of every rank's ``(start, stop)`` in the
+segment (ranks sharing a KV head hold the same range, a rank with no
+head an empty one).
 
 The plan's functions keep the JAX names and signatures over a
 :class:`ServingMesh` ``(data, model)`` whose ``shape`` and
@@ -105,7 +118,7 @@ cross-attention), is the identity forward and sums backward;
 feeds split work through an input every rank holds (Mamba2's B / C
 columns, the mLSTM's ``x_inner`` columns and conv); :func:`sum_grad_kv`
 sums a KV head's projections' gradients over the ranks that share the
-head (``1 < kv_groups < tp``, the plan's ``kv_group``); a lookup or a
+head (:attr:`HeadSplit.shared`, the plan's ``kv_group``); a lookup or a
 gather's backward takes the rank's slice.  Under a ``prefer_seq`` plan
 :func:`seq_shard` gives the attention its sequence-split layout and
 :func:`gather_model` is its ``all_gather`` over the model axis.  :func:`vocab_cross_entropy` is the
@@ -119,6 +132,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import functools
 import time
 from typing import Any, Optional
 
@@ -162,7 +176,7 @@ class PartitionSpec(tuple):
     def __new__(cls, *entries, parts: Optional[tuple] = None):
         spec = super().__new__(cls, entries)
         spec.parts = None if parts is None else tuple(
-            (int(s), int(g)) for s, g in parts)
+            (int(s), _groups(g)) for s, g in parts)
         return spec
 
     def __repr__(self) -> str:
@@ -188,6 +202,41 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+def _groups(g):
+    """A segment's pieces: an int, or every rank's ``(start, stop)``."""
+    if isinstance(g, (tuple, list)):
+        return tuple((int(a), int(b)) for a, b in g)
+    return int(g)
+
+
+def _piece(seg: int, groups, tp: int, rank: int) -> tuple:
+    """``(offset, width)`` of rank ``rank``'s piece of a segment."""
+    if isinstance(groups, tuple):
+        a, b = groups[rank]
+        return a, b - a
+    width = seg // groups
+    return (rank * groups // tp) * width, width
+
+
+def piece_size(spec: PartitionSpec, size: int, tp: int, rank: int) -> int:
+    """The size of rank ``rank``'s piece of a ``size`` dimension that
+    ``spec`` puts over 'model' (of ``tp`` ranks)."""
+    return sum(_piece(seg, g, tp, rank)[1]
+               for seg, g in _segments(spec, size, tp))
+
+
+def piece_weights(spec: PartitionSpec, tp: int, rank: int) -> list:
+    """``[(width, weight)]`` per segment of rank ``rank``'s piece of the
+    'model' dimension: ``weight`` is one over the ranks holding that same
+    piece, so a sum over the ranks counts each element once."""
+    out = []
+    for seg, g in spec.parts or ():
+        mine = _piece(seg, g, tp, rank)
+        holders = sum(_piece(seg, g, tp, r) == mine for r in range(tp))
+        out.append((mine[1], 1.0 / holders))
+    return out
+
+
 def _replicated(ndim: int) -> PartitionSpec:
     return P(*[None] * ndim)
 
@@ -202,42 +251,133 @@ def _on(ndim: int, dim: int, parts=None) -> PartitionSpec:
 # what tensor parallelism serves
 # ---------------------------------------------------------------------------
 
+ITEM_12 = "ROADMAP Queue 1, item 12"
+
+
+def _sizes(n: int, parts: int) -> list:
+    """``n`` cut into ``parts`` contiguous pieces, the larger first."""
+    q, r = divmod(n, parts)
+    return [q + 1] * r + [q] * (parts - r)
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """The query and KV heads of every rank: ``q[r]`` and ``kv[r]`` are
+    rank ``r``'s ``[first, stop)`` (:func:`head_split`)."""
+    n_heads: int
+    n_kv: int
+    q: tuple
+    kv: tuple
+
+    @property
+    def tp(self) -> int:
+        return len(self.q)
+
+    @property
+    def even(self) -> bool:
+        """True where the model axis divides the heads: every rank holds
+        ``H / tp`` query heads and the KV heads split evenly or are kept
+        by blocks of ``tp / KV`` ranks (the even specs)."""
+        tp = self.tp
+        return self.n_heads % tp == 0 and (self.n_kv % tp == 0
+                                           or tp % self.n_kv == 0)
+
+    def holders(self, j: int) -> tuple:
+        """The ranks holding KV head ``j``."""
+        return tuple(r for r, (a, b) in enumerate(self.kv) if a <= j < b)
+
+    @property
+    def kv_whole(self) -> bool:
+        """True when every rank holds every KV head (one KV head, a query
+        head of it on every rank)."""
+        return self.tp > 1 and all(k == (0, self.n_kv) for k in self.kv)
+
+    @property
+    def shared(self) -> tuple:
+        """``(head, holders)`` of each KV head that several ranks hold,
+        but not all of them (each rank's K/V gradient of it is the partial
+        of its own query heads)."""
+        out = []
+        for j in range(self.n_kv):
+            ranks = self.holders(j)
+            if 1 < len(ranks) < self.tp:
+                out.append((j, ranks))
+        return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _head_split(H: int, KV: int, tp: int) -> HeadSplit:
+    G = H // KV
+    q, kv = [], []
+    if KV >= tp:
+        first = 0
+        for n in _sizes(KV, tp):
+            q.append((first * G, (first + n) * G))
+            kv.append((first, first + n))
+            first += n
+    else:
+        for j, block in enumerate(_sizes(tp, KV)):
+            first = j * G
+            for n in _sizes(G, block):
+                q.append((first, first + n))
+                kv.append((j, j + 1) if n else (j, j))
+                first += n
+    return HeadSplit(H, KV, tuple(q), tuple(kv))
+
+
+def head_split(cfg: ModelConfig, tp: int) -> HeadSplit:
+    """Which heads each of ``tp`` ranks holds.  The KV heads split first:
+    with ``KV >= tp`` each rank takes a contiguous run of ceil or floor
+    ``KV / tp`` whole KV groups (G = H / KV query heads each), the larger
+    runs first; with ``KV < tp`` each KV head goes to a contiguous block
+    of ceil or floor ``tp / KV`` ranks, the larger blocks first, and its G
+    query heads split over the block, the larger pieces first.  Every
+    rank keeps the kernels' uniform G; a rank may hold no head.  Where
+    the model axis divides the heads this is the even placement.  (The
+    reference's GSPMD cuts the flattened head axis instead; the port
+    keeps whole heads.)"""
+    return _head_split(cfg.n_heads, cfg.n_kv_heads, tp)
+
+
 def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Raise for head, expert or width counts the model axis does not
-    divide: attention heads (zamba's shared block, whisper's), Mamba2's
-    ``ssm_heads``, the xLSTM heads, experts and MLP widths.  Every family
-    has specs; whisper serves through the sequential ``Engine`` only,
-    which takes no plan (``models.registry``)."""
+    """Raise for counts the model axis does not divide and the port does
+    not split unevenly: MLA's heads, Mamba2's ``ssm_heads``, experts and
+    MLP widths (ROADMAP Queue 1, item 12).  Attention and xLSTM heads
+    split unevenly where the axis does not divide them
+    (:func:`head_split`).  Every family serves under a plan; whisper's
+    sequential ``Engine`` takes none (``runtime.engine``)."""
     if tp == 1:
         return
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    if H % tp:
-        raise ValueError(f"{cfg.name}: {H} query heads do not split over "
-                         f"{tp} ranks")
+    if cfg.use_mla:
+        if H % tp:
+            raise ValueError(f"{cfg.name}: {H} query heads of MLA do not "
+                             f"split over {tp} ranks: {ITEM_12}")
+    elif H < 1 or KV < 1 or H % KV:
+        raise ValueError(f"{cfg.name}: {H} query heads do not group over "
+                         f"{KV} KV heads")
     if cfg.family == "xlstm":
-        return                  # every xLSTM width is H times a head's
-    if not cfg.use_mla and KV % tp and tp % KV:
-        raise ValueError(f"{cfg.name}: {KV} KV heads neither split over nor "
-                         f"divide {tp} ranks")
+        return                  # every xLSTM width is heads times a head's
     if cfg.family == "zamba" and cfg.ssm_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.ssm_heads} Mamba2 heads do not "
-                         f"split over {tp} ranks")
+                         f"split over {tp} ranks: {ITEM_12}")
     if cfg.family == "moe":
         if cfg.n_experts % tp:
             raise ValueError(f"{cfg.name}: {cfg.n_experts} experts do not "
-                             f"split over {tp} ranks")
+                             f"split over {tp} ranks: {ITEM_12}")
         if cfg.shared_width % tp:
             raise ValueError(f"{cfg.name}: the shared experts' width "
                              f"{cfg.shared_width} does not split over {tp} "
-                             "ranks")
+                             f"ranks: {ITEM_12}")
     elif cfg.d_ff % tp:
         raise ValueError(f"{cfg.name}: d_ff {cfg.d_ff} does not split over "
-                         f"{tp} ranks")
+                         f"{tp} ranks: {ITEM_12}")
 
 
 def kv_groups(cfg: ModelConfig, tp: int) -> int:
-    """Pieces the KV heads are cut into: ``tp`` (KV heads split evenly)
-    or ``KV`` (fewer KV heads than ranks: one head per rank, shared)."""
+    """Pieces the KV heads are cut into where the model axis divides the
+    heads: ``tp`` (KV heads split evenly) or ``KV`` (fewer KV heads than
+    ranks: one head per rank, shared)."""
     return tp if cfg.n_kv_heads % tp == 0 else cfg.n_kv_heads
 
 
@@ -267,11 +407,17 @@ def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
     if tp == 1:
         return cfg
     check_tp(cfg, tp)
-    kv = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else 1
+    if cfg.use_mla:
+        per = cfg.n_heads // tp
+        q0, q1 = rank * per, (rank + 1) * per
+        k0, k1 = 0, cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else 1
+    else:
+        split = head_split(cfg, tp)
+        (q0, q1), (k0, k1) = split.q[rank], split.kv[rank]
     vocab = cfg.vocab_size // tp if vocab_parallel(cfg, tp) else cfg.vocab_size
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(ModelConfig)}
-    fields.update(n_heads=cfg.n_heads // tp, n_kv_heads=kv,
+    fields.update(n_heads=q1 - q0, n_kv_heads=k1 - k0,
                   d_ff=cfg.d_ff // tp, vocab_size=vocab)
     moe = {}
     if cfg.n_experts:
@@ -283,12 +429,14 @@ def local_config(cfg: ModelConfig, tp: int, rank: int) -> ModelConfig:
     if zamba:
         fields["ssm_heads"] = cfg.ssm_heads // tp
     mlp = cfg.slstm_mlp_width
+    h, H = (q1 - q0, cfg.n_heads) if xlstm else (1, 1)
     widths = dict(
         mamba_d_inner=cfg.mamba_width // (tp if zamba else 1),
-        mlstm_d_inner=cfg.mlstm_width // (tp if xlstm else 1),
-        slstm_d=cfg.slstm_width // (tp if xlstm else 1),
+        mlstm_d_inner=cfg.mlstm_width * h // H,
+        slstm_d=cfg.slstm_width * h // H,
         slstm_d_ff=mlp // tp if xlstm and slstm_mlp_split(cfg, tp) else mlp)
-    return RankConfig(**fields, **moe, **widths)
+    return RankConfig(**fields, **moe, **widths, first_head=q0,
+                      n_heads_total=cfg.n_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -308,8 +456,9 @@ class ShardingPlan:
     only; the reference's flash-decoding cache) splits an attention
     cache's sequence axis over the model ranks: a model under it prefills
     from position 0 and decodes over the split (``models.layers``).
-    ``kv_group`` (training, ``1 < kv_groups < tp``): the process group of
-    the ranks that hold this rank's KV head (:func:`with_kv_groups`)."""
+    ``kv_group`` (training, a KV head some but not all ranks hold): the
+    process group of the ranks that hold this rank's KV head
+    (:func:`with_kv_groups`)."""
     mesh: ServingMesh
     fsdp: bool = False
     rank: int = 0
@@ -408,23 +557,25 @@ def training_plan(mesh: ServingMesh, rank: int = 0, data_rank: int = 0,
 
 def with_kv_groups(plan: ShardingPlan, cfg: ModelConfig) -> ShardingPlan:
     """``plan`` with its ``kv_group``: under a training plan whose KV
-    heads are shared by some but not all model ranks (``1 < kv_groups <
-    tp``), one process group per (data slice, KV head) of the ranks that
-    hold that head, made with ``dist.new_group`` by every rank in the same
-    order (so every rank must call this as it builds its model); the plan
-    itself otherwise, or when it has no process group (specs only)."""
+    heads are shared by some but not all model ranks
+    (:attr:`HeadSplit.shared`), one process group per (data slice, such
+    KV head) of the ranks that hold that head, made with
+    ``dist.new_group`` by every rank in the same order (so every rank
+    must call this as it builds its model); the plan itself otherwise, or
+    when it has no process group (specs only)."""
     tp = plan.tp
-    g = kv_groups(cfg, tp) if tp > 1 and not cfg.use_mla else tp
-    if (not plan.training or not 1 < g < tp or plan.group is None
+    if (not plan.training or tp == 1 or cfg.use_mla or plan.group is None
             or plan.kv_group is not None):
+        return plan
+    shared = head_split(cfg, tp).shared
+    if not shared:
         return plan
     import torch.distributed as dist
     mine = None
     for i in range(plan.mesh.data):
-        for j in range(g):
-            group = dist.new_group([i * tp + r for r in range(tp)
-                                    if r * g // tp == j])
-            if i == plan.data_rank and j == plan.rank * g // tp:
+        for _, ranks in shared:
+            group = dist.new_group([i * tp + r for r in ranks])
+            if i == plan.data_rank and plan.rank in ranks:
                 mine = group
     return dataclasses.replace(plan, kv_group=mine)
 
@@ -433,11 +584,29 @@ def with_kv_groups(plan: ShardingPlan, cfg: ModelConfig) -> ShardingPlan:
 # specs (JAX names and signatures)
 # ---------------------------------------------------------------------------
 
-def _kv_spec(cfg: ModelConfig, ndim: int, dim: int, size: int, tp: int):
-    g = kv_groups(cfg, tp)
-    if g == 1:
+def _head_seg(cfg: ModelConfig, tp: int, size: int, kv: bool = False) -> tuple:
+    """One head-major segment of ``size`` over the query (or KV) heads:
+    ``(size, tp)`` or ``(size, kv_groups)`` where the model axis divides
+    the heads, else every rank's range (:func:`head_split`)."""
+    split = head_split(cfg, tp)
+    if split.even:
+        return (size, kv_groups(cfg, tp) if kv else tp)
+    spans, n = (split.kv, split.n_kv) if kv else (split.q, split.n_heads)
+    per = size // n
+    return (size, tuple((a * per, b * per) for a, b in spans))
+
+
+def _by_heads(ndim: int, dim: int, size: int, cfg: ModelConfig, tp: int,
+              kv: bool = False) -> PartitionSpec:
+    """A leaf cut on ``dim`` (of ``size``, head-major) by the rank's query
+    heads, or its KV heads (``kv``: replicated where every rank holds
+    every KV head)."""
+    seg = _head_seg(cfg, tp, size, kv)
+    if seg[1] == tp:
+        return _on(ndim, dim)
+    if kv and (seg[1] == 1 or head_split(cfg, tp).kv_whole):
         return _replicated(ndim)
-    return _on(ndim, dim, None if g == tp else ((size, g),))
+    return _on(ndim, dim, (seg,))
 
 
 # MLA's low-rank a-side: every rank computes the whole latent its heads read
@@ -462,29 +631,32 @@ def _mixer_spec(group: str, leaf: str, cfg: ModelConfig,
         if leaf == "out_proj":
             return _on(2, 0)
     elif group == "mlstm":
-        di, H = cfg.mlstm_input_width, cfg.n_heads
+        di, H, w = cfg.mlstm_input_width, cfg.n_heads, cfg.mlstm_width
+        gates = _head_seg(cfg, tp, H)
         if leaf == "up_proj":              # [D, x_inner (whole) | z]
-            return _on(2, 1, ((di, 1), (di, tp)))
+            return _on(2, 1, ((di, 1), _head_seg(cfg, tp, w)))
         if leaf == "conv_w":
             return _replicated(2)
         if leaf in ("wq", "wk", "wv"):
-            return _on(2, 1)
+            return _by_heads(2, 1, w, cfg, tp)
         if leaf == "w_if":                 # [d_inner, input gates | forget]
-            return _on(2, 1, ((H, tp), (H, tp)))
+            return _on(2, 1, (gates, gates))
         if leaf == "b_if":
-            return _on(1, 0, ((H, tp), (H, tp)))
+            return _on(1, 0, (gates, gates))
         if leaf == "norm":
-            return _on(1, 0)
+            return _by_heads(1, 0, w, cfg, tp)
         if leaf == "down_proj":
-            return _on(2, 0)
+            return _by_heads(2, 0, w, cfg, tp)
     elif group == "slstm":
-        split = slstm_mlp_split(cfg, tp)
+        split, w = slstm_mlp_split(cfg, tp), cfg.slstm_width
         if leaf == "w_in":                 # head-major columns
-            return _on(2, 1)
-        if leaf in ("b", "norm"):
-            return _on(1, 0)
+            return _by_heads(2, 1, 4 * w, cfg, tp)
+        if leaf == "b":
+            return _by_heads(1, 0, 4 * w, cfg, tp)
+        if leaf == "norm":
+            return _by_heads(1, 0, w, cfg, tp)
         if leaf == "r":                    # [H, dh, 4 dh], block-diagonal
-            return _on(3, 0)
+            return _by_heads(3, 0, cfg.n_heads, cfg, tp)
         if leaf in ("w_gate", "w_up"):
             return _on(2, 1) if split else _replicated(2)
         if leaf == "w_down":
@@ -526,17 +698,21 @@ def _param_spec(path: str, shape: tuple, cfg: ModelConfig,
     if leaf == "lm_head":
         return _on(2, 1) if vocab_parallel(cfg, tp) else _replicated(2)
     hd, H, KV, F = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    if leaf in ("wq", "w_gate", "w_up"):
+    if leaf in ("w_gate", "w_up"):
         return _on(2, 1)
+    if leaf == "wq":
+        return _by_heads(2, 1, H * hd, cfg, tp)
     if leaf == "bq":
-        return _on(1, 0)
-    if leaf in ("wo", "w_down"):
+        return _by_heads(1, 0, H * hd, cfg, tp)
+    if leaf == "w_down":
         return _on(2, 0)
+    if leaf == "wo":
+        return _by_heads(2, 0, H * hd, cfg, tp)
     if leaf in ("wk", "wv", "bk", "bv"):
-        return _kv_spec(cfg, ndim, ndim - 1, shape[-1], tp)
+        return _by_heads(ndim, ndim - 1, shape[-1], cfg, tp, kv=True)
     if leaf == "wqkv":
-        g = kv_groups(cfg, tp)
-        return _on(2, 1, ((H * hd, tp), (KV * hd, g), (KV * hd, g)))
+        kv = _head_seg(cfg, tp, KV * hd, kv=True)
+        return _on(2, 1, (_head_seg(cfg, tp, H * hd), kv, kv))
     if leaf == "w_gu":
         return _on(2, 1, ((F, tp), (F, tp)))
     if leaf.endswith("norm"):
@@ -697,10 +873,25 @@ def _state_spec(group: str, leaf: str, ndim: int, cfg: ModelConfig,
     weight is placed (Mamba2's x channels split, B and C whole; the
     mLSTM's whole)."""
     if leaf != "conv":
-        return _on(ndim, 2)
+        return (_on(ndim, 2) if group == "mamba"
+                else _by_heads(ndim, 2, cfg.n_heads, cfg, tp))
     if group == "mamba":
         return _on(ndim, 3, ((cfg.mamba_width, tp), (2 * cfg.ssm_state, 1)))
     return _replicated(ndim)
+
+
+def cache_head_axis(path: str, ndim: int) -> Optional[int]:
+    """The axis of a cache leaf (dense or paged, by its path) that holds
+    heads: a K/V leaf's 3 (``[L, B, T, KV, hd]``, ``[L, n_pages,
+    page_size, KV, ...]``), a recurrent state's 2 (``[L, B, H, ...]``);
+    None for MLA's latent and the conv windows.  Where the heads split
+    unevenly (:func:`head_split`) the ranks' leaves differ on it alone."""
+    parts = path.split(".")
+    if {"mamba", "mlstm", "slstm"} & set(parts):
+        return None if parts[-1] == "conv" else 2
+    if ndim < 4 or parts[-1] in LATENT_LEAVES:
+        return None
+    return 3
 
 
 def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
@@ -740,33 +931,28 @@ def cache_specs(model, cache_tree, mesh, batch: int, prefer_seq: bool = False,
         elif ndim < 4 or name in LATENT_LEAVES:
             return P(*entries)
         else:
-            spec = _kv_spec(cfg, ndim, 3, shape[3], tp)
+            spec = _by_heads(ndim, 3, shape[3], cfg, tp, kv=True)
         return P(*[e or s for e, s in zip(entries, spec)], parts=spec.parts)
 
     return map_with_path(choose, cache_tree)
 
 
-def paged_cache_specs(cache_tree, mesh):
+def paged_cache_specs(cache_tree, mesh, cfg: ModelConfig):
     """Specs of block-paged arenas (leaves ``[L, n_pages, page_size, KV,
     ...]``, the GLOBAL shapes; int8 scales ``[L, n_pages, page_size,
-    KV]``): the layer, page and in-page axes replicated (the page table
-    is host state), the KV heads over 'model': split when the axis
-    divides, one head per rank when the axis divides the ranks, else
-    replicated.  MLA's latent leaves (``LATENT_LEAVES``) are replicated:
-    every rank's pool allocates them whole."""
+    KV]``) of a model of configuration ``cfg``: the layer, page and
+    in-page axes replicated (the page table is host state), the KV heads
+    over 'model' as the rank's attention holds them (:func:`head_split`:
+    split, one head per block of ranks, or every head on every rank).
+    MLA's latent leaves (``LATENT_LEAVES``) are replicated: every rank's
+    pool allocates them whole."""
     tp = mesh.shape[MODEL]
 
     def choose(path, leaf):
-        shape = tuple(leaf.shape)
-        ndim = len(shape)
+        ndim = leaf.dim()
         if tp == 1 or ndim < 4 or path.rsplit(".", 1)[-1] in LATENT_LEAVES:
             return _replicated(ndim)
-        kv = shape[3]
-        if kv % tp == 0:
-            return _on(ndim, 3)
-        if tp % kv == 0 and kv > 1:
-            return _on(ndim, 3, ((kv, kv),))
-        return _replicated(ndim)
+        return _by_heads(ndim, 3, leaf.shape[3], cfg, tp, kv=True)
 
     return map_with_path(choose, cache_tree)
 
@@ -826,22 +1012,28 @@ def validate_specs(spec_tree, shape_tree, mesh) -> list:
                     bad.append((path, d, shape[d], n))
                 continue
             for seg, groups in _segments(spec, shape[d], mesh.shape[MODEL]):
-                if seg % groups:
+                if isinstance(groups, tuple):
+                    if (len(groups) != mesh.shape[MODEL]
+                            or any(not 0 <= a <= b <= seg for a, b in groups)):
+                        bad.append((path, d, seg, groups))
+                elif seg % groups:
                     bad.append((path, d, seg, groups))
     return bad
 
 
-def whole_bytes(spec: PartitionSpec, nbytes: int) -> int:
-    """Of a rank's ``nbytes`` of a leaf, the bytes every rank holds alike:
-    all of a replicated leaf, the segments of one group (``(size, 1)``:
-    Mamba2's B and C columns, the mLSTM's ``x_inner`` half of
-    ``up_proj``) of a split one."""
+def whole_bytes(spec: PartitionSpec, nbytes: int, tp: int = 1,
+                rank: int = 0) -> int:
+    """Of rank ``rank``'s ``nbytes`` of a leaf (of ``tp`` ranks), the bytes
+    every rank holds alike: all of a replicated leaf, the segments of one
+    group (``(size, 1)``: Mamba2's B and C columns, the mLSTM's
+    ``x_inner`` half of ``up_proj``) of a split one."""
     if spec.model_dim is None:
         return nbytes
     if not spec.parts:
         return 0
-    piece = sum(seg // groups for seg, groups in spec.parts)
-    return nbytes * sum(seg for seg, groups in spec.parts if groups == 1) // piece
+    piece = sum(_piece(seg, g, tp, rank)[1] for seg, g in spec.parts)
+    whole = sum(seg for seg, g in spec.parts if g == 1)
+    return nbytes * whole // piece if piece else 0
 
 
 def _even_piece(tensor: torch.Tensor, dim: int, n: int, index: int):
@@ -862,9 +1054,8 @@ def shard_for_rank(tensor: torch.Tensor, spec: PartitionSpec,
         tp, r = plan.mesh.model, plan.rank
         pieces, start = [], 0
         for seg, groups in _segments(spec, tensor.shape[d], tp):
-            width = seg // groups
-            first = start + (r * groups // tp) * width
-            pieces.append(tensor.narrow(d, first, width))
+            first, width = _piece(seg, groups, tp, r)
+            pieces.append(tensor.narrow(d, start + first, width))
             start += seg
         out = torch.cat(pieces, dim=d) if len(pieces) > 1 else pieces[0]
     for dim, entry in enumerate(spec):
@@ -896,13 +1087,15 @@ def assemble(pieces: list, spec: PartitionSpec, plan: ShardingPlan):
         return pieces[0]
     out, segs = [], _segments(spec, pieces[0].shape[d] * M, M) if not \
         spec.parts else spec.parts
-    start = 0
+    offsets = [0] * M                 # each rank's place in its own piece
     for seg, groups in segs:
-        width = seg // groups
-        for j in range(groups):
-            r = next(r for r in range(M) if r * groups // M == j)
-            out.append(pieces[r].narrow(d, start, width))
-        start += width
+        taken = 0
+        for r in range(M):
+            first, width = _piece(seg, groups, M, r)
+            if width and first == taken:
+                out.append(pieces[r].narrow(d, offsets[r], width))
+                taken += width
+            offsets[r] += width
     return torch.cat(out, dim=d)
 
 
@@ -914,13 +1107,11 @@ def assemble(pieces: list, spec: PartitionSpec, plan: ShardingPlan):
 class SeqShard:
     """A sequence-split cache's layout on this rank (``prefer_seq``):
     rank ``rank`` of ``tp`` holds rows ``[rank T_r, (rank + 1) T_r)`` of
-    all ``n_kv`` KV heads; each rank computes the new token's K/V for
-    its own KV heads (``kv_groups`` pieces: rank ``r`` holds piece ``r *
-    kv_groups // tp``)."""
+    all KV heads; each rank computes the new token's K/V for its own
+    heads, which ``split`` gives for every rank (:func:`head_split`)."""
     rank: int
     tp: int
-    n_kv: int
-    kv_groups: int
+    split: HeadSplit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -928,7 +1119,6 @@ class _Scope:
     plan: ShardingPlan
     cfg: ModelConfig          # the rank's local configuration
     vocab_split: bool         # embed and lm_head hold a vocabulary slice
-    kv_split: bool            # the K/V projections hold the rank's heads
     kv_shared: Any = None     # the group sharing this rank's KV head
     seq: Optional[SeqShard] = None
     kv_whole: bool = False    # one KV head, its projections on every rank
@@ -945,14 +1135,13 @@ def use_plan(plan: Optional[ShardingPlan], cfg: Optional[ModelConfig] = None):
     tensor parallelism) is one device."""
     scope = None
     if plan is not None and plan.tp > 1:
-        groups = kv_groups(cfg, plan.tp)
+        split = None if cfg.use_mla else head_split(cfg, plan.tp)
         seq = None
         if plan.prefer_seq and seq_split_cache(cfg):
-            seq = SeqShard(plan.rank, plan.tp, cfg.n_kv_heads, groups)
+            seq = SeqShard(plan.rank, plan.tp, split)
         scope = _Scope(plan, local_config(cfg, plan.tp, plan.rank),
-                       vocab_parallel(cfg, plan.tp), groups == plan.tp,
-                       plan.kv_group if 1 < groups < plan.tp else None, seq,
-                       groups == 1)
+                       vocab_parallel(cfg, plan.tp), plan.kv_group, seq,
+                       split is not None and split.kv_whole)
     token = _SCOPE.set(scope)
     try:
         yield
@@ -969,7 +1158,7 @@ def seq_split_cache(cfg: ModelConfig) -> bool:
     """True when ``prefer_seq`` splits ``cfg``'s attention cache by
     sequence: a GQA cache (dense, moe, zamba's shared block).  MLA's
     latent stays whole on every rank, as the port places it; the
-    recurrent states keep their heads; enc-dec serves without a plan."""
+    recurrent states keep their heads; enc-dec's caches keep their heads."""
     return (not cfg.use_mla and not cfg.is_encdec
             and cfg.family in ("dense", "moe", "zamba"))
 
@@ -1121,15 +1310,17 @@ class _SumBackward(torch.autograd.Function):
 
 
 class _PlaceSlices(torch.autograd.Function):
-    """The whole last axis from each rank's contiguous slice (zeros
-    elsewhere, summed over the ranks: exact); backward, the rank's
-    slice of the gradient."""
+    """The whole last axis (``total`` wide) from each rank's contiguous
+    slice, this rank's at ``first`` (zeros elsewhere, summed over the
+    ranks: exact); backward, the rank's slice of the gradient."""
 
     @staticmethod
-    def forward(ctx, x, plan):
+    def forward(ctx, x, plan, first=None, total=None):
         width = x.shape[-1]
-        ctx.first, ctx.width = plan.rank * width, width
-        full = torch.zeros(tuple(x.shape[:-1]) + (width * plan.tp,),
+        ctx.first = plan.rank * width if first is None else first
+        ctx.width = width
+        total = width * plan.tp if total is None else total
+        full = torch.zeros(tuple(x.shape[:-1]) + (total,),
                            dtype=torch.float32, device=x.device)
         full[..., ctx.first:ctx.first + width] = x
         _reduce(full, plan)
@@ -1137,7 +1328,7 @@ class _PlaceSlices(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return grad[..., ctx.first:ctx.first + ctx.width], None
+        return grad[..., ctx.first:ctx.first + ctx.width], None, None, None
 
 
 def rank_sum(plan: ShardingPlan):
@@ -1186,7 +1377,7 @@ def sum_grad_columns(w: torch.Tensor, start: int = 0,
 
 def sum_grad_kv(w: torch.Tensor) -> torch.Tensor:
     """A K/V projection leaf (``wk``, ``wv``, ``bk``, ``bv``) of a KV head
-    shared by some but not all ranks (``1 < kv_groups < tp``): the
+    shared by some but not all ranks (:attr:`HeadSplit.shared`): the
     identity forward, its gradient summed over the ranks that hold the
     head (the plan's ``kv_group``) backward; each rank's is the partial
     of its own query heads.  ``w`` itself otherwise."""
@@ -1245,15 +1436,17 @@ def gather_vocab(logits: torch.Tensor) -> torch.Tensor:
     return _PlaceSlices.apply(logits, scope.plan)
 
 
-def gather_columns(x: torch.Tensor) -> torch.Tensor:
-    """The whole last axis from each rank's contiguous slice of it (rank
-    ``r`` holds ``[r w, (r + 1) w)``): the slices placed in a zeroed full
-    row and summed over ranks (exact, one collective), as
+def gather_columns(x: torch.Tensor, first: Optional[int] = None,
+                   total: Optional[int] = None) -> torch.Tensor:
+    """The whole last axis (``total`` wide) from each rank's contiguous
+    slice of it (rank ``r`` holds ``[first, first + w)``; by default ``[r
+    w, (r + 1) w)`` of ``tp w``): the slices placed in a zeroed full row
+    and summed over ranks (exact, one collective), as
     :func:`gather_vocab`; ``x`` itself without a plan."""
     plan = current_plan()
     if plan is None:
         return x
-    return _PlaceSlices.apply(x, plan)
+    return _PlaceSlices.apply(x, plan, first, total)
 
 
 def vocab_split() -> bool:

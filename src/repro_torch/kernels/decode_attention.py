@@ -127,6 +127,7 @@ def _check(q, k, v) -> list:
              f"dtypes q={q.dtype} k={k.dtype} v={v.dtype}")
     _require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == d,
              f"shapes q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)}")
+    _require(H > 0 and KV > 0, f"H={H}, KV={KV}: no heads, a zero-sized grid")
     _require(H % KV == 0 and H // KV <= MAX_GROUP,
              f"H={H}, KV={KV} (G = H / KV must be at most {MAX_GROUP})")
     _require(d in HEAD_DIMS, f"head_dim {d} (one of {HEAD_DIMS})")

@@ -83,6 +83,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, lengths,
     _require(k_pages.dtype == (torch.int8 if quant else q.dtype),
              f"arena dtype {k_pages.dtype} with q {q.dtype}, scales={quant}")
     _require(v_pages.shape == k_pages.shape and dk == d, "arena shape")
+    _require(H > 0 and KV > 0, f"H={H}, KV={KV}: no heads, a zero-sized grid")
     _require(H % KV == 0 and H // KV <= MAX_GROUP,
              f"H={H}, KV={KV} (G = H / KV must be at most {MAX_GROUP})")
     _require(d in HEAD_DIMS, f"head_dim {d} (one of {HEAD_DIMS})")

@@ -214,7 +214,7 @@ def rmsnorm_split_bwd_ref(x, scale, dy, dots, rstd, d_global: int):
     xf = x.float()
     g = dy.float() * scale.float()
     dx = r * (g - xf * (r * r * dots.float()[..., None] / d_global))
-    dscale = (dy.float() * xf * r).reshape(-1, d).sum(dim=0)
+    dscale = (dy.float() * xf * r).flatten(0, -2).sum(dim=0)
     return dx.to(x.dtype), dscale.to(scale.dtype)
 
 

@@ -292,6 +292,10 @@ def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
     if meta.is_meta(x):
         return meta.kernel_call("rmsnorm_split", (x,), lambda: torch.empty(
             lead, dtype=torch.float32, device=x.device))
+    if x.numel() == 0:
+        # a rank that holds none of the row (a head split unevenly) adds
+        # nothing to the ranks' sums; on every device, with no launch
+        return torch.zeros(lead, dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
         return ref.rmsnorm_sumsq_ref(x)
     _require(x.device.type == "cuda", f"unsupported device {x.device}")
@@ -299,9 +303,7 @@ def rmsnorm_sumsq(x: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     stride = row_stride(x)
     sums = torch.empty(lead, dtype=torch.float32, device=x.device)
-    rows = x.numel() // d if d else 0
-    if rows == 0:
-        return sums
+    rows = x.numel() // d
     per = 16 // x.element_size()
     vec = d % per == 0 and stride % per == 0 and x.data_ptr() % 16 == 0
     fn = _build.function("repro_rmsnorm_sumsq", _SUMSQ_ARGTYPES)
@@ -395,13 +397,15 @@ def rmsnorm_split_dot(x: torch.Tensor, scale: torch.Tensor,
     if meta.is_meta(x):
         return meta.kernel_call("rmsnorm_split_bwd", (x, scale, dy), lambda: torch.empty(
             lead, dtype=torch.float32, device=x.device))
+    if x.numel() == 0:
+        # a rank that holds none of the row adds nothing to the ranks'
+        # dots (as :func:`rmsnorm_sumsq`)
+        return torch.zeros(lead, dtype=torch.float32, device=x.device)
     if x.device.type == "cpu":
         return ref.rmsnorm_split_dot_ref(x, scale, dy)
     dy = dy.contiguous()
     rows, d, stride = _bwd_check("rmsnorm_split backward", x, scale, dy)
     dots = torch.empty(lead, dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return dots
     fn = _build.function("repro_rmsnorm_bwd_split_dot", _SPLIT_DOT_ARGTYPES)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dots.data_ptr(),
@@ -427,6 +431,10 @@ def rmsnorm_split_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
             lambda: (torch.empty(x.shape, dtype=x.dtype, device=x.device),
                      torch.empty(scale.shape, dtype=scale.dtype,
                                  device=scale.device)))
+    if x.numel() == 0:
+        # no element of the row on this rank: no gradient to write
+        return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+                torch.zeros(scale.shape, dtype=scale.dtype, device=x.device))
     if x.device.type == "cpu":
         return ref.rmsnorm_split_bwd_ref(x, scale, dy, dots, rstd, d_global)
     dy = dy.contiguous()
@@ -437,8 +445,6 @@ def rmsnorm_split_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
     _require(d_global >= d, f"d_global {d_global} below the slice's {d}")
     dx = torch.empty(x.shape, dtype=torch.float32, device=x.device)
     dscale = torch.empty((d,), dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return dx, dscale.zero_()
     partial = torch.empty((-(-rows // BWD_CHUNK_ROWS), d), dtype=torch.float32,
                           device=x.device)
     fn = _build.function("repro_rmsnorm_bwd_split", _SPLIT_BWD_ARGTYPES)

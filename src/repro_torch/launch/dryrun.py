@@ -130,7 +130,8 @@ def spec_bytes(shape_tree, spec_tree, mesh) -> int:
                 n //= mesh.shape[DATA] * mesh.shape[MODEL]
             elif spec.parts:
                 size = leaf.shape[d]
-                n = n * sum(s // g for s, g in spec.parts) // size
+                n = n * sharding.piece_size(spec, size, mesh.shape[MODEL],
+                                            0) // size
             else:
                 n //= mesh.shape[MODEL]
         total += n
@@ -189,6 +190,7 @@ def cell_meta(arch: str, shape_name: str, mesh: Mesh,
             "overrides": overrides, "mesh": dict(mesh.axes),
             "placement": {"data": D, "model": M}, "param_mode": param_mode}
     try:
+        meta["rank_heads"] = _rank_heads(cfg, M if param_mode == "tp" else 1)
         p_specs = sharding.config_param_specs(cfg, M, fsdp=fsdp_on,
                                               mode=param_mode, data=D)
         meta["param_bytes_per_device"] = spec_bytes(full, p_specs, place)
@@ -215,6 +217,21 @@ def cell_meta(arch: str, shape_name: str, mesh: Mesh,
         return cfg, meta, full
     except (NotImplementedError, ValueError) as e:
         raise Refused(f"{type(e).__name__}: {e}") from e
+
+
+def _rank_heads(cfg, tp: int) -> dict:
+    """The reckoned rank's (global rank 0's) query and KV heads, the most
+    any rank holds, and whether the model axis divides the heads (else
+    they split unevenly, ``sharding.head_split``)."""
+    sharding.check_tp(cfg, tp)
+    if cfg.use_mla or tp == 1:
+        return {"query": cfg.n_heads // tp, "kv": cfg.n_kv_heads,
+                "most_query": cfg.n_heads // tp, "even": True}
+    split = sharding.head_split(cfg, tp)
+    (q0, q1), (k0, k1) = split.q[0], split.kv[0]
+    return {"query": q1 - q0, "kv": k1 - k0,
+            "most_query": max(b - a for a, b in split.q),
+            "even": split.even}
 
 
 def build_cell(arch: str, shape_name: str, mesh: Mesh,
@@ -277,12 +294,10 @@ def _replicated_cache(model: Model, batch: int, seq: int, device) -> dict:
     whole = Model(model.cfg, device).make_cache(batch, seq, device=device)
     cache = model.make_cache(batch, seq, device=device)
     kv, wkv = cache.get("attn_kv", cache), whole.get("attn_kv", whole)
+    first = sharding.head_split(model.cfg, plan.tp).kv[plan.rank][0]
     for name in ("k", "v"):
         if name in kv and kv[name].shape != wkv[name].shape:
-            per = kv[name].shape[3]
-            groups = wkv[name].shape[3] // per
-            kv[name] = wkv[name].narrow(3, plan.rank * groups // plan.tp * per,
-                                        per)
+            kv[name] = wkv[name].narrow(3, first, kv[name].shape[3])
     return cache
 
 
@@ -302,22 +317,30 @@ def _serve_cell(cfg, full, meta, overrides, device) -> Cell:
     plan = (dry.rank_plan(D, M, training=True, fsdp=True) if meta["fsdp"]
             else dry.rank_plan(D, M, prefer_seq=prefer_seq))
     model = Model(cfg, device, plan)
+    # the reference's input shapes (its registry's input_specs): enc-dec
+    # prefills frames [rows, seq, D] and min(max_dec_len, seq) tokens, and
+    # decodes at its last decoder position
+    dec = min(cfg.max_dec_len, seq) if cfg.is_encdec else seq
 
     def make_args(dev):
+        model.layout       # the FSDP layout is built before the trace
         params = _params(model, full, dev)
         cache = (_replicated_cache(model, rows, seq, dev) if replicate
                  else model.make_cache(rows, seq, device=dev))
         if decode:
             return params, cache, {"tokens": torch.zeros(
                 (rows, 1), dtype=torch.int32, device=dev)}
-        inputs = {"tokens": torch.zeros((rows, seq), dtype=torch.int32,
+        inputs = {"tokens": torch.zeros((rows, dec), dtype=torch.int32,
                                         device=dev)}
+        if cfg.is_encdec:
+            inputs["frames"] = torch.zeros((rows, seq, cfg.d_model),
+                                           dtype=model.dtype, device=dev)
         return params, cache, inputs
 
     def step(params, cache, inputs):
         with fsdp.use_layout(model.layout):
             if decode:
-                return model.decode_step(params, cache, inputs, seq - 1)
+                return model.decode_step(params, cache, inputs, dec - 1)
             return model.prefill(params, inputs, cache)
     return Cell(model, meta, make_args, step)
 

@@ -57,8 +57,11 @@ deepseek-v3-671b --tp 2 --layers 1`` serve on one card; ``--lora
 of the query projection.  zamba2-2.7b and xlstm-1.3b serve at ``--tp
 N`` too (a rank holds its Mamba2, attention, mLSTM and sLSTM heads; the
 norms over a split row run the split-row rmsnorm), ``--lora`` on zamba
-merging into its shared block's query projection.  whisper-medium
-exits under ``--tp`` as without it.
+merging into its shared block's query projection.  Heads the model
+axis does not divide split unevenly (``sharding.head_split``: ``--arch
+smollm-135m --tp 2`` serves 6 query / 2 KV heads on rank 0 and 3 / 1 on
+rank 1).  whisper-medium exits under ``--tp`` as without it (it serves
+under a plan through ``Model.prefill`` and ``decode_step``).
 
 ``--instances K`` serves K instances (``ServingMesh(K, 1)``), instance i
 on ``cuda:(i mod device_count)`` (K instances share one card), each with
@@ -272,12 +275,18 @@ def serve(args, group=None) -> None:
         else:
             heads = (f"{local.n_heads} MLA heads" if cfg.use_mla else
                      f"{local.n_heads} query / {local.n_kv_heads} KV heads")
+        per = " per rank"
+        split = None if cfg.use_mla else sharding.head_split(cfg, group.size)
+        if split is not None and not split.even:
+            per = " on rank 0 (split unevenly: " + ", ".join(
+                f"{b - a}/{d - c}" for (a, b), (c, d) in zip(split.q, split.kv)
+            ) + ")"
         if cfg.family == "zamba":
             heads += f", {local.ssm_heads} Mamba2 heads"
         first, end = local.expert_range
         experts = f", {end - first} experts" if cfg.n_experts else ""
         print(f"tensor parallel: {group.size} ranks ({group.backend}), "
-              f"{heads}{experts} per rank")
+              f"{heads}{experts}{per}")
         if group.n_instances > 1:
             ranks = [list(range(i * group.size, (i + 1) * group.size))
                      for i in range(group.n_instances)]

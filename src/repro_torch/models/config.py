@@ -135,6 +135,27 @@ class ModelConfig:
         sums then meet in an ``all_reduce``); False on one device."""
         return False
 
+    @property
+    def head_first(self) -> int:
+        """The first of the query heads this configuration holds (0 on one
+        device; see :class:`RankConfig`)."""
+        return 0
+
+    @property
+    def heads_total(self) -> int:
+        """The model's query heads, all of them (on every rank)."""
+        return self.n_heads
+
+    @property
+    def mlstm_head_dim(self) -> int:
+        """One mLSTM head's width."""
+        return ModelConfig.mlstm_width.fget(self) // self.heads_total
+
+    @property
+    def slstm_head_dim(self) -> int:
+        """One sLSTM head's width."""
+        return ModelConfig.slstm_width.fget(self) // self.heads_total
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -152,7 +173,13 @@ class RankConfig(ModelConfig):
     ``mamba_d_inner`` (its ``ssm_heads`` are in the base field), the
     mLSTM heads' ``mlstm_d_inner`` (its ``x_inner`` input stays whole),
     the sLSTM heads' ``slstm_d`` and the sLSTM post-MLP's ``slstm_d_ff``
-    (all of it where the model axis does not divide it)."""
+    (all of it where the model axis does not divide it).  Heads split
+    unevenly where the model axis does not divide them
+    (``distributed.sharding.head_split``): the rank's query heads are
+    ``[first_head, first_head + n_heads)`` of ``n_heads_total``, and a
+    rank may hold none."""
+    first_head: int = 0
+    n_heads_total: int = 0
     expert_first: int = 0
     n_local_experts: int = 0
     shared_d_ff: int = 0
@@ -164,6 +191,14 @@ class RankConfig(ModelConfig):
     @property
     def expert_range(self) -> tuple:
         return (self.expert_first, self.expert_first + self.n_local_experts)
+
+    @property
+    def head_first(self) -> int:
+        return self.first_head
+
+    @property
+    def heads_total(self) -> int:
+        return self.n_heads_total
 
     @property
     def shared_width(self) -> int:

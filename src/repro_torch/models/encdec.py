@@ -42,8 +42,11 @@ each, their biases added once after it; the embedding's lookup and the
 tied head run vocab-parallel where the embedding is split, the loss
 without gathering the logits; under FSDP each block gathers its leaves
 as it starts (a remat'd decoder block again when it is recomputed).
-Serving under a plan raises, as in the reference: enc-dec generates
-through the sequential ``Engine``, which takes no plan.
+Under a serving plan ``prefill`` and ``decode_step`` run the rank's
+heads of the encoder, the decoder's self-attention and its
+cross-attention, with their caches (``cfg`` the rank's), and the MLPs'
+slices; the odd vocabulary stays whole.  The sequential ``Engine`` takes
+no plan for enc-dec, as the reference's does not.
 
 The JAX reference rounds the softmax probabilities to v's dtype before
 the P V product (``repro.models.layers._sdpa``); the kernels keep them in

@@ -10,6 +10,7 @@ versions (CPU tensors), and so does every RMSNorm.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -93,19 +94,22 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
 
 
 def split_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-                  eps: float = 1e-6) -> torch.Tensor:
+                  eps: float = 1e-6, width: Optional[int] = None) -> torch.Tensor:
     """RMSNorm of a row a sharding plan cuts over the ranks (the recurrent
     mixers' inner norms): ``x`` and ``scale`` hold this rank's slice of
     every row, and the mean of squares is the whole row's, the slices'
     sums of squares added over the ranks (one ``all_reduce`` of a fp32
     ``[rows]`` buffer) between the split-row form's two launches.  A
     slice normalised alone would take its own mean.  Training, its
-    backward sums each row's dot over the ranks the same way.  Without a
-    plan the one-launch :func:`rmsnorm`."""
+    backward sums each row's dot over the ranks the same way.  ``width``
+    is the whole row's (by default ``tp`` slices as wide as this one; the
+    xLSTM's heads may split unevenly).  Without a plan the one-launch
+    :func:`rmsnorm`."""
     plan = sharding.current_plan()
     if plan is None:
         return ops.rmsnorm(x, scale, eps)
-    return ops.rmsnorm_split(x, scale, eps, x.shape[-1] * plan.tp,
+    return ops.rmsnorm_split(x, scale, eps,
+                             width or x.shape[-1] * plan.tp,
                              sharding.rank_sum(plan))
 
 
@@ -218,12 +222,15 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
 
     Under a ``prefer_seq`` plan the dense cache holds this rank's slice of
     the sequence axis for every KV head (:func:`_seq_split_attention`).
+    A rank that holds no head (heads split unevenly) runs the same
+    products on empty tensors, so its collectives match the other
+    ranks', and launches no attention kernel.
 
     Caches are updated in place and the block returns ``(y, kv_cache)``.
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    G = H // KV
+    G = H // KV if KV else 0
     kv_whole = sharding.kv_whole()
     xq = sharding.copy_to_model(x)
     xkv = x if kv_whole else xq
@@ -261,7 +268,14 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     softcap = cfg.attn_logit_softcap
     seq = sharding.seq_shard()
 
-    if kv_cache is not None and seq is not None:
+    if H == 0 and seq is None:
+        # a rank holding no head (an uneven split) launches no attention
+        # kernel (a zero-sized grid); its empty output adds zeros below,
+        # and in training its empty K/V join it, so that a step takes
+        # their (empty) gradients
+        out = q + (k.sum() + v.sum()).to(q.dtype) \
+            if torch.is_grad_enabled() else q
+    elif kv_cache is not None and seq is not None:
         if page_table is not None:
             raise NotImplementedError(
                 "a paged arena is not split by sequence (prefer_seq)")
@@ -334,15 +348,40 @@ def attention_block(p: dict, x: torch.Tensor, cfg: ModelConfig,
     return sharding.all_reduce(y), kv_cache
 
 
-def _kv_heads(x: torch.Tensor, seq) -> torch.Tensor:
-    """The whole KV-head axis from every rank's ``x [tp, ..., KV_r, hd]``
-    (gathered in rank order): the ranks' heads side by side when they
-    split the heads, else one rank's copy of each shared head (rank ``j
-    tp / kv_groups`` holds head ``j``)."""
-    if seq.kv_groups != seq.tp:
-        x = x[::seq.tp // seq.kv_groups]
-    x = x.movedim(0, -3)                             # [..., tp', KV_r, hd]
-    return x.reshape(tuple(x.shape[:-3]) + (seq.n_kv, x.shape[-1]))
+def _select_heads(x: torch.Tensor, at: tuple) -> torch.Tensor:
+    """``x [tp, ..., n, hd]`` (every rank's heads, padded to ``n``) as
+    ``[..., len(ranks), hd]``: head ``heads[i]`` of rank ``ranks[i]``,
+    ``at = (ranks, heads)`` (:func:`_q_index`, :func:`_kv_index`)."""
+    ranks, heads = at
+    return x[ranks, ..., heads, :].movedim(0, -2)
+
+
+@functools.lru_cache(maxsize=None)
+def _kv_index(split, device: str) -> tuple:
+    """Each KV head's place among the ranks' heads: ``(ranks, heads)``,
+    in the first rank that holds it."""
+    ranks = [split.holders(j)[0] for j in range(split.n_kv)]
+    heads = [j - split.kv[r][0] for j, r in enumerate(ranks)]
+    return (torch.tensor(ranks, dtype=torch.long, device=device),
+            torch.tensor(heads, dtype=torch.long, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _q_index(split, device: str) -> tuple:
+    """Each query head's place among the ranks' heads: ``(ranks,
+    heads)``."""
+    at = [(r, i) for r, (a, b) in enumerate(split.q) for i in range(b - a)]
+    return tuple(torch.tensor(c, dtype=torch.long, device=device)
+                 for c in zip(*at))
+
+
+def _pad_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x [..., h, hd]`` with zero heads appended up to ``n``."""
+    h = x.shape[-2]
+    if h == n:
+        return x
+    pad = x.new_zeros(tuple(x.shape[:-2]) + (n - h, x.shape[-1]))
+    return torch.cat([x, pad], dim=-2)
 
 
 def _seq_split_attention(q, k, v, kv_cache: dict, cache_pos, seq,
@@ -362,9 +401,15 @@ def _seq_split_attention(q, k, v, kv_cache: dict, cache_pos, seq,
       rows for all H query heads, the ranks' ``(o, lse)`` are gathered (one
       ``all_gather``, fp32) and ``decode_merge_ranks`` combines them in
       rank order; the rank keeps its own heads' rows.
+    Each rank's heads go into a gather padded with zero heads to the
+    most any rank holds (a gather takes one size from every rank; where
+    the heads split evenly there is nothing to pad), and the heads are
+    picked out of it by index (:func:`_q_index`, :func:`_kv_index`).
     A suffix or chunked prefill raises (ROADMAP Queue 1, item 10)."""
     B, S, Hr, hd = q.shape
-    KVr = k.shape[2]
+    split = seq.split
+    Hm = max(b - a for a, b in split.q)
+    KVm = max(b - a for a, b in split.kv)
     ck, cv = kv_cache["k"], kv_cache["v"]             # [B, T_r, KV, hd]
     Tr, r0 = ck.shape[1], seq.rank * ck.shape[1]
     if S > 1:
@@ -375,26 +420,30 @@ def _seq_split_attention(q, k, v, kv_cache: dict, cache_pos, seq,
         if S > Tr * seq.tp:
             raise ValueError(f"a prompt of {S} tokens overflows a cache of "
                              f"{Tr * seq.tp} rows")
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=True,
-                                  softcap=softcap).transpose(1, 2)
-        kv = _kv_heads(sharding.gather_model(torch.cat([k, v], dim=-1)), seq)
+        out = q if Hr == 0 else ops.flash_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, softcap=softcap).transpose(1, 2)
+        kv = _select_heads(sharding.gather_model(
+            _pad_heads(torch.cat([k, v], dim=-1), KVm)),
+            _kv_index(split, str(q.device)))
         n = min(max(S - r0, 0), Tr)
         ck[:, :n] = kv[:, r0:r0 + n, :, :hd].to(ck.dtype)
         cv[:, :n] = kv[:, r0:r0 + n, :, hd:].to(cv.dtype)
         return out
     if softcap > 0:
         raise NotImplementedError("decode_attention has no logit softcap")
-    H = Hr * seq.tp
+    H = split.n_heads
     rows = sharding.gather_model(torch.cat(
-        [q.reshape(B, Hr * hd), k.reshape(B, KVr * hd), v.reshape(B, KVr * hd)],
-        dim=-1))                                      # [tp, B, (Hr + 2 KVr) hd]
-    q_all = rows[..., :Hr * hd].reshape(seq.tp, B, Hr, hd).transpose(0, 1)
-    q_all = q_all.reshape(B, H, hd).contiguous()
-    k_new = _kv_heads(rows[..., Hr * hd:(Hr + KVr) * hd]
-                      .reshape(seq.tp, B, KVr, hd), seq)
-    v_new = _kv_heads(rows[..., (Hr + KVr) * hd:].reshape(seq.tp, B, KVr, hd),
-                      seq)
+        [_pad_heads(t[:, 0], n).reshape(B, n * hd)
+         for t, n in ((q, Hm), (k, KVm), (v, KVm))],
+        dim=-1))                                      # [tp, B, (Hm + 2 KVm) hd]
+    qs = rows[..., :Hm * hd].reshape(seq.tp, B, Hm, hd)
+    q_all = _select_heads(qs, _q_index(split, str(q.device))).contiguous()
+    kv_at = _kv_index(split, str(q.device))
+    k_new = _select_heads(rows[..., Hm * hd:(Hm + KVm) * hd]
+                          .reshape(seq.tp, B, KVm, hd), kv_at)
+    v_new = _select_heads(rows[..., (Hm + KVm) * hd:]
+                          .reshape(seq.tp, B, KVm, hd), kv_at)
     pos = torch.as_tensor(cache_pos, dtype=torch.int64, device=q.device)
     pos = pos.reshape(-1).expand(B)
     local = pos - r0
@@ -410,7 +459,7 @@ def _seq_split_attention(q, k, v, kv_cache: dict, cache_pos, seq,
     merged = ops.decode_merge_ranks(
         parts[..., :H * hd].reshape(seq.tp, B, H, hd),
         parts[..., H * hd:].contiguous(), q.dtype)
-    first = seq.rank * Hr
+    first = split.q[seq.rank][0]
     return merged[:, first:first + Hr][:, None]
 
 

@@ -12,7 +12,8 @@ a tensor-parallel model (under a training plan also its data-parallel
 and FSDP part: ``forward(training=True)`` and ``loss`` of the dense and
 moe families, MLA included, run on the rank's rows through
 ``distributed.fsdp``): its parameters, caches and arenas hold the
-rank's shard (``local_cfg``: its heads, ``d_ff`` and vocabulary slice,
+rank's shard (``local_cfg``: its heads, evenly or not
+(``sharding.head_split``), ``d_ff`` and vocabulary slice,
 a moe layer's experts and MLA's heads, the recurrent mixers' heads and
 widths; MLA's latent arenas whole),
 its calls run under ``sharding.use_plan`` and meet the other ranks in
@@ -24,7 +25,10 @@ instance's ranks).  An adapter bank under a plan holds the rank's shard
 delta joins the rank's partial before the one ``all_reduce``.  ``init_params`` under a plan draws every full leaf from the
 seed and keeps the rank's slice, so one seed gives the same weights at
 every ``tp``.  The decoder families run ``models.transformer``, enc-dec (whisper)
-``models.encdec``, whose prefill inputs also carry ``frames`` [B, S_enc,
+``models.encdec`` (under a serving plan its ``prefill`` and
+``decode_step`` run the rank's heads of the encoder and both
+attentions; the sequential ``Engine`` takes no plan for it, as the
+reference's), whose prefill inputs also carry ``frames`` [B, S_enc,
 D] (cast to the model's dtype here, where the JAX package would promote
 a bf16 model's encoder to the frames' fp32).  Inputs that are ``meta``
 tensors (``input_specs``, tracing) pass through as they are.
@@ -82,13 +86,6 @@ class Model:
             self.plan = None
         if self.plan is not None and self.plan.training:
             self.plan = sharding.with_kv_groups(self.plan, self.cfg)
-        if (self.plan is not None and self.cfg.is_encdec
-                and not self.plan.training):
-            raise NotImplementedError(
-                f"{self.cfg.name}: enc-dec serves through the sequential "
-                "Engine, which takes no sharding plan (as the reference's "
-                "Engine; its continuous engine refuses enc-dec); "
-                "sharding.param_specs and cache_specs place its leaves")
         self._local_cfg = (self.cfg if self.plan is None
                            else sharding.local_config(self.cfg, self.plan.tp,
                                                       self.plan.rank))
@@ -114,12 +111,15 @@ class Model:
             raise ValueError(f"{cfg.name}: {what} under a serving plan: "
                              "train under sharding.training_plan")
         tp = self.plan.tp
-        groups = sharding.kv_groups(cfg, tp)
-        if tp > 1 and groups == 1 and cfg.fused_qkv:
+        split = (sharding.head_split(cfg, tp) if tp > 1 and not cfg.use_mla
+                 else None)
+        if cfg.fused_qkv and split is not None and (
+                split.kv_whole or (not split.even and split.shared)):
             raise NotImplementedError(
-                f"{cfg.name}: {cfg.n_kv_heads} KV head shared by all {tp} "
-                "ranks needs its gradient summed over them, which a fused "
-                "wqkv cannot take apart from q's: ROADMAP Queue 1, item 10")
+                f"{cfg.name}: {cfg.n_kv_heads} KV head(s) shared by several "
+                f"of {tp} ranks need their gradient summed over them, which "
+                "a fused wqkv cannot take apart from q's: ROADMAP Queue 1, "
+                "item 10")
         stack = contextlib.ExitStack()
         stack.enter_context(self._scope())
         stack.enter_context(fsdp.use_layout(self.layout))
@@ -301,8 +301,10 @@ class Model:
         [B] selects each sequence's LoRA row.  Enc-dec: encode
         ``inputs['frames']``, then the prompt."""
         if self.is_encdec:
-            return encdec.prefill(params, self.cfg, self._frames(inputs),
-                                  self._tokens(inputs), cache)
+            with self._scope():
+                return encdec.prefill(params, self.local_cfg,
+                                      self._frames(inputs),
+                                      self._tokens(inputs), cache)
         with self._scope():
             return transformer.prefill(params, self.local_cfg,
                                        self._tokens(inputs), cache,
@@ -330,8 +332,9 @@ class Model:
                 raise ValueError(
                     f"{self.cfg.name}: enc-dec decodes the whole batch at one "
                     "position; pos must be a scalar")
-            return encdec.decode_step(params, self.cfg, cache,
-                                      self._tokens(inputs), int(pos))
+            with self._scope():
+                return encdec.decode_step(params, self.local_cfg, cache,
+                                          self._tokens(inputs), int(pos))
         with self._scope():
             return transformer.decode_step(params, self.local_cfg, cache,
                                            self._tokens(inputs), pos)

@@ -15,14 +15,21 @@ The mLSTM (matrix memory, exponential gates, max-stabilised) runs the
 reference's chunked form operation for operation (``mlstm_chunked``),
 and the sLSTM its recurrence one step per token; both are PyTorch ops on
 every device, as the reference runs them in XLA outside any Pallas
-kernel.  Their RMSNorms go through the ``rmsnorm`` kernel.
+kernel.  Both loops go through :func:`scan`, which over ``meta``
+tensors runs the stand-in of a shape-only reckoning where one is set
+(``distributed.dry``).  Their RMSNorms go through the ``rmsnorm``
+kernel.
 
 Under a sharding plan each mixer runs the rank's heads (``cfg`` is the
 rank's configuration, ``distributed.sharding.local_config``): the norm
 over a row the ranks split takes the split-row form
 (``layers.split_rmsnorm``), Mamba2's ``out_proj`` and the mLSTM's
 ``down_proj`` end in one ``all_reduce``, and the sLSTM's heads are
-gathered to the whole row.  For training, each mixer's input enters the
+gathered to the whole row.  The xLSTM's heads may split unevenly
+(``distributed.sharding.head_split``): a rank's widths are its heads',
+the split-row norms and the sLSTM's gather take the whole row's, and a
+rank holding no head runs its products on empty tensors (zeros into
+the sums).  For training, each mixer's input enters the
 rank's heads through ``sharding.copy_to_model`` (its gradient summed
 over the ranks), and the replicated weights that turn it into what
 every head reads (Mamba2's B / C columns of ``in_proj`` and ``conv_w``,
@@ -35,8 +42,10 @@ States are carried in float32.
 
 from __future__ import annotations
 
+import contextvars
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -190,6 +199,27 @@ def make_mlstm_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     }
 
 
+# a stand-in for :func:`scan` over ``meta`` tensors, or None
+# (``distributed.dry.peak_bytes`` sets one for its shape-only reckoning)
+META_SCAN: contextvars.ContextVar = contextvars.ContextVar("meta_scan",
+                                                          default=None)
+
+
+def scan(step: Callable, xs: tuple, state: tuple) -> tuple:
+    """A recurrence over axis 1 of ``xs`` (each [B, T, ...]), one step at
+    a time: ``step(*x_t, *state) -> (y_t, state)``.  Returns (the ``y_t``
+    stacked on axis 1, the last state).  Over ``meta`` tensors the
+    stand-in in ``META_SCAN`` runs instead, where one is set."""
+    stand_in = META_SCAN.get()
+    if stand_in is not None and xs[0].is_meta:
+        return stand_in(step, xs, state)
+    ys = []
+    for t in range(xs[0].shape[1]):
+        y, state = step(*(x[:, t] for x in xs), *state)
+        ys.append(y)
+    return torch.stack(ys, dim=1), tuple(state)
+
+
 def mlstm_chunked(q, k, v, i_raw, f_raw, chunk: int,
                   state: Optional[dict] = None):
     """The stabilised chunked mLSTM of the reference (``_mlstm_chunked``).
@@ -224,41 +254,44 @@ def mlstm_chunked(q, k, v, i_raw, f_raw, chunk: int,
         C, n, m = state["C"], state["n"], state["m"]
 
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=q.device))
-    neg_inf = torch.finfo(f32).min
-    ys = []
-    for c in range(K):
-        qq, kk, vv, ii = qc[:, c], kc[:, c], vc[:, c], ic[:, c]
-        Fc, Ft = F_cum[:, c], F_tot[:, c]
-        # intra-chunk log weights W[i, j] = F_i - F_j + i_j
-        W = Fc[:, :, None, :] - Fc[:, None, :, :] + ii[:, None, :, :]  # [B,i,j,H]
-        W = torch.where(causal[None, :, :, None], W, neg_inf)
-        inter = Fc + m[:, None, :]                             # [B,i,H]
-        m_new = torch.maximum(W.amax(dim=2), inter)
-        m_new = torch.clamp_min(m_new, -30.0)                  # no -inf rows
-        w = torch.exp(W - m_new[:, :, None, :])                # [B,i,j,H]
-        s = torch.exp(inter - m_new)                           # [B,i,H]
-
-        qk = torch.einsum("bihd,bjhd->bijh", qq, kk)
-        h_num = (torch.einsum("bijh,bjhd->bihd", qk * w, vv)
-                 + torch.einsum("bihd,bhde->bihe", qq, C) * s[..., None])
-        n_vec = (torch.einsum("bijh,bjhd->bihd", w, kk)
-                 + s[..., None] * n[:, None, :, :])
-        denom = torch.maximum(torch.einsum("bihd,bihd->bih", qq, n_vec).abs(),
-                              torch.exp(-m_new))
-        ys.append(h_num / denom[..., None])
-
-        # the chunk-end state
-        Wend = Ft[:, None, :] - Fc + ii                        # [B,j,H]
-        m_end = torch.maximum(Wend.amax(dim=1), Ft + m)
-        m_end = torch.clamp_min(m_end, -30.0)
-        wend = torch.exp(Wend - m_end[:, None, :])
-        send = torch.exp(Ft + m - m_end)
-        C = (torch.einsum("bjhd,bjhe->bhde", wend[..., None] * kk, vv)
-             + send[:, :, None, None] * C)
-        n = torch.einsum("bjh,bjhd->bhd", wend, kk) + send[..., None] * n
-        m = m_end
-    y = torch.stack(ys, dim=1).reshape(Bb, S, H, dh)
+    y, (C, n, m) = scan(functools.partial(_mlstm_chunk, causal=causal),
+                        (qc, kc, vc, ic, F_cum, F_tot), (C, n, m))
+    y = y.reshape(Bb, S, H, dh)
     return y.to(q.dtype), {"C": C, "n": n, "m": m}
+
+
+def _mlstm_chunk(qq, kk, vv, ii, Fc, Ft, C, n, m, causal):
+    """One chunk of :func:`mlstm_chunked`: its rows' outputs and the
+    chunk-end state, ``(y, (C, n, m))``."""
+    neg_inf = torch.finfo(torch.float32).min
+    # intra-chunk log weights W[i, j] = F_i - F_j + i_j
+    W = Fc[:, :, None, :] - Fc[:, None, :, :] + ii[:, None, :, :]  # [B,i,j,H]
+    W = torch.where(causal[None, :, :, None], W, neg_inf)
+    inter = Fc + m[:, None, :]                                 # [B,i,H]
+    m_new = torch.maximum(W.amax(dim=2), inter)
+    m_new = torch.clamp_min(m_new, -30.0)                      # no -inf rows
+    w = torch.exp(W - m_new[:, :, None, :])                    # [B,i,j,H]
+    s = torch.exp(inter - m_new)                               # [B,i,H]
+
+    qk = torch.einsum("bihd,bjhd->bijh", qq, kk)
+    h_num = (torch.einsum("bijh,bjhd->bihd", qk * w, vv)
+             + torch.einsum("bihd,bhde->bihe", qq, C) * s[..., None])
+    n_vec = (torch.einsum("bijh,bjhd->bihd", w, kk)
+             + s[..., None] * n[:, None, :, :])
+    denom = torch.maximum(torch.einsum("bihd,bihd->bih", qq, n_vec).abs(),
+                          torch.exp(-m_new))
+    y = h_num / denom[..., None]
+
+    # the chunk-end state
+    Wend = Ft[:, None, :] - Fc + ii                            # [B,j,H]
+    m_end = torch.maximum(Wend.amax(dim=1), Ft + m)
+    m_end = torch.clamp_min(m_end, -30.0)
+    wend = torch.exp(Wend - m_end[:, None, :])
+    send = torch.exp(Ft + m - m_end)
+    C = (torch.einsum("bjhd,bjhe->bhde", wend[..., None] * kk, vv)
+         + send[:, :, None, None] * C)
+    n = torch.einsum("bjh,bjhd->bhd", wend, kk) + send[..., None] * n
+    return y, (C, n, m_end)
 
 
 def mlstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -277,7 +310,7 @@ def mlstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
     d_in, d_inner = cfg.mlstm_input_width, cfg.mlstm_width
     H = cfg.n_heads
-    dh = d_inner // H
+    dh = cfg.mlstm_head_dim
 
     up = (sharding.copy_to_model(x)
           @ sharding.sum_grad_columns(p["up_proj"], 0, d_in))
@@ -296,14 +329,15 @@ def mlstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     y, new_inner = mlstm_chunked(q, k, v, i_raw, f_raw, cfg.ssm_chunk, state)
 
     y = y.reshape(B, S, d_inner)
-    y = split_rmsnorm(y, p["norm"], cfg.norm_eps) * F.silu(z)
+    y = split_rmsnorm(y, p["norm"], cfg.norm_eps,
+                      cfg.heads_total * dh) * F.silu(z)
     return (sharding.all_reduce(y @ p["down_proj"]),
             {"conv": new_conv, **new_inner})
 
 
 def mlstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
     H = cfg.n_heads
-    dh = cfg.mlstm_width // H
+    dh = cfg.mlstm_head_dim
     return {
         "C": (batch, H, dh, dh),
         "n": (batch, H, dh),
@@ -325,7 +359,7 @@ def make_slstm_params(gen: Optional[ParamDraw], cfg: ModelConfig) -> dict:
     D = cfg.d_model
     H = cfg.n_heads
     width = cfg.slstm_width
-    dh = width // H
+    dh = cfg.slstm_head_dim
     F_mlp = cfg.slstm_mlp_width
     return {
         "w_in": normal_(gen, (D, 4 * width)),                 # z, i, f, o
@@ -354,7 +388,7 @@ def slstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
     H = cfg.n_heads
     width = cfg.slstm_width
-    dh = width // H
+    dh = cfg.slstm_head_dim
     f32 = torch.float32
 
     pre = sharding.copy_to_model(x) @ p["w_in"] + p["b"]       # [B,S,4w]
@@ -367,29 +401,35 @@ def slstm_mixer(p: dict, x: torch.Tensor, cfg: ModelConfig,
         c, n, h, m = state["c"], state["n"], state["h"], state["m"]
 
     r = p["r"].to(f32)
-    hs = []
-    for t in range(S):
-        g = pre[:, t] + torch.einsum("bhd,hde->bhe", h, r)     # [B,H,4dh]
-        z_t = torch.tanh(g[..., 0 * dh:1 * dh])
-        i_t = g[..., 1 * dh:2 * dh]
-        f_t = g[..., 2 * dh:3 * dh]
-        o_t = torch.sigmoid(g[..., 3 * dh:4 * dh])
-        logf_m = F.logsigmoid(f_t) + m
-        m_new = torch.maximum(logf_m, i_t)
-        i_s = torch.exp(i_t - m_new)
-        f_s = torch.exp(logf_m - m_new)
-        c = f_s * c + i_s * z_t
-        n = f_s * n + i_s
-        h = o_t * c / torch.clamp_min(n, 1e-6)
-        m = m_new
-        hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, S, width).to(x.dtype)
-    y = split_rmsnorm(y, p["norm"], cfg.norm_eps)
-    return sharding.gather_columns(y), {"c": c, "n": n, "h": h, "m": m}
+    y, (c, n, h, m) = scan(functools.partial(_slstm_step, r=r, dh=dh),
+                           (pre,), (c, n, h, m))
+    y = y.reshape(B, S, width).to(x.dtype)
+    whole = cfg.heads_total * dh
+    y = split_rmsnorm(y, p["norm"], cfg.norm_eps, whole)
+    return (sharding.gather_columns(y, cfg.head_first * dh, whole),
+            {"c": c, "n": n, "h": h, "m": m})
+
+
+def _slstm_step(pre, c, n, h, m, r, dh: int) -> tuple:
+    """One sLSTM step (``pre`` [B, H, 4 dh]) -> ``(h, (c, n, h, m))``,
+    the step's output and the new state."""
+    g = pre + torch.einsum("bhd,hde->bhe", h, r)              # [B,H,4dh]
+    z_t = torch.tanh(g[..., 0 * dh:1 * dh])
+    i_t = g[..., 1 * dh:2 * dh]
+    f_t = g[..., 2 * dh:3 * dh]
+    o_t = torch.sigmoid(g[..., 3 * dh:4 * dh])
+    logf_m = F.logsigmoid(f_t) + m
+    m_new = torch.maximum(logf_m, i_t)
+    i_s = torch.exp(i_t - m_new)
+    f_s = torch.exp(logf_m - m_new)
+    c = f_s * c + i_s * z_t
+    n = f_s * n + i_s
+    h = o_t * c / torch.clamp_min(n, 1e-6)
+    return h, (c, n, h, m_new)
 
 
 def slstm_state_shape(cfg: ModelConfig, batch: int) -> dict:
     H = cfg.n_heads
-    dh = cfg.slstm_width // H
+    dh = cfg.slstm_head_dim
     return {"c": (batch, H, dh), "n": (batch, H, dh),
             "h": (batch, H, dh), "m": (batch, H, dh)}

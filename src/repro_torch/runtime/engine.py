@@ -86,6 +86,12 @@ class Engine:
                  decode_fn: Optional[Callable] = None):
         if getattr(model, "seq_split", False):
             model.refuse_seq_split("the Engine")
+        if model.is_encdec and model.plan is not None:
+            raise NotImplementedError(
+                f"{model.cfg.name}: the sequential Engine takes no sharding "
+                "plan for enc-dec (as the reference's Engine; its continuous "
+                "engine refuses enc-dec); under a plan call Model.prefill "
+                "and decode_step")
         self.model = model
         self.params = params
         self.prefill_fn = prefill_fn or model.prefill

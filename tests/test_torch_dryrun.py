@@ -48,6 +48,9 @@ STATE_DIFFERS = {
     ("xlstm-1.3b", "decode_32k"): "recurrent states and conv windows",
     ("xlstm-1.3b", "long_500k"): "recurrent states and conv windows",
     ("gemma-2b", "prefill_32k"): "one KV head kept whole on every rank",
+    ("smollm-135m", "prefill_32k"): "9 / 3 heads split unevenly: rank 0's "
+                                    "whole KV heads (the reference cuts "
+                                    "head_dim)",
     ("zamba2-2.7b", "prefill_32k"): "Mamba2 conv window, B / C whole",
     ("zamba2-2.7b", "decode_32k"): "Mamba2 conv window, B / C whole",
     ("zamba2-2.7b", "long_500k"): "batch 1: no sequence over 'data'",
@@ -93,6 +96,17 @@ for key, arch, shape, mp in (
                            verbose=False, device="meta")
 out["prod"] = dr.run_cell("chameleon-34b", "decode_32k", verbose=False,
                           device="meta")
+# a prefill cell under FSDP reckoned as the dry run builds it, and with
+# its FSDP layout read before the trace
+from repro_torch.distributed import dry
+mesh = make_test_mesh(multi_pod=True)
+out["layout_temps"] = []
+for first in (False, True):
+    with dry.fake_world(mesh.size):
+        cell = dr.build_cell("qwen3-14b", "prefill_32k", mesh)
+        if first:
+            cell.model.layout
+        out["layout_temps"].append(dr._trace(cell)[0]["temp_size_in_bytes"])
 print(json.dumps(out))
 """
 
@@ -137,13 +151,9 @@ def test_spec_reckoning_matches_the_reference(reference, arch, shape,
                                               multi_pod):
     want = reference[f"{arch}|{shape}|{int(multi_pod)}"]
     mesh = make_test_mesh(multi_pod=multi_pod)
-    try:
-        _, meta, _ = dr.cell_meta(arch, shape, mesh, {"param_mode": "fsdp2d"})
-    except dr.Refused as e:
-        # the port places no cache whose heads the model axis does not
-        # split (smollm's 9 heads)
-        assert arch == "smollm-135m" and "query heads" in str(e)
-        return
+    # every cell places (smollm's 9 heads split unevenly over the model
+    # axis, sharding.head_split)
+    _, meta, _ = dr.cell_meta(arch, shape, mesh, {"param_mode": "fsdp2d"})
     got = {"param_bytes_per_device": meta["param_bytes_per_device"],
            "param_bytes": meta["param_bytes"], "fsdp": meta["fsdp"],
            "factored": meta.get("optimizer", {}).get("factored")}
@@ -167,12 +177,13 @@ def _complete(art: dict) -> None:
 
 
 def test_reference_cells_give_complete_or_refused_artifacts(artifacts):
-    """The reference's ``test_dryrun.py`` cells on the test mesh: smollm's
-    9 heads do not split over 4 ranks (the port's message); qwen3-14b's
-    decode and xlstm-1.3b's long_500k run their rank."""
-    assert "9 query heads do not split over 4 ranks" in (
-        artifacts["train"]["refused"])
-    for key in ("decode", "long"):
+    """The reference's ``test_dryrun.py`` cells on the test mesh run their
+    rank: smollm's 9 query / 3 KV heads split unevenly over 4 ranks (rank
+    0 reckoned with 2 / 1; ranks 2 and 3 hold 3), qwen3-14b's decode and
+    xlstm-1.3b's long_500k."""
+    assert artifacts["train"]["meta"]["rank_heads"] == {
+        "query": 2, "kv": 1, "most_query": 3, "even": False}
+    for key in ("train", "decode", "long"):
         _complete(artifacts[key])
     dec = artifacts["decode"]
     assert dec["meta"]["cache_prefer_seq"] and not dec["meta"]["fsdp"]
@@ -185,7 +196,8 @@ def test_reference_cells_give_complete_or_refused_artifacts(artifacts):
 def test_multi_pod_cells_record_the_pod_axis(artifacts):
     assert artifacts["pod"]["meta"]["mesh"] == {"pod": 2, "data": 2,
                                                 "model": 2}
-    assert "refused" in artifacts["pod"]
+    _complete(artifacts["pod"])              # smollm's 9 heads: 6 / 3
+    assert artifacts["pod"]["meta"]["rank_heads"]["query"] == 6
     run = artifacts["podrun"]
     _complete(run)
     assert run["meta"]["placement"] == {"data": 4, "model": 2}
@@ -268,6 +280,17 @@ def test_honoured_overrides_change_the_reckoning():
     assert rep["state_bytes_per_device"] > plain["state_bytes_per_device"]
 
 
+def test_prefill_peak_does_not_move_when_the_layout_is_built_first(
+        artifacts):
+    """A prefill cell under FSDP (qwen3-14b prefill_32k on the multi-pod
+    test mesh) builds its FSDP layout before the step is traced, so the
+    reckoned peak holds the step alone: reading the layout first moves
+    nothing (built inside the trace, the full-size parameter specs it is
+    built from counted as the step's temporaries)."""
+    unread, read = artifacts["layout_temps"]
+    assert unread == read > 0
+
+
 def test_cli_writes_run_and_refused_artifacts(tmp_path):
     for arch, shape in (("chameleon-34b", "decode_32k"),
                         ("gemma-2b", "decode_32k")):
@@ -280,11 +303,30 @@ def test_cli_writes_run_and_refused_artifacts(tmp_path):
     done = json.loads((tmp_path / "chameleon-34b__decode_32k__16x16.json")
                       .read_text())
     _complete(done)
-    refused = json.loads((tmp_path / "gemma-2b__decode_32k__16x16.json")
-                         .read_text())
-    assert "8 query heads do not split over 16 ranks" in refused["refused"]
+    # gemma-2b's 8 heads split unevenly over 16 ranks (one each on ranks
+    # 0-7): its cell runs; an override the port refuses still writes a
+    # refused artifact, naming its item
+    gemma = json.loads((tmp_path / "gemma-2b__decode_32k__16x16.json")
+                       .read_text())
+    _complete(gemma)
+    assert gemma["meta"]["rank_heads"] == {"query": 1, "kv": 1,
+                                           "most_query": 1, "even": False}
+    path = tmp_path / "chameleon-34b__prefill_32k__16x16.json"
+    run = subprocess.run(
+        [sys.executable, "-c",
+         "import json, sys\n"
+         "from repro_torch.launch import dryrun as dr\n"
+         "art = dr.run_cell('chameleon-34b', 'prefill_32k', verbose=False,\n"
+         "                  device='meta', overrides={'seq_parallel': True})\n"
+         "open(sys.argv[1], 'w').write(json.dumps(art))\n", str(path)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=SRC))
+    assert run.returncode == 0, run.stderr[-3000:]
+    refused = json.loads(path.read_text())
+    assert "item 10" in refused["refused"]
     table = report.roofline_md("16x16", base=str(tmp_path))
     assert "| chameleon-34b | decode_32k |" in table and "refused" in table
+    assert "| gemma-2b | decode_32k |" in table
     mem = report.memory_md("16x16", base=str(tmp_path))
     assert "| yes |" in mem
     doc = tmp_path / "doc.md"

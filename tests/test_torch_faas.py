@@ -141,8 +141,8 @@ def test_later_slices_raise_with_their_item():
     .py): a ``ServingMesh(2, 2)`` runtime runs on the controller of a
     spawned group of 2 x 2 ranks and says so outside one.  zamba and
     xLSTM build under a plan on any instance's slice (test_torch_tp_ssm
-    .py); whisper raises there with the reference's own limit: enc-dec
-    serves through the sequential ``Engine``, which takes no plan."""
+    .py), and so does whisper, whose sequential ``Engine`` raises there
+    with the reference's own limit: it takes no plan."""
     from repro_torch.distributed import ServingMesh, serving_plan
     with pytest.raises(RuntimeError, match=r"spawn\(\.\.\., data=2\)"):
         torch_faas.FaaSRuntime(mesh=ServingMesh(2, 2), device="cpu")
@@ -152,8 +152,13 @@ def test_later_slices_raise_with_their_item():
             model = torch_smoke(arch, device="cpu", plan=plan)
             assert model.plan.instance == instance
             assert model.local_cfg.n_heads == model.cfg.n_heads // 2
+        # whisper builds under the plan (Model.prefill / decode_step serve
+        # it); the sequential Engine takes no plan for it
+        from repro_torch.runtime.engine import Engine
+        whisper = torch_smoke("whisper-medium", device="cpu", plan=plan)
+        assert whisper.local_cfg.n_heads == whisper.cfg.n_heads // 2
         with pytest.raises(NotImplementedError, match="sequential Engine"):
-            torch_smoke("whisper-medium", device="cpu", plan=plan)
+            Engine(whisper, {})
 
 
 def test_serve_cli_runs_on_the_cpu():

@@ -253,7 +253,9 @@ def test_a_chunked_prefill_over_the_split_raises_item_10():
     """The attention block under the split takes a prefill from position
     0 only: a later chunk raises."""
     from repro_torch.models import layers
-    seq = sharding.SeqShard(0, 2, 2, 2)
+    cfg = get_smoke_model("llama3-8b", device="cpu", n_heads=4,
+                          n_kv_heads=2).cfg
+    seq = sharding.SeqShard(0, 2, sharding.head_split(cfg, 2))
     q = torch.zeros((1, 4, 2, 16))
     k = torch.zeros((1, 4, 1, 16))
     cache = {"k": torch.zeros((1, 8, 2, 16)), "v": torch.zeros((1, 8, 2, 16))}

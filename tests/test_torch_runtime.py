@@ -230,8 +230,8 @@ def test_engine_raises_for_later_slices(models):
         ContinuousBatchingEngine(tm, object(), n_slots=1, max_len=16)
     # a sharding plan serves the dense and moe families, and an adapter
     # bank under it (the rank's shard); zamba and xLSTM under a plan too,
-    # over the dense pool; whisper under a plan raises: enc-dec serves
-    # through the sequential Engine, which takes no plan
+    # over the dense pool; whisper builds under a plan, but the
+    # sequential Engine, which serves enc-dec, takes no plan
     from repro_torch.distributed import ServingMesh, serving_plan
     from repro_torch.models.adapters import make_adapter_bank
     plan = serving_plan(ServingMesh(1, 2), rank=0)
@@ -240,8 +240,10 @@ def test_engine_raises_for_later_slices(models):
                                     max_len=16, plan=plan)
     assert not zeng.paged
     assert zeng.pool.cache["mamba"]["h"].shape[2] == zamba.cfg.ssm_heads // 2
+    from repro_torch.runtime.engine import Engine
+    whisper = torch_smoke("whisper-medium", device="cpu", plan=plan)
     with pytest.raises(NotImplementedError, match="sequential Engine"):
-        torch_smoke("whisper-medium", device="cpu", plan=plan)
+        Engine(whisper, whisper.init_params())
     sharded = torch_smoke("smollm-135m", device="cpu", n_layers=2, plan=plan)
     bank = make_adapter_bank(sharded, ("blocks.attn.wq", "blocks.attn.wo"),
                              3, 4)

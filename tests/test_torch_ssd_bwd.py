@@ -228,13 +228,16 @@ class _TwoRanks:
 
 
 @pytest.mark.parametrize("shape,cut", [((2, 5, 64), 32), ((7, 48), 16),
-                                       ((3, 4, 96), 48)])
+                                       ((3, 4, 96), 48), ((4, 64), 0),
+                                       ((3, 2, 32), 32)])
 def test_split_rmsnorm_gradients_match_jax_grad(shape, cut):
     """Rows of ``shape[-1]`` cut at ``cut`` into two ranks' slices; each
     slice's ``ops.rmsnorm_split`` output and its dx and dscale (two
     ``reduce`` calls: the sums forward, the dots backward) against
     ``jax.grad`` of the whole-row norm with cotangent dy; the plain
-    second launch's rstd is the forward's."""
+    second launch's rstd is the forward's.  A cut at either end leaves
+    one rank an empty slice (a rank without a head): its sums and dots
+    are zeros, which the wrappers return on every device."""
     rng = np.random.default_rng(shape[-1] + cut)
     x = rng.standard_normal(shape).astype(np.float32)
     scale = (1 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)

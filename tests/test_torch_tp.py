@@ -3,8 +3,10 @@ package on one device.
 
 One spawn of two ranks per module (``repro_torch.distributed.spawn``,
 gloo, the divergence guard on) runs every scenario, for the smoke smollm
-at 2 layers with 2 KV heads (split over the ranks) and with 1 (each rank
-keeps it): the weights are the JAX package's, converted per rank by
+at 2 layers with 2 KV heads (split over the ranks), with 1 (each rank
+keeps it), and with smollm-135m's own 9 query / 3 KV heads, which the
+two ranks do not divide (``sharding.head_split``: 6 / 2 on rank 0, 3 / 1
+on rank 1): the weights are the JAX package's, converted per rank by
 ``convert.params_from_jax(..., plan=)``.  The checks, each its own test:
 
   * ``FaaSRuntime(mesh=ServingMesh(1, 2))`` serves cold, fork (streamed
@@ -15,7 +17,8 @@ keeps it): the weights are the JAX package's, converted per rank by
     JAX prefill's (fp32), and the sequential ``Engine`` under the plan
     against the JAX ``Engine``;
   * the forks' byte counts per rank: their sum is the one-device fork's
-    plus the replicated leaves once more;
+    plus the replicated leaves once more (equal shards where the heads
+    split evenly, rank 0's the larger where they do not);
   * a KV pool's page tables, refcounts and free lists identical on both
     ranks and equal to the JAX pool's after the same operation sequence;
   * deadlines through the gateway's pump thread end without a hang, and
@@ -59,11 +62,20 @@ from repro_torch.models.registry import get_config, get_model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 MAX_LEN, PS, NEW = 32, 8, 5
-KVS = (2, 1)                       # KV heads split, and kept on every rank
+UNEVEN = "9/3"                     # smollm-135m's heads, split unevenly
+KVS = (2, 1, UNEVEN)               # KV heads split, kept on every rank,
+                                   # and query heads split unevenly
 
 
-def _cfg(kv: int):
+def _cfg(kv):
+    if kv == UNEVEN:
+        return reduced(get_config("smollm-135m"), n_layers=2,
+                       **_uneven_heads())
     return reduced(get_config("smollm-135m"), n_layers=2, n_kv_heads=kv)
+
+
+def _uneven_heads() -> dict:
+    return {"n_heads": 9, "n_kv_heads": 3}
 
 
 def _workload():
@@ -285,7 +297,8 @@ def _ranks(group, jax_params: dict) -> dict:
         models[kv] = get_model(cfg, device="cpu", plan=group.plan)
         params[kv] = group.bind(convert.params_from_jax(
             jax_params[kv], cfg, device="cpu", plan=group.plan))
-        fns[kv] = group.bind(tidal.static_function(f"f{kv}", models[kv],
+        name = f"f{kv}".replace("/", "-")
+        fns[kv] = group.bind(tidal.static_function(name, models[kv],
                                                    params[kv]))
     if not group.is_controller:
         try:
@@ -324,8 +337,9 @@ def jax_side():
     from repro.models.registry import get_smoke_model as jax_smoke
     out = {}
     for kv in KVS:
-        jm = jax_smoke("smollm-135m", n_layers=2, n_kv_heads=kv)
-        jp = jm.init_params(jax.random.PRNGKey(kv))
+        heads = _uneven_heads() if kv == UNEVEN else {"n_kv_heads": kv}
+        jm = jax_smoke("smollm-135m", n_layers=2, **heads)
+        jp = jm.init_params(jax.random.PRNGKey(3 if kv == UNEVEN else kv))
         out[kv] = (jm, jp, jax.tree.map(np.asarray, jp))
     return out
 
@@ -442,7 +456,10 @@ def test_fork_bytes_per_rank_sum_to_one_device_plus_replicas(tp, jax_side, kv):
         assert len(set(replicated)) == 1 and replicated[0] > 0
         assert sum(streamed) + sum(reused) == (
             one.streamed_bytes + one.reused_bytes + replicated[0])
-        assert len(set(streamed)) == 1       # equal shards
+        if kv == UNEVEN:                     # rank 0 holds 6 of 9 heads
+            assert streamed[0] + reused[0] > streamed[1] + reused[1]
+        else:
+            assert len(set(streamed)) == 1   # equal shards
 
 
 def test_pool_accounting_identical_on_ranks_and_equal_to_jax(tp, jax_side):

@@ -177,7 +177,7 @@ def test_cache_specs_against_jax(kv):
                                     MESH, batch=4)
     for kv_dtype in (None, "int8"):
         pg = sharding.paged_cache_specs(transformer.make_paged_cache(
-            tm.cfg, 9, 8, device="meta", kv_dtype=kv_dtype), MESH)
+            tm.cfg, 9, 8, device="meta", kv_dtype=kv_dtype), MESH, tm.cfg)
         pw = jax_sharding.paged_cache_specs(jax.eval_shape(
             lambda: jm.make_paged_cache(9, 8, kv_dtype=kv_dtype)), MESH)
         got.update({f"paged.{kv_dtype}.{k}": v for k, v in pg.items()})
@@ -212,7 +212,7 @@ def test_latent_cache_specs_against_jax():
                                     MESH, batch=4)
     for kv_dtype in (None, "int8"):
         pg = sharding.paged_cache_specs(transformer.make_paged_cache(
-            tm.cfg, 9, 8, device="meta", kv_dtype=kv_dtype), MESH)
+            tm.cfg, 9, 8, device="meta", kv_dtype=kv_dtype), MESH, tm.cfg)
         pw = jax_sharding.paged_cache_specs(jax.eval_shape(
             lambda: jm.make_paged_cache(9, 8, kv_dtype=kv_dtype)), MESH)
         got.update({f"paged.{kv_dtype}.{k}": v for k, v in pg.items()})
@@ -259,7 +259,7 @@ def test_cache_specs_cut_the_arena_a_ranks_pool_allocates(arch, extra):
         for kv_dtype in (None, "int8"):
             full = transformer.make_paged_cache(cfg, 9, 8, device="meta",
                                                 kv_dtype=kv_dtype)
-            specs = sharding.paged_cache_specs(full, MESH)
+            specs = sharding.paged_cache_specs(full, MESH, cfg)
             pool = PagedKVCachePool(rank, 2, 16, page_size=8, n_pages=9,
                                     kv_dtype=kv_dtype)
             assert set(pool.cache) == set(full)
@@ -374,16 +374,17 @@ def test_kernels_check_the_ranks_heads():
                                        ("zamba2-2.7b", None),
                                        ("xlstm-1.3b", None)])
 def test_other_families_under_a_plan_name_their_item(arch, item):
-    """zamba and xLSTM build under a plan (the rank's heads); whisper
-    raises naming the reference's own limit: enc-dec serves through the
-    sequential ``Engine``, which takes no plan."""
+    """zamba, xLSTM and whisper build under a plan (the rank's heads;
+    whisper's ``Model.prefill`` and ``decode_step`` serve under it); the
+    sequential ``Engine`` refuses whisper under a plan naming the
+    reference's own limit: its ``Engine`` takes no plan."""
+    from repro_torch.runtime.engine import Engine
     plan = sharding.serving_plan(MESH, rank=0)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            get_smoke_model(arch, device="cpu", plan=plan)
-        return
     model = get_smoke_model(arch, device="cpu", plan=plan)
     assert model.local_cfg.n_heads == model.cfg.n_heads // 2
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            Engine(model, model.init_params())
 
 
 def test_data_axis_and_training_specs_name_their_items():
@@ -689,8 +690,10 @@ def test_zamba_lora_delta_spec_names_the_shared_block():
 
 def test_whisper_specs_validate_and_the_tp_checks_of_the_families():
     """Whisper's specs divide its full shapes; ``check_tp`` accepts
-    zamba2-2.7b and xlstm-1.3b at 2 and raises where Mamba2's or the
-    xLSTM's heads do not split."""
+    zamba2-2.7b and xlstm-1.3b at 2 and raises where Mamba2's heads do not
+    split (ROADMAP Queue 1, item 12); the xLSTM's 4 heads split unevenly
+    over 8 ranks (one head on each of ranks 0, 2, 4 and 6), and its specs
+    place every leaf."""
     from repro_torch.models import encdec
     cfg = get_model(WHISPER, device="cpu").cfg
     assert sharding.validate_specs(sharding.config_param_specs(cfg, 2),
@@ -701,11 +704,16 @@ def test_whisper_specs_validate_and_the_tp_checks_of_the_families():
         assert sharding.validate_specs(
             sharding.config_param_specs(full, 2),
             transformer.param_specs(full), MESH) == []
-    with pytest.raises(ValueError, match="80 Mamba2 heads"):
+    with pytest.raises(ValueError, match="80 Mamba2 heads.*item 12"):
         sharding.check_tp(get_model(ZAMBA, device="cpu").cfg.replace(
             n_heads=64, n_kv_heads=64), 32)
-    with pytest.raises(ValueError, match="4 query heads"):
-        sharding.check_tp(get_model(XLSTM, device="cpu").cfg, 8)
+    xlstm = get_model(XLSTM, device="cpu").cfg
+    sharding.check_tp(xlstm, 8)
+    assert [b - a for a, b in sharding.head_split(xlstm, 8).q] == \
+        [1, 0, 1, 0, 1, 0, 1, 0]
+    assert sharding.validate_specs(
+        sharding.config_param_specs(xlstm, 8),
+        transformer.param_specs(xlstm), ServingMesh(1, 8)) == []
 
 
 # ---------------------------------------------------------------------------
@@ -888,3 +896,134 @@ def test_training_specs_validate_at_16x16(arch):
         placed = [s for _, s in named_leaves(specs)
                   if any(e is not None for e in s)]
         assert placed
+
+
+# ---------------------------------------------------------------------------
+# heads the model axis does not divide (ROADMAP Queue 1, item 12)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch,tp,want", [
+    ("smollm-135m", 2, [(6, 2), (3, 1)]),
+    ("smollm-135m", 4, [(2, 1), (1, 1), (3, 1), (3, 1)]),
+    ("smollm-135m", 16, [(1, 1)] * 3 + [(0, 0)] * 3 + [(1, 1)] * 3
+     + [(0, 0)] * 2 + [(1, 1)] * 3 + [(0, 0)] * 2),
+    ("qwen3-14b", 16, [(3, 1), (2, 1)] * 8),
+    ("qwen2.5-32b", 16, [(3, 1), (2, 1)] * 8),
+    ("gemma-2b", 16, [(1, 1)] * 8 + [(0, 0)] * 8),
+    ("xlstm-1.3b", 16, [(1, 1), (0, 0), (0, 0), (0, 0)] * 4),
+    ("llama3-8b", 16, [(2, 1)] * 16),
+    ("chameleon-34b", 16, [(4, 1)] * 16)],
+    ids=lambda x: str(x) if not isinstance(x, list) else "heads")
+def test_head_split_takes_kv_heads_first_and_rank_0_the_most(arch, tp, want):
+    """The KV heads split first (runs of whole query groups, or blocks of
+    ranks per head, the larger first), then each head's query heads over
+    its block; the rank's configuration holds its counts, rank 0 the
+    most at the dry run's model axis of 16 (not always: at 9 / 3 over 4,
+    ranks 2 and 3 hold 3), and where the axis divides the heads the split
+    is even."""
+    cfg = get_model(arch, device="cpu").cfg
+    split = sharding.head_split(cfg, tp)
+    got = [(b - a, d - c) for (a, b), (c, d) in zip(split.q, split.kv)]
+    assert got == want
+    assert sum(q for q, _ in got) == cfg.n_heads
+    if tp == 16:                 # the dry run reckons rank 0: the busiest
+        assert got[0][0] == max(q for q, _ in got)
+    even = cfg.n_heads % tp == 0 and (cfg.n_kv_heads % tp == 0
+                                      or tp % cfg.n_kv_heads == 0)
+    assert split.even == even
+    for r in (0, tp - 1):
+        local = sharding.local_config(cfg, tp, r)
+        assert (local.n_heads, local.n_kv_heads) == got[r]
+        assert local.head_first == split.q[r][0]
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "qwen3-14b", "gemma-2b",
+                                  "qwen2.5-32b", "xlstm-1.3b"])
+def test_uneven_heads_place_every_leaf_at_16(arch):
+    """At (16, 16) the five models whose heads the axis does not divide
+    place every parameter and cache leaf: the ranks' pieces validate, and
+    each rank's piece is the shape its model allocates."""
+    cfg = get_model(arch, device="cpu").cfg
+    mesh = ServingMesh(1, 16)
+    specs = sharding.config_param_specs(cfg, 16)
+    shapes = transformer.param_specs(cfg)
+    assert sharding.validate_specs(specs, shapes, mesh) == []
+    specs = dict(named_leaves(specs))
+    for r in (0, 1, 15):
+        local = dict(named_leaves(transformer.param_specs(
+            sharding.local_config(cfg, 16, r))))
+        for path, t in named_leaves(shapes):
+            spec = specs[path]
+            shape = list(t.shape)
+            if spec.model_dim is not None:
+                shape[spec.model_dim] = sharding.piece_size(
+                    spec, shape[spec.model_dim], 16, r)
+            assert tuple(shape) == tuple(local[path].shape), (path, r)
+
+
+def test_uneven_pieces_put_back_together_and_fill_the_arena():
+    """Smoke smollm with 9 / 3 heads at tp = 2 and 4: every rank's piece
+    of one draw put back together (``assemble``) is the one-device leaf,
+    and the paged arena's spec cuts the global arena to each rank pool's."""
+    from repro_torch.runtime.kv_pool import PagedKVCachePool
+    cfg = get_smoke_model("smollm-135m", device="cpu", n_layers=2, n_heads=9,
+                          n_kv_heads=3).cfg
+    one = dict(named_leaves(get_model(cfg, device="cpu").init_params(5)))
+    for tp in (2, 4):
+        mesh = ServingMesh(1, tp)
+        ranks = [get_model(cfg, device="cpu", plan=sharding.serving_plan(
+            mesh, rank=r)) for r in range(tp)]
+        pieces = [dict(named_leaves(m.init_params(5))) for m in ranks]
+        specs = dict(named_leaves(sharding.config_param_specs(cfg, tp)))
+        for path, full in one.items():
+            got = sharding.assemble([p[path] for p in pieces], specs[path],
+                                    ranks[0].plan)
+            assert torch.equal(got, full), (path, tp)
+        full = transformer.make_paged_cache(cfg, 9, 8, device="meta")
+        arena = sharding.paged_cache_specs(full, mesh, cfg)
+        for r, m in enumerate(ranks):
+            pool = PagedKVCachePool(m, 2, 16, page_size=8, n_pages=9)
+            for k, t in full.items():
+                shape = list(t.shape)
+                spec = arena[k]
+                shape[spec.model_dim] = sharding.piece_size(
+                    spec, shape[spec.model_dim], tp, r)
+                assert tuple(shape) == tuple(pool.cache[k].shape), (k, r)
+
+
+@pytest.mark.parametrize("replace,tp,match", [
+    ({"ssm_heads": 6}, 4, "Mamba2 heads"),
+    ({"d_ff": 130}, 4, "d_ff 130"),
+    ({"n_experts": 6}, 4, "6 experts")])
+def test_what_check_tp_still_refuses_names_item_12(replace, tp, match):
+    arch = ("zamba2-2.7b" if "ssm_heads" in replace else
+            PHI if "n_experts" in replace else "llama3-8b")
+    cfg = get_smoke_model(arch, device="cpu").cfg.replace(**replace)
+    with pytest.raises(ValueError, match=match + ".*item 12"):
+        sharding.check_tp(cfg, tp)
+
+
+@pytest.mark.parametrize("arch,extra,tp", [
+    ("smollm-135m", {"n_heads": 9, "n_kv_heads": 3}, 2),
+    ("xlstm-1.3b", {}, 8)], ids=["smollm-9-3", "xlstm"])
+def test_the_divergence_guard_leaves_out_only_a_cache_leafs_heads(arch, extra,
+                                                                   tp):
+    """The divergence guard's digest of every rank's cache where the
+    heads split unevenly (each rank holds other counts of heads; the
+    smoke xlstm's 4 heads at tp = 8 leave ranks without one) is the same
+    on every rank, as an object and as an op's argument (a registered
+    tree), and tells a cache of another batch (or, for attention, length)
+    apart."""
+    from repro_torch.distributed.group import (MirrorDict, _digest,
+                                               _digest_args)
+    cfg = get_smoke_model(arch, device="cpu", **extra).cfg
+    ranks = [get_model(cfg, device="cpu", plan=sharding.serving_plan(
+        ServingMesh(1, tp), rank=r)) for r in range(tp)]
+    assert len({m.local_cfg.n_heads for m in ranks}) > 1
+    seen = {_digest(m.make_cache(2, 16)) for m in ranks}
+    assert len(seen) == 1
+    assert len({repr(_digest_args([MirrorDict(m.make_cache(2, 16))]))
+                for m in ranks}) == 1
+    assert _digest(ranks[-1].make_cache(1, 16)) not in seen
+    if arch == "smollm-135m":
+        assert _digest(ranks[-1].make_cache(2, 32)) not in seen

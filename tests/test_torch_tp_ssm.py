@@ -38,7 +38,15 @@ The checks, each its own test:
   * the dense pool's host state identical on both ranks and equal to the
     JAX pool's, and each rank's state arena cut as ``cache_specs`` says;
   * the serve CLI with ``--tp 2`` for both architectures and
-    ``--lora --tp 2`` on zamba.
+    ``--lora --tp 2`` on zamba;
+  * whisper (enc-dec; 2 + 2 layers, 4 heads) under the serving plan, 2
+    of its heads per rank in the encoder, the decoder's self-attention
+    and its cross-attention: a prefill of two sequences of 24 frames
+    through ``Model.prefill`` and greedy decode steps through
+    ``Model.decode_step``, every step's logits within 1e-5 of the largest
+    |logit| of the JAX ``prefill`` / ``decode_step``'s and the tokens
+    equal; the sequential ``Engine`` refuses the plan, as the
+    reference's takes none.
 
 The plain split-row norm itself is held against the whole-row norm here
 too, and a slice normalised alone against it (it differs).  The rank
@@ -171,10 +179,50 @@ def _pool_ops(group, model) -> dict:
             "arenas": group.gather(_arena_shapes, pool)}
 
 
-def _ranks(group, jax_params: dict) -> dict:
+WHISPER = "whisper-medium"
+WHISPER_FRAMES, WHISPER_STEPS = 24, 3
+
+
+def _whisper_inputs(cfg) -> tuple:
+    rng = np.random.default_rng(11)
+    frames = (rng.standard_normal((2, WHISPER_FRAMES, cfg.d_model))
+              * 0.1).astype(np.float32)
+    return frames, rng.integers(0, cfg.vocab_size, (2, 3)).astype(np.int32)
+
+
+def _whisper(model, params) -> dict:
+    """On the controller: the prefill, then greedy decode steps, through
+    the model's mirrored calls (every rank runs its heads)."""
+    frames, toks = _whisper_inputs(model.cfg)
+    cache = model.make_cache(2, WHISPER_FRAMES)
+    logits, cache = model.prefill(params, {"frames": frames, "tokens": toks},
+                                  cache)
+    steps, tokens = [logits.numpy()], [logits.argmax(-1)]
+    for i in range(WHISPER_STEPS):
+        logits, cache = model.decode_step(
+            params, cache, {"tokens": tokens[-1][:, None].numpy()},
+            toks.shape[1] + i)
+        steps.append(logits.numpy())
+        tokens.append(logits.argmax(-1))
+    from repro_torch.runtime.engine import Engine
+    try:
+        Engine(model, params)
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    return {"logits": np.stack(steps), "refused": refused,
+            "tokens": torch.stack(tokens, 1).numpy(),
+            "heads": model.local_cfg.n_heads}
+
+
+def _ranks(group, jax_params: dict, whisper_params: dict) -> dict:
     """Every scenario, on every rank: the workers serve, the controller
     drives and returns what the tests check."""
     reqs = _workload()
+    wcfg = reduced(get_config(WHISPER))
+    whisper = get_model(wcfg, device="cpu", plan=group.plan)
+    wparams = group.bind(convert.params_from_jax(
+        whisper_params, wcfg, device="cpu", plan=group.plan))
     models, fns, params = {}, {}, {}
     for case in CASES:
         cfg = _cfg(case)
@@ -209,6 +257,7 @@ def _ranks(group, jax_params: dict) -> dict:
                       "slstm_mlp": local.slstm_mlp_width}
         out[case] = r
     out["pool"] = {case: _pool_ops(group, models[case]) for case in CASES}
+    out["whisper"] = _whisper(whisper, wparams)
     return out
 
 
@@ -229,8 +278,18 @@ def jax_side():
 
 
 @pytest.fixture(scope="module")
-def tp(jax_side):
-    return spawn(_ranks, 2, ({c: v[2] for c, v in jax_side.items()},),
+def jax_whisper():
+    import jax
+    from repro.models.registry import get_smoke_model as jax_smoke
+    jm = jax_smoke(WHISPER)
+    jp = jm.init_params(jax.random.PRNGKey(4))
+    return jm, jp, jax.tree.map(np.asarray, jp)
+
+
+@pytest.fixture(scope="module")
+def tp(jax_side, jax_whisper):
+    return spawn(_ranks, 2, ({c: v[2] for c, v in jax_side.items()},
+                             jax_whisper[2]),
                  device="cpu", guard=True, timeout_s=600,
                  collective_timeout_s=120)
 
@@ -453,3 +512,29 @@ def test_serve_cli_tp2_on_the_cpu(arch, lora):
     kinds = {l.split()[3 if lora else 2] for l in lines}
     assert kinds <= {"cold", "fork", "warm"} and "cold" in kinds
     assert "2 ranks" in res.stdout and "gloo" in res.stdout
+
+
+def test_whisper_under_a_serving_plan_matches_jax(tp, jax_whisper):
+    """Whisper at tp = 2 (2 of 4 heads per rank): the prefill's and each
+    greedy decode step's logits within 1e-5 of the largest |logit| of the
+    JAX ``prefill`` / ``decode_step``'s, the tokens equal; the sequential
+    ``Engine`` refuses the plan (the reference's takes none)."""
+    import jax.numpy as jnp
+    jm, jp, _ = jax_whisper
+    frames, toks = _whisper_inputs(jm.cfg)
+    logits, cache = jm.prefill(jp, {"frames": jnp.asarray(frames),
+                                    "tokens": jnp.asarray(toks)},
+                               jm.make_cache(2, WHISPER_FRAMES))
+    want, tokens = [np.asarray(logits)], [np.asarray(logits).argmax(-1)]
+    for i in range(WHISPER_STEPS):
+        logits, cache = jm.decode_step(
+            jp, cache, {"tokens": jnp.asarray(tokens[-1][:, None], jnp.int32)},
+            toks.shape[1] + i)
+        want.append(np.asarray(logits))
+        tokens.append(want[-1].argmax(-1))
+    want = np.stack(want)
+    got = tp["whisper"]
+    assert got["heads"] == jm.cfg.n_heads // 2
+    assert np.abs(got["logits"] - want).max() <= LOGIT_TOL * np.abs(want).max()
+    np.testing.assert_array_equal(got["tokens"], np.stack(tokens, 1))
+    assert "sequential Engine" in got["refused"]

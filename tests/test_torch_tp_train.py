@@ -25,6 +25,14 @@ state converted and cut to its piece (``convert.params_from_jax`` /
     spawn as one model axis, each head's projections' gradients summed
     over its two ranks (``sharding.sum_grad_kv``), against the JAX step;
     the sum skipped reads beyond the gradient tolerance;
+  * heads the model axis does not divide (``sharding.head_split``):
+    smoke smollm with smollm-135m's 9 query / 3 KV heads trained at tp =
+    2 (6 / 2 and 3 / 1 per rank) and at tp = 4 on the grid's four ranks
+    (2 / 1, 1 / 1, 3 / 1, 3 / 1: KV head 0 shared by ranks 0 and 1, its
+    gradient summed over them), against the JAX step; and served at tp =
+    4 on those ranks (``Model.prefill`` and the sequential ``Engine``
+    under a serving plan of the four): greedy tokens equal to the JAX
+    ``Engine``'s and the first logits within 1e-5 of the JAX prefill's;
   * one planted fault per trouble spot reads beyond the tolerance: the
     copy op's backward sum skipped at one layer, the moe gates' copy
     skipped (the router's gradient left partial), a replicated leaf
@@ -73,6 +81,7 @@ GRAD_TOL = 1e-4          # of each leaf's largest |value|
 STATE_TOL = 1e-5
 DENSE, PHI, DSV3 = "llama3-8b", "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b"
 CHAM = "chameleon-34b"                   # 2 KV heads over tp = 4 (tp4 cases)
+SMOL = "smollm-135m"                    # 9 / 3 heads: uneven at tp 2 and 4
 ZAMBA, XLSTM, WHISPER = "zamba2-2.7b", "xlstm-1.3b", "whisper-medium"
 ARCHS = (DENSE, PHI, DSV3)
 RECURRENT = (ZAMBA, XLSTM, WHISPER)      # and enc-dec
@@ -86,6 +95,8 @@ def _smoke_kw(arch) -> dict:
     unit, 2 + 2 whisper layers), as both packages' ``reduced`` give."""
     if arch == CHAM:
         return {"n_layers": 2, "n_kv_heads": 2}
+    if arch == SMOL:
+        return {"n_layers": 2, "n_heads": 9, "n_kv_heads": 3}
     return {} if arch in RECURRENT else {"n_layers": 2}
 
 
@@ -114,22 +125,38 @@ def _batches(cfg, n: int = 3) -> list:
 # what every rank runs (no JAX here)
 # ---------------------------------------------------------------------------
 
-def _pieces(plan, tree) -> dict:
-    """Every rank's piece of every leaf, on every rank (grid order)."""
+def _pieces(plan, tree, ragged: bool = False) -> dict:
+    """Every rank's piece of every leaf, on every rank (grid order);
+    ``ragged``: pieces of other shapes on other ranks (heads split
+    unevenly), sent flat and padded to the largest."""
     import torch.distributed as dist
     out = {}
+    n = plan.mesh.size
     for path, t in named_leaves(tree):
-        parts = [torch.empty_like(t) for _ in range(plan.mesh.size)]
-        dist.all_gather(parts, t.contiguous(), group=plan.world_group)
-        out[path] = parts
+        t = t.contiguous()
+        if not ragged:
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=plan.world_group)
+            out[path] = parts
+            continue
+        shapes = [None] * n
+        dist.all_gather_object(shapes, tuple(t.shape), group=plan.world_group)
+        size = max(int(np.prod(s)) for s in shapes)
+        flat = torch.zeros(size, dtype=t.dtype)
+        flat[:t.numel()] = t.reshape(-1)
+        parts = [torch.empty_like(flat) for _ in range(n)]
+        dist.all_gather(parts, flat, group=plan.world_group)
+        out[path] = [p[:int(np.prod(s))].reshape(s)
+                     for p, s in zip(parts, shapes)]
     return out
 
 
 def _whole(plan, cfg, tree, specs=None) -> dict:
     """The whole leaves of a tree of pieces (numpy)."""
     specs = specs or dict(named_leaves(sharding.plan_param_specs(cfg, plan)))
+    ragged = plan.tp > 1 and not sharding.head_split(cfg, plan.tp).even
     return {p: sharding.assemble(v, specs[p], plan).numpy()
-            for p, v in _pieces(plan, tree).items()}
+            for p, v in _pieces(plan, tree, ragged).items()}
 
 
 def _grads(model, params, batch):
@@ -370,11 +397,43 @@ def _resume(plan, arch: str, root: str) -> dict:
             "dirs": sorted(os.listdir(ckpt))}
 
 
+SERVE_NEW = 5
+
+
+def _serve4(group, arch: str, jax_params: dict) -> dict:
+    """The grid's four ranks as one serving model axis (SPMD, every rank
+    alike): the first prefill's logits and the sequential ``Engine``'s
+    greedy tokens of two prompts under the plan."""
+    from repro_torch.runtime.engine import Engine
+    plan = sharding.ShardingPlan(mesh=sharding.ServingMesh(1, 4),
+                                 rank=group.global_rank,
+                                 group=group.world_group)
+    cfg = _cfg(arch)
+    model = get_model(cfg, device="cpu", plan=plan)
+    params = convert.params_from_jax(jax_params, cfg, device="cpu", plan=plan)
+    prompts = _serve_prompts(cfg)
+    logits, _ = model.prefill(params, {"tokens": prompts[:1]},
+                              model.make_cache(1, S + SERVE_NEW))
+    tokens = Engine(model, params).generate(prompts, SERVE_NEW,
+                                            cache_len=S + SERVE_NEW).tokens
+    return {"logits": logits.numpy(), "tokens": tokens,
+            "heads": (model.local_cfg.n_heads, model.local_cfg.n_kv_heads)}
+
+
+def _serve_prompts(cfg) -> np.ndarray:
+    return np.random.default_rng(9).integers(
+        1, cfg.vocab_size, (2, S)).astype(np.int32)
+
+
 def _ranks(group, cases: list, jax_states: dict, root: str) -> dict:
     out = {}
     for key in cases:
         kind, arch, mode, fsdp, factored, remat, plant = key
         plan = group.training_plan(fsdp=fsdp, mode=mode)
+        if kind == "serve4":
+            out[key] = _serve4(group, arch,
+                               jax_states[(arch, factored)]["init"])
+            continue
         if kind == "tp4":
             # the grid's four ranks as one model axis
             plan = sharding.training_plan(
@@ -402,7 +461,7 @@ RECURRENT_PLANTS = (_key(arch=ZAMBA, plant="split_norm_sum"),
                     _key(arch=ZAMBA, plant="bc_sum"),
                     _key(arch=XLSTM, plant="x_inner_sum"),
                     _key(arch=ZAMBA, fsdp=True, plant="shared_once"))
-TP_CASES = ([_key(arch=a) for a in ARCHS + RECURRENT]
+TP_CASES = ([_key(arch=a) for a in ARCHS + RECURRENT] + [_key(arch=SMOL)]
             + [_key(factored=True), _key(arch=ZAMBA, factored=True),
                _key(remat=True),
                _key(plant="skip_copy"), _key(arch=PHI, plant="partial_router"),
@@ -414,7 +473,8 @@ GRID_CASES = ([_key(arch=a, fsdp=True) for a in ARCHS + RECURRENT]
                  _key(kind="resume", fsdp=True)]
               + [k for k in RECURRENT_PLANTS if k[3]]
               + [_key(kind="tp4", arch=CHAM),
-                 _key(kind="tp4", arch=CHAM, plant="kv_sum")])
+                 _key(kind="tp4", arch=CHAM, plant="kv_sum"),
+                 _key(kind="tp4", arch=SMOL), _key(kind="serve4", arch=SMOL)])
 
 
 @functools.lru_cache(maxsize=None)
@@ -524,6 +584,33 @@ def test_shared_kv_heads_train_at_tp4_against_jax(runs, jax_states):
                                          "grads"))
     assert max(v for n, v in errs.items()
                if n.endswith(("wk", "wv"))) > GRAD_TOL
+
+
+def test_uneven_heads_train_at_tp4_against_jax(runs, jax_states):
+    """9 query / 3 KV heads over 4 ranks (2 / 1, 1 / 1, 3 / 1, 3 / 1):
+    KV head 0 on ranks 0 and 1, its projections' gradients summed over
+    the two; the step held as above (tp = 2, 6 / 2 and 3 / 1, is a case
+    of ``test_train_step_under_a_plan_matches_jax``)."""
+    _check_step(runs, jax_states, _key(kind="tp4", arch=SMOL))
+
+
+def test_uneven_heads_serve_at_tp4_against_jax(runs):
+    """Served on the four ranks: rank 0's heads, the first logits within
+    1e-5 of the JAX prefill's largest |logit|, and the ``Engine``'s
+    greedy tokens equal to the JAX ``Engine``'s."""
+    import jax.numpy as jnp
+    from repro.runtime.engine import Engine
+    jm, jp, _ = _jax_model(SMOL)
+    got = runs[_key(kind="serve4", arch=SMOL)]
+    assert got["heads"] == (2, 1)
+    prompts = _serve_prompts(jm.cfg)
+    want, _ = jm.prefill(jp, {"tokens": jnp.asarray(prompts[:1])},
+                         jm.make_cache(1, S + SERVE_NEW))
+    want = np.asarray(want)
+    assert np.abs(got["logits"] - want).max() <= 1e-5 * np.abs(want).max()
+    tokens = Engine(jm, jp).generate(prompts, SERVE_NEW,
+                                     cache_len=S + SERVE_NEW).tokens
+    np.testing.assert_array_equal(got["tokens"], np.asarray(tokens))
 
 
 def _check_step(runs, jax_states, key):
